@@ -1,0 +1,76 @@
+"""msm_tpu_torch — the cuZK multi-scalar multiplication of ``msm_tpu`` in
+PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+
+- ``msm_tpu_torch.ops``     field/curve layers, the sort/scan machinery,
+                            and one module per kernel (``cuda_*``: the
+                            wrapper, its launch counter and its plain twin)
+- ``msm_tpu_torch.csrc``    the CUDA sources, built at first use
+- ``msm_tpu_torch.models``  geometry, host plumbing, the cuZK pipeline
+
+Configuration, limb serialization and the CPU oracles are shared with the
+JAX package (``msm_tpu.params``, ``msm_tpu.utils.limbs``,
+``msm_tpu.oracle``), none of which imports JAX. Every public entry takes an
+explicit ``device``: CUDA tensors run the kernels (BN254 / 13-bit limbs
+only; other configs raise ``NotImplementedError``), CPU tensors run the
+plain twins for any curve.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from msm_tpu.params import BN254, MsmConfig
+
+__all__ = [
+    "cpu_msm",
+    "load_point_table",
+    "run_gpu_msm",
+    "sample_points",
+    "sample_scalars",
+]
+
+
+def run_gpu_msm(points, scalars, config=None, validate=False, device="cuda"):
+    """End-to-end MSM (counterpart of ``msm_tpu.run_tpu_msm``).
+
+    ``points``: affine (x, y) int pairs; ``scalars``: ints. Returns the
+    affine (x, y) result, or None for the identity. ``validate=True`` checks
+    that every point lies on the curve first."""
+    from msm_tpu_torch.models.cuzk import compute_msm
+
+    return compute_msm(points, scalars, config=config, validate=validate, device=device)
+
+
+def load_point_table(packed: np.ndarray, cfg: MsmConfig, device="cuda"):
+    """The JAX package's prepared point table (``make_convert_pack`` output,
+    int32 [n, 2D] as numpy) as this package's table on ``device``, ready
+    for ``models.cuzk.window_sums_from_table``."""
+    import torch
+
+    from msm_tpu_torch.ops.cuda_convert import coord_words
+
+    arr = np.array(packed, dtype=np.int32, order="C")  # a writable copy
+    if arr.ndim != 2 or arr.shape[1] != 2 * coord_words(cfg):
+        raise ValueError(f"expected [n, {2 * coord_words(cfg)}] table, got {arr.shape}")
+    return torch.from_numpy(arr).to(device)
+
+
+def cpu_msm(points, scalars, curve=BN254):
+    """CPU oracle MSM (C++ when built, else pure python); an oracle JPoint."""
+    from msm_tpu.oracle import best_msm
+
+    return best_msm(points, scalars, curve=curve)
+
+
+def sample_points(n: int, curve=BN254, seed: int = 0):
+    """Random affine points."""
+    from msm_tpu import sample_points as _sample
+
+    return _sample(n, curve=curve, seed=seed)
+
+
+def sample_scalars(n: int, curve=BN254, seed: int = 1):
+    """Random scalars."""
+    from msm_tpu import sample_scalars as _sample
+
+    return _sample(n, curve=curve, seed=seed)

@@ -1,0 +1,145 @@
+"""Host <-> device plumbing of the MSM pipeline — the PyTorch port of
+``msm_tpu/models/common.py`` (its numpy helpers are carried over here, not
+imported, since that module imports JAX).
+
+The host pads inputs to a power of two, serializes coordinates and scalars
+as 16-bit words, and finishes with the single result point in exact
+integers. Uploads are plain ``torch.from_numpy(...).to(device)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from msm_tpu.oracle.pyecc import IDENTITY, Curve, JPoint
+from msm_tpu.params import MsmConfig
+from msm_tpu.utils import limbs as L
+from msm_tpu_torch.ops.cuda_convert import convert_pack
+from msm_tpu_torch.ops.curve import CurveCtx, PointBatch
+
+
+def pad_size(n: int) -> int:
+    """Next power of two >= max(n, 16)."""
+    n = max(n, 16)
+    return 1 << (n - 1).bit_length()
+
+
+def ints_to_u16_array(xs: list[int], nbytes: int = 32) -> np.ndarray:
+    """python ints -> [n, nbytes/2] uint16 words held in int32."""
+    buf = b"".join(x.to_bytes(nbytes, "little") for x in xs)
+    return (
+        np.frombuffer(buf, dtype="<u2").reshape(len(xs), nbytes // 2).astype(np.int32)
+    )
+
+
+def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig) -> None:
+    """Raise ``ValueError`` for a coordinate outside [0, q) or a point off
+    the curve. The subgroup check for cofactor > 1 curves is not ported
+    and raises ``NotImplementedError``."""
+    if cfg.curve.cofactor > 1:
+        raise NotImplementedError("subgroup validation (cofactor > 1) is not ported")
+    q, a, b = cfg.curve.modulus, cfg.curve.a, cfg.curve.b
+    for i, (x, y) in enumerate(points):
+        if not (0 <= x < q and 0 <= y < q):
+            raise ValueError(f"point {i} coordinates out of field range [0, q)")
+        if (y * y - (x * x * x + a * x + b)) % q != 0:
+            raise ValueError(f"point {i} is not on the curve")
+
+
+def pad_points_words(
+    points: list[tuple[int, int]], cfg: MsmConfig, N: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pad to N with the generator and serialize to u16-word arrays."""
+    n = len(points)
+    gx, gy = cfg.curve.gx % cfg.curve.modulus, cfg.curve.gy % cfg.curve.modulus
+    px = [p[0] for p in points] + [gx] * (N - n)
+    py = [p[1] for p in points] + [gy] * (N - n)
+    cb = max((cfg.curve.modulus_bits + 7) // 8, 2)
+    return ints_to_u16_array(px, cb), ints_to_u16_array(py, cb)
+
+
+def pad_scalars_words(scalars: list[int], cfg: MsmConfig, N: int) -> np.ndarray:
+    """Pad to N with zero scalars (bucket 0, multiplier 0: inert) and
+    serialize. Scalars outside [0, order) are reduced mod order first: the
+    signed-window bound on the top digit holds only for k < order."""
+    order = cfg.curve.order
+    ks = list(scalars)
+    if any(k < 0 or k >= order for k in ks):
+        ks = [k % order for k in ks]
+    ks = ks + [0] * (N - len(ks))
+    return ints_to_u16_array(ks, (cfg.scalar_bits + 7) // 8)
+
+
+def pad_inputs(
+    points: list[tuple[int, int]],
+    scalars: list[int],
+    cfg: MsmConfig,
+    validate: bool = False,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad to a power of two with generator points and zero scalars;
+    serialize to u16-word arrays (x, y, scalars)."""
+    n = len(points)
+    if n != len(scalars):
+        raise ValueError(f"{n} points but {len(scalars)} scalars")
+    if validate:
+        validate_inputs(points, cfg)
+    N = pad_size(n)
+    x_u16, y_u16 = pad_points_words(points, cfg, N)
+    return x_u16, y_u16, pad_scalars_words(scalars, cfg, N)
+
+
+def prepare_points(
+    cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor
+) -> torch.Tensor:
+    """Stage 1, once per MSM: the packed point table [n, 2D] (canonical
+    Montgomery affine coordinates, dense radix-2^32) by the convert kernel."""
+    return convert_pack(cfg, x_u16, y_u16)
+
+
+def export_points_std(ec: CurveCtx, pts: PointBatch) -> torch.Tensor:
+    """Montgomery projective batch -> standard-form canonical limbs
+    [..., 3, L]."""
+    f = ec.f
+    return torch.stack(
+        [f.canonical(f.from_mont(pts.x)), f.canonical(f.from_mont(pts.y)),
+         f.canonical(f.from_mont(pts.z))],
+        dim=-2,
+    )
+
+
+def std_point_to_jpoint(pt_std: np.ndarray, cfg: MsmConfig) -> JPoint:
+    """[3, L] standard-form homogeneous limbs -> oracle JPoint (one
+    modular inversion)."""
+    p = cfg.curve.modulus
+    arr = np.asarray(pt_std)
+    x, y, z = (L.limbs_to_int(arr[i], cfg.word_size) for i in range(3))
+    if z % p == 0:
+        return IDENTITY
+    zi = pow(z, -1, p)
+    return Curve(cfg.curve).from_affine(x * zi % p, y * zi % p)
+
+
+def window_sums_to_jpoints(window_sums_std: np.ndarray, cfg: MsmConfig) -> list[JPoint]:
+    """[S, 3, L] standard-form homogeneous limbs -> oracle JPoints."""
+    arr = np.asarray(window_sums_std)
+    return [std_point_to_jpoint(arr[t], cfg) for t in range(arr.shape[0])]
+
+
+def window_sums_to_result(window_sums_std: np.ndarray, cfg: MsmConfig) -> JPoint:
+    """Host Horner over per-subtask window sums [S, 3, L], exact ints."""
+    cv = Curve(cfg.curve)
+    ws = window_sums_to_jpoints(window_sums_std, cfg)
+    acc = ws[-1]
+    for wpt in reversed(ws[:-1]):
+        for _ in range(cfg.chunk_size):
+            acc = cv.double(acc)
+        acc = cv.add(acc, wpt)
+    return acc
+
+
+def result_to_affine(res: JPoint, cfg: MsmConfig):
+    """JPoint -> affine (x, y) ints, or None for the identity."""
+    if res.is_identity():
+        return None
+    return Curve(cfg.curve).to_affine(res)

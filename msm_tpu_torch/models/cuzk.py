@@ -1,0 +1,102 @@
+"""The cuZK MSM pipeline on PyTorch — the port of ``msm_tpu/models/cuzk.py``.
+
+  stage 1   convert points (kernel 2) + signed scalar decomposition
+  stage 2   one unstable torch.sort of all windows' bucket keys, and the
+            bucket ends from the histogram kernel (3)
+  stage 3   per subtask batch: the gather + mixed-add prefix scan (4), the
+            row offsets (5), the bucket-boundary prefixes (point add, 1)
+  stage 4   telescoped window sums: point total (6) + doublings (1)
+  finish    Horner over the window sums (7); the host maps the single
+            projective point to affine with one inversion
+
+On CUDA tensors every stage runs on the kernels; on CPU tensors on their
+plain twins. An MSM of up to ``CHUNK_MAX`` points runs as one pass; the
+reference's 2^20-point slicing and host-level chunking above 2^22 are not
+ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from msm_tpu.oracle.pyecc import IDENTITY, JPoint
+from msm_tpu.params import MsmConfig, pick_config
+from msm_tpu_torch.models import common
+from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
+from msm_tpu_torch.ops.cuda_prefix import horner
+from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
+from msm_tpu_torch.ops.decompose import decompose_signed
+from msm_tpu_torch.ops.scan import bucket_boundary_prefix, window_sum_from_pe
+
+#: largest MSM run as one pass
+CHUNK_MAX = 1 << 22
+
+
+def window_sums_from_table(
+    packed: torch.Tensor, s_u16: torch.Tensor, cfg: MsmConfig, geom: MsmGeometry
+) -> torch.Tensor:
+    """Scalar-side pipeline on a prepared point table: signed decompose,
+    bucket-boundary prefixes of every subtask, telescoped reduction ->
+    Montgomery window sums [S, 3, L]."""
+    ec = get_curve_ctx(cfg)
+    keys, signs = decompose_signed(s_u16, cfg.chunk_size, cfg.num_subtasks)
+    pe = bucket_boundary_prefix(
+        ec, packed, keys, signs, cfg.num_buckets, geom.num_rows,
+        batch=min(geom.subtask_batch, cfg.num_subtasks),
+    )
+    w = window_sum_from_pe(ec, pe)
+    return torch.stack([w.x, w.y, w.z], dim=1)
+
+
+def msm_point_from_ws(ws: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
+    """Montgomery window sums [S, 3, L] -> ONE standard-form projective
+    point [3, L] on the host: the Horner kernel, then the from-Montgomery
+    export of that single point."""
+    hx, hy, hz = horner(cfg, ws[:, 0], ws[:, 1], ws[:, 2], cfg.chunk_size)
+    acc = PointBatch(hx.cpu()[None], hy.cpu()[None], hz.cpu()[None])
+    return common.export_points_std(get_curve_ctx(cfg), acc)[0]
+
+
+def _check_config(cfg: MsmConfig) -> None:
+    if cfg.glv or cfg.compress:
+        raise NotImplementedError("GLV and pair compression are not ported")
+
+
+def compute_msm_jpoint(
+    points: list[tuple[int, int]],
+    scalars: list[int],
+    config: MsmConfig | None = None,
+    geometry: MsmGeometry | None = None,
+    validate: bool = False,
+    device="cuda",
+) -> JPoint:
+    """End-to-end MSM returning the oracle JPoint."""
+    config = config or pick_config(len(points))
+    _check_config(config)
+    if len(points) == 0:
+        return IDENTITY
+    n = common.pad_size(len(points))
+    if n > CHUNK_MAX:
+        raise NotImplementedError(f"n = {n} > {CHUNK_MAX}: chunked MSM is not ported")
+    x_u16, y_u16, s_u16 = common.pad_inputs(points, scalars, config, validate=validate)
+    geom = geometry or pick_geometry(n, config.chunk_size)
+    xd, yd, sd = (torch.from_numpy(a).to(device) for a in (x_u16, y_u16, s_u16))
+    packed = common.prepare_points(config, xd, yd)
+    ws = window_sums_from_table(packed, sd, config, geom)
+    pt = msm_point_from_ws(ws, config)
+    return common.std_point_to_jpoint(pt.numpy(), config)
+
+
+def compute_msm(
+    points: list[tuple[int, int]],
+    scalars: list[int],
+    config: MsmConfig | None = None,
+    geometry: MsmGeometry | None = None,
+    validate: bool = False,
+    device="cuda",
+) -> tuple[int, int] | None:
+    """End-to-end MSM: affine int points + int scalars -> affine (x, y), or
+    None for the identity."""
+    config = config or pick_config(len(points))
+    res = compute_msm_jpoint(points, scalars, config, geometry, validate, device)
+    return common.result_to_affine(res, config)

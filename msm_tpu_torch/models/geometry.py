@@ -1,0 +1,33 @@
+"""Launch geometry: input size -> scan blocking — the same interface as
+``msm_tpu/models/geometry.py``.
+
+- ``num_rows``: lanes R of the blocked prefix scan; the scan kernel runs one
+  thread per lane for C = n / R steps.
+- ``bpr_threads``: kept for interface parity (the two-phase bucket reduction
+  is not on this path; the telescoped ``window_sum_from_pe`` replaces it).
+- ``subtask_batch``: how many subtasks the scan processes per launch; it
+  bounds the boundary-prefix buffer at subtask_batch * n * 3L * 4 bytes.
+
+The rule is a placeholder copied from the TPU reference and has not been
+tuned on the H100.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class MsmGeometry:
+    num_rows: int
+    bpr_threads: int
+    subtask_batch: int
+
+
+def pick_geometry(n: int, chunk_size: int) -> MsmGeometry:
+    """n must be a power of two (the host pads)."""
+    assert n & (n - 1) == 0 and n > 0
+    num_rows = max(1, min(n // 8, 1 << 14))
+    body = 1 << (chunk_size - 1)
+    bpr_threads = max(1, min(body // 16, 1 << 9))
+    return MsmGeometry(num_rows, bpr_threads, subtask_batch=4)

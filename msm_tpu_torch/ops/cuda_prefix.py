@@ -1,0 +1,111 @@
+"""Kernels 5-7: row offsets, point total and the Horner ladder, with their
+plain twins.
+
+CUDA source: ``msm_tpu_torch/csrc/prefix.cu``. Replaces, in
+``msm_tpu/ops/pallas_prefix.py``: ``make_row_offsets`` (``pallas_call`` at
+:133), ``make_point_total`` (:231) and ``make_horner_ladder`` (:335).
+
+Layouts: row offsets take the scan's lane totals limbs-first [G, L, R] and
+return the exclusive prefixes [G, R, L]; point total reduces [G, N, L] to
+one point per subtask [G, L] (the TPU's 128 replicated lanes are dropped);
+Horner folds window sums [S, L] into one point [L].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from msm_tpu.params import MsmConfig
+from msm_tpu_torch.ops import _build
+
+THREADS = 128  # block size of the point-total kernel (csrc/prefix.cu BLOCK)
+
+
+def row_offsets_plain(cfg: MsmConfig, tx, ty, tz):
+    """Plain twin: exclusive prefix along the lanes, batched over G."""
+    from msm_tpu_torch.ops.curve import PointBatch
+    from msm_tpu_torch.ops.scan import exclusive_prefix_points
+
+    pts = PointBatch(*(t.transpose(-1, -2) for t in (tx, ty, tz)))
+    return tuple(exclusive_prefix_points(cfg, pts))
+
+
+def row_offsets(cfg: MsmConfig, tx, ty, tz):
+    """Exclusive point prefix over lane totals: [G, L, R] x3 -> [G, R, L] x3."""
+    if tx.device.type == "cpu":
+        return row_offsets_plain(cfg, tx, ty, tz)
+    ins = [t.contiguous() for t in (tx, ty, tz)]
+    _build.require_cuda(cfg, *ins)
+    G, L, R = ins[0].shape
+    if L != cfg.num_words or R & (R - 1):
+        raise ValueError(f"expected [G, {cfg.num_words}, 2^k], got {tuple(ins[0].shape)}")
+    out = [torch.empty((G, R, L), dtype=torch.int32, device=tx.device) for _ in range(3)]
+    _build.launch("msm_row_offsets", *ins, *out, G, R)
+    row_offsets.launches += 1
+    return tuple(out)
+
+
+row_offsets.launches = 0
+
+
+def point_total_plain(cfg: MsmConfig, px, py, pz):
+    """Plain twin: halving tree reduction, batched over G."""
+    from msm_tpu_torch.ops.curve import PointBatch
+    from msm_tpu_torch.ops.scan import tree_reduce_points
+
+    return tuple(tree_reduce_points(cfg, PointBatch(px, py, pz)))
+
+
+def point_total(cfg: MsmConfig, px, py, pz):
+    """Sum of N points per subtask: [G, N, L] x3 -> [G, L] x3."""
+    if px.device.type == "cpu":
+        return point_total_plain(cfg, px, py, pz)
+    ins = [t.contiguous() for t in (px, py, pz)]
+    _build.require_cuda(cfg, *ins)
+    G, N, L = ins[0].shape
+    if L != cfg.num_words:
+        raise ValueError(f"expected [G, N, {cfg.num_words}], got {tuple(ins[0].shape)}")
+    # blocks per subtask: about 8 points per thread in the first pass
+    nb = max(1, min(N // (8 * THREADS), 256))
+    dev = px.device
+    scratch = [torch.empty((G, nb, L), dtype=torch.int32, device=dev) for _ in range(3)]
+    out = [torch.empty((G, 1, L), dtype=torch.int32, device=dev) for _ in range(3)]
+    _build.launch("msm_point_total", *ins, *scratch, *out, G, N, nb)
+    point_total.launches += 1
+    return tuple(o[:, 0] for o in out)
+
+
+point_total.launches = 0
+
+
+def horner_plain(cfg: MsmConfig, wx, wy, wz, chunk: int):
+    """Plain twin: Horner's rule over the S window sums, one point."""
+    from msm_tpu_torch.ops.cuda_curve import point_add_plain
+    from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
+
+    ec = get_curve_ctx(cfg)
+    S = wx.shape[0]
+    acc = PointBatch(wx[S - 1], wy[S - 1], wz[S - 1])
+    for s in range(S - 2, -1, -1):
+        for _ in range(chunk):
+            acc = ec.double(acc)
+        acc = PointBatch(*point_add_plain(cfg, *acc, wx[s], wy[s], wz[s]))
+    return tuple(acc)
+
+
+def horner(cfg: MsmConfig, wx, wy, wz, chunk: int):
+    """sum_s 2^(chunk*s) W_s: [S, L] x3 -> [L] x3."""
+    if wx.device.type == "cpu":
+        return horner_plain(cfg, wx, wy, wz, chunk)
+    ins = [t.contiguous() for t in (wx, wy, wz)]
+    _build.require_cuda(cfg, *ins)
+    S, L = ins[0].shape
+    if L != cfg.num_words or S < 1:
+        raise ValueError(f"expected [S, {cfg.num_words}], got {tuple(ins[0].shape)}")
+    out = [torch.empty((L,), dtype=torch.int32, device=wx.device) for _ in range(3)]
+    _build.launch("msm_horner", *ins, *out, S, chunk)
+    horner.launches += 1
+    return tuple(out)
+
+
+horner.launches = 0

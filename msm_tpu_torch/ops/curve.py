@@ -1,0 +1,113 @@
+"""Batched elliptic-curve group ops on limb tensors — the PyTorch port of
+``msm_tpu/ops/curve.py`` (``PointBatch``, ``point_where``, ``CurveCtx``).
+
+Complete projective formulas (Renes-Costello-Batina 2016) for a = 0 curves
+on homogeneous (X : Y : Z) Montgomery coordinates, identity (0 : 1 : 0).
+
+``CurveCtx.add`` is the one op with a kernel: it goes to
+``cuda_curve.point_add``, which launches the CUDA kernel for CUDA tensors
+and runs the plain twin for CPU tensors — the tensor's device decides,
+nothing else. The other ops are plain tensor code on any device.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+from msm_tpu.params import MsmConfig
+from msm_tpu_torch.ops import cuda_curve
+from msm_tpu_torch.ops.field import get_field_ctx
+
+
+class PointBatch(NamedTuple):
+    """Batch of projective points; each field is an int32 ``[..., L]``."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+
+def point_where(mask: torch.Tensor, a: PointBatch, b: PointBatch) -> PointBatch:
+    """Elementwise select over the batch; ``mask`` is bool ``[...]``."""
+    m = mask[..., None]
+    return PointBatch(
+        torch.where(m, a.x, b.x), torch.where(m, a.y, b.y), torch.where(m, a.z, b.z)
+    )
+
+
+class CurveCtx:
+    """Complete-formula projective group ops for one MsmConfig (a = 0)."""
+
+    def __init__(self, cfg: MsmConfig):
+        if cfg.curve.a != 0:
+            raise NotImplementedError("complete formulas implemented for a=0")
+        self.cfg = cfg
+        self.f = get_field_ctx(cfg)
+        self.b3m_limbs = cuda_curve.b3_mont_limbs(cfg)
+
+    def identity(self, batch_shape=(), device="cpu") -> PointBatch:
+        """(0 : 1 : 0) in Montgomery form."""
+        f = self.f
+        shape = tuple(batch_shape) + (f.L,)
+        zero = f.const(f.zero_limbs, device).expand(shape).clone()
+        one = f.const(f.r_limbs, device).expand(shape).clone()
+        return PointBatch(zero, one, zero.clone())
+
+    def from_affine_mont(self, x_m: torch.Tensor, y_m: torch.Tensor) -> PointBatch:
+        one = self.f.const(self.f.r_limbs, x_m.device).expand(x_m.shape).clone()
+        return PointBatch(x_m, y_m, one)
+
+    def add(self, p: PointBatch, q: PointBatch) -> PointBatch:
+        """Complete addition (RCB16 Algorithm 7) over broadcast batches:
+        the CUDA point-add kernel for CUDA tensors, the plain twin for CPU
+        tensors."""
+        coords = torch.broadcast_tensors(*p, *q)
+        batch = coords[0].shape[:-1]
+        L = self.f.L
+        flat = [c.reshape(-1, L) for c in coords]
+        out = cuda_curve.point_add(self.cfg, *flat)
+        return PointBatch(*(o.reshape(batch + (L,)) for o in out))
+
+    def double(self, p: PointBatch) -> PointBatch:
+        """Complete doubling (RCB16 Algorithm 9), plain tensor code."""
+        f = self.f
+        b3m = f.const(self.b3m_limbs, p.x.device)
+        x, y, z = p
+        t0 = f.mont_mul(y, y)
+        z3 = f.double(f.double(f.double(t0)))
+        t1 = f.mont_mul(y, z)
+        t2 = f.mont_mul(f.mont_mul(z, z), b3m)
+        x3 = f.mont_mul(t2, z3)
+        y3 = f.add(t0, t2)
+        z3 = f.mont_mul(t1, z3)
+        t1 = f.double(t2)
+        t2 = f.add(t1, t2)
+        t0 = f.sub(t0, t2)
+        y3 = f.add(x3, f.mont_mul(t0, y3))
+        x3 = f.double(f.mont_mul(t0, f.mont_mul(x, y)))
+        return PointBatch(x3, y3, z3)
+
+    def neg(self, p: PointBatch) -> PointBatch:
+        return PointBatch(p.x, self.f.neg(p.y), p.z)
+
+    def neg_where(self, mask: torch.Tensor, p: PointBatch) -> PointBatch:
+        return PointBatch(p.x, torch.where(mask[..., None], self.f.neg(p.y), p.y), p.z)
+
+    def is_identity(self, p: PointBatch) -> torch.Tensor:
+        return self.f.is_zero(p.z)
+
+    def eq(self, p: PointBatch, q: PointBatch) -> torch.Tensor:
+        """Projective equality by cross-multiplication; identity == identity."""
+        f = self.f
+        pi, qi = self.is_identity(p), self.is_identity(q)
+        xe = f.eq(f.mont_mul(p.x, q.z), f.mont_mul(q.x, p.z))
+        ye = f.eq(f.mont_mul(p.y, q.z), f.mont_mul(q.y, p.z))
+        return (pi & qi) | (~(pi ^ qi) & xe & ye)
+
+
+@functools.lru_cache(maxsize=None)
+def get_curve_ctx(cfg: MsmConfig) -> CurveCtx:
+    return CurveCtx(cfg)

@@ -1,0 +1,180 @@
+"""Sort/scan bucket machinery of the main path — the PyTorch port of the
+main-path subset of ``msm_tpu/ops/scan.py``.
+
+Per subtask (window) the signed digits become bucket keys; one unstable
+``torch.sort`` orders all windows' keys at once, carrying point index and
+sign in an int32 payload. Each lane of the scan kernel then owns a
+contiguous run of sorted positions, and the bucket-boundary prefixes are
+read out of the per-lane prefixes plus the lane offsets:
+
+    pe[b] = offsets[r] + pe3[c, r],  i = ends[b] - 1, r = i // C, c = i % C
+
+The window sum follows from the boundary prefixes by telescoping
+(``window_sum_from_pe``). Every point addition here goes through a kernel
+wrapper (``cuda_*``), so on CUDA tensors the whole path runs on the kernels.
+
+The plain helpers at the top (``hillis_steele_prefix``,
+``exclusive_prefix_points``, ``tree_reduce_points``) are building blocks of
+the kernels' plain twins: they always use the plain addition, on any device,
+along the point axis ``dim=-2`` with any leading batch axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from msm_tpu.params import MsmConfig
+from msm_tpu_torch.ops.cuda_curve import point_add_plain
+from msm_tpu_torch.ops.cuda_hist import bucket_hist
+from msm_tpu_torch.ops.cuda_prefix import point_total, row_offsets
+from msm_tpu_torch.ops.cuda_scan import scan_rows
+from msm_tpu_torch.ops.curve import CurveCtx, PointBatch, get_curve_ctx, point_where
+
+# -- plain helpers (twins) ---------------------------------------------------
+
+
+def _add_plain(cfg: MsmConfig, p: PointBatch, q: PointBatch) -> PointBatch:
+    return PointBatch(*point_add_plain(cfg, *p, *q))
+
+
+def _cat(parts: list[PointBatch], dim: int) -> PointBatch:
+    return PointBatch(*(torch.cat(c, dim=dim) for c in zip(*parts)))
+
+
+def hillis_steele_prefix(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
+    """Inclusive prefix sums along dim -2 in log2(m) rounds of batched adds."""
+    m = pts.x.shape[-2]
+    ident = get_curve_ctx(cfg).identity(pts.x.shape[:-1], pts.x.device)
+    k = 1
+    while k < m:
+        shifted = PointBatch(
+            *(torch.cat([i[..., :k, :], a[..., :-k, :]], dim=-2) for i, a in zip(ident, pts))
+        )
+        pts = _add_plain(cfg, pts, shifted)
+        k *= 2
+    return pts
+
+
+def exclusive_prefix_points(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
+    """out[i] = sum_{j < i} pts[j] along dim -2 (out[0] = identity)."""
+    incl = hillis_steele_prefix(cfg, pts)
+    ident = get_curve_ctx(cfg).identity(pts.x.shape[:-2] + (1,), pts.x.device)
+    return _cat([ident, PointBatch(*(a[..., :-1, :] for a in incl))], dim=-2)
+
+
+def tree_reduce_points(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
+    """Sum along dim -2 by halving (m - 1 adds in log2(m) batched rounds)."""
+    ec = get_curve_ctx(cfg)
+    while pts.x.shape[-2] > 1:
+        m = pts.x.shape[-2]
+        if m % 2:
+            pad = ec.identity(pts.x.shape[:-2] + (1,), pts.x.device)
+            pts = _cat([pts, pad], dim=-2)
+            m += 1
+        h = m // 2
+        pts = _add_plain(
+            cfg,
+            PointBatch(*(a[..., :h, :] for a in pts)),
+            PointBatch(*(a[..., h:, :] for a in pts)),
+        )
+    if pts.x.shape[-2] == 0:
+        return ec.identity(pts.x.shape[:-2], pts.x.device)
+    return PointBatch(*(a[..., 0, :] for a in pts))
+
+
+# -- main path ------------------------------------------------------------------
+
+
+def sort_payload(keys: torch.Tensor, signs: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Sort every row of keys [G, n] (unstable: bucket sums do not depend on
+    the order within a key) and return the sorted payload [G, n] int32:
+    point index in bits [0, sbit), the sign in bit sbit."""
+    n = keys.shape[-1]
+    sbit = max((n - 1).bit_length(), 1)
+    assert sbit + 1 < 32, n
+    idx = torch.arange(n, dtype=torch.int32, device=keys.device)
+    payload = idx | (signs.to(torch.int32) << sbit)
+    perm = torch.sort(keys, dim=-1).indices
+    return payload.gather(-1, perm), sbit
+
+
+def _decode_payload_step_major(
+    pv: torch.Tensor, sbit: int, R: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sorted payload [G, n] -> step-major (perm, flags) [G, C, R]: element
+    (c, r) is sorted position r*C + c; perm is the table row, flags bit 0
+    the sign."""
+    G, n = pv.shape
+    pv2 = pv.reshape(G, R, n // R).transpose(1, 2)
+    return (pv2 & ((1 << sbit) - 1)).contiguous(), (pv2 >> sbit).contiguous()
+
+
+def _counts_leq(cfg: MsmConfig, keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """ends[g, b] = #{i : keys[g, i] <= b}: histogram kernel + cumsum."""
+    return torch.cumsum(bucket_hist(cfg, keys, num_buckets), dim=-1, dtype=torch.int32)
+
+
+def _sorted_prefix(
+    ec: CurveCtx, packed: torch.Tensor, pv: torch.Tensor, sbit: int, num_rows: int
+) -> tuple[torch.Tensor, PointBatch]:
+    """Scan kernel over the sorted points, then the row-offsets kernel:
+    (pe3 [G, C, R, 3L], offsets [G, R, L])."""
+    perm, flags = _decode_payload_step_major(pv, sbit, num_rows)
+    pe3, tx, ty, tz = scan_rows(ec.cfg, packed, perm, flags)
+    return pe3, PointBatch(*row_offsets(ec.cfg, tx, ty, tz))
+
+
+def prefix_at(
+    ec: CurveCtx, pe3: torch.Tensor, offsets: PointBatch, idx: torch.Tensor
+) -> PointBatch:
+    """Inclusive prefixes at sorted positions idx [G, m] (-1 -> identity):
+    one gathered pe3 row plus the lane offset, by the point-add kernel."""
+    G, C = pe3.shape[:2]
+    L = ec.f.L
+    valid = idx >= 0
+    i = idx.clamp(min=0).to(torch.int64)
+    r, c = i // C, i % C
+    gi = torch.arange(G, device=pe3.device)[:, None]
+    row = pe3[gi, c, r]  # [G, m, 3L]
+    rp = PointBatch(row[..., :L], row[..., L : 2 * L], row[..., 2 * L :])
+    off = PointBatch(*(a[gi, r] for a in offsets))
+    out = ec.add(off, rp)
+    return point_where(valid, out, ec.identity(idx.shape, pe3.device))
+
+
+def bucket_boundary_prefix(
+    ec: CurveCtx,
+    packed: torch.Tensor,
+    keys: torch.Tensor,
+    signs: torch.Tensor,
+    num_buckets: int,
+    num_rows: int,
+    batch: int,
+) -> PointBatch:
+    """pe[g, b] = the signed point sum over all elements of subtask g with
+    key <= b, so bucket_b = pe[b] - pe[b-1]. keys/signs [G, n]; the sort and
+    the bucket ends cover all G rows at once, the scans run ``batch``
+    subtasks at a time. Returns [G, num_buckets, L] coordinates."""
+    pv, sbit = sort_payload(keys, signs)
+    ends = _counts_leq(ec.cfg, keys, num_buckets)
+    outs = []
+    for g0 in range(0, keys.shape[0], batch):
+        pe3, offsets = _sorted_prefix(ec, packed, pv[g0 : g0 + batch], sbit, num_rows)
+        outs.append(prefix_at(ec, pe3, offsets, ends[g0 : g0 + batch] - 1))
+    return _cat(outs, dim=0)
+
+
+def window_sum_from_pe(ec: CurveCtx, pe: PointBatch) -> PointBatch:
+    """W = sum_b b*S_b straight from the boundary prefixes [S, B, L]:
+
+        sum_b b*(pe_b - pe_{b-1}) = (B-1)*pe_{B-1} - sum_{b<B-1} pe_b
+
+    one point-total kernel plus log2(B-1) doublings (B-1 = 2^(c-1)); the
+    doublings are complete additions P + P through the point-add kernel."""
+    B = pe.x.shape[-2]
+    assert (B - 1) & (B - 2) == 0, f"B-1 = {B - 1} must be a power of two"
+    total = PointBatch(*point_total(ec.cfg, *(a[..., :-1, :] for a in pe)))
+    last = PointBatch(*(a[..., -1, :] for a in pe))
+    for _ in range((B - 1).bit_length() - 1):
+        last = ec.add(last, last)
+    return ec.add(last, ec.neg(total))

@@ -1,0 +1,67 @@
+"""Shared helpers for the tests that hold msm_tpu_torch against msm_tpu.
+
+Importing this module pins PyTorch to one thread: the suite runs several
+test processes side by side, and PyTorch's default of one thread per core
+in every process would oversubscribe the machine. Inputs are made with
+numpy from a seed and handed to both packages.
+"""
+
+import numpy as np
+import torch
+
+from msm_tpu.oracle.pyecc import Curve
+from msm_tpu.utils import limbs as L
+
+torch.set_num_threads(1)
+
+
+def rand_balanced(rng, shape, cfg, spread: int = 300) -> np.ndarray:
+    """Balanced limbs as the lazy field layer produces them: limbs a little
+    outside [0, 2^w) (negative included), small signed top limb."""
+    w, nw = cfg.word_size, cfg.num_words
+    a = rng.integers(-spread, (1 << w) + spread, size=tuple(shape) + (nw,))
+    a[..., -1] = rng.integers(-20, 20, size=shape)
+    return a.astype(np.int32)
+
+
+def rand_canonical(rng, shape, cfg) -> np.ndarray:
+    """Canonical field elements (every value < p) as int32 limbs."""
+    w, nw = cfg.word_size, cfg.num_words
+    a = rng.integers(0, 1 << w, size=tuple(shape) + (nw,))
+    a[..., -1] = rng.integers(0, cfg.curve.modulus >> (w * (nw - 1)), size=shape)
+    return a.astype(np.int32)
+
+
+def affine_points(cfg, n: int, seed: int) -> list[tuple[int, int]]:
+    cv = Curve(cfg.curve)
+    return [cv.to_affine(p) for p in cv.sample_points(n, seed=seed)]
+
+
+def mont_limbs(vals, cfg) -> np.ndarray:
+    """python ints -> Montgomery-form canonical limbs [n, L] int32."""
+    p, r = cfg.curve.modulus, cfg.r
+    return L.ints_to_limbs(
+        [v * r % p for v in vals], cfg.word_size, cfg.num_words
+    ).astype(np.int32)
+
+
+def canon(x, cfg) -> np.ndarray:
+    """Exact residues of limb arrays (any representation) as python ints
+    mod p, elementwise over the batch — for comparing the two packages."""
+    arr = np.asarray(x).astype(np.int64)
+    flat = arr.reshape(-1, arr.shape[-1])
+    p = cfg.curve.modulus
+    out = np.array([L.limbs_to_int(r, cfg.word_size) % p for r in flat], dtype=object)
+    return out.reshape(arr.shape[:-1])
+
+
+def same_points(a, b, cfg) -> bool:
+    """Projective point batches (x, y, z limb arrays) equal as points:
+    X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1 over exact residues."""
+    p = cfg.curve.modulus
+    x1, y1, z1 = (canon(t, cfg) for t in a)
+    x2, y2, z2 = (canon(t, cfg) for t in b)
+    return bool(
+        np.all((x1 * z2 - x2 * z1) % p == 0) and np.all((y1 * z2 - y2 * z1) % p == 0)
+        and np.all((z1 == 0) == (z2 == 0))
+    )

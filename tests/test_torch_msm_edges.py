@@ -1,0 +1,87 @@
+"""The slice on the CPU against the oracle: the production window size
+(pick_config, c = 13) at n = 2^12, and the edge inputs — scalars 0, 1,
+order - 1 and out of range, n not a power of two, duplicate points, an
+identity result, and the validation of off-curve points."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import affine_points
+import msm_tpu_torch
+from msm_tpu.oracle import best_msm
+from msm_tpu.oracle.pyecc import Curve
+from msm_tpu.params import BN254, BLS12_381, MsmConfig, pick_config
+from msm_tpu_torch.models.cuzk import CHUNK_MAX
+from msm_tpu_torch.ops._build import check_cuda_config, require_cuda
+
+CFG8 = MsmConfig(curve=BN254, chunk_size=8)
+CV = Curve(BN254)
+R = BN254.order
+
+
+def test_pick_config_n4096_matches_oracle():
+    n = 1 << 12
+    cfg = pick_config(n)
+    assert cfg.chunk_size == 13 and cfg.num_subtasks == 20
+    base = affine_points(cfg, 64, seed=51)
+    pts = [base[i % 64] for i in range(n)]
+    rng = np.random.default_rng(51)
+    ks = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    got = msm_tpu_torch.run_gpu_msm(pts, ks, device="cpu")
+    assert got == CV.to_affine(best_msm(pts, ks))
+
+
+def test_edge_scalars_duplicates_and_padding():
+    """n = 35 (padded to 64 with the generator), repeated points, and
+    scalars at the window-recode edges and outside [0, order)."""
+    base = affine_points(CFG8, 12, seed=52)
+    pts = [base[i % 12] for i in range(35)]
+    rng = np.random.default_rng(52)
+    ks = [0, 1, R - 1, R, R + 5, 2 * R - 1, (1 << 256) - 1, -3, (1 << 253) + 1]
+    ks += [int(v) for v in rng.integers(0, 1 << 62, size=35 - len(ks))]
+    got = msm_tpu_torch.run_gpu_msm(pts, ks, config=CFG8, device="cpu")
+    assert got == CV.to_affine(best_msm(pts, [k % R for k in ks]))
+
+
+def test_identity_result_and_validation():
+    p0, p1 = affine_points(CFG8, 2, seed=53)
+    # k*P + (order-k)*P + 0*Q is the identity
+    assert msm_tpu_torch.run_gpu_msm([p0, p0, p1], [5, R - 5, 0], config=CFG8,
+                                     device="cpu") is None
+    with pytest.raises(ValueError, match="not on the curve"):
+        msm_tpu_torch.run_gpu_msm([p0, (p1[0], p1[1] + 1)], [1, 2], config=CFG8,
+                                  validate=True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        msm_tpu_torch.run_gpu_msm([p0], [1], config=MsmConfig(curve=BLS12_381),
+                                  validate=True, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"curve": BLS12_381}, {"word_size": 16}, {"glv": True}, {"compress": True},
+    {"karatsuba": True},
+], ids=lambda c: next(iter(c)))
+def test_cuda_kernels_reject_other_configs(change):
+    """The CUDA wrappers take BN254 / 13-bit limbs / no GLV, compression or
+    Karatsuba only: any other config raises before a launch, never falls
+    back to a twin."""
+    check_cuda_config(pick_config(1 << 16))
+    cfg = dataclasses.replace(pick_config(1 << 16), **change)
+    with pytest.raises(NotImplementedError):
+        check_cuda_config(cfg)
+
+
+def test_kernel_launch_requires_cuda_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        require_cuda(pick_config(1 << 16), torch.zeros((4, 20), dtype=torch.int32))
+
+
+def test_above_one_pass_cap_raises():
+    """Above 2^22 points the reference splits the MSM; that split is not
+    ported, so the port refuses before it serializes anything."""
+    p0 = affine_points(CFG8, 1, seed=54)[0]
+    n = CHUNK_MAX + 1
+    with pytest.raises(NotImplementedError, match="chunked"):
+        msm_tpu_torch.run_gpu_msm([p0] * n, [1] * n, device="cpu")

@@ -1,0 +1,54 @@
+"""msm_tpu_torch must run where JAX is not installed: importing every module
+of the package leaves jax out of sys.modules, and no source imports it.
+chip_smoke.py must fail (non-zero exit, no ok line) without a GPU and
+outside the repository."""
+
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "msm_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py")
+    )
+
+
+def test_package_imports_without_jax():
+    mods = _modules()
+    assert "msm_tpu_torch.ops.scan" in mods and "msm_tpu_torch.models.cuzk" in mods
+    code = "import importlib, sys\n" + "".join(
+        f"importlib.import_module({m!r})\n" for m in mods
+    ) + "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_no_jax_import_in_sources():
+    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    assert offenders == []
+
+
+def _run_smoke(cwd):
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True,
+        timeout=300, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
+    )
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    r = _run_smoke(ROOT)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    r = _run_smoke(alone)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
