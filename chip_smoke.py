@@ -3,22 +3,29 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the seven CUDA kernels
+1. prints the card's name and power limit, builds the twelve CUDA kernels
    from msm_tpu_torch/csrc and prints the build time;
 2. holds every kernel against its plain PyTorch twin on the card, on the
-   same inputs, at a small shape and at the shape the 2^20 MSM gives it,
-   as exact integers after canonicalization (points summed in another
-   order: by cross-multiplication), timing both with CUDA events (the
-   kernels enqueued behind a spin kernel, so host overhead stays out);
-3. drives the main path (run_gpu_msm, BN254) at n = 2^20 with every launch
-   counter reset, checks that all seven kernels ran and that the result is
-   bit-exact (1024 distinct base points tiled to n, scalars folded per base
-   point mod r, oracle MSM over the bases); then n = 2^16 against the
-   oracle MSM over all 2^16 points;
-4. times the end-to-end MSM (warm, median of 3), its stages, its peak
+   same inputs, at a small shape and at the shape the 2^20 MSM gives it
+   (the pair kernels: the compressed 2^20 shape, with planted doubling and
+   infinity pairs), as exact integers after canonicalization (points summed
+   in another order: by cross-multiplication), timing both with CUDA events
+   (the kernels enqueued behind a spin kernel, so host overhead stays out);
+3. runs compress_pairs on the card at the compressed 2^20 shape and checks
+   every pair sum and infinity flag against the oracle;
+4. runs small edge MSMs (edge scalars, duplicate points, P and -P under one
+   scalar, identity results, n = 0), plain and pair-compressed;
+5. drives each path at n = 2^20 with every launch counter reset just before
+   it: the main path (run_gpu_msm, BN254, pick_config) and the compressed
+   path (MsmConfig(BN254, compress=True)); checks that every kernel of the
+   path ran (and the plain scan did not, when compressed) and that the
+   result is bit-exact (1024 distinct base points tiled to n, scalars folded
+   per base point mod r, oracle MSM over the bases); then both at n = 2^16
+   against the oracle MSM over all 2^16 points;
+6. times each end-to-end MSM (warm, median of 3), its stages, its peak
    device memory, and, under torch.profiler, its device time by kernel and
    the device's idle share;
-5. prints the kernels' JSON line, then as its last line
+7. prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -47,11 +54,26 @@ REPLACES = {
     "row_offsets": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:133"),
     "point_total": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:231"),
     "horner": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:335"),
+    "mont_pow": ("csrc/inv.cu", "msm_tpu/ops/pallas_inv.py:92"),
+    "pair_suffix": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:427"),
+    "emit_scan": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:561"),
+    "pair_forward": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:205"),
+    "pair_backward": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:333"),
+}
+#: the kernels each path must launch; a kernel's count in the JSON line comes
+#: from the first path that lists it
+PATHS = {
+    "plain": ("point_add", "convert_pack", "bucket_hist", "scan_rows", "row_offsets",
+              "point_total", "horner"),
+    "compressed": ("point_add", "convert_pack", "bucket_hist", "mont_pow", "pair_suffix",
+                   "emit_scan", "row_offsets", "point_total", "horner"),
+    "pairs": ("pair_forward", "mont_pow", "pair_backward"),
 }
 
 
 def _kernels():
-    from msm_tpu_torch.ops import cuda_convert, cuda_curve, cuda_hist, cuda_prefix, cuda_scan
+    from msm_tpu_torch.ops import (cuda_compress, cuda_convert, cuda_curve, cuda_hist, cuda_inv,
+                                   cuda_prefix, cuda_scan)
 
     return {
         "point_add": (cuda_curve.point_add, cuda_curve.point_add_plain),
@@ -61,7 +83,17 @@ def _kernels():
         "row_offsets": (cuda_prefix.row_offsets, cuda_prefix.row_offsets_plain),
         "point_total": (cuda_prefix.point_total, cuda_prefix.point_total_plain),
         "horner": (cuda_prefix.horner, cuda_prefix.horner_plain),
+        "mont_pow": (cuda_inv.mont_pow, cuda_inv.mont_pow_plain),
+        "pair_suffix": (cuda_compress.pair_suffix, cuda_compress.pair_suffix_plain),
+        "emit_scan": (cuda_compress.emit_scan, cuda_compress.emit_scan_plain),
+        "pair_forward": (cuda_compress.pair_forward, cuda_compress.pair_forward_plain),
+        "pair_backward": (cuda_compress.pair_backward, cuda_compress.pair_backward_plain),
     }
+
+
+def _reset_counts() -> None:
+    for wrapper, _plain in _kernels().values():
+        wrapper.launches = 0
 
 
 def _timed(fn):
@@ -127,6 +159,34 @@ def _curve_points(rng, shape, cfg, base, device):
     return x, y, z
 
 
+def _pair_stream(rng, G, C, R, rows):
+    """perm, flags [G, C, R] over a table of ``rows`` points, with doubling
+    pairs (same row, same sign) and infinity pairs (same row, opposite sign)
+    planted at pair positions (2j, 2j+1)."""
+    perm = rng.integers(0, rows, size=(G, C, R)).astype(np.int32)
+    flags = rng.integers(0, 2, size=(G, C, R)).astype(np.int32)
+    kind = rng.random((G, C // 2, R))
+    for planted, flip in ((kind < 0.2, 0), (kind > 0.85, 1)):
+        g, j, r = np.nonzero(planted)
+        perm[g, 2 * j + 1, r] = perm[g, 2 * j, r]
+        flags[g, 2 * j + 1, r] = flags[g, 2 * j, r] ^ flip
+    return perm, flags
+
+
+def _field_outputs(name, out, L):
+    """A kernel's outputs as (limbs-last field tensors, plain integer
+    tensors) for the comparison."""
+    if name in ("bucket_hist", "convert_pack"):
+        return [], [out]
+    if name in ("scan_rows", "emit_scan"):  # pe3 rows by coordinate; totals limbs-first
+        return [out[0][..., i * L:(i + 1) * L] for i in range(3)] + [a.transpose(1, 2) for a in out[1:]], []
+    if name in ("mont_pow", "pair_suffix", "pair_forward"):
+        return [out.transpose(-1, -2)], []
+    if name == "pair_backward":
+        return [a.transpose(-1, -2) for a in out[:2]], [out[2]]
+    return list(out), []
+
+
 def _compare(f, got, want, as_points: bool) -> int:
     """Max abs difference of canonical limbs: of the coordinates themselves,
     or, for points, of the cross products X1 Z2 - X2 Z1 and Y1 Z2 - Y2 Z1."""
@@ -160,6 +220,7 @@ def check_kernels(sizes=("small", "slice"), device="cuda") -> dict:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
     for size in sizes:
         small = size == "small"
         cfg = MsmConfig(curve=BN254, chunk_size=8) if small else pick_config(1 << 20)
@@ -197,17 +258,29 @@ def check_kernels(sizes=("small", "slice"), device="cuda") -> dict:
         cases["point_total"] = ([cfg, *_curve_points(rng, (S, N), cfg, base, dev)], True, 3)
         cases["horner"] = ([cfg, *(t(_rand_fe(rng, (S,), cfg)) for _ in range(3)),
                             4 if small else cfg.chunk_size], False, 3)
+        # pair kernels at the compressed 2^20 MSM's shapes (R = 1024 lanes,
+        # C = 1024 steps, 4 subtasks per launch) over 256 real points; the
+        # chain inputs are the kernels' own (canonical) outputs
+        G2, C2, R2 = (1, 8, 64) if small else (4, 1024, 1024)
+        perm2, flags2 = map(t, _pair_stream(rng, G2, C2, R2, table.shape[0]))
+        pair_in = [cfg, table, perm2, flags2]
+        e = cfg.curve.modulus - 2
+        lanes = _rand_fe(rng, (G2, R2), cfg)
+        lanes[0, :2] = _mont([1, cfg.curve.modulus - 1], cfg)
+        cases["mont_pow"] = ([cfg, t(lanes).transpose(1, 2).contiguous(), e], False, 3)
+        cases["pair_suffix"] = (pair_in, False, 3)
+        s = kern["pair_suffix"][0](*pair_in)
+        cases["emit_scan"] = ([*pair_in, s, kern["mont_pow"][0](cfg, s[:, 0], e)], False, 3)
+        cases["pair_forward"] = (pair_in, False, 3)
+        m = kern["pair_forward"][0](*pair_in)
+        cases["pair_backward"] = ([*pair_in, m, kern["mont_pow"][0](cfg, m[:, -1], e)], False, 3)
         for name, (args, as_points, reps) in cases.items():
             wrapper, plain = kern[name]
             got, ms = _kernel_ms(lambda: wrapper(*args), reps)
             want, plain_ms = _timed(lambda: plain(*args))
-            if name in ("bucket_hist", "convert_pack"):  # plain integers
-                err = int((got.long() - want.long()).abs().max())
-            else:
-                if name == "scan_rows":  # pe3 rows by coordinate; totals limbs-last
-                    got, want = ([r[0][..., i * L:(i + 1) * L] for i in range(3)]
-                                 + [a.transpose(1, 2) for a in r[1:]] for r in (got, want))
-                err = _compare(f, got, want, as_points)
+            (gf, gi), (wf, wi) = _field_outputs(name, got, L), _field_outputs(name, want, L)
+            err = max([_compare(f, gf, wf, as_points) if gf else 0]
+                      + [int((a.long() - b.long()).abs().max()) for a, b in zip(gi, wi)])
             print(f"check {name:13s} {size:5s} max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f}",
                   flush=True)
             if err != 0:
@@ -242,13 +315,11 @@ def folded_oracle(base, ks):
     return best_msm(base, [k % BN254.order for k in folded])
 
 
-def stage_times(pts, ks, device="cuda") -> dict:
+def stage_times(pts, ks, cfg, device="cuda") -> dict:
     """One MSM split into its stages, each ended by a synchronize (ms)."""
-    from msm_tpu.params import pick_config
     from msm_tpu_torch.models import common, cuzk
     from msm_tpu_torch.models.geometry import pick_geometry
 
-    cfg = pick_config(len(pts))
     st = {}
 
     def mark(name, t0):
@@ -263,7 +334,8 @@ def stage_times(pts, ks, device="cuda") -> dict:
     t0 = mark("upload", t0)
     packed = common.prepare_points(cfg, xd, yd)
     t0 = mark("convert", t0)
-    ws = cuzk.window_sums_from_table(packed, sd, cfg, pick_geometry(x.shape[0], cfg.chunk_size))
+    geom = pick_geometry(x.shape[0], cfg.chunk_size, compress=cfg.compress)
+    ws = cuzk.window_sums_from_table(packed, sd, cfg, geom)
     t0 = mark("window_sums", t0)
     pt = cuzk.msm_point_from_ws(ws, cfg)
     common.std_point_to_jpoint(pt.numpy(), cfg)
@@ -271,7 +343,7 @@ def stage_times(pts, ks, device="cuda") -> dict:
     return st
 
 
-def device_breakdown(pts, ks, trace_path, device="cuda") -> tuple[float, float, dict]:
+def device_breakdown(pts, ks, cfg, trace_path, device="cuda") -> tuple[float, float, dict]:
     """One MSM under torch.profiler: (wall ms, device-busy ms, device ms by
     kernel). Busy time is the union of the device's kernel and copy
     intervals; kernels of this package keep their names, PyTorch's own
@@ -284,12 +356,11 @@ def device_breakdown(pts, ks, trace_path, device="cuda") -> tuple[float, float, 
 
     kern = _kernels()
     for _ in range(3):
-        for wrapper, _plain in kern.values():
-            wrapper.launches = 0
+        _reset_counts()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            msm_tpu_torch.run_gpu_msm(pts, ks, device=device)
+            msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         trace_path.parent.mkdir(parents=True, exist_ok=True)
@@ -325,36 +396,103 @@ def trace_breakdown(events) -> tuple[float, dict, int]:
     return busy / 1e3, by_name, n_ours
 
 
-def edge_checks(device="cuda") -> None:
-    """Small MSMs through the kernels: n = 35 (padded to 64) with repeated
-    points and scalars at the recode edges and out of range, an identity
-    result, and the empty MSM."""
+def edge_checks(cfg=None, device="cuda") -> None:
+    """Small MSMs through the kernels under ``cfg`` (None: pick_config):
+    n = 35 (padded to 64) with repeated points and scalars at the recode
+    edges and out of range; P and -P interleaved under one scalar (infinity
+    pairs in every bucket; identity result); duplicates, negatives and
+    other points mixed; k P + (r - k) P; the empty MSM."""
     import msm_tpu_torch
     from msm_tpu.oracle import best_msm
     from msm_tpu.oracle.pyecc import Curve
     from msm_tpu.params import BN254
 
-    cv, r = Curve(BN254), BN254.order
+    cv, r, q = Curve(BN254), BN254.order, BN254.modulus
     base = [cv.to_affine(p) for p in cv.sample_points(12, seed=SEED)]
+    neg = [(x, q - y) for x, y in base]
+
+    def run(pts, ks):
+        return msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+
+    def oracle(pts, ks):
+        want = best_msm(pts, [k % r for k in ks])
+        return None if want.is_identity() else cv.to_affine(want)
+
     pts = [base[i % 12] for i in range(35)]
     ks = [0, 1, r - 1, r, r + 5, 2 * r - 1, (1 << 256) - 1, -3] + list(range(10**6, 10**6 + 27))
-    got = msm_tpu_torch.run_gpu_msm(pts, ks, device=device)
-    if got != cv.to_affine(best_msm(pts, [k % r for k in ks])):
-        raise AssertionError(f"edge-scalar MSM differs from the oracle: {got}")
-    if msm_tpu_torch.run_gpu_msm([base[0], base[0], base[1]], [5, r - 5, 0], device=device) is not None:
-        raise AssertionError("k P + (r - k) P should be the identity")
-    if msm_tpu_torch.run_gpu_msm([], [], device=device) is not None:
+    cases = {"edge scalars": (pts, ks)}
+    cases["P, -P under one scalar"] = ([base[0], neg[0]] * 32, [12345] * 64)
+    cases["duplicates and negatives"] = (
+        [base[i % 3] if i % 4 else neg[i % 3] for i in range(90)] + base[3:],
+        [777 + (i % 5) for i in range(90)] + list(range(9)))
+    cases["k P + (r - k) P"] = ([base[0], base[0], base[1]], [5, r - 5, 0])
+    for label, (pts, ks) in cases.items():
+        got, want = run(pts, ks), oracle(pts, ks)
+        if got != want:
+            raise AssertionError(f"{label} MSM differs from the oracle: {got} != {want}")
+    if oracle(*cases["P, -P under one scalar"]) is not None or oracle(*cases["k P + (r - k) P"]) is not None:
+        raise AssertionError("identity cases lost their identity")
+    if run([], []) is not None:
         raise AssertionError("empty MSM should be the identity")
-    print("edge MSMs (n = 35 edge scalars, identity result, n = 0): bit-exact", flush=True)
+    print(f"edge MSMs ({'compressed' if cfg is not None and cfg.compress else 'plain'}: "
+          f"{', '.join(cases)}, n = 0): bit-exact", flush=True)
+
+
+def check_pairs(shape=(4, 1024, 1024), device="cuda") -> dict:
+    """compress_pairs on the card at the compressed 2^20 shape (4 subtasks,
+    C = 1024 steps, R = 1024 lanes) over 16 points with planted doubling and
+    infinity pairs: every pair sum and every infinity flag against the
+    oracle (all 32 x 32 signed pairs precomputed). Counters are reset just
+    before; returns them."""
+    from msm_tpu.oracle.pyecc import Curve
+    from msm_tpu.params import BN254, MsmConfig
+    from msm_tpu_torch.ops.cuda_compress import compress_pairs
+    from msm_tpu_torch.ops.cuda_convert import pack_canonical
+    from msm_tpu_torch.ops.field import get_field_ctx
+
+    cfg = MsmConfig(curve=BN254, compress=True)
+    f, cv, q = get_field_ctx(cfg), Curve(BN254), BN254.modulus
+    pts_j = cv.sample_points(16, seed=SEED + 7)
+    aff = [cv.to_affine(p) for p in pts_j]
+    signed = pts_j + [cv.neg(p) for p in pts_j]  # element k: point k % 16, sign k // 16
+    sums = [[cv.add(a, b) for b in signed] for a in signed]
+    inf_want = np.array([[s.z % q == 0 for s in row] for row in sums])
+    xy = [[(0, 0) if s.z % q == 0 else cv.to_affine(s) for s in row] for row in sums]
+    dev = torch.device(device)
+    want_x, want_y = (torch.from_numpy(_mont([v[i] for row in xy for v in row], cfg).reshape(32, 32, -1)).to(dev)
+                      for i in range(2))
+    table = torch.cat([pack_canonical(torch.from_numpy(_mont(c, cfg)), cfg) for c in zip(*aff)], dim=-1).to(dev)
+    rng = np.random.default_rng(SEED + 8)
+    perm, flags = _pair_stream(rng, *shape, 16)
+    _reset_counts()
+    cx, cy, inf = compress_pairs(cfg, table, *(torch.from_numpy(a).to(dev) for a in (perm, flags)))
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, (w, _) in _kernels().items()}
+    k = torch.from_numpy(perm + 16 * (flags & 1)).to(dev).long()
+    k1, k2 = k[:, 0::2], k[:, 1::2]  # [G, Cp, R]
+    want_inf = torch.from_numpy(inf_want).to(dev)[k1, k2]
+    if not torch.equal(inf.bool(), want_inf):
+        raise AssertionError(f"{int((inf.bool() != want_inf).sum())} infinity flags differ from the oracle")
+    ok = ~want_inf
+    for got, want in ((cx, want_x), (cy, want_y)):
+        g = f.canonical(got.transpose(-1, -2))[ok]
+        if not torch.equal(g, want[k1, k2][ok]):
+            raise AssertionError("pair sums differ from the oracle")
+    n_inf, n_dbl = int(want_inf.sum()), int(((k1 == k2) & ok).sum())
+    print(f"compress_pairs: {k1.numel()} pair sums and flags equal the oracle ({n_dbl} doublings, "
+          f"{n_inf} infinity pairs); launches {json.dumps({n: counts[n] for n in PATHS['pairs']})}",
+          flush=True)
+    return counts
 
 
 def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
-    """Main path at 2^20 with counters, 2^16 against the full oracle, and
-    end-to-end timings. Returns the launch counts of the 2^20 run."""
+    """Both paths (plain, compressed) at each size: 2^20 with counters reset
+    just before each run, 2^16 against the full oracle, and end-to-end
+    timings. Returns {path: launch counts of its 2^20 run}."""
     import msm_tpu_torch
     from msm_tpu.oracle import best_msm
     from msm_tpu.oracle.pyecc import Curve
-    from msm_tpu.params import BN254, pick_config
+    from msm_tpu.params import BN254, MsmConfig, pick_config
     from msm_tpu_torch.ops._build import BUILD_ROOT
 
     cv = Curve(BN254)
@@ -367,44 +505,45 @@ def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
         # 2^20: the folded oracle over the bases; smaller: the oracle MSM over
         # every point
         want = folded_oracle(base, ks) if n > 1 << 16 else best_msm(pts, ks)
-        cfg = pick_config(n)
-        print(f"msm 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s "
-              f"(c={cfg.chunk_size} S={cfg.num_subtasks})", flush=True)
-        for wrapper, _ in kern.values():
-            wrapper.launches = 0
-        t0 = time.perf_counter()
-        got = msm_tpu_torch.run_gpu_msm(pts, ks, device=device)
-        torch.cuda.synchronize()
-        first = time.perf_counter() - t0
-        counts = {name: w.launches for name, (w, _) in kern.items()}
-        print(f"msm 2^{logn}: launches {json.dumps(counts)} first call {first:.3f} s", flush=True)
-        if want.is_identity() or got is None or cv.to_affine(want) != tuple(got):
-            raise AssertionError(f"2^{logn} MSM differs from the oracle: {got}")
-        missing = [k for k, v in counts.items() if v <= 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the main path: {missing}")
-        if logn == log_sizes[0]:
-            results["launches"] = counts
-        walls = []
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
+        print(f"msm 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
+        for path, cfg in (("plain", pick_config(n)), ("compressed", MsmConfig(curve=BN254, compress=True))):
+            tag = f"msm 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks})"
+            _reset_counts()
             t0 = time.perf_counter()
-            again = msm_tpu_torch.run_gpu_msm(pts, ks, device=device)
+            got = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            if again != got:
-                raise AssertionError("repeat MSM differs")
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        st = stage_times(pts, ks, device)
-        print(f"msm 2^{logn}: bit-exact; wall_s median of 3 = {statistics.median(walls):.4f} "
-              f"(runs {', '.join(f'{w:.4f}' for w in walls)}); peak_mem_gib={peak_gib:.3f}; "
-              "stages_ms " + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
-        wall_ms, busy_ms, by_name = device_breakdown(
-            pts, ks, BUILD_ROOT / f"trace_2e{logn}.json", device)
-        print(f"msm 2^{logn}: profiled wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
-              f"idle_share={1 - busy_ms / wall_ms:.3f}; device_ms "
-              + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
-              flush=True)
+            first = time.perf_counter() - t0
+            counts = {name: w.launches for name, (w, _) in kern.items()}
+            print(f"{tag}: launches {json.dumps(counts)} first call {first:.3f} s", flush=True)
+            if want.is_identity() or got is None or cv.to_affine(want) != tuple(got):
+                raise AssertionError(f"{tag} differs from the oracle: {got}")
+            missing = [k for k in PATHS[path] if counts[k] <= 0]
+            if missing:
+                raise AssertionError(f"{tag}: kernels of the path not launched: {missing}")
+            if path == "compressed" and counts["scan_rows"]:
+                raise AssertionError(f"{tag}: the plain scan ran")
+            if logn == log_sizes[0]:
+                results[path] = counts
+            walls = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                again = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if again != got:
+                    raise AssertionError("repeat MSM differs")
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            st = stage_times(pts, ks, cfg, device)
+            print(f"{tag}: bit-exact; wall_s median of 3 = {statistics.median(walls):.4f} "
+                  f"(runs {', '.join(f'{w:.4f}' for w in walls)}); peak_mem_gib={peak_gib:.3f}; "
+                  "stages_ms " + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
+            wall_ms, busy_ms, by_name = device_breakdown(
+                pts, ks, cfg, BUILD_ROOT / f"trace_2e{logn}_{path}.json", device)
+            print(f"{tag}: profiled wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
+                  f"idle_share={1 - busy_ms / wall_ms:.3f}; device_ms "
+                  + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
+                  flush=True)
     return results
 
 
@@ -448,14 +587,19 @@ def main() -> int:
 
     print(f"oracle: {build_cpp_oracle()}", flush=True)
     checks = check_kernels()
+    pair_counts = check_pairs()
+    from msm_tpu.params import BN254, MsmConfig
+
     edge_checks()
-    launches = run_msm_checks()["launches"]
+    edge_checks(MsmConfig(curve=BN254, compress=True))
+    by_path = {**run_msm_checks(), "pairs": pair_counts}
     rows = []
     for name, (src, rep) in REPLACES.items():
         c = checks[name]
+        path = next(p for p, names in PATHS.items() if name in names)
         rows.append({
             "name": name, "route": "cuda", "source": f"msm_tpu_torch/{src}",
-            "replaces": rep, "launches": launches[name],
+            "replaces": rep, "launches": by_path[path][name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
         })
     print(json.dumps({"kernels": rows}))

@@ -10,9 +10,12 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 Configuration, limb serialization and the CPU oracles are shared with the
 JAX package (``msm_tpu.params``, ``msm_tpu.utils.limbs``,
 ``msm_tpu.oracle``), none of which imports JAX. Every public entry takes an
-explicit ``device``: CUDA tensors run the kernels (BN254 / 13-bit limbs
-only; other configs raise ``NotImplementedError``), CPU tensors run the
-plain twins for any curve.
+explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
+plain twins for any curve. On CUDA the kernels cover BN254 with 13-bit limbs,
+plain (``MsmConfig(curve=BN254)``, ``pick_config(n)``) or pair-compressed
+(``compress=True``, as ``msm_tpu msm --compress`` runs it); GLV and
+Karatsuba are not ported and raise ``NotImplementedError`` on every device
+(GLV) or on CUDA (Karatsuba, other curves or limb widths).
 """
 
 from __future__ import annotations

@@ -255,4 +255,52 @@ MSM_HD void fe_load_balanced_strided(fe& out, const int32_t* src,
   fe_from_balanced(out, tmp);
 }
 
+// A CANONICAL value stored limbs-first (as the kernels write them): no
+// conversion.
+MSM_HD void fe_load_strided(fe& out, const int32_t* src, int64_t stride) {
+  MSM_UNROLL
+  for (int i = 0; i < L; ++i) out.v[i] = (uint32_t)src[i * stride];
+}
+
+// Value equality of canonical elements is limb equality.
+MSM_HD bool fe_eq(const fe& a, const fe& b) {
+  uint32_t acc = 0;
+  MSM_UNROLL
+  for (int i = 0; i < L; ++i) acc |= a.v[i] ^ b.v[i];
+  return acc == 0;
+}
+
+// 32-bit words per coordinate of the dense wire format (the packed table).
+constexpr int DENSE_WORDS = 8;
+
+// One dense coordinate (DENSE_WORDS words, radix 2^32) -> 13-bit limbs.
+MSM_HD void fe_unpack_dense(fe& out, const int32_t* w) {
+  uint32_t u[DENSE_WORDS];
+  MSM_UNROLL
+  for (int k = 0; k < DENSE_WORDS; ++k) u[k] = (uint32_t)w[k];
+  MSM_UNROLL
+  for (int j = 0; j < L; ++j) {
+    const int lo = W * j, k = lo / 32, s = lo % 32;
+    uint32_t v = 0;
+    if (k < DENSE_WORDS) {
+      v = u[k] >> s;
+      if (s + W > 32 && k + 1 < DENSE_WORDS) v |= u[k + 1] << (32 - s);
+    }
+    out.v[j] = v & MASK;
+  }
+}
+
+// a^e for a Montgomery-form a, so pow(aR, e) = a^e R: square-and-multiply
+// over the nbits bits of e, most significant first; e is given as 32-bit
+// words, least significant word first. e = 0 (nbits = 0) gives one.
+MSM_HD_CALL void fe_pow(fe& out, const fe& a, const uint32_t* e, int nbits) {
+  fe acc;
+  fe_mont_one(acc);
+  for (int i = nbits - 1; i >= 0; --i) {
+    fe_sqr(acc, acc);
+    if ((e[i >> 5] >> (i & 31)) & 1u) fe_mul(acc, acc, a);
+  }
+  out = acc;
+}
+
 }  // namespace msm

@@ -26,24 +26,7 @@
 
 using namespace msm;
 
-constexpr int D = 8;  // 32-bit words per packed coordinate
-
-__device__ __forceinline__ void unpack_dense(fe& out,
-                                             const int32_t* __restrict__ w) {
-  uint32_t u[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) u[k] = (uint32_t)w[k];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const int lo = W * j, k = lo / 32, s = lo % 32;
-    uint32_t v = 0;
-    if (k < D) {
-      v = u[k] >> s;
-      if (s + W > 32 && k + 1 < D) v |= u[k + 1] << (32 - s);
-    }
-    out.v[j] = v & MASK;
-  }
-}
+constexpr int D = DENSE_WORDS;  // 32-bit words per packed coordinate
 
 __global__ void __launch_bounds__(128)
     k_scan(const int32_t* __restrict__ packed, const int32_t* __restrict__ perm,
@@ -59,8 +42,8 @@ __global__ void __launch_bounds__(128)
     const int64_t e = (g * C + c) * R + r;
     const int64_t row = perm[e];
     fe x2, y2;
-    unpack_dense(x2, packed + row * 2 * D);
-    unpack_dense(y2, packed + row * 2 * D + D);
+    fe_unpack_dense(x2, packed + row * 2 * D);
+    fe_unpack_dense(y2, packed + row * 2 * D + D);
     if (flags[e] & 1) fe_neg(y2, y2);
     pt_madd(acc, acc, x2, y2);
     int32_t* o = pe3 + e * 3 * L;

@@ -4,7 +4,10 @@
   stage 2   one unstable torch.sort of all windows' bucket keys, and the
             bucket ends from the histogram kernel (3)
   stage 3   per subtask batch: the gather + mixed-add prefix scan (4), the
-            row offsets (5), the bucket-boundary prefixes (point add, 1)
+            row offsets (5), the bucket-boundary prefixes (point add, 1);
+            under ``cfg.compress`` the scan runs over the pair-compressed
+            stream instead: suffix products (12), one Fermat inversion per
+            lane (9), fused pair emission + scan (13)
   stage 4   telescoped window sums: point total (6) + doublings (1)
   finish    Horner over the window sums (7); the host maps the single
             projective point to affine with one inversion
@@ -58,8 +61,8 @@ def msm_point_from_ws(ws: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
 
 
 def _check_config(cfg: MsmConfig) -> None:
-    if cfg.glv or cfg.compress:
-        raise NotImplementedError("GLV and pair compression are not ported")
+    if cfg.glv:
+        raise NotImplementedError("GLV is not ported")
 
 
 def compute_msm_jpoint(
@@ -79,7 +82,7 @@ def compute_msm_jpoint(
     if n > CHUNK_MAX:
         raise NotImplementedError(f"n = {n} > {CHUNK_MAX}: chunked MSM is not ported")
     x_u16, y_u16, s_u16 = common.pad_inputs(points, scalars, config, validate=validate)
-    geom = geometry or pick_geometry(n, config.chunk_size)
+    geom = geometry or pick_geometry(n, config.chunk_size, compress=config.compress)
     xd, yd, sd = (torch.from_numpy(a).to(device) for a in (x_u16, y_u16, s_u16))
     packed = common.prepare_points(config, xd, yd)
     ws = window_sums_from_table(packed, sd, config, geom)

@@ -6,10 +6,14 @@
 - ``bpr_threads``: kept for interface parity (the two-phase bucket reduction
   is not on this path; the telescoped ``window_sum_from_pe`` replaces it).
 - ``subtask_batch``: how many subtasks the scan processes per launch; it
-  bounds the boundary-prefix buffer at subtask_batch * n * 3L * 4 bytes.
+  bounds the boundary-prefix buffer at subtask_batch * n * 3L * 4 bytes
+  (half that when pair-compressed).
 
 The rule is a placeholder copied from the TPU reference and has not been
-tuned on the H100.
+tuned on the H100. Under pair compression it keeps the reference's narrow
+R = min(n/8, 1024): one Fermat inversion per lane, but at 2^20 only 4 x 1024
+chains of 512 serial pair steps per launch, far too few threads for the
+card.
 """
 
 from __future__ import annotations
@@ -24,10 +28,10 @@ class MsmGeometry:
     subtask_batch: int
 
 
-def pick_geometry(n: int, chunk_size: int) -> MsmGeometry:
+def pick_geometry(n: int, chunk_size: int, compress: bool = False) -> MsmGeometry:
     """n must be a power of two (the host pads)."""
     assert n & (n - 1) == 0 and n > 0
-    num_rows = max(1, min(n // 8, 1 << 14))
+    num_rows = max(1, min(n // 8, 1 << 10 if compress else 1 << 14))
     body = 1 << (chunk_size - 1)
     bpr_threads = max(1, min(body // 16, 1 << 9))
     return MsmGeometry(num_rows, bpr_threads, subtask_batch=4)

@@ -43,6 +43,11 @@ SIGNATURES = {
     "msm_row_offsets": [P] * 6 + [I64, I32, P],
     "msm_point_total": [P] * 9 + [I64, I64, I32, P],
     "msm_horner": [P] * 6 + [I32, I32, P],
+    "msm_mont_pow": [P] * 3 + [I32, I64, I32, P],
+    "msm_pair_suffix": [P] * 4 + [I64, I32, I32, P],
+    "msm_emit_scan": [P] * 9 + [I64, I32, I32, P],
+    "msm_pair_forward": [P] * 4 + [I64, I32, I32, P],
+    "msm_pair_backward": [P] * 8 + [I64, I32, I32, P],
 }
 
 _lock = threading.Lock()
@@ -50,20 +55,13 @@ _lib: ctypes.CDLL | None = None
 
 
 def check_cuda_config(cfg: MsmConfig) -> None:
-    """The CUDA kernels implement BN254 with 13-bit limbs and the plain
-    (no GLV, no compression, no Karatsuba) pipeline only."""
-    if (
-        cfg.curve.name != "bn254"
-        or cfg.word_size != 13
-        or cfg.glv
-        or cfg.compress
-        or cfg.karatsuba
-    ):
+    """The CUDA kernels implement BN254 with 13-bit limbs, with or without
+    pair compression; GLV and Karatsuba are not ported."""
+    if cfg.curve.name != "bn254" or cfg.word_size != 13 or cfg.glv or cfg.karatsuba:
         raise NotImplementedError(
-            f"CUDA kernels support BN254 / word_size 13 without GLV, "
-            f"compression or Karatsuba; got curve={cfg.curve.name} "
-            f"word_size={cfg.word_size} glv={cfg.glv} "
-            f"compress={cfg.compress} karatsuba={cfg.karatsuba}"
+            f"CUDA kernels support BN254 / word_size 13 without GLV or "
+            f"Karatsuba; got curve={cfg.curve.name} word_size={cfg.word_size} "
+            f"glv={cfg.glv} karatsuba={cfg.karatsuba}"
         )
 
 

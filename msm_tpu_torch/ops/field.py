@@ -115,6 +115,18 @@ class FieldCtx:
         """a*R -> a."""
         return self.mont_mul(a, self.const(self.one_limbs, a.device))
 
+    def mont_pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """Montgomery exponentiation by a static exponent e >= 0:
+        square-and-multiply over e's bits, MSB first, so pow(aR, e) =
+        a^e R (reference ``FieldCtx.mont_pow``; congruent to it, since the
+        squaring here is the general product)."""
+        acc = self.const(self.r_limbs, a.device).expand(a.shape)
+        for bit in bin(e)[2:]:
+            acc = self.mont_mul(acc, acc)
+            if bit == "1":
+                acc = self.mont_mul(acc, a)
+        return acc
+
     # -- exit path ----------------------------------------------------------
 
     def canonical(self, a: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,11 @@ read out of the per-lane prefixes plus the lane offsets:
 
     pe[b] = offsets[r] + pe3[c, r],  i = ends[b] - 1, r = i // C, c = i % C
 
+Under ``cfg.compress`` the scan runs over the pair-compressed stream
+(``cuda_compress.compressed_prefix_scan``: adjacent sorted elements summed
+in affine form first, C/2 steps per lane), and a boundary that falls inside
+a pair gets its own element added back (``prefix_at_compressed``).
+
 The window sum follows from the boundary prefixes by telescoping
 (``window_sum_from_pe``). Every point addition here goes through a kernel
 wrapper (``cuda_*``), so on CUDA tensors the whole path runs on the kernels.
@@ -24,6 +29,8 @@ from __future__ import annotations
 import torch
 
 from msm_tpu.params import MsmConfig
+from msm_tpu_torch.ops.cuda_compress import compressed_prefix_scan
+from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import point_add_plain
 from msm_tpu_torch.ops.cuda_hist import bucket_hist
 from msm_tpu_torch.ops.cuda_prefix import point_total, row_offsets
@@ -114,14 +121,15 @@ def _counts_leq(cfg: MsmConfig, keys: torch.Tensor, num_buckets: int) -> torch.T
     return torch.cumsum(bucket_hist(cfg, keys, num_buckets), dim=-1, dtype=torch.int32)
 
 
-def _sorted_prefix(
-    ec: CurveCtx, packed: torch.Tensor, pv: torch.Tensor, sbit: int, num_rows: int
-) -> tuple[torch.Tensor, PointBatch]:
-    """Scan kernel over the sorted points, then the row-offsets kernel:
-    (pe3 [G, C, R, 3L], offsets [G, R, L])."""
-    perm, flags = _decode_payload_step_major(pv, sbit, num_rows)
-    pe3, tx, ty, tz = scan_rows(ec.cfg, packed, perm, flags)
-    return pe3, PointBatch(*row_offsets(ec.cfg, tx, ty, tz))
+def compression_applies(cfg: MsmConfig, n: int, num_rows: int) -> bool:
+    """Pair compression runs when the config asks for it and every lane
+    holds an even number of steps C = n / R, so that no pair (2j, 2j+1)
+    straddles two lanes. n and R are powers of two, so every size
+    compresses except C = 1 (R = n); under ``pick_geometry(n, c,
+    compress=True)`` (R = min(n/8, 1024), C >= 8) every padded size does.
+    The JAX package also asks R % 256 == 0, a TPU tile rule not carried
+    over: the boundary prefixes are the same points either way."""
+    return cfg.compress and (n // num_rows) % 2 == 0
 
 
 def prefix_at(
@@ -130,16 +138,83 @@ def prefix_at(
     """Inclusive prefixes at sorted positions idx [G, m] (-1 -> identity):
     one gathered pe3 row plus the lane offset, by the point-add kernel."""
     G, C = pe3.shape[:2]
-    L = ec.f.L
     valid = idx >= 0
     i = idx.clamp(min=0).to(torch.int64)
     r, c = i // C, i % C
     gi = torch.arange(G, device=pe3.device)[:, None]
-    row = pe3[gi, c, r]  # [G, m, 3L]
-    rp = PointBatch(row[..., :L], row[..., L : 2 * L], row[..., 2 * L :])
-    off = PointBatch(*(a[gi, r] for a in offsets))
-    out = ec.add(off, rp)
+    out = ec.add(_offset_at(offsets, gi, r), _pe3_row(ec, pe3, gi, c, r))
     return point_where(valid, out, ec.identity(idx.shape, pe3.device))
+
+
+def prefix_at_compressed(
+    ec: CurveCtx,
+    pe3: torch.Tensor,
+    offsets: PointBatch,
+    packed: torch.Tensor,
+    perm: torch.Tensor,
+    flags: torch.Tensor,
+    idx: torch.Tensor,
+) -> PointBatch:
+    """``prefix_at`` over the pair-compressed scan (pe3 [G, Cp, R, 3L], pair
+    j of lane r = steps 2j, 2j+1). A boundary at step c of lane r takes the
+    last whole pair at or before it, and the element at step c itself when c
+    is even (the boundary falls inside a pair):
+
+        pe = offsets[r] + pe3[(c - 1) // 2, r] + (c even ? element (c, r) : 0)
+
+    The element is its packed row with y negated by its flag and z = one.
+    Both additions go through the point-add kernel."""
+    cfg = ec.cfg
+    G, Cp = pe3.shape[:2]
+    D = coord_words(cfg)
+    valid = idx >= 0
+    i = idx.clamp(min=0).to(torch.int64)
+    r, c = i // (2 * Cp), i % (2 * Cp)
+    j = torch.div(c - 1, 2, rounding_mode="floor")  # -1: no whole pair yet
+    gi = torch.arange(G, device=pe3.device)[:, None]
+    ident = ec.identity(idx.shape, pe3.device)
+    pairs = point_where(j >= 0, _pe3_row(ec, pe3, gi, j.clamp(min=0), r), ident)
+    base = ec.add(_offset_at(offsets, gi, r), pairs)
+    row = packed[perm[gi, c, r].to(torch.int64)]  # [G, m, 2D]
+    y = unpack_coords(row[..., D:], cfg)
+    neg = (flags[gi, c, r] & 1) != 0
+    y = torch.where(neg[..., None], ec.f.const(ec.f.p_limbs, y.device) - y, y)
+    elem = ec.from_affine_mont(unpack_coords(row[..., :D], cfg), y)
+    out = ec.add(base, point_where(c % 2 == 0, elem, ident))
+    return point_where(valid, out, ident)
+
+
+def _pe3_row(ec: CurveCtx, pe3: torch.Tensor, gi, c, r) -> PointBatch:
+    row = pe3[gi, c, r]  # [G, m, 3L]
+    L = ec.f.L
+    return PointBatch(row[..., :L], row[..., L : 2 * L], row[..., 2 * L :])
+
+
+def _offset_at(offsets: PointBatch, gi, r) -> PointBatch:
+    return PointBatch(*(a[gi, r] for a in offsets))
+
+
+def _batch_boundary_prefix(
+    ec: CurveCtx,
+    packed: torch.Tensor,
+    pv: torch.Tensor,
+    sbit: int,
+    num_rows: int,
+    ends: torch.Tensor,
+) -> PointBatch:
+    """Boundary prefixes of one batch of subtasks: the prefix scan (plain, or
+    over the pair-compressed stream), the row-offsets kernel, the readout.
+    The batch's pe3 and offsets die when this returns, so only one batch is
+    alive at a time."""
+    cfg = ec.cfg
+    perm, flags = _decode_payload_step_major(pv, sbit, num_rows)
+    compress = compression_applies(cfg, pv.shape[-1], num_rows)
+    scan = compressed_prefix_scan if compress else scan_rows
+    pe3, tx, ty, tz = scan(cfg, packed, perm, flags)
+    offsets = PointBatch(*row_offsets(cfg, tx, ty, tz))
+    if compress:
+        return prefix_at_compressed(ec, pe3, offsets, packed, perm, flags, ends - 1)
+    return prefix_at(ec, pe3, offsets, ends - 1)
 
 
 def bucket_boundary_prefix(
@@ -154,13 +229,16 @@ def bucket_boundary_prefix(
     """pe[g, b] = the signed point sum over all elements of subtask g with
     key <= b, so bucket_b = pe[b] - pe[b-1]. keys/signs [G, n]; the sort and
     the bucket ends cover all G rows at once, the scans run ``batch``
-    subtasks at a time. Returns [G, num_buckets, L] coordinates."""
+    subtasks at a time (pair-compressed where ``compression_applies``).
+    Returns [G, num_buckets, L] coordinates."""
     pv, sbit = sort_payload(keys, signs)
     ends = _counts_leq(ec.cfg, keys, num_buckets)
-    outs = []
-    for g0 in range(0, keys.shape[0], batch):
-        pe3, offsets = _sorted_prefix(ec, packed, pv[g0 : g0 + batch], sbit, num_rows)
-        outs.append(prefix_at(ec, pe3, offsets, ends[g0 : g0 + batch] - 1))
+    outs = [
+        _batch_boundary_prefix(
+            ec, packed, pv[g0 : g0 + batch], sbit, num_rows, ends[g0 : g0 + batch]
+        )
+        for g0 in range(0, keys.shape[0], batch)
+    ]
     return _cat(outs, dim=0)
 
 

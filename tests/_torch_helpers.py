@@ -37,6 +37,29 @@ def affine_points(cfg, n: int, seed: int) -> list[tuple[int, int]]:
     return [cv.to_affine(p) for p in cv.sample_points(n, seed=seed)]
 
 
+def pair_stream(cfg, G: int, C: int, R: int, nbase: int, seed: int):
+    """Inputs of the pair kernels: a packed table of ``nbase`` real points
+    and a step-major stream perm, flags [G, C, R] over it, with doubling
+    pairs (same row, same sign) and infinity pairs (same row, opposite
+    sign) planted at pair positions (2j, 2j+1). Returns (base affine
+    points, packed [nbase, 2D], perm, flags) as numpy."""
+    from msm_tpu_torch.models.common import pad_points_words
+    from msm_tpu_torch.ops.cuda_convert import convert_pack_plain
+
+    base = affine_points(cfg, nbase, seed)
+    x_u16, y_u16 = pad_points_words(base, cfg, nbase)
+    packed = convert_pack_plain(cfg, torch.from_numpy(x_u16), torch.from_numpy(y_u16)).numpy()
+    rng = np.random.default_rng(seed)
+    perm = rng.integers(0, nbase, size=(G, C, R)).astype(np.int32)
+    flags = rng.integers(0, 2, size=(G, C, R)).astype(np.int32)
+    kind = rng.random((G, C // 2, R))
+    for planted, flip in ((kind < 0.2, 0), (kind > 0.85, 1)):  # doubling, infinity
+        g, j, r = np.nonzero(planted)
+        perm[g, 2 * j + 1, r] = perm[g, 2 * j, r]
+        flags[g, 2 * j + 1, r] = flags[g, 2 * j, r] ^ flip
+    return base, packed, perm, flags
+
+
 def mont_limbs(vals, cfg) -> np.ndarray:
     """python ints -> Montgomery-form canonical limbs [n, L] int32."""
     p, r = cfg.curve.modulus, cfg.r

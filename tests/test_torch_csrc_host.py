@@ -1,9 +1,12 @@
-"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh) compiled for the
-host with g++ and held against the plain PyTorch twins on random inputs:
-Montgomery product, balanced-input canonicalization, complete addition,
-mixed addition and doubling. Catches arithmetic faults in the device core
-without a GPU. Outputs of the core must be canonical and equal to the
-twins' results after canonical()."""
+"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh) compiled
+for the host with g++ and held against the plain PyTorch twins: Montgomery
+product, balanced-input canonicalization, complete addition, mixed addition,
+doubling, exponentiation, the pair algebra (predicates, denominator,
+numerator, emission) and the per-lane bodies of the four pair kernels, run
+for every lane of a small stream with planted doubling and infinity pairs.
+Catches arithmetic and indexing faults in the device code without a GPU.
+Outputs of the core must be canonical and equal to the twins' results after
+canonical()."""
 
 import ctypes
 import shutil
@@ -14,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import rand_balanced, rand_canonical
+from _torch_helpers import pair_stream, rand_balanced, rand_canonical
 from msm_tpu.params import BN254, MsmConfig
+from msm_tpu_torch.ops import cuda_compress as cc
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
+from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
 from msm_tpu_torch.ops.cuda_scan import rcb16_madd_plain
 from msm_tpu_torch.ops.curve import CurveCtx, PointBatch
 from msm_tpu_torch.ops.field import get_field_ctx
@@ -27,7 +32,7 @@ F = get_field_ctx(CFG)
 L = CFG.num_words
 
 HARNESS = r"""
-#include "curve.cuh"
+#include "pair.cuh"
 using namespace msm;
 
 static void load_pt(point& p, const int32_t* a) {
@@ -89,6 +94,64 @@ void h_pt_double(const int32_t* p, int32_t* o, int64_t n) {
     store_pt(o + i * 3 * L, r);
   }
 }
+// xy [n, 4, L] canonical x1, y1, x2, y2; sg [n, 2] signs; inv [n, L];
+// o [n, 5, L]: d, num, x3, y3, then (dbl, inf) in the last row's limbs 0, 1
+void h_pair(const int32_t* xy, const int32_t* sg, const int32_t* inv,
+            int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe c[4], iv, d, num, x3, y3;
+    for (int k = 0; k < 4; ++k) load_fe(c[k], xy + (i * 4 + k) * L);
+    load_fe(iv, inv + i * L);
+    pair_t pr;
+    pair_make(pr, c[0], c[1], sg[2 * i], c[2], c[3], sg[2 * i + 1]);
+    pair_denominator(d, pr);
+    pair_numerator(num, pr);
+    pair_emit(x3, y3, pr, num, iv);
+    int32_t* out = o + i * 5 * L;
+    fe_store(out, d);
+    fe_store(out + L, num);
+    fe_store(out + 2 * L, x3);
+    fe_store(out + 3 * L, y3);
+    out[4 * L] = pr.dbl;
+    out[4 * L + 1] = pr.inf;
+  }
+}
+// a, o [B, L, R]; e: exponent words, least significant first
+void h_pow(const int32_t* a, int32_t* o, const uint32_t* e, int nbits,
+           int64_t B, int R) {
+  for (int64_t b = 0; b < B; ++b)
+    for (int r = 0; r < R; ++r) {
+      fe x, y;
+      fe_load_balanced_strided(x, a + b * L * R + r, R);
+      fe_pow(y, x, e, nbits);
+      fe_store_strided(o + b * L * R + r, R, y);
+    }
+}
+void h_pair_suffix(const int32_t* pk, const int32_t* pm, const int32_t* fl,
+                   int32_t* s, int64_t G, int Cp, int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r) pair_suffix_lane(pk, pm, fl, s, g, Cp, R, r);
+}
+void h_pair_forward(const int32_t* pk, const int32_t* pm, const int32_t* fl,
+                    int32_t* m, int64_t G, int Cp, int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r) pair_forward_lane(pk, pm, fl, m, g, Cp, R, r);
+}
+void h_emit_scan(const int32_t* pk, const int32_t* pm, const int32_t* fl,
+                 const int32_t* s, const int32_t* t0, int32_t* pe3,
+                 int32_t* tx, int32_t* ty, int32_t* tz, int64_t G, int Cp,
+                 int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      emit_scan_lane(pk, pm, fl, s, t0, pe3, tx, ty, tz, g, Cp, R, r);
+}
+void h_pair_backward(const int32_t* pk, const int32_t* pm, const int32_t* fl,
+                     const int32_t* m, const int32_t* minv, int32_t* cx,
+                     int32_t* cy, int32_t* inf, int64_t G, int Cp, int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      pair_backward_lane(pk, pm, fl, m, minv, cx, cy, inf, g, Cp, R, r);
+}
 }
 """
 
@@ -107,11 +170,20 @@ def lib(tmp_path_factory):
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(str(so))
-    P = ctypes.c_void_p
+    P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for name, nargs in (("h_fe_mul", 3), ("h_from_balanced", 2), ("h_pt_add", 3),
-                        ("h_pt_madd", 3), ("h_pt_double", 2)):
+                        ("h_pt_madd", 3), ("h_pt_double", 2), ("h_pair", 4)):
         fn = getattr(lib, name)
-        fn.argtypes = [P] * nargs + [ctypes.c_int64]
+        fn.argtypes = [P] * nargs + [I64]
+        fn.restype = None
+    lanes = [I64, I32, I32]  # G, Cp, R
+    for name, argtypes in (("h_pow", [P] * 3 + [I32, I64, I32]),
+                           ("h_pair_suffix", [P] * 4 + lanes),
+                           ("h_pair_forward", [P] * 4 + lanes),
+                           ("h_emit_scan", [P] * 9 + lanes),
+                           ("h_pair_backward", [P] * 8 + lanes)):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = None
     return lib
 
@@ -179,3 +251,100 @@ def test_mixed_add_and_double_match_twins(lib):
     want = CurveCtx(CFG).double(PointBatch(tp[:, 0], tp[:, 1], tp[:, 2]))
     for i in range(3):
         _assert_canonical_equal(got[:, i], want[i])
+
+
+def _assert_limbs_first_equal(got, twin):
+    """The same for limbs-first [..., L, R] arrays."""
+    _assert_canonical_equal(np.ascontiguousarray(got.swapaxes(-1, -2)), twin.transpose(-1, -2))
+
+
+def _run(lib, name, outs, *args):
+    """Call a harness function on numpy int32 inputs and freshly zeroed
+    outputs of the given shapes; ints pass as they are."""
+    arrays = [np.ascontiguousarray(a, dtype=np.int32) if isinstance(a, np.ndarray) else a
+              for a in args]
+    out = [np.zeros(shape, dtype=np.int32) for shape in outs]
+    ptrs = [a.ctypes.data if isinstance(a, np.ndarray) else a for a in arrays]
+    n_in = sum(isinstance(a, np.ndarray) for a in arrays)
+    getattr(lib, name)(*ptrs[:n_in], *(o.ctypes.data for o in out), *ptrs[n_in:])
+    return out
+
+
+def test_pair_algebra_matches_twins(lib):
+    """Predicates, denominator, numerator and emission on generic,
+    doubling and infinity pairs of canonical coordinates."""
+    rng = np.random.default_rng(24)
+    n = 96
+    xy = np.stack([rand_canonical(rng, (n,), CFG) for _ in range(4)], axis=1)
+    sg = rng.integers(0, 2, size=(n, 2)).astype(np.int32)
+    p = np.asarray(F.p_limbs, dtype=np.int64)
+    for i in range(0, n, 3):  # doubling: e2 == e1
+        xy[i, 2] = xy[i, 0]
+        if sg[i, 0] == sg[i, 1]:
+            xy[i, 3] = xy[i, 1]
+        else:
+            xy[i, 3] = F.canonical(torch.from_numpy((p - xy[i, 1]).astype(np.int32))).numpy()
+    for i in range(1, n, 3):  # infinity: e2 == -e1
+        xy[i, 2] = xy[i, 0]
+        sg[i, 1] = 1 - sg[i, 0]
+        xy[i, 3] = xy[i, 1]
+    xy[2, 2] = xy[2, 0]
+    sg[2] = (0, 0)
+    xy[2, 3] = F.canonical(torch.from_numpy((p - xy[2, 1]).astype(np.int32))).numpy()  # inf, same sign
+    inv = rand_canonical(rng, (n,), CFG)
+    (got,) = _run(lib, "h_pair", [(n, 5, L)], xy, sg, inv, n)
+
+    t = torch.from_numpy(xy)
+    x1, y1, x2, y2 = t.unbind(1)
+    s1, s2 = torch.from_numpy(sg).unbind(1)
+    dbl, inf = cc.pair_predicates_plain(CFG, x1, y1, s1, x2, y2, s2)
+    assert dbl[0::3].all() and inf[1::3].all() and inf[2] and not (dbl & inf).any()
+    assert np.array_equal(got[:, 4, 0], dbl.numpy()) and np.array_equal(got[:, 4, 1], inf.numpy())
+    y1p, y2p = cc.signed_y_plain(F, y1, s1), cc.signed_y_plain(F, y2, s2)
+    d = cc.pair_denominator_plain(F, x1, y1p, x2, dbl, inf)
+    num = cc.pair_numerator_plain(F, x1, y1p, y2p, dbl)
+    x3, y3 = cc.pair_emit_plain(F, num, torch.from_numpy(inv), x1, x2, y1p)
+    for k, want in enumerate((d, num, x3, y3)):
+        _assert_canonical_equal(got[:, k], want)
+
+
+def test_pow_matches_twin(lib):
+    rng = np.random.default_rng(25)
+    a = rand_balanced(rng, (2, 8), CFG).transpose(0, 2, 1)  # [B, L, R]
+    for e in (0, 1, 5, CFG.curve.modulus - 2):
+        nw = max(1, (e.bit_length() + 31) // 32)
+        words = (ctypes.c_uint32 * nw)(*((e >> (32 * i)) & 0xFFFFFFFF for i in range(nw)))
+        (got,) = _run(lib, "h_pow", [a.shape], a, ctypes.addressof(words), e.bit_length(), 2, 8)
+        _assert_limbs_first_equal(got, mont_pow_plain(CFG, torch.from_numpy(np.ascontiguousarray(a)), e))
+
+
+def test_pair_kernel_lanes_match_twins(lib):
+    """The four pair kernels' per-lane bodies, run for every lane, against
+    the twins: suffix -> (inverse of s_0) -> emit+scan, forward -> backward."""
+    G, Cp, R = 2, 4, 16
+    _, packed, perm, flags = pair_stream(CFG, G, 2 * Cp, R, nbase=6, seed=26)
+    tp, tm, tf = (torch.from_numpy(a) for a in (packed, perm, flags))
+    e = CFG.curve.modulus - 2
+    words = (ctypes.c_uint32 * 8)(*((e >> (32 * i)) & 0xFFFFFFFF for i in range(8)))
+    chain = (G, Cp, L, R)
+
+    (s,) = _run(lib, "h_pair_suffix", [chain], packed, perm, flags, G, Cp, R)
+    _assert_limbs_first_equal(s, cc.pair_suffix_plain(CFG, tp, tm, tf))
+    (t0,) = _run(lib, "h_pow", [(G, L, R)], s[:, 0], ctypes.addressof(words), e.bit_length(), G, R)
+    got = _run(lib, "h_emit_scan", [(G, Cp, R, 3 * L)] + [(G, L, R)] * 3,
+               packed, perm, flags, s, t0, G, Cp, R)
+    want = cc.emit_scan_plain(CFG, tp, tm, tf, torch.from_numpy(s), torch.from_numpy(t0))
+    for i in range(3):  # pe3 rows: x || y || z
+        _assert_canonical_equal(got[0][..., i * L:(i + 1) * L], want[0][..., i * L:(i + 1) * L])
+    for g, w in zip(got[1:], want[1:]):
+        _assert_limbs_first_equal(g, w)
+
+    (m,) = _run(lib, "h_pair_forward", [chain], packed, perm, flags, G, Cp, R)
+    _assert_limbs_first_equal(m, cc.pair_forward_plain(CFG, tp, tm, tf))
+    (minv,) = _run(lib, "h_pow", [(G, L, R)], m[:, -1], ctypes.addressof(words), e.bit_length(), G, R)
+    cx, cy, inf = _run(lib, "h_pair_backward", [chain, chain, (G, Cp, R)],
+                       packed, perm, flags, m, minv, G, Cp, R)
+    wx, wy, winf = cc.pair_backward_plain(CFG, tp, tm, tf, torch.from_numpy(m), torch.from_numpy(minv))
+    _assert_limbs_first_equal(cx, wx)
+    _assert_limbs_first_equal(cy, wy)
+    assert np.array_equal(inf, winf.numpy()) and inf.any() and not inf.all()

@@ -60,14 +60,15 @@ def test_identity_result_and_validation():
 
 
 @pytest.mark.parametrize("change", [
-    {"curve": BLS12_381}, {"word_size": 16}, {"glv": True}, {"compress": True},
+    {"curve": BLS12_381}, {"word_size": 16}, {"glv": True}, {"compress": True, "glv": True},
     {"karatsuba": True},
 ], ids=lambda c: next(iter(c)))
 def test_cuda_kernels_reject_other_configs(change):
-    """The CUDA wrappers take BN254 / 13-bit limbs / no GLV, compression or
-    Karatsuba only: any other config raises before a launch, never falls
-    back to a twin."""
+    """The CUDA wrappers take BN254 / 13-bit limbs, plain or pair-compressed,
+    without GLV or Karatsuba: any other config (compression with GLV
+    included) raises before a launch, never falls back to a twin."""
     check_cuda_config(pick_config(1 << 16))
+    check_cuda_config(dataclasses.replace(pick_config(1 << 16), compress=True))
     cfg = dataclasses.replace(pick_config(1 << 16), **change)
     with pytest.raises(NotImplementedError):
         check_cuda_config(cfg)
