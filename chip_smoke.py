@@ -3,29 +3,41 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the twelve CUDA kernels
+1. prints the card's name and power limit, builds the thirteen CUDA kernels
    from msm_tpu_torch/csrc and prints the build time;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs, at a small shape and at the shape the 2^20 MSM gives it
    (the pair kernels: the compressed 2^20 shape, with planted doubling and
-   infinity pairs), as exact integers after canonicalization (points summed
-   in another order: by cross-multiplication), timing both with CUDA events
-   (the kernels enqueued behind a spin kernel, so host overhead stays out);
+   infinity pairs; bpr_phase1: the blocked reduction of the 2^20 MSM's
+   buckets), as exact integers after canonicalization (points summed in
+   another order: by cross-multiplication), timing both with CUDA events
+   (the kernels enqueued behind a spin kernel, so host overhead stays out),
+   and computes each kernel's bound at that shape (the larger of its
+   multiply-adds over the card's integer rate and its bytes over the HBM
+   rate: 32 B per field element, the narrowest integer per key or index,
+   1 bit per flag) and, for the histogram, the time of torch.bincount;
+   then the point add, histogram and point total at the other shapes that
+   the naive and blocked paths give them;
 3. runs compress_pairs on the card at the compressed 2^20 shape and checks
    every pair sum and infinity flag against the oracle;
 4. runs small edge MSMs (edge scalars, duplicate points, P and -P under one
-   scalar, identity results, n = 0), plain and pair-compressed;
+   scalar, identity results, n = 0) on the plain, pair-compressed and naive
+   paths;
 5. drives each path at n = 2^20 with every launch counter reset just before
-   it: the main path (run_gpu_msm, BN254, pick_config) and the compressed
-   path (MsmConfig(BN254, compress=True)); checks that every kernel of the
-   path ran (and the plain scan did not, when compressed) and that the
+   it: the main path (run_gpu_msm, BN254, pick_config), the compressed path
+   (MsmConfig(BN254, compress=True)) and the naive Pippenger
+   (compute_msm_naive, 8-bit unsigned windows); checks that every kernel of
+   the path ran, that the kernels it must not reach did not, and that the
    result is bit-exact (1024 distinct base points tiled to n, scalars folded
-   per base point mod r, oracle MSM over the bases); then both at n = 2^16
-   against the oracle MSM over all 2^16 points;
+   per base point mod r, oracle MSM over the bases); then all three at
+   n = 2^16 against the oracle MSM over all 2^16 points;
 6. times each end-to-end MSM (warm, median of 3), its stages, its peak
    device memory, and, under torch.profiler, its device time by kernel and
    the device's idle share;
-7. prints the kernels' JSON line, then as its last line
+7. at n = 2^20 drives the reference-shaped stage 4 (bucket_accumulate, then
+   bucket_reduce_blocked through bpr_phase1): its 16 window sums equal the
+   telescoped ones on the same points, and Horner over them is bit-exact;
+8. prints the kernels' JSON line, then as its last line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -35,12 +47,10 @@ It needs a CUDA device and the repository around it.
 from __future__ import annotations
 
 import json
-import shutil
 import statistics
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -59,6 +69,7 @@ REPLACES = {
     "emit_scan": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:561"),
     "pair_forward": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:205"),
     "pair_backward": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:333"),
+    "bpr_phase1": ("csrc/bpr.cu", "msm_tpu/ops/pallas_bpr.py:97"),
 }
 #: the kernels each path must launch; a kernel's count in the JSON line comes
 #: from the first path that lists it
@@ -68,12 +79,29 @@ PATHS = {
     "compressed": ("point_add", "convert_pack", "bucket_hist", "mont_pow", "pair_suffix",
                    "emit_scan", "row_offsets", "point_total", "horner"),
     "pairs": ("pair_forward", "mont_pow", "pair_backward"),
+    "naive": ("point_add", "convert_pack", "bucket_hist", "scan_rows", "row_offsets"),
+    "blocked": ("point_add", "convert_pack", "bucket_hist", "scan_rows", "row_offsets",
+                "point_total", "horner", "bpr_phase1"),
 }
+#: the kernels a path must not launch
+EXCLUDED = {
+    "compressed": ("scan_rows",),
+    "naive": ("point_total", "horner", "bpr_phase1"),
+}
+#: H100 SXM peaks: HBM bytes/s, and 32-bit IMAD per SM per clock (x 132 SMs
+#: x the SM clock that nvidia-smi reports as clocks.max.sm)
+HBM_BYTES_PER_S = 3.35e12
+SMS, IMAD_PER_SM_CLOCK = 132, 64
+#: the least integer work of one 254-bit Montgomery product: 2 * 8^2 + 8 = 136
+#: multiply-adds on 32-bit words, each two IMAD (low and high half)
+IMAD_PER_PRODUCT = 2 * (2 * 8 * 8 + 8)
+#: bytes of one 254-bit field element, the least a coordinate needs
+FE_BYTES = 32
 
 
 def _kernels():
-    from msm_tpu_torch.ops import (cuda_compress, cuda_convert, cuda_curve, cuda_hist, cuda_inv,
-                                   cuda_prefix, cuda_scan)
+    from msm_tpu_torch.ops import (cuda_bpr, cuda_compress, cuda_convert, cuda_curve, cuda_hist,
+                                   cuda_inv, cuda_prefix, cuda_scan)
 
     return {
         "point_add": (cuda_curve.point_add, cuda_curve.point_add_plain),
@@ -88,6 +116,7 @@ def _kernels():
         "emit_scan": (cuda_compress.emit_scan, cuda_compress.emit_scan_plain),
         "pair_forward": (cuda_compress.pair_forward, cuda_compress.pair_forward_plain),
         "pair_backward": (cuda_compress.pair_backward, cuda_compress.pair_backward_plain),
+        "bpr_phase1": (cuda_bpr.bpr_phase1, cuda_bpr.bpr_phase1_plain),
     }
 
 
@@ -128,7 +157,7 @@ def _kernel_ms(fn, reps: int):
 
 def _mont(vals, cfg):
     """python ints -> Montgomery-form canonical limbs [n, L] int32."""
-    from msm_tpu.utils.limbs import ints_to_limbs
+    from msm_tpu_torch.utils.limbs import ints_to_limbs
 
     p = cfg.curve.modulus
     return ints_to_limbs([v * cfg.r % p for v in vals], cfg.word_size, cfg.num_words).astype(np.int32)
@@ -201,11 +230,115 @@ def _compare(f, got, want, as_points: bool) -> int:
     return err
 
 
-def check_kernels(sizes=("small", "slice"), device="cuda") -> dict:
+def _products(name, args) -> int:
+    """Montgomery products the kernel's function needs on these inputs,
+    counted from the formulas in csrc: complete addition 12, mixed addition
+    11, doubling 8 (the multiplication by 3b is free), to-Montgomery 1 per
+    coordinate, Fermat inversion one per exponent bit and one per set bit;
+    per pair, suffix and forward products 1, backward emission 6, emission
+    6 plus the mixed addition's 11."""
+    shape = args[1].shape
+    if name == "point_add":
+        return 12 * shape[0]
+    if name == "convert_pack":
+        return 2 * shape[0]
+    if name == "bucket_hist":
+        return 0
+    if name == "scan_rows":
+        return 11 * args[2].numel()
+    if name == "row_offsets":  # lane totals [G, L, R]
+        return 12 * shape[0] * (shape[2] - 1)
+    if name == "point_total":  # [S, N, L]
+        return 12 * shape[0] * (shape[1] - 1)
+    if name == "horner":
+        return (shape[0] - 1) * (8 * args[4] + 12)
+    if name == "mont_pow":
+        e = args[2]
+        return shape[0] * shape[2] * (e.bit_length() + bin(e).count("1"))
+    if name == "bpr_phase1":  # [G, Bl, T, L]: two additions per bucket
+        return 24 * shape[0] * shape[1] * shape[2]
+    pairs = args[2].numel() // 2
+    return {"pair_suffix": 1, "pair_forward": 1, "pair_backward": 6, "emit_scan": 17}[name] * pairs
+
+
+def _int_bytes(hi: int) -> int:
+    """Bytes of the narrowest integer type that holds 0 .. hi."""
+    return 1 if hi < 1 << 8 else 2 if hi < 1 << 16 else 4
+
+
+def _least_bytes(name, args) -> float:
+    """Bytes the kernel's function must move on these inputs, each input
+    read once and each output written once: 32 B per 254-bit field element
+    (96 B per projective point, 64 B per packed affine row), 2 B per u16
+    word, the narrowest integer type per key, count or table index, 1 bit
+    per flag. The limb layout's padding (80 B per coordinate at 13-bit
+    limbs, 4 B per u16 word) is the kernels' choice, not the function's."""
+    a = args[1:]
+    if name == "point_add":  # six [B, L] in, three out
+        return 9 * FE_BYTES * a[0].shape[0]
+    if name == "convert_pack":  # [n, 16] u16 words x2 -> [n, 2D]
+        return a[0].shape[0] * (2 * 16 * 2 + 2 * FE_BYTES)
+    if name == "bucket_hist":  # keys [G, n] < NB -> counts [G, NB] <= n
+        keys, nb = a[0], a[1]
+        return keys.numel() * _int_bytes(nb - 1) + keys.shape[0] * nb * _int_bytes(keys.shape[1])
+    if name in ("row_offsets", "mont_pow"):  # [G, L, R] lanes, in and out
+        lanes = a[0].shape[0] * a[0].shape[2]
+        return 2 * lanes * (3 if name == "row_offsets" else 1) * FE_BYTES
+    if name in ("point_total", "horner"):  # [S, N, L] or [S, L] points -> one per row / one
+        pts = a[0].numel() // a[0].shape[-1]
+        return 3 * FE_BYTES * (pts + (a[0].shape[0] if name == "point_total" else 1))
+    if name == "bpr_phase1":  # [G, Bl, T, L] buckets -> m, g [G, T, L]
+        G, Bl, T, _ = a[0].shape
+        return 3 * FE_BYTES * G * T * (Bl + 2)
+    # the scan and the pair kernels: a packed table, perm and flags [G, C, R]
+    table, perm = a[0], a[1]
+    rows, steps, lanes = table.shape[0], perm.numel(), perm.shape[0] * perm.shape[2]
+    stream = rows * 2 * FE_BYTES + steps * (_int_bytes(rows - 1) + 1 / 8)
+    if name == "scan_rows":  # -> pe3 per step, lane totals
+        return stream + 3 * FE_BYTES * (steps + lanes)
+    pairs = steps // 2
+    if name in ("pair_suffix", "pair_forward"):  # -> one product per pair
+        return stream + pairs * FE_BYTES
+    chain_in = (pairs + lanes) * FE_BYTES  # products per pair, inverse per lane
+    if name == "emit_scan":  # -> pe3 per pair, lane totals
+        return stream + chain_in + 3 * FE_BYTES * (pairs + lanes)
+    return stream + chain_in + pairs * (2 * FE_BYTES + 1 / 8)  # pair_backward: x, y, inf
+
+
+def _bound(name, args, clock_hz) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the larger of the products'
+    IMAD over the card's integer rate and the least bytes over the HBM
+    rate."""
+    ops_s = _products(name, args) * IMAD_PER_PRODUCT / (SMS * IMAD_PER_SM_CLOCK * clock_hz)
+    bytes_s = _least_bytes(name, args) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz) -> dict:
+    """One kernel against its twin on the same inputs: exact after
+    canonicalization (as points: by cross-multiplication); raises on any
+    difference. Returns {max_abs_err, ms, plain_ms, bound_ms, bound_by}."""
+    wrapper, plain = kern[name]
+    got, ms = _kernel_ms(lambda: wrapper(*args), reps)
+    want, plain_ms = _timed(lambda: plain(*args))
+    (gf, gi), (wf, wi) = _field_outputs(name, got, L), _field_outputs(name, want, L)
+    err = max([_compare(f, gf, wf, as_points) if gf else 0]
+              + [int((a.long() - b.long()).abs().max()) for a, b in zip(gi, wi)])
+    bound_ms, bound_by = _bound(name, args, clock_hz)
+    print(f"check {name:13s} {label:5s} max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f}"
+          f" bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    if err != 0:
+        raise AssertionError(f"{name} ({label}) disagrees with its twin: max_abs_err={err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> dict:
     """Every kernel against its twin on the card; returns per-kernel
-    {max_abs_err, ms, plain_ms} from the slice shape (or the last size)."""
-    from msm_tpu.oracle.pyecc import Curve
-    from msm_tpu.params import BN254, MsmConfig, pick_config
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} from the
+    slice shape (or the last size)."""
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254, MsmConfig, pick_config
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
 
@@ -274,25 +407,73 @@ def check_kernels(sizes=("small", "slice"), device="cuda") -> dict:
         cases["pair_forward"] = (pair_in, False, 3)
         m = kern["pair_forward"][0](*pair_in)
         cases["pair_backward"] = ([*pair_in, m, kern["mont_pow"][0](cfg, m[:, -1], e)], False, 3)
+        # blocked reduction, phase 1: the 2^20 MSM's 16 windows of 32768
+        # body buckets at bpr_threads = 512 lanes (Bl = 64)
+        G3, T3, Bl3 = (1, 16, 16) if small else (cfg.num_subtasks, 512, (NB - 1) // 512)
+        cases["bpr_phase1"] = ([cfg, *(t(_rand_fe(rng, (G3, Bl3, T3), cfg)) for _ in range(3))], False, 3)
         for name, (args, as_points, reps) in cases.items():
-            wrapper, plain = kern[name]
-            got, ms = _kernel_ms(lambda: wrapper(*args), reps)
-            want, plain_ms = _timed(lambda: plain(*args))
-            (gf, gi), (wf, wi) = _field_outputs(name, got, L), _field_outputs(name, want, L)
-            err = max([_compare(f, gf, wf, as_points) if gf else 0]
-                      + [int((a.long() - b.long()).abs().max()) for a, b in zip(gi, wi)])
-            print(f"check {name:13s} {size:5s} max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f}",
-                  flush=True)
-            if err != 0:
-                raise AssertionError(f"{name} ({size}) disagrees with its twin: max_abs_err={err}")
-            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            out[name] = {**_check_case(kern, f, L, name, size, args, as_points, reps, clock_hz),
+                         "library_ms": None}
+        # the one PyTorch call that computes a kernel's function: the
+        # histogram as torch.bincount over keys offset by subtask
+        lib_ms = _bincount_ms(cases["bucket_hist"][0][1], NB)
+        out["bucket_hist"]["library_ms"] = lib_ms
+        print(f"library bucket_hist {size:5s} torch.bincount ms={lib_ms:.4f}", flush=True)
+    if "slice" in sizes:
+        check_path_shapes(kern, rng, base, dev, clock_hz)
     return out
+
+
+def _bincount_ms(keys, nb) -> float:
+    """ms of torch.bincount over keys [G, n] offset by g * nb: the one
+    PyTorch call that computes the histogram kernel's function."""
+    flat = (keys.long() + torch.arange(keys.shape[0], device=keys.device)[:, None] * nb).reshape(-1)
+    return _kernel_ms(lambda: torch.bincount(flat, minlength=keys.shape[0] * nb), 5)[1]
+
+
+def check_path_shapes(kern, rng, base, dev, clock_hz) -> None:
+    """The kernels at the other shapes that the naive and blocked paths at
+    2^20 give them, held exact against their twins as in check_kernels:
+    the naive histogram (32 windows of 2^20 8-bit keys into 256 buckets,
+    with torch.bincount's time beside it), the running sum's point adds
+    (32 windows), bucket_accumulate's (32 x 256 buckets; also the shape of
+    the blocked tail's 16 x 512 suffix ladder), the blocked tail's
+    doublings (16 windows, P + P) and its point totals (16 x 512 real
+    points)."""
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.models.naive import NAIVE_CONFIG
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import pick_config
+
+    cfg = pick_config(1 << 20)
+    f, L = get_field_ctx(cfg), cfg.num_words
+    S, T = cfg.num_subtasks, pick_geometry(1 << 20, cfg.chunk_size).bpr_threads
+    nS, nb = NAIVE_CONFIG.num_subtasks, 1 << NAIVE_CONFIG.chunk_size
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def fe(batch):
+        return [t(_rand_fe(rng, (batch,), cfg)) for _ in range(6)]
+
+    keys = t(rng.integers(0, nb, size=(nS, 1 << 20), dtype=np.int32))
+    dbl = fe(S)[:3]
+    cases = [
+        ("bucket_hist", "naive", [NAIVE_CONFIG, keys, nb], False, 3),
+        ("point_add", "naive_running", [cfg, *fe(nS)], False, 5),
+        ("point_add", "naive_accumulate", [cfg, *fe(nS * nb)], False, 5),
+        ("point_add", "blocked_doubling", [cfg, *dbl, *dbl], False, 5),
+        ("point_total", "blocked_tail", [cfg, *_curve_points(rng, (S, T), cfg, base, dev)], True, 3),
+    ]
+    for name, label, args, as_points, reps in cases:
+        _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz)
+    print(f"library bucket_hist naive torch.bincount ms={_bincount_ms(keys, nb):.4f}", flush=True)
 
 
 def sample_msm(n: int, seed: int = SEED):
     """1024 distinct points tiled to n, uniform scalars (numpy seed)."""
-    from msm_tpu.oracle.pyecc import Curve
-    from msm_tpu.params import BN254
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254
 
     cv = Curve(BN254)
     nbase = min(n, 1024)
@@ -305,8 +486,8 @@ def sample_msm(n: int, seed: int = SEED):
 
 def folded_oracle(base, ks):
     """The exact MSM of tiled points: scalars folded per base point mod r."""
-    from msm_tpu.oracle import best_msm
-    from msm_tpu.params import BN254
+    from msm_tpu_torch.oracle import best_msm
+    from msm_tpu_torch.params import BN254
 
     nb = len(base)
     folded = [0] * nb
@@ -315,9 +496,24 @@ def folded_oracle(base, ks):
     return best_msm(base, [k % BN254.order for k in folded])
 
 
-def stage_times(pts, ks, cfg, device="cuda") -> dict:
+def msm_path(path: str, n: int, device="cuda"):
+    """(config, run) of an MSM path: run(points, scalars) -> affine (x, y)
+    or None, through the entry point a user calls."""
+    import msm_tpu_torch
+    from msm_tpu_torch.models import common
+    from msm_tpu_torch.models.naive import NAIVE_CONFIG, compute_msm_naive
+    from msm_tpu_torch.params import BN254, MsmConfig, pick_config
+
+    if path == "naive":
+        return NAIVE_CONFIG, lambda pts, ks: common.result_to_affine(
+            compute_msm_naive(pts, ks, device=device), NAIVE_CONFIG)
+    cfg = MsmConfig(curve=BN254, compress=True) if path == "compressed" else pick_config(n)
+    return cfg, lambda pts, ks: msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+
+
+def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
     """One MSM split into its stages, each ended by a synchronize (ms)."""
-    from msm_tpu_torch.models import common, cuzk
+    from msm_tpu_torch.models import common, cuzk, naive
     from msm_tpu_torch.models.geometry import pick_geometry
 
     st = {}
@@ -335,6 +531,12 @@ def stage_times(pts, ks, cfg, device="cuda") -> dict:
     packed = common.prepare_points(cfg, xd, yd)
     t0 = mark("convert", t0)
     geom = pick_geometry(x.shape[0], cfg.chunk_size, compress=cfg.compress)
+    if path == "naive":
+        ws = naive.naive_window_sums(packed, sd, cfg, geom)
+        t0 = mark("window_sums", t0)
+        common.window_sums_to_result(ws.numpy(), cfg)
+        mark("host_horner", t0)
+        return st
     ws = cuzk.window_sums_from_table(packed, sd, cfg, geom)
     t0 = mark("window_sums", t0)
     pt = cuzk.msm_point_from_ws(ws, cfg)
@@ -343,7 +545,7 @@ def stage_times(pts, ks, cfg, device="cuda") -> dict:
     return st
 
 
-def device_breakdown(pts, ks, cfg, trace_path, device="cuda") -> tuple[float, float, dict]:
+def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
     """One MSM under torch.profiler: (wall ms, device-busy ms, device ms by
     kernel). Busy time is the union of the device's kernel and copy
     intervals; kernels of this package keep their names, PyTorch's own
@@ -351,7 +553,6 @@ def device_breakdown(pts, ks, cfg, trace_path, device="cuda") -> tuple[float, fl
     must hold every kernel launch the wrappers counted (the profiler has been
     seen to drop device events); an incomplete one is taken again, at most
     three times."""
-    import msm_tpu_torch
     from torch.profiler import ProfilerActivity, profile
 
     kern = _kernels()
@@ -360,7 +561,7 @@ def device_breakdown(pts, ks, cfg, trace_path, device="cuda") -> tuple[float, fl
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+            run(pts, ks)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         trace_path.parent.mkdir(parents=True, exist_ok=True)
@@ -396,23 +597,22 @@ def trace_breakdown(events) -> tuple[float, dict, int]:
     return busy / 1e3, by_name, n_ours
 
 
-def edge_checks(cfg=None, device="cuda") -> None:
-    """Small MSMs through the kernels under ``cfg`` (None: pick_config):
+def edge_checks(path: str, device="cuda") -> None:
+    """Small MSMs through the kernels of a path (plain: pick_config):
     n = 35 (padded to 64) with repeated points and scalars at the recode
     edges and out of range; P and -P interleaved under one scalar (infinity
     pairs in every bucket; identity result); duplicates, negatives and
     other points mixed; k P + (r - k) P; the empty MSM."""
-    import msm_tpu_torch
-    from msm_tpu.oracle import best_msm
-    from msm_tpu.oracle.pyecc import Curve
-    from msm_tpu.params import BN254
+    from msm_tpu_torch.oracle import best_msm
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254
 
     cv, r, q = Curve(BN254), BN254.order, BN254.modulus
     base = [cv.to_affine(p) for p in cv.sample_points(12, seed=SEED)]
     neg = [(x, q - y) for x, y in base]
 
     def run(pts, ks):
-        return msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+        return msm_path(path, len(pts), device)[1](pts, ks)
 
     def oracle(pts, ks):
         want = best_msm(pts, [k % r for k in ks])
@@ -434,8 +634,7 @@ def edge_checks(cfg=None, device="cuda") -> None:
         raise AssertionError("identity cases lost their identity")
     if run([], []) is not None:
         raise AssertionError("empty MSM should be the identity")
-    print(f"edge MSMs ({'compressed' if cfg is not None and cfg.compress else 'plain'}: "
-          f"{', '.join(cases)}, n = 0): bit-exact", flush=True)
+    print(f"edge MSMs ({path}: {', '.join(cases)}, n = 0): bit-exact", flush=True)
 
 
 def check_pairs(shape=(4, 1024, 1024), device="cuda") -> dict:
@@ -444,8 +643,8 @@ def check_pairs(shape=(4, 1024, 1024), device="cuda") -> dict:
     infinity pairs: every pair sum and every infinity flag against the
     oracle (all 32 x 32 signed pairs precomputed). Counters are reset just
     before; returns them."""
-    from msm_tpu.oracle.pyecc import Curve
-    from msm_tpu.params import BN254, MsmConfig
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254, MsmConfig
     from msm_tpu_torch.ops.cuda_compress import compress_pairs
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
@@ -485,18 +684,31 @@ def check_pairs(shape=(4, 1024, 1024), device="cuda") -> dict:
     return counts
 
 
+def _counts_of(tag: str, path: str) -> dict:
+    """The launch counts since the last reset; raises when a kernel of the
+    path did not run or a kernel the path must not reach did."""
+    counts = {name: w.launches for name, (w, _) in _kernels().items()}
+    print(f"{tag}: launches {json.dumps(counts)}", flush=True)
+    missing = [k for k in PATHS[path] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels of the path not launched: {missing}")
+    stray = [k for k in EXCLUDED.get(path, ()) if counts[k] > 0]
+    if stray:
+        raise AssertionError(f"{tag}: kernels outside the path launched: {stray}")
+    return counts
+
+
 def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
-    """Both paths (plain, compressed) at each size: 2^20 with counters reset
-    just before each run, 2^16 against the full oracle, and end-to-end
-    timings. Returns {path: launch counts of its 2^20 run}."""
-    import msm_tpu_torch
-    from msm_tpu.oracle import best_msm
-    from msm_tpu.oracle.pyecc import Curve
-    from msm_tpu.params import BN254, MsmConfig, pick_config
+    """The plain, compressed and naive paths at each size: 2^20 with counters
+    reset just before each run, 2^16 against the full oracle, and end-to-end
+    timings; at 2^20 also the blocked stage 4 (check_blocked) on the same
+    inputs and oracle. Returns {path: launch counts of its 2^20 run}."""
+    from msm_tpu_torch.oracle import best_msm
+    from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops._build import BUILD_ROOT
+    from msm_tpu_torch.params import BN254
 
     cv = Curve(BN254)
-    kern = _kernels()
     results = {}
     for logn in log_sizes:
         n = 1 << logn
@@ -506,63 +718,89 @@ def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
         # every point
         want = folded_oracle(base, ks) if n > 1 << 16 else best_msm(pts, ks)
         print(f"msm 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
-        for path, cfg in (("plain", pick_config(n)), ("compressed", MsmConfig(curve=BN254, compress=True))):
+        for path in ("plain", "compressed", "naive"):
+            cfg, run = msm_path(path, n, device)
             tag = f"msm 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks})"
             _reset_counts()
             t0 = time.perf_counter()
-            got = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+            got = run(pts, ks)
             torch.cuda.synchronize()
             first = time.perf_counter() - t0
-            counts = {name: w.launches for name, (w, _) in kern.items()}
-            print(f"{tag}: launches {json.dumps(counts)} first call {first:.3f} s", flush=True)
+            counts = _counts_of(tag, path)
+            print(f"{tag}: first call {first:.3f} s", flush=True)
             if want.is_identity() or got is None or cv.to_affine(want) != tuple(got):
                 raise AssertionError(f"{tag} differs from the oracle: {got}")
-            missing = [k for k in PATHS[path] if counts[k] <= 0]
-            if missing:
-                raise AssertionError(f"{tag}: kernels of the path not launched: {missing}")
-            if path == "compressed" and counts["scan_rows"]:
-                raise AssertionError(f"{tag}: the plain scan ran")
             if logn == log_sizes[0]:
                 results[path] = counts
             walls = []
             torch.cuda.reset_peak_memory_stats()
             for _ in range(3):
                 t0 = time.perf_counter()
-                again = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+                again = run(pts, ks)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
                 if again != got:
                     raise AssertionError("repeat MSM differs")
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
-            st = stage_times(pts, ks, cfg, device)
+            st = stage_times(pts, ks, cfg, path, device)
             print(f"{tag}: bit-exact; wall_s median of 3 = {statistics.median(walls):.4f} "
                   f"(runs {', '.join(f'{w:.4f}' for w in walls)}); peak_mem_gib={peak_gib:.3f}; "
                   "stages_ms " + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
             wall_ms, busy_ms, by_name = device_breakdown(
-                pts, ks, cfg, BUILD_ROOT / f"trace_2e{logn}_{path}.json", device)
+                run, pts, ks, BUILD_ROOT / f"trace_2e{logn}_{path}.json")
             print(f"{tag}: profiled wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
                   f"idle_share={1 - busy_ms / wall_ms:.3f}; device_ms "
                   + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
                   flush=True)
+        if logn == log_sizes[0]:
+            results["blocked"] = check_blocked(pts, ks, want, device)
     return results
 
 
-def build_cpp_oracle() -> str:
-    """Build the C++ oracle (msm_tpu/oracle/cpp) with the g++ on PATH before
-    its first use: its Makefile takes $CXX, which may name a compiler that
-    lacks OpenMP. Where the build fails, the reference MSMs run on the pure
-    Python oracle, which is exact as well. Returns the oracle in use."""
-    from msm_tpu.oracle import native
+def check_blocked(pts, ks, want, device="cuda") -> dict:
+    """The reference-shaped stage 4 on the plain config (pick_config: c = 16,
+    S = 16, B = 2^15 + 1 buckets, T = bpr_threads lanes), counters reset just
+    before: convert, signed decomposition, bucket_accumulate over every
+    window, bucket_reduce_blocked (kernel 8 and its tail), Horner. Its window
+    sums must equal window_sum_from_pe's on freshly taken boundary prefixes
+    of the same points (by cross-multiplication) and its MSM the oracle's.
+    Prints the device time of both stage-4 reductions. Returns the counts."""
+    from msm_tpu_torch.models import common, cuzk
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.ops import scan
+    from msm_tpu_torch.ops.curve import get_curve_ctx
+    from msm_tpu_torch.ops.decompose import decompose_signed
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import pick_config
 
-    cpp = Path(native.__file__).parent / "cpp"
-    if not (cpp / "libmsm_oracle.so").exists():
-        r = subprocess.run(
-            ["make", "-s", "-B", "-C", str(cpp), f"CXX={shutil.which('g++') or 'g++'}"],
-            capture_output=True, text=True,
-        )
-        if r.returncode != 0:
-            print(f"C++ oracle build failed: {r.stderr.strip()[-400:]}", flush=True)
-    return "C++" if native.native_available() else "python"
+    n = common.pad_size(len(pts))
+    cfg = pick_config(n)
+    ec, geom = get_curve_ctx(cfg), pick_geometry(n, cfg.chunk_size)
+    batch = min(geom.subtask_batch, cfg.num_subtasks)
+    tag = f"blocked stage 4 2^{n.bit_length() - 1} (c={cfg.chunk_size} T={geom.bpr_threads})"
+    xd, yd, sd = (torch.from_numpy(a).to(device) for a in common.pad_inputs(pts, ks, cfg))
+    _reset_counts()
+    packed = common.prepare_points(cfg, xd, yd)
+    keys, signs = decompose_signed(sd, cfg.chunk_size, cfg.num_subtasks)
+    buckets = scan.bucket_accumulate(ec, packed, keys, signs, cfg.num_buckets, geom.num_rows, batch)
+    w = scan.bucket_reduce_blocked(ec, buckets, geom.bpr_threads)
+    pt = cuzk.msm_point_from_ws(torch.stack([w.x, w.y, w.z], dim=1), cfg)
+    torch.cuda.synchronize()
+    counts = _counts_of(tag, "blocked")
+    got = common.std_point_to_jpoint(pt.numpy(), cfg)
+    cv = Curve(cfg.curve)
+    if got.is_identity() or cv.to_affine(got) != cv.to_affine(want):
+        raise AssertionError(f"{tag}: the MSM differs from the oracle")
+    pe = scan.bucket_boundary_prefix(ec, packed, keys, signs, cfg.num_buckets, geom.num_rows, batch)
+    tele = scan.window_sum_from_pe(ec, pe)
+    err = _compare(ec.f, tuple(w), tuple(tele), as_points=True)
+    if err != 0:
+        raise AssertionError(f"{tag}: window sums differ from the telescoped ones: {err}")
+    _, blocked_ms = _kernel_ms(lambda: scan.bucket_reduce_blocked(ec, buckets, geom.bpr_threads), 3)
+    _, tele_ms = _kernel_ms(lambda: scan.window_sum_from_pe(ec, pe), 3)
+    print(f"{tag}: {cfg.num_subtasks} window sums equal the telescoped ones; MSM bit-exact; "
+          f"stage-4 device ms blocked={blocked_ms:.3f} telescoped={tele_ms:.3f}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -573,9 +811,15 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip()
     print(smi, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout.split()[0])
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
+          f"clocks.max.sm {clock_mhz:.0f} MHz")
 
     from msm_tpu_torch.ops import _build
+    from msm_tpu_torch.oracle import native
 
     t0 = time.perf_counter()
     so = _build.build()
@@ -585,13 +829,11 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
-    print(f"oracle: {build_cpp_oracle()}", flush=True)
-    checks = check_kernels()
+    print(f"oracle: {'C++' if native.native_available() else 'python'}", flush=True)
+    checks = check_kernels(clock_mhz * 1e6)
     pair_counts = check_pairs()
-    from msm_tpu.params import BN254, MsmConfig
-
-    edge_checks()
-    edge_checks(MsmConfig(curve=BN254, compress=True))
+    for path in ("plain", "compressed", "naive"):
+        edge_checks(path)
     by_path = {**run_msm_checks(), "pairs": pair_counts}
     rows = []
     for name, (src, rep) in REPLACES.items():
@@ -601,6 +843,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"msm_tpu_torch/{src}",
             "replaces": rep, "launches": by_path[path][name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

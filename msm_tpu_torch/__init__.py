@@ -6,10 +6,14 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
                             wrapper, its launch counter and its plain twin)
 - ``msm_tpu_torch.csrc``    the CUDA sources, built at first use
 - ``msm_tpu_torch.models``  geometry, host plumbing, the cuZK pipeline
+                            (``cuzk``) and the naive Pippenger (``naive``)
+- ``msm_tpu_torch.params``  curves and ``MsmConfig`` (a copy of the JAX
+                            package's, with the same names)
+- ``msm_tpu_torch.oracle``  the CPU oracles (pure Python, and C++ built at
+                            first use)
+- ``msm_tpu_torch.utils``   limb serialization
 
-Configuration, limb serialization and the CPU oracles are shared with the
-JAX package (``msm_tpu.params``, ``msm_tpu.utils.limbs``,
-``msm_tpu.oracle``), none of which imports JAX. Every public entry takes an
+The package imports nothing of ``msm_tpu``. Every public entry takes an
 explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
 plain twins for any curve. On CUDA the kernels cover BN254 with 13-bit limbs,
 plain (``MsmConfig(curve=BN254)``, ``pick_config(n)``) or pair-compressed
@@ -22,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from msm_tpu.params import BN254, MsmConfig
+from msm_tpu_torch.params import BN254, MsmConfig
 
 __all__ = [
     "cpu_msm",
@@ -60,20 +64,21 @@ def load_point_table(packed: np.ndarray, cfg: MsmConfig, device="cuda"):
 
 def cpu_msm(points, scalars, curve=BN254):
     """CPU oracle MSM (C++ when built, else pure python); an oracle JPoint."""
-    from msm_tpu.oracle import best_msm
+    from msm_tpu_torch.oracle import best_msm
 
     return best_msm(points, scalars, curve=curve)
 
 
 def sample_points(n: int, curve=BN254, seed: int = 0):
-    """Random affine points."""
-    from msm_tpu import sample_points as _sample
+    """Random affine points: random multiples of the generator."""
+    from msm_tpu_torch.oracle.pyecc import Curve
 
-    return _sample(n, curve=curve, seed=seed)
+    cv = Curve(curve)
+    return [cv.to_affine(p) for p in cv.sample_points(n, seed=seed)]
 
 
 def sample_scalars(n: int, curve=BN254, seed: int = 1):
-    """Random scalars."""
-    from msm_tpu import sample_scalars as _sample
+    """Random scalars in [0, order)."""
+    from msm_tpu_torch.oracle.pyecc import Curve
 
-    return _sample(n, curve=curve, seed=seed)
+    return Curve(curve).sample_scalars(n, seed=seed)

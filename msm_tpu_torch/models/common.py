@@ -12,11 +12,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from msm_tpu.oracle.pyecc import IDENTITY, Curve, JPoint
-from msm_tpu.params import MsmConfig
-from msm_tpu.utils import limbs as L
 from msm_tpu_torch.ops.cuda_convert import convert_pack
 from msm_tpu_torch.ops.curve import CurveCtx, PointBatch
+from msm_tpu_torch.oracle.pyecc import IDENTITY, Curve, JPoint
+from msm_tpu_torch.params import MsmConfig
+from msm_tpu_torch.utils import limbs as L
 
 
 def pad_size(n: int) -> int:

@@ -22,14 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu.oracle.pyecc import IDENTITY, JPoint
-from msm_tpu.params import MsmConfig, pick_config
 from msm_tpu_torch.models import common
 from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
 from msm_tpu_torch.ops.cuda_prefix import horner
 from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
 from msm_tpu_torch.ops.scan import bucket_boundary_prefix, window_sum_from_pe
+from msm_tpu_torch.oracle.pyecc import IDENTITY, JPoint
+from msm_tpu_torch.params import MsmConfig, pick_config
 
 #: largest MSM run as one pass
 CHUNK_MAX = 1 << 22

@@ -3,8 +3,10 @@
 
 - ``num_rows``: lanes R of the blocked prefix scan; the scan kernel runs one
   thread per lane for C = n / R steps.
-- ``bpr_threads``: kept for interface parity (the two-phase bucket reduction
-  is not on this path; the telescoped ``window_sum_from_pe`` replaces it).
+- ``bpr_threads``: lanes T per subtask of the two-phase blocked bucket
+  reduction; callers pass it to ``scan.bucket_reduce_blocked`` (kernel 8
+  runs one thread per subtask and lane). The cuZK main path reduces by the
+  telescoped ``window_sum_from_pe`` instead and does not read it.
 - ``subtask_batch``: how many subtasks the scan processes per launch; it
   bounds the boundary-prefix buffer at subtask_batch * n * 3L * 4 bytes
   (half that when pair-compressed).

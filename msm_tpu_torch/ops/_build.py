@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from msm_tpu.params import MsmConfig
+from msm_tpu_torch.params import MsmConfig
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "msm_tpu_torch"
@@ -48,6 +48,7 @@ SIGNATURES = {
     "msm_emit_scan": [P] * 9 + [I64, I32, I32, P],
     "msm_pair_forward": [P] * 4 + [I64, I32, I32, P],
     "msm_pair_backward": [P] * 8 + [I64, I32, I32, P],
+    "msm_bpr_phase1": [P] * 9 + [I64, I32, I32, P],
 }
 
 _lock = threading.Lock()

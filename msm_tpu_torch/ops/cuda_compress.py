@@ -38,13 +38,13 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu.params import MsmConfig
 from msm_tpu_torch.ops import _build, bigint
 from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs
 from msm_tpu_torch.ops.cuda_inv import mont_pow
 from msm_tpu_torch.ops.cuda_scan import rcb16_madd_plain
 from msm_tpu_torch.ops.field import FieldCtx, get_field_ctx
+from msm_tpu_torch.params import MsmConfig
 
 # -- pair algebra (twins of csrc/pair.cuh) -------------------------------------
 

@@ -16,10 +16,10 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu.params import MsmConfig
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.decompose import extract_windows
 from msm_tpu_torch.ops.field import get_field_ctx
+from msm_tpu_torch.params import MsmConfig
 
 
 def coord_words(cfg: MsmConfig) -> int:

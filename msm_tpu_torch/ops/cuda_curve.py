@@ -15,10 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from msm_tpu.params import MsmConfig
-from msm_tpu.utils.limbs import int_to_limbs
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.field import FieldCtx, get_field_ctx
+from msm_tpu_torch.params import MsmConfig
+from msm_tpu_torch.utils.limbs import int_to_limbs
 
 
 def b3_mont_limbs(cfg: MsmConfig) -> np.ndarray:

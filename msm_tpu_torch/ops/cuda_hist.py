@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu.params import MsmConfig
 from msm_tpu_torch.ops import _build
+from msm_tpu_torch.params import MsmConfig
 
 
 def bucket_hist_plain(keys: torch.Tensor, num_buckets: int) -> torch.Tensor:

@@ -16,9 +16,9 @@ import ctypes
 
 import torch
 
-from msm_tpu.params import MsmConfig
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.field import get_field_ctx
+from msm_tpu_torch.params import MsmConfig
 
 EXP_BITS_MAX = 1024  # csrc/inv.cu EXP_WORDS * 32
 

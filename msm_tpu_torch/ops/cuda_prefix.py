@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu.params import MsmConfig
 from msm_tpu_torch.ops import _build
+from msm_tpu_torch.params import MsmConfig
 
 THREADS = 128  # block size of the point-total kernel (csrc/prefix.cu BLOCK)
 

@@ -17,11 +17,11 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu.params import MsmConfig
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs
 from msm_tpu_torch.ops.field import FieldCtx, get_field_ctx
+from msm_tpu_torch.params import MsmConfig
 
 
 def rcb16_madd_plain(f: FieldCtx, b3m: torch.Tensor, x1, y1, z1, x2, y2):

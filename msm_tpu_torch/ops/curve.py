@@ -17,9 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from msm_tpu.params import MsmConfig
 from msm_tpu_torch.ops import cuda_curve
 from msm_tpu_torch.ops.field import get_field_ctx
+from msm_tpu_torch.params import MsmConfig
 
 
 class PointBatch(NamedTuple):

@@ -21,9 +21,9 @@ import functools
 import numpy as np
 import torch
 
-from msm_tpu.params import MsmConfig
-from msm_tpu.utils.limbs import int_to_limbs
 from msm_tpu_torch.ops import bigint
+from msm_tpu_torch.params import MsmConfig
+from msm_tpu_torch.utils.limbs import int_to_limbs
 
 
 class FieldCtx:

@@ -1,5 +1,7 @@
-"""Sort/scan bucket machinery of the main path — the PyTorch port of the
-main-path subset of ``msm_tpu/ops/scan.py``.
+"""Sort/scan bucket machinery — the PyTorch port of ``msm_tpu/ops/scan.py``:
+the bucket-boundary prefixes, the telescoped window sum of the cuZK main
+path, and the bucket-reduction family (``bucket_accumulate``,
+``bucket_reduce_running``, ``bucket_reduce_blocked``).
 
 Per subtask (window) the signed digits become bucket keys; one unstable
 ``torch.sort`` orders all windows' keys at once, carrying point index and
@@ -14,9 +16,14 @@ Under ``cfg.compress`` the scan runs over the pair-compressed stream
 in affine form first, C/2 steps per lane), and a boundary that falls inside
 a pair gets its own element added back (``prefix_at_compressed``).
 
-The window sum follows from the boundary prefixes by telescoping
-(``window_sum_from_pe``). Every point addition here goes through a kernel
-wrapper (``cuda_*``), so on CUDA tensors the whole path runs on the kernels.
+The main path's window sum follows from the boundary prefixes by
+telescoping (``window_sum_from_pe``). The naive model takes the per-bucket
+sums instead (``bucket_accumulate``: pe[b] - pe[b-1]) and reduces them by
+the serial running sum; the reference-shaped cuZK stage 4 reduces them
+two-phase, lane-parallel (``bucket_reduce_blocked``: kernel 8, then a tail
+on the point-add and point-total kernels). Every point addition on these
+paths goes through a kernel wrapper (``cuda_*``), so on CUDA tensors they
+run on the kernels.
 
 The plain helpers at the top (``hillis_steele_prefix``,
 ``exclusive_prefix_points``, ``tree_reduce_points``) are building blocks of
@@ -28,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu.params import MsmConfig
+from msm_tpu_torch.ops.cuda_bpr import bpr_phase1
 from msm_tpu_torch.ops.cuda_compress import compressed_prefix_scan
 from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import point_add_plain
@@ -36,6 +43,7 @@ from msm_tpu_torch.ops.cuda_hist import bucket_hist
 from msm_tpu_torch.ops.cuda_prefix import point_total, row_offsets
 from msm_tpu_torch.ops.cuda_scan import scan_rows
 from msm_tpu_torch.ops.curve import CurveCtx, PointBatch, get_curve_ctx, point_where
+from msm_tpu_torch.params import MsmConfig
 
 # -- plain helpers (twins) ---------------------------------------------------
 
@@ -46,6 +54,16 @@ def _add_plain(cfg: MsmConfig, p: PointBatch, q: PointBatch) -> PointBatch:
 
 def _cat(parts: list[PointBatch], dim: int) -> PointBatch:
     return PointBatch(*(torch.cat(c, dim=dim) for c in zip(*parts)))
+
+
+def _shift_in_identity(ec: CurveCtx, pts: PointBatch, k: int = 1) -> PointBatch:
+    """out[..., i] = pts[..., i - k] along dim -2, identity at i < k."""
+    ident = ec.identity(pts.x.shape[:-2] + (k,), pts.x.device)
+    return _cat([ident, PointBatch(*(a[..., :-k, :] for a in pts))], dim=-2)
+
+
+def _flip(pts: PointBatch) -> PointBatch:
+    return PointBatch(*(a.flip(-2) for a in pts))
 
 
 def hillis_steele_prefix(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
@@ -64,9 +82,7 @@ def hillis_steele_prefix(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
 
 def exclusive_prefix_points(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
     """out[i] = sum_{j < i} pts[j] along dim -2 (out[0] = identity)."""
-    incl = hillis_steele_prefix(cfg, pts)
-    ident = get_curve_ctx(cfg).identity(pts.x.shape[:-2] + (1,), pts.x.device)
-    return _cat([ident, PointBatch(*(a[..., :-1, :] for a in incl))], dim=-2)
+    return _shift_in_identity(get_curve_ctx(cfg), hillis_steele_prefix(cfg, pts))
 
 
 def tree_reduce_points(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
@@ -92,15 +108,19 @@ def tree_reduce_points(cfg: MsmConfig, pts: PointBatch) -> PointBatch:
 # -- main path ------------------------------------------------------------------
 
 
-def sort_payload(keys: torch.Tensor, signs: torch.Tensor) -> tuple[torch.Tensor, int]:
+def sort_payload(
+    keys: torch.Tensor, signs: torch.Tensor | None
+) -> tuple[torch.Tensor, int]:
     """Sort every row of keys [G, n] (unstable: bucket sums do not depend on
     the order within a key) and return the sorted payload [G, n] int32:
-    point index in bits [0, sbit), the sign in bit sbit."""
+    point index in bits [0, sbit), the sign in bit sbit. ``signs=None``:
+    unsigned keys, no sign bit (the kernels then read all-zero flags)."""
     n = keys.shape[-1]
     sbit = max((n - 1).bit_length(), 1)
     assert sbit + 1 < 32, n
-    idx = torch.arange(n, dtype=torch.int32, device=keys.device)
-    payload = idx | (signs.to(torch.int32) << sbit)
+    payload = torch.arange(n, dtype=torch.int32, device=keys.device).expand(keys.shape)
+    if signs is not None:
+        payload = payload | (signs.to(torch.int32) << sbit)
     perm = torch.sort(keys, dim=-1).indices
     return payload.gather(-1, perm), sbit
 
@@ -221,16 +241,16 @@ def bucket_boundary_prefix(
     ec: CurveCtx,
     packed: torch.Tensor,
     keys: torch.Tensor,
-    signs: torch.Tensor,
+    signs: torch.Tensor | None,
     num_buckets: int,
     num_rows: int,
     batch: int,
 ) -> PointBatch:
     """pe[g, b] = the signed point sum over all elements of subtask g with
-    key <= b, so bucket_b = pe[b] - pe[b-1]. keys/signs [G, n]; the sort and
-    the bucket ends cover all G rows at once, the scans run ``batch``
-    subtasks at a time (pair-compressed where ``compression_applies``).
-    Returns [G, num_buckets, L] coordinates."""
+    key <= b, so bucket_b = pe[b] - pe[b-1]. keys/signs [G, n] (signs None:
+    every point added); the sort and the bucket ends cover all G rows at
+    once, the scans run ``batch`` subtasks at a time (pair-compressed where
+    ``compression_applies``). Returns [G, num_buckets, L] coordinates."""
     pv, sbit = sort_payload(keys, signs)
     ends = _counts_leq(ec.cfg, keys, num_buckets)
     outs = [
@@ -256,3 +276,79 @@ def window_sum_from_pe(ec: CurveCtx, pe: PointBatch) -> PointBatch:
     for _ in range((B - 1).bit_length() - 1):
         last = ec.add(last, last)
     return ec.add(last, ec.neg(total))
+
+
+# -- bucket sums and their reductions ------------------------------------------
+
+
+def bucket_accumulate(
+    ec: CurveCtx,
+    packed: torch.Tensor,
+    keys: torch.Tensor,
+    signs: torch.Tensor | None,
+    num_buckets: int,
+    num_rows: int,
+    batch: int,
+) -> PointBatch:
+    """Per-bucket signed point sums S[g, b] = sum over keys[g] == b of
+    +-P_i, [G, num_buckets, L]: the boundary prefixes differenced,
+    pe[b] - pe[b-1] (identity before bucket 0), in one point-add launch
+    over all G * num_buckets buckets."""
+    pe = bucket_boundary_prefix(ec, packed, keys, signs, num_buckets, num_rows, batch)
+    return ec.add(pe, ec.neg(_shift_in_identity(ec, pe)))
+
+
+def bucket_reduce_running(ec: CurveCtx, buckets: PointBatch) -> PointBatch:
+    """W = sum_b b * S_b over buckets [..., B, L] by the descending running
+    sum (bucket 0 skipped): 2(B-1) point-add launches, each over the whole
+    batch [...]."""
+    B = buckets.x.shape[-2]
+    running = acc = ec.identity(buckets.x.shape[:-2], buckets.x.device)
+    for b in range(B - 1, 0, -1):
+        running = ec.add(running, PointBatch(*(a[..., b, :] for a in buckets)))
+        acc = ec.add(acc, running)
+    return acc
+
+
+def _suffix_sums(ec: CurveCtx, pts: PointBatch) -> PointBatch:
+    """out[..., j] = sum_{t >= j} pts[..., t] along dim -2: log2(m) rounds
+    of point-add launches over the flipped points."""
+    pts = _flip(pts)
+    k = 1
+    while k < pts.x.shape[-2]:
+        pts = ec.add(pts, _shift_in_identity(ec, pts, k))
+        k *= 2
+    return _flip(pts)
+
+
+def bucket_reduce_blocked(ec: CurveCtx, buckets: PointBatch, num_threads: int) -> PointBatch:
+    """W = sum_b b * S_b over buckets [..., B, L] by the two-phase blocked
+    reduction (cuZK Algorithm 4), lane-parallel over T = num_threads lanes
+    per subtask. Lane t owns the Bl = (B-1)/T buckets 1 + t*Bl .. (t+1)*Bl.
+
+    Phase 1 (kernel 8): every lane's block sum m_t and sum of running sums
+    g_t. Phase 2: W = sum_t g_t + Bl * sum_t t*m_t, where sum_t t*m_t =
+    sum_j suffix_j - suffix_0 with suffix_j = sum_{t>=j} m_t: a reverse
+    ladder of point-add launches, two point-total launches, and log2(Bl)
+    doublings as complete additions P + P. Bl must be a power of two."""
+    B, L = buckets.x.shape[-2:]
+    batch = buckets.x.shape[:-2]
+    T = num_threads
+    assert (B - 1) % T == 0, (B - 1, T)
+    Bl = (B - 1) // T
+    assert Bl & (Bl - 1) == 0, f"block size {Bl} must be a power of two"
+    cfg = ec.cfg
+
+    def arrange(a):  # body [..., B-1, L] -> [G, Bl, T, L], step-major
+        return a[..., 1:, :].reshape(-1, T, Bl, L).transpose(1, 2).contiguous()
+
+    out = bpr_phase1(cfg, *(arrange(a) for a in buckets))
+    m, g = PointBatch(*out[:3]), PointBatch(*out[3:])
+    total_g = PointBatch(*point_total(cfg, *g))
+    suff = _suffix_sums(ec, m)
+    suff_total = PointBatch(*point_total(cfg, *suff))
+    corr = ec.add(suff_total, ec.neg(PointBatch(*(a[:, 0] for a in suff))))
+    for _ in range(Bl.bit_length() - 1):
+        corr = ec.add(corr, corr)
+    w = ec.add(total_g, corr)
+    return PointBatch(*(a.reshape(batch + (L,)) for a in w))

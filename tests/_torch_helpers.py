@@ -9,10 +9,23 @@ numpy from a seed and handed to both packages.
 import numpy as np
 import torch
 
-from msm_tpu.oracle.pyecc import Curve
 from msm_tpu.utils import limbs as L
+from msm_tpu_torch.oracle.pyecc import Curve
 
 torch.set_num_threads(1)
+
+
+def port_cfg(jax_cfg):
+    """The port's MsmConfig for a JAX package MsmConfig: the same curve (by
+    name), word_size, chunk_size, compress, glv and karatsuba. Each package
+    is handed only its own config."""
+    from msm_tpu_torch.params import CURVES, MsmConfig
+
+    return MsmConfig(
+        curve=CURVES[jax_cfg.curve.name], word_size=jax_cfg.word_size,
+        chunk_size=jax_cfg.chunk_size, compress=jax_cfg.compress, glv=jax_cfg.glv,
+        karatsuba=jax_cfg.karatsuba,
+    )
 
 
 def rand_balanced(rng, shape, cfg, spread: int = 300) -> np.ndarray:
@@ -33,6 +46,8 @@ def rand_canonical(rng, shape, cfg) -> np.ndarray:
 
 
 def affine_points(cfg, n: int, seed: int) -> list[tuple[int, int]]:
+    """n random affine points of the port config's curve (the port's
+    sampler, which draws the same points as the JAX package's)."""
     cv = Curve(cfg.curve)
     return [cv.to_affine(p) for p in cv.sample_points(n, seed=seed)]
 

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import affine_points, same_points
+from _torch_helpers import affine_points, port_cfg, same_points
 import msm_tpu_torch
 from msm_tpu.models import common as jcommon
 from msm_tpu.models import cuzk as jcuzk
@@ -27,15 +27,17 @@ from msm_tpu.ops.curve import get_curve_ctx as j_curve_ctx
 from msm_tpu.ops.pallas_convert import make_convert_pack
 from msm_tpu.oracle import best_msm
 from msm_tpu.oracle.pyecc import Curve
-from msm_tpu.params import BN254, MsmConfig
+from msm_tpu.params import BN254
+from msm_tpu.params import MsmConfig as JMsmConfig
 from msm_tpu_torch.models import common, cuzk
 from msm_tpu_torch.models.geometry import pick_geometry
 from msm_tpu_torch.ops import scan
 from msm_tpu_torch.ops.curve import get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
 
-CFG = MsmConfig(curve=BN254, chunk_size=8, compress=True)
-PLAIN = MsmConfig(curve=BN254, chunk_size=8)
+JCFG = JMsmConfig(curve=BN254, chunk_size=8, compress=True)
+CFG = port_cfg(JCFG)
+PLAIN = port_cfg(JMsmConfig(curve=BN254, chunk_size=8))
 CV = Curve(BN254)
 
 
@@ -117,7 +119,7 @@ def test_gate_odd_steps_run_uncompressed(monkeypatch):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_glv_with_compression_raises(device):
-    cfg = MsmConfig(curve=BN254, compress=True, glv=True)
+    cfg = port_cfg(JMsmConfig(curve=BN254, compress=True, glv=True))
     pts, ks = _inputs(16, seed=96)
     with pytest.raises(NotImplementedError):
         msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
@@ -126,15 +128,15 @@ def test_glv_with_compression_raises(device):
 def test_loaded_jax_table_gives_jax_window_sums_compressed():
     n = 256
     pts, ks = _inputs(n, seed=97, nbase=32)
-    x_u16, y_u16, s_u16 = jcommon.pad_inputs(pts, ks, CFG)
+    x_u16, y_u16, s_u16 = jcommon.pad_inputs(pts, ks, JCFG)
     xd, yd, sd = map(jnp.asarray, (x_u16, y_u16, s_u16))
-    jax_table = np.asarray(make_convert_pack(CFG, tile=128, interpret=True)(xd, yd))
+    jax_table = np.asarray(make_convert_pack(JCFG, tile=128, interpret=True)(xd, yd))
     table = msm_tpu_torch.load_point_table(jax_table, CFG, device="cpu")
     ws = cuzk.window_sums_from_table(table, torch.from_numpy(s_u16), CFG,
                                      pick_geometry(n, 8, compress=True))
 
-    jec = j_curve_ctx(CFG)
+    jec = j_curve_ctx(JCFG)
     jgeom = j_pick_geometry(n, 8, compress=True)
     want = np.asarray(jax.jit(lambda x, y, s: jcuzk.window_sums_from_table(
-        jcommon.u16_to_mont_points(jec, x, y), None, s, CFG, jgeom))(xd, yd, sd))
+        jcommon.u16_to_mont_points(jec, x, y), None, s, JCFG, jgeom))(xd, yd, sd))
     assert same_points([want[:, i] for i in range(3)], [ws[:, i].numpy() for i in range(3)], CFG)

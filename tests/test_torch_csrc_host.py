@@ -1,9 +1,10 @@
-"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh) compiled
-for the host with g++ and held against the plain PyTorch twins: Montgomery
-product, balanced-input canonicalization, complete addition, mixed addition,
-doubling, exponentiation, the pair algebra (predicates, denominator,
-numerator, emission) and the per-lane bodies of the four pair kernels, run
-for every lane of a small stream with planted doubling and infinity pairs.
+"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh, bpr.cuh)
+compiled for the host with g++ and held against the plain PyTorch twins:
+Montgomery product, balanced-input canonicalization, complete addition,
+mixed addition, doubling, exponentiation, the pair algebra (predicates,
+denominator, numerator, emission), the per-lane bodies of the four pair
+kernels, run for every lane of a small stream with planted doubling and
+infinity pairs, and the per-lane body of the blocked reduction's phase 1.
 Catches arithmetic and indexing faults in the device code without a GPU.
 Outputs of the core must be canonical and equal to the twins' results after
 canonical()."""
@@ -18,13 +19,14 @@ import pytest
 import torch
 
 from _torch_helpers import pair_stream, rand_balanced, rand_canonical
-from msm_tpu.params import BN254, MsmConfig
 from msm_tpu_torch.ops import cuda_compress as cc
+from msm_tpu_torch.ops.cuda_bpr import bpr_phase1_plain
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
 from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
 from msm_tpu_torch.ops.cuda_scan import rcb16_madd_plain
 from msm_tpu_torch.ops.curve import CurveCtx, PointBatch
 from msm_tpu_torch.ops.field import get_field_ctx
+from msm_tpu_torch.params import BN254, MsmConfig
 
 CSRC = Path(__file__).resolve().parent.parent / "msm_tpu_torch" / "csrc"
 CFG = MsmConfig(curve=BN254)
@@ -32,6 +34,7 @@ F = get_field_ctx(CFG)
 L = CFG.num_words
 
 HARNESS = r"""
+#include "bpr.cuh"
 #include "pair.cuh"
 using namespace msm;
 
@@ -152,6 +155,13 @@ void h_pair_backward(const int32_t* pk, const int32_t* pm, const int32_t* fl,
     for (int r = 0; r < R; ++r)
       pair_backward_lane(pk, pm, fl, m, minv, cx, cy, inf, g, Cp, R, r);
 }
+void h_bpr_phase1(const int32_t* bx, const int32_t* by, const int32_t* bz,
+                  int32_t* mx, int32_t* my, int32_t* mz, int32_t* gx,
+                  int32_t* gy, int32_t* gz, int64_t G, int Bl, int T) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int t = 0; t < T; ++t)
+      bpr_phase1_lane(bx, by, bz, mx, my, mz, gx, gy, gz, g, Bl, T, t);
+}
 }
 """
 
@@ -181,7 +191,8 @@ def lib(tmp_path_factory):
                            ("h_pair_suffix", [P] * 4 + lanes),
                            ("h_pair_forward", [P] * 4 + lanes),
                            ("h_emit_scan", [P] * 9 + lanes),
-                           ("h_pair_backward", [P] * 8 + lanes)):
+                           ("h_pair_backward", [P] * 8 + lanes),
+                           ("h_bpr_phase1", [P] * 9 + lanes)):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = None
@@ -348,3 +359,18 @@ def test_pair_kernel_lanes_match_twins(lib):
     _assert_limbs_first_equal(cx, wx)
     _assert_limbs_first_equal(cy, wy)
     assert np.array_equal(inf, winf.numpy()) and inf.any() and not inf.all()
+
+
+def test_bpr_phase1_lanes_match_twin(lib):
+    """Kernel 8's per-lane body for every (subtask, lane) on balanced
+    inputs (negated values and an identity bucket included) against the
+    twin: the same descending walk, so m and g agree after canonical()."""
+    G, Bl, T = 2, 4, 8
+    rng = np.random.default_rng(27)
+    b = [rand_balanced(rng, (G, Bl, T), CFG) for _ in range(3)]
+    b[1][0, ::2] *= -1
+    b[0][1, 2, 3], b[1][1, 2, 3], b[2][1, 2, 3] = 0, F.r_limbs, 0  # identity
+    got = _run(lib, "h_bpr_phase1", [(G, T, L)] * 6, *b, G, Bl, T)
+    want = bpr_phase1_plain(CFG, *map(torch.from_numpy, b))
+    for g, w in zip(got, want):
+        _assert_canonical_equal(g, w)

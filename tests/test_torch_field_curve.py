@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import affine_points, mont_limbs, rand_balanced
+from _torch_helpers import affine_points, mont_limbs, port_cfg, rand_balanced
 from msm_tpu.ops.curve import CurveCtx as JCurve
 from msm_tpu.ops.curve import PointBatch as JPB
 from msm_tpu.ops.field import FieldCtx as JField
@@ -22,8 +22,9 @@ CURVE_PARAMS = [BN254, BLS12_381]
 
 
 def _pair(curve):
-    cfg = MsmConfig(curve=curve)
-    return cfg, JField(cfg), FieldCtx(cfg)
+    jcfg = MsmConfig(curve=curve)
+    cfg = port_cfg(jcfg)
+    return cfg, JField(jcfg), FieldCtx(cfg)
 
 
 def _same_canonical(jf, tf, j_out, t_out):
@@ -68,17 +69,17 @@ def test_canonical_edges(curve):
 def _points(cfg, n, seed):
     """n random points plus the identity, P and -P, Montgomery projective."""
     aff = affine_points(cfg, n, seed)
-    cv = Curve(cfg.curve)
     xs = [x for x, _ in aff] + [0, aff[0][0]]
-    ys = [y for _, y in aff] + [1, cv.p - aff[0][1]]
+    ys = [y for _, y in aff] + [1, cfg.curve.modulus - aff[0][1]]
     zs = [1] * n + [0, 1]
     return [mont_limbs(v, cfg) for v in (xs, ys, zs)]
 
 
 @pytest.mark.parametrize("curve", CURVE_PARAMS, ids=lambda c: c.name)
 def test_curve_ops_match_reference(curve):
-    cfg = MsmConfig(curve=curve)
-    jc, tc = JCurve(cfg), CurveCtx(cfg)
+    jcfg = MsmConfig(curve=curve)
+    cfg = port_cfg(jcfg)
+    jc, tc = JCurve(jcfg), CurveCtx(cfg)
     p = _points(cfg, 6, seed=11)
     q = [np.roll(a, 1, axis=0) for a in _points(cfg, 6, seed=11)]  # P + P, P + (-P) ...
     jp, jq = JPB(*map(jnp.asarray, p)), JPB(*map(jnp.asarray, q))
@@ -111,7 +112,7 @@ def test_double_chain_bounded_with_R_offset_representation(curve_name):
     chain amplifies it to int32 overflow. Twelve doublings must stay exact
     and limb-bounded."""
     spec = CURVES[curve_name]
-    cfg = MsmConfig(curve=spec)
+    cfg = port_cfg(MsmConfig(curve=spec))
     cv = Curve(spec)
     p = spec.modulus
     ec = CurveCtx(cfg)

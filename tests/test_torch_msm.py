@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import affine_points, same_points
+from _torch_helpers import affine_points, port_cfg, same_points
 import msm_tpu
 import msm_tpu_torch
 from msm_tpu.models import common as jcommon
@@ -29,7 +29,8 @@ from msm_tpu_torch.ops import scan
 from msm_tpu_torch.ops.curve import get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
 
-CFG = MsmConfig(curve=BN254, chunk_size=8)
+JCFG = MsmConfig(curve=BN254, chunk_size=8)
+CFG = port_cfg(JCFG)
 CV = Curve(BN254)
 
 
@@ -47,7 +48,7 @@ def test_slice_matches_jax_and_oracle():
     got = msm_tpu_torch.run_gpu_msm(pts, ks, config=CFG, device="cpu")
     want = CV.to_affine(best_msm(pts, ks))
     assert got == want
-    assert msm_tpu.run_tpu_msm(pts, ks, config=CFG) == want
+    assert msm_tpu.run_tpu_msm(pts, ks, config=JCFG) == want
 
     # window sums [S, 3, L]: the port's vs the JAX pipeline's, as points
     x_u16, y_u16, s_u16 = common.pad_inputs(pts, ks, CFG)
@@ -55,7 +56,7 @@ def test_slice_matches_jax_and_oracle():
     ws = cuzk.window_sums_from_table(packed, torch.from_numpy(s_u16), CFG, pick_geometry(n, 8))
     ws_std = common.export_points_std(get_curve_ctx(CFG), scan.PointBatch(*ws.unbind(1))).numpy()
     j_ws = np.asarray(jcuzk.cuzk_window_sums(
-        jnp.asarray(x_u16), jnp.asarray(y_u16), jnp.asarray(s_u16), CFG, j_pick_geometry(n, 8)))
+        jnp.asarray(x_u16), jnp.asarray(y_u16), jnp.asarray(s_u16), JCFG, j_pick_geometry(n, 8)))
     assert same_points([ws_std[:, i] for i in range(3)], [j_ws[:, i] for i in range(3)], CFG)
     # host Horner over the port's window sums gives the MSM as well
     assert CV.to_affine(common.window_sums_to_result(ws_std, CFG)) == want
@@ -72,7 +73,7 @@ def test_boundary_prefixes_match_jax():
     got = scan.bucket_boundary_prefix(get_curve_ctx(CFG), packed, keys[:2], signs[:2],
                                       CFG.num_buckets, R, batch=2)
 
-    jec = j_curve_ctx(CFG)
+    jec = j_curve_ctx(JCFG)
     jpts = jcommon.u16_to_mont_points(jec, jnp.asarray(x_u16), jnp.asarray(y_u16))
     jk, js = j_decompose(jnp.asarray(s_u16), 8, CFG.num_subtasks)
 

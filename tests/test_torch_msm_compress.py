@@ -6,7 +6,7 @@ the compressed scan is tested in ``test_torch_compress_prefix.py``."""
 
 import numpy as np
 
-from _torch_helpers import affine_points
+from _torch_helpers import affine_points, port_cfg
 import msm_tpu
 import msm_tpu_torch
 from msm_tpu.oracle import best_msm
@@ -14,7 +14,8 @@ from msm_tpu.oracle.pyecc import Curve
 from msm_tpu.params import BN254, MsmConfig
 from msm_tpu_torch.models.geometry import pick_geometry
 
-CFG = MsmConfig(curve=BN254, chunk_size=8, compress=True)
+JCFG = MsmConfig(curve=BN254, chunk_size=8, compress=True)
+CFG = port_cfg(JCFG)
 CV = Curve(BN254)
 
 
@@ -31,7 +32,7 @@ def test_compressed_slice_matches_jax_and_oracle():
     pts, ks = _inputs(n, seed=91)
     want = CV.to_affine(best_msm(pts, ks))
     assert msm_tpu_torch.run_gpu_msm(pts, ks, config=CFG, device="cpu") == want
-    assert msm_tpu.run_tpu_msm(pts, ks, config=CFG) == want
+    assert msm_tpu.run_tpu_msm(pts, ks, config=JCFG) == want
 
 
 def test_compressed_slice_matches_oracle_4096():

@@ -13,12 +13,13 @@ from _torch_helpers import affine_points
 import msm_tpu_torch
 from msm_tpu.oracle import best_msm
 from msm_tpu.oracle.pyecc import Curve
-from msm_tpu.params import BN254, BLS12_381, MsmConfig, pick_config
+from msm_tpu.params import BN254 as J_BN254
 from msm_tpu_torch.models.cuzk import CHUNK_MAX
 from msm_tpu_torch.ops._build import check_cuda_config, require_cuda
+from msm_tpu_torch.params import BLS12_381, BN254, MsmConfig, pick_config
 
 CFG8 = MsmConfig(curve=BN254, chunk_size=8)
-CV = Curve(BN254)
+CV = Curve(J_BN254)
 R = BN254.order
 
 

@@ -1,7 +1,8 @@
-"""msm_tpu_torch must run where JAX is not installed: importing every module
-of the package leaves jax out of sys.modules, and no source imports it.
-chip_smoke.py must fail (non-zero exit, no ok line) without a GPU and
-outside the repository."""
+"""msm_tpu_torch must run where JAX is not installed and stand apart from the
+JAX package: importing every module of the port leaves jax and msm_tpu out
+of sys.modules, and no source of the port, nor chip_smoke.py, imports
+either. chip_smoke.py must fail (non-zero exit, no ok line) without a GPU
+and outside the repository."""
 
 import re
 import shutil
@@ -20,19 +21,40 @@ def _modules():
     )
 
 
-def test_package_imports_without_jax():
+def _import_all(check: str) -> None:
+    """Import every module of the port in a fresh process, then run
+    ``check`` there."""
     mods = _modules()
-    assert "msm_tpu_torch.ops.scan" in mods and "msm_tpu_torch.models.cuzk" in mods
+    assert "msm_tpu_torch.ops.scan" in mods and "msm_tpu_torch.models.naive" in mods
     code = "import importlib, sys\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods
-    ) + "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+    ) + check
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_package_imports_without_jax():
+    _import_all("assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
+
+
+def test_package_imports_without_msm_tpu():
+    _import_all(
+        "bad = sorted(m for m in sys.modules if m == 'msm_tpu' or m.startswith('msm_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+
+
+def _offenders(pattern: str) -> list[str]:
+    pat = re.compile(pattern, re.M)
+    files = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    return [str(p) for p in files if pat.search(p.read_text())]
+
+
 def test_no_jax_import_in_sources():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    offenders = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
-    assert offenders == []
+    assert _offenders(r"^\s*(import jax|from jax)") == []
+
+
+def test_no_msm_tpu_import_in_sources():
+    assert _offenders(r"^\s*(from|import) msm_tpu(\.|\s|$)") == []
 
 
 def _run_smoke(cwd):

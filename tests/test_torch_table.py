@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import affine_points, same_points
+from _torch_helpers import affine_points, port_cfg, same_points
 import msm_tpu_torch
 from msm_tpu.models import common as jcommon
 from msm_tpu.models import cuzk as jcuzk
@@ -20,7 +20,8 @@ from msm_tpu.params import BN254, MsmConfig
 from msm_tpu_torch.models import common, cuzk
 from msm_tpu_torch.models.geometry import pick_geometry
 
-CFG = MsmConfig(curve=BN254, chunk_size=8)
+JCFG = MsmConfig(curve=BN254, chunk_size=8)
+CFG = port_cfg(JCFG)
 
 
 def test_loaded_jax_table_gives_jax_window_sums():
@@ -29,17 +30,17 @@ def test_loaded_jax_table_gives_jax_window_sums():
     pts = [base[i % 32] for i in range(n)]
     rng = np.random.default_rng(61)
     ks = [int.from_bytes(rng.bytes(32), "little") % BN254.order for _ in range(n)]
-    x_u16, y_u16, s_u16 = jcommon.pad_inputs(pts, ks, CFG)
+    x_u16, y_u16, s_u16 = jcommon.pad_inputs(pts, ks, JCFG)
     xd, yd, sd = map(jnp.asarray, (x_u16, y_u16, s_u16))
 
-    jax_table = np.asarray(make_convert_pack(CFG, tile=128, interpret=True)(xd, yd))
+    jax_table = np.asarray(make_convert_pack(JCFG, tile=128, interpret=True)(xd, yd))
     table = msm_tpu_torch.load_point_table(jax_table, CFG, device="cpu")
     ws = cuzk.window_sums_from_table(table, torch.from_numpy(s_u16), CFG, pick_geometry(n, 8))
 
-    jec = j_curve_ctx(CFG)
+    jec = j_curve_ctx(JCFG)
     jgeom = j_pick_geometry(n, 8)
     want = jax.jit(lambda x, y, s: jcuzk.window_sums_from_table(
-        jcommon.u16_to_mont_points(jec, x, y), None, s, CFG, jgeom))(xd, yd, sd)
+        jcommon.u16_to_mont_points(jec, x, y), None, s, JCFG, jgeom))(xd, yd, sd)
     want = np.asarray(want)
     assert same_points([want[:, i] for i in range(3)], [ws[:, i].numpy() for i in range(3)], CFG)
     # and the port's own table is the JAX table, bit for bit

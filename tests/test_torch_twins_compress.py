@@ -12,14 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import canon, pair_stream
+from _torch_helpers import canon, pair_stream, port_cfg
 from msm_tpu.ops.pallas_compress import make_emit_scan, make_pair_suffix
 from msm_tpu.params import BN254, MsmConfig
 from msm_tpu_torch.ops.cuda_compress import emit_scan, pair_suffix
 from msm_tpu_torch.ops.cuda_inv import mont_pow
 from msm_tpu_torch.ops.field import get_field_ctx
 
-CFG = MsmConfig(curve=BN254, compress=True)
+JCFG = MsmConfig(curve=BN254, compress=True)
+CFG = port_cfg(JCFG)
 L = CFG.num_words
 Cp, R = 4, 256
 
@@ -38,7 +39,7 @@ def _limbs_last(a):
 def test_pair_suffix_twin_matches_pallas():
     port_in, (gxy, sg) = _inputs()
     got = pair_suffix(CFG, *port_in)[0]  # [Cp, L, R]
-    want = make_pair_suffix(CFG, Cp, R, tile=256, interpret=True)(gxy, sg)
+    want = make_pair_suffix(JCFG, Cp, R, tile=256, interpret=True)(gxy, sg)
     assert np.array_equal(canon(_limbs_last(got), CFG), canon(_limbs_last(want), CFG))
 
 
@@ -54,7 +55,7 @@ def test_emit_scan_twin_matches_pallas():
     assert (canon(one, CFG) == CFG.r % BN254.modulus).all()
 
     pe3, *tots = emit_scan(CFG, *port_in, s, t0)
-    want = make_emit_scan(CFG, Cp, R, tile=256, interpret=True)(
+    want = make_emit_scan(JCFG, Cp, R, tile=256, interpret=True)(
         gxy, sg, jnp.asarray(s[0].numpy()), jnp.asarray(t0[0].numpy()))
     for i, w in enumerate(want):  # [Cp, L, R] per coordinate
         w = _limbs_last(w)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import affine_points, canon, mont_limbs, rand_canonical
+from _torch_helpers import affine_points, canon, mont_limbs, port_cfg, rand_canonical
 from msm_tpu.models import common as jcommon
 from msm_tpu.ops.pallas_convert import make_convert_pack
 from msm_tpu.ops.pallas_curve import make_point_add
@@ -18,7 +18,8 @@ from msm_tpu_torch.ops.cuda_convert import convert_pack, pack_coords, unpack_coo
 from msm_tpu_torch.ops.cuda_curve import point_add
 from msm_tpu_torch.ops.cuda_hist import bucket_hist
 
-CFG = MsmConfig(curve=BN254)
+JCFG = MsmConfig(curve=BN254)
+CFG = port_cfg(JCFG)
 
 
 @pytest.mark.parametrize("signed", [False, True])
@@ -32,7 +33,7 @@ def test_point_add_twin_matches_pallas(signed):
     if signed:  # balanced inputs: negated y values
         coords[1][::3] *= -1
         coords[4][1::3] *= -1
-    want = make_point_add(CFG, tile=128, interpret=True)(*map(jnp.asarray, coords))
+    want = make_point_add(JCFG, tile=128, interpret=True)(*map(jnp.asarray, coords))
     got = point_add(CFG, *map(torch.from_numpy, coords))
     for w, g in zip(want, got):
         assert np.array_equal(canon(w, CFG), canon(g.numpy(), CFG))
@@ -42,8 +43,8 @@ def test_convert_twin_matches_pallas_bit_for_bit():
     n = 256
     aff = affine_points(CFG, 32, seed=7)
     pts = [aff[i % 32] for i in range(n - 3)] + [(0, 0), (1, 2), (BN254.modulus - 1, 0)]
-    x_u16, y_u16 = jcommon.pad_points_words(pts, CFG, n)
-    want = np.asarray(make_convert_pack(CFG, tile=128, interpret=True)(
+    x_u16, y_u16 = jcommon.pad_points_words(pts, JCFG, n)
+    want = np.asarray(make_convert_pack(JCFG, tile=128, interpret=True)(
         jnp.asarray(x_u16), jnp.asarray(y_u16)))
     got = convert_pack(CFG, torch.from_numpy(x_u16), torch.from_numpy(y_u16)).numpy()
     assert got.dtype == np.int32 and np.array_equal(got, want)

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import canon, mont_limbs, pair_stream
+from _torch_helpers import canon, mont_limbs, pair_stream, port_cfg
 from msm_tpu.ops.pallas_compress import make_pair_backward, make_pair_forward
 from msm_tpu.ops.pallas_inv import make_mont_pow
 from msm_tpu.oracle.pyecc import Curve
@@ -25,7 +25,8 @@ from msm_tpu_torch.ops.cuda_compress import compress_pairs, pair_backward, pair_
 from msm_tpu_torch.ops.cuda_inv import mont_pow
 from msm_tpu_torch.ops.field import get_field_ctx
 
-CFG = MsmConfig(curve=BN254, compress=True)
+JCFG = MsmConfig(curve=BN254, compress=True)
+CFG = port_cfg(JCFG)
 L = CFG.num_words
 P = BN254.modulus
 
@@ -47,7 +48,7 @@ def test_mont_pow_twin_matches_pallas():
     a = mont_limbs(vals, CFG).T.copy()  # [L, R] Montgomery, limbs-first
     e = P - 2
     got = mont_pow(CFG, torch.from_numpy(a)[None], e)[0]
-    want = make_mont_pow(CFG, R, e, interpret=True)(jnp.asarray(a))
+    want = make_mont_pow(JCFG, R, e, interpret=True)(jnp.asarray(a))
     gc = canon(_limbs_last(got), CFG)
     assert np.array_equal(gc, canon(_limbs_last(want), CFG))
     # Montgomery-domain inverse: pow(aR, p - 2) = a^-1 R
@@ -64,13 +65,13 @@ def test_pair_forward_backward_twins_match_pallas():
     sg = jnp.asarray(flags[0]).reshape(C, 1, R)
 
     m = pair_forward(CFG, *port_in)
-    want_m = make_pair_forward(CFG, Cp, R, tile=256, interpret=True)(gxy, sg)
+    want_m = make_pair_forward(JCFG, Cp, R, tile=256, interpret=True)(gxy, sg)
     assert np.array_equal(canon(_limbs_last(m[0]), CFG), canon(_limbs_last(want_m), CFG))
 
     m = _canonical_limbs_first(CFG, m)
     minv = _canonical_limbs_first(CFG, mont_pow(CFG, m[:, -1], P - 2))
     cx, cy, inf = pair_backward(CFG, *port_in, m, minv)
-    wx, wy, winf = make_pair_backward(CFG, Cp, R, tile=256, interpret=True)(
+    wx, wy, winf = make_pair_backward(JCFG, Cp, R, tile=256, interpret=True)(
         gxy, sg, jnp.asarray(m[0].numpy()), jnp.asarray(minv[0].numpy()))
     assert np.array_equal(inf[0].numpy(), np.asarray(winf)[:, 0])
     assert inf.any() and not inf.all()
@@ -82,7 +83,7 @@ def test_pair_forward_backward_twins_match_pallas():
 def test_compress_pairs_twin_matches_oracle(curve):
     """Every pair sum (generic, doubling, P + (-P)) against the oracle;
     infinity pairs flagged, never valued."""
-    cfg = MsmConfig(curve=curve, compress=True)
+    cfg = port_cfg(MsmConfig(curve=curve, compress=True))
     cv = Curve(curve)
     p = curve.modulus
     G, C, R = 2, 8, 32

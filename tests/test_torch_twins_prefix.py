@@ -7,12 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import affine_points, mont_limbs, same_points
+from _torch_helpers import affine_points, mont_limbs, port_cfg, same_points
 from msm_tpu.ops.pallas_prefix import make_horner_ladder, make_point_total
 from msm_tpu.params import BN254, MsmConfig
 from msm_tpu_torch.ops.cuda_prefix import horner, point_total
 
-CFG = MsmConfig(curve=BN254)
+JCFG = MsmConfig(curve=BN254)
+CFG = port_cfg(JCFG)
 
 
 def _mont_points(n, seed, identity_at=()):
@@ -29,7 +30,7 @@ def _mont_points(n, seed, identity_at=()):
 def test_point_total_twin_matches_pallas():
     N = 512
     pts = _mont_points(N, seed=13, identity_at=(5,))
-    tx, ty, tz = make_point_total(CFG, N, lanes=256, interpret=True)(*map(jnp.asarray, pts))
+    tx, ty, tz = make_point_total(JCFG, N, lanes=256, interpret=True)(*map(jnp.asarray, pts))
     want = [np.asarray(t)[:, 0] for t in (tx, ty, tz)]
     got = point_total(CFG, *(torch.from_numpy(a)[None] for a in pts))
     assert same_points(want, [g[0].numpy() for g in got], CFG)
@@ -38,7 +39,7 @@ def test_point_total_twin_matches_pallas():
 def test_horner_twin_matches_pallas():
     S, chunk = 16, 16
     ws = _mont_points(S, seed=9, identity_at=(3,))  # an empty window
-    want = make_horner_ladder(CFG, S, chunk, interpret=True)(
+    want = make_horner_ladder(JCFG, S, chunk, interpret=True)(
         *(jnp.asarray(a.T) for a in ws)
     )
     got = horner(CFG, *map(torch.from_numpy, ws), chunk)

@@ -10,16 +10,17 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import affine_points, canon, mont_limbs, same_points
+from _torch_helpers import affine_points, canon, mont_limbs, port_cfg, same_points
 from msm_tpu.ops.pallas_prefix import make_row_offsets
 from msm_tpu.ops.pallas_scan import make_scan_rows
 from msm_tpu.params import BN254, MsmConfig
+from msm_tpu_torch.models.common import pad_points_words
 from msm_tpu_torch.ops.cuda_convert import convert_pack
 from msm_tpu_torch.ops.cuda_prefix import row_offsets
 from msm_tpu_torch.ops.cuda_scan import scan_rows
-from msm_tpu.models.common import pad_points_words
 
-CFG = MsmConfig(curve=BN254)
+JCFG = MsmConfig(curve=BN254)
+CFG = port_cfg(JCFG)
 L = CFG.num_words
 
 
@@ -34,7 +35,7 @@ def test_scan_twin_matches_pallas():
     flags = rng.integers(0, 2, size=(C, R)).astype(np.int32)
 
     g = packed[perm]  # [C, R, 2D]
-    pe_j, *tot_j = make_scan_rows(CFG, C, R, tile=256, interpret=True)(
+    pe_j, *tot_j = make_scan_rows(JCFG, C, R, tile=256, interpret=True)(
         jnp.asarray(g).swapaxes(1, 2), jnp.asarray(flags).reshape(C, 1, R)
     )
     pe_t, *tot_t = scan_rows(CFG, torch.from_numpy(packed),
@@ -56,7 +57,7 @@ def test_row_offsets_twin_matches_pallas():
     zs = mont_limbs([1] * R, CFG)
     zs[7], xs[7] = 0, 0  # an identity lane
     ys[7] = mont_limbs([1], CFG)[0]
-    want = make_row_offsets(CFG, R, lanes=256, interpret=True)(
+    want = make_row_offsets(JCFG, R, lanes=256, interpret=True)(
         *(jnp.asarray(a.T) for a in (xs, ys, zs))
     )
     got = row_offsets(CFG, *(torch.from_numpy(np.ascontiguousarray(a.T))[None] for a in (xs, ys, zs)))
