@@ -17,7 +17,12 @@
    rate: 32 B per field element, the narrowest integer per key or index,
    1 bit per flag) and, for the histogram, the time of torch.bincount;
    then the point add, histogram and point total at the other shapes that
-   the naive and blocked paths give them;
+   the naive and blocked paths give them, the histogram on skewed keys
+   (half of each row 0, one row in the top window's narrow range) and over
+   65536 buckets (more counters than a block's shared memory holds), the
+   row offsets at R = 8, 1024 and 8192 lanes and at R = 16384 over 8 and
+   16 subtasks (4 and 8 lanes per thread), and the scan timed alone and
+   just after a histogram or a row-offsets launch;
 3. runs compress_pairs on the card at the compressed 2^20 shape and checks
    every pair sum and infinity flag against the oracle;
 4. runs small edge MSMs (edge scalars, duplicate points, P and -P under one
@@ -118,6 +123,15 @@ def _kernels():
         "pair_backward": (cuda_compress.pair_backward, cuda_compress.pair_backward_plain),
         "bpr_phase1": (cuda_bpr.bpr_phase1, cuda_bpr.bpr_phase1_plain),
     }
+
+
+#: the kernels one launch of a wrapper runs, by their names in a profiler
+#: trace, for the wrappers that run more than one (csrc/prefix.cu); every
+#: other wrapper runs one kernel per launch
+TRACE_KERNELS = {"row_offsets": ("k_ro_totals", "k_ro_blocks", "k_ro_write"),
+                 "point_total": ("k_point_total", "k_point_total")}
+#: a trace kernel's name -> its wrapper's row in the device breakdown
+TRACE_ROWS = {k: f"k_{name}" for name, ks in TRACE_KERNELS.items() for k in ks}
 
 
 def _reset_counts() -> None:
@@ -419,9 +433,54 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         lib_ms = _bincount_ms(cases["bucket_hist"][0][1], NB)
         out["bucket_hist"]["library_ms"] = lib_ms
         print(f"library bucket_hist {size:5s} torch.bincount ms={lib_ms:.4f}", flush=True)
+        if not small:
+            scan_after(kern, cases)
     if "slice" in sizes:
         check_path_shapes(kern, rng, base, dev, clock_hz)
+        check_redesigned_shapes(kern, rng, base, dev, clock_hz)
     return out
+
+
+def _ms_each(fn, before, reps: int) -> float:
+    """ms per call of fn, by CUDA events around each call alone, ``before``
+    (when given) enqueued just ahead of each; all enqueued behind a spin
+    kernel, after one warm-up round."""
+    for step in (before, fn):
+        if step:
+            step()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
+    for start, end in events:
+        if before:
+            before()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def scan_after(kern, cases) -> None:
+    """The scan's time at the 2^20 shape alone, just after a histogram
+    launch (128 KiB of dynamic shared memory per block) and just after a
+    row-offsets launch (three kernels of large stack frames), each twice in
+    turns: the scan's source has read up to 10% apart between builds and
+    between runs, and this tells a neighbour's effect from the scan's own."""
+    def launch(name):
+        wrapper, args = kern[name][0], cases[name][0]
+        return lambda: wrapper(*args)
+
+    scan = launch("scan_rows")
+    before = {"alone": None, "after_bucket_hist": launch("bucket_hist"),
+              "after_row_offsets": launch("row_offsets")}
+    runs = {label: [] for label in before}
+    for _ in range(2):
+        for label, fn in before.items():
+            runs[label].append(_ms_each(scan, fn, 5))
+    print("scan_rows slice ms " + "; ".join(f"{k}={', '.join(f'{v:.4f}' for v in vs)}"
+                                            for k, vs in runs.items()), flush=True)
 
 
 def _bincount_ms(keys, nb) -> float:
@@ -468,6 +527,55 @@ def check_path_shapes(kern, rng, base, dev, clock_hz) -> None:
     for name, label, args, as_points, reps in cases:
         _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz)
     print(f"library bucket_hist naive torch.bincount ms={_bincount_ms(keys, nb):.4f}", flush=True)
+
+
+def _skewed_keys(rng, rows: int, n: int, nb: int, top: int) -> np.ndarray:
+    """Keys [rows, n] as the padded input of 2^19 + 1 points gives at
+    n = 2^20: the first n/2 + 1 keys of each row uniform in [0, nb), the
+    rest 0 (zero scalars); the last row only in [0, top), a top window's
+    narrow range."""
+    keys = np.zeros((rows, n), dtype=np.int32)
+    keys[:, : n // 2 + 1] = rng.integers(0, nb, size=(rows, n // 2 + 1))
+    keys[-1, : n // 2 + 1] = rng.integers(0, top, size=n // 2 + 1)
+    return keys
+
+
+def check_redesigned_shapes(kern, rng, base, dev, clock_hz) -> None:
+    """The histogram and the row offsets at shapes the uniform checks miss,
+    exact against their twins, the histogram with torch.bincount's time
+    beside each: skewed keys at the plain 2^20 shape (16 x 2^20 keys, 32769
+    buckets) and the naive one (32 x 2^20, 256 buckets); 16 x 2^20 uniform
+    keys over 65536 buckets (unsigned 16-bit windows), whose counters exceed
+    a block's shared memory, so the kernel tiles the bucket range; the row
+    offsets on real points at R = 8 (the n = 35 edge MSM), 1024
+    (compressed) and 8192 (2^16 plain) lanes, 4 subtasks, and at R = 16384
+    over 8 and 16 subtasks, where the plan gives 4 and 8 lanes per thread
+    (the kernel's 16-byte loads)."""
+    from msm_tpu_torch.models.naive import NAIVE_CONFIG
+    from msm_tpu_torch.ops.cuda_prefix import row_offsets_plan
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import BN254, MsmConfig, pick_config
+
+    cfg, ncfg = pick_config(1 << 20), NAIVE_CONFIG
+    f, L = get_field_ctx(cfg), cfg.num_words
+    n, order = 1 << 20, BN254.order
+    # the top window's digits: the scalar's top bits, plus a carry when signed
+    top = (order >> (cfg.chunk_size * (cfg.num_subtasks - 1))) + 2
+    ntop = (order >> (ncfg.chunk_size * (ncfg.num_subtasks - 1))) + 1
+    hist = {
+        "plain_skew": [cfg, _skewed_keys(rng, cfg.num_subtasks, n, cfg.num_buckets, top), cfg.num_buckets],
+        "naive_skew": [ncfg, _skewed_keys(rng, ncfg.num_subtasks, n, 256, ntop), 256],
+        "unsigned16": [MsmConfig(curve=BN254), rng.integers(0, 1 << 16, size=(16, n), dtype=np.int32), 1 << 16],
+    }
+    for label, (hcfg, keys, nb) in hist.items():
+        keys = torch.from_numpy(keys).to(dev)
+        _check_case(kern, f, L, "bucket_hist", label, [hcfg, keys, nb], False, 5, clock_hz)
+        print(f"library bucket_hist {label} torch.bincount ms={_bincount_ms(keys, nb):.4f}", flush=True)
+    for G, R in ((4, 8), (4, 1024), (4, 8192), (8, 1 << 14), (16, 1 << 14)):
+        k = row_offsets_plan(G, R).lanes_per_thread
+        rows = _curve_points(rng, (G, R), cfg, base, dev)
+        args = [cfg, *(a.transpose(1, 2).contiguous() for a in rows)]
+        _check_case(kern, f, L, "row_offsets", f"R{R} G{G} k{k}", args, True, 3, clock_hz)
 
 
 def sample_msm(n: int, seed: int = SEED):
@@ -548,11 +656,12 @@ def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
 def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
     """One MSM under torch.profiler: (wall ms, device-busy ms, device ms by
     kernel). Busy time is the union of the device's kernel and copy
-    intervals; kernels of this package keep their names, PyTorch's own
-    kernels (sort, gathers, elementwise) are summed as "torch_ops". A trace
-    must hold every kernel launch the wrappers counted (the profiler has been
-    seen to drop device events); an incomplete one is taken again, at most
-    three times."""
+    intervals; kernels of this package keep their names (a wrapper's several
+    kernels summed under one, TRACE_ROWS), PyTorch's own kernels (sort,
+    gathers, elementwise) are summed as "torch_ops". A trace must hold every
+    kernel the wrappers launched (launches x the kernels per launch,
+    TRACE_KERNELS; the profiler has been seen to drop device events); an
+    incomplete one is taken again, at most three times."""
     from torch.profiler import ProfilerActivity, profile
 
     kern = _kernels()
@@ -567,8 +676,8 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
         trace_path.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_path))
         busy_ms, by_name, n_ours = trace_breakdown(json.loads(trace_path.read_text())["traceEvents"])
-        # point_total is two kernels per launch, every other wrapper one
-        expected = sum(w.launches for w, _plain in kern.values()) + kern["point_total"][0].launches
+        expected = sum(w.launches * len(TRACE_KERNELS.get(name, (name,)))
+                       for name, (w, _plain) in kern.items())
         if n_ours == expected:
             return wall_ms, busy_ms, by_name
         print(f"profiled MSM: trace holds {n_ours} of {expected} kernel launches; again", flush=True)
@@ -584,10 +693,9 @@ def trace_breakdown(events) -> tuple[float, dict, int]:
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
-        name = e["name"]
-        n_ours += name.startswith("k_")
-        key = (name.split("(")[0] if name.startswith("k_")
-               else "memcpy" if e["cat"] != "kernel" else "torch_ops")
+        name, ours = e["name"].split("(")[0], e["name"].startswith("k_")
+        n_ours += ours
+        key = TRACE_ROWS.get(name, name) if ours else "memcpy" if e["cat"] != "kernel" else "torch_ops"
         by_name[key] = by_name.get(key, 0.0) + e["dur"] / 1e3
         spans.append((e["ts"], e["ts"] + e["dur"]))
     busy, end = 0.0, float("-inf")

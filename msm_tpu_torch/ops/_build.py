@@ -33,14 +33,21 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+#: the H100 SXM the launch plans are sized for: SMs; shared memory a block
+#: may use, an SM holds and the runtime reserves per block (bytes); threads
+#: an SM holds
+SMS = 132
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK = 232448, 233472, 1024
+THREADS_PER_SM = 2048
+
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry points: argument types (every one returns the launch's error code)
 SIGNATURES = {
     "msm_point_add": [P] * 9 + [I64, P],
     "msm_convert": [P, P, P, I64, P],
-    "msm_hist": [P, P, I64, I64, I32, P],
+    "msm_hist": [P, P, I64, I64, I32, I64, I32, P],
     "msm_scan": [P] * 7 + [I64, I32, I32, P],
-    "msm_row_offsets": [P] * 6 + [I64, I32, P],
+    "msm_row_offsets": [P] * 9 + [I64, I32, I32, I32, I32, P],
     "msm_point_total": [P] * 9 + [I64, I64, I32, P],
     "msm_horner": [P] * 6 + [I32, I32, P],
     "msm_mont_pow": [P] * 3 + [I32, I64, I32, P],

@@ -9,16 +9,48 @@ Layouts: row offsets take the scan's lane totals limbs-first [G, L, R] and
 return the exclusive prefixes [G, R, L]; point total reduces [G, N, L] to
 one point per subtask [G, L] (the TPU's 128 replicated lanes are dropped);
 Horner folds window sums [S, L] into one point [L].
+
+Row offsets run as three kernels per launch (a reduce-then-scan over the
+whole card, ``row_offsets_plan``), point total as two.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.params import MsmConfig
 
-THREADS = 128  # block size of the point-total kernel (csrc/prefix.cu BLOCK)
+THREADS = 128  # block size of the row-offsets and point-total kernels (csrc/prefix.cu BLOCK)
+#: threads an SM holds at the core's ~255 registers per thread
+RESIDENT_THREADS = 256
+LANES_PER_THREAD = (1, 2, 4, 8)
+
+
+@dataclass(frozen=True)
+class RowOffsetsPlan:
+    """Launch plan of the row offsets over R lanes: thread j of block b owns
+    lanes (b * threads + j) * lanes_per_thread + c, c < lanes_per_thread;
+    ``blocks`` blocks per subtask, and ``scan_threads`` threads scan their
+    block totals."""
+
+    lanes_per_thread: int
+    blocks: int
+    scan_threads: int
+    threads: int = THREADS
+
+
+def row_offsets_plan(groups: int, R: int) -> RowOffsetsPlan:
+    """The fewest lanes per thread (at most 8 and at most R) that keep the
+    G * R / k threads within one wave of RESIDENT_THREADS per SM, and as
+    many blocks as cover R."""
+    for k in LANES_PER_THREAD:
+        if k >= R or groups * R // k <= _build.SMS * RESIDENT_THREADS:
+            break
+    blocks = -(-R // (k * THREADS))
+    return RowOffsetsPlan(k, blocks, min(THREADS, 1 << (blocks - 1).bit_length()))
 
 
 def row_offsets_plain(cfg: MsmConfig, tx, ty, tz):
@@ -34,13 +66,19 @@ def row_offsets(cfg: MsmConfig, tx, ty, tz):
     """Exclusive point prefix over lane totals: [G, L, R] x3 -> [G, R, L] x3."""
     if tx.device.type == "cpu":
         return row_offsets_plain(cfg, tx, ty, tz)
+    # the kernel reads limb rows with 16-byte vector loads
     ins = [t.contiguous() for t in (tx, ty, tz)]
+    ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     _build.require_cuda(cfg, *ins)
     G, L, R = ins[0].shape
     if L != cfg.num_words or R & (R - 1):
         raise ValueError(f"expected [G, {cfg.num_words}, 2^k], got {tuple(ins[0].shape)}")
-    out = [torch.empty((G, R, L), dtype=torch.int32, device=tx.device) for _ in range(3)]
-    _build.launch("msm_row_offsets", *ins, *out, G, R)
+    plan = row_offsets_plan(G, R)
+    dev = tx.device
+    out = [torch.empty((G, R, L), dtype=torch.int32, device=dev) for _ in range(3)]
+    scratch = [torch.empty((G, plan.blocks, L), dtype=torch.int32, device=dev) for _ in range(3)]
+    _build.launch("msm_row_offsets", *ins, *out, *scratch, G, R, plan.lanes_per_thread,
+                  plan.blocks, plan.scan_threads)
     row_offsets.launches += 1
     return tuple(out)
 

@@ -1,10 +1,12 @@
-"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh, bpr.cuh)
-compiled for the host with g++ and held against the plain PyTorch twins:
-Montgomery product, balanced-input canonicalization, complete addition,
-mixed addition, doubling, exponentiation, the pair algebra (predicates,
-denominator, numerator, emission), the per-lane bodies of the four pair
-kernels, run for every lane of a small stream with planted doubling and
-infinity pairs, and the per-lane body of the blocked reduction's phase 1.
+"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh, bpr.cuh,
+prefix.cuh) compiled for the host with g++ and held against the plain
+PyTorch twins: Montgomery product, balanced-input canonicalization,
+complete addition, mixed addition, doubling, exponentiation, the pair
+algebra (predicates, denominator, numerator, emission), the per-lane bodies
+of the four pair kernels, run for every lane of a small stream with planted
+doubling and infinity pairs, the per-lane body of the blocked reduction's
+phase 1, and the per-thread bodies of the row offsets, run for every thread
+of the three launches' plan.
 Catches arithmetic and indexing faults in the device code without a GPU.
 Outputs of the core must be canonical and equal to the twins' results after
 canonical()."""
@@ -18,11 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import pair_stream, rand_balanced, rand_canonical
+from _torch_helpers import (affine_points, mont_limbs, pair_stream, rand_balanced, rand_canonical,
+                            same_points)
 from msm_tpu_torch.ops import cuda_compress as cc
 from msm_tpu_torch.ops.cuda_bpr import bpr_phase1_plain
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
 from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
+from msm_tpu_torch.ops.cuda_prefix import row_offsets_plain
 from msm_tpu_torch.ops.cuda_scan import rcb16_madd_plain
 from msm_tpu_torch.ops.curve import CurveCtx, PointBatch
 from msm_tpu_torch.ops.field import get_field_ctx
@@ -34,8 +38,11 @@ F = get_field_ctx(CFG)
 L = CFG.num_words
 
 HARNESS = r"""
+#include <vector>
+
 #include "bpr.cuh"
 #include "pair.cuh"
+#include "prefix.cuh"
 using namespace msm;
 
 static void load_pt(point& p, const int32_t* a) {
@@ -163,6 +170,58 @@ void h_bpr_phase1(const int32_t* bx, const int32_t* by, const int32_t* bz,
       bpr_phase1_lane(bx, by, bz, mx, my, mz, gx, gy, gz, g, Bl, T, t);
 }
 }
+
+// The row offsets' three launches with blocks of T threads, K lanes each;
+// the two block scans run serially here.
+template <int K>
+static void row_offsets_host(const int32_t* tx, const int32_t* ty,
+                             const int32_t* tz, int32_t* ox, int32_t* oy,
+                             int32_t* oz, int64_t G, int R, int T) {
+  const int nb = (R + K * T - 1) / (K * T);
+  std::vector<point> off(nb);
+  for (int64_t g = 0; g < G; ++g) {
+    for (int b = 0; b < nb; ++b) {  // 1: in-block prefixes, block totals
+      point run;
+      pt_identity(run);
+      for (int j = 0; j < T && (b * T + j) * K < R; ++j) {
+        const int r0 = (b * T + j) * K;
+        const int64_t o = (g * R + r0) * L;
+        point s;
+        ro_thread_total<K>(s, tx, ty, tz, g, R, r0);
+        pt_store(ox + o, oy + o, oz + o, 1, run);
+        pt_add(run, run, s);
+      }
+      off[b] = run;
+    }
+    point acc;  // 2: exclusive block offsets
+    pt_identity(acc);
+    for (int b = 0; b < nb; ++b) {
+      const point v = off[b];
+      off[b] = acc;
+      pt_add(acc, acc, v);
+    }
+    for (int b = 0; b < nb; ++b)  // 3: write-out
+      for (int j = 0; j < T && (b * T + j) * K < R; ++j) {
+        const int r0 = (b * T + j) * K;
+        const int64_t o = (g * R + r0) * L;
+        point pre, a;
+        pt_load_canonical(pre, ox + o, oy + o, oz + o);
+        pt_add(a, off[b], pre);
+        ro_thread_write<K>(a, tx, ty, tz, ox, oy, oz, g, R, r0);
+      }
+  }
+}
+
+extern "C" void h_row_offsets(const int32_t* tx, const int32_t* ty,
+                              const int32_t* tz, int32_t* ox, int32_t* oy,
+                              int32_t* oz, int64_t G, int R, int K, int T) {
+  switch (K) {
+    case 1: row_offsets_host<1>(tx, ty, tz, ox, oy, oz, G, R, T); break;
+    case 2: row_offsets_host<2>(tx, ty, tz, ox, oy, oz, G, R, T); break;
+    case 4: row_offsets_host<4>(tx, ty, tz, ox, oy, oz, G, R, T); break;
+    default: row_offsets_host<8>(tx, ty, tz, ox, oy, oz, G, R, T); break;
+  }
+}
 """
 
 
@@ -192,7 +251,8 @@ def lib(tmp_path_factory):
                            ("h_pair_forward", [P] * 4 + lanes),
                            ("h_emit_scan", [P] * 9 + lanes),
                            ("h_pair_backward", [P] * 8 + lanes),
-                           ("h_bpr_phase1", [P] * 9 + lanes)):
+                           ("h_bpr_phase1", [P] * 9 + lanes),
+                           ("h_row_offsets", [P] * 6 + [I64, I32, I32, I32])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = None
@@ -374,3 +434,28 @@ def test_bpr_phase1_lanes_match_twin(lib):
     want = bpr_phase1_plain(CFG, *map(torch.from_numpy, b))
     for g, w in zip(got, want):
         _assert_canonical_equal(g, w)
+
+
+@pytest.mark.parametrize("K, R, T", [(1, 64, 4), (2, 64, 4), (4, 64, 4), (8, 64, 4), (8, 8, 128),
+                                     (1, 1, 128)])
+def test_row_offsets_threads_match_twin(lib, K, R, T):
+    """Kernel 5's per-thread bodies for every thread of a plan with K lanes
+    per thread and blocks of T threads (several blocks, ragged last ones
+    and a lone lane included), on real curve points in random projective
+    form, some with negated (balanced) y and one the identity, against the
+    twin as points (the sum is reassociated)."""
+    G = 2
+    rng = np.random.default_rng(28 + K)
+    aff = affine_points(CFG, 16, seed=K)
+    idx = rng.integers(0, 16, size=(G, R))
+    x, y = (torch.from_numpy(mont_limbs([p[i] for p in aff], CFG))[idx] for i in range(2))
+    z = torch.from_numpy(rand_canonical(rng, (G, R), CFG))
+    x, y = F.canonical(F.mont_mul(x, z)), F.canonical(F.mont_mul(y, z))
+    neg = torch.from_numpy(rng.random((G, R)) < 0.3)
+    y = torch.where(neg[..., None], -y, y)  # -P in balanced limbs
+    x[1, 0], y[1, 0], z[1, 0] = 0, torch.from_numpy(F.r_limbs.astype(np.int32)), 0
+    lanes = [a.transpose(1, 2).contiguous() for a in (x, y, z)]  # [G, L, R]
+    got = _run(lib, "h_row_offsets", [(G, R, L)] * 3, *(a.numpy() for a in lanes), G, R, K, T)
+    want = row_offsets_plain(CFG, *lanes)
+    assert all(g.min() >= 0 and g.max() < (1 << CFG.word_size) for g in got)
+    assert same_points(got, [w.numpy() for w in want], CFG)

@@ -1,0 +1,98 @@
+"""Launch plans of the histogram (kernel 3) and row-offsets (kernel 5)
+kernels, pure Python: every key and bucket of the histogram and every lane
+of the row offsets is covered exactly once, and each block stays within the
+shared memory a block may use and the thread limit. The index arithmetic
+mirrors csrc/hist.cu and csrc/prefix.cu."""
+
+import pytest
+
+import _torch_helpers  # noqa: F401  (one torch thread per test process)
+from msm_tpu_torch.ops import _build
+from msm_tpu_torch.ops.cuda_hist import KEYS_PER_COUNTER, HistPlan, hist_plan
+from msm_tpu_torch.ops.cuda_prefix import RowOffsetsPlan, row_offsets_plan
+
+#: bucket counts the configs give: signed 2^(c-1) + 1 and unsigned 2^c
+BUCKETS = [(1 << (c - 1)) + 1 for c in range(8, 17)] + [1 << c for c in range(8, 17)]
+#: the point formulas' bytes in shared memory per thread (a projective point)
+POINT_BYTES = 3 * 20 * 4
+
+
+def _tiling(step: int, count: int, total: int) -> list[int]:
+    """Items of [0, total) covered by `count` ranges of `step`, each cut at
+    total; every range must be non-empty."""
+    out = []
+    for i in range(count):
+        lo, hi = i * step, min((i + 1) * step, total)
+        assert lo < hi, (i, step, count, total)
+        out.extend(range(lo, hi))
+    return out
+
+
+@pytest.mark.parametrize("num_buckets", BUCKETS)
+def test_hist_plan_covers_keys_and_buckets_once(num_buckets):
+    for groups in (1, 4, 16, 32):
+        for n in (1, 2, 3, 64, 1000, 1 << 16, 1 << 20, 1 << 22):
+            plan = hist_plan(groups, n, num_buckets)
+            assert plan.threads <= 1024
+            assert plan.smem_bytes <= _build.SMEM_PER_BLOCK
+            assert _tiling(plan.bucket_tile, plan.tiles, num_buckets) == list(range(num_buckets))
+            if n <= 1 << 16:
+                assert _tiling(plan.key_chunk, plan.blocks_per_row, n) == list(range(n))
+            else:  # the same conditions without listing every key
+                assert plan.blocks_per_row * plan.key_chunk >= n
+                assert (plan.blocks_per_row - 1) * plan.key_chunk < n
+            if plan.blocks_per_row > 1:  # the flush stays small beside the keys
+                assert plan.key_chunk >= KEYS_PER_COUNTER * plan.bucket_tile
+
+
+@pytest.mark.parametrize("groups, n, num_buckets, want", [
+    # plain 2^20: 16 windows of 32769 signed buckets, one 128 KiB tile,
+    # eight blocks per row (one per SM)
+    (16, 1 << 20, (1 << 15) + 1, HistPlan(1 << 17, 8, (1 << 15) + 1, 1)),
+    # naive 2^20: 32 windows of 256 buckets, two resident blocks per SM
+    (32, 1 << 20, 256, HistPlan(1 << 17, 8, 256, 1)),
+    # unsigned c = 16: 65536 counters exceed a block's shared memory
+    (16, 1 << 20, 1 << 16, HistPlan(1 << 18, 4, 1 << 15, 2)),
+    # the edge MSM (n = 64): one block per row
+    (16, 64, (1 << 12) + 1, HistPlan(64, 1, (1 << 12) + 1, 1)),
+], ids=["plain", "naive", "unsigned16", "edge"])
+def test_hist_plan_at_the_paths_shapes(groups, n, num_buckets, want):
+    assert hist_plan(groups, n, num_buckets) == want
+
+
+@pytest.mark.parametrize("log_r", range(15))
+def test_row_offsets_plan_covers_every_lane_once(log_r):
+    R = 1 << log_r
+    for groups in (1, 4, 5, 16, 64):
+        plan = row_offsets_plan(groups, R)
+        k, T = plan.lanes_per_thread, plan.threads
+        assert k in (1, 2, 4, 8) and k <= R and R % k == 0
+        assert T <= 1024 and T * POINT_BYTES <= 48 * 1024  # static shared memory
+        lanes = []
+        for b in range(plan.blocks):
+            starts = [(b * T + j) * k for j in range(T) if (b * T + j) * k < R]
+            assert starts, "an empty block"
+            for r0 in starts:
+                assert r0 + k <= R
+                lanes.extend(range(r0, r0 + k))
+        assert lanes == list(range(R))
+        # the block-offset scan: thread j owns m consecutive block totals
+        m = -(-plan.blocks // plan.scan_threads)
+        owned = [j * m + c for j in range(plan.scan_threads) for c in range(m) if j * m + c < plan.blocks]
+        assert owned == list(range(plan.blocks)) and 1 <= plan.scan_threads <= T
+        # one wave of threads, unless k is at its cap
+        if k < min(8, R):
+            assert groups * R // k <= _build.SMS * 256
+
+
+@pytest.mark.parametrize("groups, R, want", [
+    (4, 1 << 14, RowOffsetsPlan(2, 64, 64)),  # 2^20 plain, naive
+    (4, 1 << 13, RowOffsetsPlan(1, 64, 64)),  # 2^16 plain
+    (4, 1 << 10, RowOffsetsPlan(1, 8, 8)),  # compressed
+    (4, 8, RowOffsetsPlan(1, 1, 1)),  # the n = 35 edge MSM
+    # more subtasks per launch, as chip_smoke checks them on the card
+    (8, 1 << 14, RowOffsetsPlan(4, 32, 32)),
+    (16, 1 << 14, RowOffsetsPlan(8, 16, 16)),
+], ids=["plain20", "plain16", "compressed", "edge", "k4", "k8"])
+def test_row_offsets_plan_at_the_paths_shapes(groups, R, want):
+    assert row_offsets_plan(groups, R) == want

@@ -65,3 +65,15 @@ def test_hist_twin_matches_pallas():
     assert np.array_equal(got, want)
     ends = tscan._counts_leq(CFG, torch.from_numpy(np.stack([keys, keys[::-1]])), nb)
     assert np.array_equal(ends.numpy(), np.stack([np.cumsum(want)] * 2))
+
+
+def test_hist_twin_matches_pallas_on_skewed_keys():
+    """Half of the keys 0, as zero-padded scalars give, and the rest in the
+    narrow range of a top window (keys < 49 of 256 buckets)."""
+    n, nb = 2 * CHUNK, 1 << 8
+    rng = np.random.default_rng(18)
+    keys = np.zeros(n, dtype=np.int32)
+    keys[: n // 2 - 1] = rng.integers(0, 49, size=n // 2 - 1)
+    want = np.asarray(make_bucket_hist(n, nb, interpret=True)(jnp.asarray(keys))[:nb])
+    got = bucket_hist(CFG, torch.from_numpy(keys)[None], nb)[0].numpy()
+    assert np.array_equal(got, want) and got[0] > n // 2 and not got[49:].any()
