@@ -21,8 +21,10 @@
    (half of each row 0, one row in the top window's narrow range) and over
    65536 buckets (more counters than a block's shared memory holds), the
    row offsets at R = 8, 1024 and 8192 lanes and at R = 16384 over 8 and
-   16 subtasks (4 and 8 lanes per thread), and the scan timed alone and
-   just after a histogram or a row-offsets launch;
+   16 subtasks (4 and 8 lanes per thread), the scan and the Horner ladder
+   at the 2^16 shapes (G = 4, C = 8, R = 8192; S = 20, chunk 13), each
+   Horner time beside the depth of its chain in products, and the scan
+   timed alone and just after a histogram or a row-offsets launch;
 3. runs compress_pairs on the card at the compressed 2^20 shape and checks
    every pair sum and infinity flag against the oracle;
 4. runs small edge MSMs (edge scalars, duplicate points, P and -P under one
@@ -68,7 +70,7 @@ REPLACES = {
     "scan_rows": ("csrc/scan.cu", "msm_tpu/ops/pallas_scan.py:374"),
     "row_offsets": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:133"),
     "point_total": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:231"),
-    "horner": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:335"),
+    "horner": ("csrc/horner.cu", "msm_tpu/ops/pallas_prefix.py:335"),
     "mont_pow": ("csrc/inv.cu", "msm_tpu/ops/pallas_inv.py:92"),
     "pair_suffix": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:427"),
     "emit_scan": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:561"),
@@ -275,6 +277,14 @@ def _products(name, args) -> int:
     return {"pair_suffix": 1, "pair_forward": 1, "pair_backward": 6, "emit_scan": 17}[name] * pairs
 
 
+def _horner_depth(args) -> int:
+    """Products on the Horner ladder's dependent chain: two per doubling and
+    per addition, the lanes of a warp splitting each formula's products
+    (csrc/horner.cu)."""
+    S, chunk = args[1].shape[0], args[4]
+    return (S - 1) * (2 * chunk + 2)
+
+
 def _int_bytes(hi: int) -> int:
     """Bytes of the narrowest integer type that holds 0 .. hi."""
     return 1 if hi < 1 << 8 else 2 if hi < 1 << 16 else 4
@@ -339,8 +349,13 @@ def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz) -> dic
     err = max([_compare(f, gf, wf, as_points) if gf else 0]
               + [int((a.long() - b.long()).abs().max()) for a, b in zip(gi, wi)])
     bound_ms, bound_by = _bound(name, args, clock_hz)
+    # the Horner ladder is one dependent chain: its depth in products is
+    # the floor that matters there
+    depth = ""
+    if name == "horner":
+        depth = f" products={_products(name, args)} chain_depth={_horner_depth(args)}"
     print(f"check {name:13s} {label:5s} max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f}"
-          f" bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+          f" bound_ms={bound_ms:.4f} ({bound_by}){depth}", flush=True)
     if err != 0:
         raise AssertionError(f"{name} ({label}) disagrees with its twin: max_abs_err={err}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -541,16 +556,17 @@ def _skewed_keys(rng, rows: int, n: int, nb: int, top: int) -> np.ndarray:
 
 
 def check_redesigned_shapes(kern, rng, base, dev, clock_hz) -> None:
-    """The histogram and the row offsets at shapes the uniform checks miss,
-    exact against their twins, the histogram with torch.bincount's time
-    beside each: skewed keys at the plain 2^20 shape (16 x 2^20 keys, 32769
+    """The redesigned kernels at shapes the uniform checks miss, exact
+    against their twins, the histogram with torch.bincount's time beside
+    each: skewed keys at the plain 2^20 shape (16 x 2^20 keys, 32769
     buckets) and the naive one (32 x 2^20, 256 buckets); 16 x 2^20 uniform
     keys over 65536 buckets (unsigned 16-bit windows), whose counters exceed
     a block's shared memory, so the kernel tiles the bucket range; the row
     offsets on real points at R = 8 (the n = 35 edge MSM), 1024
     (compressed) and 8192 (2^16 plain) lanes, 4 subtasks, and at R = 16384
     over 8 and 16 subtasks, where the plan gives 4 and 8 lanes per thread
-    (the kernel's 16-byte loads)."""
+    (the kernel's 16-byte loads); the scan and the Horner ladder at the
+    plain 2^16 MSM's shapes."""
     from msm_tpu_torch.models.naive import NAIVE_CONFIG
     from msm_tpu_torch.ops.cuda_prefix import row_offsets_plan
     from msm_tpu_torch.ops.field import get_field_ctx
@@ -576,6 +592,30 @@ def check_redesigned_shapes(kern, rng, base, dev, clock_hz) -> None:
         rows = _curve_points(rng, (G, R), cfg, base, dev)
         args = [cfg, *(a.transpose(1, 2).contiguous() for a in rows)]
         _check_case(kern, f, L, "row_offsets", f"R{R} G{G} k{k}", args, True, 3, clock_hz)
+    check_word_core_shapes(kern, rng, dev, clock_hz)
+
+
+def check_word_core_shapes(kern, rng, dev, clock_hz) -> None:
+    """The scan and the Horner ladder at the plain 2^16 MSM's shapes (c = 13:
+    G = 4 subtasks of C = 8 steps over R = 8192 lanes; S = 20 windows),
+    exact against their twins."""
+    from msm_tpu_torch.ops.cuda_convert import pack_canonical
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import pick_config
+
+    cfg = pick_config(1 << 16)
+    f, L = get_field_ctx(cfg), cfg.num_words
+    G, C, R = 4, 8, 8192
+    n = C * R
+    tab = torch.cat([pack_canonical(torch.from_numpy(_rand_fe(rng, (n,), cfg)), cfg)
+                     for _ in range(2)], dim=-1).to(dev)
+    perm = np.stack([rng.permutation(n).reshape(R, C).T for _ in range(G)]).astype(np.int32)
+    flags = rng.integers(0, 2, size=perm.shape, dtype=np.int32)
+    args = [cfg, tab, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (perm, flags))]
+    _check_case(kern, f, L, "scan_rows", f"G{G} C{C} R{R}", args, False, 3, clock_hz)
+    S, chunk = cfg.num_subtasks, cfg.chunk_size
+    ws = [torch.from_numpy(_rand_fe(rng, (S,), cfg)).to(dev) for _ in range(3)]
+    _check_case(kern, f, L, "horner", f"S{S} chunk{chunk}", [cfg, *ws, chunk], False, 3, clock_hz)
 
 
 def sample_msm(n: int, seed: int = SEED):

@@ -1,0 +1,56 @@
+// The Horner ladder: sum_s 2^(chunk*s) * W_s over the S window sums, the
+// last step of the cuZK MSM. Inputs w* [S, L] (balanced limbs, so plain
+// PyTorch tensors are accepted); outputs o* [L], canonical limbs.
+//
+// Replaces msm_tpu/ops/pallas_prefix.py::make_horner_ladder (pallas_call at
+// :335), which ran the ladder as one grid-less program.
+//
+// Bound: the serial chain. The work itself is a few microseconds of the
+// card's integer rate, but 2^(chunk s) W_s needs chunk s doublings in any
+// order, so the depth cannot shrink and only the latency of each product
+// counts. The design goes after that latency:
+//   - the word core (csrc/fe32.cuh; 2 x 64 word multiply-adds per product
+//     where 13-bit limbs took 2 x 400), the doubling and the addition
+//     inlined: no call, no stack frame;
+//   - one warp splits each formula's independent products over its lanes
+//     (csrc/horner.cuh horner_chain: 4 + 4 per doubling, 6 + 6 per
+//     addition) and trades them with __shfl_sync, so the chain is
+//     (S - 1)(2 chunk + 2) products deep instead of (S - 1)(8 chunk + 12)
+//     in one thread (510 against 2100 at the 2^20 MSM's S = 16, chunk 16);
+//   - the S window sums are canonicalized first, one per lane, into shared
+//     memory, so their loads stay off the chain.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "horner.cuh"
+
+using namespace msm;
+
+constexpr int WARP = 32;
+constexpr size_t SMEM_LIMIT = 48 * 1024;  // static shared memory of a block
+
+__global__ void __launch_bounds__(WARP)
+    k_horner(const int32_t* __restrict__ wx, const int32_t* __restrict__ wy,
+             const int32_t* __restrict__ wz, int32_t* __restrict__ ox,
+             int32_t* __restrict__ oy, int32_t* __restrict__ oz, int S,
+             int chunk) {
+  extern __shared__ pt32 sw[];  // [S]
+  for (int s = threadIdx.x; s < S; s += blockDim.x) horner_load(sw[s], wx, wy, wz, s);
+  __syncthreads();
+  pt32 acc;
+  horner_chain(acc, sw, S, chunk);
+  if (threadIdx.x == 0) pt32_store_limbs(ox, oy, oz, 1, acc);
+}
+
+// One block of one warp; S window sums (S * 96 B) in shared memory.
+extern "C" int msm_horner(const int32_t* wx, const int32_t* wy,
+                          const int32_t* wz, int32_t* ox, int32_t* oy,
+                          int32_t* oz, int S, int chunk, void* stream) {
+  const size_t smem = (size_t)S * sizeof(pt32);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (S > 0) {
+    k_horner<<<1, WARP, smem, (cudaStream_t)stream>>>(wx, wy, wz, ox, oy, oz,
+                                                      S, chunk);
+  }
+  return (int)cudaGetLastError();
+}

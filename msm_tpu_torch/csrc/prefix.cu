@@ -1,20 +1,20 @@
-// The three small point-sum kernels around the scan: row offsets, point
-// total and the Horner ladder. All take balanced limbs (so plain PyTorch
-// tensors are accepted) and write canonical limbs.
+// The two point-sum kernels around the scan on the 13-bit core: row
+// offsets and point total. Both take balanced limbs (so plain PyTorch
+// tensors are accepted) and write canonical limbs. The third kernel of
+// pallas_prefix.py, the Horner ladder, is csrc/horner.cu (word core).
 //
 // Replaces msm_tpu/ops/pallas_prefix.py:
 //   make_row_offsets   (pallas_call at :133) -> k_ro_totals, k_ro_blocks,
 //                                               k_ro_write
 //   make_point_total   (pallas_call at :231) -> k_point_total
-//   make_horner_ladder (pallas_call at :335) -> k_horner
 //
 // The TPU ran each as one grid-less program with every lane resident in
 // VMEM, crossing lanes with pltpu.roll. Here a block holds at most 128
 // projective points (30 KB) in shared memory, under the 48 KB static limit;
-// 1024 points would exceed the 227 KB a block may use. All three are bound
-// by the serial chain of complete additions (12 Montgomery products each)
-// in their longest thread, not by memory: a few MB per call. The core runs
-// at ~255 registers per thread, so an SM holds about 256 threads.
+// 1024 points would exceed the 227 KB a block may use. Both are bound by
+// the serial chain of complete additions (12 Montgomery products each) in
+// their longest thread, not by memory: a few MB per call. The core runs at
+// ~255 registers per thread, so an SM holds about 256 threads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -187,27 +187,6 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-// sum_s 2^(chunk*s) * W_s by Horner's rule in one thread: chunk*(S-1)
-// doublings (RCB16 Algorithm 9) and S-1 additions. Inputs w* [S, L];
-// outputs o* [L].
-__global__ void k_horner(const int32_t* __restrict__ wx,
-                         const int32_t* __restrict__ wy,
-                         const int32_t* __restrict__ wz,
-                         int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                         int32_t* __restrict__ oz, int S, int chunk) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  point acc, v;
-  int64_t o = (int64_t)(S - 1) * L;
-  pt_load_balanced(acc, wx + o, wy + o, wz + o, 1);
-  for (int s = S - 2; s >= 0; --s) {
-    for (int k = 0; k < chunk; ++k) pt_double(acc, acc);
-    o = (int64_t)s * L;
-    pt_load_balanced(v, wx + o, wy + o, wz + o, 1);
-    pt_add(acc, acc, v);
-  }
-  pt_store(ox, oy, oz, 1, acc);
-}
-
 // Three launches on the stream (see k_ro_totals). Inputs t* [G, L, R]
 // limbs-first, 16-byte aligned; outputs o* [G, R, L]; scratch s* [G, nb, L].
 // The plan: K lanes per thread, nb blocks of BLOCK threads per subtask
@@ -252,16 +231,6 @@ extern "C" int msm_point_total(const int32_t* px, const int32_t* py,
     if (err) return err;
     k_point_total<<<dim3(1, (unsigned)groups), BLOCK, 0, st>>>(sx, sy, sz, ox,
                                                                oy, oz, nb);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int msm_horner(const int32_t* wx, const int32_t* wy,
-                          const int32_t* wz, int32_t* ox, int32_t* oy,
-                          int32_t* oz, int S, int chunk, void* stream) {
-  if (S > 0) {
-    k_horner<<<1, 1, 0, (cudaStream_t)stream>>>(wx, wy, wz, ox, oy, oz, S,
-                                                chunk);
   }
   return (int)cudaGetLastError();
 }

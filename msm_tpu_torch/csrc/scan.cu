@@ -7,63 +7,62 @@
 //
 // Layout: subtask g, lane r owns sorted positions [r*C, (r+1)*C); step c of
 // lane r is element (c, r) of the step-major permutation. Thread (g, r)
-// walks its C steps: it gathers the packed canonical row of point
-// perm[g, c, r], negates y (p - y) when the flag's bit 0 is set, folds the
-// point in with RCB16 Algorithm 8, and writes the running sum as one
-// x||y||z row pe3[g, c, r, 0:3L]. The last step also goes to the lane
-// totals t{x,y,z}[g, :, r], limbs-first (coalesced across lanes).
+// runs scan_lane (csrc/scan.cuh): it gathers the packed row of point
+// perm[g, c, r], negates y when the flag's bit 0 is set, folds the point in
+// with RCB16 Algorithm 8, and writes the running sum as one x||y||z row
+// pe3[g, c, r, 0:3L]; the last step also goes to the lane totals
+// t{x,y,z}[g, :, r], limbs-first (coalesced across lanes).
 //
-// Bound: 11 Montgomery products per step (~9k 32-bit multiply-adds) --
-// integer-multiply bound; the 64 B random gather and the 240 B row write
-// per step are second. One thread per lane keeps the accumulator in
-// registers across all C steps (the TPU kept it in VMEM scratch across
-// grid steps); at 2^20 points and R = 16384 lanes a batch of 4 subtasks
-// gives 65536 threads, enough to fill the 132 SMs at the register count
-// this kernel needs.
+// Bound: 11 Montgomery products per step -- integer-multiply bound; the
+// 64 B random gather and the 240 B row write per step come second. The
+// design goes after what kept the first port at ~15x its bound:
+//   - the word core (csrc/fe32.cuh): 8 x 32-bit words, 2 x 64 word
+//     multiply-adds per product where 13-bit limbs took 2 x 400;
+//   - the mixed addition inlined, the accumulator in registers across all
+//     C steps, no out-of-line call; __launch_bounds__(128, 4) caps the
+//     thread at 128 registers (ptxas then spills a few words to a 16-byte
+//     frame), so 4 blocks of 128 fit on an SM and the 2^20 launch
+//     (4 x 16384 lanes) is one wave of 132 x 512 threads;
+//   - one plan for every shape, the fastest at the 2^16 MSM's scan and
+//     within 6% of the fastest at the 2^20 MSM's among the variants that
+//     scripts/torch_scan_variants.py times (PERF.md): caps of 2 or 3
+//     blocks (146 registers, no spill) ran ~24% slower at 2^20, and
+//     256-thread blocks and loading the next step's row ahead (more spill)
+//     ran 1-6% faster at 2^20 but 16-23% slower at 2^16;
+//   - the row written as 15 16-byte stores, still 13-bit limbs: that is the
+//     contract prefix_at and the row offsets read.
+// No tensor cores and no TMA: the work is exact 254-bit modular integer
+// arithmetic, which wgmma and IMMA offer only through a decomposition into
+// small products that costs more than it saves, and the gather reads
+// random 64-byte rows, not tiles.
 #include <cuda_runtime.h>
 
-#include "curve.cuh"
+#include "scan.cuh"
 
 using namespace msm;
 
-constexpr int D = DENSE_WORDS;  // 32-bit words per packed coordinate
+constexpr int THREADS = 128;
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS, 4)
     k_scan(const int32_t* __restrict__ packed, const int32_t* __restrict__ perm,
            const int32_t* __restrict__ flags, int32_t* __restrict__ pe3,
            int32_t* __restrict__ tx, int32_t* __restrict__ ty,
            int32_t* __restrict__ tz, int C, int R) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t g = blockIdx.y;
   if (r >= R) return;
-  point acc;
-  pt_identity(acc);
-  for (int c = 0; c < C; ++c) {
-    const int64_t e = (g * C + c) * R + r;
-    const int64_t row = perm[e];
-    fe x2, y2;
-    fe_unpack_dense(x2, packed + row * 2 * D);
-    fe_unpack_dense(y2, packed + row * 2 * D + D);
-    if (flags[e] & 1) fe_neg(y2, y2);
-    pt_madd(acc, acc, x2, y2);
-    int32_t* o = pe3 + e * 3 * L;
-    fe_store(o, acc.x);
-    fe_store(o + L, acc.y);
-    fe_store(o + 2 * L, acc.z);
-  }
-  const int64_t t = g * L * R + r;
-  pt_store(tx + t, ty + t, tz + t, R, acc);
+  scan_lane(packed, perm, flags, pe3, tx, ty, tz, blockIdx.y, C, R, r);
 }
 
-// packed [N, 2D]; perm, flags [G, C, R]; pe3 [G, C, R, 3L]; t* [G, L, R]
+// packed [N, 2D] and pe3 [G, C, R, 3L], both 16-byte aligned; perm, flags
+// [G, C, R]; t* [G, L, R]
 extern "C" int msm_scan(const int32_t* packed, const int32_t* perm,
                         const int32_t* flags, int32_t* pe3, int32_t* tx,
                         int32_t* ty, int32_t* tz, int64_t groups, int C, int R,
                         void* stream) {
+  if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0) {
-    const int threads = 128;
-    const dim3 grid((unsigned)((R + threads - 1) / threads), (unsigned)groups);
-    k_scan<<<grid, threads, 0, (cudaStream_t)stream>>>(packed, perm, flags,
+    const dim3 grid((unsigned)((R + THREADS - 1) / THREADS), (unsigned)groups);
+    k_scan<<<grid, THREADS, 0, (cudaStream_t)stream>>>(packed, perm, flags,
                                                        pe3, tx, ty, tz, C, R);
   }
   return (int)cudaGetLastError();

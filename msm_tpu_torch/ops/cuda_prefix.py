@@ -1,14 +1,16 @@
 """Kernels 5-7: row offsets, point total and the Horner ladder, with their
 plain twins.
 
-CUDA source: ``msm_tpu_torch/csrc/prefix.cu``. Replaces, in
+CUDA sources: ``msm_tpu_torch/csrc/prefix.cu`` (row offsets, point total)
+and ``csrc/horner.cu`` (Horner ladder). Replaces, in
 ``msm_tpu/ops/pallas_prefix.py``: ``make_row_offsets`` (``pallas_call`` at
 :133), ``make_point_total`` (:231) and ``make_horner_ladder`` (:335).
 
 Layouts: row offsets take the scan's lane totals limbs-first [G, L, R] and
 return the exclusive prefixes [G, R, L]; point total reduces [G, N, L] to
 one point per subtask [G, L] (the TPU's 128 replicated lanes are dropped);
-Horner folds window sums [S, L] into one point [L].
+Horner folds window sums [S, L] into one point [L], on the 32-bit-word core
+(``csrc/fe32.cuh``; the other two run on the 13-bit core).
 
 Row offsets run as three kernels per launch (a reduce-then-scan over the
 whole card, ``row_offsets_plan``), point total as two.
@@ -132,7 +134,8 @@ def horner_plain(cfg: MsmConfig, wx, wy, wz, chunk: int):
 
 
 def horner(cfg: MsmConfig, wx, wy, wz, chunk: int):
-    """sum_s 2^(chunk*s) W_s: [S, L] x3 -> [L] x3."""
+    """sum_s 2^(chunk*s) W_s: [S, L] x3 -> [L] x3. On CUDA one warp splits
+    each formula's products over its lanes."""
     if wx.device.type == "cpu":
         return horner_plain(cfg, wx, wy, wz, chunk)
     ins = [t.contiguous() for t in (wx, wy, wz)]

@@ -1,10 +1,12 @@
 """Kernel 4: the per-lane prefix scan of mixed additions over the sorted
 points (the hot kernel), and its plain twin.
 
-CUDA source: ``msm_tpu_torch/csrc/scan.cu``. Replaces the Pallas kernel
-``msm_tpu/ops/pallas_scan.py::make_scan_rows`` (``pallas_call`` at :374,
-non-GLV) together with the sorted-order gather ``packed[perm2]`` that fed it
-(``msm_tpu/ops/scan.py:545``): the kernel gathers its own rows.
+CUDA source: ``msm_tpu_torch/csrc/scan.cu`` (per-lane body
+``csrc/scan.cuh``, on the 32-bit-word core ``csrc/fe32.cuh``). Replaces the
+Pallas kernel ``msm_tpu/ops/pallas_scan.py::make_scan_rows``
+(``pallas_call`` at :374, non-GLV) together with the sorted-order gather
+``packed[perm2]`` that fed it (``msm_tpu/ops/scan.py:545``): the kernel
+gathers its own rows.
 
 Inputs: the packed point table [N, 2D], and per subtask g the step-major
 permutation ``perm[g, c, r]`` (table row of the c-th point of lane r) with
@@ -74,6 +76,8 @@ def scan_rows(cfg: MsmConfig, packed, perm, flags):
     if packed.device.type == "cpu":
         return scan_rows_plain(cfg, packed, perm, flags)
     packed, perm, flags = packed.contiguous(), perm.contiguous(), flags.contiguous()
+    if packed.data_ptr() % 16:  # the kernel reads rows with 16-byte loads
+        packed = packed.clone()
     _build.require_cuda(cfg, packed, perm, flags)
     L, D = cfg.num_words, coord_words(cfg)
     G, C, R = perm.shape

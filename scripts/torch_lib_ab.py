@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Two builds of msm_tpu_torch's kernels in one process: this checkout's
+library and another checkout's (for example the parent commit, unpacked
+with ``git archive`` into a directory that .gitignore lists), timed in turns
+on the same inputs at the 2^20 MSM's shapes, with the SASS of both builds
+compared kernel by kernel.
+
+    python3 scripts/torch_lib_ab.py OTHER_ROOT [--rounds 5]
+
+The other checkout's library is built by its own ``msm_tpu_torch.ops._build``
+(in a subprocess, into its own ``build/``). This checkout's wrappers launch
+through ``_build.load()``; the script swaps the loaded library between the
+two builds, so the entry points timed here (point add, scan, row offsets,
+point total, Horner ladder) must take the same arguments in both trees.
+Both builds' outputs must be equal bit for bit (every kernel writes
+canonical limbs, and the two builds sum in the same order).
+
+Prints, per round, kernel and build, the ms per call (CUDA events over calls
+queued behind a spin kernel, as ``chip_smoke.py`` times kernels), the
+builds in alternating order; then the medians; then, per kernel present in
+both builds, whether its SASS (with the out-of-line functions it calls) is
+identical, else both instruction counts and the first difference. Needs the
+CUDA toolkit and one GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import chip_smoke as cs  # noqa: E402
+from msm_tpu_torch.ops import _build  # noqa: E402
+from torch_sass_mix import sass  # noqa: E402
+
+KERNELS = ("point_add", "scan_rows", "row_offsets", "point_total", "horner")
+
+
+def other_library(root: Path) -> Path:
+    """Build the other checkout's kernels with its own build code."""
+    code = "from msm_tpu_torch.ops import _build; print(_build.build())"
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                         capture_output=True, text=True).stdout
+    return Path(out.strip().splitlines()[-1])
+
+
+def load(so: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _build.SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def cases(rng) -> dict:
+    """Wrapper arguments at the plain 2^20 MSM's shapes: G = 4 subtasks,
+    R = 16384 lanes of C = 64 steps, 32769 buckets, S = 16 windows."""
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.ops.cuda_convert import pack_canonical
+    from msm_tpu_torch.params import BN254, MsmConfig, pick_config
+
+    dev = torch.device("cuda")
+    base_cfg = MsmConfig(curve=BN254)
+    aff = [Curve(BN254).to_affine(p) for p in Curve(BN254).sample_points(256, seed=cs.SEED)]
+    base = torch.stack([torch.from_numpy(cs._mont(v, base_cfg)) for v in zip(*aff)]).to(dev)
+    cfg = pick_config(1 << 20)
+    G, C, R, S, NB = 4, 64, 1 << 14, cfg.num_subtasks, cfg.num_buckets
+    n = C * R
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    tab = torch.cat([pack_canonical(torch.from_numpy(cs._rand_fe(rng, (n,), cfg)), cfg)
+                     for _ in range(2)], dim=-1).to(dev)
+    perm = np.stack([rng.permutation(n).reshape(R, C).T for _ in range(G)]).astype(np.int32)
+    rows = cs._curve_points(rng, (G, R), cfg, base, dev)
+    return {
+        "point_add": [cfg, *(t(cs._rand_fe(rng, (G * NB,), cfg)) for _ in range(6))],
+        "scan_rows": [cfg, tab, t(perm), t(rng.integers(0, 2, size=perm.shape, dtype=np.int32))],
+        "row_offsets": [cfg, *(a.transpose(1, 2).contiguous() for a in rows)],
+        "point_total": [cfg, *cs._curve_points(rng, (S, NB - 1), cfg, base, dev)],
+        "horner": [cfg, *(t(cs._rand_fe(rng, (S,), cfg)) for _ in range(3)), cfg.chunk_size],
+    }
+
+
+def compare_sass(mine: Path, other: Path) -> None:
+    for obj in sorted(mine.glob("*.o")):
+        if not (other / obj.name).exists():
+            continue
+        a, b = sass(obj), sass(other / obj.name)
+        for fn in sorted(set(a) & set(b)):
+            if a[fn] == b[fn]:
+                print(f"sass {obj.name} {fn}: identical ({len(a[fn])} instructions)")
+                continue
+            i = next((k for k, (x, y) in enumerate(zip(a[fn], b[fn])) if x != y),
+                     min(len(a[fn]), len(b[fn])))
+            diff = sum(x != y for x, y in zip(a[fn], b[fn])) + abs(len(a[fn]) - len(b[fn]))
+            print(f"sass {obj.name} {fn}: differs ({len(a[fn])} vs {len(b[fn])} instructions, "
+                  f"{diff} positions differ; first at {i}: "
+                  f"{a[fn][i] if i < len(a[fn]) else '-'} | {b[fn][i] if i < len(b[fn]) else '-'})")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    other_so = other_library(args.other.resolve())
+    libs = {"this": _build.load(), "other": load(other_so)}
+    kern = cs._kernels()
+    inputs = cases(np.random.default_rng(cs.SEED))
+    times: dict[tuple[str, str], list[float]] = {}
+    for rnd in range(args.rounds):
+        order = ("this", "other") if rnd % 2 == 0 else ("other", "this")
+        for name in KERNELS:
+            outs = {}
+            for side in order:
+                _build._lib = libs[side]
+                outs[side], ms = cs._kernel_ms(lambda: kern[name][0](*inputs[name]), 3)
+                times.setdefault((name, side), []).append(ms)
+                print(f"round {rnd} {name:12s} {side:5s} {ms:.4f} ms", flush=True)
+            if not all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"])):
+                raise AssertionError(f"{name}: the two builds' outputs differ")
+    _build._lib = libs["this"]
+    for name in KERNELS:
+        a, b = (statistics.median(times[(name, s)]) for s in ("this", "other"))
+        print(f"median {name:12s} this {a:.4f} ms  other {b:.4f} ms  ({a / b:.3f} x other)")
+    compare_sass(_build.library_path().parent, other_so.parent)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

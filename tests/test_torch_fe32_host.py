@@ -1,0 +1,356 @@
+"""The word core (msm_tpu_torch/csrc/fe32.cuh, curve32.cuh) and the per-lane
+bodies of the scan (kernel 4, csrc/scan.cuh) and the Horner ladder (kernel
+7, csrc/horner.cuh) compiled for the host with g++ and held against the
+plain PyTorch twins: the R = 2^260 Montgomery product (word CIOS plus one
+4-bit step) on random and edge values, add, sub, neg, double and the 3b
+multiple, the 13-bit <-> word repacking and the dense-word load, the
+balanced-input load, RCB16 Algorithms 7, 8 and 9, the scan's body run for
+every lane of a small stream, and the Horner chain. Outputs of the core must
+be canonical and equal to the twins' results after canonical(): a canonical
+value is unique, so the kernels on this core write the limbs the 13-bit
+core writes."""
+
+import ctypes
+import random
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import mont_limbs, pair_stream, rand_balanced, rand_canonical
+from msm_tpu_torch.ops.cuda_convert import pack_canonical
+from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
+from msm_tpu_torch.ops.cuda_prefix import horner_plain
+from msm_tpu_torch.ops.cuda_scan import rcb16_madd_plain, scan_rows_plain
+from msm_tpu_torch.ops.curve import CurveCtx, PointBatch
+from msm_tpu_torch.ops.field import get_field_ctx
+from msm_tpu_torch.params import BN254, MsmConfig
+from msm_tpu_torch.utils.limbs import ints_to_limbs
+
+CSRC = Path(__file__).resolve().parent.parent / "msm_tpu_torch" / "csrc"
+CFG = MsmConfig(curve=BN254)
+F = get_field_ctx(CFG)
+L = CFG.num_words
+P = BN254.modulus
+
+HARNESS = r"""
+#include <vector>
+
+#include "horner.cuh"
+#include "scan.cuh"
+using namespace msm;
+
+// canonical 13-bit limbs <-> words
+static void ld(fe32& x, const int32_t* a) {
+  uint32_t v[L];
+  for (int i = 0; i < L; ++i) v[i] = (uint32_t)a[i];
+  fe32_from_limbs(x, v);
+}
+static void st(int32_t* o, const fe32& x) {
+  uint32_t v[L];
+  fe32_to_limbs(v, x);
+  for (int i = 0; i < L; ++i) o[i] = (int32_t)v[i];
+}
+static void ld_pt(pt32& p, const int32_t* a) {
+  pt32_load_balanced(p, a, a + L, a + 2 * L);
+}
+static void st_pt(int32_t* o, const pt32& p) {
+  st(o, p.x);
+  st(o + L, p.y);
+  st(o + 2 * L, p.z);
+}
+
+extern "C" {
+void w_mul(const int32_t* a, const int32_t* b, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe32 x, y, r;
+    ld(x, a + i * L);
+    ld(y, b + i * L);
+    fe32_mul(r, x, y);
+    st(o + i * L, r);
+  }
+}
+// o [n, 5, L]: a + b, a - b, -a, 2a, 3b a
+void w_linear(const int32_t* a, const int32_t* b, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe32 x, y, r[5];
+    ld(x, a + i * L);
+    ld(y, b + i * L);
+    fe32_add(r[0], x, y);
+    fe32_sub(r[1], x, y);
+    fe32_neg(r[2], x);
+    fe32_double(r[3], x);
+    fe32_mul_small<B3>(r[4], x);
+    for (int k = 0; k < 5; ++k) st(o + (i * 5 + k) * L, r[k]);
+  }
+}
+// canonical limbs -> words [n, NW] -> limbs [n, L]
+void w_repack(const int32_t* a, int32_t* words, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe32 x;
+    ld(x, a + i * L);
+    for (int k = 0; k < NW; ++k) words[i * NW + k] = (int32_t)x.w[k];
+    st(o + i * L, x);
+  }
+}
+// packed rows [n, 2 NW] -> limbs [n, 2, L]
+void w_load_rows(const int32_t* packed, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe32 x, y;
+    scan_load_row(x, y, packed, i);
+    st(o + i * 2 * L, x);
+    st(o + i * 2 * L + L, y);
+  }
+}
+void w_from_balanced(const int32_t* a, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe32 r;
+    fe32_from_balanced(r, a + i * L);
+    st(o + i * L, r);
+  }
+}
+void w_pt_add(const int32_t* p, const int32_t* q, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    pt32 a, b, r;
+    ld_pt(a, p + i * 3 * L);
+    ld_pt(b, q + i * 3 * L);
+    pt32_add(r, a, b);
+    st_pt(o + i * 3 * L, r);
+  }
+}
+void w_pt_madd(const int32_t* p, const int32_t* xy, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    pt32 a, r;
+    fe32 x, y;
+    ld_pt(a, p + i * 3 * L);
+    ld(x, xy + i * 2 * L);
+    ld(y, xy + i * 2 * L + L);
+    pt32_madd(r, a, x, y);
+    st_pt(o + i * 3 * L, r);
+  }
+}
+void w_pt_double(const int32_t* p, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    pt32 a, r;
+    ld_pt(a, p + i * 3 * L);
+    pt32_double(r, a);
+    st_pt(o + i * 3 * L, r);
+  }
+}
+void w_scan(const int32_t* packed, const int32_t* perm, const int32_t* flags,
+            int32_t* pe3, int32_t* tx, int32_t* ty, int32_t* tz, int64_t G,
+            int C, int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      scan_lane(packed, perm, flags, pe3, tx, ty, tz, g, C, R, r);
+}
+// the chain of per-level products (the lanes' split, computed here by one
+// thread)
+void w_horner(const int32_t* wx, const int32_t* wy, const int32_t* wz,
+              int32_t* ox, int32_t* oy, int32_t* oz, int S, int chunk) {
+  std::vector<pt32> w(S);
+  for (int s = 0; s < S; ++s) horner_load(w[s], wx, wy, wz, s);
+  pt32 acc;
+  horner_chain(acc, w.data(), S, chunk);
+  pt32_store_limbs(ox, oy, oz, 1, acc);
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not available")
+    d = tmp_path_factory.mktemp("fe32_host")
+    src = d / "harness.cpp"
+    src.write_text(HARNESS)
+    so = d / "harness.so"
+    subprocess.run(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}", "-o", str(so), str(src)],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(so))
+    Pt, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for name, argtypes in (("w_mul", [Pt] * 3 + [I64]), ("w_linear", [Pt] * 3 + [I64]),
+                           ("w_repack", [Pt] * 3 + [I64]), ("w_load_rows", [Pt] * 2 + [I64]),
+                           ("w_from_balanced", [Pt] * 2 + [I64]), ("w_pt_add", [Pt] * 3 + [I64]),
+                           ("w_pt_madd", [Pt] * 3 + [I64]), ("w_pt_double", [Pt] * 2 + [I64]),
+                           ("w_scan", [Pt] * 7 + [I64, I32, I32]),
+                           ("w_horner", [Pt] * 6 + [I32, I32])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = None
+    return lib
+
+
+def _run(lib, name, outs, *args):
+    """Call a harness function on numpy int32 inputs and freshly zeroed
+    outputs of the given shapes; ints pass as they are, after the arrays."""
+    arrays = [np.ascontiguousarray(a, dtype=np.int32) for a in args if isinstance(a, np.ndarray)]
+    ints = [a for a in args if not isinstance(a, np.ndarray)]
+    out = [np.zeros(shape, dtype=np.int32) for shape in outs]
+    getattr(lib, name)(*(a.ctypes.data for a in arrays), *(o.ctypes.data for o in out), *ints)
+    return out
+
+
+def _assert_canonical_equal(got, twin):
+    """got: canonical limbs from the core; twin: any representation (torch)."""
+    assert got.min() >= 0 and got.max() < (1 << CFG.word_size)
+    assert np.array_equal(got, F.canonical(twin).numpy())
+
+
+def _limbs(vals) -> np.ndarray:
+    """python ints in [0, 2^260) -> [n, L] 13-bit limbs (not Montgomery)."""
+    return ints_to_limbs(list(vals), CFG.word_size, L).astype(np.int32)
+
+
+def _redc_edges(n: int, seed: int) -> tuple[list[int], list[int]]:
+    """Pairs (a, b) < p at the word product's edges: the largest first REDC
+    results t = (a b + M p) / 2^256 (M = -a b p^-1 mod 2^256) among values
+    near p, ones with t >= p, and ones where the 4-bit step leaves a value
+    >= p, so both conditional subtracts are taken and skipped."""
+    rng = random.Random(seed)
+    ninv = -pow(P, -1, 1 << 256) % (1 << 256)
+    found = []
+    for _ in range(4000):
+        a, b = P - 1 - rng.getrandbits(250), P - 1 - rng.getrandbits(rng.choice((8, 128, 250)))
+        t = (a * b + (a * b * ninv % (1 << 256)) * P) >> 256
+        t2 = (t + ((t * 9) % 16) * P) >> 4
+        found.append((t, t2 >= P, a, b))
+    found.sort(reverse=True)
+    top = found[: n // 2]
+    over = [f for f in found[n // 2:] if f[1]][: n // 2]
+    assert top[0][0] >= P and over, "edge search found no value above p"
+    pairs = top + over
+    return [a for _, _, a, _ in pairs], [b for _, _, _, b in pairs]
+
+
+def test_mont_mul_random_and_edges(lib):
+    rng = np.random.default_rng(31)
+    a, b = rand_canonical(rng, (256,), CFG), rand_canonical(rng, (256,), CFG)
+    r_mod_p = CFG.r % P
+    edges = [0, 1, P - 1, r_mod_p, P - r_mod_p, (1 << 253) - 1, 1 << 253]
+    ea, eb = zip(*[(x, y) for x in edges for y in edges])
+    ra, rb = _redc_edges(64, seed=32)
+    a = np.concatenate([a, _limbs(ea), _limbs(ra)])
+    b = np.concatenate([b, _limbs(eb), _limbs(rb)])
+    (got,) = _run(lib, "w_mul", [a.shape], a, b, a.shape[0])
+    _assert_canonical_equal(got, F.mont_mul(torch.from_numpy(a), torch.from_numpy(b)))
+
+
+def test_add_sub_neg_double_and_3b_multiple(lib):
+    rng = np.random.default_rng(33)
+    a, b = rand_canonical(rng, (200,), CFG), rand_canonical(rng, (200,), CFG)
+    a[:4] = _limbs([0, 0, P - 1, P - 1])
+    b[:4] = _limbs([0, P - 1, 1, P - 1])
+    b[4:8] = a[4:8]  # a - a = 0
+    (got,) = _run(lib, "w_linear", [(200, 5, L)], a, b, 200)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    b3m = torch.from_numpy(b3_mont_limbs(CFG))
+    want = (F.add(ta, tb), F.sub(ta, tb), F.neg(ta), F.double(ta), F.mont_mul(ta, b3m))
+    for k, w in enumerate(want):
+        _assert_canonical_equal(got[:, k], w)
+
+
+def test_repack_round_trip_and_dense_rows(lib):
+    """13-bit limbs -> words is the packed table's dense form
+    (pack_canonical), words -> limbs gives the limbs back, and a packed row
+    loads as its two coordinates."""
+    rng = np.random.default_rng(34)
+    a = rand_canonical(rng, (300,), CFG)
+    a[:3] = _limbs([0, P - 1, (1 << 254) - 1])  # top word of a 254-bit value
+    words, back = _run(lib, "w_repack", [(300, 8), a.shape], a, 300)
+    assert np.array_equal(words, pack_canonical(torch.from_numpy(a), CFG).numpy())
+    assert np.array_equal(back, a)
+    packed = np.concatenate([words[:150], words[150:]], axis=1)  # rows x || y
+    (xy,) = _run(lib, "w_load_rows", [(150, 2, L)], packed, 150)
+    assert np.array_equal(xy[:, 0], a[:150]) and np.array_equal(xy[:, 1], a[150:])
+
+
+def test_from_balanced(lib):
+    """Balanced limbs, negated values, values below -R and limbs spread
+    beyond 13 bits, as kernel 7's inputs may be."""
+    rng = np.random.default_rng(35)
+    x = rand_balanced(rng, (300,), CFG)
+    x[:80] = -x[:80]
+    x[80:100, -1] -= 1 << CFG.word_size
+    x[100:110, -1] += (1 << CFG.word_size) - 40
+    x[110:120] = 0
+    x[120:130] = _limbs([P] * 10)
+    got = _run(lib, "w_from_balanced", [x.shape], x, 300)[0]
+    _assert_canonical_equal(got, torch.from_numpy(x))
+
+
+def _rand_points(rng, n):
+    """Random coordinates (any field elements: the formulas are algebraic),
+    balanced, plus the identity."""
+    pts = np.stack([rand_balanced(rng, (n,), CFG) for _ in range(3)], axis=1)
+    pts[0, 0], pts[0, 1], pts[0, 2] = 0, F.r_limbs, 0
+    return pts
+
+
+def test_rcb16_add(lib):
+    """Algorithm 7, with P + P and P + (-P) rows."""
+    rng = np.random.default_rng(36)
+    p, q = _rand_points(rng, 64), _rand_points(rng, 64)
+    q[1] = p[1]
+    q[2, 0], q[2, 1], q[2, 2] = p[2, 0], -p[2, 1], p[2, 2]
+    (got,) = _run(lib, "w_pt_add", [(64, 3, L)], p, q, 64)
+    tp, tq = torch.from_numpy(p), torch.from_numpy(q)
+    want = point_add_plain(CFG, tp[:, 0], tp[:, 1], tp[:, 2], tq[:, 0], tq[:, 1], tq[:, 2])
+    for i in range(3):
+        _assert_canonical_equal(got[:, i], want[i])
+
+
+def test_rcb16_madd_and_double(lib):
+    """Algorithms 8 and 9."""
+    rng = np.random.default_rng(37)
+    p = _rand_points(rng, 64)
+    xy = np.stack([rand_canonical(rng, (64,), CFG) for _ in range(2)], axis=1)
+    (got,) = _run(lib, "w_pt_madd", [(64, 3, L)], p, xy, 64)
+    tp, txy = torch.from_numpy(p), torch.from_numpy(xy)
+    b3m = torch.from_numpy(b3_mont_limbs(CFG))
+    want = rcb16_madd_plain(F, b3m, tp[:, 0], tp[:, 1], tp[:, 2], txy[:, 0], txy[:, 1])
+    for i in range(3):
+        _assert_canonical_equal(got[:, i], want[i])
+    (got,) = _run(lib, "w_pt_double", [(64, 3, L)], p, 64)
+    want = CurveCtx(CFG).double(PointBatch(tp[:, 0], tp[:, 1], tp[:, 2]))
+    for i in range(3):
+        _assert_canonical_equal(got[:, i], want[i])
+
+
+@pytest.mark.parametrize("G, C, R", [(1, 4, 64), (2, 3, 16), (1, 1, 8)])
+def test_scan_lanes_match_twin(lib, G, C, R):
+    """Kernel 4's per-lane body for every lane of a stream of real points
+    with random signs (and rows repeated: P + P and P + (-P) steps), against
+    scan_rows_plain: every pe3 row and lane total."""
+    _, packed, perm, flags = pair_stream(CFG, G, C + C % 2, R, nbase=12, seed=38 + C)
+    perm, flags = perm[:, :C], flags[:, :C]
+    got = _run(lib, "w_scan", [(G, C, R, 3 * L)] + [(G, L, R)] * 3,
+               packed, perm, flags, G, C, R)
+    want = scan_rows_plain(CFG, *(torch.from_numpy(np.ascontiguousarray(a)) for a in (packed, perm, flags)))
+    for i in range(3):  # pe3 rows: x || y || z
+        _assert_canonical_equal(got[0][..., i * L:(i + 1) * L], want[0][..., i * L:(i + 1) * L])
+    for g, w in zip(got[1:], want[1:]):
+        _assert_canonical_equal(np.ascontiguousarray(g.swapaxes(-1, -2)), w.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("S, chunk", [(4, 4), (16, 16), (20, 13), (3, 1), (1, 5)])
+def test_horner_chain_matches_twin(lib, S, chunk):
+    """Kernel 7's load and chain of per-level products (the products the
+    lanes of a warp split) on balanced window sums (some negated, one the
+    identity) against horner_plain, at the 2^20 and 2^16 MSMs' shapes, a
+    small one and a single window."""
+    rng = np.random.default_rng(39 + S)
+    w = [rand_balanced(rng, (S,), CFG) for _ in range(3)]
+    w[1][::3] *= -1
+    w[0][S // 2], w[1][S // 2], w[2][S // 2] = 0, mont_limbs([1], CFG)[0], 0
+    got = _run(lib, "w_horner", [(L,)] * 3, *w, S, chunk)
+    want = horner_plain(CFG, *map(torch.from_numpy, w), chunk)
+    for g, t in zip(got, want):
+        _assert_canonical_equal(g, t)
