@@ -21,10 +21,12 @@
    (half of each row 0, one row in the top window's narrow range) and over
    65536 buckets (more counters than a block's shared memory holds), the
    row offsets at R = 8, 1024 and 8192 lanes and at R = 16384 over 8 and
-   16 subtasks (4 and 8 lanes per thread), the scan and the Horner ladder
-   at the 2^16 shapes (G = 4, C = 8, R = 8192; S = 20, chunk 13), each
-   Horner time beside the depth of its chain in products, and the scan
-   timed alone and just after a histogram or a row-offsets launch;
+   16 subtasks (4 and 8 lanes per thread), the scan, the point total and
+   the Horner ladder at the 2^16 shapes (G = 4, C = 8, R = 8192; 20 x 4096
+   points; S = 20, chunk 13), the Horner kernel over the window sums'
+   two-point folds (16 ladders at chunk 15, 20 at chunk 12), each Horner
+   time beside the depth of its chain in products, and the scan timed
+   alone and just after a histogram or a row-offsets launch;
 3. runs compress_pairs on the card at the compressed 2^20 shape and checks
    every pair sum and infinity flag against the oracle;
 4. runs small edge MSMs (edge scalars, duplicate points, P and -P under one
@@ -69,7 +71,7 @@ REPLACES = {
     "bucket_hist": ("csrc/hist.cu", "msm_tpu/ops/pallas_hist.py:83"),
     "scan_rows": ("csrc/scan.cu", "msm_tpu/ops/pallas_scan.py:374"),
     "row_offsets": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:133"),
-    "point_total": ("csrc/prefix.cu", "msm_tpu/ops/pallas_prefix.py:231"),
+    "point_total": ("csrc/point_total.cu", "msm_tpu/ops/pallas_prefix.py:231"),
     "horner": ("csrc/horner.cu", "msm_tpu/ops/pallas_prefix.py:335"),
     "mont_pow": ("csrc/inv.cu", "msm_tpu/ops/pallas_inv.py:92"),
     "pair_suffix": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:427"),
@@ -128,10 +130,10 @@ def _kernels():
 
 
 #: the kernels one launch of a wrapper runs, by their names in a profiler
-#: trace, for the wrappers that run more than one (csrc/prefix.cu); every
-#: other wrapper runs one kernel per launch
+#: trace, for the wrappers that run more than one (csrc/prefix.cu,
+#: csrc/point_total.cu); every other wrapper runs one kernel per launch
 TRACE_KERNELS = {"row_offsets": ("k_ro_totals", "k_ro_blocks", "k_ro_write"),
-                 "point_total": ("k_point_total", "k_point_total")}
+                 "point_total": ("k_point_total", "k_point_total_finish")}
 #: a trace kernel's name -> its wrapper's row in the device breakdown
 TRACE_ROWS = {k: f"k_{name}" for name, ks in TRACE_KERNELS.items() for k in ks}
 
@@ -266,8 +268,8 @@ def _products(name, args) -> int:
         return 12 * shape[0] * (shape[2] - 1)
     if name == "point_total":  # [S, N, L]
         return 12 * shape[0] * (shape[1] - 1)
-    if name == "horner":
-        return (shape[0] - 1) * (8 * args[4] + 12)
+    if name == "horner":  # [S, L] or G ladders [G, S, L]
+        return (args[1].numel() // (shape[-2] * shape[-1])) * (shape[-2] - 1) * (8 * args[4] + 12)
     if name == "mont_pow":
         e = args[2]
         return shape[0] * shape[2] * (e.bit_length() + bin(e).count("1"))
@@ -278,10 +280,10 @@ def _products(name, args) -> int:
 
 
 def _horner_depth(args) -> int:
-    """Products on the Horner ladder's dependent chain: two per doubling and
+    """Products on a Horner ladder's dependent chain: two per doubling and
     per addition, the lanes of a warp splitting each formula's products
-    (csrc/horner.cu)."""
-    S, chunk = args[1].shape[0], args[4]
+    (csrc/horner.cu); G ladders run side by side."""
+    S, chunk = args[1].shape[-2], args[4]
     return (S - 1) * (2 * chunk + 2)
 
 
@@ -308,9 +310,9 @@ def _least_bytes(name, args) -> float:
     if name in ("row_offsets", "mont_pow"):  # [G, L, R] lanes, in and out
         lanes = a[0].shape[0] * a[0].shape[2]
         return 2 * lanes * (3 if name == "row_offsets" else 1) * FE_BYTES
-    if name in ("point_total", "horner"):  # [S, N, L] or [S, L] points -> one per row / one
+    if name in ("point_total", "horner"):  # [G, N, L], [G, S, L] or [S, L] -> one point per G
         pts = a[0].numel() // a[0].shape[-1]
-        return 3 * FE_BYTES * (pts + (a[0].shape[0] if name == "point_total" else 1))
+        return 3 * FE_BYTES * (pts + pts // a[0].shape[-2])
     if name == "bpr_phase1":  # [G, Bl, T, L] buckets -> m, g [G, T, L]
         G, Bl, T, _ = a[0].shape
         return 3 * FE_BYTES * G * T * (Bl + 2)
@@ -511,9 +513,10 @@ def check_path_shapes(kern, rng, base, dev, clock_hz) -> None:
     the naive histogram (32 windows of 2^20 8-bit keys into 256 buckets,
     with torch.bincount's time beside it), the running sum's point adds
     (32 windows), bucket_accumulate's (32 x 256 buckets; also the shape of
-    the blocked tail's 16 x 512 suffix ladder), the blocked tail's
-    doublings (16 windows, P + P) and its point totals (16 x 512 real
-    points)."""
+    the blocked tail's 16 x 512 suffix ladder), 16 windows of P + P, the
+    blocked tail's point totals (16 x 512 real points), and the Horner
+    kernel over the 16 windows' two-point folds at chunk 15
+    (window_sum_from_pe at c = 16)."""
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.models.naive import NAIVE_CONFIG
     from msm_tpu_torch.ops.field import get_field_ctx
@@ -539,6 +542,9 @@ def check_path_shapes(kern, rng, base, dev, clock_hz) -> None:
         ("point_add", "blocked_doubling", [cfg, *dbl, *dbl], False, 5),
         ("point_total", "blocked_tail", [cfg, *_curve_points(rng, (S, T), cfg, base, dev)], True, 3),
     ]
+    fold = [t(_rand_fe(rng, (S, 2), cfg)) for _ in range(3)]
+    cases.append(("horner", f"fold G{S} S2 chunk{cfg.chunk_size - 1}", [cfg, *fold, cfg.chunk_size - 1],
+                  False, 5))
     for name, label, args, as_points, reps in cases:
         _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz)
     print(f"library bucket_hist naive torch.bincount ms={_bincount_ms(keys, nb):.4f}", flush=True)
@@ -565,8 +571,8 @@ def check_redesigned_shapes(kern, rng, base, dev, clock_hz) -> None:
     offsets on real points at R = 8 (the n = 35 edge MSM), 1024
     (compressed) and 8192 (2^16 plain) lanes, 4 subtasks, and at R = 16384
     over 8 and 16 subtasks, where the plan gives 4 and 8 lanes per thread
-    (the kernel's 16-byte loads); the scan and the Horner ladder at the
-    plain 2^16 MSM's shapes."""
+    (the kernel's 16-byte loads); the scan, the point total, the Horner
+    ladder and the window sums' fold at the plain 2^16 MSM's shapes."""
     from msm_tpu_torch.models.naive import NAIVE_CONFIG
     from msm_tpu_torch.ops.cuda_prefix import row_offsets_plan
     from msm_tpu_torch.ops.field import get_field_ctx
@@ -592,13 +598,15 @@ def check_redesigned_shapes(kern, rng, base, dev, clock_hz) -> None:
         rows = _curve_points(rng, (G, R), cfg, base, dev)
         args = [cfg, *(a.transpose(1, 2).contiguous() for a in rows)]
         _check_case(kern, f, L, "row_offsets", f"R{R} G{G} k{k}", args, True, 3, clock_hz)
-    check_word_core_shapes(kern, rng, dev, clock_hz)
+    check_word_core_shapes(kern, rng, base, dev, clock_hz)
 
 
-def check_word_core_shapes(kern, rng, dev, clock_hz) -> None:
-    """The scan and the Horner ladder at the plain 2^16 MSM's shapes (c = 13:
-    G = 4 subtasks of C = 8 steps over R = 8192 lanes; S = 20 windows),
-    exact against their twins."""
+def check_word_core_shapes(kern, rng, base, dev, clock_hz) -> None:
+    """The word-core kernels at the plain 2^16 MSM's shapes (c = 13), exact
+    against their twins: the scan (G = 4 subtasks of C = 8 steps over R =
+    8192 lanes), the point total over 20 windows of 4096 real points, the
+    Horner ladder over S = 20 windows and the 20 windows' two-point folds
+    at chunk 12."""
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
     from msm_tpu_torch.params import pick_config
@@ -616,6 +624,12 @@ def check_word_core_shapes(kern, rng, dev, clock_hz) -> None:
     S, chunk = cfg.num_subtasks, cfg.chunk_size
     ws = [torch.from_numpy(_rand_fe(rng, (S,), cfg)).to(dev) for _ in range(3)]
     _check_case(kern, f, L, "horner", f"S{S} chunk{chunk}", [cfg, *ws, chunk], False, 3, clock_hz)
+    N = cfg.num_buckets - 1
+    _check_case(kern, f, L, "point_total", f"G{S} N{N}", [cfg, *_curve_points(rng, (S, N), cfg, base, dev)],
+                True, 5, clock_hz)
+    fold = [torch.from_numpy(_rand_fe(rng, (S, 2), cfg)).to(dev) for _ in range(3)]
+    _check_case(kern, f, L, "horner", f"fold G{S} S2 chunk{chunk - 1}", [cfg, *fold, chunk - 1], False, 5,
+                clock_hz)
 
 
 def sample_msm(n: int, seed: int = SEED):
@@ -687,8 +701,7 @@ def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
         return st
     ws = cuzk.window_sums_from_table(packed, sd, cfg, geom)
     t0 = mark("window_sums", t0)
-    pt = cuzk.msm_point_from_ws(ws, cfg)
-    common.std_point_to_jpoint(pt.numpy(), cfg)
+    common.std_ints_to_jpoint(*cuzk.msm_point_from_ws(ws, cfg), cfg)
     mark("horner_and_host_tail", t0)
     return st
 
@@ -713,14 +726,24 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
             run(pts, ks)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            # the device's last records reach a trace that stops at once
+            # after them late or not at all (seen once the host tail took
+            # ~1 ms instead of ~20 ms)
+            time.sleep(0.1)
         trace_path.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_path))
-        busy_ms, by_name, n_ours = trace_breakdown(json.loads(trace_path.read_text())["traceEvents"])
-        expected = sum(w.launches * len(TRACE_KERNELS.get(name, (name,)))
-                       for name, (w, _plain) in kern.items())
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        busy_ms, by_name, n_ours = trace_breakdown(events)
+        counts = {name: w.launches for name, (w, _plain) in kern.items()}
+        expected = sum(n * len(TRACE_KERNELS.get(name, (name,))) for name, n in counts.items())
         if n_ours == expected:
             return wall_ms, busy_ms, by_name
-        print(f"profiled MSM: trace holds {n_ours} of {expected} kernel launches; again", flush=True)
+        seen: dict[str, int] = {}
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") == "kernel" and e["name"].startswith("k_"):
+                seen[e["name"].split("(")[0]] = seen.get(e["name"].split("(")[0], 0) + 1
+        print(f"profiled MSM: trace holds {n_ours} of {expected} kernel launches ({json.dumps(seen)} "
+              f"for launches {json.dumps({k: v for k, v in counts.items() if v})}); again", flush=True)
     raise RuntimeError("the profiler dropped kernel events in three traces")
 
 
@@ -935,7 +958,7 @@ def check_blocked(pts, ks, want, device="cuda") -> dict:
     pt = cuzk.msm_point_from_ws(torch.stack([w.x, w.y, w.z], dim=1), cfg)
     torch.cuda.synchronize()
     counts = _counts_of(tag, "blocked")
-    got = common.std_point_to_jpoint(pt.numpy(), cfg)
+    got = common.std_ints_to_jpoint(*pt, cfg)
     cv = Curve(cfg.curve)
     if got.is_identity() or cv.to_affine(got) != cv.to_affine(want):
         raise AssertionError(f"{tag}: the MSM differs from the oracle")

@@ -225,7 +225,8 @@ MSM_HD void fe32_load_dense(fe32& out, const int32_t* w) {
 // value v = sum in[i] 2^(13 i), any limb within int32) -> canonical. A
 // signed carry ripple gives v = U + c 2^260 with U in [0, 2^260) in 13-bit
 // limbs; U < 128 p is reduced by conditional subtracts of 64p .. p, and
-// each unit of c adds R mod p (c is -1 or 0 for v in (-R, R)).
+// each unit of c adds R mod p (c is -1 or 0 for v in (-R, R)). Canonical
+// inputs (U < p, as every kernel writes them) skip the subtracts.
 MSM_HD void fe32_from_balanced(fe32& out, const int32_t* in) {
   uint32_t v[L];
   int64_t c = 0;
@@ -243,19 +244,25 @@ MSM_HD void fe32_from_balanced(fe32& out, const int32_t* in) {
     for (int i = 0; i < NW; ++i) u[i] = lo.w[i];
     u[NW] = v[L - 1] >> (32 * NW - W * (L - 1));
   }
+  uint32_t below_p = 0;  // the borrow of U - p
   MSM_UNROLL
-  for (int s = 6; s >= 0; --s) {  // subtract (p << s) when U >= p << s
-    uint32_t d[NW + 1];
-    uint32_t borrow = 0;
+  for (int i = 0; i <= NW; ++i)
+    below_p = hi32((uint64_t)u[i] - p_shl_word(i, 0) - below_p) & 1u;
+  if (!below_p) {
     MSM_UNROLL
-    for (int i = 0; i <= NW; ++i) {
-      const uint64_t t = (uint64_t)u[i] - p_shl_word(i, s) - borrow;
-      d[i] = lo32(t);
-      borrow = hi32(t) & 1u;
+    for (int s = 6; s >= 0; --s) {  // subtract (p << s) when U >= p << s
+      uint32_t d[NW + 1];
+      uint32_t borrow = 0;
+      MSM_UNROLL
+      for (int i = 0; i <= NW; ++i) {
+        const uint64_t t = (uint64_t)u[i] - p_shl_word(i, s) - borrow;
+        d[i] = lo32(t);
+        borrow = hi32(t) & 1u;
+      }
+      const uint32_t keep = 0u - borrow;
+      MSM_UNROLL
+      for (int i = 0; i <= NW; ++i) u[i] = (u[i] & keep) | (d[i] & ~keep);
     }
-    const uint32_t keep = 0u - borrow;
-    MSM_UNROLL
-    for (int i = 0; i <= NW; ++i) u[i] = (u[i] & keep) | (d[i] & ~keep);
   }
   MSM_UNROLL
   for (int i = 0; i < NW; ++i) out.w[i] = u[i];

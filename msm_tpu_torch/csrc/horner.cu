@@ -1,6 +1,10 @@
 // The Horner ladder: sum_s 2^(chunk*s) * W_s over the S window sums, the
-// last step of the cuZK MSM. Inputs w* [S, L] (balanced limbs, so plain
-// PyTorch tensors are accepted); outputs o* [L], canonical limbs.
+// last step of the cuZK MSM, batched over G independent ladders. Inputs
+// w* [G, S, L] (balanced limbs, so plain PyTorch tensors are accepted);
+// outputs o* [G, L], canonical limbs. The MSM runs it twice: once per
+// window (G = S, S = 2) to fold each window sum W = 2^(c-1) pe_{B-1} -
+// total (ops/scan.window_sum_from_pe; the blocked reduction's tail folds
+// likewise), once over the S window sums (G = 1).
 //
 // Replaces msm_tpu/ops/pallas_prefix.py::make_horner_ladder (pallas_call at
 // :335), which ran the ladder as one grid-less program.
@@ -35,22 +39,26 @@ __global__ void __launch_bounds__(WARP)
              int32_t* __restrict__ oy, int32_t* __restrict__ oz, int S,
              int chunk) {
   extern __shared__ pt32 sw[];  // [S]
-  for (int s = threadIdx.x; s < S; s += blockDim.x) horner_load(sw[s], wx, wy, wz, s);
+  const int64_t g = blockIdx.x, i = g * S * L, o = g * L;
+  for (int s = threadIdx.x; s < S; s += blockDim.x)
+    horner_load(sw[s], wx + i, wy + i, wz + i, s);
   __syncthreads();
   pt32 acc;
   horner_chain(acc, sw, S, chunk);
-  if (threadIdx.x == 0) pt32_store_limbs(ox, oy, oz, 1, acc);
+  if (threadIdx.x == 0) pt32_store_limbs(ox + o, oy + o, oz + o, 1, acc);
 }
 
-// One block of one warp; S window sums (S * 96 B) in shared memory.
+// One block of one warp per ladder; its S window sums (S * 96 B) in shared
+// memory.
 extern "C" int msm_horner(const int32_t* wx, const int32_t* wy,
                           const int32_t* wz, int32_t* ox, int32_t* oy,
-                          int32_t* oz, int S, int chunk, void* stream) {
+                          int32_t* oz, int64_t groups, int S, int chunk,
+                          void* stream) {
   const size_t smem = (size_t)S * sizeof(pt32);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  if (S > 0) {
-    k_horner<<<1, WARP, smem, (cudaStream_t)stream>>>(wx, wy, wz, ox, oy, oz,
-                                                      S, chunk);
+  if (groups > 0 && S > 0) {
+    k_horner<<<(unsigned)groups, WARP, smem, (cudaStream_t)stream>>>(
+        wx, wy, wz, ox, oy, oz, S, chunk);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,10 @@
 // Kernel 7 (csrc/horner.cu), the Horner ladder on the word core: the window
 // sums' load and the serial chain, with each formula's independent products
-// spread over the lanes of a warp. __host__ __device__, so the host C++
-// compiler builds it for the CPU tests (there one thread computes every
-// product of a level).
+// spread over the lanes of a warp (csrc/lanes32.cuh). __host__ __device__,
+// so the host C++ compiler builds it for the CPU tests.
 #pragma once
 
-#include "curve32.cuh"
+#include "lanes32.cuh"
 
 namespace msm {
 
@@ -14,94 +13,6 @@ MSM_HD void horner_load(pt32& p, const int32_t* wx, const int32_t* wy,
                         const int32_t* wz, int s) {
   const int64_t o = (int64_t)s * L;
   pt32_load_balanced(p, wx + o, wy + o, wz + o);
-}
-
-// The N independent products of one level of a formula, out[k] = a[k] b[k].
-// On the device lane k of the warp computes product k (lanes >= N repeat
-// product 0) and the lanes trade them with __shfl_sync, so every lane holds
-// every product; on the host one thread computes all N.
-template <int N>
-MSM_HD void level_products(fe32 (&out)[N], const fe32 (&a)[N],
-                           const fe32 (&b)[N]) {
-#ifdef __CUDA_ARCH__
-  const int lane = threadIdx.x & 31;
-  fe32 x = a[0], y = b[0];
-  MSM_UNROLL
-  for (int k = 1; k < N; ++k)
-    if (lane == k) {
-      x = a[k];
-      y = b[k];
-    }
-  fe32 r;
-  fe32_mul(r, x, y);
-  MSM_UNROLL
-  for (int k = 0; k < N; ++k)
-    MSM_UNROLL
-    for (int i = 0; i < NW; ++i) out[k].w[i] = __shfl_sync(0xffffffffu, r.w[i], k);
-#else
-  for (int k = 0; k < N; ++k) fe32_mul(out[k], a[k], b[k]);
-#endif
-}
-
-// RCB16 Algorithm 9 (pt32_double) with its 8 products in two levels of 4:
-// y^2, y z, z^2, x y, then 3b z^2 * 8 y^2, y z * 8 y^2, t0 y3 and t0 x y.
-MSM_HD void pt32_double_lanes(pt32& out, const pt32& p) {
-  fe32 r[4];
-  {
-    const fe32 a[4] = {p.y, p.y, p.z, p.x}, b[4] = {p.y, p.z, p.z, p.y};
-    level_products<4>(r, a, b);
-  }
-  fe32 z3, t2, y3, t0, u;
-  fe32_double(z3, r[0]);
-  fe32_double(z3, z3);
-  fe32_double(z3, z3);  // 8 y^2
-  fe32_mul_small<B3>(t2, r[2]);
-  fe32_add(y3, r[0], t2);
-  fe32_double(u, t2);
-  fe32_add(u, u, t2);
-  fe32_sub(t0, r[0], u);  // y^2 - 3 (3b z^2)
-  {
-    const fe32 a[4] = {t2, r[1], t0, t0}, b[4] = {z3, z3, y3, r[3]};
-    level_products<4>(r, a, b);
-  }
-  fe32_add(out.y, r[0], r[2]);
-  out.z = r[1];
-  fe32_double(out.x, r[3]);
-}
-
-// RCB16 Algorithm 7 (pt32_add) with its 12 products in two levels of 6.
-MSM_HD void pt32_add_lanes(pt32& out, const pt32& p, const pt32& q) {
-  fe32 r[6];
-  {
-    fe32 a[6] = {p.x, p.y, p.z}, b[6] = {q.x, q.y, q.z};
-    fe32_add(a[3], p.x, p.y);
-    fe32_add(b[3], q.x, q.y);
-    fe32_add(a[4], p.y, p.z);
-    fe32_add(b[4], q.y, q.z);
-    fe32_add(a[5], p.x, p.z);
-    fe32_add(b[5], q.x, q.z);
-    level_products<6>(r, a, b);
-  }
-  fe32 t0, t2, t3, t4, t5, u, z3, t1m, y3;
-  fe32_add(u, r[0], r[1]);
-  fe32_sub(t3, r[3], u);  // x1 y2 + x2 y1
-  fe32_add(u, r[1], r[2]);
-  fe32_sub(t4, r[4], u);  // y1 z2 + y2 z1
-  fe32_add(u, r[0], r[2]);
-  fe32_sub(t5, r[5], u);  // x1 z2 + x2 z1
-  fe32_double(u, r[0]);
-  fe32_add(t0, u, r[0]);  // 3 x1 x2
-  fe32_mul_small<B3>(t2, r[2]);
-  fe32_add(z3, r[1], t2);
-  fe32_sub(t1m, r[1], t2);
-  fe32_mul_small<B3>(y3, t5);
-  {
-    const fe32 a[6] = {t3, t4, t1m, y3, z3, t0}, b[6] = {t1m, y3, z3, t0, t4, t3};
-    level_products<6>(r, a, b);
-  }
-  fe32_sub(out.x, r[0], r[1]);
-  fe32_add(out.y, r[2], r[3]);
-  fe32_add(out.z, r[4], r[5]);
 }
 
 // sum_s 2^(chunk s) w[s] by Horner's rule: chunk (S - 1) doublings and

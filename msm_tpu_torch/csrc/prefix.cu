@@ -1,20 +1,18 @@
-// The two point-sum kernels around the scan on the 13-bit core: row
-// offsets and point total. Both take balanced limbs (so plain PyTorch
-// tensors are accepted) and write canonical limbs. The third kernel of
-// pallas_prefix.py, the Horner ladder, is csrc/horner.cu (word core).
+// Row offsets on the 13-bit core: the exclusive point prefix over the scan's
+// lane totals. Takes balanced limbs (so plain PyTorch tensors are accepted)
+// and writes canonical limbs. The other two kernels of pallas_prefix.py are
+// csrc/point_total.cu and csrc/horner.cu (word core).
 //
-// Replaces msm_tpu/ops/pallas_prefix.py:
-//   make_row_offsets   (pallas_call at :133) -> k_ro_totals, k_ro_blocks,
-//                                               k_ro_write
-//   make_point_total   (pallas_call at :231) -> k_point_total
+// Replaces msm_tpu/ops/pallas_prefix.py::make_row_offsets (pallas_call at
+// :133) -> k_ro_totals, k_ro_blocks, k_ro_write.
 //
-// The TPU ran each as one grid-less program with every lane resident in
+// The TPU ran it as one grid-less program with every lane resident in
 // VMEM, crossing lanes with pltpu.roll. Here a block holds at most 128
 // projective points (30 KB) in shared memory, under the 48 KB static limit;
-// 1024 points would exceed the 227 KB a block may use. Both are bound by
-// the serial chain of complete additions (12 Montgomery products each) in
-// their longest thread, not by memory: a few MB per call. The core runs at
-// ~255 registers per thread, so an SM holds about 256 threads.
+// 1024 points would exceed the 227 KB a block may use. It is bound by the
+// serial chain of complete additions (12 Montgomery products each) in its
+// longest thread, not by memory: a few MB per call. The core runs at ~255
+// registers per thread, so an SM holds about 256 threads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -151,42 +149,6 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-// Sum of N points per subtask. Block (b, g) sums a contiguous range of
-// subtask g's points, strided over its threads, then tree-reduces in
-// shared memory and writes one partial point. Inputs p* [G, N, L];
-// outputs o* [G, nb, L].
-__global__ void __launch_bounds__(BLOCK)
-    k_point_total(const int32_t* __restrict__ px,
-                  const int32_t* __restrict__ py,
-                  const int32_t* __restrict__ pz, int32_t* __restrict__ ox,
-                  int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                  int64_t N) {
-  __shared__ point sp[BLOCK];
-  const int T = blockDim.x, t = threadIdx.x;
-  const int64_t b = blockIdx.x, nb = gridDim.x, g = blockIdx.y;
-  const int64_t lo = N * b / nb, hi = N * (b + 1) / nb;
-  point s, v;
-  pt_identity(s);
-  for (int64_t i = lo + t; i < hi; i += T) {
-    const int64_t o = (g * N + i) * L;
-    pt_load_balanced(v, px + o, py + o, pz + o, 1);
-    pt_add(s, s, v);
-  }
-  sp[t] = s;
-  __syncthreads();
-  for (int h = T / 2; h > 0; h >>= 1) {
-    if (t < h) {
-      pt_add(s, sp[t], sp[t + h]);
-      sp[t] = s;
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    const int64_t o = (g * nb + b) * L;
-    pt_store(ox + o, oy + o, oz + o, 1, sp[0]);
-  }
-}
-
 // Three launches on the stream (see k_ro_totals). Inputs t* [G, L, R]
 // limbs-first, 16-byte aligned; outputs o* [G, R, L]; scratch s* [G, nb, L].
 // The plan: K lanes per thread, nb blocks of BLOCK threads per subtask
@@ -212,25 +174,6 @@ extern "C" int msm_row_offsets(const int32_t* tx, const int32_t* ty,
     err = (int)cudaGetLastError();
     if (err) return err;
     k_ro_write<<<grid, BLOCK, 0, st>>>(tx, ty, tz, ox, oy, oz, sx, sy, sz, R, K);
-  }
-  return (int)cudaGetLastError();
-}
-
-// Two launches: `nb` partial sums per subtask into the scratch s* [G, nb, L],
-// then one block per subtask over the partials into o* [G, 1, L].
-extern "C" int msm_point_total(const int32_t* px, const int32_t* py,
-                               const int32_t* pz, int32_t* sx, int32_t* sy,
-                               int32_t* sz, int32_t* ox, int32_t* oy,
-                               int32_t* oz, int64_t groups, int64_t N, int nb,
-                               void* stream) {
-  if (groups > 0 && nb > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    k_point_total<<<dim3((unsigned)nb, (unsigned)groups), BLOCK, 0, st>>>(
-        px, py, pz, sx, sy, sz, N);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-    k_point_total<<<dim3(1, (unsigned)groups), BLOCK, 0, st>>>(sx, sy, sz, ox,
-                                                               oy, oz, nb);
   }
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@ imported, since that module imports JAX).
 
 The host pads inputs to a power of two, serializes coordinates and scalars
 as 16-bit words, and finishes with the single result point in exact
-integers. Uploads are plain ``torch.from_numpy(...).to(device)``.
+integers (``mont_rows_to_ints``: no field op on any device). Uploads are
+plain ``torch.from_numpy(...).to(device)``.
 """
 
 from __future__ import annotations
@@ -108,16 +109,29 @@ def export_points_std(ec: CurveCtx, pts: PointBatch) -> torch.Tensor:
     )
 
 
-def std_point_to_jpoint(pt_std: np.ndarray, cfg: MsmConfig) -> JPoint:
-    """[3, L] standard-form homogeneous limbs -> oracle JPoint (one
+def mont_rows_to_ints(rows: np.ndarray, cfg: MsmConfig) -> tuple[int, ...]:
+    """Montgomery limb rows [k, L] (canonical or balanced) -> their
+    standard-form values in [0, p) as python ints: each row folded to an
+    int, times R^-1 mod p."""
+    p = cfg.curve.modulus
+    rinv = pow(cfg.r, -1, p)
+    return tuple(L.limbs_to_int(row, cfg.word_size) * rinv % p for row in np.asarray(rows))
+
+
+def std_ints_to_jpoint(x: int, y: int, z: int, cfg: MsmConfig) -> JPoint:
+    """Standard-form homogeneous (X : Y : Z) ints -> oracle JPoint (one
     modular inversion)."""
     p = cfg.curve.modulus
-    arr = np.asarray(pt_std)
-    x, y, z = (L.limbs_to_int(arr[i], cfg.word_size) for i in range(3))
     if z % p == 0:
         return IDENTITY
     zi = pow(z, -1, p)
     return Curve(cfg.curve).from_affine(x * zi % p, y * zi % p)
+
+
+def std_point_to_jpoint(pt_std: np.ndarray, cfg: MsmConfig) -> JPoint:
+    """[3, L] standard-form homogeneous limbs -> oracle JPoint."""
+    arr = np.asarray(pt_std)
+    return std_ints_to_jpoint(*(L.limbs_to_int(arr[i], cfg.word_size) for i in range(3)), cfg)
 
 
 def window_sums_to_jpoints(window_sums_std: np.ndarray, cfg: MsmConfig) -> list[JPoint]:

@@ -8,9 +8,11 @@
             under ``cfg.compress`` the scan runs over the pair-compressed
             stream instead: suffix products (12), one Fermat inversion per
             lane (9), fused pair emission + scan (13)
-  stage 4   telescoped window sums: point total (6) + doublings (1)
-  finish    Horner over the window sums (7); the host maps the single
-            projective point to affine with one inversion
+  stage 4   telescoped window sums: point total (6), then one Horner
+            launch (7) over the S two-point ladders for the doublings
+  finish    Horner over the window sums (7); the host takes the single
+            projective point out of Montgomery form in exact integers and
+            maps it to affine with one inversion
 
 On CUDA tensors every stage runs on the kernels; on CPU tensors on their
 plain twins. An MSM of up to ``CHUNK_MAX`` points runs as one pass; the
@@ -25,7 +27,7 @@ import torch
 from msm_tpu_torch.models import common
 from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
 from msm_tpu_torch.ops.cuda_prefix import horner
-from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
+from msm_tpu_torch.ops.curve import get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
 from msm_tpu_torch.ops.scan import bucket_boundary_prefix, window_sum_from_pe
 from msm_tpu_torch.oracle.pyecc import IDENTITY, JPoint
@@ -51,13 +53,12 @@ def window_sums_from_table(
     return torch.stack([w.x, w.y, w.z], dim=1)
 
 
-def msm_point_from_ws(ws: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
+def msm_point_from_ws(ws: torch.Tensor, cfg: MsmConfig) -> tuple[int, int, int]:
     """Montgomery window sums [S, 3, L] -> ONE standard-form projective
-    point [3, L] on the host: the Horner kernel, then the from-Montgomery
-    export of that single point."""
+    point (X, Y, Z) as python ints: the Horner kernel, one copy of its
+    three limb rows to the host, then the export in exact integers."""
     hx, hy, hz = horner(cfg, ws[:, 0], ws[:, 1], ws[:, 2], cfg.chunk_size)
-    acc = PointBatch(hx.cpu()[None], hy.cpu()[None], hz.cpu()[None])
-    return common.export_points_std(get_curve_ctx(cfg), acc)[0]
+    return common.mont_rows_to_ints(torch.stack([hx, hy, hz]).cpu().numpy(), cfg)
 
 
 def _check_config(cfg: MsmConfig) -> None:
@@ -86,8 +87,7 @@ def compute_msm_jpoint(
     xd, yd, sd = (torch.from_numpy(a).to(device) for a in (x_u16, y_u16, s_u16))
     packed = common.prepare_points(config, xd, yd)
     ws = window_sums_from_table(packed, sd, config, geom)
-    pt = msm_point_from_ws(ws, config)
-    return common.std_point_to_jpoint(pt.numpy(), config)
+    return common.std_ints_to_jpoint(*msm_point_from_ws(ws, config), config)
 
 
 def compute_msm(

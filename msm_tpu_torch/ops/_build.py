@@ -39,17 +39,20 @@ NVCC_FLAGS = [
 SMS = 132
 SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK = 232448, 233472, 1024
 THREADS_PER_SM = 2048
+#: threads an SM holds on the word core's kernels: 4 blocks of 128 at their
+#: 128 registers per thread (__launch_bounds__(128, 4))
+WORD_THREADS_PER_SM = 512
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry points: argument types (every one returns the launch's error code)
 SIGNATURES = {
-    "msm_point_add": [P] * 9 + [I64, P],
+    "msm_point_add": [P] * 9 + [I64, I32, P],
     "msm_convert": [P, P, P, I64, P],
     "msm_hist": [P, P, I64, I64, I32, I64, I32, P],
     "msm_scan": [P] * 7 + [I64, I32, I32, P],
     "msm_row_offsets": [P] * 9 + [I64, I32, I32, I32, I32, P],
-    "msm_point_total": [P] * 9 + [I64, I64, I32, P],
-    "msm_horner": [P] * 6 + [I32, I32, P],
+    "msm_point_total": [P] * 7 + [I64, I64, I32, I32, P],
+    "msm_horner": [P] * 6 + [I64, I32, I32, P],
     "msm_mont_pow": [P] * 3 + [I32, I64, I32, P],
     "msm_pair_suffix": [P] * 4 + [I64, I32, I32, P],
     "msm_emit_scan": [P] * 9 + [I64, I32, I32, P],
@@ -164,6 +167,13 @@ def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor) -> None:
             raise TypeError(f"expected int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("expected contiguous tensors")
+
+
+def aligned(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The tensors contiguous and 16-byte aligned (copied where they are
+    not), for kernels that read limb rows with 16-byte vector loads."""
+    out = [t.contiguous() for t in tensors]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in out]
 
 
 def launch(name: str, *args) -> None:

@@ -1,13 +1,16 @@
 """Kernel 1: batched complete point addition, and its plain twin.
 
-CUDA source: ``msm_tpu_torch/csrc/point_add.cu`` on the shared core
-``csrc/field.cuh`` + ``csrc/curve.cuh``. Replaces the Pallas kernel
-``msm_tpu/ops/pallas_curve.py::make_point_add`` (``pallas_call`` at :467).
+CUDA source: ``msm_tpu_torch/csrc/point_add.cu`` + ``point_add.cuh`` on the
+32-bit-word core ``csrc/fe32.cuh`` + ``csrc/curve32.cuh``. Replaces the
+Pallas kernel ``msm_tpu/ops/pallas_curve.py::make_point_add``
+(``pallas_call`` at :467).
 
 ``point_add`` takes six ``[B, L]`` int32 coordinate tensors (Montgomery
 projective, balanced limbs) and returns three. On a CPU tensor it runs the
-plain twin; on a CUDA tensor it launches the kernel (canonical outputs) or
-raises. Both results are congruent; compare after ``canonical``.
+plain twin; on a CUDA tensor it launches the kernel (canonical outputs; a
+thread per add, or a warp per add for batches within one wave,
+``point_add_lanes``) or raises. Both results are congruent; compare after
+``canonical``.
 """
 
 from __future__ import annotations
@@ -57,18 +60,25 @@ def point_add_plain(cfg: MsmConfig, ax, ay, az, bx, by, bz):
     return rcb16_add_plain(f, b3m, ax, ay, az, bx, by, bz)
 
 
+def point_add_lanes(B: int) -> bool:
+    """The kernel gives each add a warp (its products split over the
+    lanes: lower latency, 32 times the threads) when the batch's B warps
+    fit in one wave of the word core's kernels; else a thread per add."""
+    return 32 * B <= _build.SMS * _build.WORD_THREADS_PER_SM
+
+
 def point_add(cfg: MsmConfig, ax, ay, az, bx, by, bz):
     """P + Q over a batch: six ``[B, L]`` int32 tensors -> three."""
     if ax.device.type == "cpu":
         return point_add_plain(cfg, ax, ay, az, bx, by, bz)
-    ins = [t.contiguous() for t in (ax, ay, az, bx, by, bz)]
+    ins = _build.aligned(ax, ay, az, bx, by, bz)
     _build.require_cuda(cfg, *ins)
     B, L = ins[0].shape
     for t in ins:
         if t.shape != (B, L) or L != cfg.num_words:
             raise ValueError(f"expected [B, {cfg.num_words}] inputs, got {tuple(t.shape)}")
     out = [torch.empty_like(ins[0]) for _ in range(3)]
-    _build.launch("msm_point_add", *ins, *out, B)
+    _build.launch("msm_point_add", *ins, *out, B, int(point_add_lanes(B)))
     point_add.launches += 1
     return tuple(out)
 

@@ -1,19 +1,22 @@
 """Kernels 5-7: row offsets, point total and the Horner ladder, with their
 plain twins.
 
-CUDA sources: ``msm_tpu_torch/csrc/prefix.cu`` (row offsets, point total)
-and ``csrc/horner.cu`` (Horner ladder). Replaces, in
-``msm_tpu/ops/pallas_prefix.py``: ``make_row_offsets`` (``pallas_call`` at
-:133), ``make_point_total`` (:231) and ``make_horner_ladder`` (:335).
+CUDA sources: ``msm_tpu_torch/csrc/prefix.cu`` (row offsets, 13-bit core),
+``csrc/point_total.cu`` (point total) and ``csrc/horner.cu`` (Horner
+ladder), the last two on the 32-bit-word core (``csrc/fe32.cuh``).
+Replaces, in ``msm_tpu/ops/pallas_prefix.py``: ``make_row_offsets``
+(``pallas_call`` at :133), ``make_point_total`` (:231) and
+``make_horner_ladder`` (:335).
 
 Layouts: row offsets take the scan's lane totals limbs-first [G, L, R] and
 return the exclusive prefixes [G, R, L]; point total reduces [G, N, L] to
 one point per subtask [G, L] (the TPU's 128 replicated lanes are dropped);
-Horner folds window sums [S, L] into one point [L], on the 32-bit-word core
-(``csrc/fe32.cuh``; the other two run on the 13-bit core).
+Horner folds window sums [S, L] into one point [L], or G ladders at once,
+[G, S, L] -> [G, L].
 
 Row offsets run as three kernels per launch (a reduce-then-scan over the
-whole card, ``row_offsets_plan``), point total as two.
+whole card, ``row_offsets_plan``), point total as two (partial sums over
+the card, ``point_total_plan``, then one warp per subtask).
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ import torch
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.params import MsmConfig
 
-THREADS = 128  # block size of the row-offsets and point-total kernels (csrc/prefix.cu BLOCK)
-#: threads an SM holds at the core's ~255 registers per thread
+THREADS = 128  # block size of the row-offsets and point-total kernels (csrc BLOCK)
+#: threads an SM holds at the 13-bit core's ~255 registers per thread
 RESIDENT_THREADS = 256
 LANES_PER_THREAD = (1, 2, 4, 8)
+#: words of one partial sum of the point-total kernel (a pt32: 3 x 8 words)
+PT_WORDS = 24
 
 
 @dataclass(frozen=True)
@@ -68,9 +73,7 @@ def row_offsets(cfg: MsmConfig, tx, ty, tz):
     """Exclusive point prefix over lane totals: [G, L, R] x3 -> [G, R, L] x3."""
     if tx.device.type == "cpu":
         return row_offsets_plain(cfg, tx, ty, tz)
-    # the kernel reads limb rows with 16-byte vector loads
-    ins = [t.contiguous() for t in (tx, ty, tz)]
-    ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
+    ins = _build.aligned(tx, ty, tz)
     _build.require_cuda(cfg, *ins)
     G, L, R = ins[0].shape
     if L != cfg.num_words or R & (R - 1):
@@ -96,55 +99,76 @@ def point_total_plain(cfg: MsmConfig, px, py, pz):
     return tuple(tree_reduce_points(cfg, PointBatch(px, py, pz)))
 
 
+@dataclass(frozen=True)
+class PointTotalPlan:
+    """Launch plan of the point total over N points per subtask: thread j
+    of block b (of ``blocks`` per subtask) sums points j' k .. j' k + k - 1,
+    j' = b * threads + j, k = ``points_per_thread``."""
+
+    points_per_thread: int
+    blocks: int
+    threads: int = THREADS
+
+
+def point_total_plan(groups: int, N: int) -> PointTotalPlan:
+    """The fewest points per thread that keep the G * N / k threads within
+    one wave of the word core's kernels (_build.WORD_THREADS_PER_SM per SM),
+    and as many blocks as cover N (one when N = 0)."""
+    k = max(1, -(-groups * N // (_build.SMS * _build.WORD_THREADS_PER_SM)))
+    return PointTotalPlan(k, max(1, -(-N // (k * THREADS))))
+
+
 def point_total(cfg: MsmConfig, px, py, pz):
     """Sum of N points per subtask: [G, N, L] x3 -> [G, L] x3."""
     if px.device.type == "cpu":
         return point_total_plain(cfg, px, py, pz)
-    ins = [t.contiguous() for t in (px, py, pz)]
+    ins = _build.aligned(px, py, pz)
     _build.require_cuda(cfg, *ins)
     G, N, L = ins[0].shape
     if L != cfg.num_words:
         raise ValueError(f"expected [G, N, {cfg.num_words}], got {tuple(ins[0].shape)}")
-    # blocks per subtask: about 8 points per thread in the first pass
-    nb = max(1, min(N // (8 * THREADS), 256))
+    plan = point_total_plan(G, N)
     dev = px.device
-    scratch = [torch.empty((G, nb, L), dtype=torch.int32, device=dev) for _ in range(3)]
-    out = [torch.empty((G, 1, L), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch("msm_point_total", *ins, *scratch, *out, G, N, nb)
+    part = torch.empty((G, plan.blocks, PT_WORDS), dtype=torch.int32, device=dev)
+    out = [torch.empty((G, L), dtype=torch.int32, device=dev) for _ in range(3)]
+    _build.launch("msm_point_total", *ins, part, *out, G, N, plan.points_per_thread, plan.blocks)
     point_total.launches += 1
-    return tuple(o[:, 0] for o in out)
+    return tuple(out)
 
 
 point_total.launches = 0
 
 
 def horner_plain(cfg: MsmConfig, wx, wy, wz, chunk: int):
-    """Plain twin: Horner's rule over the S window sums, one point."""
+    """Plain twin: Horner's rule over the S window sums [..., S, L], one
+    point per leading index."""
     from msm_tpu_torch.ops.cuda_curve import point_add_plain
     from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
 
     ec = get_curve_ctx(cfg)
-    S = wx.shape[0]
-    acc = PointBatch(wx[S - 1], wy[S - 1], wz[S - 1])
+    S = wx.shape[-2]
+    acc = PointBatch(wx[..., S - 1, :], wy[..., S - 1, :], wz[..., S - 1, :])
     for s in range(S - 2, -1, -1):
         for _ in range(chunk):
             acc = ec.double(acc)
-        acc = PointBatch(*point_add_plain(cfg, *acc, wx[s], wy[s], wz[s]))
+        acc = PointBatch(*point_add_plain(cfg, *acc, wx[..., s, :], wy[..., s, :], wz[..., s, :]))
     return tuple(acc)
 
 
 def horner(cfg: MsmConfig, wx, wy, wz, chunk: int):
-    """sum_s 2^(chunk*s) W_s: [S, L] x3 -> [L] x3. On CUDA one warp splits
-    each formula's products over its lanes."""
+    """sum_s 2^(chunk*s) W_s: [S, L] x3 -> [L] x3, or G ladders at once,
+    [G, S, L] x3 -> [G, L] x3. On CUDA one warp per ladder splits each
+    formula's products over its lanes."""
     if wx.device.type == "cpu":
         return horner_plain(cfg, wx, wy, wz, chunk)
     ins = [t.contiguous() for t in (wx, wy, wz)]
     _build.require_cuda(cfg, *ins)
-    S, L = ins[0].shape
-    if L != cfg.num_words or S < 1:
-        raise ValueError(f"expected [S, {cfg.num_words}], got {tuple(ins[0].shape)}")
-    out = [torch.empty((L,), dtype=torch.int32, device=wx.device) for _ in range(3)]
-    _build.launch("msm_horner", *ins, *out, S, chunk)
+    shape = ins[0].shape
+    if len(shape) not in (2, 3) or shape[-1] != cfg.num_words or shape[-2] < 1:
+        raise ValueError(f"expected [G, S, {cfg.num_words}] or [S, {cfg.num_words}], got {tuple(shape)}")
+    G = shape[0] if len(shape) == 3 else 1
+    out = [torch.empty(shape[:-2] + shape[-1:], dtype=torch.int32, device=wx.device) for _ in range(3)]
+    _build.launch("msm_horner", *ins, *out, G, shape[-2], chunk)
     horner.launches += 1
     return tuple(out)
 

@@ -21,9 +21,9 @@ telescoping (``window_sum_from_pe``). The naive model takes the per-bucket
 sums instead (``bucket_accumulate``: pe[b] - pe[b-1]) and reduces them by
 the serial running sum; the reference-shaped cuZK stage 4 reduces them
 two-phase, lane-parallel (``bucket_reduce_blocked``: kernel 8, then a tail
-on the point-add and point-total kernels). Every point addition on these
-paths goes through a kernel wrapper (``cuda_*``), so on CUDA tensors they
-run on the kernels.
+on the point-add, point-total and Horner kernels). Every point addition and
+doubling on these paths goes through a kernel wrapper (``cuda_*``), so on
+CUDA tensors they run on the kernels.
 
 The plain helpers at the top (``hillis_steele_prefix``,
 ``exclusive_prefix_points``, ``tree_reduce_points``) are building blocks of
@@ -40,7 +40,7 @@ from msm_tpu_torch.ops.cuda_compress import compressed_prefix_scan
 from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import point_add_plain
 from msm_tpu_torch.ops.cuda_hist import bucket_hist
-from msm_tpu_torch.ops.cuda_prefix import point_total, row_offsets
+from msm_tpu_torch.ops.cuda_prefix import horner, point_total, row_offsets
 from msm_tpu_torch.ops.cuda_scan import scan_rows
 from msm_tpu_torch.ops.curve import CurveCtx, PointBatch, get_curve_ctx, point_where
 from msm_tpu_torch.params import MsmConfig
@@ -262,20 +262,26 @@ def bucket_boundary_prefix(
     return _cat(outs, dim=0)
 
 
+def _fold(ec: CurveCtx, lo: PointBatch, hi: PointBatch, log2_m: int) -> PointBatch:
+    """lo + 2^log2_m * hi over a batch [G, L], as one Horner-kernel launch
+    over the G two-point ladders (hi, lo): log2_m doublings (RCB16
+    Algorithm 9) and one addition."""
+    w = [torch.stack([a, b], dim=-2) for a, b in zip(lo, hi)]  # [G, 2, L]
+    return PointBatch(*horner(ec.cfg, *w, log2_m))
+
+
 def window_sum_from_pe(ec: CurveCtx, pe: PointBatch) -> PointBatch:
     """W = sum_b b*S_b straight from the boundary prefixes [S, B, L]:
 
         sum_b b*(pe_b - pe_{b-1}) = (B-1)*pe_{B-1} - sum_{b<B-1} pe_b
 
-    one point-total kernel plus log2(B-1) doublings (B-1 = 2^(c-1)); the
-    doublings are complete additions P + P through the point-add kernel."""
+    one point-total kernel, then W = -total + 2^(c-1) pe_{B-1} (B-1 =
+    2^(c-1)) as one Horner-kernel launch over the S windows."""
     B = pe.x.shape[-2]
     assert (B - 1) & (B - 2) == 0, f"B-1 = {B - 1} must be a power of two"
     total = PointBatch(*point_total(ec.cfg, *(a[..., :-1, :] for a in pe)))
     last = PointBatch(*(a[..., -1, :] for a in pe))
-    for _ in range((B - 1).bit_length() - 1):
-        last = ec.add(last, last)
-    return ec.add(last, ec.neg(total))
+    return _fold(ec, ec.neg(total), last, (B - 1).bit_length() - 1)
 
 
 # -- bucket sums and their reductions ------------------------------------------
@@ -329,8 +335,9 @@ def bucket_reduce_blocked(ec: CurveCtx, buckets: PointBatch, num_threads: int) -
     Phase 1 (kernel 8): every lane's block sum m_t and sum of running sums
     g_t. Phase 2: W = sum_t g_t + Bl * sum_t t*m_t, where sum_t t*m_t =
     sum_j suffix_j - suffix_0 with suffix_j = sum_{t>=j} m_t: a reverse
-    ladder of point-add launches, two point-total launches, and log2(Bl)
-    doublings as complete additions P + P. Bl must be a power of two."""
+    ladder of point-add launches, two point-total launches, and W =
+    total_g + 2^log2(Bl) * corr as one Horner-kernel launch. Bl must be a
+    power of two."""
     B, L = buckets.x.shape[-2:]
     batch = buckets.x.shape[:-2]
     T = num_threads
@@ -348,7 +355,5 @@ def bucket_reduce_blocked(ec: CurveCtx, buckets: PointBatch, num_threads: int) -
     suff = _suffix_sums(ec, m)
     suff_total = PointBatch(*point_total(cfg, *suff))
     corr = ec.add(suff_total, ec.neg(PointBatch(*(a[:, 0] for a in suff))))
-    for _ in range(Bl.bit_length() - 1):
-        corr = ec.add(corr, corr)
-    w = ec.add(total_g, corr)
+    w = _fold(ec, total_g, corr, Bl.bit_length() - 1)
     return PointBatch(*(a.reshape(batch + (L,)) for a in w))

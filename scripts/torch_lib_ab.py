@@ -10,8 +10,9 @@ compared kernel by kernel.
 The other checkout's library is built by its own ``msm_tpu_torch.ops._build``
 (in a subprocess, into its own ``build/``). This checkout's wrappers launch
 through ``_build.load()``; the script swaps the loaded library between the
-two builds, so the entry points timed here (point add, scan, row offsets,
-point total, Horner ladder) must take the same arguments in both trees.
+two builds, so of the entry points timed here (point add, scan, row
+offsets, point total, Horner ladder) only those whose C signature is the
+same in both trees are timed; the others are named and skipped.
 Both builds' outputs must be equal bit for bit (every kernel writes
 canonical limbs, and the two builds sum in the same order).
 
@@ -26,6 +27,7 @@ CUDA toolkit and one GPU.
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
 import statistics
 import subprocess
@@ -43,22 +45,26 @@ import chip_smoke as cs  # noqa: E402
 from msm_tpu_torch.ops import _build  # noqa: E402
 from torch_sass_mix import sass  # noqa: E402
 
-KERNELS = ("point_add", "scan_rows", "row_offsets", "point_total", "horner")
+#: wrapper -> its C entry point
+KERNELS = {"point_add": "msm_point_add", "scan_rows": "msm_scan", "row_offsets": "msm_row_offsets",
+           "point_total": "msm_point_total", "horner": "msm_horner"}
 
 
-def other_library(root: Path) -> Path:
-    """Build the other checkout's kernels with its own build code."""
-    code = "from msm_tpu_torch.ops import _build; print(_build.build())"
+def other_library(root: Path) -> tuple[Path, dict[str, str]]:
+    """Build the other checkout's kernels with its own build code; returns
+    the library and its C entry points' signatures (as text)."""
+    code = ("from msm_tpu_torch.ops import _build; print({k: repr(v) for k, v in "
+            "_build.SIGNATURES.items()}); print(_build.build())")
     out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
-                         capture_output=True, text=True).stdout
-    return Path(out.strip().splitlines()[-1])
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    return Path(out[-1]), ast.literal_eval(out[-2])
 
 
-def load(so: Path) -> ctypes.CDLL:
+def load(so: Path, names) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _build.SIGNATURES.items():
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
 
@@ -121,14 +127,18 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
-    other_so = other_library(args.other.resolve())
-    libs = {"this": _build.load(), "other": load(other_so)}
+    other_so, other_sigs = other_library(args.other.resolve())
+    names = [k for k, entry in KERNELS.items() if other_sigs.get(entry) == repr(_build.SIGNATURES[entry])]
+    for k in KERNELS:
+        if k not in names:
+            print(f"{k}: its C entry point differs between the two trees; not timed")
+    libs = {"this": _build.load(), "other": load(other_so, [KERNELS[k] for k in names])}
     kern = cs._kernels()
     inputs = cases(np.random.default_rng(cs.SEED))
     times: dict[tuple[str, str], list[float]] = {}
     for rnd in range(args.rounds):
         order = ("this", "other") if rnd % 2 == 0 else ("other", "this")
-        for name in KERNELS:
+        for name in names:
             outs = {}
             for side in order:
                 _build._lib = libs[side]
@@ -138,7 +148,7 @@ def main() -> int:
             if not all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"])):
                 raise AssertionError(f"{name}: the two builds' outputs differ")
     _build._lib = libs["this"]
-    for name in KERNELS:
+    for name in names:
         a, b = (statistics.median(times[(name, s)]) for s in ("this", "other"))
         print(f"median {name:12s} this {a:.4f} ms  other {b:.4f} ms  ({a / b:.3f} x other)")
     compare_sass(_build.library_path().parent, other_so.parent)

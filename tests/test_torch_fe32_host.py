@@ -340,12 +340,13 @@ def test_scan_lanes_match_twin(lib, G, C, R):
         _assert_canonical_equal(np.ascontiguousarray(g.swapaxes(-1, -2)), w.transpose(-1, -2))
 
 
-@pytest.mark.parametrize("S, chunk", [(4, 4), (16, 16), (20, 13), (3, 1), (1, 5)])
+@pytest.mark.parametrize("S, chunk", [(4, 4), (16, 16), (20, 13), (3, 1), (1, 5), (2, 15), (2, 12)])
 def test_horner_chain_matches_twin(lib, S, chunk):
     """Kernel 7's load and chain of per-level products (the products the
     lanes of a warp split) on balanced window sums (some negated, one the
     identity) against horner_plain, at the 2^20 and 2^16 MSMs' shapes, a
-    small one and a single window."""
+    small one, a single window, and the two-point folds of the 2^20 and
+    2^16 window sums (window_sum_from_pe at c = 16 and 13)."""
     rng = np.random.default_rng(39 + S)
     w = [rand_balanced(rng, (S,), CFG) for _ in range(3)]
     w[1][::3] *= -1

@@ -2,7 +2,8 @@
 replaced by its plain twin) against msm_tpu.run_tpu_msm (JAX on the CPU)
 and the oracle, at chunk 8 and n = 256. The sort is unstable on both
 sides, so the intermediate checks compare bucket-boundary prefixes and
-window sums as points, never the per-lane prefixes."""
+window sums as points, never the per-lane prefixes. The result point's
+export is held against the twins' field export."""
 
 import functools
 
@@ -11,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import affine_points, port_cfg, same_points
+from _torch_helpers import affine_points, mont_limbs, port_cfg, same_points
 import msm_tpu
 import msm_tpu_torch
 from msm_tpu.models import common as jcommon
@@ -26,8 +27,11 @@ from msm_tpu.params import BN254, MsmConfig
 from msm_tpu_torch.models import common, cuzk
 from msm_tpu_torch.models.geometry import pick_geometry
 from msm_tpu_torch.ops import scan
+from msm_tpu_torch.ops.cuda_prefix import horner
 from msm_tpu_torch.ops.curve import get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
+from msm_tpu_torch.ops.field import FieldCtx
+from msm_tpu_torch.utils.limbs import limbs_to_int
 
 JCFG = MsmConfig(curve=BN254, chunk_size=8)
 CFG = port_cfg(JCFG)
@@ -89,3 +93,36 @@ def test_boundary_prefixes_match_jax():
 
 def test_empty_msm():
     assert msm_tpu_torch.run_gpu_msm([], [], device="cpu") is None
+
+
+def test_result_export_in_exact_integers(monkeypatch):
+    """msm_point_from_ws's export of the Horner point (the twin's balanced
+    limbs, from real window sums in random projective form, one the
+    identity) gives exactly the standard-form triple of the twins' field
+    export (from_mont, canonical) of that point, and runs no field op after
+    the Horner kernel."""
+    rng = np.random.default_rng(47)
+    S, p = CFG.num_subtasks, BN254.modulus
+    base = affine_points(CFG, 8, seed=47)
+    zs = [int(v) for v in rng.integers(1, 1 << 62, size=S)]
+    x, y = ([base[i % 8][k] * z % p for i, z in enumerate(zs)] for k in range(2))
+    x[3], zs[3] = 0, 0
+    ws = torch.from_numpy(np.stack([mont_limbs(v, CFG) for v in (x, y, zs)], axis=1))  # [S, 3, L]
+    h = horner(CFG, ws[:, 0], ws[:, 1], ws[:, 2], CFG.chunk_size)
+    old = common.export_points_std(get_curve_ctx(CFG), scan.PointBatch(*(c[None] for c in h)))[0]
+    want = tuple(limbs_to_int(old[i].numpy(), CFG.word_size) for i in range(3))
+
+    def no_field_op(*args, **kwargs):
+        raise AssertionError("a field op ran on the result's export")
+
+    def horner_then_no_field_ops(cfg, wx, wy, wz, chunk):
+        assert cfg == CFG and chunk == CFG.chunk_size and torch.equal(wx, ws[:, 0])
+        for name in ("from_mont", "canonical", "mont_mul", "add", "sub", "neg"):
+            monkeypatch.setattr(FieldCtx, name, no_field_op)
+        return h
+
+    monkeypatch.setattr(cuzk, "horner", horner_then_no_field_ops)
+    got = cuzk.msm_point_from_ws(ws, CFG)
+    monkeypatch.undo()
+    assert got == want and all(0 <= v < p for v in got)
+    assert common.std_ints_to_jpoint(*got, CFG) == common.std_point_to_jpoint(old.numpy(), CFG)

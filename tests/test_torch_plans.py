@@ -1,15 +1,18 @@
-"""Launch plans of the histogram (kernel 3) and row-offsets (kernel 5)
-kernels, pure Python: every key and bucket of the histogram and every lane
-of the row offsets is covered exactly once, and each block stays within the
+"""Launch plans of the histogram (kernel 3), row-offsets (kernel 5) and
+point-total (kernel 6) kernels, pure Python: every key and bucket of the
+histogram, every lane of the row offsets and every point and partial sum of
+the point total is covered exactly once, and each block stays within the
 shared memory a block may use and the thread limit. The index arithmetic
-mirrors csrc/hist.cu and csrc/prefix.cu."""
+mirrors csrc/hist.cu, csrc/prefix.cu and csrc/point_total.cu(h). Also the
+point add's choice of a warp per add (kernel 1) at the paths' batches."""
 
 import pytest
 
 import _torch_helpers  # noqa: F401  (one torch thread per test process)
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.cuda_hist import KEYS_PER_COUNTER, HistPlan, hist_plan
-from msm_tpu_torch.ops.cuda_prefix import RowOffsetsPlan, row_offsets_plan
+from msm_tpu_torch.ops.cuda_curve import point_add_lanes
+from msm_tpu_torch.ops.cuda_prefix import PointTotalPlan, RowOffsetsPlan, point_total_plan, row_offsets_plan
 
 #: bucket counts the configs give: signed 2^(c-1) + 1 and unsigned 2^c
 BUCKETS = [(1 << (c - 1)) + 1 for c in range(8, 17)] + [1 << c for c in range(8, 17)]
@@ -96,3 +99,53 @@ def test_row_offsets_plan_covers_every_lane_once(log_r):
 ], ids=["plain20", "plain16", "compressed", "edge", "k4", "k8"])
 def test_row_offsets_plan_at_the_paths_shapes(groups, R, want):
     assert row_offsets_plan(groups, R) == want
+
+
+def _point_total_coverage(G: int, N: int, plan: PointTotalPlan) -> None:
+    """Kernel 6 over this plan sums every point of a subtask once: thread j
+    of block b runs over points [j' k, min(j' k + k, N)), j' = b T + j; no
+    block is empty; the finishing warp's lane l takes partials l, l + 32,
+    ... of the nb; and the plan passes the entry point's check."""
+    k, nb, T = plan.points_per_thread, plan.blocks, plan.threads
+    assert k >= 1 and nb >= 1 and nb * T * k >= N > (nb - 1) * T * k or (N == 0 and nb == 1)
+    if N <= 1 << 13:
+        seen = []
+        for b in range(nb):
+            block = [i for j in range(b * T, (b + 1) * T) for i in range(j * k, min(j * k + k, N))]
+            assert block or N == 0, "an empty block"
+            seen.extend(block)
+        assert seen == list(range(N))
+    assert sorted(i for lane in range(32) for i in range(lane, nb, 32)) == list(range(nb))
+
+
+@pytest.mark.parametrize("G, N", [(16, 1 << 15), (20, 1 << 12), (16, 512), (1, 0), (1, 1), (3, 127),
+                                  (3, 129), (5, 1000), (1, 1 << 20), (64, 1 << 15)])
+def test_point_total_plan_covers_every_point_once(G, N):
+    plan = point_total_plan(G, N)
+    _point_total_coverage(G, N, plan)
+    # about one wave: the fewest points per thread that keep G N / k threads
+    # within the resident ones
+    resident = _build.SMS * _build.WORD_THREADS_PER_SM
+    k = plan.points_per_thread
+    assert G * N <= k * resident and (k == 1 or G * N > (k - 1) * resident)
+
+
+@pytest.mark.parametrize("G, N, want", [
+    (16, 1 << 15, PointTotalPlan(8, 32)),  # 2^20 window sums: 512 blocks, one wave
+    (20, 1 << 12, PointTotalPlan(2, 16)),  # 2^16 window sums: 320 blocks
+    (16, 512, PointTotalPlan(1, 4)),  # the blocked tail
+], ids=["plain20", "plain16", "blocked"])
+def test_point_total_plan_at_the_paths_shapes(G, N, want):
+    assert point_total_plan(G, N) == want
+
+
+@pytest.mark.parametrize("B, lanes", [
+    (32, True),  # the naive running sum's 510 serial launches
+    (16, True),  # the edge MSM's boundary prefixes
+    (2112, True),  # 2112 warps: one wave of 4 blocks of 128 threads per SM
+    (2113, False),
+    (32 * 256, False),  # bucket_accumulate (naive) and the blocked suffix ladder
+    (4 * ((1 << 15) + 1), False),  # the 2^20 MSM's boundary prefixes
+])
+def test_point_add_takes_a_warp_per_add_for_batches_within_one_wave(B, lanes):
+    assert point_add_lanes(B) is lanes
