@@ -7,9 +7,10 @@
    from msm_tpu_torch/csrc and prints the build time;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs, at a small shape and at the shape the 2^20 MSM gives it
-   (the pair kernels: the compressed 2^20 shape, with planted doubling and
-   infinity pairs; bpr_phase1: the blocked reduction of the 2^20 MSM's
-   buckets), as exact integers after canonicalization (points summed in
+   (the pair kernels: the compressed 2^20 shape of models/geometry.py's
+   rule, with planted doubling and infinity pairs; bpr_phase1: the blocked
+   reduction of the 2^20 MSM's buckets), as exact integers after
+   canonicalization (points summed in
    another order: by cross-multiplication), timing both with CUDA events
    (the kernels enqueued behind a spin kernel, so host overhead stays out),
    and computes each kernel's bound at that shape (the larger of its
@@ -25,24 +26,30 @@
    the Horner ladder at the 2^16 shapes (G = 4, C = 8, R = 8192; 20 x 4096
    points; S = 20, chunk 13), the Horner kernel over the window sums'
    two-point folds (16 ladders at chunk 15, 20 at chunk 12), each Horner
-   time beside the depth of its chain in products, and the scan timed
-   alone and just after a histogram or a row-offsets launch;
-3. runs compress_pairs on the card at the compressed 2^20 shape and checks
-   every pair sum and infinity flag against the oracle;
+   time beside the depth of its chain in products, the scan timed alone
+   and just after a histogram or a row-offsets launch, the convert kernel
+   at 2^16 points and on 2^20 coordinates anywhere in [0, 2^256) (most of
+   them >= p), and the emission + scan at the compressed 2^16 shape and at
+   the TPU rule's old 2^20 shape (R = 1024 lanes, 4 subtasks);
+3. runs compress_pairs on the card at the TPU rule's compressed 2^20 shape
+   (R = 1024 lanes, C = 1024 steps, 4 subtasks) and checks every pair sum
+   and infinity flag against the oracle;
 4. runs small edge MSMs (edge scalars, duplicate points, P and -P under one
    scalar, identity results, n = 0) on the plain, pair-compressed and naive
    paths;
 5. drives each path at n = 2^20 with every launch counter reset just before
    it: the main path (run_gpu_msm, BN254, pick_config), the compressed path
-   (MsmConfig(BN254, compress=True)) and the naive Pippenger
+   (MsmConfig(BN254, compress=True), its geometry and stage-3 device time
+   by kernel printed on a line of its own) and the naive Pippenger
    (compute_msm_naive, 8-bit unsigned windows); checks that every kernel of
    the path ran, that the kernels it must not reach did not, and that the
    result is bit-exact (1024 distinct base points tiled to n, scalars folded
    per base point mod r, oracle MSM over the bases); then all three at
    n = 2^16 against the oracle MSM over all 2^16 points;
-6. times each end-to-end MSM (warm, median of 3), its stages, its peak
-   device memory, and, under torch.profiler, its device time by kernel and
-   the device's idle share;
+6. times each end-to-end MSM (warm, median of 3), its stages (with the
+   bytes uploaded), its peak device memory, and, under torch.profiler, its
+   device time by kernel, its kernel time (busy less copies) and the
+   device's idle share;
 7. at n = 2^20 drives the reference-shaped stage 4 (bucket_accumulate, then
    bucket_reduce_blocked through bpr_phase1): its 16 window sums equal the
    telescoped ones on the same points, and Horner over them is bit-exact;
@@ -276,7 +283,27 @@ def _products(name, args) -> int:
     if name == "bpr_phase1":  # [G, Bl, T, L]: two additions per bucket
         return 24 * shape[0] * shape[1] * shape[2]
     pairs = args[2].numel() // 2
-    return {"pair_suffix": 1, "pair_forward": 1, "pair_backward": 6, "emit_scan": 17}[name] * pairs
+    if name == "emit_scan":  # one more for a doubling, no mixed add at infinity
+        dbl, inf = _pair_kinds(args)
+        return 16 * pairs + dbl - 11 * inf
+    return {"pair_suffix": 1, "pair_forward": 1, "pair_backward": 6}[name] * pairs
+
+
+def _pair_kinds(args) -> tuple[int, int]:
+    """(doubling pairs, infinity pairs) of a pair kernel's stream (cfg,
+    packed table, perm, flags [G, C, R]), by the twins' predicates."""
+    from msm_tpu_torch.ops.cuda_compress import pair_predicates_plain
+    from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
+
+    cfg, table, perm, flags = args[:4]
+    D = coord_words(cfg)
+    dbl = inf = 0
+    for g in range(perm.shape[0]):  # a subtask at a time: bounded memory
+        rows = table[perm[g].long()]  # [C, R, 2D]
+        x, y, sg = unpack_coords(rows[..., :D], cfg), unpack_coords(rows[..., D:], cfg), flags[g] & 1
+        d, i = pair_predicates_plain(cfg, x[0::2], y[0::2], sg[0::2], x[1::2], y[1::2], sg[1::2])
+        dbl, inf = dbl + int(d.sum()), inf + int(i.sum())
+    return dbl, inf
 
 
 def _horner_depth(args) -> int:
@@ -403,10 +430,8 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         pa = [_rand_fe(rng, (B,), cfg) for _ in range(6)]
         pa[1][: B // 8] *= -1
         cases["point_add"] = ([cfg, *map(t, pa)], False, 5)
-        # convert: u16 words of random coordinates below p
-        words = rng.integers(0, 1 << 16, size=(2, n, 16), dtype=np.int64)
-        words[:, :, 15] = rng.integers(0, cfg.curve.modulus >> 240, size=(2, n))
-        cases["convert_pack"] = ([cfg, t(words[0].astype(np.int32)), t(words[1].astype(np.int32))], False, 5)
+        # convert: u16 words (held in int16) of random coordinates below p
+        cases["convert_pack"] = ([cfg, *map(t, _coord_words(rng, n, cfg.curve.modulus))], False, 5)
         # histogram: every subtask's keys at once
         keys = rng.integers(0, NB, size=(S if not small else 2, n), dtype=np.int32)
         cases["bucket_hist"] = ([cfg, t(keys), NB], False, 5)
@@ -422,22 +447,24 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         cases["point_total"] = ([cfg, *_curve_points(rng, (S, N), cfg, base, dev)], True, 3)
         cases["horner"] = ([cfg, *(t(_rand_fe(rng, (S,), cfg)) for _ in range(3)),
                             4 if small else cfg.chunk_size], False, 3)
-        # pair kernels at the compressed 2^20 MSM's shapes (R = 1024 lanes,
-        # C = 1024 steps, 4 subtasks per launch) over 256 real points; the
-        # chain inputs are the kernels' own (canonical) outputs
-        G2, C2, R2 = (1, 8, 64) if small else (4, 1024, 1024)
-        perm2, flags2 = map(t, _pair_stream(rng, G2, C2, R2, table.shape[0]))
-        pair_in = [cfg, table, perm2, flags2]
-        e = cfg.curve.modulus - 2
+        # pair kernels at the compressed 2^20 MSM's shapes (the geometry
+        # rule's R lanes, C = n / R steps, its subtasks per launch) over 256
+        # real points; the chain inputs are the kernels' own (canonical)
+        # outputs. compress_pairs (kernels 10, 11) keeps the TPU rule's
+        # R = 1024, C = 1024, 4 subtasks.
+        G2, C2, R2 = (1, 8, 64) if small else _compressed_shape(1 << 20)
         lanes = _rand_fe(rng, (G2, R2), cfg)
         lanes[0, :2] = _mont([1, cfg.curve.modulus - 1], cfg)
-        cases["mont_pow"] = ([cfg, t(lanes).transpose(1, 2).contiguous(), e], False, 3)
+        cases["mont_pow"] = ([cfg, t(lanes).transpose(1, 2).contiguous(), cfg.curve.modulus - 2], False, 3)
+        pair_in = [cfg, table, *map(t, _pair_stream(rng, G2, C2, R2, table.shape[0]))]
         cases["pair_suffix"] = (pair_in, False, 3)
-        s = kern["pair_suffix"][0](*pair_in)
-        cases["emit_scan"] = ([*pair_in, s, kern["mont_pow"][0](cfg, s[:, 0], e)], False, 3)
+        cases["emit_scan"] = (_emit_scan_args(kern, pair_in), False, 3)
+        pair_in = [cfg, table, *map(t, _pair_stream(rng, *((1, 8, 64) if small else (4, 1024, 1024)),
+                                                    table.shape[0]))]
         cases["pair_forward"] = (pair_in, False, 3)
         m = kern["pair_forward"][0](*pair_in)
-        cases["pair_backward"] = ([*pair_in, m, kern["mont_pow"][0](cfg, m[:, -1], e)], False, 3)
+        cases["pair_backward"] = ([*pair_in, m, kern["mont_pow"][0](cfg, m[:, -1], cfg.curve.modulus - 2)],
+                                  False, 3)
         # blocked reduction, phase 1: the 2^20 MSM's 16 windows of 32768
         # body buckets at bpr_threads = 512 lanes (Bl = 64)
         G3, T3, Bl3 = (1, 16, 16) if small else (cfg.num_subtasks, 512, (NB - 1) // 512)
@@ -455,7 +482,62 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
     if "slice" in sizes:
         check_path_shapes(kern, rng, base, dev, clock_hz)
         check_redesigned_shapes(kern, rng, base, dev, clock_hz)
+        check_convert_emit_shapes(kern, rng, table, dev, clock_hz)
     return out
+
+
+def _coord_words(rng, n: int, top: int | None):
+    """x and y u16 coordinate words [n, 16], held in int16 as the host
+    serializes them: values below p when ``top`` is the modulus (top word
+    below its top word), else anywhere in [0, 2^256)."""
+    words = rng.integers(0, 1 << 16, size=(2, n, 16), dtype=np.int64)
+    if top is not None:
+        words[:, :, 15] = rng.integers(0, top >> 240, size=(2, n))
+    return [np.ascontiguousarray(w.astype(np.uint16).view(np.int16)) for w in words]
+
+
+def _compressed_shape(n: int, cfg=None) -> tuple[int, int, int]:
+    """(G, C, R) of the compressed MSM's scan launches at n points:
+    models/geometry.py's rule, G = min(subtask batch, S)."""
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.params import BN254, MsmConfig
+
+    cfg = cfg or MsmConfig(curve=BN254, compress=True)
+    geo = pick_geometry(n, cfg.chunk_size, compress=True)
+    return min(geo.subtask_batch, cfg.num_subtasks), n // geo.num_rows, geo.num_rows
+
+
+def _emit_scan_args(kern, pair_in) -> list:
+    """emit_scan's inputs on a pair stream: the suffix kernel's products and
+    the Fermat kernel's inverse of s_0, as compressed_prefix_scan feeds it."""
+    cfg = pair_in[0]
+    s = kern["pair_suffix"][0](*pair_in)
+    return [*pair_in, s, kern["mont_pow"][0](cfg, s[:, 0], cfg.curve.modulus - 2)]
+
+
+def check_convert_emit_shapes(kern, rng, table, dev, clock_hz) -> None:
+    """The two kernels redesigned on the word core at the shapes the checks
+    above miss, exact against their twins: the convert kernel at 2^16
+    points and on 2^20 coordinates anywhere in [0, 2^256) (unvalidated
+    input; most of them >= p), and the emission + scan at the compressed
+    2^16 MSM's shape and at the TPU rule's old 2^20 shape (R = 1024 lanes,
+    C = 1024 steps, 4 subtasks)."""
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import BN254, MsmConfig
+
+    cfg = MsmConfig(curve=BN254, compress=True)
+    f, L = get_field_ctx(cfg), cfg.num_words
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for label, n, top in (("2^16", 1 << 16, cfg.curve.modulus), ("2^20 >=p", 1 << 20, None)):
+        _check_case(kern, f, L, "convert_pack", label, [cfg, *map(t, _coord_words(rng, n, top))], False, 5,
+                    clock_hz)
+    for label, (G, C, R) in (("2^16", _compressed_shape(1 << 16, cfg)), ("R1024 G4 (TPU rule)", (4, 1024, 1024))):
+        pair_in = [cfg, table, *map(t, _pair_stream(rng, G, C, R, table.shape[0]))]
+        _check_case(kern, f, L, "emit_scan", f"{label} G{G} C{C} R{R}", _emit_scan_args(kern, pair_in), False, 3,
+                    clock_hz)
 
 
 def _ms_each(fn, before, reps: int) -> float:
@@ -690,6 +772,8 @@ def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
     t0 = mark("host_serialize", t0)
     xd, yd, sd = (torch.from_numpy(a).to(device) for a in (x, y, s))
     t0 = mark("upload", t0)
+    st["upload_points_MiB"] = (x.nbytes + y.nbytes) / 2**20
+    st["upload_scalars_MiB"] = s.nbytes / 2**20
     packed = common.prepare_points(cfg, xd, yd)
     t0 = mark("convert", t0)
     geom = pick_geometry(x.shape[0], cfg.chunk_size, compress=cfg.compress)
@@ -809,8 +893,8 @@ def edge_checks(path: str, device="cuda") -> None:
 
 
 def check_pairs(shape=(4, 1024, 1024), device="cuda") -> dict:
-    """compress_pairs on the card at the compressed 2^20 shape (4 subtasks,
-    C = 1024 steps, R = 1024 lanes) over 16 points with planted doubling and
+    """compress_pairs on the card at the TPU rule's compressed 2^20 shape (4
+    subtasks, C = 1024 steps, R = 1024 lanes) over 16 points with planted doubling and
     infinity pairs: every pair sum and every infinity flag against the
     oracle (all 32 x 32 signed pairs precomputed). Counters are reset just
     before; returns them."""
@@ -920,12 +1004,31 @@ def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
             wall_ms, busy_ms, by_name = device_breakdown(
                 run, pts, ks, BUILD_ROOT / f"trace_2e{logn}_{path}.json")
             print(f"{tag}: profiled wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
+                  f"kernel_ms={busy_ms - by_name.get('memcpy', 0.0):.1f} "
                   f"idle_share={1 - busy_ms / wall_ms:.3f}; device_ms "
                   + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
                   flush=True)
+            if path == "compressed":
+                print_compressed_geometry(n, cfg, by_name, counts)
         if logn == log_sizes[0]:
             results["blocked"] = check_blocked(pts, ks, want, device)
     return results
+
+
+#: the compressed path's stage-3 kernels (a boundary prefix's two point
+#: adds included) by their rows in the device breakdown
+STAGE3_COMPRESSED = ("k_pair_suffix", "k_mont_pow", "k_emit_scan", "k_row_offsets", "k_point_add",
+                     "k_point_add_lanes")
+
+
+def print_compressed_geometry(n: int, cfg, by_name: dict, counts: dict) -> None:
+    """One line: the compressed MSM's geometry at n (R, C, subtasks per
+    launch) and its stage-3 device time by kernel, from a profiled run."""
+    G, C, R = _compressed_shape(n, cfg)
+    ms = {k: by_name.get(k, 0.0) for k in STAGE3_COMPRESSED}
+    print(f"compressed geometry 2^{n.bit_length() - 1}: R={R} C={C} batch={G} launches emit_scan="
+          f"{counts['emit_scan']}; stage-3 device ms " + ", ".join(f"{k}={v:.3f}" for k, v in ms.items())
+          + f", sum={sum(ms.values()):.3f}", flush=True)
 
 
 def check_blocked(pts, ks, want, device="cuda") -> dict:

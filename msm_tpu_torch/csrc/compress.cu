@@ -1,6 +1,8 @@
 // Batched-affine pair compression of the sorted stream: the four pair
-// kernels, one thread per (subtask, lane) chain. The per-lane bodies and the
-// shared pair algebra are in pair.cuh.
+// kernels, one thread per (subtask, lane) chain. The suffix, forward and
+// backward kernels run on the 13-bit core (per-lane bodies and the shared
+// pair algebra in pair.cuh); the fused emission + scan runs on the word core
+// (emit_scan.cuh).
 //
 // Replaces, in msm_tpu/ops/pallas_compress.py: make_pair_suffix (pallas_call
 // at :427), make_emit_scan (:561), make_pair_forward (:205) and
@@ -10,19 +12,33 @@
 // value in VMEM scratch; here a thread walks its lane's Cp pairs with the
 // running value in registers.
 //
-// Bound: dependent Montgomery products per pair, in series along the chain
-// (suffix and forward 1, backward 6, emit+scan 6 + the 11 of the mixed add),
-// plus two 64 B random gathers per pair. Compressed geometry has few lanes
-// (R = 1024 at 2^20, so 4 x 1024 threads per launch), so the kernels are
-// latency-bound rather than throughput-bound: blocks are one warp wide to put
-// the chains on as many of the 132 SMs as possible.
+// Bound: Montgomery products per pair, in series along each lane's chain
+// (suffix and forward 1, backward 6, emit+scan 5 + the 11 of the mixed add,
+// and one more for a doubling), plus two 64 B random gathers per pair. A
+// chain's steps are serial, so a launch fills the card only with enough
+// chains: the compressed geometry (models/geometry.py) gives G x R = 16 x
+// 2048 chains per launch at 2^20 (the TPU's rule gave 4 x 1024).
+//   - k_emit_scan (emit_scan.cuh): the word core with every function
+//     inlined, the accumulator and the inverse chain in registers; 128
+//     threads a block and __launch_bounds__(128, 4), as the scan kernel
+//     (csrc/scan.cu). The inverse chain's two products (inv(d_j), t_{j+1})
+//     do not wait on the accumulator, so their latency overlaps the mixed
+//     add's. From 8 warps per SM on (16 x 2048 chains), more chains no
+//     longer shorten the launch (scripts/torch_compress_geometry.py); the
+//     launch-plan and prefetch variants are in
+//     scripts/torch_emit_scan_variants.py (PERF.md).
+//   - k_pair_suffix, k_pair_forward, k_pair_backward: 13-bit formulas out
+//     of line (MSM_HD_CALL), blocks one warp wide to spread few chains over
+//     the SMs.
 #include <cuda_runtime.h>
 
+#include "emit_scan.cuh"
 #include "pair.cuh"
 
 using namespace msm;
 
 constexpr int THREADS = 32;
+constexpr int EMIT_THREADS = 128;
 
 // Thread (blockIdx.y, r) walks the chain of subtask blockIdx.y, lane r.
 __device__ __forceinline__ int lane() {
@@ -38,7 +54,7 @@ __global__ void __launch_bounds__(THREADS)
   if (r < R) pair_suffix_lane(packed, perm, flags, s, blockIdx.y, Cp, R, r);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(EMIT_THREADS, 4)
     k_emit_scan(const int32_t* __restrict__ packed,
                 const int32_t* __restrict__ perm,
                 const int32_t* __restrict__ flags,
@@ -90,15 +106,19 @@ extern "C" int msm_pair_suffix(const int32_t* packed, const int32_t* perm,
 }
 
 // ... s [G, Cp, L, R] canonical; t0 [G, L, R]; pe3 [G, Cp, R, 3L];
-// t* [G, L, R]
+// t* [G, L, R]; packed and pe3 16-byte aligned
 extern "C" int msm_emit_scan(const int32_t* packed, const int32_t* perm,
                              const int32_t* flags, const int32_t* s,
                              const int32_t* t0, int32_t* pe3, int32_t* tx,
                              int32_t* ty, int32_t* tz, int64_t groups, int Cp,
                              int R, void* stream) {
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_emit_scan<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
+  if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0) {
+    const dim3 grid((unsigned)((R + EMIT_THREADS - 1) / EMIT_THREADS),
+                    (unsigned)groups);
+    k_emit_scan<<<grid, EMIT_THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,79 +1,44 @@
-// Point conversion: 16-bit coordinate words -> 13-bit limbs -> Montgomery
-// form (one product by R^2) -> canonical -> dense radix-2^32 words.
+// Point conversion: 16-bit coordinate words -> canonical Montgomery form
+// (one product by R^2) -> the packed table's dense radix-2^32 words.
 //
 // Replaces: msm_tpu/ops/pallas_convert.py::make_convert_pack (pallas_call
 // at :187), non-GLV mode. Output is the same [n, 2D] wire format (D = 8
 // words per BN254 coordinate, x words then y words), bit for bit, since a
 // canonical value has one encoding.
 //
-// One thread per point. Each point is 2 Montgomery products on 128 B read
-// and 64 B written, so at 2^20 points the kernel is short either way; the
-// 64 B rows a thread writes are contiguous, and the 16-word input rows are
-// read with plain loads (L1 absorbs the row-per-thread pattern).
+// Bound: bytes. Each point reads 64 B (two coordinates of 16 u16 words,
+// int16 on the wire) and writes 64 B, against 2 Montgomery products; at
+// 2^20 points the 128 MiB moved and the 2^21 products take about the same
+// least time (~0.04 ms). The design (csrc/convert32.cuh): the word core,
+// on which little-endian u16 words already are the 32-bit words of a
+// coordinate -- no unpacking into 13-bit limbs and no repacking -- with
+// two 16-byte loads and two 16-byte stores per coordinate, a reduction
+// below p by three conditional subtracts, and one fe32_mul by R^2 mod p.
+// One thread per point, so its two products are independent.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "convert32.cuh"
 
 using namespace msm;
 
-constexpr int WORDS16 = 16;  // u16 words per input coordinate
-constexpr int D = 8;         // 32-bit words per packed coordinate
+constexpr int THREADS = 128;
 
-__device__ __forceinline__ void words_to_limbs(fe& out,
-                                               const int32_t* __restrict__ w) {
-  uint32_t u[WORDS16];
-#pragma unroll
-  for (int k = 0; k < WORDS16; ++k) u[k] = (uint32_t)w[k] & 0xFFFFu;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int lo = W * i, a = lo / 16, off = lo % 16;
-    uint32_t v = 0;
-    if (a < WORDS16) {
-      v = u[a] >> off;
-      if (off + W > 16 && a + 1 < WORDS16) v |= u[a + 1] << (16 - off);
-    }
-    out.v[i] = v & MASK;
-  }
-}
-
-__device__ __forceinline__ void pack_dense(int32_t* __restrict__ dst,
-                                           const fe& a) {
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      const int lo = W * j - 32 * k;  // limb j's bit offset inside word k
-      if (lo >= 32 || lo + W <= 0) continue;
-      word |= lo >= 0 ? (a.v[j] << lo) : (a.v[j] >> (-lo));
-    }
-    dst[k] = (int32_t)word;
-  }
-}
-
-__global__ void __launch_bounds__(128)
-    k_convert(const int32_t* __restrict__ xw, const int32_t* __restrict__ yw,
+__global__ void __launch_bounds__(THREADS)
+    k_convert(const int16_t* __restrict__ xw, const int16_t* __restrict__ yw,
               int32_t* __restrict__ out, int64_t n) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  fe r2, a, m;
-#pragma unroll
-  for (int j = 0; j < L; ++j) r2.v[j] = r2_limb(j);
-  words_to_limbs(a, xw + i * WORDS16);
-  fe_mul(m, a, r2);
-  pack_dense(out + i * 2 * D, m);
-  words_to_limbs(a, yw + i * WORDS16);
-  fe_mul(m, a, r2);
-  pack_dense(out + i * 2 * D + D, m);
+  if (i < n) convert_point(xw, yw, out, i);
 }
 
-extern "C" int msm_convert(const int32_t* xw, const int32_t* yw, int32_t* out,
+// xw, yw [n, 16] int16 (u16 bits); out [n, 2D] int32; all 16-byte aligned
+extern "C" int msm_convert(const int16_t* xw, const int16_t* yw, int32_t* out,
                            int64_t n, void* stream) {
+  if (((uintptr_t)xw | (uintptr_t)yw | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int threads = 128;
-    const int64_t blocks = (n + threads - 1) / threads;
-    k_convert<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        xw, yw, out, n);
+    const int64_t blocks = (n + THREADS - 1) / THREADS;
+    k_convert<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(xw, yw,
+                                                                     out, n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,62 @@
+// Kernel 2 (csrc/convert.cu): the per-point body on the word core.
+// __host__ __device__, so the host C++ compiler builds it for the CPU tests.
+//
+// A coordinate arrives as 16 little-endian u16 words (held in int16); read
+// as 8 little-endian 32-bit words they are already the word core's form.
+// The value may be anything in [0, 2^256) (inputs are not validated by
+// default), so it is reduced below p first; one Montgomery product by
+// R^2 mod p (R = 2^260) then gives a R mod p, canonical -- the packed
+// table's dense words, x then y.
+#pragma once
+
+#include "fe32.cuh"
+
+namespace msm {
+
+constexpr int COORD_U16 = 16;  // u16 words per input coordinate
+
+// One coordinate's 32 B (16 B aligned); on the device two 16-byte loads
+// through the read-only cache.
+MSM_HD void convert_load(fe32& a, const int16_t* w) {
+#ifdef __CUDA_ARCH__
+  const int4* q = reinterpret_cast<const int4*>(w);
+  const int4 lo = __ldg(q), hi = __ldg(q + 1);
+  a.w[0] = lo.x; a.w[1] = lo.y; a.w[2] = lo.z; a.w[3] = lo.w;
+  a.w[4] = hi.x; a.w[5] = hi.y; a.w[6] = hi.z; a.w[7] = hi.w;
+#else
+  MSM_UNROLL
+  for (int k = 0; k < NW; ++k)
+    a.w[k] = (uint32_t)(uint16_t)w[2 * k] | ((uint32_t)(uint16_t)w[2 * k + 1] << 16);
+#endif
+}
+
+// NW dense words (16 B aligned); on the device two 16-byte stores.
+MSM_HD void convert_store(int32_t* dst, const fe32& a) {
+#ifdef __CUDA_ARCH__
+  int4* q = reinterpret_cast<int4*>(dst);
+  q[0] = make_int4((int)a.w[0], (int)a.w[1], (int)a.w[2], (int)a.w[3]);
+  q[1] = make_int4((int)a.w[4], (int)a.w[5], (int)a.w[6], (int)a.w[7]);
+#else
+  MSM_UNROLL
+  for (int k = 0; k < NW; ++k) dst[k] = (int32_t)a.w[k];
+#endif
+}
+
+// Point i: xw[i], yw[i] ([n, 16] u16 words) -> out[i] = x R || y R
+// ([n, 2 NW] dense words, canonical).
+MSM_HD void convert_point(const int16_t* xw, const int16_t* yw, int32_t* out,
+                          int64_t i) {
+  fe32 r2, x, y;
+  MSM_UNROLL
+  for (int k = 0; k < NW; ++k) r2.w[k] = r2_word(k);
+  convert_load(x, xw + i * COORD_U16);
+  convert_load(y, yw + i * COORD_U16);
+  fe32_reduce_full(x);
+  fe32_reduce_full(y);
+  fe32_mul(x, x, r2);
+  fe32_mul(y, y, r2);
+  convert_store(out + i * 2 * NW, x);
+  convert_store(out + i * 2 * NW + NW, y);
+}
+
+}  // namespace msm

@@ -1,0 +1,168 @@
+// Kernel 13 (csrc/compress.cu k_emit_scan): the per-lane body on the word
+// core. __host__ __device__, so the host C++ compiler builds it for the CPU
+// tests; every function inlines (MSM_HD), so the kernel has no out-of-line
+// call.
+//
+// The pair algebra of csrc/pair.cuh in words. Pair j of lane r adds the
+// sorted elements at steps (2j, 2j+1) of the step-major [G, C, R] layout
+// (C = 2 Cp):
+//
+//     d   = x2 - x1 | 2 y1'    (doubling) | R, Montgomery one (P + (-P))
+//     num = y2' - y1' | 3 x1^2 (doubling)
+//     lam = num / d,  x3 = lam^2 - x1 - x2,  y3 = lam (x1 - x3) - y1'
+//
+// with y' = s ? p - y : y. The packed rows are canonical words, so word
+// equality is value equality and "y1 + y2 == p" is one carry ripple.
+//
+// The forward batch inversion: t runs from t0 = inv(s_0), inv(d_j) =
+// t_j s_{j+1} (s_Cp = one), t_{j+1} = t_j d_j. The pair sum goes straight
+// into the running point (RCB16 mixed add); an infinity pair leaves it
+// unchanged. The boundary contract is kernel 4's: the inclusive prefix after
+// pair j as one pe3[g, j, r] row x || y || z of canonical 13-bit limbs, the
+// lane total limbs-first in t{x,y,z}[g, :, r]. The chain input s [G, Cp, L,
+// R] is read as canonical 13-bit limbs (the suffix kernel's output), t0
+// [G, L, R] as balanced ones.
+#pragma once
+
+#include "scan.cuh"
+
+namespace msm {
+
+MSM_HD bool fe32_eq(const fe32& a, const fe32& b) {
+  uint32_t diff = 0;
+  MSM_UNROLL
+  for (int i = 0; i < NW; ++i) diff |= a.w[i] ^ b.w[i];
+  return diff == 0;
+}
+
+// a + b == p for canonical a, b: one carry ripple.
+MSM_HD bool fe32_sum_is_p(const fe32& a, const fe32& b) {
+  uint32_t c = 0, diff = 0;
+  MSM_UNROLL
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t s = (uint64_t)a.w[i] + b.w[i] + c;
+    diff |= lo32(s) ^ p_word(i);
+    c = hi32(s);
+  }
+  return diff == 0 && c == 0;
+}
+
+// One pair: its coordinates with the signs applied to y, and the predicates
+//   e1 ==  e2 <=> x1 == x2 and (s1 == s2 ? y1 == y2 : y1 + y2 == p)
+//   e1 == -e2 <=> x1 == x2 and (s1 != s2 ? y1 == y2 : y1 + y2 == p)
+struct pair32 {
+  fe32 x1, y1, x2, y2;  // y1, y2 are the signed y'
+  int dbl, inf;
+};
+
+// Gather elements e1, e2 of the step-major perm/flags arrays (flags bit 0:
+// negate y) from the packed table [N, 2 NW].
+MSM_HD void pair32_load(pair32& pr, const int32_t* packed, const int32_t* perm,
+                        const int32_t* flags, int64_t e1, int64_t e2) {
+  scan_load_row(pr.x1, pr.y1, packed, perm[e1]);
+  scan_load_row(pr.x2, pr.y2, packed, perm[e2]);
+  const int s1 = flags[e1] & 1, s2 = flags[e2] & 1;
+  const bool same_x = fe32_eq(pr.x1, pr.x2);
+  const bool same_y = fe32_eq(pr.y1, pr.y2);
+  const bool ysum_p = fe32_sum_is_p(pr.y1, pr.y2);
+  pr.dbl = same_x && (s1 == s2 ? same_y : ysum_p);
+  pr.inf = same_x && (s1 == s2 ? ysum_p : same_y);
+  fe32_cond_neg(pr.y1, s1);
+  fe32_cond_neg(pr.y2, s2);
+}
+
+// d = R (infinity) | 2 y1' (doubling) | x2 - x1, branch-free.
+MSM_HD void pair32_denominator(fe32& d, const pair32& pr) {
+  fe32 dd, one;
+  fe32_double(dd, pr.y1);
+  fe32_sub(d, pr.x2, pr.x1);
+  fe32_mont_one(one);
+  const uint32_t dbl = 0u - (uint32_t)(pr.dbl != 0);
+  const uint32_t inf = 0u - (uint32_t)(pr.inf != 0);
+  MSM_UNROLL
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t v = (dd.w[i] & dbl) | (d.w[i] & ~dbl);
+    d.w[i] = (one.w[i] & inf) | (v & ~inf);
+  }
+}
+
+// num = 3 x1^2 (doubling: the one product, in warps that hold a doubling)
+// | y2' - y1'.
+MSM_HD void pair32_numerator(fe32& num, const pair32& pr) {
+  if (pr.dbl) {
+    fe32 sq, t;
+    fe32_sqr(sq, pr.x1);
+    fe32_double(t, sq);
+    fe32_add(num, t, sq);
+  } else {
+    fe32_sub(num, pr.y2, pr.y1);
+  }
+}
+
+// The affine pair sum from num and inv_d = 1/d: 3 products.
+MSM_HD void pair32_emit(fe32& x3, fe32& y3, const pair32& pr, const fe32& num,
+                        const fe32& inv_d) {
+  fe32 lam, t;
+  fe32_mul(lam, num, inv_d);
+  fe32_sqr(t, lam);
+  fe32_sub(t, t, pr.x1);
+  fe32_sub(x3, t, pr.x2);
+  fe32_sub(t, pr.x1, x3);
+  fe32_mul(t, lam, t);
+  fe32_sub(y3, t, pr.y1);
+}
+
+// Canonical 13-bit limbs stored limbs-first at src[i * stride] -> words.
+MSM_HD void fe32_load_limbs_strided(fe32& out, const int32_t* src,
+                                    int64_t stride) {
+  uint32_t v[L];
+  MSM_UNROLL
+  for (int i = 0; i < L; ++i) v[i] = (uint32_t)src[i * stride];
+  fe32_from_limbs(out, v);
+}
+
+// packed [N, 2 NW]; perm, flags [G, 2 Cp, R]; s [G, Cp, L, R] canonical;
+// t0 [G, L, R] balanced; pe3 [G, Cp, R, 3L]; t* [G, L, R].
+MSM_HD void emit_scan_lane(const int32_t* packed, const int32_t* perm,
+                           const int32_t* flags, const int32_t* s,
+                           const int32_t* t0, int32_t* pe3, int32_t* tx,
+                           int32_t* ty, int32_t* tz, int64_t g, int Cp, int R,
+                           int r) {
+  const int64_t lane = g * L * (int64_t)R + r;
+  fe32 t;
+  {
+    int32_t v[L];
+    MSM_UNROLL
+    for (int i = 0; i < L; ++i) v[i] = t0[lane + i * (int64_t)R];
+    fe32_from_balanced(t, v);
+  }
+  pt32 acc;
+  pt32_identity(acc);
+  int64_t e = g * 2 * Cp * (int64_t)R + r;  // step 2j of lane r
+  const int64_t s_step = (int64_t)L * R;     // s: one pair further
+  const int32_t* s_next = s + g * Cp * s_step + s_step + r;
+  int32_t* row = pe3 + (g * Cp * (int64_t)R + r) * 3 * L;
+  for (int j = 0; j < Cp; ++j, e += 2 * (int64_t)R, s_next += s_step,
+           row += (int64_t)R * 3 * L) {
+    pair32 pr;
+    pair32_load(pr, packed, perm, flags, e, e + R);
+    fe32 d, sn, inv_d;
+    pair32_denominator(d, pr);
+    if (j + 1 < Cp) {
+      fe32_load_limbs_strided(sn, s_next, R);
+    } else {
+      fe32_mont_one(sn);
+    }
+    // the inverse chain: inv(d_j), then t_{j+1}, independent of acc
+    fe32_mul(inv_d, t, sn);
+    fe32_mul(t, t, d);
+    fe32 num, x3, y3;
+    pair32_numerator(num, pr);
+    pair32_emit(x3, y3, pr, num, inv_d);
+    if (!pr.inf) pt32_madd(acc, acc, x3, y3);
+    scan_store_row(row, acc);
+  }
+  pt32_store_limbs(tx + lane, ty + lane, tz + lane, R, acc);
+}
+
+}  // namespace msm

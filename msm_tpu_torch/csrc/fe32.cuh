@@ -1,5 +1,6 @@
-// BN254 base-field arithmetic in 32-bit words: the word core of the scan
-// (kernel 4) and the Horner ladder (kernel 7).
+// BN254 base-field arithmetic in 32-bit words: the word core of the point
+// add (kernel 1), the point conversion (2), the scan (4), the point total
+// (6), the Horner ladder (7) and the fused pair emission + scan (13).
 //
 // An `fe32` is 8 words, least significant first, CANONICAL (value in
 // [0, p)), in the same Montgomery domain as the 13-bit core of field.cuh:
@@ -47,6 +48,13 @@ MSM_HD uint32_t r_word(int i) {
   return t[i];
 }
 
+// R^2 mod p: a product by it enters Montgomery form (a -> a R mod p)
+MSM_HD uint32_t r2_word(int i) {
+  const uint32_t t[NW] = {0x1966eb04u, 0xb868a81du, 0x95018016u, 0x98e61561u,
+                          0x0b4f898cu, 0xbfd53160u, 0x0d3a9969u, 0x0a8469a3u};
+  return t[i];
+}
+
 // Word i (of NW + 1) of p << s, 0 <= s < 32.
 MSM_HD uint32_t p_shl_word(int i, int s) {
   const uint32_t lo = i < NW ? p_word(i) << s : 0u;
@@ -84,6 +92,25 @@ MSM_HD void fe32_reduce_once(fe32& a) {
   const uint32_t keep = 0u - borrow;  // all ones: a < p, keep a
   MSM_UNROLL
   for (int i = 0; i < NW; ++i) a.w[i] = (a.w[i] & keep) | (d[i] & ~keep);
+}
+
+// a <- a mod p for any a < 2^256 (< 5.3 p): branch-free conditional
+// subtracts of 4p, 2p and p.
+MSM_HD void fe32_reduce_full(fe32& a) {
+  MSM_UNROLL
+  for (int s = 2; s >= 0; --s) {
+    uint32_t d[NW];
+    uint32_t borrow = 0;
+    MSM_UNROLL
+    for (int i = 0; i < NW; ++i) {  // 4p < 2^256: word NW of p << s is 0
+      const uint64_t t = (uint64_t)a.w[i] - p_shl_word(i, s) - borrow;
+      d[i] = lo32(t);
+      borrow = hi32(t) & 1u;
+    }
+    const uint32_t keep = 0u - borrow;
+    MSM_UNROLL
+    for (int i = 0; i < NW; ++i) a.w[i] = (a.w[i] & keep) | (d[i] & ~keep);
+  }
 }
 
 MSM_HD void fe32_add(fe32& out, const fe32& a, const fe32& b) {

@@ -67,14 +67,6 @@ MSM_HD uint32_t r_limb(int i) {
   return t[i];
 }
 
-// R^2 mod p: multiply by it (fe_mul) to enter Montgomery form
-MSM_HD uint32_t r2_limb(int i) {
-  const uint32_t t[L] = {2820, 2871, 1862, 4432, 2950, 11,   5126,
-                         3122, 1557, 1223, 611,  5791, 5632, 2712,
-                         1791, 4909, 3386, 3352, 282,  21};
-  return t[i];
-}
-
 struct fe {
   uint32_t v[L];
 };

@@ -1,6 +1,8 @@
-// Batched-affine pair compression on canonical Montgomery field elements:
-// the pair algebra shared by the four pair kernels (csrc/compress.cu), and
-// the per-lane body of each kernel.
+// Batched-affine pair compression on canonical Montgomery field elements
+// (the 13-bit core): the pair algebra shared by three pair kernels
+// (csrc/compress.cu: suffix, forward, backward), and the per-lane body of
+// each. Kernel 13 (emission + scan) runs the same algebra on the word core,
+// csrc/emit_scan.cuh.
 //
 // Same algebra as the JAX reference (msm_tpu/ops/pallas_compress.py):
 // _load_pair_point, _pair_predicates, _signed_y, _pair_denominator and the
@@ -166,44 +168,6 @@ MSM_HD_CALL void pair_forward_lane(const int32_t* packed, const int32_t* perm,
     fe_mul(run, run, d);
     fe_store_strided(m + chain_at(g, j, Cp, R, r), R, run);
   }
-}
-
-// Kernel 13: forward batch inversion fused with the prefix scan. t runs
-// forward from t0 = inv(s_0): inv(d_j) = t_j * s_{j+1} (s_Cp = one),
-// t_{j+1} = t_j * d_j. The pair sum goes straight into the running point
-// (RCB16 mixed add); an infinity pair leaves it unchanged. Writes the
-// inclusive prefix after pair j as one x||y||z row pe3[g, j, r, 0:3L] and the
-// lane total limbs-first to t{x,y,z}[g, :, r] -- the scan kernel's contract.
-MSM_HD_CALL void emit_scan_lane(const int32_t* packed, const int32_t* perm,
-                                const int32_t* flags, const int32_t* s,
-                                const int32_t* t0, int32_t* pe3, int32_t* tx,
-                                int32_t* ty, int32_t* tz, int64_t g, int Cp,
-                                int R, int r) {
-  const int64_t lane = g * L * (int64_t)R + r;
-  fe t;
-  fe_load_balanced_strided(t, t0 + lane, R);
-  point acc;
-  pt_identity(acc);
-  for (int j = 0; j < Cp; ++j) {
-    pair_t pr;
-    fe d, num, snext, inv_d, x3, y3;
-    lane_pair(pr, d, packed, perm, flags, g, j, Cp, R, r);
-    pair_numerator(num, pr);
-    if (j + 1 < Cp) {
-      fe_load_strided(snext, s + chain_at(g, j + 1, Cp, R, r), R);
-    } else {
-      fe_mont_one(snext);
-    }
-    fe_mul(inv_d, t, snext);
-    pair_emit(x3, y3, pr, num, inv_d);
-    fe_mul(t, t, d);
-    if (!pr.inf) pt_madd(acc, acc, x3, y3);
-    int32_t* o = pe3 + ((g * Cp + j) * (int64_t)R + r) * 3 * L;
-    fe_store(o, acc.x);
-    fe_store(o + L, acc.y);
-    fe_store(o + 2 * L, acc.z);
-  }
-  pt_store(tx + lane, ty + lane, tz + lane, R, acc);
 }
 
 // Kernel 11: backward emission of the pair sums. run starts at

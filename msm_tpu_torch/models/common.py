@@ -5,7 +5,9 @@ imported, since that module imports JAX).
 The host pads inputs to a power of two, serializes coordinates and scalars
 as 16-bit words, and finishes with the single result point in exact
 integers (``mont_rows_to_ints``: no field op on any device). Uploads are
-plain ``torch.from_numpy(...).to(device)``.
+plain ``torch.from_numpy(...).to(device)``: the coordinate words travel as
+int16 (the u16 bits; 32 B per coordinate, what the convert kernel reads),
+the scalar words as int32 (what ``ops/decompose`` reads).
 """
 
 from __future__ import annotations
@@ -27,11 +29,9 @@ def pad_size(n: int) -> int:
 
 
 def ints_to_u16_array(xs: list[int], nbytes: int = 32) -> np.ndarray:
-    """python ints -> [n, nbytes/2] uint16 words held in int32."""
-    buf = b"".join(x.to_bytes(nbytes, "little") for x in xs)
-    return (
-        np.frombuffer(buf, dtype="<u2").reshape(len(xs), nbytes // 2).astype(np.int32)
-    )
+    """python ints -> [n, nbytes/2] little-endian uint16 words (writable)."""
+    buf = bytearray().join(x.to_bytes(nbytes, "little") for x in xs)
+    return np.frombuffer(buf, dtype="<u2").reshape(len(xs), nbytes // 2)
 
 
 def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig) -> None:
@@ -51,25 +51,27 @@ def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig) -> None:
 def pad_points_words(
     points: list[tuple[int, int]], cfg: MsmConfig, N: int
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Pad to N with the generator and serialize to u16-word arrays."""
+    """Pad to N with the generator and serialize to u16-word arrays held in
+    int16 (the same bits: torch has int16 tensors, not uint16 ones)."""
     n = len(points)
     gx, gy = cfg.curve.gx % cfg.curve.modulus, cfg.curve.gy % cfg.curve.modulus
     px = [p[0] for p in points] + [gx] * (N - n)
     py = [p[1] for p in points] + [gy] * (N - n)
     cb = max((cfg.curve.modulus_bits + 7) // 8, 2)
-    return ints_to_u16_array(px, cb), ints_to_u16_array(py, cb)
+    return ints_to_u16_array(px, cb).view(np.int16), ints_to_u16_array(py, cb).view(np.int16)
 
 
 def pad_scalars_words(scalars: list[int], cfg: MsmConfig, N: int) -> np.ndarray:
     """Pad to N with zero scalars (bucket 0, multiplier 0: inert) and
-    serialize. Scalars outside [0, order) are reduced mod order first: the
-    signed-window bound on the top digit holds only for k < order."""
+    serialize to u16 words held in int32. Scalars outside [0, order) are
+    reduced mod order first: the signed-window bound on the top digit holds
+    only for k < order."""
     order = cfg.curve.order
     ks = list(scalars)
     if any(k < 0 or k >= order for k in ks):
         ks = [k % order for k in ks]
     ks = ks + [0] * (N - len(ks))
-    return ints_to_u16_array(ks, (cfg.scalar_bits + 7) // 8)
+    return ints_to_u16_array(ks, (cfg.scalar_bits + 7) // 8).astype(np.int32)
 
 
 def pad_inputs(
@@ -79,7 +81,7 @@ def pad_inputs(
     validate: bool = False,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Pad to a power of two with generator points and zero scalars;
-    serialize to u16-word arrays (x, y, scalars)."""
+    serialize to u16-word arrays (x, y in int16, scalars in int32)."""
     n = len(points)
     if n != len(scalars):
         raise ValueError(f"{n} points but {len(scalars)} scalars")

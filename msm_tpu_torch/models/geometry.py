@@ -11,16 +11,30 @@
   bounds the boundary-prefix buffer at subtask_batch * n * 3L * 4 bytes
   (half that when pair-compressed).
 
-The rule is a placeholder copied from the TPU reference and has not been
-tuned on the H100. Under pair compression it keeps the reference's narrow
-R = min(n/8, 1024): one Fermat inversion per lane, but at 2^20 only 4 x 1024
-chains of 512 serial pair steps per launch, far too few threads for the
-card.
+Plain path: the TPU reference's rule, R = min(n/8, 2^14) and 4 subtasks a
+launch (at 2^20: 4 x 16384 lanes, one wave of the scan kernel).
+
+Pair-compressed path: the port's own rule, from the sweep of
+``scripts/torch_compress_geometry.py`` on an H100 (``PERF.md``). Every
+stage-3 kernel of the compressed path walks one serial chain per lane, so
+the launch needs G x R lanes to fill the card, while the one Fermat
+inversion per lane (kernel 9) grows with G x R: R = min(n/8,
+``COMPRESS_ROWS``) lanes (C = n/R >= 8 steps, even, so no pair straddles two
+lanes) and up to ``COMPRESS_BATCH`` subtasks a launch, halved while the
+launch's pe3 buffer would exceed ``PE3_BYTES_MAX``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+#: lanes of the compressed scan at most, and subtasks per compressed launch:
+#: the sweep's fastest setting at both 2^16 and 2^20
+COMPRESS_ROWS, COMPRESS_BATCH = 1 << 11, 16
+#: one pe3 row: x || y || z in 3 L int32 limbs (BN254, 13-bit limbs)
+PE3_ROW_BYTES = 3 * 20 * 4
+#: the compressed launch's pe3 buffer at most (G x n/2 rows)
+PE3_BYTES_MAX = 8 << 30
 
 
 @dataclass(frozen=True)
@@ -30,10 +44,20 @@ class MsmGeometry:
     subtask_batch: int
 
 
+def compressed_batch(n: int) -> int:
+    """Subtasks per compressed launch at n points: COMPRESS_BATCH, halved
+    while G x n/2 pe3 rows exceed PE3_BYTES_MAX (at least 1)."""
+    batch = COMPRESS_BATCH
+    while batch > 1 and batch * (n // 2) * PE3_ROW_BYTES > PE3_BYTES_MAX:
+        batch //= 2
+    return batch
+
+
 def pick_geometry(n: int, chunk_size: int, compress: bool = False) -> MsmGeometry:
     """n must be a power of two (the host pads)."""
     assert n & (n - 1) == 0 and n > 0
-    num_rows = max(1, min(n // 8, 1 << 10 if compress else 1 << 14))
     body = 1 << (chunk_size - 1)
     bpr_threads = max(1, min(body // 16, 1 << 9))
-    return MsmGeometry(num_rows, bpr_threads, subtask_batch=4)
+    if compress:
+        return MsmGeometry(max(1, min(n // 8, COMPRESS_ROWS)), bpr_threads, compressed_batch(n))
+    return MsmGeometry(max(1, min(n // 8, 1 << 14)), bpr_threads, subtask_batch=4)

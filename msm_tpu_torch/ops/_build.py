@@ -155,16 +155,16 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor) -> None:
-    """Checks before a launch: supported config, CUDA int32 contiguous
-    tensors on one device."""
+def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor, dtype=torch.int32) -> None:
+    """Checks before a launch: supported config, CUDA contiguous tensors of
+    ``dtype`` on one device."""
     check_cuda_config(cfg)
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"expected tensors on one CUDA device, got {t.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"expected int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("expected contiguous tensors")
 

@@ -1,7 +1,9 @@
 """Kernels 10-13: batched-affine pair compression of the sorted stream, with
 their plain twins and the two host functions built on them.
 
-CUDA source: ``msm_tpu_torch/csrc/compress.cu`` on ``csrc/pair.cuh``.
+CUDA source: ``msm_tpu_torch/csrc/compress.cu``: kernels 10-12 on the
+13-bit core (``csrc/pair.cuh``), kernel 13 on the word core
+(``csrc/emit_scan.cuh``).
 Replaces, in ``msm_tpu/ops/pallas_compress.py``: ``make_pair_suffix``
 (``pallas_call`` at :427), ``make_emit_scan`` (:561), ``make_pair_forward``
 (:205) and ``make_pair_backward`` (:333), with the sorted-order gather that
@@ -202,6 +204,7 @@ def emit_scan(cfg: MsmConfig, packed, perm, flags, s, t0):
     if packed.device.type == "cpu":
         return emit_scan_plain(cfg, packed, perm, flags, s, t0)
     packed, perm, flags, s, t0 = _check(cfg, packed, perm, flags, s, t0)
+    (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     L = cfg.num_words
     _check_chain(s, (G, C // 2, L, R), t0, (G, L, R))

@@ -1,7 +1,9 @@
 """Kernel 2: point conversion into the packed point table, its plain twin,
 and the dense coordinate wire format.
 
-CUDA source: ``msm_tpu_torch/csrc/convert.cu``. Replaces the Pallas kernel
+CUDA source: ``msm_tpu_torch/csrc/convert.cu`` on the word core (per-point
+body ``csrc/convert32.cuh``); it reads the u16 words as int16, 32 B per
+coordinate, the bits the host serialized. Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_convert.py::make_convert_pack`` (``pallas_call`` at
 :187, non-GLV mode); ``coord_words``/``pack_coords``/``unpack_coords`` port
 ``msm_tpu/ops/pallas_scan.py:54-199``.
@@ -82,23 +84,25 @@ def unpack_coords(p: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
 
 
 def convert_pack_plain(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
-    """Plain twin of the convert kernel: u16 words [n, W] -> limbs ->
-    Montgomery (x R^2 product) -> canonical -> packed table [n, 2D]."""
+    """Plain twin of the convert kernel: u16 words [n, W] (held in int16 or
+    int32) -> limbs -> Montgomery (x R^2 product) -> canonical -> packed
+    table [n, 2D]."""
     f = get_field_ctx(cfg)
     w, L = cfg.word_size, cfg.num_words
-    xs = extract_windows(x_u16, w, L).T
-    ys = extract_windows(y_u16, w, L).T
+    xs, ys = (extract_windows(a.to(torch.int32) & 0xFFFF, w, L).T for a in (x_u16, y_u16))
     return torch.cat(
         [pack_coords(f.to_mont(xs), cfg), pack_coords(f.to_mont(ys), cfg)], dim=-1
     )
 
 
 def convert_pack(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
-    """Point table from u16 coordinate words: [n, W] x2 -> [n, 2D] int32."""
+    """Point table from u16 coordinate words: [n, 16] x2 -> [n, 2D] int32.
+    On CUDA the words must be int16 (the u16 bits, as
+    ``models.common.pad_points_words`` gives them)."""
     if x_u16.device.type == "cpu":
         return convert_pack_plain(cfg, x_u16, y_u16)
-    x_u16, y_u16 = x_u16.contiguous(), y_u16.contiguous()
-    _build.require_cuda(cfg, x_u16, y_u16)
+    x_u16, y_u16 = _build.aligned(x_u16, y_u16)
+    _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16)
     n = x_u16.shape[0]
     if x_u16.shape != (n, 16) or y_u16.shape != (n, 16):
         raise ValueError(f"expected [n, 16] u16 words, got {tuple(x_u16.shape)}")

@@ -146,7 +146,8 @@ def compression_applies(cfg: MsmConfig, n: int, num_rows: int) -> bool:
     holds an even number of steps C = n / R, so that no pair (2j, 2j+1)
     straddles two lanes. n and R are powers of two, so every size
     compresses except C = 1 (R = n); under ``pick_geometry(n, c,
-    compress=True)`` (R = min(n/8, 1024), C >= 8) every padded size does.
+    compress=True)`` (R = min(n/8, ``geometry.COMPRESS_ROWS``), so C >= 8)
+    every padded size does.
     The JAX package also asks R % 256 == 0, a TPU tile rule not carried
     over: the boundary prefixes are the same points either way."""
     return cfg.compress and (n // num_rows) % 2 == 0

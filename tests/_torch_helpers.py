@@ -75,6 +75,12 @@ def pair_stream(cfg, G: int, C: int, R: int, nbase: int, seed: int):
     return base, packed, perm, flags
 
 
+def u16_words_int32(*words: np.ndarray) -> list[np.ndarray]:
+    """The port's coordinate words (u16 bits held in int16) as the JAX
+    package takes them: each u16 value held in int32."""
+    return [w.view(np.uint16).astype(np.int32) for w in words]
+
+
 def mont_limbs(vals, cfg) -> np.ndarray:
     """python ints -> Montgomery-form canonical limbs [n, L] int32."""
     p, r = cfg.curve.modulus, cfg.r

@@ -3,8 +3,10 @@ prefix.cuh) compiled for the host with g++ and held against the plain
 PyTorch twins: Montgomery product, balanced-input canonicalization,
 complete addition, mixed addition, doubling, exponentiation, the pair
 algebra (predicates, denominator, numerator, emission), the per-lane bodies
-of the four pair kernels, run for every lane of a small stream with planted
-doubling and infinity pairs, the per-lane body of the blocked reduction's
+of the four pair kernels (the emission + scan's on the word core,
+emit_scan.cuh, fed by the 13-bit suffix and inversion bodies), run for every
+lane of a small stream with planted doubling and infinity pairs, the
+per-lane body of the blocked reduction's
 phase 1, and the per-thread bodies of the row offsets, run for every thread
 of the three launches' plan.
 Catches arithmetic and indexing faults in the device code without a GPU.
@@ -41,6 +43,7 @@ HARNESS = r"""
 #include <vector>
 
 #include "bpr.cuh"
+#include "emit_scan.cuh"
 #include "pair.cuh"
 #include "prefix.cuh"
 using namespace msm;

@@ -1,14 +1,17 @@
 """The word core (msm_tpu_torch/csrc/fe32.cuh, curve32.cuh) and the per-lane
-bodies of the scan (kernel 4, csrc/scan.cuh) and the Horner ladder (kernel
-7, csrc/horner.cuh) compiled for the host with g++ and held against the
-plain PyTorch twins: the R = 2^260 Montgomery product (word CIOS plus one
-4-bit step) on random and edge values, add, sub, neg, double and the 3b
-multiple, the 13-bit <-> word repacking and the dense-word load, the
-balanced-input load, RCB16 Algorithms 7, 8 and 9, the scan's body run for
-every lane of a small stream, and the Horner chain. Outputs of the core must
-be canonical and equal to the twins' results after canonical(): a canonical
-value is unique, so the kernels on this core write the limbs the 13-bit
-core writes."""
+bodies of the point conversion (kernel 2, csrc/convert32.cuh), the scan
+(kernel 4, csrc/scan.cuh), the Horner ladder (kernel 7, csrc/horner.cuh) and
+the fused pair emission + scan (kernel 13, csrc/emit_scan.cuh) compiled for
+the host with g++ and held against the plain PyTorch twins: the R = 2^260
+Montgomery product (word CIOS plus one 4-bit step) on random and edge
+values, add, sub, neg, double and the 3b multiple, the 13-bit <-> word
+repacking and the dense-word load, the balanced-input load, RCB16
+Algorithms 7, 8 and 9, the conversion of u16 coordinate words (values in
+[p, 2^256) included), the scan's body run for every lane of a small stream,
+the Horner chain, and the emission + scan body for every lane of a stream
+with doubling and infinity pairs. Outputs of the core must be canonical and
+equal to the twins' results after canonical(): a canonical value is unique,
+so the kernels on this core write the limbs the 13-bit core writes."""
 
 import ctypes
 import random
@@ -21,7 +24,9 @@ import pytest
 import torch
 
 from _torch_helpers import mont_limbs, pair_stream, rand_balanced, rand_canonical
-from msm_tpu_torch.ops.cuda_convert import pack_canonical
+from msm_tpu_torch.ops.cuda_compress import emit_scan_plain, pair_suffix_plain
+from msm_tpu_torch.ops.cuda_convert import convert_pack_plain, pack_canonical
+from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
 from msm_tpu_torch.ops.cuda_prefix import horner_plain
 from msm_tpu_torch.ops.cuda_scan import rcb16_madd_plain, scan_rows_plain
@@ -39,6 +44,8 @@ P = BN254.modulus
 HARNESS = r"""
 #include <vector>
 
+#include "convert32.cuh"
+#include "emit_scan.cuh"
 #include "horner.cuh"
 #include "scan.cuh"
 using namespace msm;
@@ -147,6 +154,17 @@ void w_scan(const int32_t* packed, const int32_t* perm, const int32_t* flags,
     for (int r = 0; r < R; ++r)
       scan_lane(packed, perm, flags, pe3, tx, ty, tz, g, C, R, r);
 }
+void w_convert(const int16_t* xw, const int16_t* yw, int32_t* out, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) convert_point(xw, yw, out, i);
+}
+void w_emit_scan(const int32_t* packed, const int32_t* perm,
+                 const int32_t* flags, const int32_t* s, const int32_t* t0,
+                 int32_t* pe3, int32_t* tx, int32_t* ty, int32_t* tz,
+                 int64_t G, int Cp, int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      emit_scan_lane(packed, perm, flags, s, t0, pe3, tx, ty, tz, g, Cp, R, r);
+}
 // the chain of per-level products (the lanes' split, computed here by one
 // thread)
 void w_horner(const int32_t* wx, const int32_t* wy, const int32_t* wz,
@@ -181,6 +199,8 @@ def lib(tmp_path_factory):
                            ("w_from_balanced", [Pt] * 2 + [I64]), ("w_pt_add", [Pt] * 3 + [I64]),
                            ("w_pt_madd", [Pt] * 3 + [I64]), ("w_pt_double", [Pt] * 2 + [I64]),
                            ("w_scan", [Pt] * 7 + [I64, I32, I32]),
+                           ("w_convert", [Pt] * 3 + [I64]),
+                           ("w_emit_scan", [Pt] * 9 + [I64, I32, I32]),
                            ("w_horner", [Pt] * 6 + [I32, I32])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -355,3 +375,54 @@ def test_horner_chain_matches_twin(lib, S, chunk):
     want = horner_plain(CFG, *map(torch.from_numpy, w), chunk)
     for g, t in zip(got, want):
         _assert_canonical_equal(g, t)
+
+
+def _u16_words(vals) -> np.ndarray:
+    """python ints in [0, 2^256) -> [n, 16] little-endian u16 words held in
+    int16, as the host serializes coordinates."""
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    return np.frombuffer(buf, dtype="<u2").reshape(len(vals), 16).view(np.int16).copy()
+
+
+def test_convert_point_matches_twin(lib):
+    """Kernel 2's body on seeded coordinates below p and on unvalidated
+    ones in [p, 2^256) (p, 2p - 1, 4p, 5p, 2^256 - 1, random), and 0,
+    against convert_pack_plain: the packed table's dense words exactly."""
+    rng = random.Random(41)
+    edge = [0, 1, P - 1, P, P + 1, 2 * P - 1, 2 * P, 4 * P - 1, 4 * P, 5 * P, (1 << 256) - 1]
+    xs = edge + [rng.randrange(P) for _ in range(100)] + [rng.randrange(P, 1 << 256) for _ in range(60)]
+    ys = list(reversed(xs))
+    xw, yw = _u16_words(xs), _u16_words(ys)
+    n = len(xs)
+    out = np.zeros((n, 16), dtype=np.int32)
+    lib.w_convert(xw.ctypes.data, yw.ctypes.data, out.ctypes.data, n)
+    want = convert_pack_plain(CFG, torch.from_numpy(xw), torch.from_numpy(yw)).numpy()
+    assert np.array_equal(out, want)
+    # the table holds x R mod p and y R mod p
+    got_x = [int.from_bytes(out[i, :8].astype("<u4").tobytes(), "little") for i in range(n)]
+    assert got_x == [x * CFG.r % P for x in xs]
+
+
+@pytest.mark.parametrize("G, Cp, R", [(2, 4, 16), (1, 1, 8), (3, 2, 4)])
+def test_emit_scan_lanes_match_twin(lib, G, Cp, R):
+    """Kernel 13's per-lane body for every lane of a stream of real points
+    with planted doubling and infinity pairs (lane 0 of subtask 0 starts
+    with an infinity pair, lane 1 with a doubling), on the twins' suffix
+    products (canonical) and Fermat inverse t0 (balanced), against
+    emit_scan_plain: every pe3 row and lane total."""
+    _, packed, perm, flags = pair_stream(CFG, G, 2 * Cp, R, nbase=8, seed=42 + Cp)
+    perm[0, 1, :2] = perm[0, 0, :2]
+    flags[0, 1, 0] = flags[0, 0, 0] ^ 1  # P + (-P)
+    flags[0, 1, 1] = flags[0, 0, 1]  # P + P
+    tp, tm, tf = (torch.from_numpy(np.ascontiguousarray(a)) for a in (packed, perm, flags))
+    s = F.canonical(pair_suffix_plain(CFG, tp, tm, tf).transpose(-1, -2)).transpose(-1, -2).contiguous()
+    t0 = mont_pow_plain(CFG, s[:, 0], P - 2)
+    got = _run(lib, "w_emit_scan", [(G, Cp, R, 3 * L)] + [(G, L, R)] * 3,
+               packed, perm, flags, s.numpy(), t0.numpy(), G, Cp, R)
+    want = emit_scan_plain(CFG, tp, tm, tf, s, t0)
+    for i in range(3):  # pe3 rows: x || y || z
+        _assert_canonical_equal(got[0][..., i * L:(i + 1) * L], want[0][..., i * L:(i + 1) * L])
+    for g, w in zip(got[1:], want[1:]):
+        _assert_canonical_equal(np.ascontiguousarray(g.swapaxes(-1, -2)), w.transpose(-1, -2))
+    # lane 0 starts with P + (-P): its first prefix is the identity
+    assert not F.canonical(want[0][0, 0, 0, 2 * L:]).any()

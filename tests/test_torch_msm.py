@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import affine_points, mont_limbs, port_cfg, same_points
+from _torch_helpers import affine_points, mont_limbs, port_cfg, same_points, u16_words_int32
 import msm_tpu
 import msm_tpu_torch
 from msm_tpu.models import common as jcommon
@@ -60,7 +60,7 @@ def test_slice_matches_jax_and_oracle():
     ws = cuzk.window_sums_from_table(packed, torch.from_numpy(s_u16), CFG, pick_geometry(n, 8))
     ws_std = common.export_points_std(get_curve_ctx(CFG), scan.PointBatch(*ws.unbind(1))).numpy()
     j_ws = np.asarray(jcuzk.cuzk_window_sums(
-        jnp.asarray(x_u16), jnp.asarray(y_u16), jnp.asarray(s_u16), JCFG, j_pick_geometry(n, 8)))
+        *map(jnp.asarray, u16_words_int32(x_u16, y_u16)), jnp.asarray(s_u16), JCFG, j_pick_geometry(n, 8)))
     assert same_points([ws_std[:, i] for i in range(3)], [j_ws[:, i] for i in range(3)], CFG)
     # host Horner over the port's window sums gives the MSM as well
     assert CV.to_affine(common.window_sums_to_result(ws_std, CFG)) == want
@@ -78,7 +78,7 @@ def test_boundary_prefixes_match_jax():
                                       CFG.num_buckets, R, batch=2)
 
     jec = j_curve_ctx(JCFG)
-    jpts = jcommon.u16_to_mont_points(jec, jnp.asarray(x_u16), jnp.asarray(y_u16))
+    jpts = jcommon.u16_to_mont_points(jec, *map(jnp.asarray, u16_words_int32(x_u16, y_u16)))
     jk, js = j_decompose(jnp.asarray(s_u16), 8, CFG.num_subtasks)
 
     @functools.partial(jax.jit, static_argnums=(2,))

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import port_cfg, same_points
+from _torch_helpers import port_cfg, same_points, u16_words_int32
 from msm_tpu.models import common as jcommon
 from msm_tpu.models.naive import NAIVE_CONFIG as J_NAIVE_CONFIG
 from msm_tpu.models.naive import compute_msm_naive as j_compute_msm_naive
@@ -75,7 +75,7 @@ def test_bucket_accumulate_and_running_match_jax():
     w = scan.bucket_reduce_running(ec, buckets)
 
     jec = j_curve_ctx(J_NAIVE_CONFIG)
-    jpts, jpacked = jcommon.prepare_points(jec, jnp.asarray(x_u16), jnp.asarray(y_u16), R)
+    jpts, jpacked = jcommon.prepare_points(jec, *map(jnp.asarray, u16_words_int32(x_u16, y_u16)), R)
     jkeys = j_extract_windows(jnp.asarray(s_u16), c, J_NAIVE_CONFIG.num_subtasks)
 
     @jax.jit

@@ -4,11 +4,13 @@ histogram, every lane of the row offsets and every point and partial sum of
 the point total is covered exactly once, and each block stays within the
 shared memory a block may use and the thread limit. The index arithmetic
 mirrors csrc/hist.cu, csrc/prefix.cu and csrc/point_total.cu(h). Also the
-point add's choice of a warp per add (kernel 1) at the paths' batches."""
+point add's choice of a warp per add (kernel 1) at the paths' batches, and
+the compressed path's geometry rule at every padded size."""
 
 import pytest
 
 import _torch_helpers  # noqa: F401  (one torch thread per test process)
+from msm_tpu_torch.models.geometry import PE3_BYTES_MAX, PE3_ROW_BYTES, pick_geometry
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.cuda_hist import KEYS_PER_COUNTER, HistPlan, hist_plan
 from msm_tpu_torch.ops.cuda_curve import point_add_lanes
@@ -149,3 +151,18 @@ def test_point_total_plan_at_the_paths_shapes(G, N, want):
 ])
 def test_point_add_takes_a_warp_per_add_for_batches_within_one_wave(B, lanes):
     assert point_add_lanes(B) is lanes
+
+
+@pytest.mark.parametrize("log_n", range(4, 23))
+def test_compressed_geometry_fits_every_padded_size(log_n):
+    """Under compression, at every power of two from 16 to 2^22: R divides
+    n, C = n / R is even and >= 2 (no pair straddles two lanes), and one
+    launch's pe3 buffer (batch x n/2 rows) stays within the rule's cap. The
+    plain rule is the TPU reference's, R = min(n/8, 2^14), 4 subtasks."""
+    n = 1 << log_n
+    geo = pick_geometry(n, 16, compress=True)
+    R, G = geo.num_rows, geo.subtask_batch
+    assert n % R == 0 and (n // R) % 2 == 0 and n // R >= 2
+    assert G >= 1 and G * (n // 2) * PE3_ROW_BYTES <= PE3_BYTES_MAX
+    plain = pick_geometry(n, 16)
+    assert (plain.num_rows, plain.subtask_batch) == (max(1, min(n // 8, 1 << 14)), 4)

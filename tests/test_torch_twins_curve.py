@@ -7,12 +7,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import affine_points, canon, mont_limbs, port_cfg, rand_canonical
+from _torch_helpers import affine_points, canon, mont_limbs, port_cfg, rand_canonical, u16_words_int32
 from msm_tpu.models import common as jcommon
 from msm_tpu.ops.pallas_convert import make_convert_pack
 from msm_tpu.ops.pallas_curve import make_point_add
 from msm_tpu.ops.pallas_hist import CHUNK, make_bucket_hist
 from msm_tpu.params import BN254, MsmConfig
+from msm_tpu_torch.models import common
 from msm_tpu_torch.ops import scan as tscan
 from msm_tpu_torch.ops.cuda_convert import convert_pack, pack_coords, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import point_add
@@ -52,6 +53,29 @@ def test_convert_twin_matches_pallas_bit_for_bit():
     D = got.shape[1] // 2
     limbs = unpack_coords(torch.from_numpy(got[:, :D]), CFG)
     assert np.array_equal(pack_coords(limbs, CFG).numpy(), got[:, :D])
+
+
+def test_convert_twin_on_int16_words_matches_pallas():
+    """The port's coordinate words (u16 bits held in int16, as
+    common.pad_points_words serializes them) through convert_pack_plain
+    equal make_convert_pack's table from the same words held in int32,
+    coordinates in [p, 2^256) (unvalidated input) and 0 included."""
+    n, q = 256, BN254.modulus
+    aff = affine_points(CFG, 32, seed=8)
+    rng = np.random.default_rng(8)
+    big = [int(v) for v in rng.integers(0, 1 << 62, size=8)]
+    pts = [aff[i % 32] for i in range(n - 12)] + [(0, 0), (q, q + 1), (2 * q - 1, 4 * q),
+                                                   ((1 << 256) - 1, 5 * q)]
+    pts += [(q + (b << 190), (1 << 256) - 1 - b) for b in big]
+    x16, y16 = common.pad_points_words(pts, CFG, n)
+    assert x16.dtype == np.int16 and (x16 < 0).any()
+    got = convert_pack(CFG, torch.from_numpy(x16), torch.from_numpy(y16)).numpy()
+    want = np.asarray(make_convert_pack(JCFG, tile=128, interpret=True)(
+        *map(jnp.asarray, u16_words_int32(x16, y16))))
+    assert np.array_equal(got, want)
+    D = got.shape[1] // 2
+    xs = [int.from_bytes(r.astype("<u4").tobytes(), "little") for r in got[:, :D]]
+    assert xs == [x * CFG.r % q for x, _ in pts]
 
 
 def test_hist_twin_matches_pallas():
