@@ -29,8 +29,13 @@
    time beside the depth of its chain in products, the scan timed alone
    and just after a histogram or a row-offsets launch, the convert kernel
    at 2^16 points and on 2^20 coordinates anywhere in [0, 2^256) (most of
-   them >= p), and the emission + scan at the compressed 2^16 shape and at
-   the TPU rule's old 2^20 shape (R = 1024 lanes, 4 subtasks);
+   them >= p), the emission + scan at the compressed 2^16 shape and at
+   the TPU rule's old 2^20 shape (R = 1024 lanes, 4 subtasks), the suffix
+   products at the compressed 2^16 shape, and the Fermat kernel over 16 x
+   1024, 16 x 2048 and 16 x 4096 lanes (one, p - 1, zero and negated
+   balanced lanes planted) and for e = 0, 1, p - 2 and a 1000-bit e; the
+   ptxas report (registers, frame, spills) of the suffix and Fermat
+   kernels, and their SASS, which must hold no call;
 3. runs compress_pairs on the card at the TPU rule's compressed 2^20 shape
    (R = 1024 lanes, C = 1024 steps, 4 subtasks) and checks every pair sum
    and infinity flag against the oracle;
@@ -63,6 +68,7 @@ It needs a CUDA device and the repository around it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +117,9 @@ SMS, IMAD_PER_SM_CLOCK = 132, 64
 #: the least integer work of one 254-bit Montgomery product: 2 * 8^2 + 8 = 136
 #: multiply-adds on 32-bit words, each two IMAD (low and high half)
 IMAD_PER_PRODUCT = 2 * (2 * 8 * 8 + 8)
+#: a squaring's least work in products: 8 * 9 / 2 word products for a^2 and
+#: the same 8^2 + 8 for the reduction, 108 of a product's 136
+SQUARE_PER_PRODUCT = (8 * 9 // 2 + 8 * 8 + 8) / (2 * 8 * 8 + 8)
 #: bytes of one 254-bit field element, the least a coordinate needs
 FE_BYTES = 32
 
@@ -255,13 +264,14 @@ def _compare(f, got, want, as_points: bool) -> int:
     return err
 
 
-def _products(name, args) -> int:
+def _products(name, args) -> float:
     """Montgomery products the kernel's function needs on these inputs,
     counted from the formulas in csrc: complete addition 12, mixed addition
     11, doubling 8 (the multiplication by 3b is free), to-Montgomery 1 per
-    coordinate, Fermat inversion one per exponent bit and one per set bit;
-    per pair, suffix and forward products 1, backward emission 6, emission
-    6 plus the mixed addition's 11."""
+    coordinate, Fermat inversion the shorter of the binary chain and the
+    4-bit window's (_pow_chains), a squaring at SQUARE_PER_PRODUCT; per pair,
+    suffix and forward products 1, backward emission 6, emission 6 plus the
+    mixed addition's 11."""
     shape = args[1].shape
     if name == "point_add":
         return 12 * shape[0]
@@ -278,8 +288,8 @@ def _products(name, args) -> int:
     if name == "horner":  # [S, L] or G ladders [G, S, L]
         return (args[1].numel() // (shape[-2] * shape[-1])) * (shape[-2] - 1) * (8 * args[4] + 12)
     if name == "mont_pow":
-        e = args[2]
-        return shape[0] * shape[2] * (e.bit_length() + bin(e).count("1"))
+        return shape[0] * shape[2] * min(
+            mul + SQUARE_PER_PRODUCT * sqr for sqr, mul in _pow_chains(args[2]))
     if name == "bpr_phase1":  # [G, Bl, T, L]: two additions per bucket
         return 24 * shape[0] * shape[1] * shape[2]
     pairs = args[2].numel() // 2
@@ -287,6 +297,19 @@ def _products(name, args) -> int:
         dbl, inf = _pair_kinds(args)
         return 16 * pairs + dbl - 11 * inf
     return {"pair_suffix": 1, "pair_forward": 1, "pair_backward": 6}[name] * pairs
+
+
+def _pow_chains(e: int) -> list[tuple[int, int]]:
+    """(squarings, other products) of a^e by square-and-multiply (one
+    squaring a bit, a product a set bit) and by the fixed 4-bit window the
+    Fermat kernel runs (csrc/pow32.cuh: a table of a^1 .. a^15, one squaring
+    and 13 products; four squarings a digit below the top one, a product a
+    digit that is not 0)."""
+    nd = (e.bit_length() + 3) // 4
+    lower = [(e >> (4 * i)) & 15 for i in range(nd - 1)]
+    window = (1 + 4 * (nd - 1), 13 + sum(1 for d in lower if d)) if nd else (0, 0)
+    binary = (max(e.bit_length() - 1, 0), max(bin(e).count("1") - 1, 0))  # from a, not from one
+    return [binary, window]
 
 
 def _pair_kinds(args) -> tuple[int, int]:
@@ -483,6 +506,7 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         check_path_shapes(kern, rng, base, dev, clock_hz)
         check_redesigned_shapes(kern, rng, base, dev, clock_hz)
         check_convert_emit_shapes(kern, rng, table, dev, clock_hz)
+        check_suffix_pow_shapes(kern, rng, table, dev, clock_hz)
     return out
 
 
@@ -538,6 +562,94 @@ def check_convert_emit_shapes(kern, rng, table, dev, clock_hz) -> None:
         pair_in = [cfg, table, *map(t, _pair_stream(rng, G, C, R, table.shape[0]))]
         _check_case(kern, f, L, "emit_scan", f"{label} G{G} C{C} R{R}", _emit_scan_args(kern, pair_in), False, 3,
                     clock_hz)
+
+
+def _pow_lanes(rng, G: int, R: int, cfg) -> np.ndarray:
+    """Fermat kernel inputs [G, L, R]: random canonical lanes with one,
+    p - 1, zero and a negated (balanced, every limb <= 0) value planted in
+    lanes 0-3 of subtask 0."""
+    lanes = _rand_fe(rng, (G, R), cfg)
+    lanes[0, :3] = _mont([1, cfg.curve.modulus - 1, 0], cfg)
+    lanes[0, 3] = -lanes[0, 3]
+    return np.ascontiguousarray(lanes.transpose(0, 2, 1))
+
+
+def check_suffix_pow_shapes(kern, rng, table, dev, clock_hz) -> None:
+    """The two kernels redesigned in the compressed path's stage 3 at the
+    shapes the checks above miss, exact against their twins: the suffix
+    products at the compressed 2^16 MSM's shape (G16 C32 R2048); the Fermat
+    kernel at e = p - 2 over 16 x 1024 and 16 x 4096 lanes (the 16 x 2048 of
+    the 2^20 and 2^16 MSMs is checked above) and, over 16 x 2048 lanes, at
+    e = 0, 1 and a 1000-bit e."""
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import BN254, MsmConfig
+
+    cfg = MsmConfig(curve=BN254, compress=True)
+    f, L, p = get_field_ctx(cfg), cfg.num_words, cfg.curve.modulus
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    G, C, R = _compressed_shape(1 << 16, cfg)
+    pair_in = [cfg, table, *map(t, _pair_stream(rng, G, C, R, table.shape[0]))]
+    _check_case(kern, f, L, "pair_suffix", f"2^16 G{G} C{C} R{R}", pair_in, False, 5, clock_hz)
+    e1000 = (int.from_bytes(rng.bytes(125), "little") >> 1) | (1 << 999)
+    cases = [(16, 1024, p - 2, "p-2"), (16, 4096, p - 2, "p-2"), (16, 2048, 0, "0"), (16, 2048, 1, "1"),
+             (16, 2048, e1000, "1000-bit")]
+    for G, R, e, label in cases:
+        _check_case(kern, f, L, "mont_pow", f"{G} x {R} lanes e={label}", [cfg, t(_pow_lanes(rng, G, R, cfg)), e],
+                    False, 3, clock_hz)
+
+
+def _ptxas(log: str, kernel: str) -> dict:
+    """ptxas's report of the kernel whose mangled name holds ``kernel``:
+    registers, stack frame and spill bytes."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and f"{len(kernel)}{kernel}" in line:
+            text = " ".join(lines[i + 1:i + 4])
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", text)
+            regs = re.search(r"Used (\d+) registers", text)
+            return {"registers": int(regs.group(1)), "frame": int(frame.group(1)),
+                    "spill_stores": int(frame.group(2)), "spill_loads": int(frame.group(3))}
+    raise RuntimeError(f"no ptxas report for {kernel}")
+
+
+def _sass_calls(obj, kernel: str) -> tuple[int, int]:
+    """(instructions, CALL instructions) of a kernel's SASS in an object
+    file, by cuobjdump."""
+    from pathlib import Path
+
+    from msm_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(obj)], check=True, capture_output=True, text=True).stdout
+    n = calls = 0
+    inside = False
+    for line in text.splitlines():
+        if "Function : " in line:
+            inside = f"{len(kernel)}{kernel}" in line
+        elif inside and re.match(r"\s*/\*[0-9a-f]+\*/\s", line):
+            n += 1
+            calls += bool(re.search(r"\bCALL\b", line))
+    if n == 0:
+        raise RuntimeError(f"no SASS for {kernel} in {obj}")
+    return n, calls
+
+
+def report_word_core_builds(so) -> None:
+    """One line per redesigned stage-3 kernel of the compressed path: its
+    ptxas registers, frame and spills and its SASS size; raises when the
+    SASS holds an out-of-line call."""
+    log = (so.parent / "build.log").read_text()
+    for kernel, obj in (("k_pair_suffix", "compress.o"), ("k_mont_pow", "inv.o")):
+        rep = _ptxas(log, kernel)
+        n, calls = _sass_calls(so.parent / obj, kernel)
+        print(f"ptxas {kernel}: registers={rep['registers']} frame={rep['frame']} B "
+              f"spill_stores={rep['spill_stores']} B spill_loads={rep['spill_loads']} B; "
+              f"SASS {n} instructions, {calls} CALL", flush=True)
+        if calls:
+            raise AssertionError(f"{kernel} makes {calls} out-of-line calls")
 
 
 def _ms_each(fn, before, reps: int) -> float:
@@ -1102,6 +1214,7 @@ def main() -> int:
     for line in (so.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    report_word_core_builds(so)
 
     print(f"oracle: {'C++' if native.native_available() else 'python'}", flush=True)
     checks = check_kernels(clock_mhz * 1e6)

@@ -1,8 +1,8 @@
 // Batched-affine pair compression of the sorted stream: the four pair
-// kernels, one thread per (subtask, lane) chain. The suffix, forward and
-// backward kernels run on the 13-bit core (per-lane bodies and the shared
-// pair algebra in pair.cuh); the fused emission + scan runs on the word core
-// (emit_scan.cuh).
+// kernels, one thread per (subtask, lane) chain. The suffix products and
+// the fused emission + scan run on the word core (the shared pair algebra
+// and the suffix's per-lane body in pair32.cuh, emit_scan.cuh); the forward
+// and backward kernels on the 13-bit core (pair.cuh).
 //
 // Replaces, in msm_tpu/ops/pallas_compress.py: make_pair_suffix (pallas_call
 // at :427), make_emit_scan (:561), make_pair_forward (:205) and
@@ -27,9 +27,21 @@
 //     longer shorten the launch (scripts/torch_compress_geometry.py); the
 //     launch-plan and prefetch variants are in
 //     scripts/torch_emit_scan_variants.py (PERF.md).
-//   - k_pair_suffix, k_pair_forward, k_pair_backward: 13-bit formulas out
-//     of line (MSM_HD_CALL), blocks one warp wide to spread few chains over
-//     the SMs.
+//   - k_pair_suffix (pair32.cuh): one product a pair, so a step lasts as
+//     long as its gathers unless they are hidden: the word core inlined;
+//     only the x coordinates gathered (y where x1 == x2), half the bytes
+//     of full rows; the next pair's gathers issued before this pair's
+//     product. The plan of k_emit_scan: 128 threads a block,
+//     __launch_bounds__(128, 4). Deeper pipelines, streaming stores,
+//     full-row gathers, a chain split over 2 or 4 threads (two passes, the
+//     segment offsets combined in shared memory) and the 13-bit kernel this
+//     one replaced are timed against each other by
+//     scripts/torch_suffix_pow_variants.py (PERF.md). The output keeps the
+//     13-bit limb layout kernel 13 reads: at 2^20 that is 671 MB of s (80 B
+//     an element) where words would be 268 MB.
+//   - k_pair_forward, k_pair_backward: 13-bit formulas out of line
+//     (MSM_HD_CALL), blocks one warp wide to spread few chains over the
+//     SMs.
 #include <cuda_runtime.h>
 
 #include "emit_scan.cuh"
@@ -39,19 +51,20 @@ using namespace msm;
 
 constexpr int THREADS = 32;
 constexpr int EMIT_THREADS = 128;
+constexpr int SUFFIX_THREADS = 128;
 
 // Thread (blockIdx.y, r) walks the chain of subtask blockIdx.y, lane r.
 __device__ __forceinline__ int lane() {
   return blockIdx.x * blockDim.x + threadIdx.x;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SUFFIX_THREADS, 4)
     k_pair_suffix(const int32_t* __restrict__ packed,
                   const int32_t* __restrict__ perm,
                   const int32_t* __restrict__ flags, int32_t* __restrict__ s,
                   int Cp, int R) {
   const int r = lane();
-  if (r < R) pair_suffix_lane(packed, perm, flags, s, blockIdx.y, Cp, R, r);
+  if (r < R) pair_suffix32_lane(packed, perm, flags, s, blockIdx.y, Cp, R, r);
 }
 
 __global__ void __launch_bounds__(EMIT_THREADS, 4)
@@ -95,13 +108,17 @@ static dim3 lane_grid(int64_t groups, int R) {
   return dim3((unsigned)((R + THREADS - 1) / THREADS), (unsigned)groups);
 }
 
-// packed [N, 2D]; perm, flags [G, 2 Cp, R]; s [G, Cp, L, R]
+// packed [N, 2D] 16-byte aligned; perm, flags [G, 2 Cp, R]; s [G, Cp, L, R]
 extern "C" int msm_pair_suffix(const int32_t* packed, const int32_t* perm,
                                const int32_t* flags, int32_t* s,
                                int64_t groups, int Cp, int R, void* stream) {
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_suffix<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
+  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0) {
+    const dim3 grid((unsigned)((R + SUFFIX_THREADS - 1) / SUFFIX_THREADS),
+                    (unsigned)groups);
+    k_pair_suffix<<<grid, SUFFIX_THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, s, Cp, R);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@
 //     num = y2' - y1' | 3 x1^2 (doubling)
 //     lam = num / d,  x3 = lam^2 - x1 - x2,  y3 = lam (x1 - x3) - y1'
 //
-// with y' = s ? p - y : y. The packed rows are canonical words, so word
-// equality is value equality and "y1 + y2 == p" is one carry ripple.
+// with y' = s ? p - y : y. The gathers, the predicates and d are the pair
+// algebra that kernel 12 shares (pair32.cuh).
 //
 // The forward batch inversion: t runs from t0 = inv(s_0), inv(d_j) =
 // t_j s_{j+1} (s_Cp = one), t_{j+1} = t_j d_j. The pair sum goes straight
@@ -24,67 +24,9 @@
 // [G, L, R] as balanced ones.
 #pragma once
 
-#include "scan.cuh"
+#include "pair32.cuh"
 
 namespace msm {
-
-MSM_HD bool fe32_eq(const fe32& a, const fe32& b) {
-  uint32_t diff = 0;
-  MSM_UNROLL
-  for (int i = 0; i < NW; ++i) diff |= a.w[i] ^ b.w[i];
-  return diff == 0;
-}
-
-// a + b == p for canonical a, b: one carry ripple.
-MSM_HD bool fe32_sum_is_p(const fe32& a, const fe32& b) {
-  uint32_t c = 0, diff = 0;
-  MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
-    const uint64_t s = (uint64_t)a.w[i] + b.w[i] + c;
-    diff |= lo32(s) ^ p_word(i);
-    c = hi32(s);
-  }
-  return diff == 0 && c == 0;
-}
-
-// One pair: its coordinates with the signs applied to y, and the predicates
-//   e1 ==  e2 <=> x1 == x2 and (s1 == s2 ? y1 == y2 : y1 + y2 == p)
-//   e1 == -e2 <=> x1 == x2 and (s1 != s2 ? y1 == y2 : y1 + y2 == p)
-struct pair32 {
-  fe32 x1, y1, x2, y2;  // y1, y2 are the signed y'
-  int dbl, inf;
-};
-
-// Gather elements e1, e2 of the step-major perm/flags arrays (flags bit 0:
-// negate y) from the packed table [N, 2 NW].
-MSM_HD void pair32_load(pair32& pr, const int32_t* packed, const int32_t* perm,
-                        const int32_t* flags, int64_t e1, int64_t e2) {
-  scan_load_row(pr.x1, pr.y1, packed, perm[e1]);
-  scan_load_row(pr.x2, pr.y2, packed, perm[e2]);
-  const int s1 = flags[e1] & 1, s2 = flags[e2] & 1;
-  const bool same_x = fe32_eq(pr.x1, pr.x2);
-  const bool same_y = fe32_eq(pr.y1, pr.y2);
-  const bool ysum_p = fe32_sum_is_p(pr.y1, pr.y2);
-  pr.dbl = same_x && (s1 == s2 ? same_y : ysum_p);
-  pr.inf = same_x && (s1 == s2 ? ysum_p : same_y);
-  fe32_cond_neg(pr.y1, s1);
-  fe32_cond_neg(pr.y2, s2);
-}
-
-// d = R (infinity) | 2 y1' (doubling) | x2 - x1, branch-free.
-MSM_HD void pair32_denominator(fe32& d, const pair32& pr) {
-  fe32 dd, one;
-  fe32_double(dd, pr.y1);
-  fe32_sub(d, pr.x2, pr.x1);
-  fe32_mont_one(one);
-  const uint32_t dbl = 0u - (uint32_t)(pr.dbl != 0);
-  const uint32_t inf = 0u - (uint32_t)(pr.inf != 0);
-  MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
-    const uint32_t v = (dd.w[i] & dbl) | (d.w[i] & ~dbl);
-    d.w[i] = (one.w[i] & inf) | (v & ~inf);
-  }
-}
 
 // num = 3 x1^2 (doubling: the one product, in warps that hold a doubling)
 // | y2' - y1'.

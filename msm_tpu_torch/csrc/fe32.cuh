@@ -1,6 +1,7 @@
 // BN254 base-field arithmetic in 32-bit words: the word core of the point
 // add (kernel 1), the point conversion (2), the scan (4), the point total
-// (6), the Horner ladder (7) and the fused pair emission + scan (13).
+// (6), the Horner ladder (7), the Fermat inversion (9), the pair suffix
+// products (12) and the fused pair emission + scan (13).
 //
 // An `fe32` is 8 words, least significant first, CANONICAL (value in
 // [0, p)), in the same Montgomery domain as the 13-bit core of field.cuh:
@@ -210,6 +211,75 @@ MSM_HD void fe32_mul(fe32& out, const fe32& a, const fe32& b) {
 }
 
 MSM_HD void fe32_sqr(fe32& out, const fe32& a) { fe32_mul(out, a, a); }
+
+// a^2 2^-260 mod p by a dedicated squaring: the symmetric schoolbook square
+// (28 cross products, doubled, and 8 squares: 36 word products where
+// fe32_mul's CIOS spends 64 on a b) into 16 words, then a word REDC by
+// 2^256 (64 multiply-adds, as in fe32_mul) and the same 4-bit step and
+// conditional subtract. Canonical in, canonical out. Used by kernel 9 only;
+// fe32_sqr stays the general product for the other kernels.
+MSM_HD void fe32_sqr_sym(fe32& out, const fe32& a) {
+  uint32_t t[2 * NW];
+  MSM_UNROLL
+  for (int k = 0; k < 2 * NW; ++k) t[k] = 0;
+  // cross products a_i a_j, i < j; row i's carry lands in the untouched t[i + NW]
+  MSM_UNROLL
+  for (int i = 0; i < NW - 1; ++i) {
+    uint32_t c = 0;
+    MSM_UNROLL
+    for (int j = i + 1; j < NW; ++j) {
+      const uint64_t v = (uint64_t)a.w[i] * a.w[j] + t[i + j] + c;
+      t[i + j] = lo32(v);
+      c = hi32(v);
+    }
+    t[i + NW] = c;
+  }
+  // doubled (the cross sum is below 2^507), plus the squares a_i^2 at 2i
+  MSM_UNROLL
+  for (int k = 2 * NW - 1; k > 0; --k) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  t[0] <<= 1;
+  uint32_t c = 0;
+  MSM_UNROLL
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t sq = (uint64_t)a.w[i] * a.w[i];
+    uint64_t v = (uint64_t)t[2 * i] + lo32(sq) + c;
+    t[2 * i] = lo32(v);
+    v = (uint64_t)t[2 * i + 1] + hi32(sq) + hi32(v);
+    t[2 * i + 1] = lo32(v);
+    c = hi32(v);
+  }
+  // REDC by 2^256: t = (a^2 + M p) / 2^256 < 2p; row i's carry out of
+  // t[i + NW] goes into t[i + 1 + NW] with the next row
+  uint32_t carry = 0;
+  MSM_UNROLL
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t m = t[i] * N0W;
+    uint32_t C = hi32((uint64_t)m * p_word(0) + t[i]);
+    MSM_UNROLL
+    for (int j = 1; j < NW; ++j) {
+      const uint64_t v = (uint64_t)m * p_word(j) + t[i + j] + C;
+      t[i + j] = lo32(v);
+      C = hi32(v);
+    }
+    const uint64_t v = (uint64_t)t[i + NW] + C + carry;
+    t[i + NW] = lo32(v);
+    carry = hi32(v);
+  }
+  // one 4-bit REDC step, as in fe32_mul
+  const uint32_t m = (t[NW] * N0NIB) & 15u;
+  uint32_t u[NW + 1];
+  c = 0;
+  MSM_UNROLL
+  for (int j = 0; j < NW; ++j) {
+    const uint64_t v = (uint64_t)m * p_word(j) + t[NW + j] + c;
+    u[j] = lo32(v);
+    c = hi32(v);
+  }
+  u[NW] = c;
+  MSM_UNROLL
+  for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> 4) | (u[j + 1] << 28);
+  fe32_reduce_once(out);
+}
 
 // ---- repacking at the boundaries (shifts only) ----
 

@@ -286,17 +286,4 @@ MSM_HD void fe_unpack_dense(fe& out, const int32_t* w) {
   }
 }
 
-// a^e for a Montgomery-form a, so pow(aR, e) = a^e R: square-and-multiply
-// over the nbits bits of e, most significant first; e is given as 32-bit
-// words, least significant word first. e = 0 (nbits = 0) gives one.
-MSM_HD_CALL void fe_pow(fe& out, const fe& a, const uint32_t* e, int nbits) {
-  fe acc;
-  fe_mont_one(acc);
-  for (int i = nbits - 1; i >= 0; --i) {
-    fe_sqr(acc, acc);
-    if ((e[i >> 5] >> (i & 31)) & 1u) fe_mul(acc, acc, a);
-  }
-  out = acc;
-}
-
 }  // namespace msm

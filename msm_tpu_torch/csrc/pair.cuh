@@ -1,8 +1,8 @@
 // Batched-affine pair compression on canonical Montgomery field elements
-// (the 13-bit core): the pair algebra shared by three pair kernels
-// (csrc/compress.cu: suffix, forward, backward), and the per-lane body of
-// each. Kernel 13 (emission + scan) runs the same algebra on the word core,
-// csrc/emit_scan.cuh.
+// (the 13-bit core): the pair algebra of the forward and backward pair
+// kernels (csrc/compress.cu), and the per-lane body of each. Kernels 12
+// (suffix products) and 13 (emission + scan) run the same algebra on the
+// word core, csrc/pair32.cuh and emit_scan.cuh.
 //
 // Same algebra as the JAX reference (msm_tpu/ops/pallas_compress.py):
 // _load_pair_point, _pair_predicates, _signed_y, _pair_denominator and the
@@ -17,11 +17,11 @@
 // value equality; "y1 + y2 == p" is one carry ripple. The substitution d = R
 // for an infinity pair keeps every chain of products free of zeros.
 //
-// Chain arrays (suffix products s, running products m, emitted x3 / y3) are
-// limbs-first per lane, [G, Cp, L, R]: neighbouring threads (lanes) touch
-// neighbouring words. Values the kernels write are canonical, and the chain
-// inputs s and m are read as canonical; the one-per-lane values t0 = inv(s_0)
-// and minv = inv(m_last) may be balanced.
+// Chain arrays (running products m, emitted x3 / y3, and kernel 12's suffix
+// products s) are limbs-first per lane, [G, Cp, L, R]: neighbouring threads
+// (lanes) touch neighbouring words. Values the kernels write are canonical,
+// and the chain inputs s and m are read as canonical; the one-per-lane
+// values t0 = inv(s_0) and minv = inv(m_last) may be balanced.
 //
 // Everything is __host__ __device__, so the host C++ compiler builds this
 // header for the CPU tests. The functions stay out of line (MSM_HD_CALL):
@@ -138,21 +138,6 @@ MSM_HD void lane_pair(pair_t& pr, fe& d, const int32_t* packed,
   pair_load(pr, packed, perm, flags, step_at(g, 2 * j, C, R, r),
             step_at(g, 2 * j + 1, C, R, r));
   pair_denominator(d, pr);
-}
-
-// Kernel 12: suffix products s_j = d_j * ... * d_{Cp-1}, walking backwards.
-MSM_HD_CALL void pair_suffix_lane(const int32_t* packed, const int32_t* perm,
-                                  const int32_t* flags, int32_t* s, int64_t g,
-                                  int Cp, int R, int r) {
-  fe run;
-  fe_mont_one(run);
-  for (int j = Cp - 1; j >= 0; --j) {
-    pair_t pr;
-    fe d;
-    lane_pair(pr, d, packed, perm, flags, g, j, Cp, R, r);
-    fe_mul(run, run, d);
-    fe_store_strided(s + chain_at(g, j, Cp, R, r), R, run);
-  }
 }
 
 // Kernel 10: inclusive running products m_j = d_0 * ... * d_j.

@@ -12,23 +12,27 @@
 
 namespace msm {
 
-// Table row `row` of packed [N, 2 NW] (x's words, then y's); on the device
-// four 16-byte loads through the read-only cache (rows are 64 B aligned).
-MSM_HD void scan_load_row(fe32& x, fe32& y, const int32_t* packed,
-                          int64_t row) {
-  const int32_t* src = packed + row * 2 * NW;
+// One coordinate (x: half 0, y: half 1) of table row `row` of packed
+// [N, 2 NW]: 32 B; on the device two 16-byte loads through the read-only
+// cache (rows are 64 B aligned).
+MSM_HD void scan_load_coord(fe32& c, const int32_t* packed, int64_t row,
+                            int half) {
+  const int32_t* src = packed + (row * 2 + half) * NW;
 #ifdef __CUDA_ARCH__
   const int4* q = reinterpret_cast<const int4*>(src);
-  const int4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2),
-             d = __ldg(q + 3);
-  x.w[0] = a.x; x.w[1] = a.y; x.w[2] = a.z; x.w[3] = a.w;
-  x.w[4] = b.x; x.w[5] = b.y; x.w[6] = b.z; x.w[7] = b.w;
-  y.w[0] = c.x; y.w[1] = c.y; y.w[2] = c.z; y.w[3] = c.w;
-  y.w[4] = d.x; y.w[5] = d.y; y.w[6] = d.z; y.w[7] = d.w;
+  const int4 a = __ldg(q), b = __ldg(q + 1);
+  c.w[0] = a.x; c.w[1] = a.y; c.w[2] = a.z; c.w[3] = a.w;
+  c.w[4] = b.x; c.w[5] = b.y; c.w[6] = b.z; c.w[7] = b.w;
 #else
-  fe32_load_dense(x, src);
-  fe32_load_dense(y, src + NW);
+  fe32_load_dense(c, src);
 #endif
+}
+
+// Table row `row` of packed [N, 2 NW]: x's words, then y's.
+MSM_HD void scan_load_row(fe32& x, fe32& y, const int32_t* packed,
+                          int64_t row) {
+  scan_load_coord(x, packed, row, 0);
+  scan_load_coord(y, packed, row, 1);
 }
 
 // One pe3 row (3L limbs, 240 B, 16 B aligned); on the device 15 16-byte

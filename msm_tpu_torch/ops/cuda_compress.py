@@ -1,9 +1,9 @@
 """Kernels 10-13: batched-affine pair compression of the sorted stream, with
 their plain twins and the two host functions built on them.
 
-CUDA source: ``msm_tpu_torch/csrc/compress.cu``: kernels 10-12 on the
-13-bit core (``csrc/pair.cuh``), kernel 13 on the word core
-(``csrc/emit_scan.cuh``).
+CUDA source: ``msm_tpu_torch/csrc/compress.cu``: kernels 10 and 11 on the
+13-bit core (``csrc/pair.cuh``), kernels 12 and 13 on the word core
+(``csrc/pair32.cuh``, ``csrc/emit_scan.cuh``).
 Replaces, in ``msm_tpu/ops/pallas_compress.py``: ``make_pair_suffix``
 (``pallas_call`` at :427), ``make_emit_scan`` (:561), ``make_pair_forward``
 (:205) and ``make_pair_backward`` (:333), with the sorted-order gather that
@@ -188,6 +188,7 @@ def pair_suffix(cfg: MsmConfig, packed, perm, flags):
     if packed.device.type == "cpu":
         return pair_suffix_plain(cfg, packed, perm, flags)
     packed, perm, flags = _check(cfg, packed, perm, flags)
+    (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     s = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
     _build.launch("msm_pair_suffix", packed, perm, flags, s, G, C // 2, R)

@@ -1,7 +1,8 @@
 """Kernel 9: batched Montgomery exponentiation (the Fermat inversion of the
 pair-compression chains), and its plain twin.
 
-CUDA source: ``msm_tpu_torch/csrc/inv.cu``. Replaces the Pallas kernel
+CUDA source: ``msm_tpu_torch/csrc/inv.cu`` on the word core (a fixed
+4-bit window, ``csrc/pow32.cuh``). Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_inv.py::make_mont_pow`` (``pallas_call`` at :92).
 
 ``mont_pow(cfg, a, e)`` takes a Montgomery-form batch ``a [G, L, R]``

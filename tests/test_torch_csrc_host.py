@@ -1,14 +1,14 @@
 """The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh, bpr.cuh,
 prefix.cuh) compiled for the host with g++ and held against the plain
 PyTorch twins: Montgomery product, balanced-input canonicalization,
-complete addition, mixed addition, doubling, exponentiation, the pair
-algebra (predicates, denominator, numerator, emission), the per-lane bodies
-of the four pair kernels (the emission + scan's on the word core,
-emit_scan.cuh, fed by the 13-bit suffix and inversion bodies), run for every
-lane of a small stream with planted doubling and infinity pairs, the
-per-lane body of the blocked reduction's
-phase 1, and the per-thread bodies of the row offsets, run for every thread
-of the three launches' plan.
+complete addition, mixed addition, doubling, the pair algebra (predicates,
+denominator, numerator, emission), the per-lane bodies of the four pair
+kernels and of the Fermat inversion that links them (the suffix products,
+the inversion and the emission + scan on the word core: pair32.cuh,
+pow32.cuh, emit_scan.cuh), run for every lane of a small stream with
+planted doubling and infinity pairs, the per-lane body of the blocked
+reduction's phase 1, and the per-thread bodies of the row offsets, run for
+every thread of the three launches' plan.
 Catches arithmetic and indexing faults in the device code without a GPU.
 Outputs of the core must be canonical and equal to the twins' results after
 canonical()."""
@@ -45,6 +45,7 @@ HARNESS = r"""
 #include "bpr.cuh"
 #include "emit_scan.cuh"
 #include "pair.cuh"
+#include "pow32.cuh"
 #include "prefix.cuh"
 using namespace msm;
 
@@ -129,21 +130,26 @@ void h_pair(const int32_t* xy, const int32_t* sg, const int32_t* inv,
     out[4 * L + 1] = pr.inf;
   }
 }
-// a, o [B, L, R]; e: exponent words, least significant first
+// kernel 9's body on the word core: a, o [B, L, R]; e: exponent words,
+// least significant first
 void h_pow(const int32_t* a, int32_t* o, const uint32_t* e, int nbits,
            int64_t B, int R) {
+  uint32_t tab[POW_TABLE * NW];
   for (int64_t b = 0; b < B; ++b)
     for (int r = 0; r < R; ++r) {
-      fe x, y;
-      fe_load_balanced_strided(x, a + b * L * R + r, R);
-      fe_pow(y, x, e, nbits);
-      fe_store_strided(o + b * L * R + r, R, y);
+      int32_t v[L];
+      for (int i = 0; i < L; ++i) v[i] = a[b * L * R + r + i * (int64_t)R];
+      fe32 x, y;
+      fe32_from_balanced(x, v);
+      pow32_window(y, x, e, nbits, tab, 1);
+      fe32_store_limbs_strided(o + b * L * R + r, R, y);
     }
 }
+// kernel 12's body on the word core
 void h_pair_suffix(const int32_t* pk, const int32_t* pm, const int32_t* fl,
                    int32_t* s, int64_t G, int Cp, int R) {
   for (int64_t g = 0; g < G; ++g)
-    for (int r = 0; r < R; ++r) pair_suffix_lane(pk, pm, fl, s, g, Cp, R, r);
+    for (int r = 0; r < R; ++r) pair_suffix32_lane(pk, pm, fl, s, g, Cp, R, r);
 }
 void h_pair_forward(const int32_t* pk, const int32_t* pm, const int32_t* fl,
                     int32_t* m, int64_t G, int Cp, int R) {
@@ -383,6 +389,7 @@ def test_pair_algebra_matches_twins(lib):
 
 
 def test_pow_matches_twin(lib):
+    """Kernel 9's body (the word core's 4-bit window) on balanced lanes."""
     rng = np.random.default_rng(25)
     a = rand_balanced(rng, (2, 8), CFG).transpose(0, 2, 1)  # [B, L, R]
     for e in (0, 1, 5, CFG.curve.modulus - 2):
@@ -393,8 +400,9 @@ def test_pow_matches_twin(lib):
 
 
 def test_pair_kernel_lanes_match_twins(lib):
-    """The four pair kernels' per-lane bodies, run for every lane, against
-    the twins: suffix -> (inverse of s_0) -> emit+scan, forward -> backward."""
+    """The four pair kernels' per-lane bodies and kernel 9's, run for every
+    lane, against the twins: suffix -> (inverse of s_0) -> emit+scan on the
+    word core, forward -> (inverse of m_last) -> backward."""
     G, Cp, R = 2, 4, 16
     _, packed, perm, flags = pair_stream(CFG, G, 2 * Cp, R, nbase=6, seed=26)
     tp, tm, tf = (torch.from_numpy(a) for a in (packed, perm, flags))

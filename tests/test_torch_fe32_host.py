@@ -1,15 +1,18 @@
 """The word core (msm_tpu_torch/csrc/fe32.cuh, curve32.cuh) and the per-lane
 bodies of the point conversion (kernel 2, csrc/convert32.cuh), the scan
-(kernel 4, csrc/scan.cuh), the Horner ladder (kernel 7, csrc/horner.cuh) and
-the fused pair emission + scan (kernel 13, csrc/emit_scan.cuh) compiled for
-the host with g++ and held against the plain PyTorch twins: the R = 2^260
-Montgomery product (word CIOS plus one 4-bit step) on random and edge
-values, add, sub, neg, double and the 3b multiple, the 13-bit <-> word
-repacking and the dense-word load, the balanced-input load, RCB16
-Algorithms 7, 8 and 9, the conversion of u16 coordinate words (values in
-[p, 2^256) included), the scan's body run for every lane of a small stream,
-the Horner chain, and the emission + scan body for every lane of a stream
-with doubling and infinity pairs. Outputs of the core must be canonical and
+(kernel 4, csrc/scan.cuh), the Horner ladder (kernel 7, csrc/horner.cuh),
+the Fermat inversion (kernel 9, csrc/pow32.cuh), the pair suffix products
+(kernel 12, csrc/pair32.cuh) and the fused pair emission + scan (kernel 13,
+csrc/emit_scan.cuh) compiled for the host with g++ and held against the
+plain PyTorch twins: the R = 2^260 Montgomery product (word CIOS plus one
+4-bit step) and the dedicated squaring on random and edge values, add, sub,
+neg, double and the 3b multiple, the 13-bit <-> word repacking and the
+dense-word load, the balanced-input load, RCB16 Algorithms 7, 8 and 9, the
+conversion of u16 coordinate words (values in [p, 2^256) included), the
+scan's body run for every lane of a small stream, the Horner chain, the
+windowed exponentiation on edge bases and exponents, and the suffix and
+emission + scan bodies for every lane of a stream with doubling and
+infinity pairs. Outputs of the core must be canonical and
 equal to the twins' results after canonical(): a canonical value is unique,
 so the kernels on this core write the limbs the 13-bit core writes."""
 
@@ -47,6 +50,7 @@ HARNESS = r"""
 #include "convert32.cuh"
 #include "emit_scan.cuh"
 #include "horner.cuh"
+#include "pow32.cuh"
 #include "scan.cuh"
 using namespace msm;
 
@@ -79,6 +83,37 @@ void w_mul(const int32_t* a, const int32_t* b, int32_t* o, int64_t n) {
     fe32_mul(r, x, y);
     st(o + i * L, r);
   }
+}
+void w_sqr_sym(const int32_t* a, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe32 x, r;
+    ld(x, a + i * L);
+    fe32_sqr_sym(r, x);
+    st(o + i * L, r);
+  }
+}
+// kernel 9's body: a [B, L, R] balanced, o [B, L, R]; e: exponent words,
+// least significant first; the table at stride 1 (the card's is [entry]
+// [word][thread] in shared memory)
+void w_pow(const int32_t* a, int32_t* o, const uint32_t* e, int nbits,
+           int64_t B, int R) {
+  uint32_t tab[POW_TABLE * NW];
+  for (int64_t b = 0; b < B; ++b)
+    for (int r = 0; r < R; ++r) {
+      int32_t v[L];
+      for (int i = 0; i < L; ++i) v[i] = a[b * L * R + r + i * (int64_t)R];
+      fe32 x, y;
+      fe32_from_balanced(x, v);
+      pow32_window(y, x, e, nbits, tab, 1);
+      fe32_store_limbs_strided(o + b * L * R + r, R, y);
+    }
+}
+void w_pair_suffix(const int32_t* packed, const int32_t* perm,
+                   const int32_t* flags, int32_t* s, int64_t G, int Cp,
+                   int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      pair_suffix32_lane(packed, perm, flags, s, g, Cp, R, r);
 }
 // o [n, 5, L]: a + b, a - b, -a, 2a, 3b a
 void w_linear(const int32_t* a, const int32_t* b, int32_t* o, int64_t n) {
@@ -194,7 +229,10 @@ def lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(so))
     Pt, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for name, argtypes in (("w_mul", [Pt] * 3 + [I64]), ("w_linear", [Pt] * 3 + [I64]),
+    for name, argtypes in (("w_mul", [Pt] * 3 + [I64]), ("w_sqr_sym", [Pt] * 2 + [I64]),
+                           ("w_pow", [Pt] * 3 + [I32, I64, I32]),
+                           ("w_pair_suffix", [Pt] * 4 + [I64, I32, I32]),
+                           ("w_linear", [Pt] * 3 + [I64]),
                            ("w_repack", [Pt] * 3 + [I64]), ("w_load_rows", [Pt] * 2 + [I64]),
                            ("w_from_balanced", [Pt] * 2 + [I64]), ("w_pt_add", [Pt] * 3 + [I64]),
                            ("w_pt_madd", [Pt] * 3 + [I64]), ("w_pt_double", [Pt] * 2 + [I64]),
@@ -261,6 +299,82 @@ def test_mont_mul_random_and_edges(lib):
     b = np.concatenate([b, _limbs(eb), _limbs(rb)])
     (got,) = _run(lib, "w_mul", [a.shape], a, b, a.shape[0])
     _assert_canonical_equal(got, F.mont_mul(torch.from_numpy(a), torch.from_numpy(b)))
+
+
+def test_dedicated_square_random_and_edges(lib):
+    """fe32_sqr_sym (kernel 9's squaring) against the twin's a a on random
+    values, the edges of the product test squared, and values near p whose
+    REDC result lands at or above p."""
+    rng = np.random.default_rng(51)
+    a = rand_canonical(rng, (256,), CFG)
+    r_mod_p = CFG.r % P
+    edges = [0, 1, 2, P - 1, P - 2, r_mod_p, P - r_mod_p, (1 << 253) - 1, 1 << 253, (1 << 32) - 1]
+    ninv = -pow(P, -1, 1 << 256) % (1 << 256)
+    near = [P - 1 - random.Random(52 + i).getrandbits(k) for i, k in enumerate([4, 64, 128, 200, 250] * 40)]
+    high = sorted(near, key=lambda v: -((v * v + (v * v * ninv % (1 << 256)) * P) >> 256))[:64]
+    a = np.concatenate([a, _limbs(edges), _limbs(high)])
+    (got,) = _run(lib, "w_sqr_sym", [a.shape], a, a.shape[0])
+    ta = torch.from_numpy(a)
+    _assert_canonical_equal(got, F.mont_mul(ta, ta))
+
+
+def _exp_words(e: int):
+    nw = max(1, (e.bit_length() + 31) // 32)
+    return (ctypes.c_uint32 * nw)(*((e >> (32 * i)) & 0xFFFFFFFF for i in range(nw)))
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, P - 2, "random1000"])
+def test_pow_window_matches_twin(lib, e):
+    """Kernel 9's body (the fixed 4-bit window over fe32_sqr_sym) against
+    mont_pow_plain on a = 0, one, p - 1 (Montgomery), balanced limbs with
+    negative entries and random canonical values, [B, L, R] limbs-first,
+    for e = 0 (one), 1, 2, p - 2 (the inverse) and a random 1000-bit e."""
+    if e == "random1000":
+        e = random.Random(53).getrandbits(1000) | (1 << 999)
+    rng = np.random.default_rng(54)
+    B, R = 2, 8
+    a = np.concatenate([mont_limbs([0, 1, P - 1], CFG), rand_balanced(rng, (7,), CFG),
+                        rand_canonical(rng, (6,), CFG)])
+    a[3:7] = -a[3:7]  # negative values
+    a = np.ascontiguousarray(a.reshape(B, R, L).transpose(0, 2, 1))
+    assert (a < 0).any()
+    words = _exp_words(e)
+    (got,) = _run(lib, "w_pow", [a.shape], a, ctypes.addressof(words), e.bit_length(), B, R)
+    want = mont_pow_plain(CFG, torch.from_numpy(a), e)
+    _assert_canonical_equal(np.ascontiguousarray(got.swapaxes(-1, -2)), want.transpose(-1, -2))
+    if e >= 1:  # 0^e = 0
+        assert not got[0, :, 0].any()
+
+
+@pytest.mark.parametrize("G, Cp, R", [(2, 4, 16), (1, 1, 8), (3, 5, 4)])
+def test_pair_suffix_lanes_match_twin(lib, G, Cp, R):
+    """Kernel 12's per-lane body (pair32.cuh: the gathers pipelined a pair
+    ahead) for every lane of a stream of real points with doubling and
+    infinity pairs, against pair_suffix_plain: lane 0 of subtask 0 starts
+    with P + (-P) and lane 1 with P + P, and lanes 2 and 3 hold the same
+    at the last pair, where the backward walk starts."""
+    _, packed, perm, flags = pair_stream(CFG, G, 2 * Cp, R, nbase=8, seed=55 + Cp)
+    last = 2 * (Cp - 1)
+    for lane, j in ((0, 0), (1, 0), (2, last), (3, last)):
+        perm[0, j + 1, lane] = perm[0, j, lane]
+        flags[0, j + 1, lane] = flags[0, j, lane] ^ (lane % 2 == 0)  # even lanes: P + (-P)
+    (s,) = _run(lib, "w_pair_suffix", [(G, Cp, L, R)], packed, perm, flags, G, Cp, R)
+    want = pair_suffix_plain(CFG, *(torch.from_numpy(np.ascontiguousarray(a)) for a in (packed, perm, flags)))
+    _assert_canonical_equal(np.ascontiguousarray(s.swapaxes(-1, -2)), want.transpose(-1, -2))
+    dbl, inf = (k.numpy() for k in _pair_predicates(packed, perm, flags))
+    assert dbl[0, 0, 1] and inf[0, 0, 0] and dbl[0, -1, 3] and inf[0, -1, 2]
+
+
+def _pair_predicates(packed, perm, flags):
+    """(dbl, inf) [G, Cp, R] of a pair stream, by the twins' predicates."""
+    from msm_tpu_torch.ops.cuda_compress import pair_predicates_plain
+    from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
+
+    D = coord_words(CFG)
+    rows = torch.from_numpy(packed)[torch.from_numpy(perm).long()]
+    x, y = unpack_coords(rows[..., :D], CFG), unpack_coords(rows[..., D:], CFG)
+    sg = torch.from_numpy(flags) & 1
+    return pair_predicates_plain(CFG, x[:, 0::2], y[:, 0::2], sg[:, 0::2], x[:, 1::2], y[:, 1::2], sg[:, 1::2])
 
 
 def test_add_sub_neg_double_and_3b_multiple(lib):
