@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, builds the thirteen CUDA kernels
-   from msm_tpu_torch/csrc and prints the build time;
+   and four GLV modes from msm_tpu_torch/csrc and prints the build time;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs, at a small shape and at the shape the 2^20 MSM gives it
    (the pair kernels: the compressed 2^20 shape of models/geometry.py's
@@ -58,8 +58,19 @@
 7. at n = 2^20 drives the reference-shaped stage 4 (bucket_accumulate, then
    bucket_reduce_blocked through bpr_phase1): its 16 window sums equal the
    telescoped ones on the same points, and Horner over them is bit-exact;
-8. prints the kernels' JSON line, then as its last line
-   {"ok": true, "device": {...}}.
+8. the GLV configuration (msm_tpu msm --glv): the four GLV modes (convert,
+   scan, pair suffix, emission + scan: three-coordinate table rows x, beta
+   x, y, the x of an element chosen by bit 1 of its flags) against their
+   twins at the GLV 2^20 and 2^16 shapes (the convert also on coordinates
+   >= p; the pair modes over a table of points and their phi images with
+   planted doubling, infinity and equal-x-across-halves pairs); the GLV
+   plain path (pick_config with glv=True: c = 16, S = 8) and the GLV
+   compressed path (compress=True, glv=True) driven like the paths above
+   (edge MSMs with lambda, r - lambda, negative halves and P beside phi(P);
+   bit-exact at 2^20 and 2^16; timings with the scalar split as a stage of
+   its own); each path checked to run the GLV modes and not the plain ones;
+9. prints the kernels' JSON line (the GLV modes as entries of their own),
+   then as its last line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
 It needs a CUDA device and the repository around it.
@@ -67,6 +78,7 @@ It needs a CUDA device and the repository around it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -92,7 +104,15 @@ REPLACES = {
     "pair_forward": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:205"),
     "pair_backward": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:333"),
     "bpr_phase1": ("csrc/bpr.cu", "msm_tpu/ops/pallas_bpr.py:97"),
+    "convert_pack_glv": ("csrc/convert.cu", "msm_tpu/ops/pallas_convert.py:187 (triple)"),
+    "scan_rows_glv": ("csrc/scan.cu", "msm_tpu/ops/pallas_scan.py:374 (glv)"),
+    "pair_suffix_glv": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:427 (glv)"),
+    "emit_scan_glv": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:561 (glv)"),
 }
+#: the GLV modes, each a wrapper and counter of its own beside its kernel's
+#: plain mode
+GLV_MODES = ("convert_pack_glv", "scan_rows_glv", "pair_suffix_glv", "emit_scan_glv")
+PLAIN_MODES = tuple(m.removesuffix("_glv") for m in GLV_MODES)
 #: the kernels each path must launch; a kernel's count in the JSON line comes
 #: from the first path that lists it
 PATHS = {
@@ -104,11 +124,20 @@ PATHS = {
     "naive": ("point_add", "convert_pack", "bucket_hist", "scan_rows", "row_offsets"),
     "blocked": ("point_add", "convert_pack", "bucket_hist", "scan_rows", "row_offsets",
                 "point_total", "horner", "bpr_phase1"),
+    "glv": ("point_add", "convert_pack_glv", "bucket_hist", "scan_rows_glv", "row_offsets",
+            "point_total", "horner"),
+    "glv_compressed": ("point_add", "convert_pack_glv", "bucket_hist", "mont_pow", "pair_suffix_glv",
+                       "emit_scan_glv", "row_offsets", "point_total", "horner"),
 }
-#: the kernels a path must not launch
+#: the kernels a path must not launch: a GLV path none of the plain modes,
+#: the other paths none of the GLV modes
 EXCLUDED = {
-    "compressed": ("scan_rows",),
-    "naive": ("point_total", "horner", "bpr_phase1"),
+    "plain": GLV_MODES,
+    "compressed": ("scan_rows",) + GLV_MODES,
+    "naive": ("point_total", "horner", "bpr_phase1") + GLV_MODES,
+    "blocked": GLV_MODES,
+    "glv": PLAIN_MODES + ("pair_suffix_glv", "emit_scan_glv", "mont_pow"),
+    "glv_compressed": PLAIN_MODES + ("scan_rows_glv",),
 }
 #: H100 SXM peaks: HBM bytes/s, and 32-bit IMAD per SM per clock (x 132 SMs
 #: x the SM clock that nvidia-smi reports as clocks.max.sm)
@@ -142,6 +171,10 @@ def _kernels():
         "pair_forward": (cuda_compress.pair_forward, cuda_compress.pair_forward_plain),
         "pair_backward": (cuda_compress.pair_backward, cuda_compress.pair_backward_plain),
         "bpr_phase1": (cuda_bpr.bpr_phase1, cuda_bpr.bpr_phase1_plain),
+        "convert_pack_glv": (cuda_convert.convert_pack_glv, cuda_convert.convert_pack_plain),
+        "scan_rows_glv": (cuda_scan.scan_rows_glv, cuda_scan.scan_rows_plain),
+        "pair_suffix_glv": (cuda_compress.pair_suffix_glv, cuda_compress.pair_suffix_plain),
+        "emit_scan_glv": (cuda_compress.emit_scan_glv, cuda_compress.emit_scan_plain),
     }
 
 
@@ -238,7 +271,8 @@ def _pair_stream(rng, G, C, R, rows):
 
 def _field_outputs(name, out, L):
     """A kernel's outputs as (limbs-last field tensors, plain integer
-    tensors) for the comparison."""
+    tensors) for the comparison (a GLV mode's as its kernel's)."""
+    name = name.removesuffix("_glv")
     if name in ("bucket_hist", "convert_pack"):
         return [], [out]
     if name in ("scan_rows", "emit_scan"):  # pe3 rows by coordinate; totals limbs-first
@@ -271,8 +305,12 @@ def _products(name, args) -> float:
     coordinate, Fermat inversion the shorter of the binary chain and the
     4-bit window's (_pow_chains), a squaring at SQUARE_PER_PRODUCT; per pair,
     suffix and forward products 1, backward emission 6, emission 6 plus the
-    mixed addition's 11."""
+    mixed addition's 11. A GLV mode counts as its kernel, the convert with
+    one more product a point (beta x)."""
     shape = args[1].shape
+    if name == "convert_pack_glv":
+        return 3 * shape[0]
+    name = name.removesuffix("_glv")
     if name == "point_add":
         return 12 * shape[0]
     if name == "convert_pack":
@@ -316,14 +354,15 @@ def _pair_kinds(args) -> tuple[int, int]:
     """(doubling pairs, infinity pairs) of a pair kernel's stream (cfg,
     packed table, perm, flags [G, C, R]), by the twins' predicates."""
     from msm_tpu_torch.ops.cuda_compress import pair_predicates_plain
-    from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
+    from msm_tpu_torch.ops.cuda_convert import unpack_coords
+    from msm_tpu_torch.ops.cuda_scan import element_coords
 
     cfg, table, perm, flags = args[:4]
-    D = coord_words(cfg)
     dbl = inf = 0
     for g in range(perm.shape[0]):  # a subtask at a time: bounded memory
-        rows = table[perm[g].long()]  # [C, R, 2D]
-        x, y, sg = unpack_coords(rows[..., :D], cfg), unpack_coords(rows[..., D:], cfg), flags[g] & 1
+        rows = table[perm[g].long()]  # [C, R, 2D or 3D]
+        x, y = (unpack_coords(a, cfg) for a in element_coords(cfg, rows, flags[g]))
+        sg = flags[g] & 1
         d, i = pair_predicates_plain(cfg, x[0::2], y[0::2], sg[0::2], x[1::2], y[1::2], sg[1::2])
         dbl, inf = dbl + int(d.sum()), inf + int(i.sum())
     return dbl, inf
@@ -345,15 +384,18 @@ def _int_bytes(hi: int) -> int:
 def _least_bytes(name, args) -> float:
     """Bytes the kernel's function must move on these inputs, each input
     read once and each output written once: 32 B per 254-bit field element
-    (96 B per projective point, 64 B per packed affine row), 2 B per u16
-    word, the narrowest integer type per key, count or table index, 1 bit
-    per flag. The limb layout's padding (80 B per coordinate at 13-bit
-    limbs, 4 B per u16 word) is the kernels' choice, not the function's."""
+    (96 B per projective point, 64 B per packed affine row, 96 B per GLV
+    row), 2 B per u16 word, the narrowest integer type per key, count or
+    table index, 1 bit per flag (2 under GLV: the sign and the phi bit).
+    The limb layout's padding (80 B per coordinate at 13-bit limbs, 4 B per
+    u16 word) is the kernels' choice, not the function's."""
     a = args[1:]
+    glv = name.endswith("_glv")
+    name = name.removesuffix("_glv")
     if name == "point_add":  # six [B, L] in, three out
         return 9 * FE_BYTES * a[0].shape[0]
-    if name == "convert_pack":  # [n, 16] u16 words x2 -> [n, 2D]
-        return a[0].shape[0] * (2 * 16 * 2 + 2 * FE_BYTES)
+    if name == "convert_pack":  # [n, 16] u16 words x2 -> [n, 2D] (GLV: [n, 3D])
+        return a[0].shape[0] * (2 * 16 * 2 + (3 if glv else 2) * FE_BYTES)
     if name == "bucket_hist":  # keys [G, n] < NB -> counts [G, NB] <= n
         keys, nb = a[0], a[1]
         return keys.numel() * _int_bytes(nb - 1) + keys.shape[0] * nb * _int_bytes(keys.shape[1])
@@ -369,7 +411,8 @@ def _least_bytes(name, args) -> float:
     # the scan and the pair kernels: a packed table, perm and flags [G, C, R]
     table, perm = a[0], a[1]
     rows, steps, lanes = table.shape[0], perm.numel(), perm.shape[0] * perm.shape[2]
-    stream = rows * 2 * FE_BYTES + steps * (_int_bytes(rows - 1) + 1 / 8)
+    coords = 3 if glv else 2
+    stream = rows * coords * FE_BYTES + steps * (_int_bytes(rows - 1) + (coords - 1) / 8)
     if name == "scan_rows":  # -> pe3 per step, lane totals
         return stream + 3 * FE_BYTES * (steps + lanes)
     pairs = steps // 2
@@ -507,6 +550,47 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         check_redesigned_shapes(kern, rng, base, dev, clock_hz)
         check_convert_emit_shapes(kern, rng, table, dev, clock_hz)
         check_suffix_pow_shapes(kern, rng, table, dev, clock_hz)
+    out.update(check_glv_kernels(kern, aff, clock_hz, sizes, dev))
+    return out
+
+
+def check_glv_kernels(kern, aff, clock_hz: float, sizes, dev) -> dict:
+    """The four GLV modes against their twins, after every other check and
+    on a random stream of their own (so the checks above draw the same
+    inputs as before GLV came): at a small shape and at the GLV 2^20 MSM's
+    shapes (c = 16, S = 8, every subtask 2^21 entries; the scan G4 C128
+    R16384, the pair modes the compressed rule's G8 C1024 R2048 over a
+    table of 128 points and their phi images), then at the GLV 2^16
+    shapes (check_glv_shapes). Returns per-mode results from the 2^20
+    shapes."""
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import BN254, MsmConfig, pick_config
+
+    rng = np.random.default_rng(SEED + 9)
+    glv_table = _glv_table(aff[:128], MsmConfig(curve=BN254)).to(dev)
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for size in sizes:
+        small = size == "small"
+        cfg = MsmConfig(curve=BN254, chunk_size=8, glv=True) if small else \
+            dataclasses.replace(pick_config(1 << 20), glv=True)
+        f, L = get_field_ctx(cfg), cfg.num_words
+        n, G, R = (2048, 1, 512) if small else (1 << 20, 4, 1 << 14)
+        G4, C4, R4 = (1, 8, 64) if small else _compressed_shape(1 << 20, dataclasses.replace(cfg, compress=True))
+        pair_in = [cfg, glv_table, *map(t, _glv_pair_stream(rng, G4, C4, R4, glv_table.shape[0]))]
+        cases = {
+            "convert_pack_glv": ([cfg, *map(t, _coord_words(rng, n, cfg.curve.modulus))], 5),
+            "scan_rows_glv": ([cfg, *_glv_scan_inputs(rng, n, G, R, cfg, dev)], 3),
+            "pair_suffix_glv": (pair_in, 3),
+            "emit_scan_glv": (_emit_scan_args(kern, pair_in), 3),
+        }
+        for name, (args, reps) in cases.items():
+            out[name] = {**_check_case(kern, f, L, name, size, args, False, reps, clock_hz), "library_ms": None}
+    if "slice" in sizes:
+        check_glv_shapes(kern, rng, glv_table, dev, clock_hz)
     return out
 
 
@@ -522,13 +606,97 @@ def _coord_words(rng, n: int, top: int | None):
 
 def _compressed_shape(n: int, cfg=None) -> tuple[int, int, int]:
     """(G, C, R) of the compressed MSM's scan launches at n points:
-    models/geometry.py's rule, G = min(subtask batch, S)."""
+    models/geometry.py's rule, G = min(subtask batch, S); under GLV each
+    subtask's stream holds 2n entries."""
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.params import BN254, MsmConfig
 
     cfg = cfg or MsmConfig(curve=BN254, compress=True)
-    geo = pick_geometry(n, cfg.chunk_size, compress=True)
-    return min(geo.subtask_batch, cfg.num_subtasks), n // geo.num_rows, geo.num_rows
+    geo = pick_geometry(n, cfg.chunk_size, compress=True, glv=cfg.glv)
+    stream = 2 * n if cfg.glv else n
+    return min(geo.subtask_batch, cfg.num_subtasks), stream // geo.num_rows, geo.num_rows
+
+
+def _glv_table(aff, cfg):
+    """The GLV table [m, 3D] (rows x R, beta x R, y R) of the first m/2
+    affine points and their images phi(P) = (beta x, y): row m/2 + i is
+    phi(P_i), so x_(m/2 + i) = beta x_i."""
+    from msm_tpu_torch.ops.cuda_convert import pack_canonical
+    from msm_tpu_torch.ops.glv import glv_params
+
+    q, beta = cfg.curve.modulus, glv_params(cfg.curve).beta
+    pts = aff + [(x * beta % q, y) for x, y in aff]
+    cols = ([x for x, _ in pts], [x * beta % q for x, _ in pts], [y for _, y in pts])
+    return torch.cat([pack_canonical(torch.from_numpy(_mont(c, cfg)), cfg) for c in cols], dim=-1)
+
+
+def _glv_pair_stream(rng, G, C, R, rows):
+    """perm, flags [G, C, R] over a _glv_table of ``rows`` rows, flags with
+    the phi bit (bit 1) as well as the sign; planted at pair positions
+    (2j, 2j+1): doublings and infinity pairs of one row and phi bit, and
+    pairs of P_i's phi copy with the row phi(P_i) (equal x across the
+    halves) of equal or opposite sign."""
+    half = rows // 2
+    perm = rng.integers(0, rows, size=(G, C, R)).astype(np.int32)
+    flags = rng.integers(0, 4, size=(G, C, R)).astype(np.int32)
+    kind = rng.random((G, C // 2, R))
+    for planted, flip in ((kind < 0.15, 0), (kind > 0.85, 1)):
+        g, j, r = np.nonzero(planted)
+        perm[g, 2 * j + 1, r] = perm[g, 2 * j, r]
+        flags[g, 2 * j + 1, r] = flags[g, 2 * j, r] ^ flip
+    g, j, r = np.nonzero((kind >= 0.15) & (kind < 0.45))
+    i = rng.integers(0, half, size=g.shape)
+    sign = rng.integers(0, 2, size=g.shape)
+    perm[g, 2 * j, r], flags[g, 2 * j, r] = i, 2 | sign
+    perm[g, 2 * j + 1, r] = half + i
+    flags[g, 2 * j + 1, r] = sign ^ (kind[g, j, r] < 0.3)
+    return perm, flags
+
+
+def _glv_scan_inputs(rng, n: int, G: int, R: int, cfg, dev) -> list:
+    """A random canonical GLV table [n, 3D] and a stream over it as the
+    payload decode gives it: per subtask a random permutation of the 2n
+    entries (entry i >= n the phi copy of row i - n), step-major [G, C, R]
+    with C = 2n / R; perm the row, flags bit 0 a random sign, bit 1 the phi
+    bit."""
+    from msm_tpu_torch.ops.cuda_convert import pack_canonical
+
+    tab = torch.cat([pack_canonical(torch.from_numpy(_rand_fe(rng, (n,), cfg)), cfg)
+                     for _ in range(3)], dim=-1).to(dev)
+    C = 2 * n // R
+    logical = np.stack([rng.permutation(2 * n).reshape(R, C).T for _ in range(G)])
+    flags = rng.integers(0, 2, size=logical.shape) | ((logical // n) << 1)
+    return [tab, *(torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(dev)
+                   for a in (logical % n, flags))]
+
+
+def check_glv_shapes(kern, rng, glv_table, dev, clock_hz) -> None:
+    """The GLV modes at the GLV 2^16 MSMs' shapes, exact against their twins:
+    the convert at 2^16 points and on 2^20 coordinates anywhere in [0,
+    2^256); the scan at the plain GLV 2^16 shape (c = 13, S = 10: G = 4
+    subtasks of C = 16 steps over R = 8192 lanes); the suffix products and
+    the emission + scan at the compressed GLV 2^16 shape (G8 C64 R2048)."""
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import BN254, MsmConfig, pick_config
+
+    cfg = MsmConfig(curve=BN254, compress=True, glv=True)
+    f, L = get_field_ctx(cfg), cfg.num_words
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for label, n, top in (("2^16", 1 << 16, cfg.curve.modulus), ("2^20 >=p", 1 << 20, None)):
+        _check_case(kern, f, L, "convert_pack_glv", label, [cfg, *map(t, _coord_words(rng, n, top))], False,
+                    5, clock_hz)
+    pcfg = dataclasses.replace(pick_config(1 << 16), glv=True)
+    G, R = 4, 8192
+    _check_case(kern, f, L, "scan_rows_glv", f"G{G} C{2 * (1 << 16) // R} R{R}",
+                [pcfg, *_glv_scan_inputs(rng, 1 << 16, G, R, pcfg, dev)], False, 3, clock_hz)
+    G, C, R = _compressed_shape(1 << 16, cfg)
+    pair_in = [cfg, glv_table, *map(t, _glv_pair_stream(rng, G, C, R, glv_table.shape[0]))]
+    _check_case(kern, f, L, "pair_suffix_glv", f"2^16 G{G} C{C} R{R}", pair_in, False, 5, clock_hz)
+    _check_case(kern, f, L, "emit_scan_glv", f"2^16 G{G} C{C} R{R}", _emit_scan_args(kern, pair_in), False, 3,
+                clock_hz)
 
 
 def _emit_scan_args(kern, pair_in) -> list:
@@ -642,7 +810,8 @@ def report_word_core_builds(so) -> None:
     ptxas registers, frame and spills and its SASS size; raises when the
     SASS holds an out-of-line call."""
     log = (so.parent / "build.log").read_text()
-    for kernel, obj in (("k_pair_suffix", "compress.o"), ("k_mont_pow", "inv.o")):
+    for kernel, obj in (("k_pair_suffix", "compress.o"), ("k_mont_pow", "inv.o"),
+                        ("k_pair_suffix_glv", "compress.o")):
         rep = _ptxas(log, kernel)
         n, calls = _sass_calls(so.parent / obj, kernel)
         print(f"ptxas {kernel}: registers={rep['registers']} frame={rep['frame']} B "
@@ -863,14 +1032,19 @@ def msm_path(path: str, n: int, device="cuda"):
     if path == "naive":
         return NAIVE_CONFIG, lambda pts, ks: common.result_to_affine(
             compute_msm_naive(pts, ks, device=device), NAIVE_CONFIG)
-    cfg = MsmConfig(curve=BN254, compress=True) if path == "compressed" else pick_config(n)
+    cfg = {"plain": pick_config(n), "compressed": MsmConfig(curve=BN254, compress=True),
+           "glv": dataclasses.replace(pick_config(n), glv=True),
+           "glv_compressed": MsmConfig(curve=BN254, compress=True, glv=True)}[path]
     return cfg, lambda pts, ks: msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
 
 
 def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
-    """One MSM split into its stages, each ended by a synchronize (ms)."""
+    """One MSM split into its stages, each ended by a synchronize (ms); the
+    cuZK paths' scalar decomposition is a stage of its own, and under GLV
+    the scalar split (ops/glv.split_scalars_device) one before it."""
     from msm_tpu_torch.models import common, cuzk, naive
     from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.ops import glv
 
     st = {}
 
@@ -888,14 +1062,21 @@ def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
     st["upload_scalars_MiB"] = s.nbytes / 2**20
     packed = common.prepare_points(cfg, xd, yd)
     t0 = mark("convert", t0)
-    geom = pick_geometry(x.shape[0], cfg.chunk_size, compress=cfg.compress)
+    geom = pick_geometry(x.shape[0], cfg.chunk_size, cfg.compress, cfg.glv)
     if path == "naive":
         ws = naive.naive_window_sums(packed, sd, cfg, geom)
         t0 = mark("window_sums", t0)
         common.window_sums_to_result(ws.numpy(), cfg)
         mark("host_horner", t0)
         return st
-    ws = cuzk.window_sums_from_table(packed, sd, cfg, geom)
+    if cfg.glv:
+        split = glv.split_scalars_device(sd, cfg)
+        t0 = mark("glv_split", t0)
+        keys, signs = glv.decompose_halves(split, cfg.chunk_size, cfg.num_subtasks)
+    else:
+        keys, signs = cuzk.decompose_scalars(sd, cfg)
+    t0 = mark("decompose", t0)
+    ws = cuzk.window_sums_from_keys(packed, keys, signs, cfg, geom)
     t0 = mark("window_sums", t0)
     common.std_ints_to_jpoint(*cuzk.msm_point_from_ws(ws, cfg), cfg)
     mark("horner_and_host_tail", t0)
@@ -918,6 +1099,11 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
         _reset_counts()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a trace has been seen to miss its first kernel when the MSM's
+            # first launch came ~60 ms after the trace began (2^16): a
+            # one-element zero fill goes first (its ~us count in torch_ops)
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(pts, ks)
             torch.cuda.synchronize()
@@ -969,9 +1155,14 @@ def edge_checks(path: str, device="cuda") -> None:
     n = 35 (padded to 64) with repeated points and scalars at the recode
     edges and out of range; P and -P interleaved under one scalar (infinity
     pairs in every bucket; identity result); duplicates, negatives and
-    other points mixed; k P + (r - k) P; the empty MSM."""
+    other points mixed; k P + (r - k) P; the empty MSM. On the GLV paths
+    also: lambda, r - lambda and scalars whose k1 or k2 is negative; P
+    beside phi(P) and -phi(P) (a point of the input that is phi of another:
+    equal x across the table's halves); k phi(P) + (r - k lambda) P, the
+    identity."""
     from msm_tpu_torch.oracle import best_msm
     from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.ops.glv import glv_params, split_scalar
     from msm_tpu_torch.params import BN254
 
     cv, r, q = Curve(BN254), BN254.order, BN254.modulus
@@ -993,11 +1184,30 @@ def edge_checks(path: str, device="cuda") -> None:
         [base[i % 3] if i % 4 else neg[i % 3] for i in range(90)] + base[3:],
         [777 + (i % 5) for i in range(90)] + list(range(9)))
     cases["k P + (r - k) P"] = ([base[0], base[0], base[1]], [5, r - 5, 0])
+    identities = ["P, -P under one scalar", "k P + (r - k) P"]
+    if path.startswith("glv"):
+        g = glv_params(BN254)
+        rng = np.random.default_rng(SEED + 3)
+        rand = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(400)]
+        split = [(k, split_scalar(k, g, r)) for k in rand]
+        neg1 = [k for k, (k1, k2) in split if k1 < 0 and k2 >= 0][:8]
+        neg2 = [k for k, (k1, k2) in split if k2 < 0 and k1 >= 0][:8]
+        both = [k for k, (k1, k2) in split if k1 < 0 and k2 < 0][:8]
+        ks = [g.lam, r - g.lam, 0, 1, r - 1] + neg1 + neg2 + both
+        cases["lambda, r - lambda, negative halves"] = ([base[i % 12] for i in range(len(ks))], ks)
+        phi = [(x * g.beta % q, y) for x, y in base]
+        cases["P beside phi(P) and -phi(P)"] = (
+            [p for i in range(12) for p in (base[i], phi[i], (phi[i][0], q - phi[i][1]))] * 3,
+            [3 + (i % 7) for i in range(108)])
+        cases["k phi(P) + (r - k lambda) P"] = ([phi[0], base[0]] * 4, [11, (r - 11 * g.lam) % r] * 4)
+        identities.append("k phi(P) + (r - k lambda) P")
+        if not (neg1 and neg2 and both):
+            raise AssertionError("no scalars with negative GLV halves drawn")
     for label, (pts, ks) in cases.items():
         got, want = run(pts, ks), oracle(pts, ks)
         if got != want:
             raise AssertionError(f"{label} MSM differs from the oracle: {got} != {want}")
-    if oracle(*cases["P, -P under one scalar"]) is not None or oracle(*cases["k P + (r - k) P"]) is not None:
+    if any(oracle(*cases[label]) is not None for label in identities):
         raise AssertionError("identity cases lost their identity")
     if run([], []) is not None:
         raise AssertionError("empty MSM should be the identity")
@@ -1066,10 +1276,11 @@ def _counts_of(tag: str, path: str) -> dict:
 
 
 def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
-    """The plain, compressed and naive paths at each size: 2^20 with counters
-    reset just before each run, 2^16 against the full oracle, and end-to-end
-    timings; at 2^20 also the blocked stage 4 (check_blocked) on the same
-    inputs and oracle. Returns {path: launch counts of its 2^20 run}."""
+    """The plain, compressed, naive, GLV and GLV compressed paths at each
+    size: 2^20 with counters reset just before each run, 2^16 against the
+    full oracle, and end-to-end timings; at 2^20 also the blocked stage 4
+    (check_blocked) on the same inputs and oracle. Returns {path: launch
+    counts of its 2^20 run}."""
     from msm_tpu_torch.oracle import best_msm
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops._build import BUILD_ROOT
@@ -1085,7 +1296,7 @@ def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
         # every point
         want = folded_oracle(base, ks) if n > 1 << 16 else best_msm(pts, ks)
         print(f"msm 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
-        for path in ("plain", "compressed", "naive"):
+        for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
             cfg, run = msm_path(path, n, device)
             tag = f"msm 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks})"
             _reset_counts()
@@ -1120,7 +1331,7 @@ def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
                   f"idle_share={1 - busy_ms / wall_ms:.3f}; device_ms "
                   + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
                   flush=True)
-            if path == "compressed":
+            if cfg.compress:
                 print_compressed_geometry(n, cfg, by_name, counts)
         if logn == log_sizes[0]:
             results["blocked"] = check_blocked(pts, ks, want, device)
@@ -1135,12 +1346,15 @@ STAGE3_COMPRESSED = ("k_pair_suffix", "k_mont_pow", "k_emit_scan", "k_row_offset
 
 def print_compressed_geometry(n: int, cfg, by_name: dict, counts: dict) -> None:
     """One line: the compressed MSM's geometry at n (R, C, subtasks per
-    launch) and its stage-3 device time by kernel, from a profiled run."""
+    launch) and its stage-3 device time by kernel, from a profiled run (a
+    GLV config's from its GLV modes)."""
     G, C, R = _compressed_shape(n, cfg)
-    ms = {k: by_name.get(k, 0.0) for k in STAGE3_COMPRESSED}
-    print(f"compressed geometry 2^{n.bit_length() - 1}: R={R} C={C} batch={G} launches emit_scan="
-          f"{counts['emit_scan']}; stage-3 device ms " + ", ".join(f"{k}={v:.3f}" for k, v in ms.items())
-          + f", sum={sum(ms.values()):.3f}", flush=True)
+    mode = "_glv" if cfg.glv else ""
+    rows = [k + mode if k in ("k_pair_suffix", "k_emit_scan") else k for k in STAGE3_COMPRESSED]
+    ms = {k: by_name.get(k, 0.0) for k in rows}
+    print(f"compressed{' GLV' if cfg.glv else ''} geometry 2^{n.bit_length() - 1}: R={R} C={C} batch={G} "
+          f"launches emit_scan{mode}={counts['emit_scan' + mode]}; stage-3 device ms "
+          + ", ".join(f"{k}={v:.3f}" for k, v in ms.items()) + f", sum={sum(ms.values()):.3f}", flush=True)
 
 
 def check_blocked(pts, ks, want, device="cuda") -> dict:
@@ -1219,7 +1433,7 @@ def main() -> int:
     print(f"oracle: {'C++' if native.native_available() else 'python'}", flush=True)
     checks = check_kernels(clock_mhz * 1e6)
     pair_counts = check_pairs()
-    for path in ("plain", "compressed", "naive"):
+    for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
         edge_checks(path)
     by_path = {**run_msm_checks(), "pairs": pair_counts}
     rows = []

@@ -17,9 +17,11 @@ The package imports nothing of ``msm_tpu``. Every public entry takes an
 explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
 plain twins for any curve. On CUDA the kernels cover BN254 with 13-bit limbs,
 plain (``MsmConfig(curve=BN254)``, ``pick_config(n)``) or pair-compressed
-(``compress=True``, as ``msm_tpu msm --compress`` runs it); GLV and
-Karatsuba are not ported and raise ``NotImplementedError`` on every device
-(GLV) or on CUDA (Karatsuba, other curves or limb widths).
+(``compress=True``, as ``msm_tpu msm --compress`` runs it), each with or
+without the GLV split (``glv=True``, ``msm_tpu msm --glv``). Karatsuba,
+other curves and other limb widths raise ``NotImplementedError`` on CUDA,
+as do the naive model under GLV (on every device) and ``compress_pairs``
+under GLV.
 """
 
 from __future__ import annotations
@@ -50,15 +52,17 @@ def run_gpu_msm(points, scalars, config=None, validate=False, device="cuda"):
 
 def load_point_table(packed: np.ndarray, cfg: MsmConfig, device="cuda"):
     """The JAX package's prepared point table (``make_convert_pack`` output,
-    int32 [n, 2D] as numpy) as this package's table on ``device``, ready
-    for ``models.cuzk.window_sums_from_table``."""
+    int32 [n, 2D] as numpy; under a GLV config its triple table [n, 3D]) as
+    this package's table on ``device``, ready for
+    ``models.cuzk.window_sums_from_table``."""
     import torch
 
-    from msm_tpu_torch.ops.cuda_convert import coord_words
+    from msm_tpu_torch.ops.cuda_convert import coord_words, table_coords
 
+    width = table_coords(cfg) * coord_words(cfg)
     arr = np.array(packed, dtype=np.int32, order="C")  # a writable copy
-    if arr.ndim != 2 or arr.shape[1] != 2 * coord_words(cfg):
-        raise ValueError(f"expected [n, {2 * coord_words(cfg)}] table, got {arr.shape}")
+    if arr.ndim != 2 or arr.shape[1] != width:
+        raise ValueError(f"expected [n, {width}] table, got {arr.shape}")
     return torch.from_numpy(arr).to(device)
 
 

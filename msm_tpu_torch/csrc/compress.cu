@@ -12,6 +12,12 @@
 // value in VMEM scratch; here a thread walks its lane's Cp pairs with the
 // running value in registers.
 //
+// GLV modes (the TPU kernels' _load_pair_point, pallas_compress.py:122-140):
+// k_pair_suffix_glv and k_emit_scan_glv are the same bodies over the GLV
+// table's rows x, beta x, y (COORDS = 3 in pair32.cuh and emit_scan.cuh):
+// an element's x is the half bit 1 of its flags names. Kernels 10 and 11
+// have no GLV mode yet: compress_pairs raises for a GLV config on CUDA.
+//
 // Bound: Montgomery products per pair, in series along each lane's chain
 // (suffix and forward 1, backward 6, emit+scan 5 + the 11 of the mixed add,
 // and one more for a doubling), plus two 64 B random gathers per pair. A
@@ -81,6 +87,30 @@ __global__ void __launch_bounds__(EMIT_THREADS, 4)
                    R, r);
 }
 
+__global__ void __launch_bounds__(SUFFIX_THREADS, 4)
+    k_pair_suffix_glv(const int32_t* __restrict__ packed,
+                      const int32_t* __restrict__ perm,
+                      const int32_t* __restrict__ flags,
+                      int32_t* __restrict__ s, int Cp, int R) {
+  const int r = lane();
+  if (r < R)
+    pair_suffix32_lane<3>(packed, perm, flags, s, blockIdx.y, Cp, R, r);
+}
+
+__global__ void __launch_bounds__(EMIT_THREADS, 4)
+    k_emit_scan_glv(const int32_t* __restrict__ packed,
+                    const int32_t* __restrict__ perm,
+                    const int32_t* __restrict__ flags,
+                    const int32_t* __restrict__ s,
+                    const int32_t* __restrict__ t0, int32_t* __restrict__ pe3,
+                    int32_t* __restrict__ tx, int32_t* __restrict__ ty,
+                    int32_t* __restrict__ tz, int Cp, int R) {
+  const int r = lane();
+  if (r < R)
+    emit_scan_lane<3>(packed, perm, flags, s, t0, pe3, tx, ty, tz, blockIdx.y,
+                      Cp, R, r);
+}
+
 __global__ void __launch_bounds__(THREADS)
     k_pair_forward(const int32_t* __restrict__ packed,
                    const int32_t* __restrict__ perm,
@@ -134,6 +164,37 @@ extern "C" int msm_emit_scan(const int32_t* packed, const int32_t* perm,
     const dim3 grid((unsigned)((R + EMIT_THREADS - 1) / EMIT_THREADS),
                     (unsigned)groups);
     k_emit_scan<<<grid, EMIT_THREADS, 0, (cudaStream_t)stream>>>(
+        packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The GLV modes: packed [N, 3D] (the GLV table); the rest as
+// msm_pair_suffix and msm_emit_scan.
+extern "C" int msm_pair_suffix_glv(const int32_t* packed, const int32_t* perm,
+                                   const int32_t* flags, int32_t* s,
+                                   int64_t groups, int Cp, int R,
+                                   void* stream) {
+  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0) {
+    const dim3 grid((unsigned)((R + SUFFIX_THREADS - 1) / SUFFIX_THREADS),
+                    (unsigned)groups);
+    k_pair_suffix_glv<<<grid, SUFFIX_THREADS, 0, (cudaStream_t)stream>>>(
+        packed, perm, flags, s, Cp, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int msm_emit_scan_glv(const int32_t* packed, const int32_t* perm,
+                                 const int32_t* flags, const int32_t* s,
+                                 const int32_t* t0, int32_t* pe3, int32_t* tx,
+                                 int32_t* ty, int32_t* tz, int64_t groups,
+                                 int Cp, int R, void* stream) {
+  if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0) {
+    const dim3 grid((unsigned)((R + EMIT_THREADS - 1) / EMIT_THREADS),
+                    (unsigned)groups);
+    k_emit_scan_glv<<<grid, EMIT_THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
   }
   return (int)cudaGetLastError();

@@ -7,6 +7,10 @@
 // default), so it is reduced below p first; one Montgomery product by
 // R^2 mod p (R = 2^260) then gives a R mod p, canonical -- the packed
 // table's dense words, x then y.
+//
+// The GLV table (convert_point_glv) has three coordinates a row, x R,
+// beta x R and y R: one more product, by beta R^2 mod p, gives the x of
+// phi(P) = (beta x, y) in Montgomery form from the same reduced x.
 #pragma once
 
 #include "fe32.cuh"
@@ -57,6 +61,37 @@ MSM_HD void convert_point(const int16_t* xw, const int16_t* yw, int32_t* out,
   fe32_mul(y, y, r2);
   convert_store(out + i * 2 * NW, x);
   convert_store(out + i * 2 * NW + NW, y);
+}
+
+// beta R^2 mod p (BN254; beta the cube root of unity of ops/glv.py's
+// glv_params, R = 2^260): a product by it takes x to beta x R mod p.
+MSM_HD uint32_t beta_r2_word(int i) {
+  const uint32_t t[NW] = {0xc5965f4du, 0x1da07d4au, 0x79524b23u, 0xaa9fd3f7u,
+                          0x717abf22u, 0x928de493u, 0x1de5790cu, 0x18ab8c66u};
+  return t[i];
+}
+
+// Point i under GLV: out[i] = x R || beta x R || y R ([n, 3 NW] dense
+// words, canonical; rows of 96 B, 16 B aligned).
+MSM_HD void convert_point_glv(const int16_t* xw, const int16_t* yw,
+                              int32_t* out, int64_t i) {
+  fe32 r2, br2, x, bx, y;
+  MSM_UNROLL
+  for (int k = 0; k < NW; ++k) {
+    r2.w[k] = r2_word(k);
+    br2.w[k] = beta_r2_word(k);
+  }
+  convert_load(x, xw + i * COORD_U16);
+  convert_load(y, yw + i * COORD_U16);
+  fe32_reduce_full(x);
+  fe32_reduce_full(y);
+  fe32_mul(bx, x, br2);
+  fe32_mul(x, x, r2);
+  fe32_mul(y, y, r2);
+  int32_t* row = out + i * 3 * NW;
+  convert_store(row, x);
+  convert_store(row + NW, bx);
+  convert_store(row + 2 * NW, y);
 }
 
 }  // namespace msm

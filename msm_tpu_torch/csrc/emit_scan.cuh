@@ -63,8 +63,9 @@ MSM_HD void fe32_load_limbs_strided(fe32& out, const int32_t* src,
   fe32_from_limbs(out, v);
 }
 
-// packed [N, 2 NW]; perm, flags [G, 2 Cp, R]; s [G, Cp, L, R] canonical;
-// t0 [G, L, R] balanced; pe3 [G, Cp, R, 3L]; t* [G, L, R].
+// packed [N, COORDS NW]; perm, flags [G, 2 Cp, R]; s [G, Cp, L, R]
+// canonical; t0 [G, L, R] balanced; pe3 [G, Cp, R, 3L]; t* [G, L, R].
+template <int COORDS = 2>
 MSM_HD void emit_scan_lane(const int32_t* packed, const int32_t* perm,
                            const int32_t* flags, const int32_t* s,
                            const int32_t* t0, int32_t* pe3, int32_t* tx,
@@ -87,7 +88,7 @@ MSM_HD void emit_scan_lane(const int32_t* packed, const int32_t* perm,
   for (int j = 0; j < Cp; ++j, e += 2 * (int64_t)R, s_next += s_step,
            row += (int64_t)R * 3 * L) {
     pair32 pr;
-    pair32_load(pr, packed, perm, flags, e, e + R);
+    pair32_load<COORDS>(pr, packed, perm, flags, e, e + R);
     fe32 d, sn, inv_d;
     pair32_denominator(d, pr);
     if (j + 1 < Cp) {

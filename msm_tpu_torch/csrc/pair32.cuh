@@ -15,6 +15,13 @@
 // equality is value equality and "y1 + y2 == p" is one carry ripple. The
 // substitution d = R for an infinity pair keeps every chain of products
 // free of zeros.
+//
+// The loads take the table's row layout COORDS (csrc/scan.cuh): under GLV
+// an element's x is the half its flags' bit 1 names, so the predicates
+// compare the x each element really has -- also when a point of the input
+// is phi of another (x_j = beta x_i), where an element of P_i's phi copy
+// and one of P_j are a doubling or an infinity pair -- and y comes from
+// the third coordinate.
 #pragma once
 
 #include "scan.cuh"
@@ -63,11 +70,12 @@ MSM_HD void pair32_make(pair32& pr, int f1, int f2) {
 }
 
 // Gather elements e1, e2 of the step-major perm/flags arrays from the
-// packed table [N, 2 NW].
+// packed table [N, COORDS NW].
+template <int COORDS = 2>
 MSM_HD void pair32_load(pair32& pr, const int32_t* packed, const int32_t* perm,
                         const int32_t* flags, int64_t e1, int64_t e2) {
-  scan_load_row(pr.x1, pr.y1, packed, perm[e1]);
-  scan_load_row(pr.x2, pr.y2, packed, perm[e2]);
+  scan_load_element<COORDS>(pr.x1, pr.y1, packed, perm[e1], flags + e1);
+  scan_load_element<COORDS>(pr.x2, pr.y2, packed, perm[e2], flags + e2);
   pair32_make(pr, flags[e1], flags[e2]);
 }
 
@@ -95,6 +103,7 @@ struct pair32_x {
   int f1, f2;
 };
 
+template <int COORDS = 2>
 MSM_HD void pair32_gather_x(pair32_x& q, const int32_t* packed,
                             const int32_t* perm, const int32_t* flags,
                             int64_t e1, int64_t e2) {
@@ -102,22 +111,23 @@ MSM_HD void pair32_gather_x(pair32_x& q, const int32_t* packed,
   q.row2 = perm[e2];
   q.f1 = flags[e1];
   q.f2 = flags[e2];
-  scan_load_coord(q.x1, packed, q.row1, 0);
-  scan_load_coord(q.x2, packed, q.row2, 0);
+  scan_load_coord<COORDS>(q.x1, packed, q.row1, row_x_half<COORDS>(&q.f1));
+  scan_load_coord<COORDS>(q.x2, packed, q.row2, row_x_half<COORDS>(&q.f2));
 }
 
 // d of a gathered pair: x2 - x1, unless x1 == x2 (a doubling, an infinity
 // pair, or equal x with unrelated y, where d is x2 - x1 = 0 as in
 // pair32_denominator): then the y coordinates are loaded and the pair goes
 // through pair32_make and pair32_denominator.
+template <int COORDS = 2>
 MSM_HD void pair32_denominator_x(fe32& d, const pair32_x& q,
                                  const int32_t* packed) {
   if (fe32_eq(q.x1, q.x2)) {
     pair32 pr;
     pr.x1 = q.x1;
     pr.x2 = q.x2;
-    scan_load_coord(pr.y1, packed, q.row1, 1);
-    scan_load_coord(pr.y2, packed, q.row2, 1);
+    scan_load_coord<COORDS>(pr.y1, packed, q.row1, COORDS - 1);
+    scan_load_coord<COORDS>(pr.y2, packed, q.row2, COORDS - 1);
     pair32_make(pr, q.f1, q.f2);
     pair32_denominator(d, pr);
   } else {
@@ -132,6 +142,7 @@ MSM_HD void pair32_denominator_x(fe32& d, const pair32_x& q,
 // coordinates of a pair unless they are equal, so the gathers read
 // 2 x 32 B a pair, not 2 x 64 B; and pair j-1's gathers are issued before
 // pair j's product (software pipelining).
+template <int COORDS = 2>
 MSM_HD void pair_suffix32_lane(const int32_t* packed, const int32_t* perm,
                                const int32_t* flags, int32_t* s, int64_t g,
                                int Cp, int R, int r) {
@@ -142,16 +153,16 @@ MSM_HD void pair_suffix32_lane(const int32_t* packed, const int32_t* perm,
   fe32 run;
   fe32_mont_one(run);
   pair32_x next;
-  pair32_gather_x(next, packed, perm, flags, e, e + R);
+  pair32_gather_x<COORDS>(next, packed, perm, flags, e, e + R);
   MSM_ROLLED
   for (int j = Cp - 1; j >= 0; --j, o -= s_step) {
     const pair32_x q = next;
     if (j > 0) {
       e -= pair_step;
-      pair32_gather_x(next, packed, perm, flags, e, e + R);
+      pair32_gather_x<COORDS>(next, packed, perm, flags, e, e + R);
     }
     fe32 d;
-    pair32_denominator_x(d, q, packed);
+    pair32_denominator_x<COORDS>(d, q, packed);
     fe32_mul(run, run, d);
     fe32_store_limbs_strided(s + o, R, run);
   }

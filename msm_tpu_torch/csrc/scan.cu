@@ -2,8 +2,12 @@
 // affine points -- the hot kernel of the MSM.
 //
 // Replaces: msm_tpu/ops/pallas_scan.py::make_scan_rows (pallas_call at
-// :374), non-GLV mode, together with the sorted-order gather that fed it
-// (msm_tpu/ops/scan.py:545, packed[perm2]).
+// :374), together with the sorted-order gather that fed it
+// (msm_tpu/ops/scan.py:545, packed[perm2]): k_scan its plain mode, and
+// k_scan_glv its GLV mode (:260-291), which reads the [N, 3D] table of
+// rows x, beta x, y and takes x or beta x by bit 1 of an element's flags
+// (scan.cuh's COORDS = 3). Under GLV a subtask's stream holds 2n
+// elements, so each launch does twice the work at the same R.
 //
 // Layout: subtask g, lane r owns sorted positions [r*C, (r+1)*C); step c of
 // lane r is element (c, r) of the step-major permutation. Thread (g, r)
@@ -53,6 +57,17 @@ __global__ void __launch_bounds__(THREADS, 4)
   scan_lane(packed, perm, flags, pe3, tx, ty, tz, blockIdx.y, C, R, r);
 }
 
+__global__ void __launch_bounds__(THREADS, 4)
+    k_scan_glv(const int32_t* __restrict__ packed,
+               const int32_t* __restrict__ perm,
+               const int32_t* __restrict__ flags, int32_t* __restrict__ pe3,
+               int32_t* __restrict__ tx, int32_t* __restrict__ ty,
+               int32_t* __restrict__ tz, int C, int R) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  scan_lane<3>(packed, perm, flags, pe3, tx, ty, tz, blockIdx.y, C, R, r);
+}
+
 // packed [N, 2D] and pe3 [G, C, R, 3L], both 16-byte aligned; perm, flags
 // [G, C, R]; t* [G, L, R]
 extern "C" int msm_scan(const int32_t* packed, const int32_t* perm,
@@ -64,6 +79,21 @@ extern "C" int msm_scan(const int32_t* packed, const int32_t* perm,
     const dim3 grid((unsigned)((R + THREADS - 1) / THREADS), (unsigned)groups);
     k_scan<<<grid, THREADS, 0, (cudaStream_t)stream>>>(packed, perm, flags,
                                                        pe3, tx, ty, tz, C, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+// packed [N, 3D] (the GLV table) and pe3, both 16-byte aligned; the rest as
+// msm_scan
+extern "C" int msm_scan_rows_glv(const int32_t* packed, const int32_t* perm,
+                                 const int32_t* flags, int32_t* pe3,
+                                 int32_t* tx, int32_t* ty, int32_t* tz,
+                                 int64_t groups, int C, int R, void* stream) {
+  if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0) {
+    const dim3 grid((unsigned)((R + THREADS - 1) / THREADS), (unsigned)groups);
+    k_scan_glv<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        packed, perm, flags, pe3, tx, ty, tz, C, R);
   }
   return (int)cudaGetLastError();
 }

@@ -96,7 +96,8 @@ def prepare_points(
     cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor
 ) -> torch.Tensor:
     """Stage 1, once per MSM: the packed point table [n, 2D] (canonical
-    Montgomery affine coordinates, dense radix-2^32) by the convert kernel."""
+    Montgomery affine coordinates, dense radix-2^32) by the convert kernel;
+    under GLV the triple table [n, 3D] of rows x, beta x, y."""
     return convert_pack(cfg, x_u16, y_u16)
 
 

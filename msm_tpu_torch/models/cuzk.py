@@ -1,6 +1,10 @@
 """The cuZK MSM pipeline on PyTorch — the port of ``msm_tpu/models/cuzk.py``.
 
-  stage 1   convert points (kernel 2) + signed scalar decomposition
+  stage 1   convert points (kernel 2) + signed scalar decomposition; under
+            ``cfg.glv`` the table rows carry x, beta x and y (kernel 2's
+            GLV mode) and each scalar is split first (``ops/glv``: k = k1 +
+            k2 lambda), so every subtask sorts and scans 2n entries over
+            half the windows, through the GLV modes of kernels 4, 12, 13
   stage 2   one unstable torch.sort of all windows' bucket keys, and the
             bucket ends from the histogram kernel (3)
   stage 3   per subtask batch: the gather + mixed-add prefix scan (4), the
@@ -29,6 +33,7 @@ from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
 from msm_tpu_torch.ops.cuda_prefix import horner
 from msm_tpu_torch.ops.curve import get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
+from msm_tpu_torch.ops.glv import decompose_signed_glv
 from msm_tpu_torch.ops.scan import bucket_boundary_prefix, window_sum_from_pe
 from msm_tpu_torch.oracle.pyecc import IDENTITY, JPoint
 from msm_tpu_torch.params import MsmConfig, pick_config
@@ -37,14 +42,30 @@ from msm_tpu_torch.params import MsmConfig, pick_config
 CHUNK_MAX = 1 << 22
 
 
+def decompose_scalars(s_u16: torch.Tensor, cfg: MsmConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scalar words [n, 16] -> signed-window keys and signs [S, n], under
+    GLV [S, 2n] (columns n..2n-1: the phi copies)."""
+    if cfg.glv:
+        return decompose_signed_glv(s_u16, cfg.chunk_size, cfg.num_subtasks, cfg)
+    return decompose_signed(s_u16, cfg.chunk_size, cfg.num_subtasks)
+
+
 def window_sums_from_table(
     packed: torch.Tensor, s_u16: torch.Tensor, cfg: MsmConfig, geom: MsmGeometry
 ) -> torch.Tensor:
     """Scalar-side pipeline on a prepared point table: signed decompose,
     bucket-boundary prefixes of every subtask, telescoped reduction ->
     Montgomery window sums [S, 3, L]."""
+    keys, signs = decompose_scalars(s_u16, cfg)
+    return window_sums_from_keys(packed, keys, signs, cfg, geom)
+
+
+def window_sums_from_keys(
+    packed: torch.Tensor, keys: torch.Tensor, signs: torch.Tensor, cfg: MsmConfig,
+    geom: MsmGeometry,
+) -> torch.Tensor:
+    """``window_sums_from_table`` after the decomposition."""
     ec = get_curve_ctx(cfg)
-    keys, signs = decompose_signed(s_u16, cfg.chunk_size, cfg.num_subtasks)
     pe = bucket_boundary_prefix(
         ec, packed, keys, signs, cfg.num_buckets, geom.num_rows,
         batch=min(geom.subtask_batch, cfg.num_subtasks),
@@ -61,11 +82,6 @@ def msm_point_from_ws(ws: torch.Tensor, cfg: MsmConfig) -> tuple[int, int, int]:
     return common.mont_rows_to_ints(torch.stack([hx, hy, hz]).cpu().numpy(), cfg)
 
 
-def _check_config(cfg: MsmConfig) -> None:
-    if cfg.glv:
-        raise NotImplementedError("GLV is not ported")
-
-
 def compute_msm_jpoint(
     points: list[tuple[int, int]],
     scalars: list[int],
@@ -76,14 +92,13 @@ def compute_msm_jpoint(
 ) -> JPoint:
     """End-to-end MSM returning the oracle JPoint."""
     config = config or pick_config(len(points))
-    _check_config(config)
     if len(points) == 0:
         return IDENTITY
     n = common.pad_size(len(points))
     if n > CHUNK_MAX:
         raise NotImplementedError(f"n = {n} > {CHUNK_MAX}: chunked MSM is not ported")
     x_u16, y_u16, s_u16 = common.pad_inputs(points, scalars, config, validate=validate)
-    geom = geometry or pick_geometry(n, config.chunk_size, compress=config.compress)
+    geom = geometry or pick_geometry(n, config.chunk_size, config.compress, config.glv)
     xd, yd, sd = (torch.from_numpy(a).to(device) for a in (x_u16, y_u16, s_u16))
     packed = common.prepare_points(config, xd, yd)
     ws = window_sums_from_table(packed, sd, config, geom)

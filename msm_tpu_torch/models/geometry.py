@@ -8,8 +8,9 @@
   runs one thread per subtask and lane). The cuZK main path reduces by the
   telescoped ``window_sum_from_pe`` instead and does not read it.
 - ``subtask_batch``: how many subtasks the scan processes per launch; it
-  bounds the boundary-prefix buffer at subtask_batch * n * 3L * 4 bytes
-  (half that when pair-compressed).
+  bounds the boundary-prefix buffer at subtask_batch * m * 3L * 4 bytes for
+  a stream of m entries a subtask (half that when pair-compressed); m is n,
+  or 2n under GLV, where each point enters as P and phi(P).
 
 Plain path: the TPU reference's rule, R = min(n/8, 2^14) and 4 subtasks a
 launch (at 2^20: 4 x 16384 lanes, one wave of the scan kernel).
@@ -33,7 +34,7 @@ from dataclasses import dataclass
 COMPRESS_ROWS, COMPRESS_BATCH = 1 << 11, 16
 #: one pe3 row: x || y || z in 3 L int32 limbs (BN254, 13-bit limbs)
 PE3_ROW_BYTES = 3 * 20 * 4
-#: the compressed launch's pe3 buffer at most (G x n/2 rows)
+#: the compressed launch's pe3 buffer at most (G x m/2 rows)
 PE3_BYTES_MAX = 8 << 30
 
 
@@ -44,20 +45,25 @@ class MsmGeometry:
     subtask_batch: int
 
 
-def compressed_batch(n: int) -> int:
-    """Subtasks per compressed launch at n points: COMPRESS_BATCH, halved
-    while G x n/2 pe3 rows exceed PE3_BYTES_MAX (at least 1)."""
+def compressed_batch(m: int) -> int:
+    """Subtasks per compressed launch over a stream of m entries a subtask:
+    COMPRESS_BATCH, halved while G x m/2 pe3 rows exceed PE3_BYTES_MAX (at
+    least 1)."""
     batch = COMPRESS_BATCH
-    while batch > 1 and batch * (n // 2) * PE3_ROW_BYTES > PE3_BYTES_MAX:
+    while batch > 1 and batch * (m // 2) * PE3_ROW_BYTES > PE3_BYTES_MAX:
         batch //= 2
     return batch
 
 
-def pick_geometry(n: int, chunk_size: int, compress: bool = False) -> MsmGeometry:
-    """n must be a power of two (the host pads)."""
+def pick_geometry(n: int, chunk_size: int, compress: bool = False, glv: bool = False) -> MsmGeometry:
+    """n (the padded point count) must be a power of two. Under GLV the
+    lanes stay the rule's for n points, as in the JAX package (so each lane
+    walks twice the steps), and the compressed launch is sized by the 2n
+    stream a subtask scans."""
     assert n & (n - 1) == 0 and n > 0
     body = 1 << (chunk_size - 1)
     bpr_threads = max(1, min(body // 16, 1 << 9))
     if compress:
-        return MsmGeometry(max(1, min(n // 8, COMPRESS_ROWS)), bpr_threads, compressed_batch(n))
+        stream = 2 * n if glv else n
+        return MsmGeometry(max(1, min(n // 8, COMPRESS_ROWS)), bpr_threads, compressed_batch(stream))
     return MsmGeometry(max(1, min(n // 8, 1 << 14)), bpr_threads, subtask_batch=4)

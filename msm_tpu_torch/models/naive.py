@@ -60,8 +60,8 @@ def compute_msm_naive(
 ) -> JPoint:
     """End-to-end naive MSM: affine int points + int scalars -> the oracle
     JPoint of the result."""
-    if config.glv:
-        raise NotImplementedError("GLV is not ported")
+    if config.glv:  # as the JAX package's naive model asserts
+        raise NotImplementedError("the naive model has no GLV mode")
     if len(points) == 0:
         return IDENTITY
     n = common.pad_size(len(points))

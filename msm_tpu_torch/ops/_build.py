@@ -48,14 +48,18 @@ P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "msm_point_add": [P] * 9 + [I64, I32, P],
     "msm_convert": [P, P, P, I64, P],
+    "msm_convert_glv": [P, P, P, I64, P],
     "msm_hist": [P, P, I64, I64, I32, I64, I32, P],
     "msm_scan": [P] * 7 + [I64, I32, I32, P],
+    "msm_scan_rows_glv": [P] * 7 + [I64, I32, I32, P],
     "msm_row_offsets": [P] * 9 + [I64, I32, I32, I32, I32, P],
     "msm_point_total": [P] * 7 + [I64, I64, I32, I32, P],
     "msm_horner": [P] * 6 + [I64, I32, I32, P],
     "msm_mont_pow": [P] * 3 + [I32, I64, I32, P],
     "msm_pair_suffix": [P] * 4 + [I64, I32, I32, P],
+    "msm_pair_suffix_glv": [P] * 4 + [I64, I32, I32, P],
     "msm_emit_scan": [P] * 9 + [I64, I32, I32, P],
+    "msm_emit_scan_glv": [P] * 9 + [I64, I32, I32, P],
     "msm_pair_forward": [P] * 4 + [I64, I32, I32, P],
     "msm_pair_backward": [P] * 8 + [I64, I32, I32, P],
     "msm_bpr_phase1": [P] * 9 + [I64, I32, I32, P],
@@ -66,13 +70,15 @@ _lib: ctypes.CDLL | None = None
 
 
 def check_cuda_config(cfg: MsmConfig) -> None:
-    """The CUDA kernels implement BN254 with 13-bit limbs, with or without
-    pair compression; GLV and Karatsuba are not ported."""
-    if cfg.curve.name != "bn254" or cfg.word_size != 13 or cfg.glv or cfg.karatsuba:
+    """The CUDA kernels implement BN254 with 13-bit limbs, plain or pair
+    compressed, with or without GLV (the convert, the scan and the
+    compressed scan's kernels have GLV modes; ``compress_pairs`` refuses
+    GLV itself); Karatsuba is not ported."""
+    if cfg.curve.name != "bn254" or cfg.word_size != 13 or cfg.karatsuba:
         raise NotImplementedError(
-            f"CUDA kernels support BN254 / word_size 13 without GLV or "
-            f"Karatsuba; got curve={cfg.curve.name} word_size={cfg.word_size} "
-            f"glv={cfg.glv} karatsuba={cfg.karatsuba}"
+            f"CUDA kernels support BN254 / word_size 13 without Karatsuba; "
+            f"got curve={cfg.curve.name} word_size={cfg.word_size} "
+            f"karatsuba={cfg.karatsuba}"
         )
 
 

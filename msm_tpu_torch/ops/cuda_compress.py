@@ -12,7 +12,13 @@ fed them (``msm_tpu/ops/scan.py:349``): the kernels gather their own rows.
 Pair j of lane r adds the sorted elements at steps (2j, 2j+1) of the
 step-major layout. Every function takes the packed point table [N, 2D] and,
 per subtask g, ``perm[g, c, r]`` (table row of step c of lane r) and
-``flags[g, c, r]`` (bit 0: negate y), with C = 2 Cp steps:
+``flags[g, c, r]`` (bit 0: negate y), with C = 2 Cp steps. Under GLV the
+table is [N, 3D] (rows x, beta x, y) and bit 1 of the flags takes beta x:
+kernels 12 and 13 then run their GLV modes (``pair_suffix_glv``,
+``emit_scan_glv``: own C entries, own launch counters, replacing
+``_load_pair_point``'s GLV branch, ``pallas_compress.py:122-140``); kernels
+10 and 11 have none yet and refuse a GLV config on CUDA. The twins take
+both layouts.
 
     d   = x2 - x1 | 2 y1' (doubling) | R, Montgomery one (P + (-P))
     num = y2' - y1' | 3 x1^2 (doubling)
@@ -41,10 +47,10 @@ from __future__ import annotations
 import torch
 
 from msm_tpu_torch.ops import _build, bigint
-from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
+from msm_tpu_torch.ops.cuda_convert import coord_words, table_coords, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs
 from msm_tpu_torch.ops.cuda_inv import mont_pow
-from msm_tpu_torch.ops.cuda_scan import rcb16_madd_plain
+from msm_tpu_torch.ops.cuda_scan import element_coords, rcb16_madd_plain
 from msm_tpu_torch.ops.field import FieldCtx, get_field_ctx
 from msm_tpu_torch.params import MsmConfig
 
@@ -94,10 +100,8 @@ def _pairs_plain(cfg: MsmConfig, packed, perm, flags):
     """Gather every pair of every lane at once: (x1, y1', x2, y2', d, num,
     dbl, inf), coordinates [G, Cp, R, L], predicates [G, Cp, R]."""
     f = get_field_ctx(cfg)
-    D = coord_words(cfg)
-    rows = packed[perm.to(torch.int64)]  # [G, C, R, 2D]
-    x = unpack_coords(rows[..., :D], cfg)
-    y = unpack_coords(rows[..., D:], cfg)
+    rows = packed[perm.to(torch.int64)]  # [G, C, R, 2D or 3D]
+    x, y = (unpack_coords(a, cfg) for a in element_coords(cfg, rows, flags))
     s = flags & 1
     x1, y1, s1, x2, y2, s2 = x[:, 0::2], y[:, 0::2], s[:, 0::2], x[:, 1::2], y[:, 1::2], s[:, 1::2]
     dbl, inf = pair_predicates_plain(cfg, x1, y1, s1, x2, y2, s2)
@@ -136,7 +140,7 @@ def _check(cfg: MsmConfig, packed, perm, flags, *chain):
     _build.require_cuda(cfg, *ts)
     packed, perm, flags = ts[:3]
     if (perm.dim() != 3 or flags.shape != perm.shape or perm.shape[1] % 2
-            or packed.shape[1:] != (2 * coord_words(cfg),)):
+            or packed.shape[1:] != (table_coords(cfg) * coord_words(cfg),)):
         raise ValueError(f"bad pair shapes {tuple(packed.shape)} {tuple(perm.shape)}")
     return ts
 
@@ -183,27 +187,40 @@ def emit_scan_plain(cfg: MsmConfig, packed, perm, flags, s, t0):
     return (pe3, *(_limbs_first(a) for a in acc))
 
 
-def pair_suffix(cfg: MsmConfig, packed, perm, flags):
-    """(packed [N, 2D], perm [G, 2Cp, R], flags) -> s [G, Cp, L, R]."""
-    if packed.device.type == "cpu":
-        return pair_suffix_plain(cfg, packed, perm, flags)
+def _suffix(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
     packed, perm, flags = _check(cfg, packed, perm, flags)
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     s = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
-    _build.launch("msm_pair_suffix", packed, perm, flags, s, G, C // 2, R)
-    pair_suffix.launches += 1
+    _build.launch(entry, packed, perm, flags, s, G, C // 2, R)
+    counter.launches += 1
     return s
 
 
-pair_suffix.launches = 0
-
-
-def emit_scan(cfg: MsmConfig, packed, perm, flags, s, t0):
-    """(packed, perm, flags, s [G, Cp, L, R], t0 [G, L, R]) ->
-    (pe3 [G, Cp, R, 3L], tx, ty, tz [G, L, R])."""
+def pair_suffix(cfg: MsmConfig, packed, perm, flags):
+    """(packed [N, 2D], perm [G, 2Cp, R], flags) -> s [G, Cp, L, R]; under
+    GLV ``pair_suffix_glv``."""
+    if cfg.glv:
+        return pair_suffix_glv(cfg, packed, perm, flags)
     if packed.device.type == "cpu":
-        return emit_scan_plain(cfg, packed, perm, flags, s, t0)
+        return pair_suffix_plain(cfg, packed, perm, flags)
+    return _suffix(cfg, packed, perm, flags, "msm_pair_suffix", pair_suffix)
+
+
+def pair_suffix_glv(cfg: MsmConfig, packed, perm, flags):
+    """The GLV mode: packed [N, 3D], flags bit 1 choosing beta x."""
+    if not cfg.glv:
+        raise ValueError("pair_suffix_glv needs a GLV config")
+    if packed.device.type == "cpu":
+        return pair_suffix_plain(cfg, packed, perm, flags)
+    return _suffix(cfg, packed, perm, flags, "msm_pair_suffix_glv", pair_suffix_glv)
+
+
+pair_suffix.launches = 0
+pair_suffix_glv.launches = 0
+
+
+def _emit(cfg: MsmConfig, packed, perm, flags, s, t0, entry: str, counter):
     packed, perm, flags, s, t0 = _check(cfg, packed, perm, flags, s, t0)
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
@@ -212,12 +229,33 @@ def emit_scan(cfg: MsmConfig, packed, perm, flags, s, t0):
     dev = packed.device
     pe3 = torch.empty((G, C // 2, R, 3 * L), dtype=torch.int32, device=dev)
     tots = [torch.empty((G, L, R), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch("msm_emit_scan", packed, perm, flags, s, t0, pe3, *tots, G, C // 2, R)
-    emit_scan.launches += 1
+    _build.launch(entry, packed, perm, flags, s, t0, pe3, *tots, G, C // 2, R)
+    counter.launches += 1
     return (pe3, *tots)
 
 
+def emit_scan(cfg: MsmConfig, packed, perm, flags, s, t0):
+    """(packed, perm, flags, s [G, Cp, L, R], t0 [G, L, R]) ->
+    (pe3 [G, Cp, R, 3L], tx, ty, tz [G, L, R]); under GLV
+    ``emit_scan_glv``."""
+    if cfg.glv:
+        return emit_scan_glv(cfg, packed, perm, flags, s, t0)
+    if packed.device.type == "cpu":
+        return emit_scan_plain(cfg, packed, perm, flags, s, t0)
+    return _emit(cfg, packed, perm, flags, s, t0, "msm_emit_scan", emit_scan)
+
+
+def emit_scan_glv(cfg: MsmConfig, packed, perm, flags, s, t0):
+    """The GLV mode: packed [N, 3D], flags bit 1 choosing beta x."""
+    if not cfg.glv:
+        raise ValueError("emit_scan_glv needs a GLV config")
+    if packed.device.type == "cpu":
+        return emit_scan_plain(cfg, packed, perm, flags, s, t0)
+    return _emit(cfg, packed, perm, flags, s, t0, "msm_emit_scan_glv", emit_scan_glv)
+
+
 emit_scan.launches = 0
+emit_scan_glv.launches = 0
 
 
 def compressed_prefix_scan(cfg: MsmConfig, packed, perm, flags):
@@ -251,10 +289,16 @@ def pair_backward_plain(cfg: MsmConfig, packed, perm, flags, m, minv):
     return _limbs_first(x3), _limbs_first(y3), inf.to(torch.int32)
 
 
+def _no_glv_mode(cfg: MsmConfig, name: str) -> None:
+    if cfg.glv:
+        raise NotImplementedError(f"{name} has no GLV mode on CUDA yet")
+
+
 def pair_forward(cfg: MsmConfig, packed, perm, flags):
     """(packed [N, 2D], perm [G, 2Cp, R], flags) -> m [G, Cp, L, R]."""
     if packed.device.type == "cpu":
         return pair_forward_plain(cfg, packed, perm, flags)
+    _no_glv_mode(cfg, "pair_forward")
     packed, perm, flags = _check(cfg, packed, perm, flags)
     G, C, R = perm.shape
     m = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
@@ -271,6 +315,7 @@ def pair_backward(cfg: MsmConfig, packed, perm, flags, m, minv):
     (cx, cy [G, Cp, L, R], inf [G, Cp, R] int32)."""
     if packed.device.type == "cpu":
         return pair_backward_plain(cfg, packed, perm, flags, m, minv)
+    _no_glv_mode(cfg, "pair_backward")
     packed, perm, flags, m, minv = _check(cfg, packed, perm, flags, m, minv)
     G, C, R = perm.shape
     L = cfg.num_words
@@ -289,7 +334,10 @@ pair_backward.launches = 0
 def compress_pairs(cfg: MsmConfig, packed, perm, flags):
     """Every pair sum of every lane: forward products, one Fermat inversion
     per lane, backward emission -> (cx, cy [G, Cp, L, R] Montgomery affine,
-    inf [G, Cp, R]; an infinity pair's coordinates mean nothing)."""
+    inf [G, Cp, R]; an infinity pair's coordinates mean nothing). A GLV
+    config runs on the twins only: on CUDA it raises before any launch."""
+    if packed.device.type != "cpu":
+        _no_glv_mode(cfg, "compress_pairs")
     m = pair_forward(cfg, packed, perm, flags)
     minv = mont_pow(cfg, m[:, -1], cfg.curve.modulus - 2)
     return pair_backward(cfg, packed, perm, flags, m, minv)

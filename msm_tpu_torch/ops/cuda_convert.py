@@ -5,13 +5,16 @@ CUDA source: ``msm_tpu_torch/csrc/convert.cu`` on the word core (per-point
 body ``csrc/convert32.cuh``); it reads the u16 words as int16, 32 B per
 coordinate, the bits the host serialized. Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_convert.py::make_convert_pack`` (``pallas_call`` at
-:187, non-GLV mode); ``coord_words``/``pack_coords``/``unpack_coords`` port
-``msm_tpu/ops/pallas_scan.py:54-199``.
+:187) in both its modes: ``convert_pack`` the plain one, ``convert_pack_glv``
+the GLV one (``dual_x_scale_int`` = beta R^2, ``triple=True``), each with
+its own C entry and launch counter; ``coord_words``/``pack_coords``/
+``unpack_coords`` port ``msm_tpu/ops/pallas_scan.py:54-199``.
 
 Wire format: a canonical coordinate bit-packed at radix 2^32 into
 D = ceil(modulus_bits / 32) int32 words (BN254: 8); a table row is x's D
-words then y's. Packing works in int64 and reinterprets the low 32 bits as
-int32, so words >= 2^31 survive.
+words then y's, or under GLV x's, beta x's (the x of phi(P) = (beta x, y))
+and y's. Packing works in int64 and reinterprets the low 32 bits as int32,
+so words >= 2^31 survive.
 """
 
 from __future__ import annotations
@@ -21,12 +24,18 @@ import torch
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.decompose import extract_windows
 from msm_tpu_torch.ops.field import get_field_ctx
+from msm_tpu_torch.ops.glv import glv_params
 from msm_tpu_torch.params import MsmConfig
 
 
 def coord_words(cfg: MsmConfig) -> int:
     """int32 words per dense-packed canonical coordinate."""
     return (cfg.curve.modulus_bits + 31) // 32
+
+
+def table_coords(cfg: MsmConfig) -> int:
+    """Coordinates per point-table row: 2 (x, y), 3 under GLV (x, beta x, y)."""
+    return 3 if cfg.glv else 2
 
 
 def _pack_plan(w: int, L: int, D: int) -> list[list[tuple[int, int]]]:
@@ -84,32 +93,52 @@ def unpack_coords(p: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
 
 
 def convert_pack_plain(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
-    """Plain twin of the convert kernel: u16 words [n, W] (held in int16 or
-    int32) -> limbs -> Montgomery (x R^2 product) -> canonical -> packed
-    table [n, 2D]."""
+    """Plain twin of the convert kernel in both modes: u16 words [n, W]
+    (held in int16 or int32) -> limbs -> Montgomery (x R^2 product) ->
+    canonical -> packed table [n, 2D]; under GLV [n, 3D], with beta x R
+    (x times beta R^2) between x and y."""
     f = get_field_ctx(cfg)
     w, L = cfg.word_size, cfg.num_words
     xs, ys = (extract_windows(a.to(torch.int32) & 0xFFFF, w, L).T for a in (x_u16, y_u16))
-    return torch.cat(
-        [pack_coords(f.to_mont(xs), cfg), pack_coords(f.to_mont(ys), cfg)], dim=-1
-    )
+    cols = [f.to_mont(xs), f.to_mont(ys)]
+    if cfg.glv:
+        beta_r2 = glv_params(cfg.curve).beta * cfg.r2 % cfg.curve.modulus
+        cols.insert(1, f.mont_mul(xs, f.const(f._limbs(beta_r2), xs.device)))
+    return torch.cat([pack_coords(c, cfg) for c in cols], dim=-1)
 
 
-def convert_pack(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
-    """Point table from u16 coordinate words: [n, 16] x2 -> [n, 2D] int32.
-    On CUDA the words must be int16 (the u16 bits, as
-    ``models.common.pad_points_words`` gives them)."""
-    if x_u16.device.type == "cpu":
-        return convert_pack_plain(cfg, x_u16, y_u16)
+def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter):
     x_u16, y_u16 = _build.aligned(x_u16, y_u16)
     _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16)
     n = x_u16.shape[0]
     if x_u16.shape != (n, 16) or y_u16.shape != (n, 16):
         raise ValueError(f"expected [n, 16] u16 words, got {tuple(x_u16.shape)}")
-    out = torch.empty((n, 2 * coord_words(cfg)), dtype=torch.int32, device=x_u16.device)
-    _build.launch("msm_convert", x_u16, y_u16, out, n)
-    convert_pack.launches += 1
+    out = torch.empty((n, table_coords(cfg) * coord_words(cfg)), dtype=torch.int32,
+                      device=x_u16.device)
+    _build.launch(entry, x_u16, y_u16, out, n)
+    counter.launches += 1
     return out
 
 
+def convert_pack(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
+    """Point table from u16 coordinate words: [n, 16] x2 -> [n, 2D] int32,
+    under GLV [n, 3D] (``convert_pack_glv``). On CUDA the words must be
+    int16 (the u16 bits, as ``models.common.pad_points_words`` gives them)."""
+    if cfg.glv:
+        return convert_pack_glv(cfg, x_u16, y_u16)
+    if x_u16.device.type == "cpu":
+        return convert_pack_plain(cfg, x_u16, y_u16)
+    return _convert(cfg, x_u16, y_u16, "msm_convert", convert_pack)
+
+
+def convert_pack_glv(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
+    """The GLV point table [n, 3D] int32: rows x R, beta x R, y R."""
+    if not cfg.glv:
+        raise ValueError("convert_pack_glv needs a GLV config")
+    if x_u16.device.type == "cpu":
+        return convert_pack_plain(cfg, x_u16, y_u16)
+    return _convert(cfg, x_u16, y_u16, "msm_convert_glv", convert_pack_glv)
+
+
 convert_pack.launches = 0
+convert_pack_glv.launches = 0

@@ -16,6 +16,12 @@ Under ``cfg.compress`` the scan runs over the pair-compressed stream
 in affine form first, C/2 steps per lane), and a boundary that falls inside
 a pair gets its own element added back (``prefix_at_compressed``).
 
+Under ``cfg.glv`` a subtask's stream holds 2n entries over the n-row table
+of rows (x, beta x, y): entry i >= n is the phi copy of point i - n. The
+payload decode turns that into the physical row and bit 1 of the flags
+(``_decode_payload_step_major(table_rows=n)``), which the kernels' GLV
+modes and ``prefix_at_compressed`` read.
+
 The main path's window sum follows from the boundary prefixes by
 telescoping (``window_sum_from_pe``). The naive model takes the per-bucket
 sums instead (``bucket_accumulate``: pe[b] - pe[b-1]) and reduces them by
@@ -37,11 +43,11 @@ import torch
 
 from msm_tpu_torch.ops.cuda_bpr import bpr_phase1
 from msm_tpu_torch.ops.cuda_compress import compressed_prefix_scan
-from msm_tpu_torch.ops.cuda_convert import coord_words, unpack_coords
+from msm_tpu_torch.ops.cuda_convert import unpack_coords
 from msm_tpu_torch.ops.cuda_curve import point_add_plain
 from msm_tpu_torch.ops.cuda_hist import bucket_hist
 from msm_tpu_torch.ops.cuda_prefix import horner, point_total, row_offsets
-from msm_tpu_torch.ops.cuda_scan import scan_rows
+from msm_tpu_torch.ops.cuda_scan import element_coords, scan_rows
 from msm_tpu_torch.ops.curve import CurveCtx, PointBatch, get_curve_ctx, point_where
 from msm_tpu_torch.params import MsmConfig
 
@@ -126,14 +132,21 @@ def sort_payload(
 
 
 def _decode_payload_step_major(
-    pv: torch.Tensor, sbit: int, R: int
+    pv: torch.Tensor, sbit: int, R: int, table_rows: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sorted payload [G, n] -> step-major (perm, flags) [G, C, R]: element
     (c, r) is sorted position r*C + c; perm is the table row, flags bit 0
-    the sign."""
+    the sign. ``table_rows`` (GLV): the stream indexes 2 table_rows entries
+    over a table of table_rows rows; entry i's phi bit (i >= table_rows)
+    goes to bit 1 of its flags and perm is the row i mod table_rows."""
     G, n = pv.shape
     pv2 = pv.reshape(G, R, n // R).transpose(1, 2)
-    return (pv2 & ((1 << sbit) - 1)).contiguous(), (pv2 >> sbit).contiguous()
+    idx, flags = pv2 & ((1 << sbit) - 1), pv2 >> sbit
+    if table_rows is not None:
+        assert table_rows & (table_rows - 1) == 0, table_rows
+        flags = flags | ((idx // table_rows) << 1)
+        idx = idx % table_rows
+    return idx.contiguous(), flags.contiguous()
 
 
 def _counts_leq(cfg: MsmConfig, keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -183,11 +196,11 @@ def prefix_at_compressed(
 
         pe = offsets[r] + pe3[(c - 1) // 2, r] + (c even ? element (c, r) : 0)
 
-    The element is its packed row with y negated by its flag and z = one.
-    Both additions go through the point-add kernel."""
+    The element is its packed row (under GLV with x or beta x by bit 1 of
+    its flags) with y negated by bit 0 and z = one. Both additions go
+    through the point-add kernel."""
     cfg = ec.cfg
     G, Cp = pe3.shape[:2]
-    D = coord_words(cfg)
     valid = idx >= 0
     i = idx.clamp(min=0).to(torch.int64)
     r, c = i // (2 * Cp), i % (2 * Cp)
@@ -196,11 +209,11 @@ def prefix_at_compressed(
     ident = ec.identity(idx.shape, pe3.device)
     pairs = point_where(j >= 0, _pe3_row(ec, pe3, gi, j.clamp(min=0), r), ident)
     base = ec.add(_offset_at(offsets, gi, r), pairs)
-    row = packed[perm[gi, c, r].to(torch.int64)]  # [G, m, 2D]
-    y = unpack_coords(row[..., D:], cfg)
-    neg = (flags[gi, c, r] & 1) != 0
-    y = torch.where(neg[..., None], ec.f.const(ec.f.p_limbs, y.device) - y, y)
-    elem = ec.from_affine_mont(unpack_coords(row[..., :D], cfg), y)
+    row = packed[perm[gi, c, r].to(torch.int64)]  # [G, m, 2D or 3D]
+    fl = flags[gi, c, r]
+    x, y = (unpack_coords(a, cfg) for a in element_coords(cfg, row, fl))
+    y = torch.where(((fl & 1) != 0)[..., None], ec.f.const(ec.f.p_limbs, y.device) - y, y)
+    elem = ec.from_affine_mont(x, y)
     out = ec.add(base, point_where(c % 2 == 0, elem, ident))
     return point_where(valid, out, ident)
 
@@ -228,7 +241,8 @@ def _batch_boundary_prefix(
     The batch's pe3 and offsets die when this returns, so only one batch is
     alive at a time."""
     cfg = ec.cfg
-    perm, flags = _decode_payload_step_major(pv, sbit, num_rows)
+    table_rows = packed.shape[0] if cfg.glv else None
+    perm, flags = _decode_payload_step_major(pv, sbit, num_rows, table_rows)
     compress = compression_applies(cfg, pv.shape[-1], num_rows)
     scan = compressed_prefix_scan if compress else scan_rows
     pe3, tx, ty, tz = scan(cfg, packed, perm, flags)

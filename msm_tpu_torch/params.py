@@ -8,8 +8,8 @@
   all derived from (curve, word_size, chunk_size); ``DEFAULT_CONFIG``,
   ``pick_chunk_size`` and ``pick_config``.
 
-GLV is not ported: ``MsmConfig.num_subtasks`` raises ``NotImplementedError``
-for ``glv=True``.
+Under ``glv=True`` the windows cover the GLV half-scalars
+(``ops/glv.glv_params``): BN254 at c = 16 gives 8 of them, not 16.
 """
 
 from __future__ import annotations
@@ -182,7 +182,8 @@ class MsmConfig:
     curve: CurveSpec
     word_size: int = 13  # limb bit-width
     chunk_size: int = 16  # scalar window bit-width
-    glv: bool = False  # GLV endomorphism split: not ported
+    glv: bool = False  # GLV endomorphism split (ops/glv.py): 2n points,
+    #                    half-length scalars
     compress: bool = False  # batched-affine pair compression of the sorted
     #                         stream before the scan; needs (n/R) even
     karatsuba: bool = False  # the JAX package's Karatsuba Montgomery
@@ -210,11 +211,17 @@ class MsmConfig:
 
     @property
     def num_subtasks(self) -> int:
-        """S = ceil((order_bits + 1) / chunk_size): the +1 is the
-        signed-recode headroom that keeps the top digit <= 2^(c-1)."""
+        """S = ceil((bits + 1) / chunk_size): bits is the order's, or under
+        GLV the half-scalar bound's (|k_i| <= max_component, 126 bits for
+        BN254); the +1 is the signed-recode headroom that keeps the top
+        digit <= 2^(c-1)."""
         if self.glv:
-            raise NotImplementedError("GLV is not ported")
-        return -(-(self.curve.order_bits + 1) // self.chunk_size)
+            from msm_tpu_torch.ops.glv import glv_params
+
+            bits = glv_params(self.curve).half_bits
+        else:
+            bits = self.curve.order_bits
+        return -(-(bits + 1) // self.chunk_size)
 
     @property
     def num_buckets(self) -> int:

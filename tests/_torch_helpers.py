@@ -52,6 +52,16 @@ def affine_points(cfg, n: int, seed: int) -> list[tuple[int, int]]:
     return [cv.to_affine(p) for p in cv.sample_points(n, seed=seed)]
 
 
+def tiled_msm_inputs(cfg, n: int, seed: int, nbase: int = 32):
+    """An MSM's inputs: n points tiled from nbase random ones, and uniform
+    scalars below the order."""
+    base = affine_points(cfg, nbase, seed=seed)
+    pts = [base[i % nbase] for i in range(n)]
+    rng = np.random.default_rng(seed + 1)
+    ks = [int.from_bytes(rng.bytes(32), "little") % cfg.curve.order for _ in range(n)]
+    return pts, ks
+
+
 def pair_stream(cfg, G: int, C: int, R: int, nbase: int, seed: int):
     """Inputs of the pair kernels: a packed table of ``nbase`` real points
     and a step-major stream perm, flags [G, C, R] over it, with doubling
@@ -72,6 +82,42 @@ def pair_stream(cfg, G: int, C: int, R: int, nbase: int, seed: int):
         g, j, r = np.nonzero(planted)
         perm[g, 2 * j + 1, r] = perm[g, 2 * j, r]
         flags[g, 2 * j + 1, r] = flags[g, 2 * j, r] ^ flip
+    return base, packed, perm, flags
+
+
+def glv_pair_stream(cfg, G: int, C: int, R: int, nbase: int, seed: int):
+    """pair_stream over a GLV table (cfg.glv: rows x, beta x, y): the first
+    nbase/2 rows are random points P_i, the rest their images phi(P_i) =
+    (beta x_i, y_i), and flags carry bit 1 (take beta x) as well as the
+    sign. Planted at pair positions (2j, 2j+1): doublings and infinity
+    pairs of one row and one phi bit, and pairs of P_i's phi copy with the
+    row phi(P_i) (x_j = beta x_i: equal x across halves), of equal or
+    opposite sign. Returns (the table's affine points, packed [nbase, 3D],
+    perm, flags) as numpy."""
+    from msm_tpu_torch.models.common import pad_points_words
+    from msm_tpu_torch.ops.cuda_convert import convert_pack_plain
+    from msm_tpu_torch.ops.glv import glv_params
+
+    half = nbase // 2
+    q, beta = cfg.curve.modulus, glv_params(cfg.curve).beta
+    base = affine_points(cfg, half, seed)
+    base = base + [(x * beta % q, y) for x, y in base]
+    x_u16, y_u16 = pad_points_words(base, cfg, nbase)
+    packed = convert_pack_plain(cfg, torch.from_numpy(x_u16), torch.from_numpy(y_u16)).numpy()
+    rng = np.random.default_rng(seed)
+    perm = rng.integers(0, nbase, size=(G, C, R)).astype(np.int32)
+    flags = rng.integers(0, 4, size=(G, C, R)).astype(np.int32)
+    kind = rng.random((G, C // 2, R))
+    for planted, flip in ((kind < 0.15, 0), (kind > 0.85, 1)):  # doubling, infinity
+        g, j, r = np.nonzero(planted)
+        perm[g, 2 * j + 1, r] = perm[g, 2 * j, r]
+        flags[g, 2 * j + 1, r] = flags[g, 2 * j, r] ^ flip
+    g, j, r = np.nonzero((kind >= 0.15) & (kind < 0.45))  # phi(P_i) twice
+    i = rng.integers(0, half, size=g.shape)
+    sign = rng.integers(0, 2, size=(2,) + g.shape)
+    perm[g, 2 * j, r], flags[g, 2 * j, r] = i, 2 | sign[0]
+    perm[g, 2 * j + 1, r] = half + i
+    flags[g, 2 * j + 1, r] = sign[0] ^ (sign[1] & (kind[g, j, r] < 0.3))
     return base, packed, perm, flags
 
 

@@ -3,7 +3,8 @@
 - compressed bucket-boundary prefixes equal the plain ones as points, on
   keys with odd and even boundaries and empty buckets;
 - the gate: a geometry with an odd step count (C = 1) runs uncompressed;
-- GLV with compression raises on every device;
+- GLV with compression runs on the CPU; compress_pairs refuses GLV off
+  the CPU;
 - the JAX package's point table, carried across, gives its window sums
   under the compressed config;
 - only one subtask batch of prefixes is alive at a time, on both the plain
@@ -32,6 +33,7 @@ from msm_tpu.params import MsmConfig as JMsmConfig
 from msm_tpu_torch.models import common, cuzk
 from msm_tpu_torch.models.geometry import pick_geometry
 from msm_tpu_torch.ops import scan
+from msm_tpu_torch.ops.cuda_compress import compress_pairs
 from msm_tpu_torch.ops.curve import get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
 
@@ -119,10 +121,20 @@ def test_gate_odd_steps_run_uncompressed(monkeypatch):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_glv_with_compression_raises(device):
-    cfg = port_cfg(JMsmConfig(curve=BN254, compress=True, glv=True))
-    pts, ks = _inputs(16, seed=96)
-    with pytest.raises(NotImplementedError):
-        msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+    """Compression with GLV runs now: on the CPU the MSM equals the oracle.
+    What still raises is compress_pairs on the card (kernels 10 and 11 have
+    no GLV mode): tensors off the CPU (here on the meta device) raise before
+    any launch."""
+    cfg = port_cfg(JMsmConfig(curve=BN254, chunk_size=8, compress=True, glv=True))
+    if device == "cpu":
+        pts, ks = _inputs(16, seed=96)
+        got = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+        assert got == CV.to_affine(best_msm(pts, ks))
+        return
+    table = torch.empty((16, 24), dtype=torch.int32, device="meta")
+    perm = torch.empty((1, 8, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError, match="GLV"):
+        compress_pairs(cfg, table, perm, perm)
 
 
 def test_loaded_jax_table_gives_jax_window_sums_compressed():

@@ -12,7 +12,10 @@ conversion of u16 coordinate words (values in [p, 2^256) included), the
 scan's body run for every lane of a small stream, the Horner chain, the
 windowed exponentiation on edge bases and exponents, and the suffix and
 emission + scan bodies for every lane of a stream with doubling and
-infinity pairs. Outputs of the core must be canonical and
+infinity pairs; and the GLV modes of these bodies (the triple table's
+conversion, the element loads that take x or beta x by flag bit 1 from a
+three-coordinate row, the scan, suffix and emission + scan over a GLV
+table with pairs of equal x across its halves). Outputs of the core must be canonical and
 equal to the twins' results after canonical(): a canonical value is unique,
 so the kernels on this core write the limbs the 13-bit core writes."""
 
@@ -26,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import mont_limbs, pair_stream, rand_balanced, rand_canonical
+from _torch_helpers import glv_pair_stream, mont_limbs, pair_stream, rand_balanced, rand_canonical
 from msm_tpu_torch.ops.cuda_compress import emit_scan_plain, pair_suffix_plain
 from msm_tpu_torch.ops.cuda_convert import convert_pack_plain, pack_canonical
 from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
@@ -40,6 +43,7 @@ from msm_tpu_torch.utils.limbs import ints_to_limbs
 
 CSRC = Path(__file__).resolve().parent.parent / "msm_tpu_torch" / "csrc"
 CFG = MsmConfig(curve=BN254)
+GLV = MsmConfig(curve=BN254, glv=True)
 F = get_field_ctx(CFG)
 L = CFG.num_words
 P = BN254.modulus
@@ -142,7 +146,18 @@ void w_repack(const int32_t* a, int32_t* words, int32_t* o, int64_t n) {
 void w_load_rows(const int32_t* packed, int32_t* o, int64_t n) {
   for (int64_t i = 0; i < n; ++i) {
     fe32 x, y;
-    scan_load_row(x, y, packed, i);
+    scan_load_element<2>(x, y, packed, i, nullptr);
+    st(o + i * 2 * L, x);
+    st(o + i * 2 * L + L, y);
+  }
+}
+// element i: row perm[i] of the GLV table [N, 3 NW], flags[i] -> limbs
+// [n, 2, L]
+void w_load_elements_glv(const int32_t* packed, const int32_t* perm,
+                         const int32_t* flags, int32_t* o, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe32 x, y;
+    scan_load_element<3>(x, y, packed, perm[i], flags + i);
     st(o + i * 2 * L, x);
     st(o + i * 2 * L + L, y);
   }
@@ -189,8 +204,35 @@ void w_scan(const int32_t* packed, const int32_t* perm, const int32_t* flags,
     for (int r = 0; r < R; ++r)
       scan_lane(packed, perm, flags, pe3, tx, ty, tz, g, C, R, r);
 }
+void w_scan_glv(const int32_t* packed, const int32_t* perm,
+                const int32_t* flags, int32_t* pe3, int32_t* tx, int32_t* ty,
+                int32_t* tz, int64_t G, int C, int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      scan_lane<3>(packed, perm, flags, pe3, tx, ty, tz, g, C, R, r);
+}
+void w_pair_suffix_glv(const int32_t* packed, const int32_t* perm,
+                       const int32_t* flags, int32_t* s, int64_t G, int Cp,
+                       int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      pair_suffix32_lane<3>(packed, perm, flags, s, g, Cp, R, r);
+}
+void w_emit_scan_glv(const int32_t* packed, const int32_t* perm,
+                     const int32_t* flags, const int32_t* s, const int32_t* t0,
+                     int32_t* pe3, int32_t* tx, int32_t* ty, int32_t* tz,
+                     int64_t G, int Cp, int R) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r)
+      emit_scan_lane<3>(packed, perm, flags, s, t0, pe3, tx, ty, tz, g, Cp, R,
+                        r);
+}
 void w_convert(const int16_t* xw, const int16_t* yw, int32_t* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i) convert_point(xw, yw, out, i);
+}
+void w_convert_glv(const int16_t* xw, const int16_t* yw, int32_t* out,
+                   int64_t n) {
+  for (int64_t i = 0; i < n; ++i) convert_point_glv(xw, yw, out, i);
 }
 void w_emit_scan(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, const int32_t* s, const int32_t* t0,
@@ -234,6 +276,11 @@ def lib(tmp_path_factory):
                            ("w_pair_suffix", [Pt] * 4 + [I64, I32, I32]),
                            ("w_linear", [Pt] * 3 + [I64]),
                            ("w_repack", [Pt] * 3 + [I64]), ("w_load_rows", [Pt] * 2 + [I64]),
+                           ("w_load_elements_glv", [Pt] * 4 + [I64]),
+                           ("w_scan_glv", [Pt] * 7 + [I64, I32, I32]),
+                           ("w_pair_suffix_glv", [Pt] * 4 + [I64, I32, I32]),
+                           ("w_emit_scan_glv", [Pt] * 9 + [I64, I32, I32]),
+                           ("w_convert_glv", [Pt] * 3 + [I64]),
                            ("w_from_balanced", [Pt] * 2 + [I64]), ("w_pt_add", [Pt] * 3 + [I64]),
                            ("w_pt_madd", [Pt] * 3 + [I64]), ("w_pt_double", [Pt] * 2 + [I64]),
                            ("w_scan", [Pt] * 7 + [I64, I32, I32]),
@@ -540,3 +587,94 @@ def test_emit_scan_lanes_match_twin(lib, G, Cp, R):
         _assert_canonical_equal(np.ascontiguousarray(g.swapaxes(-1, -2)), w.transpose(-1, -2))
     # lane 0 starts with P + (-P): its first prefix is the identity
     assert not F.canonical(want[0][0, 0, 0, 2 * L:]).any()
+
+
+# -- the GLV modes: three-coordinate rows, x or beta x by flag bit 1 ----------
+
+
+def _glv_stream(G, C, R, seed):
+    """glv_pair_stream over 16 table rows (8 points and their phi images) as
+    numpy and as torch tensors."""
+    _, packed, perm, flags = glv_pair_stream(GLV, G, C, R, nbase=16, seed=seed)
+    return (packed, perm, flags), tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (packed, perm, flags))
+
+
+def test_convert_point_glv_matches_twin(lib):
+    """Kernel 2's GLV body on the coordinates of test_convert_point_matches_twin
+    (values >= p included): rows x R, beta x R, y R exactly as the twin's."""
+    from msm_tpu_torch.ops.glv import glv_params
+
+    rng = random.Random(43)
+    edge = [0, 1, P - 1, P, P + 1, 2 * P - 1, 4 * P, 5 * P, (1 << 256) - 1]
+    xs = edge + [rng.randrange(P) for _ in range(80)] + [rng.randrange(P, 1 << 256) for _ in range(40)]
+    ys = list(reversed(xs))
+    xw, yw = _u16_words(xs), _u16_words(ys)
+    n = len(xs)
+    out = np.zeros((n, 24), dtype=np.int32)
+    lib.w_convert_glv(xw.ctypes.data, yw.ctypes.data, out.ctypes.data, n)
+    want = convert_pack_plain(GLV, torch.from_numpy(xw), torch.from_numpy(yw)).numpy()
+    assert np.array_equal(out, want)
+    beta = glv_params(BN254).beta
+    got_bx = [int.from_bytes(out[i, 8:16].astype("<u4").tobytes(), "little") for i in range(n)]
+    assert got_bx == [x * beta * CFG.r % P for x in xs]
+
+
+def test_glv_element_loads(lib):
+    """scan_load_element<3>: every flag value 0..3 on every row of a GLV
+    table gives x (bit 1 clear) or beta x (bit 1 set) and y, whatever bit 0."""
+    from msm_tpu_torch.ops.cuda_convert import unpack_coords
+    from msm_tpu_torch.ops.cuda_scan import element_coords
+
+    (packed, _, _), _ = _glv_stream(1, 2, 2, seed=60)
+    perm = np.repeat(np.arange(16, dtype=np.int32), 4)
+    flags = np.tile(np.arange(4, dtype=np.int32), 16)
+    (got,) = _run(lib, "w_load_elements_glv", [(64, 2, L)], packed, perm, flags, 64)
+    x, y = element_coords(GLV, torch.from_numpy(packed)[torch.from_numpy(perm).long()], torch.from_numpy(flags))
+    assert np.array_equal(got[:, 0], unpack_coords(x, CFG).numpy())
+    assert np.array_equal(got[:, 1], unpack_coords(y, CFG).numpy())
+    assert np.array_equal(got[0::4, 0], got[1::4, 0]) and not np.array_equal(got[0::4, 0], got[2::4, 0])
+
+
+@pytest.mark.parametrize("G, C, R", [(1, 4, 64), (2, 3, 16)])
+def test_scan_glv_lanes_match_twin(lib, G, C, R):
+    """Kernel 4's GLV body for every lane of a GLV stream against
+    scan_rows_plain under the GLV config."""
+    (packed, perm, flags), _ = _glv_stream(G, C + C % 2, R, seed=61 + C)
+    perm, flags = np.ascontiguousarray(perm[:, :C]), np.ascontiguousarray(flags[:, :C])
+    got = _run(lib, "w_scan_glv", [(G, C, R, 3 * L)] + [(G, L, R)] * 3, packed, perm, flags, G, C, R)
+    want = scan_rows_plain(GLV, *(torch.from_numpy(a) for a in (packed, perm, flags)))
+    for i in range(3):
+        _assert_canonical_equal(got[0][..., i * L:(i + 1) * L], want[0][..., i * L:(i + 1) * L])
+    for g, w in zip(got[1:], want[1:]):
+        _assert_canonical_equal(np.ascontiguousarray(g.swapaxes(-1, -2)), w.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("G, Cp, R", [(2, 4, 16), (1, 3, 8)])
+def test_pair_suffix_and_emit_scan_glv_lanes_match_twins(lib, G, Cp, R):
+    """Kernels 12 and 13's GLV bodies for every lane of a GLV stream whose
+    planted pairs include an element of P_i's phi copy beside one of the
+    row phi(P_i) (equal x across halves: a doubling or an infinity pair
+    that the predicates must see on the selected x and the third
+    coordinate's y), against the twins under the GLV config."""
+    from msm_tpu_torch.ops.cuda_compress import _pairs_plain
+
+    (packed, perm, flags), tin = _glv_stream(G, 2 * Cp, R, seed=64 + Cp)
+    # lane 0 of subtask 0: (P_0 phi, phi(P_0)) same sign at the first pair
+    # and opposite signs at the last
+    perm[0, 0, 0], flags[0, 0, 0], perm[0, 1, 0], flags[0, 1, 0] = 0, 2, 8, 0
+    perm[0, -2, 0], flags[0, -2, 0], perm[0, -1, 0], flags[0, -1, 0] = 1, 3, 9, 0
+    tin = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (packed, perm, flags))
+    dbl, inf = (k.numpy() for k in _pairs_plain(GLV, *tin)[6:])
+    assert dbl[0, 0, 0] and inf[0, -1, 0]
+    (s,) = _run(lib, "w_pair_suffix_glv", [(G, Cp, L, R)], packed, perm, flags, G, Cp, R)
+    want_s = pair_suffix_plain(GLV, *tin)
+    _assert_canonical_equal(np.ascontiguousarray(s.swapaxes(-1, -2)), want_s.transpose(-1, -2))
+    s_t = torch.from_numpy(s)
+    t0 = mont_pow_plain(CFG, s_t[:, 0], P - 2)
+    got = _run(lib, "w_emit_scan_glv", [(G, Cp, R, 3 * L)] + [(G, L, R)] * 3,
+               packed, perm, flags, s, t0.numpy(), G, Cp, R)
+    want = emit_scan_plain(GLV, *tin, s_t, t0)
+    for i in range(3):
+        _assert_canonical_equal(got[0][..., i * L:(i + 1) * L], want[0][..., i * L:(i + 1) * L])
+    for g, w in zip(got[1:], want[1:]):
+        _assert_canonical_equal(np.ascontiguousarray(g.swapaxes(-1, -2)), w.transpose(-1, -2))

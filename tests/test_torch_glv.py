@@ -1,0 +1,149 @@
+"""The port's GLV module (msm_tpu_torch/ops/glv.py) against the JAX
+package's (msm_tpu/ops/glv.py): the derived parameters on five a = 0 curves,
+the window count under GLV, the host split, the tensor split (on edge,
+knife-edge and random scalars, and with degraded Babai multipliers that
+force the rounding correction), the decomposition's keys and signs, and
+the payload decode that moves the phi bit into the flags. Exact
+throughout."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import port_cfg
+from msm_tpu import params as jparams
+from msm_tpu.models.common import ints_to_u16_array
+from msm_tpu.ops.glv import decompose_signed_glv as j_decompose_signed_glv
+from msm_tpu.ops import glv as jglv
+from msm_tpu.ops.scan import _decode_payload_step_major as j_decode
+from msm_tpu_torch import params
+from msm_tpu_torch.models.common import pad_scalars_words
+from msm_tpu_torch.ops import glv
+from msm_tpu_torch.ops.scan import _decode_payload_step_major
+
+CURVES = ["bn254", "bls12_381", "bls12_377", "pallas", "secp256k1"]
+
+
+def _scalars(g, r, extra, seed):
+    """0, 1, r - 1, lambda, r - lambda; scalars whose k b_j / r lies next to
+    a half-integer (the remainder's extremes); random ones."""
+    ks = [0, 1, r - 1, g.lam, r - g.lam]
+    for b in (g.v2[1], -g.v1[1]):
+        for m in (0, 1, 2, 5, 11):
+            k = ((2 * m + 1) * r) // (2 * b)
+            ks += [(k + d) % r for d in (-1, 0, 1)]
+    rng = np.random.default_rng(seed)
+    return ks + [int.from_bytes(rng.bytes(32), "little") % r for _ in range(extra)]
+
+
+def _signed(a, neg):
+    """|k| words [n, W] and signs [n] -> python ints."""
+    a, neg = np.asarray(a), np.asarray(neg)
+    vals = [sum(int(a[i, j]) << (16 * j) for j in range(a.shape[1])) for i in range(a.shape[0])]
+    return [-v if s else v for v, s in zip(vals, neg)]
+
+
+def _words(ks):
+    return ints_to_u16_array([k % (1 << 256) for k in ks]).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_glv_params_match_jax(name):
+    got, want = glv.glv_params(params.CURVES[name]), jglv.glv_params(jparams.CURVES[name])
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.half_bits == want.half_bits
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_num_subtasks_under_glv_matches_jax(name):
+    for chunk in (16, 13, 8, 1):
+        j = jparams.MsmConfig(curve=jparams.CURVES[name], chunk_size=chunk, glv=True)
+        assert port_cfg(j).num_subtasks == j.num_subtasks
+    assert params.MsmConfig(curve=params.BN254, glv=True).num_subtasks == 8
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_splits_match_jax_host_split(name):
+    """The host split and the tensor split against the JAX host split."""
+    curve, jcurve = params.CURVES[name], jparams.CURVES[name]
+    g, jg, r = glv.glv_params(curve), jglv.glv_params(jcurve), curve.order
+    ks = _scalars(g, r, extra=200, seed=3)
+    want = [jglv.split_scalar(k, jg, r) for k in ks]
+    assert [glv.split_scalar(k, g, r) for k in ks] == want
+    a1, n1, a2, n2 = glv.split_scalars_device(torch.from_numpy(_words(ks)), port_cfg(
+        jparams.MsmConfig(curve=jcurve, glv=True)))
+    assert a1.shape[1] == -(-(g.half_bits + 1) // 16) and a1.dtype == torch.int32
+    assert list(zip(_signed(a1, n1), _signed(a2, n2))) == want
+    assert any(k1 < 0 for k1, _ in want) and any(k2 < 0 for _, k2 in want)
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_rounding_correction_matches_jax(name):
+    """Degraded multipliers g_j - 2^62 leave some candidates one below the
+    rounded quotient; the corrected tensor split still equals the JAX
+    split (its host split with the same degraded multipliers, which the
+    JAX tests hold equal to its device split)."""
+    curve, jcurve = params.CURVES[name], jparams.CURVES[name]
+    g, jg, r = glv.glv_params(curve), jglv.glv_params(jcurve), curve.order
+    E = 1 << 62
+    bad = dataclasses.replace(g, g1=g.g1 - E, g2=g.g2 - E)
+    jbad = dataclasses.replace(jg, g1=jg.g1 - E, g2=jg.g2 - E)
+    rng = np.random.default_rng(11)
+    ks = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(160)]
+    half = 1 << (glv.M_BITS - 1)
+    fires = sum(2 * (k * b - ((k * gj + half) >> glv.M_BITS) * r) > r
+                for k in ks for gj, b in ((bad.g1, g.v2[1]), (bad.g2, -g.v1[1])))
+    assert fires > 0
+    cfg = port_cfg(jparams.MsmConfig(curve=jcurve, glv=True))
+    a1, n1, a2, n2 = glv._split_scalars_device(torch.from_numpy(_words(ks)), cfg, bad)
+    want = [jglv.split_scalar(k, jbad, r) for k in ks]
+    assert list(zip(_signed(a1, n1), _signed(a2, n2))) == want
+
+
+def test_tensor_split_matches_jax_device_split():
+    """BN254: the tensor split word for word and sign for sign against the
+    JAX device split."""
+    jcfg = jparams.MsmConfig(curve=jparams.BN254, glv=True)
+    g = glv.glv_params(params.BN254)
+    s = _words(_scalars(g, params.BN254.order, extra=100, seed=4))
+    got = glv.split_scalars_device(torch.from_numpy(s), port_cfg(jcfg))
+    want = jglv.split_scalars_device(jnp.asarray(s), jcfg)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_glv_decomposition_matches_jax():
+    """Keys and signs [S, 2n] at c = 16 (S = 8) on edge scalars (0, 1,
+    r - 1, lambda, r - lambda, scalars with a negative half) and random
+    ones; every key within the bucket range."""
+    jcfg = jparams.MsmConfig(curve=jparams.BN254, glv=True)
+    cfg = port_cfg(jcfg)
+    r, lam = params.BN254.order, glv.glv_params(cfg.curve).lam
+    rng = np.random.default_rng(6)
+    ks = [0, 1, r - 1, lam, r - lam, 2, r - 2] + [int.from_bytes(rng.bytes(32), "little") % r
+                                                  for _ in range(57)]
+    s = pad_scalars_words(ks, cfg, len(ks))
+    keys, signs = glv.decompose_signed_glv(torch.from_numpy(s), 16, cfg.num_subtasks, cfg)
+    jkeys, jsigns = j_decompose_signed_glv(jnp.asarray(s), 16, jcfg.num_subtasks, jcfg)
+    assert keys.shape == (8, 2 * len(ks))
+    assert np.array_equal(keys.numpy(), np.asarray(jkeys))
+    assert np.array_equal(signs.numpy(), np.asarray(jsigns))
+    assert int(keys.max()) <= 1 << 15
+
+
+def test_payload_decode_with_table_rows_matches_jax():
+    """Payload over a 2n stream (index bits, sign above them) -> the
+    physical row and flags with the phi bit in bit 1, step-major."""
+    n, R = 64, 8
+    rng = np.random.default_rng(5)
+    sbit = (2 * n - 1).bit_length()
+    pv = (rng.permutation(2 * n) | (rng.integers(0, 2, size=2 * n) << sbit)).astype(np.int32)
+    perm, flags = _decode_payload_step_major(torch.from_numpy(pv)[None], sbit, R, table_rows=n)
+    jperm, jflags = j_decode(jnp.asarray(pv), sbit, R, table_rows=n)
+    C = 2 * n // R
+    assert np.array_equal(perm[0].numpy().reshape(-1), np.asarray(jperm))
+    assert np.array_equal(flags[0].numpy().reshape(-1), np.asarray(jflags))
+    assert perm.shape == (1, C, R) and int(perm.max()) < n and set(np.unique(flags.numpy())) <= {0, 1, 2, 3}

@@ -25,7 +25,7 @@ def _import_all(check: str) -> None:
     """Import every module of the port in a fresh process, then run
     ``check`` there."""
     mods = _modules()
-    assert "msm_tpu_torch.ops.scan" in mods and "msm_tpu_torch.models.naive" in mods
+    assert {"msm_tpu_torch.ops.scan", "msm_tpu_torch.models.naive", "msm_tpu_torch.ops.glv"} <= set(mods)
     code = "import importlib, sys\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods
     ) + check

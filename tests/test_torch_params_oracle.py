@@ -44,8 +44,12 @@ def test_derived_constants(name):
 
 
 def test_glv_is_not_ported():
-    with pytest.raises(NotImplementedError, match="GLV"):
-        params.MsmConfig(curve=params.BN254, glv=True).num_subtasks
+    """GLV is ported now: its window count is the JAX package's (8 at c = 16
+    for BN254, not 16). A bad limb width still raises."""
+    for chunk in (16, 13, 8):
+        j = jparams.MsmConfig(curve=jparams.BN254, chunk_size=chunk, glv=True)
+        assert port_cfg(j).num_subtasks == j.num_subtasks
+    assert params.MsmConfig(curve=params.BN254, glv=True).num_subtasks == 8
     with pytest.raises(ValueError):
         params.MsmConfig(curve=params.BN254, word_size=20)
 

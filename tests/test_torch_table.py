@@ -1,7 +1,8 @@
 """Carried state: the point table the JAX package prepares
 (make_convert_pack output) loaded into msm_tpu_torch with load_point_table
 drives the port's scalar-side pipeline to the same window sums as the JAX
-package's window_sums_from_table on the same points and scalars."""
+package's window_sums_from_table on the same points and scalars (under a
+GLV config: test_torch_table_glv.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,8 @@ from msm_tpu_torch.models.geometry import pick_geometry
 
 JCFG = MsmConfig(curve=BN254, chunk_size=8)
 CFG = port_cfg(JCFG)
+JGLV = MsmConfig(curve=BN254, chunk_size=8, compress=True, glv=True)
+GLV = port_cfg(JGLV)
 
 
 def test_loaded_jax_table_gives_jax_window_sums():
@@ -51,3 +54,5 @@ def test_loaded_jax_table_gives_jax_window_sums():
 def test_load_point_table_rejects_bad_shape():
     with pytest.raises(ValueError):
         msm_tpu_torch.load_point_table(np.zeros((4, 15), np.int32), CFG, device="cpu")
+    with pytest.raises(ValueError):  # a plain table under a GLV config
+        msm_tpu_torch.load_point_table(np.zeros((4, 16), np.int32), GLV, device="cpu")
