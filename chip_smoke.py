@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the thirteen CUDA kernels
-   and four GLV modes from msm_tpu_torch/csrc and prints the build time;
+1. prints the card's name and power limit, builds the thirteen CUDA kernels,
+   their six GLV modes and the convert kernel's run-time-constant mode from
+   msm_tpu_torch/csrc and prints the build time;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs, at a small shape and at the shape the 2^20 MSM gives it
    (the pair kernels: the compressed 2^20 shape of models/geometry.py's
@@ -31,14 +32,19 @@
    at 2^16 points and on 2^20 coordinates anywhere in [0, 2^256) (most of
    them >= p), the emission + scan at the compressed 2^16 shape and at
    the TPU rule's old 2^20 shape (R = 1024 lanes, 4 subtasks), the suffix
-   products at the compressed 2^16 shape, and the Fermat kernel over 16 x
+   products at the compressed 2^16 shape, the Fermat kernel over 16 x
    1024, 16 x 2048 and 16 x 4096 lanes (one, p - 1, zero and negated
-   balanced lanes planted) and for e = 0, 1, p - 2 and a 1000-bit e; the
-   ptxas report (registers, frame, spills) of the suffix and Fermat
-   kernels, and their SASS, which must hold no call;
+   balanced lanes planted) and for e = 0, 1, p - 2 and a 1000-bit e, and
+   the forward products and backward emission (kernels 10 and 11) at the
+   compressed 2^20 shape as well as the TPU rule's; the ptxas report
+   (registers, frame, spills) of the word-core pair, Fermat and scaled
+   convert kernels, and their SASS, which must hold no call;
 3. runs compress_pairs on the card at the TPU rule's compressed 2^20 shape
-   (R = 1024 lanes, C = 1024 steps, 4 subtasks) and checks every pair sum
-   and infinity flag against the oracle;
+   (R = 1024 lanes, C = 1024 steps, 4 subtasks) and, under GLV, at the GLV
+   compressed 2^20 shape (G = 8, C = 1024, R = 2048) over points, their
+   phi images and planted pairs, and checks every pair sum and infinity
+   flag against the oracle and that each run launched only its path's
+   kernels;
 4. runs small edge MSMs (edge scalars, duplicate points, P and -P under one
    scalar, identity results, n = 0) on the plain, pair-compressed and naive
    paths;
@@ -58,19 +64,27 @@
 7. at n = 2^20 drives the reference-shaped stage 4 (bucket_accumulate, then
    bucket_reduce_blocked through bpr_phase1): its 16 window sums equal the
    telescoped ones on the same points, and Horner over them is bit-exact;
-8. the GLV configuration (msm_tpu msm --glv): the four GLV modes (convert,
-   scan, pair suffix, emission + scan: three-coordinate table rows x, beta
-   x, y, the x of an element chosen by bit 1 of its flags) against their
-   twins at the GLV 2^20 and 2^16 shapes (the convert also on coordinates
-   >= p; the pair modes over a table of points and their phi images with
-   planted doubling, infinity and equal-x-across-halves pairs); the GLV
+8. the GLV configuration (msm_tpu msm --glv): the six GLV modes (convert,
+   scan, pair suffix, emission + scan, forward products, backward emission:
+   three-coordinate table rows x, beta x, y, the x of an element chosen by
+   bit 1 of its flags) against their twins at the GLV 2^20 and 2^16 shapes
+   (the convert also on coordinates >= p; the pair modes over a table of
+   points and their phi images with planted doubling, infinity and
+   equal-x-across-halves pairs); the GLV
    plain path (pick_config with glv=True: c = 16, S = 8) and the GLV
    compressed path (compress=True, glv=True) driven like the paths above
    (edge MSMs with lambda, r - lambda, negative halves and P beside phi(P);
    bit-exact at 2^20 and 2^16; timings with the scalar split as a stage of
    its own); each path checked to run the GLV modes and not the plain ones;
-9. prints the kernels' JSON line (the GLV modes as entries of their own),
-   then as its last line {"ok": true, "device": {...}}.
+9. the convert kernel with its x constants at run time (convert_pack_scaled:
+   an overridden x constant, two tables sharing y, the triple table with an
+   overridden first constant, the plain default, the triple table with the
+   GLV constants) against its twin at 2^20 points below p and on
+   coordinates anywhere in [0, 2^256), then driven in its five modes with
+   the counters reset just before;
+10. prints the kernels' JSON line (the GLV modes and the scaled convert as
+   entries of their own), then as its last line {"ok": true, "device":
+   {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
 It needs a CUDA device and the repository around it.
@@ -108,10 +122,14 @@ REPLACES = {
     "scan_rows_glv": ("csrc/scan.cu", "msm_tpu/ops/pallas_scan.py:374 (glv)"),
     "pair_suffix_glv": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:427 (glv)"),
     "emit_scan_glv": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:561 (glv)"),
+    "pair_forward_glv": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:205 (glv)"),
+    "pair_backward_glv": ("csrc/compress.cu", "msm_tpu/ops/pallas_compress.py:333 (glv)"),
+    "convert_pack_scaled": ("csrc/convert.cu", "msm_tpu/ops/pallas_convert.py:187 (x_scale_int, dual)"),
 }
 #: the GLV modes, each a wrapper and counter of its own beside its kernel's
 #: plain mode
-GLV_MODES = ("convert_pack_glv", "scan_rows_glv", "pair_suffix_glv", "emit_scan_glv")
+GLV_MODES = ("convert_pack_glv", "scan_rows_glv", "pair_suffix_glv", "emit_scan_glv", "pair_forward_glv",
+             "pair_backward_glv")
 PLAIN_MODES = tuple(m.removesuffix("_glv") for m in GLV_MODES)
 #: the kernels each path must launch; a kernel's count in the JSON line comes
 #: from the first path that lists it
@@ -121,6 +139,7 @@ PATHS = {
     "compressed": ("point_add", "convert_pack", "bucket_hist", "mont_pow", "pair_suffix",
                    "emit_scan", "row_offsets", "point_total", "horner"),
     "pairs": ("pair_forward", "mont_pow", "pair_backward"),
+    "pairs_glv": ("pair_forward_glv", "mont_pow", "pair_backward_glv"),
     "naive": ("point_add", "convert_pack", "bucket_hist", "scan_rows", "row_offsets"),
     "blocked": ("point_add", "convert_pack", "bucket_hist", "scan_rows", "row_offsets",
                 "point_total", "horner", "bpr_phase1"),
@@ -128,16 +147,22 @@ PATHS = {
             "point_total", "horner"),
     "glv_compressed": ("point_add", "convert_pack_glv", "bucket_hist", "mont_pow", "pair_suffix_glv",
                        "emit_scan_glv", "row_offsets", "point_total", "horner"),
+    "convert_scaled": ("convert_pack_scaled",),
 }
 #: the kernels a path must not launch: a GLV path none of the plain modes,
-#: the other paths none of the GLV modes
+#: the other paths none of the GLV modes, no MSM path the scaled convert, and
+#: the pair-value and scaled-convert runs nothing but their own kernels
 EXCLUDED = {
-    "plain": GLV_MODES,
-    "compressed": ("scan_rows",) + GLV_MODES,
-    "naive": ("point_total", "horner", "bpr_phase1") + GLV_MODES,
-    "blocked": GLV_MODES,
-    "glv": PLAIN_MODES + ("pair_suffix_glv", "emit_scan_glv", "mont_pow"),
-    "glv_compressed": PLAIN_MODES + ("scan_rows_glv",),
+    "plain": GLV_MODES + ("convert_pack_scaled",),
+    "compressed": ("scan_rows", "convert_pack_scaled") + GLV_MODES,
+    "naive": ("point_total", "horner", "bpr_phase1", "convert_pack_scaled") + GLV_MODES,
+    "blocked": GLV_MODES + ("convert_pack_scaled",),
+    "glv": PLAIN_MODES + ("pair_suffix_glv", "emit_scan_glv", "mont_pow", "pair_forward_glv",
+                          "pair_backward_glv", "convert_pack_scaled"),
+    "glv_compressed": PLAIN_MODES + ("scan_rows_glv", "pair_forward_glv", "pair_backward_glv",
+                                     "convert_pack_scaled"),
+    **{path: tuple(k for k in REPLACES if k not in PATHS[path])
+       for path in ("pairs", "pairs_glv", "convert_scaled")},
 }
 #: H100 SXM peaks: HBM bytes/s, and 32-bit IMAD per SM per clock (x 132 SMs
 #: x the SM clock that nvidia-smi reports as clocks.max.sm)
@@ -175,6 +200,9 @@ def _kernels():
         "scan_rows_glv": (cuda_scan.scan_rows_glv, cuda_scan.scan_rows_plain),
         "pair_suffix_glv": (cuda_compress.pair_suffix_glv, cuda_compress.pair_suffix_plain),
         "emit_scan_glv": (cuda_compress.emit_scan_glv, cuda_compress.emit_scan_plain),
+        "pair_forward_glv": (cuda_compress.pair_forward_glv, cuda_compress.pair_forward_plain),
+        "pair_backward_glv": (cuda_compress.pair_backward_glv, cuda_compress.pair_backward_plain),
+        "convert_pack_scaled": (cuda_convert.convert_pack_scaled, cuda_convert.convert_pack_scaled_plain),
     }
 
 
@@ -273,8 +301,8 @@ def _field_outputs(name, out, L):
     """A kernel's outputs as (limbs-last field tensors, plain integer
     tensors) for the comparison (a GLV mode's as its kernel's)."""
     name = name.removesuffix("_glv")
-    if name in ("bucket_hist", "convert_pack"):
-        return [], [out]
+    if name in ("bucket_hist", "convert_pack", "convert_pack_scaled"):  # the dual mode: two tables
+        return [], list(out) if isinstance(out, tuple) else [out]
     if name in ("scan_rows", "emit_scan"):  # pe3 rows by coordinate; totals limbs-first
         return [out[0][..., i * L:(i + 1) * L] for i in range(3)] + [a.transpose(1, 2) for a in out[1:]], []
     if name in ("mont_pow", "pair_suffix", "pair_forward"):
@@ -304,12 +332,16 @@ def _products(name, args) -> float:
     11, doubling 8 (the multiplication by 3b is free), to-Montgomery 1 per
     coordinate, Fermat inversion the shorter of the binary chain and the
     4-bit window's (_pow_chains), a squaring at SQUARE_PER_PRODUCT; per pair,
-    suffix and forward products 1, backward emission 6, emission 6 plus the
-    mixed addition's 11. A GLV mode counts as its kernel, the convert with
-    one more product a point (beta x)."""
+    suffix and forward products 1, backward emission 5, emission 5 plus the
+    mixed addition's 11, and one more for a doubling; an infinity pair
+    needs none of these (its d is one and its sum is not read). A GLV mode
+    counts as its kernel, the convert with one more product a point
+    (beta x), as does the scaled convert with a second x constant."""
     shape = args[1].shape
-    if name == "convert_pack_glv":
+    if name == "convert_pack_glv" or (name == "convert_pack_scaled" and args[4] is not None):
         return 3 * shape[0]
+    if name == "convert_pack_scaled":
+        return 2 * shape[0]
     name = name.removesuffix("_glv")
     if name == "point_add":
         return 12 * shape[0]
@@ -331,10 +363,13 @@ def _products(name, args) -> float:
     if name == "bpr_phase1":  # [G, Bl, T, L]: two additions per bucket
         return 24 * shape[0] * shape[1] * shape[2]
     pairs = args[2].numel() // 2
-    if name == "emit_scan":  # one more for a doubling, no mixed add at infinity
-        dbl, inf = _pair_kinds(args)
-        return 16 * pairs + dbl - 11 * inf
-    return {"pair_suffix": 1, "pair_forward": 1, "pair_backward": 6}[name] * pairs
+    dbl, inf = _pair_kinds(args)
+    if name == "emit_scan":
+        return 16 * (pairs - inf) + dbl
+    if name == "pair_backward":
+        return 5 * (pairs - inf) + dbl
+    return pairs - inf  # pair_suffix, pair_forward
+
 
 
 def _pow_chains(e: int) -> list[tuple[int, int]]:
@@ -396,6 +431,9 @@ def _least_bytes(name, args) -> float:
         return 9 * FE_BYTES * a[0].shape[0]
     if name == "convert_pack":  # [n, 16] u16 words x2 -> [n, 2D] (GLV: [n, 3D])
         return a[0].shape[0] * (2 * 16 * 2 + (3 if glv else 2) * FE_BYTES)
+    if name == "convert_pack_scaled":  # (x_scale, dual_x_scale, triple) -> [n, 2D], two or [n, 3D]
+        coords = 2 if args[4] is None else 3 if args[5] else 4
+        return a[0].shape[0] * (2 * 16 * 2 + coords * FE_BYTES)
     if name == "bucket_hist":  # keys [G, n] < NB -> counts [G, NB] <= n
         keys, nb = a[0], a[1]
         return keys.numel() * _int_bytes(nb - 1) + keys.shape[0] * nb * _int_bytes(keys.shape[1])
@@ -528,9 +566,7 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         pair_in = [cfg, table, *map(t, _pair_stream(rng, *((1, 8, 64) if small else (4, 1024, 1024)),
                                                     table.shape[0]))]
         cases["pair_forward"] = (pair_in, False, 3)
-        m = kern["pair_forward"][0](*pair_in)
-        cases["pair_backward"] = ([*pair_in, m, kern["mont_pow"][0](cfg, m[:, -1], cfg.curve.modulus - 2)],
-                                  False, 3)
+        cases["pair_backward"] = (_backward_args(kern, pair_in), False, 3)
         # blocked reduction, phase 1: the 2^20 MSM's 16 windows of 32768
         # body buckets at bpr_threads = 512 lanes (Bl = 64)
         G3, T3, Bl3 = (1, 16, 16) if small else (cfg.num_subtasks, 512, (NB - 1) // 512)
@@ -550,19 +586,21 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         check_redesigned_shapes(kern, rng, base, dev, clock_hz)
         check_convert_emit_shapes(kern, rng, table, dev, clock_hz)
         check_suffix_pow_shapes(kern, rng, table, dev, clock_hz)
+        check_pair_value_shapes(kern, rng, table, dev, clock_hz)
     out.update(check_glv_kernels(kern, aff, clock_hz, sizes, dev))
+    out.update(check_convert_scaled(kern, clock_hz, sizes, dev))
     return out
 
 
 def check_glv_kernels(kern, aff, clock_hz: float, sizes, dev) -> dict:
-    """The four GLV modes against their twins, after every other check and
+    """The six GLV modes against their twins, after every other check and
     on a random stream of their own (so the checks above draw the same
     inputs as before GLV came): at a small shape and at the GLV 2^20 MSM's
     shapes (c = 16, S = 8, every subtask 2^21 entries; the scan G4 C128
     R16384, the pair modes the compressed rule's G8 C1024 R2048 over a
-    table of 128 points and their phi images), then at the GLV 2^16
-    shapes (check_glv_shapes). Returns per-mode results from the 2^20
-    shapes."""
+    table of 128 points and their phi images: the four pair kernels on one
+    stream), then at the GLV 2^16 shapes (check_glv_shapes). Returns
+    per-mode results from the 2^20 shapes."""
     from msm_tpu_torch.ops.field import get_field_ctx
     from msm_tpu_torch.params import BN254, MsmConfig, pick_config
 
@@ -586,6 +624,8 @@ def check_glv_kernels(kern, aff, clock_hz: float, sizes, dev) -> dict:
             "scan_rows_glv": ([cfg, *_glv_scan_inputs(rng, n, G, R, cfg, dev)], 3),
             "pair_suffix_glv": (pair_in, 3),
             "emit_scan_glv": (_emit_scan_args(kern, pair_in), 3),
+            "pair_forward_glv": (pair_in, 3),
+            "pair_backward_glv": (_backward_args(kern, pair_in), 3),
         }
         for name, (args, reps) in cases.items():
             out[name] = {**_check_case(kern, f, L, name, size, args, False, reps, clock_hz), "library_ms": None}
@@ -707,6 +747,98 @@ def _emit_scan_args(kern, pair_in) -> list:
     return [*pair_in, s, kern["mont_pow"][0](cfg, s[:, 0], cfg.curve.modulus - 2)]
 
 
+def _backward_args(kern, pair_in) -> list:
+    """pair_backward's inputs on a pair stream: the forward kernel's
+    products and the Fermat kernel's inverse of the last, as compress_pairs
+    feeds it."""
+    cfg = pair_in[0]
+    m = kern["pair_forward"][0](*pair_in)
+    return [*pair_in, m, kern["mont_pow"][0](cfg, m[:, -1], cfg.curve.modulus - 2)]
+
+
+def check_pair_value_shapes(kern, rng, table, dev, clock_hz) -> None:
+    """Kernels 10 and 11 (compress_pairs's forward products and backward
+    emission) at the compressed 2^20 MSM's shape, the suffix products'
+    G16 C512 R2048, exact against their twins (check_kernels holds them at
+    the TPU rule's G4 C1024 R1024, the parent's shape)."""
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import BN254, MsmConfig
+
+    cfg = MsmConfig(curve=BN254, compress=True)
+    f, L = get_field_ctx(cfg), cfg.num_words
+    G, C, R = _compressed_shape(1 << 20, cfg)
+    pair_in = [cfg, table, *(torch.from_numpy(a).to(dev) for a in _pair_stream(rng, G, C, R, table.shape[0]))]
+    label = f"2^20 G{G} C{C} R{R}"
+    _check_case(kern, f, L, "pair_forward", label, pair_in, False, 3, clock_hz)
+    _check_case(kern, f, L, "pair_backward", label, _backward_args(kern, pair_in), False, 3, clock_hz)
+
+
+def _scaled_modes(cfg) -> list:
+    """(label, x_scale, dual_x_scale, triple) of the scaled convert's
+    modes: an x constant overriding R^2, two tables (x R, beta x R) sharing
+    y, the triple table with an overridden first constant, the plain
+    default, and the triple table with the GLV constants (convert_pack_glv's
+    function, timed beside it)."""
+    from msm_tpu_torch.ops.glv import glv_params
+
+    q = cfg.curve.modulus
+    beta_r2 = glv_params(cfg.curve).beta * cfg.r2 % q
+    override = (SEED << 200) * cfg.r2 % q
+    return [("override", override, None, False), ("dual", None, beta_r2, False),
+            ("triple_override", override, beta_r2, True), ("default", None, None, False),
+            ("triple", None, beta_r2, True)]
+
+
+def check_convert_scaled(kern, clock_hz: float, sizes, dev) -> dict:
+    """The convert kernel with run-time x constants (convert_pack_scaled)
+    in its five modes against its twin, on a random stream of its own after
+    every other check: at 2048 points and at 2^20, below p and (2^20)
+    anywhere in [0, 2^256). Returns the two-table mode's result at 2^20
+    below p, the mode no other kernel has."""
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import BN254, MsmConfig
+
+    rng = np.random.default_rng(SEED + 10)
+    cfg = MsmConfig(curve=BN254)
+    f, L, q = get_field_ctx(cfg), cfg.num_words, cfg.curve.modulus
+    out = {}
+    for size in sizes:
+        n = 2048 if size == "small" else 1 << 20
+        for top_label, top in ((("", q),) if size == "small" else (("", q), (" >=p", None))):
+            words = [torch.from_numpy(a).to(dev) for a in _coord_words(rng, n, top)]
+            for label, xs, xs2, triple in _scaled_modes(cfg):
+                res = _check_case(kern, f, L, "convert_pack_scaled", f"{size}{top_label} {label}",
+                                  [cfg, *words, xs, xs2, triple], False, 5, clock_hz)
+                if label == "dual" and top is not None:
+                    out["convert_pack_scaled"] = {**res, "library_ms": None}
+    return out
+
+
+def run_convert_scaled(device="cuda") -> dict:
+    """The scaled convert driven in its five modes at 2^20 points whose
+    coordinates lie anywhere in [0, 2^256), counters reset just before:
+    every output equal to its twin's. Returns the counts."""
+    from msm_tpu_torch.ops.cuda_convert import convert_pack_scaled, convert_pack_scaled_plain
+    from msm_tpu_torch.params import BN254, MsmConfig
+
+    cfg = MsmConfig(curve=BN254)
+    rng = np.random.default_rng(SEED + 11)
+    x, y = (torch.from_numpy(a).to(device) for a in _coord_words(rng, 1 << 20, None))
+    modes = _scaled_modes(cfg)
+    _reset_counts()
+    outs = [convert_pack_scaled(cfg, x, y, xs, xs2, triple) for _, xs, xs2, triple in modes]
+    torch.cuda.synchronize()
+    counts = _counts_of("convert_pack_scaled 2^20 (five modes)", "convert_scaled")
+    for (label, xs, xs2, triple), got in zip(modes, outs):
+        want = convert_pack_scaled_plain(cfg, x, y, xs, xs2, triple)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"convert_pack_scaled ({label}) differs from its twin")
+    print(f"convert_pack_scaled: {', '.join(m[0] for m in modes)} at 2^20 (coordinates in [0, 2^256)) "
+          "equal the twin's tables", flush=True)
+    return counts
+
+
 def check_convert_emit_shapes(kern, rng, table, dev, clock_hz) -> None:
     """The two kernels redesigned on the word core at the shapes the checks
     above miss, exact against their twins: the convert kernel at 2^16
@@ -769,12 +901,19 @@ def check_suffix_pow_shapes(kern, rng, table, dev, clock_hz) -> None:
                     False, 3, clock_hz)
 
 
+def _mangled(kernel: str) -> str:
+    """The part of a kernel's mangled name that names it: ``k_x`` ->
+    ``3k_x``, a template's instance ``k_x<1>`` -> ``3k_xILi1EE``."""
+    name, _, arg = kernel.partition("<")
+    return f"{len(name)}{name}" + (f"ILi{arg.rstrip('>')}EE" if arg else "")
+
+
 def _ptxas(log: str, kernel: str) -> dict:
-    """ptxas's report of the kernel whose mangled name holds ``kernel``:
-    registers, stack frame and spill bytes."""
+    """ptxas's report of the kernel whose mangled name holds ``kernel``
+    (_mangled): registers, stack frame and spill bytes."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and f"{len(kernel)}{kernel}" in line:
+        if "Compiling entry function" in line and _mangled(kernel) in line:
             text = " ".join(lines[i + 1:i + 4])
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", text)
             regs = re.search(r"Used (\d+) registers", text)
@@ -796,7 +935,7 @@ def _sass_calls(obj, kernel: str) -> tuple[int, int]:
     inside = False
     for line in text.splitlines():
         if "Function : " in line:
-            inside = f"{len(kernel)}{kernel}" in line
+            inside = _mangled(kernel) in line
         elif inside and re.match(r"\s*/\*[0-9a-f]+\*/\s", line):
             n += 1
             calls += bool(re.search(r"\bCALL\b", line))
@@ -806,12 +945,16 @@ def _sass_calls(obj, kernel: str) -> tuple[int, int]:
 
 
 def report_word_core_builds(so) -> None:
-    """One line per redesigned stage-3 kernel of the compressed path: its
-    ptxas registers, frame and spills and its SASS size; raises when the
-    SASS holds an out-of-line call."""
+    """One line per word-core pair kernel (both modes of the suffix
+    products, the forward products and the backward emission), the Fermat
+    kernel and each layout of the scaled convert: its ptxas registers,
+    frame and spills and its SASS size; raises when the SASS holds an
+    out-of-line call."""
     log = (so.parent / "build.log").read_text()
-    for kernel, obj in (("k_pair_suffix", "compress.o"), ("k_mont_pow", "inv.o"),
-                        ("k_pair_suffix_glv", "compress.o")):
+    kernels = [(k, "compress.o") for k in ("k_pair_suffix", "k_pair_suffix_glv", "k_pair_forward",
+                                           "k_pair_forward_glv", "k_pair_backward", "k_pair_backward_glv")]
+    kernels += [("k_mont_pow", "inv.o")] + [(f"k_convert_scaled<{i}>", "convert.o") for i in range(3)]
+    for kernel, obj in kernels:
         rep = _ptxas(log, kernel)
         n, calls = _sass_calls(so.parent / obj, kernel)
         print(f"ptxas {kernel}: registers={rep['registers']} frame={rep['frame']} B "
@@ -1214,50 +1357,74 @@ def edge_checks(path: str, device="cuda") -> None:
     print(f"edge MSMs ({path}: {', '.join(cases)}, n = 0): bit-exact", flush=True)
 
 
-def check_pairs(shape=(4, 1024, 1024), device="cuda") -> dict:
-    """compress_pairs on the card at the TPU rule's compressed 2^20 shape (4
-    subtasks, C = 1024 steps, R = 1024 lanes) over 16 points with planted doubling and
-    infinity pairs: every pair sum and every infinity flag against the
-    oracle (all 32 x 32 signed pairs precomputed). Counters are reset just
-    before; returns them."""
+def check_pairs(glv: bool = False, device="cuda") -> dict:
+    """compress_pairs on the card, counters reset just before: every pair
+    sum and every infinity flag against the oracle (the sums of all signed
+    elements precomputed), and only the path's kernels launched. Without
+    GLV at the TPU rule's compressed 2^20 shape (4 subtasks, C = 1024
+    steps, R = 1024 lanes) over 16 points with planted doubling and
+    infinity pairs; under GLV at the GLV compressed 2^20 shape (8 subtasks,
+    C = 1024, R = 2048) over a table of 8 points and their phi images, an
+    element taking x or beta x by flag bit 1, with planted doubling,
+    infinity and equal-x-across-halves pairs. Returns the counts."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import BN254, MsmConfig
     from msm_tpu_torch.ops.cuda_compress import compress_pairs
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.ops.glv import glv_params
 
-    cfg = MsmConfig(curve=BN254, compress=True)
+    cfg = MsmConfig(curve=BN254, compress=True, glv=glv)
     f, cv, q = get_field_ctx(cfg), Curve(BN254), BN254.modulus
-    pts_j = cv.sample_points(16, seed=SEED + 7)
-    aff = [cv.to_affine(p) for p in pts_j]
-    signed = pts_j + [cv.neg(p) for p in pts_j]  # element k: point k % 16, sign k // 16
-    sums = [[cv.add(a, b) for b in signed] for a in signed]
-    inf_want = np.array([[s.z % q == 0 for s in row] for row in sums])
-    xy = [[(0, 0) if s.z % q == 0 else cv.to_affine(s) for s in row] for row in sums]
+    beta = glv_params(BN254).beta
+    if glv:
+        aff = [cv.to_affine(p) for p in cv.sample_points(8, seed=SEED + 12)]
+        table = _glv_table(aff, cfg)
+        aff = aff + [(x * beta % q, y) for x, y in aff]  # the table's rows
+        rng, shape, phis = np.random.default_rng(SEED + 13), (8, 1024, 2048), 2
+        perm, flags = _glv_pair_stream(rng, *shape, len(aff))
+    else:
+        aff = [cv.to_affine(p) for p in cv.sample_points(16, seed=SEED + 7)]
+        table = torch.cat([pack_canonical(torch.from_numpy(_mont(c, cfg)), cfg) for c in zip(*aff)], dim=-1)
+        rng, shape, phis = np.random.default_rng(SEED + 8), (4, 1024, 1024), 1
+        perm, flags = _pair_stream(rng, *shape, len(aff))
+    rows = len(aff)
+    # element k = row + rows (phi bit) + rows phis (sign): its affine point
+    elems = [(x * beta ** phi % q, (q - y) % q if sign else y)
+             for sign in (0, 1) for phi in range(phis) for x, y in aff]
+    sums = [[cv.add(cv.from_affine(*a), cv.from_affine(*b)) for b in elems] for a in elems]
+    inf_want = np.array([[sm.z % q == 0 for sm in row] for row in sums])
+    xy = [[(0, 0) if sm.z % q == 0 else cv.to_affine(sm) for sm in row] for row in sums]
+    dbl_kind = np.array([[a == b for b in elems] for a in elems])
+    cross_kind = np.array([[a[0] == b[0] and ka % rows != kb % rows for kb, b in enumerate(elems)]
+                           for ka, a in enumerate(elems)])
     dev = torch.device(device)
-    want_x, want_y = (torch.from_numpy(_mont([v[i] for row in xy for v in row], cfg).reshape(32, 32, -1)).to(dev)
+    n_el = len(elems)
+    want_x, want_y = (torch.from_numpy(_mont([v[i] for row in xy for v in row], cfg).reshape(n_el, n_el, -1)).to(dev)
                       for i in range(2))
-    table = torch.cat([pack_canonical(torch.from_numpy(_mont(c, cfg)), cfg) for c in zip(*aff)], dim=-1).to(dev)
-    rng = np.random.default_rng(SEED + 8)
-    perm, flags = _pair_stream(rng, *shape, 16)
+    tag = f"compress_pairs{' GLV' if glv else ''} G{shape[0]} C{shape[1]} R{shape[2]}"
+    args = [table.to(dev), *(torch.from_numpy(a).to(dev) for a in (perm, flags))]
     _reset_counts()
-    cx, cy, inf = compress_pairs(cfg, table, *(torch.from_numpy(a).to(dev) for a in (perm, flags)))
+    cx, cy, inf = compress_pairs(cfg, *args)
     torch.cuda.synchronize()
-    counts = {name: w.launches for name, (w, _) in _kernels().items()}
-    k = torch.from_numpy(perm + 16 * (flags & 1)).to(dev).long()
+    counts = _counts_of(tag, "pairs_glv" if glv else "pairs")
+    k = torch.from_numpy(perm + rows * ((flags >> 1) & 1) + rows * phis * (flags & 1)).to(dev).long()
     k1, k2 = k[:, 0::2], k[:, 1::2]  # [G, Cp, R]
     want_inf = torch.from_numpy(inf_want).to(dev)[k1, k2]
     if not torch.equal(inf.bool(), want_inf):
-        raise AssertionError(f"{int((inf.bool() != want_inf).sum())} infinity flags differ from the oracle")
+        raise AssertionError(f"{tag}: {int((inf.bool() != want_inf).sum())} infinity flags differ from the oracle")
     ok = ~want_inf
     for got, want in ((cx, want_x), (cy, want_y)):
         g = f.canonical(got.transpose(-1, -2))[ok]
         if not torch.equal(g, want[k1, k2][ok]):
-            raise AssertionError("pair sums differ from the oracle")
-    n_inf, n_dbl = int(want_inf.sum()), int(((k1 == k2) & ok).sum())
-    print(f"compress_pairs: {k1.numel()} pair sums and flags equal the oracle ({n_dbl} doublings, "
-          f"{n_inf} infinity pairs); launches {json.dumps({n: counts[n] for n in PATHS['pairs']})}",
-          flush=True)
+            raise AssertionError(f"{tag}: pair sums differ from the oracle")
+    n_inf = int(want_inf.sum())
+    n_dbl = int(torch.from_numpy(dbl_kind).to(dev)[k1, k2].sum())
+    n_cross = int(torch.from_numpy(cross_kind).to(dev)[k1, k2].sum())
+    print(f"{tag}: {k1.numel()} pair sums and flags equal the oracle ({n_dbl} doublings, {n_inf} infinity "
+          f"pairs, {n_cross} of equal x across rows)", flush=True)
+    if not (n_dbl and n_inf and (n_cross or not glv)):
+        raise AssertionError(f"{tag}: the planted pairs are missing")
     return counts
 
 
@@ -1432,10 +1599,11 @@ def main() -> int:
 
     print(f"oracle: {'C++' if native.native_available() else 'python'}", flush=True)
     checks = check_kernels(clock_mhz * 1e6)
-    pair_counts = check_pairs()
+    pair_counts = {"pairs": check_pairs(), "pairs_glv": check_pairs(glv=True),
+                   "convert_scaled": run_convert_scaled()}
     for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
         edge_checks(path)
-    by_path = {**run_msm_checks(), "pairs": pair_counts}
+    by_path = {**run_msm_checks(), **pair_counts}
     rows = []
     for name, (src, rep) in REPLACES.items():
         c = checks[name]

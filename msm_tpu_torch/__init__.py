@@ -20,8 +20,7 @@ plain (``MsmConfig(curve=BN254)``, ``pick_config(n)``) or pair-compressed
 (``compress=True``, as ``msm_tpu msm --compress`` runs it), each with or
 without the GLV split (``glv=True``, ``msm_tpu msm --glv``). Karatsuba,
 other curves and other limb widths raise ``NotImplementedError`` on CUDA,
-as do the naive model under GLV (on every device) and ``compress_pairs``
-under GLV.
+as does the naive model under GLV (on every device).
 """
 
 from __future__ import annotations

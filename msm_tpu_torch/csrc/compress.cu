@@ -1,8 +1,8 @@
 // Batched-affine pair compression of the sorted stream: the four pair
-// kernels, one thread per (subtask, lane) chain. The suffix products and
-// the fused emission + scan run on the word core (the shared pair algebra
-// and the suffix's per-lane body in pair32.cuh, emit_scan.cuh); the forward
-// and backward kernels on the 13-bit core (pair.cuh).
+// kernels, one thread per (subtask, lane) chain, all on the word core: the
+// shared pair algebra and the per-lane bodies of the forward products, the
+// backward emission and the suffix products in pair32.cuh, the fused
+// emission + scan in emit_scan.cuh.
 //
 // Replaces, in msm_tpu/ops/pallas_compress.py: make_pair_suffix (pallas_call
 // at :427), make_emit_scan (:561), make_pair_forward (:205) and
@@ -13,67 +13,66 @@
 // running value in registers.
 //
 // GLV modes (the TPU kernels' _load_pair_point, pallas_compress.py:122-140):
-// k_pair_suffix_glv and k_emit_scan_glv are the same bodies over the GLV
-// table's rows x, beta x, y (COORDS = 3 in pair32.cuh and emit_scan.cuh):
-// an element's x is the half bit 1 of its flags names. Kernels 10 and 11
-// have no GLV mode yet: compress_pairs raises for a GLV config on CUDA.
+// k_pair_forward_glv, k_pair_backward_glv, k_pair_suffix_glv and
+// k_emit_scan_glv are the same bodies over the GLV table's rows x, beta x,
+// y (COORDS = 3 in pair32.cuh and emit_scan.cuh): an element's x is the
+// half bit 1 of its flags names.
 //
 // Bound: Montgomery products per pair, in series along each lane's chain
-// (suffix and forward 1, backward 6, emit+scan 5 + the 11 of the mixed add,
+// (suffix and forward 1, backward 5, emit+scan 5 + the 11 of the mixed add,
 // and one more for a doubling), plus two 64 B random gathers per pair. A
 // chain's steps are serial, so a launch fills the card only with enough
 // chains: the compressed geometry (models/geometry.py) gives G x R = 16 x
 // 2048 chains per launch at 2^20 (the TPU's rule gave 4 x 1024).
-//   - k_emit_scan (emit_scan.cuh): the word core with every function
-//     inlined, the accumulator and the inverse chain in registers; 128
-//     threads a block and __launch_bounds__(128, 4), as the scan kernel
-//     (csrc/scan.cu). The inverse chain's two products (inv(d_j), t_{j+1})
+// Every kernel runs 128 threads a block with __launch_bounds__(128, 4), as
+// the scan kernel (csrc/scan.cu): the word core inlined, the chain values
+// in registers. With few chains (4 x 1024 at the TPU rule's shape, 32
+// blocks) each block's four warps sit on the four schedulers of one SM,
+// which gives a chain the issue rate a warp alone on an SM would.
+//   - k_emit_scan (emit_scan.cuh): the accumulator and the inverse chain
+//     in registers. The inverse chain's two products (inv(d_j), t_{j+1})
 //     do not wait on the accumulator, so their latency overlaps the mixed
 //     add's. From 8 warps per SM on (16 x 2048 chains), more chains no
 //     longer shorten the launch (scripts/torch_compress_geometry.py); the
 //     launch-plan and prefetch variants are in
 //     scripts/torch_emit_scan_variants.py (PERF.md).
-//   - k_pair_suffix (pair32.cuh): one product a pair, so a step lasts as
-//     long as its gathers unless they are hidden: the word core inlined;
-//     only the x coordinates gathered (y where x1 == x2), half the bytes
-//     of full rows; the next pair's gathers issued before this pair's
-//     product. The plan of k_emit_scan: 128 threads a block,
-//     __launch_bounds__(128, 4). Deeper pipelines, streaming stores,
-//     full-row gathers, a chain split over 2 or 4 threads (two passes, the
-//     segment offsets combined in shared memory) and the 13-bit kernel this
-//     one replaced are timed against each other by
-//     scripts/torch_suffix_pow_variants.py (PERF.md). The output keeps the
-//     13-bit limb layout kernel 13 reads: at 2^20 that is 671 MB of s (80 B
-//     an element) where words would be 268 MB.
-//   - k_pair_forward, k_pair_backward: 13-bit formulas out of line
-//     (MSM_HD_CALL), blocks one warp wide to spread few chains over the
-//     SMs.
+//   - k_pair_suffix and k_pair_forward (pair32.cuh): one product a pair,
+//     so a step lasts as long as its gathers unless they are hidden: only
+//     the x coordinates gathered (y where x1 == x2), half the bytes of full
+//     rows; the next pair's gathers issued before this pair's product.
+//     Deeper pipelines, streaming stores, full-row gathers, a chain split
+//     over 2 or 4 threads (two passes, the segment offsets combined in
+//     shared memory) and the 13-bit suffix kernel this one replaced are
+//     timed against each other by scripts/torch_suffix_pow_variants.py
+//     (PERF.md). The output keeps the 13-bit limb layout kernels 9, 11 and
+//     13 read: at 2^20 that is 671 MB of s (80 B an element) where words
+//     would be 268 MB.
+//   - k_pair_backward (pair32.cuh): the full rows of a pair (the emission
+//     needs both y), m_{j-1} read as canonical limbs, then the products.
 #include <cuda_runtime.h>
 
 #include "emit_scan.cuh"
-#include "pair.cuh"
 
 using namespace msm;
 
-constexpr int THREADS = 32;
-constexpr int EMIT_THREADS = 128;
-constexpr int SUFFIX_THREADS = 128;
+constexpr int THREADS = 128;
 
 // Thread (blockIdx.y, r) walks the chain of subtask blockIdx.y, lane r.
 __device__ __forceinline__ int lane() {
   return blockIdx.x * blockDim.x + threadIdx.x;
 }
 
-__global__ void __launch_bounds__(SUFFIX_THREADS, 4)
+__global__ void __launch_bounds__(THREADS, 4)
     k_pair_suffix(const int32_t* __restrict__ packed,
                   const int32_t* __restrict__ perm,
                   const int32_t* __restrict__ flags, int32_t* __restrict__ s,
                   int Cp, int R) {
   const int r = lane();
-  if (r < R) pair_suffix32_lane(packed, perm, flags, s, blockIdx.y, Cp, R, r);
+  if (r < R)
+    pair_chain32_lane<2, false>(packed, perm, flags, s, blockIdx.y, Cp, R, r);
 }
 
-__global__ void __launch_bounds__(EMIT_THREADS, 4)
+__global__ void __launch_bounds__(THREADS, 4)
     k_emit_scan(const int32_t* __restrict__ packed,
                 const int32_t* __restrict__ perm,
                 const int32_t* __restrict__ flags,
@@ -87,17 +86,17 @@ __global__ void __launch_bounds__(EMIT_THREADS, 4)
                    R, r);
 }
 
-__global__ void __launch_bounds__(SUFFIX_THREADS, 4)
+__global__ void __launch_bounds__(THREADS, 4)
     k_pair_suffix_glv(const int32_t* __restrict__ packed,
                       const int32_t* __restrict__ perm,
                       const int32_t* __restrict__ flags,
                       int32_t* __restrict__ s, int Cp, int R) {
   const int r = lane();
   if (r < R)
-    pair_suffix32_lane<3>(packed, perm, flags, s, blockIdx.y, Cp, R, r);
+    pair_chain32_lane<3, false>(packed, perm, flags, s, blockIdx.y, Cp, R, r);
 }
 
-__global__ void __launch_bounds__(EMIT_THREADS, 4)
+__global__ void __launch_bounds__(THREADS, 4)
     k_emit_scan_glv(const int32_t* __restrict__ packed,
                     const int32_t* __restrict__ perm,
                     const int32_t* __restrict__ flags,
@@ -111,16 +110,27 @@ __global__ void __launch_bounds__(EMIT_THREADS, 4)
                       Cp, R, r);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
     k_pair_forward(const int32_t* __restrict__ packed,
                    const int32_t* __restrict__ perm,
                    const int32_t* __restrict__ flags, int32_t* __restrict__ m,
                    int Cp, int R) {
   const int r = lane();
-  if (r < R) pair_forward_lane(packed, perm, flags, m, blockIdx.y, Cp, R, r);
+  if (r < R)
+    pair_chain32_lane<2, true>(packed, perm, flags, m, blockIdx.y, Cp, R, r);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
+    k_pair_forward_glv(const int32_t* __restrict__ packed,
+                       const int32_t* __restrict__ perm,
+                       const int32_t* __restrict__ flags,
+                       int32_t* __restrict__ m, int Cp, int R) {
+  const int r = lane();
+  if (r < R)
+    pair_chain32_lane<3, true>(packed, perm, flags, m, blockIdx.y, Cp, R, r);
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
     k_pair_backward(const int32_t* __restrict__ packed,
                     const int32_t* __restrict__ perm,
                     const int32_t* __restrict__ flags,
@@ -130,8 +140,22 @@ __global__ void __launch_bounds__(THREADS)
                     int32_t* __restrict__ inf, int Cp, int R) {
   const int r = lane();
   if (r < R)
-    pair_backward_lane(packed, perm, flags, m, minv, cx, cy, inf, blockIdx.y, Cp,
-                       R, r);
+    pair_backward32_lane<2>(packed, perm, flags, m, minv, cx, cy, inf,
+                             blockIdx.y, Cp, R, r);
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+    k_pair_backward_glv(const int32_t* __restrict__ packed,
+                        const int32_t* __restrict__ perm,
+                        const int32_t* __restrict__ flags,
+                        const int32_t* __restrict__ m,
+                        const int32_t* __restrict__ minv,
+                        int32_t* __restrict__ cx, int32_t* __restrict__ cy,
+                        int32_t* __restrict__ inf, int Cp, int R) {
+  const int r = lane();
+  if (r < R)
+    pair_backward32_lane<3>(packed, perm, flags, m, minv, cx, cy, inf,
+                             blockIdx.y, Cp, R, r);
 }
 
 static dim3 lane_grid(int64_t groups, int R) {
@@ -143,12 +167,9 @@ extern "C" int msm_pair_suffix(const int32_t* packed, const int32_t* perm,
                                const int32_t* flags, int32_t* s,
                                int64_t groups, int Cp, int R, void* stream) {
   if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0) {
-    const dim3 grid((unsigned)((R + SUFFIX_THREADS - 1) / SUFFIX_THREADS),
-                    (unsigned)groups);
-    k_pair_suffix<<<grid, SUFFIX_THREADS, 0, (cudaStream_t)stream>>>(
+  if (groups > 0 && R > 0 && Cp > 0)
+    k_pair_suffix<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, s, Cp, R);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -160,12 +181,9 @@ extern "C" int msm_emit_scan(const int32_t* packed, const int32_t* perm,
                              int32_t* ty, int32_t* tz, int64_t groups, int Cp,
                              int R, void* stream) {
   if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0) {
-    const dim3 grid((unsigned)((R + EMIT_THREADS - 1) / EMIT_THREADS),
-                    (unsigned)groups);
-    k_emit_scan<<<grid, EMIT_THREADS, 0, (cudaStream_t)stream>>>(
+  if (groups > 0 && R > 0 && Cp > 0)
+    k_emit_scan<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -176,12 +194,9 @@ extern "C" int msm_pair_suffix_glv(const int32_t* packed, const int32_t* perm,
                                    int64_t groups, int Cp, int R,
                                    void* stream) {
   if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0) {
-    const dim3 grid((unsigned)((R + SUFFIX_THREADS - 1) / SUFFIX_THREADS),
-                    (unsigned)groups);
-    k_pair_suffix_glv<<<grid, SUFFIX_THREADS, 0, (cudaStream_t)stream>>>(
-        packed, perm, flags, s, Cp, R);
-  }
+  if (groups > 0 && R > 0 && Cp > 0)
+    k_pair_suffix_glv<<<lane_grid(groups, R), THREADS, 0,
+                        (cudaStream_t)stream>>>(packed, perm, flags, s, Cp, R);
   return (int)cudaGetLastError();
 }
 
@@ -191,19 +206,17 @@ extern "C" int msm_emit_scan_glv(const int32_t* packed, const int32_t* perm,
                                  int32_t* ty, int32_t* tz, int64_t groups,
                                  int Cp, int R, void* stream) {
   if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0) {
-    const dim3 grid((unsigned)((R + EMIT_THREADS - 1) / EMIT_THREADS),
-                    (unsigned)groups);
-    k_emit_scan_glv<<<grid, EMIT_THREADS, 0, (cudaStream_t)stream>>>(
+  if (groups > 0 && R > 0 && Cp > 0)
+    k_emit_scan_glv<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
-  }
   return (int)cudaGetLastError();
 }
 
-// ... m [G, Cp, L, R]
+// ... m [G, Cp, L, R]; packed 16-byte aligned
 extern "C" int msm_pair_forward(const int32_t* packed, const int32_t* perm,
                                 const int32_t* flags, int32_t* m,
                                 int64_t groups, int Cp, int R, void* stream) {
+  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0)
     k_pair_forward<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, m, Cp, R);
@@ -211,15 +224,43 @@ extern "C" int msm_pair_forward(const int32_t* packed, const int32_t* perm,
 }
 
 // ... m [G, Cp, L, R] canonical; minv [G, L, R]; cx, cy [G, Cp, L, R];
-// inf [G, Cp, R]
+// inf [G, Cp, R]; packed 16-byte aligned
 extern "C" int msm_pair_backward(const int32_t* packed, const int32_t* perm,
                                  const int32_t* flags, const int32_t* m,
                                  const int32_t* minv, int32_t* cx, int32_t* cy,
                                  int32_t* inf, int64_t groups, int Cp, int R,
                                  void* stream) {
+  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0)
     k_pair_backward<<<lane_grid(groups, R), THREADS, 0,
                       (cudaStream_t)stream>>>(packed, perm, flags, m, minv, cx,
                                               cy, inf, Cp, R);
+  return (int)cudaGetLastError();
+}
+
+// The GLV modes of kernels 10 and 11: packed [N, 3D] (the GLV table); the
+// rest as msm_pair_forward and msm_pair_backward.
+extern "C" int msm_pair_forward_glv(const int32_t* packed, const int32_t* perm,
+                                    const int32_t* flags, int32_t* m,
+                                    int64_t groups, int Cp, int R,
+                                    void* stream) {
+  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0)
+    k_pair_forward_glv<<<lane_grid(groups, R), THREADS, 0,
+                         (cudaStream_t)stream>>>(packed, perm, flags, m, Cp, R);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int msm_pair_backward_glv(const int32_t* packed,
+                                     const int32_t* perm,
+                                     const int32_t* flags, const int32_t* m,
+                                     const int32_t* minv, int32_t* cx,
+                                     int32_t* cy, int32_t* inf, int64_t groups,
+                                     int Cp, int R, void* stream) {
+  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0)
+    k_pair_backward_glv<<<lane_grid(groups, R), THREADS, 0,
+                          (cudaStream_t)stream>>>(packed, perm, flags, m, minv,
+                                                  cx, cy, inf, Cp, R);
   return (int)cudaGetLastError();
 }

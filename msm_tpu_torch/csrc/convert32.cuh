@@ -11,6 +11,11 @@
 // The GLV table (convert_point_glv) has three coordinates a row, x R,
 // beta x R and y R: one more product, by beta R^2 mod p, gives the x of
 // phi(P) = (beta x, y) in Montgomery form from the same reduced x.
+//
+// convert_point_scaled takes the x constants at run time (the JAX
+// factory's x_scale_int and dual_x_scale_int, canonical words) and writes
+// one of three layouts: one [n, 2D] table, two [n, 2D] tables sharing y,
+// or one [n, 3D] table.
 #pragma once
 
 #include "fe32.cuh"
@@ -92,6 +97,49 @@ MSM_HD void convert_point_glv(const int16_t* xw, const int16_t* yw,
   convert_store(row, x);
   convert_store(row + NW, bx);
   convert_store(row + 2 * NW, y);
+}
+
+// Output layouts of convert_point_scaled: out [n, 2 NW] rows x xs || y R;
+// out, out2 [n, 2 NW] rows x xs || y R and x xs2 || y R; out [n, 3 NW]
+// rows x xs || x xs2 || y R.
+constexpr int CONVERT_ONE = 0;
+constexpr int CONVERT_DUAL = 1;
+constexpr int CONVERT_TRIPLE = 2;
+
+// Point i with run-time x constants xs, xs2 (canonical; a product by c
+// takes x to x c R^-1 mod p, so c = R^2 gives x R and c = beta R^2 gives
+// beta x R); y always enters Montgomery form by R^2. xs2 and out2 are read
+// only by the layouts that name them.
+template <int LAYOUT>
+MSM_HD void convert_point_scaled(const int16_t* xw, const int16_t* yw,
+                                 const fe32& xs, const fe32& xs2, int32_t* out,
+                                 int32_t* out2, int64_t i) {
+  fe32 r2, x, y, x1;
+  MSM_UNROLL
+  for (int k = 0; k < NW; ++k) r2.w[k] = r2_word(k);
+  convert_load(x, xw + i * COORD_U16);
+  convert_load(y, yw + i * COORD_U16);
+  fe32_reduce_full(x);
+  fe32_reduce_full(y);
+  fe32_mul(x1, x, xs);
+  fe32_mul(y, y, r2);
+  if constexpr (LAYOUT == CONVERT_TRIPLE) {
+    fe32 x2;
+    fe32_mul(x2, x, xs2);
+    int32_t* row = out + i * 3 * NW;
+    convert_store(row, x1);
+    convert_store(row + NW, x2);
+    convert_store(row + 2 * NW, y);
+  } else {
+    convert_store(out + i * 2 * NW, x1);
+    convert_store(out + i * 2 * NW + NW, y);
+    if constexpr (LAYOUT == CONVERT_DUAL) {
+      fe32 x2;
+      fe32_mul(x2, x, xs2);
+      convert_store(out2 + i * 2 * NW, x2);
+      convert_store(out2 + i * 2 * NW + NW, y);
+    }
+  }
 }
 
 }  // namespace msm

@@ -11,8 +11,9 @@
 //     num = y2' - y1' | 3 x1^2 (doubling)
 //     lam = num / d,  x3 = lam^2 - x1 - x2,  y3 = lam (x1 - x3) - y1'
 //
-// with y' = s ? p - y : y. The gathers, the predicates and d are the pair
-// algebra that kernel 12 shares (pair32.cuh).
+// with y' = s ? p - y : y. The gathers, the predicates, d, num and the
+// emission are the pair algebra that kernels 10, 11 and 12 share
+// (pair32.cuh).
 //
 // The forward batch inversion: t runs from t0 = inv(s_0), inv(d_j) =
 // t_j s_{j+1} (s_Cp = one), t_{j+1} = t_j d_j. The pair sum goes straight
@@ -27,41 +28,6 @@
 #include "pair32.cuh"
 
 namespace msm {
-
-// num = 3 x1^2 (doubling: the one product, in warps that hold a doubling)
-// | y2' - y1'.
-MSM_HD void pair32_numerator(fe32& num, const pair32& pr) {
-  if (pr.dbl) {
-    fe32 sq, t;
-    fe32_sqr(sq, pr.x1);
-    fe32_double(t, sq);
-    fe32_add(num, t, sq);
-  } else {
-    fe32_sub(num, pr.y2, pr.y1);
-  }
-}
-
-// The affine pair sum from num and inv_d = 1/d: 3 products.
-MSM_HD void pair32_emit(fe32& x3, fe32& y3, const pair32& pr, const fe32& num,
-                        const fe32& inv_d) {
-  fe32 lam, t;
-  fe32_mul(lam, num, inv_d);
-  fe32_sqr(t, lam);
-  fe32_sub(t, t, pr.x1);
-  fe32_sub(x3, t, pr.x2);
-  fe32_sub(t, pr.x1, x3);
-  fe32_mul(t, lam, t);
-  fe32_sub(y3, t, pr.y1);
-}
-
-// Canonical 13-bit limbs stored limbs-first at src[i * stride] -> words.
-MSM_HD void fe32_load_limbs_strided(fe32& out, const int32_t* src,
-                                    int64_t stride) {
-  uint32_t v[L];
-  MSM_UNROLL
-  for (int i = 0; i < L; ++i) v[i] = (uint32_t)src[i * stride];
-  fe32_from_limbs(out, v);
-}
 
 // packed [N, COORDS NW]; perm, flags [G, 2 Cp, R]; s [G, Cp, L, R]
 // canonical; t0 [G, L, R] balanced; pe3 [G, Cp, R, 3L]; t* [G, L, R].

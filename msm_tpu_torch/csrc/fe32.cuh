@@ -1,7 +1,8 @@
 // BN254 base-field arithmetic in 32-bit words: the word core of the point
 // add (kernel 1), the point conversion (2), the scan (4), the point total
-// (6), the Horner ladder (7), the Fermat inversion (9), the pair suffix
-// products (12) and the fused pair emission + scan (13).
+// (6), the Horner ladder (7), the Fermat inversion (9) and the four pair
+// kernels: the forward products (10), the backward emission (11), the
+// suffix products (12) and the fused pair emission + scan (13).
 //
 // An `fe32` is 8 words, least significant first, CANONICAL (value in
 // [0, p)), in the same Montgomery domain as the 13-bit core of field.cuh:
@@ -376,6 +377,15 @@ MSM_HD void fe32_store_limbs_strided(int32_t* dst, int64_t stride,
   fe32_to_limbs(v, a);
   MSM_UNROLL
   for (int i = 0; i < L; ++i) dst[i * stride] = (int32_t)v[i];
+}
+
+// Canonical 13-bit limbs stored limbs-first at src[i * stride] -> words.
+MSM_HD void fe32_load_limbs_strided(fe32& out, const int32_t* src,
+                                    int64_t stride) {
+  uint32_t v[L];
+  MSM_UNROLL
+  for (int i = 0; i < L; ++i) v[i] = (uint32_t)src[i * stride];
+  fe32_from_limbs(out, v);
 }
 
 }  // namespace msm

@@ -1,15 +1,18 @@
-// The pair algebra on the word core, shared by kernel 12 (the suffix
-// products, csrc/compress.cu k_pair_suffix) and kernel 13 (the fused pair
-// emission + scan, emit_scan.cuh), and kernel 12's per-lane body.
-// __host__ __device__, so the host C++ compiler builds it for the CPU
-// tests; every function inlines (MSM_HD), so the kernels have no
+// The pair algebra on the word core, shared by the four pair kernels of
+// csrc/compress.cu: the forward products (kernel 10, k_pair_forward), the
+// backward emission (11, k_pair_backward), the suffix products (12,
+// k_pair_suffix) and the fused pair emission + scan (13, emit_scan.cuh);
+// and the per-lane bodies of kernels 10 and 12 (one body walking either
+// way) and 11. __host__ __device__, so the host C++ compiler builds it for
+// the CPU tests; every function inlines (MSM_HD), so the kernels have no
 // out-of-line call.
 //
-// The pair algebra of csrc/pair.cuh in words. Pair j of lane r adds the
-// sorted elements at steps (2j, 2j+1) of the step-major [G, C, R] layout
-// (C = 2 Cp):
+// Pair j of lane r adds the sorted elements at steps (2j, 2j+1) of the
+// step-major [G, C, R] layout (C = 2 Cp):
 //
 //     d   = x2 - x1 | 2 y1'    (doubling) | R, Montgomery one (P + (-P))
+//     num = y2' - y1' | 3 x1^2 (doubling)
+//     lam = num / d,  x3 = lam^2 - x1 - x2,  y3 = lam (x1 - x3) - y1'
 //
 // with y' = s ? p - y : y. The packed rows are canonical words, so word
 // equality is value equality and "y1 + y2 == p" is one carry ripple. The
@@ -22,6 +25,13 @@
 // is phi of another (x_j = beta x_i), where an element of P_i's phi copy
 // and one of P_j are a doubling or an infinity pair -- and y comes from
 // the third coordinate.
+//
+// Chain arrays (the running products m of kernel 10, the suffix products
+// s of kernel 12, the pair sums cx, cy of kernel 11) are canonical 13-bit
+// limbs, limbs-first per lane, [G, Cp, L, R]: neighbouring threads (lanes)
+// touch neighbouring words, and the kernels that read them (9, 11, 13)
+// take that layout. The one-per-lane inverse minv = inv(m_last) may be
+// balanced.
 #pragma once
 
 #include "scan.cuh"
@@ -94,8 +104,34 @@ MSM_HD void pair32_denominator(fe32& d, const pair32& pr) {
   }
 }
 
-// What kernel 12 gathers for one pair: the table rows and flags of its
-// two elements and the two x coordinates; the y coordinates only where
+// num = 3 x1^2 (doubling: the one product, in warps that hold a doubling)
+// | y2' - y1'.
+MSM_HD void pair32_numerator(fe32& num, const pair32& pr) {
+  if (pr.dbl) {
+    fe32 sq, t;
+    fe32_sqr(sq, pr.x1);
+    fe32_double(t, sq);
+    fe32_add(num, t, sq);
+  } else {
+    fe32_sub(num, pr.y2, pr.y1);
+  }
+}
+
+// The affine pair sum from num and inv_d = 1/d: 3 products.
+MSM_HD void pair32_emit(fe32& x3, fe32& y3, const pair32& pr, const fe32& num,
+                        const fe32& inv_d) {
+  fe32 lam, t;
+  fe32_mul(lam, num, inv_d);
+  fe32_sqr(t, lam);
+  fe32_sub(t, t, pr.x1);
+  fe32_sub(x3, t, pr.x2);
+  fe32_sub(t, pr.x1, x3);
+  fe32_mul(t, lam, t);
+  fe32_sub(y3, t, pr.y1);
+}
+
+// What kernels 10 and 12 gather for one pair: the table rows and flags of
+// its two elements and the two x coordinates; the y coordinates only where
 // x1 == x2.
 struct pair32_x {
   fe32 x1, x2;
@@ -135,36 +171,87 @@ MSM_HD void pair32_denominator_x(fe32& d, const pair32_x& q,
   }
 }
 
-// Kernel 12: the suffix products s_j = d_j * ... * d_{Cp-1} of lane r of
-// subtask g, walking the pairs backwards; s [G, Cp, L, R] canonical 13-bit
-// limbs (the contract kernel 13 reads). One product a pair, so a step is
-// as long as its gathers unless they are hidden: d needs only the x
-// coordinates of a pair unless they are equal, so the gathers read
-// 2 x 32 B a pair, not 2 x 64 B; and pair j-1's gathers are issued before
-// pair j's product (software pipelining).
-template <int COORDS = 2>
-MSM_HD void pair_suffix32_lane(const int32_t* packed, const int32_t* perm,
-                               const int32_t* flags, int32_t* s, int64_t g,
-                               int Cp, int R, int r) {
+// Kernels 10 and 12: the running products of lane r of subtask g, one
+// product a pair. FORWARD (kernel 10) walks the pairs forwards and stores
+// m_j = d_0 * ... * d_j; else (kernel 12) it walks them backwards and
+// stores the suffix products s_j = d_j * ... * d_{Cp-1}. The products,
+// [G, Cp, L, R] canonical 13-bit limbs, are the contract kernels 9, 11 and
+// 13 read. A step is as long as its gathers unless they are hidden: d
+// needs only the x coordinates of a pair unless they are equal, so the
+// gathers read 2 x 32 B a pair, not 2 x 64 B; and the next pair's gathers
+// are issued before this pair's product (software pipelining).
+template <int COORDS, bool FORWARD>
+MSM_HD void pair_chain32_lane(const int32_t* packed, const int32_t* perm,
+                              const int32_t* flags, int32_t* out, int64_t g,
+                              int Cp, int R, int r) {
   const int64_t pair_step = 2 * (int64_t)R;  // perm/flags: one pair further
-  const int64_t s_step = (int64_t)L * R;     // s: one pair further
-  int64_t e = (g * 2 * Cp + 2 * (int64_t)(Cp - 1)) * R + r;  // step 2j, j = Cp-1
-  int64_t o = (g * Cp + Cp - 1) * s_step + r;
+  const int64_t out_step = (int64_t)L * R;   // out: one pair further
+  const int first = FORWARD ? 0 : Cp - 1;
+  // step 2j and product j of the first pair (j = first)
+  int64_t e = FORWARD ? g * 2 * Cp * (int64_t)R + r
+                      : (g * 2 * Cp + 2 * (int64_t)(Cp - 1)) * R + r;
+  int64_t o = FORWARD ? g * Cp * out_step + r : (g * Cp + Cp - 1) * out_step + r;
   fe32 run;
   fe32_mont_one(run);
   pair32_x next;
   pair32_gather_x<COORDS>(next, packed, perm, flags, e, e + R);
   MSM_ROLLED
-  for (int j = Cp - 1; j >= 0; --j, o -= s_step) {
+  for (int j = first; FORWARD ? j < Cp : j >= 0; j += FORWARD ? 1 : -1) {
     const pair32_x q = next;
-    if (j > 0) {
-      e -= pair_step;
+    if (FORWARD ? j + 1 < Cp : j > 0) {
+      if constexpr (FORWARD) e += pair_step; else e -= pair_step;
       pair32_gather_x<COORDS>(next, packed, perm, flags, e, e + R);
     }
     fe32 d;
     pair32_denominator_x<COORDS>(d, q, packed);
     fe32_mul(run, run, d);
-    fe32_store_limbs_strided(s + o, R, run);
+    fe32_store_limbs_strided(out + o, R, run);
+    if constexpr (FORWARD) o += out_step; else o -= out_step;
+  }
+}
+
+// Kernel 11: the backward emission of lane r of subtask g. run starts at
+// minv = inv(m_{Cp-1}) (balanced limbs [G, L, R]); pair j, from Cp - 1 down
+// to 0, reads m_{j-1} (one at j = 0): inv(d_j) = m_{j-1} run, the pair sum
+// from it (pair32_emit), then run *= d_j. Writes cx, cy [G, Cp, L, R]
+// canonical 13-bit limbs and inf [G, Cp, R] (an infinity pair's cx, cy
+// mean nothing). 5 products a pair, 6 for a doubling.
+template <int COORDS = 2>
+MSM_HD void pair_backward32_lane(const int32_t* packed, const int32_t* perm,
+                                 const int32_t* flags, const int32_t* m,
+                                 const int32_t* minv, int32_t* cx,
+                                 int32_t* cy, int32_t* inf, int64_t g, int Cp,
+                                 int R, int r) {
+  const int64_t c_step = (int64_t)L * R;  // m, cx, cy: one pair further
+  fe32 run;
+  {
+    int32_t v[L];
+    const int64_t lane = g * c_step + r;
+    MSM_UNROLL
+    for (int i = 0; i < L; ++i) v[i] = minv[lane + i * (int64_t)R];
+    fe32_from_balanced(run, v);
+  }
+  int64_t e = (g * 2 * Cp + 2 * (int64_t)(Cp - 1)) * R + r;  // step 2j, j = Cp-1
+  int64_t o = (g * Cp + Cp - 1) * c_step + r;
+  int64_t f = (g * Cp + Cp - 1) * (int64_t)R + r;
+  MSM_ROLLED
+  for (int j = Cp - 1; j >= 0; --j, e -= 2 * (int64_t)R, o -= c_step, f -= R) {
+    pair32 pr;
+    pair32_load<COORDS>(pr, packed, perm, flags, e, e + R);
+    fe32 d, num, mprev, inv_d, x3, y3;
+    pair32_denominator(d, pr);
+    pair32_numerator(num, pr);
+    if (j > 0) {
+      fe32_load_limbs_strided(mprev, m + o - c_step, R);
+    } else {
+      fe32_mont_one(mprev);
+    }
+    fe32_mul(inv_d, mprev, run);
+    pair32_emit(x3, y3, pr, num, inv_d);
+    fe32_mul(run, run, d);
+    fe32_store_limbs_strided(cx + o, R, x3);
+    fe32_store_limbs_strided(cy + o, R, y3);
+    inf[f] = pr.inf;
   }
 }
 

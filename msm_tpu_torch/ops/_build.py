@@ -49,6 +49,7 @@ SIGNATURES = {
     "msm_point_add": [P] * 9 + [I64, I32, P],
     "msm_convert": [P, P, P, I64, P],
     "msm_convert_glv": [P, P, P, I64, P],
+    "msm_convert_scaled": [P] * 6 + [I64, I32, P],
     "msm_hist": [P, P, I64, I64, I32, I64, I32, P],
     "msm_scan": [P] * 7 + [I64, I32, I32, P],
     "msm_scan_rows_glv": [P] * 7 + [I64, I32, I32, P],
@@ -62,6 +63,8 @@ SIGNATURES = {
     "msm_emit_scan_glv": [P] * 9 + [I64, I32, I32, P],
     "msm_pair_forward": [P] * 4 + [I64, I32, I32, P],
     "msm_pair_backward": [P] * 8 + [I64, I32, I32, P],
+    "msm_pair_forward_glv": [P] * 4 + [I64, I32, I32, P],
+    "msm_pair_backward_glv": [P] * 8 + [I64, I32, I32, P],
     "msm_bpr_phase1": [P] * 9 + [I64, I32, I32, P],
 }
 
@@ -71,9 +74,8 @@ _lib: ctypes.CDLL | None = None
 
 def check_cuda_config(cfg: MsmConfig) -> None:
     """The CUDA kernels implement BN254 with 13-bit limbs, plain or pair
-    compressed, with or without GLV (the convert, the scan and the
-    compressed scan's kernels have GLV modes; ``compress_pairs`` refuses
-    GLV itself); Karatsuba is not ported."""
+    compressed, with or without GLV (the convert, the scan and the four
+    pair kernels have GLV modes); Karatsuba is not ported."""
     if cfg.curve.name != "bn254" or cfg.word_size != 13 or cfg.karatsuba:
         raise NotImplementedError(
             f"CUDA kernels support BN254 / word_size 13 without Karatsuba; "

@@ -1,9 +1,9 @@
 """Kernels 10-13: batched-affine pair compression of the sorted stream, with
 their plain twins and the two host functions built on them.
 
-CUDA source: ``msm_tpu_torch/csrc/compress.cu``: kernels 10 and 11 on the
-13-bit core (``csrc/pair.cuh``), kernels 12 and 13 on the word core
-(``csrc/pair32.cuh``, ``csrc/emit_scan.cuh``).
+CUDA source: ``msm_tpu_torch/csrc/compress.cu``, all four kernels on the
+word core (the pair algebra and the bodies of kernels 10, 11 and 12 in
+``csrc/pair32.cuh``, kernel 13's in ``csrc/emit_scan.cuh``).
 Replaces, in ``msm_tpu/ops/pallas_compress.py``: ``make_pair_suffix``
 (``pallas_call`` at :427), ``make_emit_scan`` (:561), ``make_pair_forward``
 (:205) and ``make_pair_backward`` (:333), with the sorted-order gather that
@@ -14,11 +14,10 @@ step-major layout. Every function takes the packed point table [N, 2D] and,
 per subtask g, ``perm[g, c, r]`` (table row of step c of lane r) and
 ``flags[g, c, r]`` (bit 0: negate y), with C = 2 Cp steps. Under GLV the
 table is [N, 3D] (rows x, beta x, y) and bit 1 of the flags takes beta x:
-kernels 12 and 13 then run their GLV modes (``pair_suffix_glv``,
-``emit_scan_glv``: own C entries, own launch counters, replacing
-``_load_pair_point``'s GLV branch, ``pallas_compress.py:122-140``); kernels
-10 and 11 have none yet and refuse a GLV config on CUDA. The twins take
-both layouts.
+each kernel then runs its GLV mode (``pair_forward_glv``,
+``pair_backward_glv``, ``pair_suffix_glv``, ``emit_scan_glv``: own C
+entries, own launch counters, replacing ``_load_pair_point``'s GLV branch,
+``pallas_compress.py:122-140``). The twins take both layouts.
 
     d   = x2 - x1 | 2 y1' (doubling) | R, Montgomery one (P + (-P))
     num = y2' - y1' | 3 x1^2 (doubling)
@@ -34,8 +33,8 @@ both layouts.
   [G, Cp, L, R] and infinity flags inf [G, Cp, R]
 
 ``compressed_prefix_scan`` (the MSM's path) is suffix, one ``mont_pow`` per
-lane, emit+scan; ``compress_pairs`` (the surface an oracle can check pair by
-pair) is forward, ``mont_pow``, backward.
+lane, emit+scan; ``compress_pairs`` (the surface an oracle can check pair
+by pair) is forward, ``mont_pow``, backward, with or without GLV.
 
 Chain values the kernels write are canonical, and the kernels read s and m
 as canonical, so on CUDA feed them the kernels' own outputs; t0 and minv may
@@ -54,7 +53,7 @@ from msm_tpu_torch.ops.cuda_scan import element_coords, rcb16_madd_plain
 from msm_tpu_torch.ops.field import FieldCtx, get_field_ctx
 from msm_tpu_torch.params import MsmConfig
 
-# -- pair algebra (twins of csrc/pair.cuh) -------------------------------------
+# -- pair algebra (twins of csrc/pair32.cuh) -----------------------------------
 
 
 def pair_predicates_plain(cfg: MsmConfig, x1, y1, s1, x2, y2, s2):
@@ -289,55 +288,82 @@ def pair_backward_plain(cfg: MsmConfig, packed, perm, flags, m, minv):
     return _limbs_first(x3), _limbs_first(y3), inf.to(torch.int32)
 
 
-def _no_glv_mode(cfg: MsmConfig, name: str) -> None:
-    if cfg.glv:
-        raise NotImplementedError(f"{name} has no GLV mode on CUDA yet")
-
-
-def pair_forward(cfg: MsmConfig, packed, perm, flags):
-    """(packed [N, 2D], perm [G, 2Cp, R], flags) -> m [G, Cp, L, R]."""
-    if packed.device.type == "cpu":
-        return pair_forward_plain(cfg, packed, perm, flags)
-    _no_glv_mode(cfg, "pair_forward")
+def _forward(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
     packed, perm, flags = _check(cfg, packed, perm, flags)
+    (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     m = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
-    _build.launch("msm_pair_forward", packed, perm, flags, m, G, C // 2, R)
-    pair_forward.launches += 1
+    _build.launch(entry, packed, perm, flags, m, G, C // 2, R)
+    counter.launches += 1
     return m
 
 
-pair_forward.launches = 0
-
-
-def pair_backward(cfg: MsmConfig, packed, perm, flags, m, minv):
-    """(packed, perm, flags, m [G, Cp, L, R], minv [G, L, R]) ->
-    (cx, cy [G, Cp, L, R], inf [G, Cp, R] int32)."""
+def pair_forward(cfg: MsmConfig, packed, perm, flags):
+    """(packed [N, 2D], perm [G, 2Cp, R], flags) -> m [G, Cp, L, R]; under
+    GLV ``pair_forward_glv``."""
+    if cfg.glv:
+        return pair_forward_glv(cfg, packed, perm, flags)
     if packed.device.type == "cpu":
-        return pair_backward_plain(cfg, packed, perm, flags, m, minv)
-    _no_glv_mode(cfg, "pair_backward")
+        return pair_forward_plain(cfg, packed, perm, flags)
+    return _forward(cfg, packed, perm, flags, "msm_pair_forward", pair_forward)
+
+
+def pair_forward_glv(cfg: MsmConfig, packed, perm, flags):
+    """The GLV mode: packed [N, 3D], flags bit 1 choosing beta x."""
+    if not cfg.glv:
+        raise ValueError("pair_forward_glv needs a GLV config")
+    if packed.device.type == "cpu":
+        return pair_forward_plain(cfg, packed, perm, flags)
+    return _forward(cfg, packed, perm, flags, "msm_pair_forward_glv", pair_forward_glv)
+
+
+pair_forward.launches = 0
+pair_forward_glv.launches = 0
+
+
+def _backward(cfg: MsmConfig, packed, perm, flags, m, minv, entry: str, counter):
     packed, perm, flags, m, minv = _check(cfg, packed, perm, flags, m, minv)
+    (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     L = cfg.num_words
     _check_chain(m, (G, C // 2, L, R), minv, (G, L, R))
     dev = packed.device
     cx, cy = (torch.empty((G, C // 2, L, R), dtype=torch.int32, device=dev) for _ in range(2))
     inf = torch.empty((G, C // 2, R), dtype=torch.int32, device=dev)
-    _build.launch("msm_pair_backward", packed, perm, flags, m, minv, cx, cy, inf, G, C // 2, R)
-    pair_backward.launches += 1
+    _build.launch(entry, packed, perm, flags, m, minv, cx, cy, inf, G, C // 2, R)
+    counter.launches += 1
     return cx, cy, inf
 
 
+def pair_backward(cfg: MsmConfig, packed, perm, flags, m, minv):
+    """(packed, perm, flags, m [G, Cp, L, R], minv [G, L, R]) ->
+    (cx, cy [G, Cp, L, R], inf [G, Cp, R] int32); under GLV
+    ``pair_backward_glv``."""
+    if cfg.glv:
+        return pair_backward_glv(cfg, packed, perm, flags, m, minv)
+    if packed.device.type == "cpu":
+        return pair_backward_plain(cfg, packed, perm, flags, m, minv)
+    return _backward(cfg, packed, perm, flags, m, minv, "msm_pair_backward", pair_backward)
+
+
+def pair_backward_glv(cfg: MsmConfig, packed, perm, flags, m, minv):
+    """The GLV mode: packed [N, 3D], flags bit 1 choosing beta x."""
+    if not cfg.glv:
+        raise ValueError("pair_backward_glv needs a GLV config")
+    if packed.device.type == "cpu":
+        return pair_backward_plain(cfg, packed, perm, flags, m, minv)
+    return _backward(cfg, packed, perm, flags, m, minv, "msm_pair_backward_glv", pair_backward_glv)
+
+
 pair_backward.launches = 0
+pair_backward_glv.launches = 0
 
 
 def compress_pairs(cfg: MsmConfig, packed, perm, flags):
     """Every pair sum of every lane: forward products, one Fermat inversion
     per lane, backward emission -> (cx, cy [G, Cp, L, R] Montgomery affine,
-    inf [G, Cp, R]; an infinity pair's coordinates mean nothing). A GLV
-    config runs on the twins only: on CUDA it raises before any launch."""
-    if packed.device.type != "cpu":
-        _no_glv_mode(cfg, "compress_pairs")
+    inf [G, Cp, R]; an infinity pair's coordinates mean nothing). Under GLV
+    (packed [N, 3D]) the GLV modes of the forward and backward kernels."""
     m = pair_forward(cfg, packed, perm, flags)
     minv = mont_pow(cfg, m[:, -1], cfg.curve.modulus - 2)
     return pair_backward(cfg, packed, perm, flags, m, minv)

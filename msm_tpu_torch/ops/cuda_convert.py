@@ -5,9 +5,12 @@ CUDA source: ``msm_tpu_torch/csrc/convert.cu`` on the word core (per-point
 body ``csrc/convert32.cuh``); it reads the u16 words as int16, 32 B per
 coordinate, the bits the host serialized. Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_convert.py::make_convert_pack`` (``pallas_call`` at
-:187) in both its modes: ``convert_pack`` the plain one, ``convert_pack_glv``
-the GLV one (``dual_x_scale_int`` = beta R^2, ``triple=True``), each with
-its own C entry and launch counter; ``coord_words``/``pack_coords``/
+:187) in all its modes: ``convert_pack`` the plain one, ``convert_pack_glv``
+the GLV one (``dual_x_scale_int`` = beta R^2, ``triple=True``), both with
+their constants compiled in, and ``convert_pack_scaled`` every mode with
+its x constants given at run time (``x_scale_int``, ``dual_x_scale_int``,
+``triple``: one [n, 2D] table, two, or one [n, 3D]); each with its own C
+entry and launch counter. ``coord_words``/``pack_coords``/
 ``unpack_coords`` port ``msm_tpu/ops/pallas_scan.py:54-199``.
 
 Wire format: a canonical coordinate bit-packed at radix 2^32 into
@@ -18,6 +21,8 @@ so words >= 2^31 survive.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -92,27 +97,58 @@ def unpack_coords(p: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
     return torch.stack(cols, dim=-1).to(torch.int32)
 
 
-def convert_pack_plain(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
-    """Plain twin of the convert kernel in both modes: u16 words [n, W]
-    (held in int16 or int32) -> limbs -> Montgomery (x R^2 product) ->
-    canonical -> packed table [n, 2D]; under GLV [n, 3D], with beta x R
-    (x times beta R^2) between x and y."""
+def convert_pack_scaled_plain(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor,
+                               x_scale: int | None = None, dual_x_scale: int | None = None,
+                               triple: bool = False):
+    """Plain twin of the convert kernel in every mode: u16 words [n, W]
+    (held in int16 or int32) -> limbs -> Montgomery products -> canonical
+    -> packed rows. x is multiplied by x_scale mod p (default R^2: x R),
+    y by R^2. Returns one [n, 2D] table; with dual_x_scale two [n, 2D]
+    tables, the second's x scaled by dual_x_scale, sharing y; with
+    dual_x_scale and triple one [n, 3D] table x, x', y."""
+    if triple and dual_x_scale is None:
+        raise ValueError("triple mode needs dual_x_scale")
     f = get_field_ctx(cfg)
     w, L = cfg.word_size, cfg.num_words
     xs, ys = (extract_windows(a.to(torch.int32) & 0xFFFF, w, L).T for a in (x_u16, y_u16))
-    cols = [f.to_mont(xs), f.to_mont(ys)]
-    if cfg.glv:
-        beta_r2 = glv_params(cfg.curve).beta * cfg.r2 % cfg.curve.modulus
-        cols.insert(1, f.mont_mul(xs, f.const(f._limbs(beta_r2), xs.device)))
-    return torch.cat([pack_coords(c, cfg) for c in cols], dim=-1)
+    y = pack_coords(f.to_mont(ys), cfg)
+
+    def scaled(c):
+        return pack_coords(f.mont_mul(xs, f.const(f._limbs(c % cfg.curve.modulus), xs.device)), cfg)
+
+    x = scaled(cfg.r2 if x_scale is None else x_scale)
+    if dual_x_scale is None:
+        return torch.cat([x, y], dim=-1)
+    x2 = scaled(dual_x_scale)
+    if triple:
+        return torch.cat([x, x2, y], dim=-1)
+    return torch.cat([x, y], dim=-1), torch.cat([x2, y], dim=-1)
 
 
-def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter):
+def convert_pack_plain(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
+    """Plain twin of the convert kernel's plain and GLV modes: the packed
+    table [n, 2D] (x R, y R); under GLV [n, 3D], with beta x R (x times
+    beta R^2) between x and y."""
+    if not cfg.glv:
+        return convert_pack_scaled_plain(cfg, x_u16, y_u16)
+    beta_r2 = glv_params(cfg.curve).beta * cfg.r2
+    return convert_pack_scaled_plain(cfg, x_u16, y_u16, dual_x_scale=beta_r2, triple=True)
+
+
+def _words_in(cfg: MsmConfig, x_u16, y_u16):
+    """Checks before a convert launch: [n, 16] int16 words on CUDA, 16-byte
+    aligned (copied where they are not)."""
     x_u16, y_u16 = _build.aligned(x_u16, y_u16)
     _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16)
     n = x_u16.shape[0]
     if x_u16.shape != (n, 16) or y_u16.shape != (n, 16):
         raise ValueError(f"expected [n, 16] u16 words, got {tuple(x_u16.shape)}")
+    return x_u16, y_u16
+
+
+def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter):
+    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16)
+    n = x_u16.shape[0]
     out = torch.empty((n, table_coords(cfg) * coord_words(cfg)), dtype=torch.int32,
                       device=x_u16.device)
     _build.launch(entry, x_u16, y_u16, out, n)
@@ -142,3 +178,44 @@ def convert_pack_glv(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
 
 convert_pack.launches = 0
 convert_pack_glv.launches = 0
+
+
+#: csrc/convert32.cuh's output layouts
+CONVERT_ONE, CONVERT_DUAL, CONVERT_TRIPLE = 0, 1, 2
+
+
+def convert_pack_scaled(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor,
+                        x_scale: int | None = None, dual_x_scale: int | None = None,
+                        triple: bool = False):
+    """The convert kernel with its x constants given at run time, as
+    ``make_convert_pack(cfg, x_scale_int=x_scale, dual_x_scale_int=
+    dual_x_scale, triple=triple)`` builds it: x R^-1 x_scale (default R^2,
+    so x R), y R. Returns one [n, 2D] table; with ``dual_x_scale`` two
+    [n, 2D] tables (x scaled by each constant, y shared), or with
+    ``triple`` as well one [n, 3D] table. The layout depends on these
+    arguments only, not on ``cfg.glv``. On CUDA the words must be int16."""
+    if triple and dual_x_scale is None:
+        raise ValueError("triple mode needs dual_x_scale")
+    if x_u16.device.type == "cpu":
+        return convert_pack_scaled_plain(cfg, x_u16, y_u16, x_scale, dual_x_scale, triple)
+    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16)
+    n, D, q = x_u16.shape[0], coord_words(cfg), cfg.curve.modulus
+
+    def words(c):  # the canonical constant's D words, least significant first
+        c %= q
+        return (ctypes.c_uint32 * D)(*((c >> (32 * k)) & 0xFFFFFFFF for k in range(D)))
+
+    xs = words(cfg.r2 if x_scale is None else x_scale)
+    xs2 = None if dual_x_scale is None else words(dual_x_scale)
+    layout = CONVERT_ONE if xs2 is None else CONVERT_TRIPLE if triple else CONVERT_DUAL
+    width = (3 if layout == CONVERT_TRIPLE else 2) * D
+    outs = [torch.empty((n, width), dtype=torch.int32, device=x_u16.device)
+            for _ in range(2 if layout == CONVERT_DUAL else 1)]
+    _build.launch("msm_convert_scaled", x_u16, y_u16, ctypes.addressof(xs),
+                  ctypes.addressof(xs2) if xs2 is not None else None, outs[0],
+                  outs[-1] if layout == CONVERT_DUAL else None, n, layout)
+    convert_pack_scaled.launches += 1
+    return tuple(outs) if layout == CONVERT_DUAL else outs[0]
+
+
+convert_pack_scaled.launches = 0

@@ -2,8 +2,9 @@
 """Two builds of msm_tpu_torch's kernels in one process: this checkout's
 library and another checkout's (for example the parent commit, unpacked
 with ``git archive`` into a directory that .gitignore lists), timed in turns
-on the same inputs at the 2^20 MSM's shapes, with the SASS of both builds
-compared kernel by kernel.
+on the same inputs at the 2^20 MSM's shapes (the pair-value kernels at the
+TPU rule's compressed shape, 4 subtasks of 1024 steps over 1024 lanes),
+with the SASS of both builds compared kernel by kernel.
 
     python3 scripts/torch_lib_ab.py OTHER_ROOT [--rounds 5]
 
@@ -11,8 +12,9 @@ The other checkout's library is built by its own ``msm_tpu_torch.ops._build``
 (in a subprocess, into its own ``build/``). This checkout's wrappers launch
 through ``_build.load()``; the script swaps the loaded library between the
 two builds, so of the entry points timed here (point add, scan, row
-offsets, point total, Horner ladder) only those whose C signature is the
-same in both trees are timed; the others are named and skipped.
+offsets, point total, Horner ladder, forward pair products, backward pair
+emission) only those whose C signature is the same in both trees are
+timed; the others are named and skipped.
 Both builds' outputs must be equal bit for bit (every kernel writes
 canonical limbs, and the two builds sum in the same order).
 
@@ -47,7 +49,8 @@ from torch_sass_mix import sass  # noqa: E402
 
 #: wrapper -> its C entry point
 KERNELS = {"point_add": "msm_point_add", "scan_rows": "msm_scan", "row_offsets": "msm_row_offsets",
-           "point_total": "msm_point_total", "horner": "msm_horner"}
+           "point_total": "msm_point_total", "horner": "msm_horner", "pair_forward": "msm_pair_forward",
+           "pair_backward": "msm_pair_backward"}
 
 
 def other_library(root: Path) -> tuple[Path, dict[str, str]]:
@@ -69,9 +72,12 @@ def load(so: Path, names) -> ctypes.CDLL:
     return lib
 
 
-def cases(rng) -> dict:
+def cases(rng, kern) -> dict:
     """Wrapper arguments at the plain 2^20 MSM's shapes: G = 4 subtasks,
-    R = 16384 lanes of C = 64 steps, 32769 buckets, S = 16 windows."""
+    R = 16384 lanes of C = 64 steps, 32769 buckets, S = 16 windows; the
+    pair-value kernels over the table of 256 real points with planted
+    doubling and infinity pairs at G = 4, C = 1024, R = 1024, the backward
+    emission on this build's forward products and their inverse."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.params import BN254, MsmConfig, pick_config
@@ -91,12 +97,17 @@ def cases(rng) -> dict:
                      for _ in range(2)], dim=-1).to(dev)
     perm = np.stack([rng.permutation(n).reshape(R, C).T for _ in range(G)]).astype(np.int32)
     rows = cs._curve_points(rng, (G, R), cfg, base, dev)
+    table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
+    pair_in = [MsmConfig(curve=BN254, compress=True), table,
+               *map(t, cs._pair_stream(rng, 4, 1024, 1024, table.shape[0]))]
     return {
         "point_add": [cfg, *(t(cs._rand_fe(rng, (G * NB,), cfg)) for _ in range(6))],
         "scan_rows": [cfg, tab, t(perm), t(rng.integers(0, 2, size=perm.shape, dtype=np.int32))],
         "row_offsets": [cfg, *(a.transpose(1, 2).contiguous() for a in rows)],
         "point_total": [cfg, *cs._curve_points(rng, (S, NB - 1), cfg, base, dev)],
         "horner": [cfg, *(t(cs._rand_fe(rng, (S,), cfg)) for _ in range(3)), cfg.chunk_size],
+        "pair_forward": pair_in,
+        "pair_backward": cs._backward_args(kern, pair_in),
     }
 
 
@@ -134,7 +145,7 @@ def main() -> int:
             print(f"{k}: its C entry point differs between the two trees; not timed")
     libs = {"this": _build.load(), "other": load(other_so, [KERNELS[k] for k in names])}
     kern = cs._kernels()
-    inputs = cases(np.random.default_rng(cs.SEED))
+    inputs = cases(np.random.default_rng(cs.SEED), kern)
     times: dict[tuple[str, str], list[float]] = {}
     for rnd in range(args.rounds):
         order = ("this", "other") if rnd % 2 == 0 else ("other", "this")

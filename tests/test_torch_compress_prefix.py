@@ -3,8 +3,8 @@
 - compressed bucket-boundary prefixes equal the plain ones as points, on
   keys with odd and even boundaries and empty buckets;
 - the gate: a geometry with an odd step count (C = 1) runs uncompressed;
-- GLV with compression runs on the CPU; compress_pairs refuses GLV off
-  the CPU;
+- GLV with compression runs on the CPU; off the CPU compress_pairs under
+  GLV goes through the GLV modes of its kernels;
 - the JAX package's point table, carried across, gives its window sums
   under the compressed config;
 - only one subtask batch of prefixes is alive at a time, on both the plain
@@ -120,21 +120,33 @@ def test_gate_odd_steps_run_uncompressed(monkeypatch):
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_glv_with_compression_raises(device):
-    """Compression with GLV runs now: on the CPU the MSM equals the oracle.
-    What still raises is compress_pairs on the card (kernels 10 and 11 have
-    no GLV mode): tensors off the CPU (here on the meta device) raise before
-    any launch."""
+def test_glv_with_compression_raises(device, monkeypatch):
+    """Compression with GLV runs: on the CPU the MSM equals the oracle.
+    Nothing raises for GLV off the CPU any more: there (here on the meta
+    device, with the launches recorded instead of made) compress_pairs
+    launches the GLV modes of kernels 10 and 11 around kernel 9, and only
+    those, each counted."""
+    from msm_tpu_torch.ops import _build, cuda_compress, cuda_inv
+
     cfg = port_cfg(JMsmConfig(curve=BN254, chunk_size=8, compress=True, glv=True))
     if device == "cpu":
         pts, ks = _inputs(16, seed=96)
         got = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
         assert got == CV.to_affine(best_msm(pts, ks))
         return
+    entries = []
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch", lambda name, *args: entries.append(name))
+    wrappers = (cuda_compress.pair_forward, cuda_compress.pair_forward_glv, cuda_inv.mont_pow,
+                cuda_compress.pair_backward, cuda_compress.pair_backward_glv)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", 0)
     table = torch.empty((16, 24), dtype=torch.int32, device="meta")
     perm = torch.empty((1, 8, 2), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="GLV"):
-        compress_pairs(cfg, table, perm, perm)
+    cx, cy, inf = compress_pairs(cfg, table, perm, perm)
+    assert entries == ["msm_pair_forward_glv", "msm_mont_pow", "msm_pair_backward_glv"]
+    assert [w.launches for w in wrappers] == [0, 1, 1, 0, 1]
+    assert cx.shape == cy.shape == (1, 4, cfg.num_words, 2) and inf.shape == (1, 4, 2)
 
 
 def test_loaded_jax_table_gives_jax_window_sums_compressed():

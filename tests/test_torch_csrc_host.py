@@ -149,7 +149,7 @@ void h_pow(const int32_t* a, int32_t* o, const uint32_t* e, int nbits,
 void h_pair_suffix(const int32_t* pk, const int32_t* pm, const int32_t* fl,
                    int32_t* s, int64_t G, int Cp, int R) {
   for (int64_t g = 0; g < G; ++g)
-    for (int r = 0; r < R; ++r) pair_suffix32_lane(pk, pm, fl, s, g, Cp, R, r);
+    for (int r = 0; r < R; ++r) pair_chain32_lane<2, false>(pk, pm, fl, s, g, Cp, R, r);
 }
 void h_pair_forward(const int32_t* pk, const int32_t* pm, const int32_t* fl,
                     int32_t* m, int64_t G, int Cp, int R) {

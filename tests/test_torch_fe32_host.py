@@ -1,23 +1,25 @@
 """The word core (msm_tpu_torch/csrc/fe32.cuh, curve32.cuh) and the per-lane
 bodies of the point conversion (kernel 2, csrc/convert32.cuh), the scan
 (kernel 4, csrc/scan.cuh), the Horner ladder (kernel 7, csrc/horner.cuh),
-the Fermat inversion (kernel 9, csrc/pow32.cuh), the pair suffix products
-(kernel 12, csrc/pair32.cuh) and the fused pair emission + scan (kernel 13,
+the Fermat inversion (kernel 9, csrc/pow32.cuh), the pair forward products,
+backward emission and suffix products (kernels 10, 11 and 12,
+csrc/pair32.cuh) and the fused pair emission + scan (kernel 13,
 csrc/emit_scan.cuh) compiled for the host with g++ and held against the
 plain PyTorch twins: the R = 2^260 Montgomery product (word CIOS plus one
 4-bit step) and the dedicated squaring on random and edge values, add, sub,
 neg, double and the 3b multiple, the 13-bit <-> word repacking and the
 dense-word load, the balanced-input load, RCB16 Algorithms 7, 8 and 9, the
-conversion of u16 coordinate words (values in [p, 2^256) included), the
-scan's body run for every lane of a small stream, the Horner chain, the
-windowed exponentiation on edge bases and exponents, and the suffix and
-emission + scan bodies for every lane of a stream with doubling and
-infinity pairs; and the GLV modes of these bodies (the triple table's
-conversion, the element loads that take x or beta x by flag bit 1 from a
-three-coordinate row, the scan, suffix and emission + scan over a GLV
-table with pairs of equal x across its halves). Outputs of the core must be canonical and
-equal to the twins' results after canonical(): a canonical value is unique,
-so the kernels on this core write the limbs the 13-bit core writes."""
+conversion of u16 coordinate words (values in [p, 2^256) included) with
+compiled-in and run-time constants in each output layout, the scan's body
+run for every lane of a small stream, the Horner chain, the windowed
+exponentiation on edge bases and exponents, and the pair bodies for every
+lane of a stream with doubling and infinity pairs; and the GLV modes of
+these bodies (the triple table's conversion, the element loads that take x
+or beta x by flag bit 1 from a three-coordinate row, the scan and the four
+pair bodies over a GLV table with pairs of equal x across its halves).
+Outputs of the core must be canonical and equal to the twins' results after
+canonical(): a canonical value is unique, so the kernels on this core write
+the limbs the 13-bit core writes."""
 
 import ctypes
 import random
@@ -30,8 +32,9 @@ import pytest
 import torch
 
 from _torch_helpers import glv_pair_stream, mont_limbs, pair_stream, rand_balanced, rand_canonical
-from msm_tpu_torch.ops.cuda_compress import emit_scan_plain, pair_suffix_plain
-from msm_tpu_torch.ops.cuda_convert import convert_pack_plain, pack_canonical
+from msm_tpu_torch.ops.cuda_compress import (emit_scan_plain, pair_backward_plain, pair_forward_plain,
+                                              pair_suffix_plain)
+from msm_tpu_torch.ops.cuda_convert import convert_pack_plain, convert_pack_scaled_plain, pack_canonical
 from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
 from msm_tpu_torch.ops.cuda_prefix import horner_plain
@@ -117,7 +120,7 @@ void w_pair_suffix(const int32_t* packed, const int32_t* perm,
                    int R) {
   for (int64_t g = 0; g < G; ++g)
     for (int r = 0; r < R; ++r)
-      pair_suffix32_lane(packed, perm, flags, s, g, Cp, R, r);
+      pair_chain32_lane<2, false>(packed, perm, flags, s, g, Cp, R, r);
 }
 // o [n, 5, L]: a + b, a - b, -a, 2a, 3b a
 void w_linear(const int32_t* a, const int32_t* b, int32_t* o, int64_t n) {
@@ -216,7 +219,7 @@ void w_pair_suffix_glv(const int32_t* packed, const int32_t* perm,
                        int R) {
   for (int64_t g = 0; g < G; ++g)
     for (int r = 0; r < R; ++r)
-      pair_suffix32_lane<3>(packed, perm, flags, s, g, Cp, R, r);
+      pair_chain32_lane<3, false>(packed, perm, flags, s, g, Cp, R, r);
 }
 void w_emit_scan_glv(const int32_t* packed, const int32_t* perm,
                      const int32_t* flags, const int32_t* s, const int32_t* t0,
@@ -233,6 +236,50 @@ void w_convert(const int16_t* xw, const int16_t* yw, int32_t* out, int64_t n) {
 void w_convert_glv(const int16_t* xw, const int16_t* yw, int32_t* out,
                    int64_t n) {
   for (int64_t i = 0; i < n; ++i) convert_point_glv(xw, yw, out, i);
+}
+// the x constants as NW words each; layout CONVERT_ONE, _DUAL or _TRIPLE
+void w_convert_scaled(const int16_t* xw, const int16_t* yw,
+                      const uint32_t* xs, const uint32_t* xs2, int32_t* out,
+                      int32_t* out2, int64_t n, int layout) {
+  fe32 a, b;
+  for (int k = 0; k < NW; ++k) {
+    a.w[k] = xs[k];
+    b.w[k] = xs2[k];
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    if (layout == CONVERT_ONE)
+      convert_point_scaled<CONVERT_ONE>(xw, yw, a, b, out, out2, i);
+    else if (layout == CONVERT_DUAL)
+      convert_point_scaled<CONVERT_DUAL>(xw, yw, a, b, out, out2, i);
+    else
+      convert_point_scaled<CONVERT_TRIPLE>(xw, yw, a, b, out, out2, i);
+  }
+}
+// kernels 10 and 11's bodies over a table of `coords` coordinates a row
+void w_pair_forward(const int32_t* packed, const int32_t* perm,
+                    const int32_t* flags, int32_t* m, int64_t G, int Cp, int R,
+                    int coords) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r) {
+      if (coords == 3)
+        pair_chain32_lane<3, true>(packed, perm, flags, m, g, Cp, R, r);
+      else
+        pair_chain32_lane<2, true>(packed, perm, flags, m, g, Cp, R, r);
+    }
+}
+void w_pair_backward(const int32_t* packed, const int32_t* perm,
+                     const int32_t* flags, const int32_t* m,
+                     const int32_t* minv, int32_t* cx, int32_t* cy,
+                     int32_t* inf, int64_t G, int Cp, int R, int coords) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int r = 0; r < R; ++r) {
+      if (coords == 3)
+        pair_backward32_lane<3>(packed, perm, flags, m, minv, cx, cy, inf, g,
+                                Cp, R, r);
+      else
+        pair_backward32_lane<2>(packed, perm, flags, m, minv, cx, cy, inf, g,
+                                Cp, R, r);
+    }
 }
 void w_emit_scan(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, const int32_t* s, const int32_t* t0,
@@ -281,6 +328,9 @@ def lib(tmp_path_factory):
                            ("w_pair_suffix_glv", [Pt] * 4 + [I64, I32, I32]),
                            ("w_emit_scan_glv", [Pt] * 9 + [I64, I32, I32]),
                            ("w_convert_glv", [Pt] * 3 + [I64]),
+                           ("w_convert_scaled", [Pt] * 6 + [I64, I32]),
+                           ("w_pair_forward", [Pt] * 4 + [I64, I32, I32, I32]),
+                           ("w_pair_backward", [Pt] * 8 + [I64, I32, I32, I32]),
                            ("w_from_balanced", [Pt] * 2 + [I64]), ("w_pt_add", [Pt] * 3 + [I64]),
                            ("w_pt_madd", [Pt] * 3 + [I64]), ("w_pt_double", [Pt] * 2 + [I64]),
                            ("w_scan", [Pt] * 7 + [I64, I32, I32]),
@@ -678,3 +728,96 @@ def test_pair_suffix_and_emit_scan_glv_lanes_match_twins(lib, G, Cp, R):
         _assert_canonical_equal(got[0][..., i * L:(i + 1) * L], want[0][..., i * L:(i + 1) * L])
     for g, w in zip(got[1:], want[1:]):
         _assert_canonical_equal(np.ascontiguousarray(g.swapaxes(-1, -2)), w.transpose(-1, -2))
+
+
+# -- kernels 10 and 11 on the word core, and the convert's scaled modes -------
+
+
+def _planted_stream(coords, G, Cp, R, seed):
+    """A pair stream over a 2- or 3-coordinate table with planted pairs at
+    the first pair (lanes 0, 1) and the last (lanes 2, 3), where the forward
+    and backward walks start: under GLV, P_0's phi copy beside the row
+    phi(P_0) with equal signs (a doubling) and P_1's with opposite signs (an
+    infinity pair); else P + (-P) on even lanes and P + P on odd ones."""
+    if coords == 3:
+        (packed, perm, flags), _ = _glv_stream(G, 2 * Cp, R, seed=seed)
+        for lane, j in ((0, 0), (1, 0), (2, 2 * (Cp - 1)), (3, 2 * (Cp - 1))):
+            i, flip = lane % 2, lane % 2  # odd lanes: opposite signs
+            perm[0, j, lane], flags[0, j, lane] = i, 2
+            perm[0, j + 1, lane], flags[0, j + 1, lane] = 8 + i, flip
+        return packed, perm, flags
+    _, packed, perm, flags = pair_stream(CFG, G, 2 * Cp, R, nbase=8, seed=seed)
+    for lane, j in ((0, 0), (1, 0), (2, 2 * (Cp - 1)), (3, 2 * (Cp - 1))):
+        perm[0, j + 1, lane] = perm[0, j, lane]
+        flags[0, j + 1, lane] = flags[0, j, lane] ^ (lane % 2 == 0)
+    return packed, perm, flags
+
+
+@pytest.mark.parametrize("coords, G, Cp, R", [(2, 2, 4, 16), (2, 1, 1, 8), (2, 3, 5, 4),
+                                              (3, 2, 4, 16), (3, 1, 3, 8)])
+def test_pair_forward_backward_lanes_match_twins(lib, coords, G, Cp, R):
+    """Kernels 10 and 11's word-core bodies (pair32.cuh) at COORDS 2 and 3
+    for every lane of a stream with doubling and infinity pairs planted
+    where each walk starts (under GLV: equal x across the table's halves),
+    against pair_forward_plain and pair_backward_plain: the running
+    products, then the pair sums and flags from the body's own products
+    and the Fermat inverse of the last in balanced limbs."""
+    cfg = GLV if coords == 3 else CFG
+    packed, perm, flags = _planted_stream(coords, G, Cp, R, seed=70 + 10 * coords + Cp)
+    tin = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (packed, perm, flags))
+    (m,) = _run(lib, "w_pair_forward", [(G, Cp, L, R)], packed, perm, flags, G, Cp, R, coords)
+    want_m = pair_forward_plain(cfg, *tin)
+    _assert_canonical_equal(np.ascontiguousarray(m.swapaxes(-1, -2)), want_m.transpose(-1, -2))
+    m_t = torch.from_numpy(m)
+    minv = mont_pow_plain(CFG, m_t[:, -1], P - 2)
+    minv[:, 0] += 1 << CFG.word_size  # the same values in balanced limbs
+    minv[:, 1] -= 1
+    cx, cy, inf = _run(lib, "w_pair_backward", [(G, Cp, L, R)] * 2 + [(G, Cp, R)],
+                       packed, perm, flags, m, minv.numpy(), G, Cp, R, coords)
+    wx, wy, winf = pair_backward_plain(cfg, *tin, m_t, minv)
+    for got, want in ((cx, wx), (cy, wy)):
+        _assert_canonical_equal(np.ascontiguousarray(got.swapaxes(-1, -2)), want.transpose(-1, -2))
+    assert np.array_equal(inf, winf.numpy())
+    last = Cp - 1
+    assert inf[0, 0, 0 if coords == 2 else 1] and inf[0, last, 2 if coords == 2 else 3]
+
+
+def _words32(v: int) -> np.ndarray:
+    return np.array([(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)], dtype=np.uint32)
+
+
+@pytest.mark.parametrize("mode", ["override", "default", "dual", "triple_override"])
+def test_convert_point_scaled_matches_twin(lib, mode):
+    """The convert kernel's run-time-constant body (convert_point_scaled) in
+    each output layout, on the coordinates of test_convert_point_matches_twin
+    (values >= p included), against convert_pack_scaled_plain: an x constant
+    that overrides R^2, the default R^2 (the plain table), two tables
+    sharing y, and the triple table with an overridden first constant."""
+    from msm_tpu_torch.ops.cuda_convert import CONVERT_DUAL, CONVERT_ONE, CONVERT_TRIPLE
+    from msm_tpu_torch.ops.glv import glv_params
+
+    rng = random.Random(44)
+    edge = [0, 1, P - 1, P, P + 1, 2 * P - 1, 4 * P, 5 * P, (1 << 256) - 1]
+    xs = edge + [rng.randrange(P) for _ in range(60)] + [rng.randrange(P, 1 << 256) for _ in range(30)]
+    ys = list(reversed(xs))
+    xw, yw = _u16_words(xs), _u16_words(ys)
+    n = len(xs)
+    s1 = None if mode == "default" else rng.randrange(1, P) * CFG.r2 % P
+    s2 = glv_params(BN254).beta * CFG.r2 % P if mode in ("dual", "triple_override") else None
+    layout = {"dual": CONVERT_DUAL, "triple_override": CONVERT_TRIPLE}.get(mode, CONVERT_ONE)
+    width = 24 if layout == CONVERT_TRIPLE else 16
+    out, out2 = np.zeros((n, width), dtype=np.int32), np.zeros((n, 16), dtype=np.int32)
+    c1, c2 = _words32(CFG.r2 % P if s1 is None else s1), _words32(s2 or 0)
+    lib.w_convert_scaled(xw.ctypes.data, yw.ctypes.data, c1.ctypes.data, c2.ctypes.data,
+                         out.ctypes.data, out2.ctypes.data, n, layout)
+    want = convert_pack_scaled_plain(CFG, torch.from_numpy(xw), torch.from_numpy(yw), x_scale=s1,
+                                     dual_x_scale=s2, triple=layout == CONVERT_TRIPLE)
+    if layout == CONVERT_DUAL:
+        assert np.array_equal(out, want[0].numpy()) and np.array_equal(out2, want[1].numpy())
+    else:
+        assert np.array_equal(out, want.numpy()) and not out2.any()
+    got_x = [int.from_bytes(out[i, :8].astype("<u4").tobytes(), "little") for i in range(n)]
+    scale = CFG.r2 if s1 is None else s1
+    assert got_x == [x * scale * pow(CFG.r, -1, P) % P for x in xs]
+    if mode == "default":
+        assert np.array_equal(out, convert_pack_plain(CFG, torch.from_numpy(xw), torch.from_numpy(yw)).numpy())
