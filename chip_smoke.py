@@ -36,9 +36,12 @@
    1024, 16 x 2048 and 16 x 4096 lanes (one, p - 1, zero and negated
    balanced lanes planted) and for e = 0, 1, p - 2 and a 1000-bit e, and
    the forward products and backward emission (kernels 10 and 11) at the
-   compressed 2^20 shape as well as the TPU rule's; the ptxas report
-   (registers, frame, spills) of the word-core pair, Fermat and scaled
-   convert kernels, and their SASS, which must hold no call;
+   compressed 2^20 shape as well as the TPU rule's, and the blocked
+   reduction's phase 1 at the 2^16 shape (G20 T256 Bl16; every shape of it
+   with planted negated rows, identity buckets and buckets equal to the
+   running sum); the ptxas report (registers, frame, spills) of the
+   word-core pair, Fermat, scaled convert and phase 1 kernels, and their
+   SASS, which must hold no call;
 3. runs compress_pairs on the card at the TPU rule's compressed 2^20 shape
    (R = 1024 lanes, C = 1024 steps, 4 subtasks) and, under GLV, at the GLV
    compressed 2^20 shape (G = 8, C = 1024, R = 2048) over points, their
@@ -297,6 +300,25 @@ def _pair_stream(rng, G, C, R, rows):
     return perm, flags
 
 
+def _bpr_buckets(rng, shape, cfg):
+    """Kernel 8's buckets [G, Bl, T, L] x3: random canonical field triples
+    with planted rows, drawing nothing more from rng: y negated (balanced
+    limbs) on every fourth chain, the identity at the second step of chains
+    3 mod 8 (acc + m there adds a point to itself), and the first bucket
+    again at the second step of chains 5 mod 8 (m + B there adds a point to
+    itself). The kernel adds in its twin's order, so these need not be
+    curve points."""
+    b = [_rand_fe(rng, shape, cfg) for _ in range(3)]
+    Bl = shape[1]
+    b[1][:, :, ::4] *= -1
+    for c, v in zip(b, (0, _mont([1], cfg)[0], 0)):
+        c[:, max(Bl - 2, 0), 3::8] = v
+    if Bl > 1:
+        for c in b:
+            c[:, Bl - 2, 5::8] = c[:, Bl - 1, 5::8]
+    return b
+
+
 def _field_outputs(name, out, L):
     """A kernel's outputs as (limbs-last field tensors, plain integer
     tensors) for the comparison (a GLV mode's as its kernel's)."""
@@ -334,7 +356,8 @@ def _products(name, args) -> float:
     4-bit window's (_pow_chains), a squaring at SQUARE_PER_PRODUCT; per pair,
     suffix and forward products 1, backward emission 5, emission 5 plus the
     mixed addition's 11, and one more for a doubling; an infinity pair
-    needs none of these (its d is one and its sum is not read). A GLV mode
+    needs none of these (its d is one and its sum is not read), nor does
+    an addition with the identity (_bpr_additions). A GLV mode
     counts as its kernel, the convert with one more product a point
     (beta x), as does the scaled convert with a second x constant."""
     shape = args[1].shape
@@ -360,8 +383,8 @@ def _products(name, args) -> float:
     if name == "mont_pow":
         return shape[0] * shape[2] * min(
             mul + SQUARE_PER_PRODUCT * sqr for sqr, mul in _pow_chains(args[2]))
-    if name == "bpr_phase1":  # [G, Bl, T, L]: two additions per bucket
-        return 24 * shape[0] * shape[1] * shape[2]
+    if name == "bpr_phase1":
+        return 12 * _bpr_additions(args)
     pairs = args[2].numel() // 2
     dbl, inf = _pair_kinds(args)
     if name == "emit_scan":
@@ -401,6 +424,22 @@ def _pair_kinds(args) -> tuple[int, int]:
         d, i = pair_predicates_plain(cfg, x[0::2], y[0::2], sg[0::2], x[1::2], y[1::2], sg[1::2])
         dbl, inf = dbl + int(d.sum()), inf + int(i.sum())
     return dbl, inf
+
+
+def _bpr_additions(args) -> int:
+    """Additions kernel 8's function needs on buckets (cfg, bx, by, bz)
+    [G, Bl, T, L]: per chain and step, from the top down, m + B unless m
+    or B is the identity (z = 0), and acc + m unless acc is the identity,
+    i.e. unless every bucket above this step is (m is then the identity
+    too, or this step's m is B). With no identity bucket that is
+    2 (Bl - 1) a chain: the first m and acc additions start from the
+    identity."""
+    from msm_tpu_torch.ops.field import get_field_ctx
+
+    empty = (get_field_ctx(args[0]).canonical(args[3]) == 0).all(-1).flip(1)  # [G, Bl, T], top first
+    m_empty = empty.to(torch.int32).cumprod(1).bool()  # m after each step is the identity
+    before = torch.cat([torch.ones_like(m_empty[:, :1]), m_empty[:, :-1]], 1)  # m before each step
+    return int((~(before | empty)).sum()) + int((~before).sum())
 
 
 def _horner_depth(args) -> int:
@@ -570,7 +609,7 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         # blocked reduction, phase 1: the 2^20 MSM's 16 windows of 32768
         # body buckets at bpr_threads = 512 lanes (Bl = 64)
         G3, T3, Bl3 = (1, 16, 16) if small else (cfg.num_subtasks, 512, (NB - 1) // 512)
-        cases["bpr_phase1"] = ([cfg, *(t(_rand_fe(rng, (G3, Bl3, T3), cfg)) for _ in range(3))], False, 3)
+        cases["bpr_phase1"] = ([cfg, *map(t, _bpr_buckets(rng, (G3, Bl3, T3), cfg))], False, 3)
         for name, (args, as_points, reps) in cases.items():
             out[name] = {**_check_case(kern, f, L, name, size, args, as_points, reps, clock_hz),
                          "library_ms": None}
@@ -587,6 +626,7 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         check_convert_emit_shapes(kern, rng, table, dev, clock_hz)
         check_suffix_pow_shapes(kern, rng, table, dev, clock_hz)
         check_pair_value_shapes(kern, rng, table, dev, clock_hz)
+        check_bpr_shapes(kern, rng, dev, clock_hz)
     out.update(check_glv_kernels(kern, aff, clock_hz, sizes, dev))
     out.update(check_convert_scaled(kern, clock_hz, sizes, dev))
     return out
@@ -773,6 +813,23 @@ def check_pair_value_shapes(kern, rng, table, dev, clock_hz) -> None:
     _check_case(kern, f, L, "pair_backward", label, _backward_args(kern, pair_in), False, 3, clock_hz)
 
 
+def check_bpr_shapes(kern, rng, dev, clock_hz) -> None:
+    """Kernel 8 at the blocked reduction's 2^16 shape (pick_config(2^16):
+    c = 13, 20 windows of 4096 body buckets at bpr_threads = 256 lanes, so
+    Bl = 16), with planted rows (_bpr_buckets), exact against its twin
+    (check_kernels holds it at G1 T16 Bl16 and the 2^20 shape)."""
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.params import pick_config
+
+    cfg = pick_config(1 << 16)
+    T = pick_geometry(1 << 16, cfg.chunk_size).bpr_threads
+    G, Bl = cfg.num_subtasks, (cfg.num_buckets - 1) // T
+    args = [cfg, *(torch.from_numpy(a).to(dev) for a in _bpr_buckets(rng, (G, Bl, T), cfg))]
+    _check_case(kern, get_field_ctx(cfg), cfg.num_words, "bpr_phase1", f"2^16 G{G} T{T} Bl{Bl}", args,
+                False, 3, clock_hz)
+
+
 def _scaled_modes(cfg) -> list:
     """(label, x_scale, dual_x_scale, triple) of the scaled convert's
     modes: an x constant overriding R^2, two tables (x R, beta x R) sharing
@@ -947,13 +1004,14 @@ def _sass_calls(obj, kernel: str) -> tuple[int, int]:
 def report_word_core_builds(so) -> None:
     """One line per word-core pair kernel (both modes of the suffix
     products, the forward products and the backward emission), the Fermat
-    kernel and each layout of the scaled convert: its ptxas registers,
-    frame and spills and its SASS size; raises when the SASS holds an
-    out-of-line call."""
+    kernel, each layout of the scaled convert and the blocked reduction's
+    phase 1: its ptxas registers, frame and spills and its SASS size;
+    raises when the SASS holds an out-of-line call."""
     log = (so.parent / "build.log").read_text()
     kernels = [(k, "compress.o") for k in ("k_pair_suffix", "k_pair_suffix_glv", "k_pair_forward",
                                            "k_pair_forward_glv", "k_pair_backward", "k_pair_backward_glv")]
     kernels += [("k_mont_pow", "inv.o")] + [(f"k_convert_scaled<{i}>", "convert.o") for i in range(3)]
+    kernels += [("k_bpr_phase1", "bpr.o")]
     for kernel, obj in kernels:
         rep = _ptxas(log, kernel)
         n, calls = _sass_calls(so.parent / obj, kernel)

@@ -1,24 +1,41 @@
-// Kernel 8: phase 1 of the blocked bucket reduction, one thread per
-// (subtask, lane). The per-lane body is in bpr.cuh.
+// Kernel 8: phase 1 of the blocked bucket reduction on the word core. The
+// chain body is in bpr.cuh.
 //
 // Replaces msm_tpu/ops/pallas_bpr.py::make_bpr_phase1 (pallas_call at :97).
 // The TPU kept (m, g) in VMEM scratch across the sequential grid axis of Bl
-// steps and read the buckets descending through its index map; here a
-// thread keeps them in registers and its loop index runs backwards. Nothing
-// crosses threads. The input stays step-major [G, Bl, T, L], so at every
-// step neighbouring threads read neighbouring 80-byte rows.
+// steps and read the buckets descending through its index map; here a group
+// of lanes keeps them in registers and its loop index runs backwards. The
+// input stays step-major [G, Bl, T, L], so at every step neighbouring
+// groups read neighbouring 80-byte rows.
 //
 // Bound: integer multiply-adds, 2 * Bl dependent complete additions (12
-// Montgomery products each) per lane, in series. At the 2^20 shape there are
-// only G * T = 16 * 512 lanes, so the design is latency-bound: blocks are one
-// warp wide to spread the lanes over as many of the 132 SMs as possible.
+// Montgomery products each) per chain, of which the first two start from
+// the identity and need none. At the 2^20 shape there are only
+// G * T = 16 * 512 chains of 128 additions: one thread per chain fills 256
+// warps, fewer than the card's 528 schedulers, and a warp on this core
+// issues about one instruction in six cycles (a product's carries are a
+// dependent chain; PERF.md). The design:
+//   - a group of LANES = 4 lanes per chain, so the 2^20 shape has 1024
+//     warps in 128 blocks, one wave on the card's 132 SMs;
+//   - two lanes of the group run the m additions and two the acc additions
+//     a step behind (step b's m + B[b] and step b + 1's acc + m are
+//     independent), each pair splitting its addition's levels of six
+//     products three a lane (csrc/lanes32.cuh), so no lane idles, and each
+//     lane repeats only its own addition's sums and differences;
+//   - the twin's additions in its order, so the result is the twin's,
+//     limb for limb.
+// LANES and the block size are the fastest of scripts/torch_bpr_variants.py's
+// sweep (PERF.md): 8 or 32 lanes, 64 or 128 threads ran slower, as did 1 or
+// 2 lanes and a group running both additions in turn in its earlier sweeps.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "bpr.cuh"
 
 using namespace msm;
 
-constexpr int THREADS = 32;
+constexpr int LANES = 4, THREADS = 256;
+constexpr int CHAINS = THREADS / LANES;  // chains per block
 
 __global__ void __launch_bounds__(THREADS)
     k_bpr_phase1(const int32_t* __restrict__ bx, const int32_t* __restrict__ by,
@@ -26,19 +43,23 @@ __global__ void __launch_bounds__(THREADS)
                  int32_t* __restrict__ my, int32_t* __restrict__ mz,
                  int32_t* __restrict__ gx, int32_t* __restrict__ gy,
                  int32_t* __restrict__ gz, int Bl, int T) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < T)
-    bpr_phase1_lane(bx, by, bz, mx, my, mz, gx, gy, gz, blockIdx.y, Bl, T, t);
+  const int t = blockIdx.x * CHAINS + threadIdx.x / LANES;
+  bpr_phase1_chain<LANES>(bx, by, bz, mx, my, mz, gx, gy, gz, blockIdx.y, Bl,
+                          T, t < T ? t : T - 1, t < T);
 }
 
-// b* [G, Bl, T, L]; m*, g* [G, T, L]
+// b* [G, Bl, T, L]; m*, g* [G, T, L]; every pointer 16-byte aligned
 extern "C" int msm_bpr_phase1(const int32_t* bx, const int32_t* by,
                               const int32_t* bz, int32_t* mx, int32_t* my,
                               int32_t* mz, int32_t* gx, int32_t* gy,
                               int32_t* gz, int64_t groups, int Bl, int T,
                               void* stream) {
+  const uintptr_t addr = (uintptr_t)bx | (uintptr_t)by | (uintptr_t)bz |
+                         (uintptr_t)mx | (uintptr_t)my | (uintptr_t)mz |
+                         (uintptr_t)gx | (uintptr_t)gy | (uintptr_t)gz;
+  if (addr % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && Bl > 0 && T > 0) {
-    const dim3 grid((unsigned)((T + THREADS - 1) / THREADS), (unsigned)groups);
+    const dim3 grid((unsigned)((T + CHAINS - 1) / CHAINS), (unsigned)groups);
     k_bpr_phase1<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         bx, by, bz, mx, my, mz, gx, gy, gz, Bl, T);
   }

@@ -126,14 +126,6 @@ MSM_HD void pt_neg(point& out, const point& p) {
   out.z = p.z;
 }
 
-// Point from three balanced [L] limb rows, each `stride` ints apart per limb.
-MSM_HD void pt_load_balanced(point& p, const int32_t* x, const int32_t* y,
-                             const int32_t* z, int64_t stride) {
-  fe_load_balanced_strided(p.x, x, stride);
-  fe_load_balanced_strided(p.y, y, stride);
-  fe_load_balanced_strided(p.z, z, stride);
-}
-
 MSM_HD void pt_store(int32_t* x, int32_t* y, int32_t* z, int64_t stride,
                      const point& p) {
   fe_store_strided(x, stride, p.x);

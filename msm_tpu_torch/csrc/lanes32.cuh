@@ -1,11 +1,13 @@
 // Point formulas of the word core (curve32.cuh) with each formula's
-// independent products spread over the lanes of a warp: the latency of a
-// formula is two products deep instead of 8 or 12, at the cost of a warp
+// independent products spread over a group of lanes of a warp (the whole
+// warp unless the caller names a narrower group): the latency of a formula
+// is two products deep instead of 8 or 12, at the cost of the group's lanes
 // per formula. For serial chains and small batches: the Horner ladder
-// (kernel 7, csrc/horner.cuh) and the point add's small batches (kernel 1,
-// csrc/point_add.cuh). __host__ __device__, so the host C++ compiler
-// builds them for the CPU tests (there one thread computes every product
-// of a level).
+// (kernel 7, csrc/horner.cuh), the point add's small batches (kernel 1,
+// csrc/point_add.cuh) and the blocked reduction's chains (kernel 8,
+// csrc/bpr.cuh, groups of a few lanes). __host__ __device__, so the host
+// C++ compiler builds them for the CPU tests (there one thread computes
+// every product of a level).
 #pragma once
 
 #include "curve32.cuh"
@@ -13,27 +15,40 @@
 namespace msm {
 
 // The N independent products of one level of a formula, out[k] = a[k] b[k].
-// On the device lane k of the warp computes product k (lanes >= N repeat
-// product 0) and the lanes trade them with __shfl_sync, so every lane holds
-// every product; on the host one thread computes all N.
-template <int N>
+// On the device the warp's lanes form groups of WIDTH (a power of two from
+// 2 to 32), each group working on its own formula: lane l of a group
+// computes products l, l + WIDTH, ... (a lane past the last product
+// repeats the first product of its round), and the group's lanes trade
+// them with __shfl_sync, so every lane holds every product; every lane of
+// the warp must take part. On the host one thread computes all N.
+template <int N, int WIDTH = 32>
 MSM_HD void level_products(fe32 (&out)[N], const fe32 (&a)[N],
                            const fe32 (&b)[N]) {
+  static_assert(WIDTH >= 2 && WIDTH <= 32 && (WIDTH & (WIDTH - 1)) == 0,
+                "a group is a power of two of lanes, at most a warp");
 #ifdef __CUDA_ARCH__
-  const int lane = threadIdx.x & 31;
-  fe32 x = a[0], y = b[0];
+  constexpr int ROUNDS = (N + WIDTH - 1) / WIDTH;
+  const int lane = threadIdx.x & (WIDTH - 1);
+  fe32 r[ROUNDS];
   MSM_UNROLL
-  for (int k = 1; k < N; ++k)
-    if (lane == k) {
-      x = a[k];
-      y = b[k];
-    }
-  fe32 r;
-  fe32_mul(r, x, y);
+  for (int j = 0; j < ROUNDS; ++j) {
+    fe32 x = a[j * WIDTH], y = b[j * WIDTH];
+    MSM_UNROLL
+    for (int k = j * WIDTH + 1; k < N && k < (j + 1) * WIDTH; ++k)
+      if (lane == k - j * WIDTH) {
+        x = a[k];
+        y = b[k];
+      }
+    fe32_mul(r[j], x, y);
+  }
   MSM_UNROLL
   for (int k = 0; k < N; ++k)
     MSM_UNROLL
-    for (int i = 0; i < NW; ++i) out[k].w[i] = __shfl_sync(0xffffffffu, r.w[i], k);
+    for (int i = 0; i < NW; ++i)
+      out[k].w[i] = WIDTH == 32  // the warp: the shuffle's default width
+                        ? __shfl_sync(0xffffffffu, r[k / WIDTH].w[i], k)
+                        : __shfl_sync(0xffffffffu, r[k / WIDTH].w[i],
+                                      k % WIDTH, WIDTH);
 #else
   for (int k = 0; k < N; ++k) fe32_mul(out[k], a[k], b[k]);
 #endif
@@ -65,7 +80,9 @@ MSM_HD void pt32_double_lanes(pt32& out, const pt32& p) {
   fe32_double(out.x, r[3]);
 }
 
-// RCB16 Algorithm 7 (pt32_add) with its 12 products in two levels of 6.
+// RCB16 Algorithm 7 (pt32_add) with its 12 products in two levels of 6,
+// over groups of WIDTH lanes.
+template <int WIDTH = 32>
 MSM_HD void pt32_add_lanes(pt32& out, const pt32& p, const pt32& q) {
   fe32 r[6];
   {
@@ -76,7 +93,7 @@ MSM_HD void pt32_add_lanes(pt32& out, const pt32& p, const pt32& q) {
     fe32_add(b[4], q.y, q.z);
     fe32_add(a[5], p.x, p.z);
     fe32_add(b[5], q.x, q.z);
-    level_products<6>(r, a, b);
+    level_products<6, WIDTH>(r, a, b);
   }
   fe32 t0, t2, t3, t4, t5, u, z3, t1m, y3;
   fe32_add(u, r[0], r[1]);
@@ -93,7 +110,7 @@ MSM_HD void pt32_add_lanes(pt32& out, const pt32& p, const pt32& q) {
   fe32_mul_small<B3>(y3, t5);
   {
     const fe32 a[6] = {t3, t4, t1m, y3, z3, t0}, b[6] = {t1m, y3, z3, t0, t4, t3};
-    level_products<6>(r, a, b);
+    level_products<6, WIDTH>(r, a, b);
   }
   fe32_sub(out.x, r[0], r[1]);
   fe32_add(out.y, r[2], r[3]);

@@ -5,8 +5,9 @@
   thread per lane for C = n / R steps.
 - ``bpr_threads``: lanes T per subtask of the two-phase blocked bucket
   reduction; callers pass it to ``scan.bucket_reduce_blocked`` (kernel 8
-  runs one thread per subtask and lane). The cuZK main path reduces by the
-  telescoped ``window_sum_from_pe`` instead and does not read it.
+  runs one chain per subtask and lane, each on a group of a few lanes of a
+  warp). The cuZK main path reduces by the telescoped
+  ``window_sum_from_pe`` instead and does not read it.
 - ``subtask_batch``: how many subtasks the scan processes per launch; it
   bounds the boundary-prefix buffer at subtask_batch * m * 3L * 4 bytes for
   a stream of m entries a subtask (half that when pair-compressed); m is n,

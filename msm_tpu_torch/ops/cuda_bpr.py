@@ -1,8 +1,9 @@
 """Kernel 8: phase 1 of the blocked bucket reduction, and its plain twin.
 
-CUDA source: ``msm_tpu_torch/csrc/bpr.cu`` (per-lane body in
-``csrc/bpr.cuh``). Replaces the Pallas kernel
-``msm_tpu/ops/pallas_bpr.py::make_bpr_phase1`` (``pallas_call`` at :97).
+CUDA source: ``msm_tpu_torch/csrc/bpr.cu`` (chain body in
+``csrc/bpr.cuh``, on the word core: a group of lanes per chain). Replaces
+the Pallas kernel ``msm_tpu/ops/pallas_bpr.py::make_bpr_phase1``
+(``pallas_call`` at :97).
 
 Buckets arrive step-major with a leading subtask axis, ``[G, Bl, T, L]``
 x3: lane t of subtask g owns the Bl buckets ``[g, :, t]`` and walks them
@@ -38,7 +39,7 @@ def bpr_phase1(cfg: MsmConfig, bx, by, bz):
     """(m, g) of every lane: [G, Bl, T, L] x3 -> six [G, T, L]."""
     if bx.device.type == "cpu":
         return bpr_phase1_plain(cfg, bx, by, bz)
-    ins = [t.contiguous() for t in (bx, by, bz)]
+    ins = _build.aligned(bx, by, bz)
     _build.require_cuda(cfg, *ins)
     G, Bl, T, L = ins[0].shape
     for t in ins:

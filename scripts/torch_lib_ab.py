@@ -13,8 +13,8 @@ The other checkout's library is built by its own ``msm_tpu_torch.ops._build``
 through ``_build.load()``; the script swaps the loaded library between the
 two builds, so of the entry points timed here (point add, scan, row
 offsets, point total, Horner ladder, forward pair products, backward pair
-emission) only those whose C signature is the same in both trees are
-timed; the others are named and skipped.
+emission, blocked reduction's phase 1) only those whose C signature is the
+same in both trees are timed; the others are named and skipped.
 Both builds' outputs must be equal bit for bit (every kernel writes
 canonical limbs, and the two builds sum in the same order).
 
@@ -50,7 +50,7 @@ from torch_sass_mix import sass  # noqa: E402
 #: wrapper -> its C entry point
 KERNELS = {"point_add": "msm_point_add", "scan_rows": "msm_scan", "row_offsets": "msm_row_offsets",
            "point_total": "msm_point_total", "horner": "msm_horner", "pair_forward": "msm_pair_forward",
-           "pair_backward": "msm_pair_backward"}
+           "pair_backward": "msm_pair_backward", "bpr_phase1": "msm_bpr_phase1"}
 
 
 def other_library(root: Path) -> tuple[Path, dict[str, str]]:
@@ -77,7 +77,9 @@ def cases(rng, kern) -> dict:
     R = 16384 lanes of C = 64 steps, 32769 buckets, S = 16 windows; the
     pair-value kernels over the table of 256 real points with planted
     doubling and infinity pairs at G = 4, C = 1024, R = 1024, the backward
-    emission on this build's forward products and their inverse."""
+    emission on this build's forward products and their inverse; the
+    blocked reduction's phase 1 over the 16 windows' buckets at 512 lanes
+    (Bl = 64), with planted rows."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.params import BN254, MsmConfig, pick_config
@@ -108,6 +110,7 @@ def cases(rng, kern) -> dict:
         "horner": [cfg, *(t(cs._rand_fe(rng, (S,), cfg)) for _ in range(3)), cfg.chunk_size],
         "pair_forward": pair_in,
         "pair_backward": cs._backward_args(kern, pair_in),
+        "bpr_phase1": [cfg, *map(t, cs._bpr_buckets(rng, (S, (NB - 1) // 512, 512), cfg))],
     }
 
 

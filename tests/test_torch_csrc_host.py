@@ -1,4 +1,4 @@
-"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh, bpr.cuh,
+"""The CUDA core (msm_tpu_torch/csrc/field.cuh, curve.cuh, pair.cuh,
 prefix.cuh) compiled for the host with g++ and held against the plain
 PyTorch twins: Montgomery product, balanced-input canonicalization,
 complete addition, mixed addition, doubling, the pair algebra (predicates,
@@ -6,9 +6,8 @@ denominator, numerator, emission), the per-lane bodies of the four pair
 kernels and of the Fermat inversion that links them (the suffix products,
 the inversion and the emission + scan on the word core: pair32.cuh,
 pow32.cuh, emit_scan.cuh), run for every lane of a small stream with
-planted doubling and infinity pairs, the per-lane body of the blocked
-reduction's phase 1, and the per-thread bodies of the row offsets, run for
-every thread of the three launches' plan.
+planted doubling and infinity pairs, and the per-thread bodies of the row
+offsets, run for every thread of the three launches' plan.
 Catches arithmetic and indexing faults in the device code without a GPU.
 Outputs of the core must be canonical and equal to the twins' results after
 canonical()."""
@@ -25,7 +24,6 @@ import torch
 from _torch_helpers import (affine_points, mont_limbs, pair_stream, rand_balanced, rand_canonical,
                             same_points)
 from msm_tpu_torch.ops import cuda_compress as cc
-from msm_tpu_torch.ops.cuda_bpr import bpr_phase1_plain
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
 from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
 from msm_tpu_torch.ops.cuda_prefix import row_offsets_plain
@@ -42,7 +40,6 @@ L = CFG.num_words
 HARNESS = r"""
 #include <vector>
 
-#include "bpr.cuh"
 #include "emit_scan.cuh"
 #include "pair.cuh"
 #include "pow32.cuh"
@@ -171,13 +168,6 @@ void h_pair_backward(const int32_t* pk, const int32_t* pm, const int32_t* fl,
     for (int r = 0; r < R; ++r)
       pair_backward_lane(pk, pm, fl, m, minv, cx, cy, inf, g, Cp, R, r);
 }
-void h_bpr_phase1(const int32_t* bx, const int32_t* by, const int32_t* bz,
-                  int32_t* mx, int32_t* my, int32_t* mz, int32_t* gx,
-                  int32_t* gy, int32_t* gz, int64_t G, int Bl, int T) {
-  for (int64_t g = 0; g < G; ++g)
-    for (int t = 0; t < T; ++t)
-      bpr_phase1_lane(bx, by, bz, mx, my, mz, gx, gy, gz, g, Bl, T, t);
-}
 }
 
 // The row offsets' three launches with blocks of T threads, K lanes each;
@@ -260,7 +250,6 @@ def lib(tmp_path_factory):
                            ("h_pair_forward", [P] * 4 + lanes),
                            ("h_emit_scan", [P] * 9 + lanes),
                            ("h_pair_backward", [P] * 8 + lanes),
-                           ("h_bpr_phase1", [P] * 9 + lanes),
                            ("h_row_offsets", [P] * 6 + [I64, I32, I32, I32])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -430,21 +419,6 @@ def test_pair_kernel_lanes_match_twins(lib):
     _assert_limbs_first_equal(cx, wx)
     _assert_limbs_first_equal(cy, wy)
     assert np.array_equal(inf, winf.numpy()) and inf.any() and not inf.all()
-
-
-def test_bpr_phase1_lanes_match_twin(lib):
-    """Kernel 8's per-lane body for every (subtask, lane) on balanced
-    inputs (negated values and an identity bucket included) against the
-    twin: the same descending walk, so m and g agree after canonical()."""
-    G, Bl, T = 2, 4, 8
-    rng = np.random.default_rng(27)
-    b = [rand_balanced(rng, (G, Bl, T), CFG) for _ in range(3)]
-    b[1][0, ::2] *= -1
-    b[0][1, 2, 3], b[1][1, 2, 3], b[2][1, 2, 3] = 0, F.r_limbs, 0  # identity
-    got = _run(lib, "h_bpr_phase1", [(G, T, L)] * 6, *b, G, Bl, T)
-    want = bpr_phase1_plain(CFG, *map(torch.from_numpy, b))
-    for g, w in zip(got, want):
-        _assert_canonical_equal(g, w)
 
 
 @pytest.mark.parametrize("K, R, T", [(1, 64, 4), (2, 64, 4), (4, 64, 4), (8, 64, 4), (8, 8, 128),

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from _torch_helpers import glv_pair_stream, mont_limbs, pair_stream, rand_balanced, rand_canonical
+from msm_tpu_torch.ops.cuda_bpr import bpr_phase1_plain
 from msm_tpu_torch.ops.cuda_compress import (emit_scan_plain, pair_backward_plain, pair_forward_plain,
                                               pair_suffix_plain)
 from msm_tpu_torch.ops.cuda_convert import convert_pack_plain, convert_pack_scaled_plain, pack_canonical
@@ -54,6 +55,7 @@ P = BN254.modulus
 HARNESS = r"""
 #include <vector>
 
+#include "bpr.cuh"
 #include "convert32.cuh"
 #include "emit_scan.cuh"
 #include "horner.cuh"
@@ -289,6 +291,18 @@ void w_emit_scan(const int32_t* packed, const int32_t* perm,
     for (int r = 0; r < R; ++r)
       emit_scan_lane(packed, perm, flags, s, t0, pe3, tx, ty, tz, g, Cp, R, r);
 }
+// kernel 8's chain body for every (subtask, chain): b* [G, Bl, T, L]
+// balanced, m*, g* [G, T, L]; the group's two halves (the m chain and the
+// acc chain a step behind) run step by step, the level products that each
+// half splits computed here by one thread
+void w_bpr_phase1(const int32_t* bx, const int32_t* by, const int32_t* bz,
+                  int32_t* mx, int32_t* my, int32_t* mz, int32_t* gx,
+                  int32_t* gy, int32_t* gz, int64_t G, int Bl, int T) {
+  for (int64_t g = 0; g < G; ++g)
+    for (int t = 0; t < T; ++t)
+      bpr_phase1_chain<4>(bx, by, bz, mx, my, mz, gx, gy, gz, g, Bl, T, t,
+                          true);
+}
 // the chain of per-level products (the lanes' split, computed here by one
 // thread)
 void w_horner(const int32_t* wx, const int32_t* wy, const int32_t* wz,
@@ -336,7 +350,8 @@ def lib(tmp_path_factory):
                            ("w_scan", [Pt] * 7 + [I64, I32, I32]),
                            ("w_convert", [Pt] * 3 + [I64]),
                            ("w_emit_scan", [Pt] * 9 + [I64, I32, I32]),
-                           ("w_horner", [Pt] * 6 + [I32, I32])):
+                           ("w_horner", [Pt] * 6 + [I32, I32]),
+                           ("w_bpr_phase1", [Pt] * 9 + [I64, I32, I32])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = None
@@ -586,6 +601,33 @@ def test_horner_chain_matches_twin(lib, S, chunk):
     want = horner_plain(CFG, *map(torch.from_numpy, w), chunk)
     for g, t in zip(got, want):
         _assert_canonical_equal(g, t)
+
+
+@pytest.mark.parametrize("G, Bl, T", [(2, 4, 8), (1, 1, 4), (3, 8, 2)])
+def test_bpr_phase1_lanes_match_twin(lib, G, Bl, T):
+    """Kernel 8's chain body for every (subtask, chain) on balanced inputs
+    against the twin. The host runs the kernel's schedule step by step: the
+    group's two halves, the m chain and the acc chain a step behind, with
+    the device's operand selects and discard predicates over its Bl + 1
+    steps (only the shuffle that hands m over and the lane's half are the
+    device's own). Planted: negated rows, an identity bucket at the second
+    step (there acc + m adds a point to itself), and a chain whose second
+    bucket equals its first, its running sum (there m + B adds a point to
+    itself). The same additions in the same order, so m and g agree after
+    canonical() on field triples off the curve too."""
+    rng = np.random.default_rng(27 + Bl)
+    b = [rand_balanced(rng, (G, Bl, T), CFG) for _ in range(3)]
+    b[1][0, :, ::2] *= -1
+    one = mont_limbs([1], CFG)[0]
+    top = max(Bl - 2, 0)
+    b[0][-1, top, T - 1], b[1][-1, top, T - 1], b[2][-1, top, T - 1] = 0, one, 0
+    if Bl > 1:  # step Bl - 2 of chain 0 adds m = B[Bl - 1] to itself
+        for c in b:
+            c[0, Bl - 2, 0] = c[0, Bl - 1, 0]
+    want = bpr_phase1_plain(CFG, *map(torch.from_numpy, b))
+    got = _run(lib, "w_bpr_phase1", [(G, T, L)] * 6, *b, G, Bl, T)
+    for g, w in zip(got, want):
+        _assert_canonical_equal(g, w)
 
 
 def _u16_words(vals) -> np.ndarray:
