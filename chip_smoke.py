@@ -85,7 +85,24 @@
    GLV constants) against its twin at 2^20 points below p and on
    coordinates anywhere in [0, 2^256), then driven in its five modes with
    the counters reset just before;
-10. prints the kernels' JSON line (the GLV modes and the scaled convert as
+10. the serving plan (msm_tpu_torch.plan) on the plain, compressed, GLV
+   and GLV compressed configs at 2^20 and 2^16, on step 5's points,
+   scalars and oracle: the build by stage (serialize points, upload,
+   convert), an ints call and a call on u16 words [n, 16], three more word
+   calls and a run_batch of 4 distinct word sets (each against its folded
+   oracle), all bit-exact, each with the counters reset just before (a
+   plan call launches its path's kernels but no convert: paths plan_*);
+   one line per config and size with the words call's wall median of 5,
+   the ints call's median of 3, the words call by stage (host_pack,
+   upload and its MiB, unpack, glv_split, decompose, window_sums, tail),
+   one profiled words call's device busy time, idle share and kernel ms,
+   peak device memory, and run_batch's wall; then the batched model
+   (compute_msm_batched, 4 instances of 2^16 points, plain: bit-exact
+   against the oracle over all points, K2 once per instance, its wall) and
+   one line comparing the plan's pinned upload of 2^20 packed scalars (32
+   MiB) with a pageable one of the same bytes and with the per-call path's
+   64 MiB of int32 words;
+11. prints the kernels' JSON line (the GLV modes and the scaled convert as
    entries of their own), then as its last line {"ok": true, "device":
    {...}}.
 
@@ -167,6 +184,15 @@ EXCLUDED = {
     **{path: tuple(k for k in REPLACES if k not in PATHS[path])
        for path in ("pairs", "pairs_glv", "convert_scaled")},
 }
+#: the serving plan's calls, a path of their own per config: the path's
+#: kernels but the convert, which runs once, when the plan is built; the
+#: batched model runs the plain path's, K2 once per instance
+PLAN_PATHS = ("plain", "compressed", "glv", "glv_compressed")
+CONVERTS = ("convert_pack", "convert_pack_glv")
+PATHS.update({f"plan_{p}": tuple(k for k in PATHS[p] if k not in CONVERTS) for p in PLAN_PATHS})
+PATHS["batched"] = PATHS["plain"]
+EXCLUDED.update({f"plan_{p}": EXCLUDED[p] + CONVERTS for p in PLAN_PATHS})
+EXCLUDED["batched"] = EXCLUDED["plain"]
 #: H100 SXM peaks: HBM bytes/s, and 32-bit IMAD per SM per clock (x 132 SMs
 #: x the SM clock that nvidia-smi reports as clocks.max.sm)
 HBM_BYTES_PER_S = 3.35e12
@@ -1500,19 +1526,20 @@ def _counts_of(tag: str, path: str) -> dict:
     return counts
 
 
-def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
+def run_msm_checks(log_sizes=(20, 16), device="cuda") -> tuple[dict, dict]:
     """The plain, compressed, naive, GLV and GLV compressed paths at each
     size: 2^20 with counters reset just before each run, 2^16 against the
     full oracle, and end-to-end timings; at 2^20 also the blocked stage 4
-    (check_blocked) on the same inputs and oracle. Returns {path: launch
-    counts of its 2^20 run}."""
+    (check_blocked) on the same inputs and oracle. Returns ({path: launch
+    counts of its 2^20 run}, {log2 n: (bases, points, scalars, oracle
+    JPoint)})."""
     from msm_tpu_torch.oracle import best_msm
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops._build import BUILD_ROOT
     from msm_tpu_torch.params import BN254
 
     cv = Curve(BN254)
-    results = {}
+    results, inputs = {}, {}
     for logn in log_sizes:
         n = 1 << logn
         t0 = time.perf_counter()
@@ -1520,6 +1547,7 @@ def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
         # 2^20: the folded oracle over the bases; smaller: the oracle MSM over
         # every point
         want = folded_oracle(base, ks) if n > 1 << 16 else best_msm(pts, ks)
+        inputs[logn] = (base, pts, ks, want)
         print(f"msm 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
         for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
             cfg, run = msm_path(path, n, device)
@@ -1560,7 +1588,7 @@ def run_msm_checks(log_sizes=(20, 16), device="cuda") -> dict:
                 print_compressed_geometry(n, cfg, by_name, counts)
         if logn == log_sizes[0]:
             results["blocked"] = check_blocked(pts, ks, want, device)
-    return results
+    return results, inputs
 
 
 #: the compressed path's stage-3 kernels (a boundary prefix's two point
@@ -1628,6 +1656,234 @@ def check_blocked(pts, ks, want, device="cuda") -> dict:
     return counts
 
 
+def _median_ms(fn, reps: int) -> tuple[float, list[float]]:
+    """(median, every run) of ``reps`` calls of fn, host clock, each ended
+    by a synchronize (ms)."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), walls
+
+
+def batch_sets(base, n: int, sets: int, seed: int):
+    """``sets`` scalar sets as u16 words [n, 16] (k < r: the top word below
+    r's) and each one's exact MSM over the tiled points: the scalars folded
+    per base point by word sums."""
+    from msm_tpu_torch.oracle import best_msm
+    from msm_tpu_torch.params import BN254
+
+    rng = np.random.default_rng(seed)
+    nb, r = len(base), BN254.order
+    out = []
+    for _ in range(sets):
+        words = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint16)
+        words[:, 15] = rng.integers(0, r >> 240, size=n)
+        sums = words.astype(np.int64).reshape(-1, nb, 16).sum(axis=0)  # point i is base[i % nb]
+        folded = [sum(int(v) << (16 * w) for w, v in enumerate(row)) % r for row in sums]
+        out.append((words, best_msm(base, folded)))
+    return out
+
+
+def plan_build_stages(pts, cfg, device="cuda") -> dict:
+    """A plan's build split into its stages, each ended by a synchronize
+    (ms): what MsmPlan's constructor runs, step by step."""
+    from msm_tpu_torch.models import common
+
+    st = {}
+    t0 = time.perf_counter()
+    x, y = common.pad_points_words(pts, cfg, common.pad_size(len(pts)))
+    st["serialize_points"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    xd, yd = (torch.from_numpy(a).to(device) for a in (x, y))
+    torch.cuda.synchronize()
+    st["upload"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    common.prepare_points(cfg, xd, yd)
+    torch.cuda.synchronize()
+    st["convert"] = (time.perf_counter() - t0) * 1e3
+    return st
+
+
+def plan_stage_times(plan, words) -> dict:
+    """One plan call on u16 words split into its stages, each ended by a
+    synchronize (ms): host_pack into the pinned buffer, the upload of the
+    packed words (with its MiB), their unpacking on the device, under GLV
+    the scalar split, the decomposition, the window sums, and the tail
+    (Horner, one copy, the export)."""
+    from msm_tpu_torch.models import common, cuzk
+    from msm_tpu_torch.ops import glv
+
+    cfg, st = plan.cfg, {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        st[name] = (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    plan._stage(0, words)
+    t0 = mark("host_pack", t0)
+    packed = plan._upload(1)[0]
+    t0 = mark("upload", t0)
+    st["upload_MiB"] = packed.numel() * packed.element_size() / 2**20
+    sd = common.unpack_scalar_words(packed)
+    t0 = mark("unpack", t0)
+    if cfg.glv:
+        split = glv.split_scalars_device(sd, cfg)
+        t0 = mark("glv_split", t0)
+        keys, signs = glv.decompose_halves(split, cfg.chunk_size, cfg.num_subtasks)
+    else:
+        keys, signs = cuzk.decompose_scalars(sd, cfg)
+    t0 = mark("decompose", t0)
+    ws = cuzk.window_sums_from_keys(plan.table, keys, signs, cfg, plan.geom)
+    t0 = mark("window_sums", t0)
+    cuzk.msm_jpoints_from_ws([ws], cfg)
+    mark("tail", t0)
+    return st
+
+
+def run_plan_checks(inputs, batch: int = 4, device="cuda") -> None:
+    """The serving plan (msm_tpu_torch.plan) on the plain, compressed, GLV
+    and GLV compressed configs at each size of ``inputs`` (run_msm_checks'
+    points, scalars and oracle): build it (its stages printed), call it
+    with ints and with u16 words [n, 16], three more word calls and a
+    run_batch of ``batch`` distinct word sets, each against its oracle bit
+    for bit, every call with the counters reset just before: a plan call
+    launches the path's kernels but no convert. Then one line per config
+    and size: the words call's wall median of 5 and the ints call's of 3,
+    the words call by stage, one profiled words call (device busy, idle
+    share, kernel ms), peak device memory of the word calls and of
+    run_batch, run_batch's wall."""
+    import msm_tpu_torch
+    from msm_tpu_torch.models import common
+    from msm_tpu_torch.ops._build import BUILD_ROOT
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254
+
+    cv = Curve(BN254)
+    for logn, (base, pts, ks, want) in inputs.items():
+        n = 1 << logn
+        t0 = time.perf_counter()
+        words = common.ints_to_u16_array(ks)
+        sets = batch_sets(base, n, batch, SEED + 20 + logn)
+        print(f"plan 2^{logn}: words + {batch} batch sets and their oracles {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        want_aff = cv.to_affine(want)
+        for path in PLAN_PATHS:
+            cfg, _ = msm_path(path, n, device)
+            tag = f"plan 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks})"
+            _reset_counts()
+            t0 = time.perf_counter()
+            plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            conv = _kernels()["convert_pack_glv" if cfg.glv else "convert_pack"][0]
+            if conv.launches != 1:
+                raise AssertionError(f"{tag}: the build launched the convert {conv.launches} times, not once")
+            stages = plan_build_stages(pts, cfg, device)
+            print(f"{tag}: build {build_s:.3f} s; stages_ms "
+                  + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()), flush=True)
+            for label, scalars in (("ints", ks), ("words", words)):
+                _reset_counts()
+                got = plan(scalars)
+                torch.cuda.synchronize()
+                _counts_of(f"{tag} {label} call", f"plan_{path}")
+                if got != want_aff:
+                    raise AssertionError(f"{tag}: the {label} call differs from the oracle: {got}")
+            for _ in range(3):
+                if plan(words) != want_aff:
+                    raise AssertionError(f"{tag}: a repeated words call differs from the oracle")
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = plan.run_batch([w for w, _ in sets])
+            batch_ms = (time.perf_counter() - t0) * 1e3
+            batch_gib = torch.cuda.max_memory_allocated() / 2**30
+            _counts_of(f"{tag} run_batch B={batch}", f"plan_{path}")
+            for b, (g, (_, w)) in enumerate(zip(got, sets)):
+                if not cv.eq(g, w):
+                    raise AssertionError(f"{tag}: run_batch set {b} differs from its oracle")
+            torch.cuda.reset_peak_memory_stats()
+            words_ms, words_runs = _median_ms(lambda: plan(words), 5)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            ints_ms, ints_runs = _median_ms(lambda: plan(ks), 3)
+            st = plan_stage_times(plan, words)
+            wall_ms, busy_ms, by_name = device_breakdown(
+                lambda _pts, w: plan(w), None, words, BUILD_ROOT / f"trace_plan_2e{logn}_{path}.json")
+            print(f"{tag}: bit-exact (ints, words x4, run_batch B={batch}); words wall_ms median of 5 = "
+                  f"{words_ms:.2f} (runs {', '.join(f'{w:.2f}' for w in words_runs)}); ints wall_ms median of 3 = "
+                  f"{ints_ms:.1f} (runs {', '.join(f'{w:.1f}' for w in ints_runs)}); run_batch B={batch} "
+                  f"wall_ms={batch_ms:.2f} peak_mem_gib={batch_gib:.3f}; words peak_mem_gib={peak_gib:.3f}; "
+                  "words stages_ms " + ", ".join(f"{k}={v:.2f}" for k, v in st.items()), flush=True)
+            print(f"{tag}: profiled words call wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
+                  f"kernel_ms={busy_ms - by_name.get('memcpy', 0.0):.2f} idle_share={1 - busy_ms / wall_ms:.3f}; "
+                  "device_ms " + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
+                  flush=True)
+            del plan
+
+
+def check_batched(instances: int = 4, logn: int = 16, device="cuda") -> None:
+    """compute_msm_batched over ``instances`` MSMs of 2^logn points on the
+    plain config, counters reset just before: each result against the
+    oracle MSM over all its points; K2 once per instance; the wall (first
+    call, then a median of 3)."""
+    from msm_tpu_torch.models.batched import compute_msm_batched
+    from msm_tpu_torch.oracle import best_msm
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254
+
+    cv = Curve(BN254)
+    n = 1 << logn
+    cfg, _ = msm_path("plain", n, device)
+    t0 = time.perf_counter()
+    inst = [sample_msm(n, seed=SEED + 30 + i)[1:] for i in range(instances)]
+    wants = [best_msm(pts, ks) for pts, ks in inst]
+    print(f"batched {instances} x 2^{logn}: inputs + oracles {time.perf_counter() - t0:.1f} s", flush=True)
+    tag = f"batched {instances} x 2^{logn} plain (c={cfg.chunk_size} S={cfg.num_subtasks})"
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = compute_msm_batched(inst, cfg, device=device)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts_of(tag, "batched")
+    if counts["convert_pack"] != instances:
+        raise AssertionError(f"{tag}: convert_pack launched {counts['convert_pack']} times, not {instances}")
+    for i, (g, w) in enumerate(zip(got, wants)):
+        if w.is_identity() or not cv.eq(g, w):
+            raise AssertionError(f"{tag}: instance {i} differs from its oracle")
+    wall_ms, runs = _median_ms(lambda: compute_msm_batched(inst, cfg, device=device), 3)
+    print(f"{tag}: bit-exact; first call {first_ms:.1f} ms; wall_ms median of 3 = {wall_ms:.1f} "
+          f"(runs {', '.join(f'{w:.1f}' for w in runs)})", flush=True)
+
+
+def compare_uploads(ks, device="cuda") -> None:
+    """One line: the plan's upload of packed scalar words (32 B a scalar)
+    from its pinned buffer against a pageable torch.from_numpy(...).to() of
+    the same bytes, and against the per-call path's 64 B a scalar (int32
+    words, pageable); median of 5 each, each copy ended by a synchronize."""
+    from msm_tpu_torch.models import common
+    from msm_tpu_torch.params import DEFAULT_CONFIG
+
+    pairs = common.pack_scalar_words(common.ints_to_u16_array(ks))
+    pinned = common.staging_buffer(pairs.shape, device)
+    pinned.numpy()[:] = pairs
+    wide = common.pad_scalars_words(ks, DEFAULT_CONFIG, len(ks))
+    cases = {"pinned": lambda: pinned.to(device, non_blocking=True),
+             "pageable": lambda: torch.from_numpy(pairs).to(device),
+             "pageable_int32_words": lambda: torch.from_numpy(wide).to(device)}
+    mib = {"pinned": pairs.nbytes, "pageable": pairs.nbytes, "pageable_int32_words": wide.nbytes}
+    parts = []
+    for name, fn in cases.items():
+        fn()
+        med, runs = _median_ms(fn, 5)
+        parts.append(f"{name} {mib[name] / 2**20:.0f} MiB {med:.3f} ms (runs {', '.join(f'{r:.3f}' for r in runs)})")
+    if not torch.equal(cases["pinned"]().cpu(), torch.from_numpy(pairs)):
+        raise AssertionError("the pinned upload differs from its source")
+    print(f"uploads of 2^{len(ks).bit_length() - 1} scalars, median of 5: " + "; ".join(parts), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke test runs only on a GPU")
@@ -1661,7 +1917,11 @@ def main() -> int:
                    "convert_scaled": run_convert_scaled()}
     for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
         edge_checks(path)
-    by_path = {**run_msm_checks(), **pair_counts}
+    msm_counts, inputs = run_msm_checks()
+    by_path = {**msm_counts, **pair_counts}
+    run_plan_checks(inputs)
+    check_batched()
+    compare_uploads(inputs[20][2])
     rows = []
     for name, (src, rep) in REPLACES.items():
         c = checks[name]

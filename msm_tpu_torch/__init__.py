@@ -6,12 +6,21 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
                             wrapper, its launch counter and its plain twin)
 - ``msm_tpu_torch.csrc``    the CUDA sources, built at first use
 - ``msm_tpu_torch.models``  geometry, host plumbing, the cuZK pipeline
-                            (``cuzk``) and the naive Pippenger (``naive``)
+                            (``cuzk``), the serving plan (``plan``), the
+                            batched MSM (``batched``) and the naive
+                            Pippenger (``naive``)
 - ``msm_tpu_torch.params``  curves and ``MsmConfig`` (a copy of the JAX
                             package's, with the same names)
 - ``msm_tpu_torch.oracle``  the CPU oracles (pure Python, and C++ built at
                             first use)
-- ``msm_tpu_torch.utils``   limb serialization
+- ``msm_tpu_torch.utils``   limb serialization and the byte and u16-word
+                            wire formats
+
+Entry points, as ``msm_tpu`` names them: ``run_gpu_msm`` (``run_tpu_msm``),
+``plan`` (a point table converted once, then many scalar sets, as ints or
+as u16 words [n, 16]; ``MsmPlan.run_batch`` for several at once),
+``run_gpu_msm_batched`` (``run_tpu_msm_batched``), ``cpu_msm``, the samplers
+and the byte helpers.
 
 The package imports nothing of ``msm_tpu``. Every public entry takes an
 explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
@@ -27,14 +36,25 @@ from __future__ import annotations
 
 import numpy as np
 
-from msm_tpu_torch.params import BN254, MsmConfig
+from msm_tpu_torch.params import BN254, DEFAULT_CONFIG, MsmConfig
+from msm_tpu_torch.utils.limbs import bytes_to_points, bytes_to_scalars, points_to_bytes, scalars_to_bytes
 
 __all__ = [
+    "BN254",
+    "DEFAULT_CONFIG",
+    "MsmConfig",
+    "bytes_to_points",
+    "bytes_to_scalars",
     "cpu_msm",
     "load_point_table",
+    "plan",
+    "points_to_bytes",
     "run_gpu_msm",
+    "run_gpu_msm_batched",
+    "sample_32_bit_scalars",
     "sample_points",
     "sample_scalars",
+    "scalars_to_bytes",
 ]
 
 
@@ -47,6 +67,26 @@ def run_gpu_msm(points, scalars, config=None, validate=False, device="cuda"):
     from msm_tpu_torch.models.cuzk import compute_msm
 
     return compute_msm(points, scalars, config=config, validate=validate, device=device)
+
+
+def plan(points, config=None, validate=False, device="cuda"):
+    """Prepare an MSM plan over a fixed point set (counterpart of
+    ``msm_tpu.plan``): the points are serialized, uploaded and converted
+    once; each ``plan(scalars)`` runs only the scalar side, with scalars as
+    ints or as u16 words [n, 16] (k < order), and ``plan.run_batch([ks,
+    ...])`` runs several scalar sets on the one table."""
+    from msm_tpu_torch.models.plan import MsmPlan
+
+    return MsmPlan(points, config=config, validate=validate, device=device)
+
+
+def run_gpu_msm_batched(instances, config=DEFAULT_CONFIG, device="cuda"):
+    """Many independent MSMs with one upload and one copy back (counterpart
+    of ``msm_tpu.run_tpu_msm_batched``). ``instances``: (points, scalars)
+    pairs; returns oracle JPoints."""
+    from msm_tpu_torch.models.batched import compute_msm_batched
+
+    return compute_msm_batched(instances, config, device=device)
 
 
 def load_point_table(packed: np.ndarray, cfg: MsmConfig, device="cuda"):
@@ -85,3 +125,9 @@ def sample_scalars(n: int, curve=BN254, seed: int = 1):
     from msm_tpu_torch.oracle.pyecc import Curve
 
     return Curve(curve).sample_scalars(n, seed=seed)
+
+
+def sample_32_bit_scalars(n: int, seed: int = 1):
+    """Random scalars below 2^32 (every high window lands in bucket 0)."""
+    rng = np.random.default_rng(seed)
+    return [int(v) for v in rng.integers(0, 1 << 32, size=n, dtype=np.uint64)]

@@ -7,7 +7,10 @@ as 16-bit words, and finishes with the single result point in exact
 integers (``mont_rows_to_ints``: no field op on any device). Uploads are
 plain ``torch.from_numpy(...).to(device)``: the coordinate words travel as
 int16 (the u16 bits; 32 B per coordinate, what the convert kernel reads),
-the scalar words as int32 (what ``ops/decompose`` reads).
+the scalar words as int32 (what ``ops/decompose`` reads). The serving plan
+sends scalars packed instead, two u16 words to an int32 (``pack_scalar_words``,
+32 B per scalar), from a pinned host buffer (``staging_buffer``), and
+widens them on the device (``unpack_scalar_words``).
 """
 
 from __future__ import annotations
@@ -78,18 +81,47 @@ def pad_inputs(
     points: list[tuple[int, int]],
     scalars: list[int],
     cfg: MsmConfig,
+    multiple: int = 1,
     validate: bool = False,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Pad to a power of two with generator points and zero scalars;
-    serialize to u16-word arrays (x, y in int16, scalars in int32)."""
+    """Pad to a power of two, at least ``multiple``, with generator points
+    and zero scalars; serialize to u16-word arrays (x, y in int16, scalars
+    in int32). ``multiple`` gives instances of different sizes one padded
+    size (the batched model)."""
     n = len(points)
     if n != len(scalars):
         raise ValueError(f"{n} points but {len(scalars)} scalars")
     if validate:
         validate_inputs(points, cfg)
-    N = pad_size(n)
+    N = pad_size(max(n, multiple))
     x_u16, y_u16 = pad_points_words(points, cfg, N)
     return x_u16, y_u16, pad_scalars_words(scalars, cfg, N)
+
+
+def pack_scalar_words(words: np.ndarray) -> np.ndarray:
+    """Scalar words [..., W] (any integer dtype, little-endian u16 values) ->
+    the wire's int32 pairs [..., W/2], lo | hi << 16. A C-contiguous 16-bit
+    array is viewed, not copied; any other is first cast to ``<u2``."""
+    w = np.asarray(words)
+    if w.shape[-1] % 2:
+        raise ValueError(f"an even number of words per scalar expected, got {w.shape}")
+    if w.dtype not in (np.dtype("<u2"), np.dtype("<i2")) or not w.flags.c_contiguous:
+        w = np.ascontiguousarray(w.astype("<u2"))
+    return w.view(np.int32)
+
+
+def unpack_scalar_words(pairs: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_scalar_words`` on any device: int32 pairs [..., W/2]
+    -> the int32 words [..., W] that ``ops/decompose`` reads. The int16 view
+    sign-extends words >= 0x8000 on widening; the mask clears that."""
+    return pairs.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def staging_buffer(shape: tuple[int, ...], device) -> torch.Tensor:
+    """A zeroed int32 host buffer for uploads to ``device``: pinned when the
+    device is CUDA (so a non-blocking copy from it is asynchronous; the
+    allocation raises where that cannot be had), pageable otherwise."""
+    return torch.zeros(shape, dtype=torch.int32, pin_memory=torch.device(device).type == "cuda")
 
 
 def prepare_points(

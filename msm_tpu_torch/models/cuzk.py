@@ -74,12 +74,26 @@ def window_sums_from_keys(
     return torch.stack([w.x, w.y, w.z], dim=1)
 
 
+def horner_rows(ws: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
+    """Montgomery window sums [S, 3, L], or B instances' [B, S, 3, L] ->
+    each MSM's projective point as Montgomery limb rows [3, L] ([B, 3, L]),
+    on the device: one Horner launch, B ladders at once."""
+    return torch.stack(horner(cfg, ws[..., 0, :], ws[..., 1, :], ws[..., 2, :], cfg.chunk_size), dim=-2)
+
+
 def msm_point_from_ws(ws: torch.Tensor, cfg: MsmConfig) -> tuple[int, int, int]:
     """Montgomery window sums [S, 3, L] -> ONE standard-form projective
     point (X, Y, Z) as python ints: the Horner kernel, one copy of its
     three limb rows to the host, then the export in exact integers."""
-    hx, hy, hz = horner(cfg, ws[:, 0], ws[:, 1], ws[:, 2], cfg.chunk_size)
-    return common.mont_rows_to_ints(torch.stack([hx, hy, hz]).cpu().numpy(), cfg)
+    return common.mont_rows_to_ints(horner_rows(ws, cfg).cpu().numpy(), cfg)
+
+
+def msm_jpoints_from_ws(ws: list[torch.Tensor], cfg: MsmConfig) -> list[JPoint]:
+    """B instances' window sums [S, 3, L] -> B oracle JPoints: one Horner
+    launch over the B ladders, one copy of their [B, 3, L] rows to the
+    host, the export in exact integers."""
+    host = horner_rows(torch.stack(ws), cfg).cpu().numpy()
+    return [common.std_ints_to_jpoint(*common.mont_rows_to_ints(r, cfg), cfg) for r in host]
 
 
 def compute_msm_jpoint(
