@@ -102,7 +102,31 @@
    one line comparing the plan's pinned upload of 2^20 packed scalars (32
    MiB) with a pageable one of the same bytes and with the per-call path's
    64 MiB of int32 words;
-11. prints the kernels' JSON line (the GLV modes and the scaled convert as
+11. the command line (python -m msm_tpu_torch): verify --size 16 on the
+   plain, compressed, GLV and GLV compressed configs, each bit-exact (the
+   first in a process of its own, the others in this one with the counters
+   reset just before and the path's kernels required just after); msm
+   --size 16 against cpu --size 16; profile --size 20, its report printed;
+12. the bench (python -m msm_tpu_torch.bench): --size 20 --verify on the
+   four configs, --plan 4 --size 20 --verify, --batched 4 --size 16
+   --verify and --auto --size 20, every JSON line printed and verified
+   (the first in a process of its own, the others in this one, checked for
+   their path's kernels);
+13. the MSM above the one-pass cap: models.cuzk.CHUNK_MAX set to 2^20 and
+   2^21 points run as two chunks (step 5's points twice, fresh scalars):
+   run_gpu_msm on the four configs, the naive model, a plan (ints and
+   words calls, run_batch of 2) and the batched model (2 instances), each
+   bit-exact against the folded oracle, with its wall-clock and its
+   point-add merge launches (the run's point adds less two passes', one
+   per instance); then the constant restored;
+14. one pass at 2^22 points on the plain, compressed, naive, GLV and GLV
+   compressed configs, bit-exact, each with its peak device memory: the
+   line that sets CHUNK_MAX, which must not exceed the largest power of two
+   whose peak, scaled linearly, stays under 75% of the card's memory in
+   every config; then a plain plan over 2^23 points as one pass (its build
+   time; a words call on np.uint16 [2^23, 16] bit-exact, its median of 3
+   and its peak memory);
+15. prints the kernels' JSON line (the GLV modes and the scaled convert as
    entries of their own), then as its last line {"ok": true, "device":
    {...}}.
 
@@ -112,18 +136,22 @@ It needs a CUDA device and the repository around it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 2024
+ROOT = Path(__file__).resolve().parent
 REPLACES = {
     "point_add": ("csrc/point_add.cu", "msm_tpu/ops/pallas_curve.py:467"),
     "convert_pack": ("csrc/convert.cu", "msm_tpu/ops/pallas_convert.py:187"),
@@ -193,6 +221,9 @@ PATHS.update({f"plan_{p}": tuple(k for k in PATHS[p] if k not in CONVERTS) for p
 PATHS["batched"] = PATHS["plain"]
 EXCLUDED.update({f"plan_{p}": EXCLUDED[p] + CONVERTS for p in PLAN_PATHS})
 EXCLUDED["batched"] = EXCLUDED["plain"]
+#: the bench's --auto run: the plain config and the GLV compressed candidate
+PATHS["auto"] = tuple(dict.fromkeys(PATHS["plain"] + PATHS["glv_compressed"]))
+EXCLUDED["auto"] = tuple(k for k in REPLACES if k not in PATHS["auto"])
 #: H100 SXM peaks: HBM bytes/s, and 32-bit IMAD per SM per clock (x 132 SMs
 #: x the SM clock that nvidia-smi reports as clocks.max.sm)
 HBM_BYTES_PER_S = 3.35e12
@@ -1293,8 +1324,8 @@ def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
     if path == "naive":
         ws = naive.naive_window_sums(packed, sd, cfg, geom)
         t0 = mark("window_sums", t0)
-        common.window_sums_to_result(ws.numpy(), cfg)
-        mark("host_horner", t0)
+        naive.naive_result(ws, cfg)
+        mark("export_host_horner", t0)
         return st
     if cfg.glv:
         split = glv.split_scalars_device(sd, cfg)
@@ -1668,23 +1699,23 @@ def _median_ms(fn, reps: int) -> tuple[float, list[float]]:
     return statistics.median(walls), walls
 
 
-def batch_sets(base, n: int, sets: int, seed: int):
-    """``sets`` scalar sets as u16 words [n, 16] (k < r: the top word below
-    r's) and each one's exact MSM over the tiled points: the scalars folded
-    per base point by word sums."""
-    from msm_tpu_torch.oracle import best_msm
+def random_scalar_words(rng, n: int) -> np.ndarray:
+    """n uniform scalars below r as u16 words [n, 16] (the top word below
+    r's, so every scalar is below r)."""
     from msm_tpu_torch.params import BN254
 
+    words = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint16)
+    words[:, 15] = rng.integers(0, BN254.order >> 240, size=n)
+    return words
+
+
+def batch_sets(base, n: int, sets: int, seed: int):
+    """``sets`` scalar sets as u16 words [n, 16] (random_scalar_words) and
+    each one's exact MSM over the tiled points (the folded oracle)."""
+    from msm_tpu_torch import bench
+
     rng = np.random.default_rng(seed)
-    nb, r = len(base), BN254.order
-    out = []
-    for _ in range(sets):
-        words = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint16)
-        words[:, 15] = rng.integers(0, r >> 240, size=n)
-        sums = words.astype(np.int64).reshape(-1, nb, 16).sum(axis=0)  # point i is base[i % nb]
-        folded = [sum(int(v) << (16 * w) for w, v in enumerate(row)) % r for row in sums]
-        out.append((words, best_msm(base, folded)))
-    return out
+    return [(w, bench.folded_oracle(base, w)) for w in (random_scalar_words(rng, n) for _ in range(sets))]
 
 
 def plan_build_stages(pts, cfg, device="cuda") -> dict:
@@ -1726,7 +1757,7 @@ def plan_stage_times(plan, words) -> dict:
     t0 = time.perf_counter()
     plan._stage(0, words)
     t0 = mark("host_pack", t0)
-    packed = plan._upload(1)[0]
+    packed = plan._upload(0, slice(None))
     t0 = mark("upload", t0)
     st["upload_MiB"] = packed.numel() * packed.element_size() / 2**20
     sd = common.unpack_scalar_words(packed)
@@ -1738,7 +1769,7 @@ def plan_stage_times(plan, words) -> dict:
     else:
         keys, signs = cuzk.decompose_scalars(sd, cfg)
     t0 = mark("decompose", t0)
-    ws = cuzk.window_sums_from_keys(plan.table, keys, signs, cfg, plan.geom)
+    ws = cuzk.window_sums_from_keys(plan.tables[0], keys, signs, cfg, plan.geom)
     t0 = mark("window_sums", t0)
     cuzk.msm_jpoints_from_ws([ws], cfg)
     mark("tail", t0)
@@ -1884,6 +1915,301 @@ def compare_uploads(ks, device="cuda") -> None:
     print(f"uploads of 2^{len(ks).bit_length() - 1} scalars, median of 5: " + "; ".join(parts), flush=True)
 
 
+def _in_process(main, argv: list[str], tag: str, path: str | None) -> str:
+    """``main(argv)`` of the port's command line or bench in this process,
+    its standard output captured, with every launch counter reset just
+    before and, when ``path`` names one, the path's kernels required of it
+    just after. Returns the output (one JSON value)."""
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    torch.cuda.synchronize()
+    if path:
+        _counts_of(tag, path)
+    out = buf.getvalue().strip()
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s; {re.sub(r'\s+', ' ', out)}", flush=True)
+    return out
+
+
+def _as_module(module: str, argv: list[str], tag: str) -> str:
+    """``python -m module argv`` in a process of its own, from the root of
+    the checkout; it must exit 0. Returns its output's last line."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"{tag}: exit {r.returncode}\n{r.stdout}\n{r.stderr[-4000:]}")
+    last = r.stdout.strip().splitlines()[-1]
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s (own process); {last}", flush=True)
+    return last
+
+
+def run_cli_checks() -> None:
+    """The port's command line (python -m msm_tpu_torch): verify --size 16
+    on the plain, compressed, GLV and GLV compressed configs (the first in
+    a process of its own, the others in this one, each reset and checked
+    for its path's kernels), each bit-exact; msm --size 16 against cpu
+    --size 16; profile --size 20, its report printed."""
+    from msm_tpu_torch import cli
+
+    for flags, path in (([], "plain"), (["--compress"], "compressed"), (["--glv"], "glv"),
+                        (["--glv", "--compress"], "glv_compressed")):
+        argv = ["verify", "--size", "16", *flags]
+        tag = f"cli {' '.join(argv)}"
+        line = _as_module("msm_tpu_torch", argv, tag) if not flags else _in_process(cli.main, argv, tag, path)
+        if json.loads(line).get("bit_exact") is not True:
+            raise AssertionError(f"{tag}: {line}")
+    got = json.loads(_in_process(cli.main, ["msm", "--size", "16"], "cli msm --size 16", "plain"))
+    want = json.loads(_in_process(cli.main, ["cpu", "--size", "16"], "cli cpu --size 16", None))
+    if (got["x"], got["y"]) != (want["x"], want["y"]):
+        raise AssertionError(f"cli msm --size 16 differs from cpu --size 16: {got} {want}")
+    json.loads(_in_process(cli.main, ["profile", "--size", "20"], "cli profile --size 20", "plain"))
+
+
+#: the bench runs of the bench phase: (arguments, the path its kernels take)
+BENCH_RUNS = (
+    (["--size", "20", "--verify"], "plain"),
+    (["--size", "20", "--verify", "--compress"], "compressed"),
+    (["--size", "20", "--verify", "--glv"], "glv"),
+    (["--size", "20", "--verify", "--glv", "--compress"], "glv_compressed"),
+    (["--plan", "4", "--size", "20", "--verify"], "plain"),
+    (["--batched", "4", "--size", "16", "--verify"], "batched"),
+    (["--auto", "--size", "20"], "auto"),
+)
+
+
+def run_bench_checks() -> None:
+    """The port's bench (python -m msm_tpu_torch.bench) in each of
+    BENCH_RUNS (the first in a process of its own, the others in this one,
+    each reset and checked for its path's kernels): every JSON line printed
+    and each one verified against the oracle."""
+    from msm_tpu_torch import bench
+
+    for i, (argv, path) in enumerate(BENCH_RUNS):
+        tag = f"bench {' '.join(argv)}"
+        line = _as_module("msm_tpu_torch.bench", argv, tag) if i == 0 else _in_process(bench.main, argv, tag, path)
+        if json.loads(line).get("verified") is not True:
+            raise AssertionError(f"{tag}: not verified: {line}")
+
+
+def run_chunked_checks(base, pts20, per_pass: dict, device="cuda") -> None:
+    """The MSM above the one-pass cap: cuzk.CHUNK_MAX set to 2^20 and 2^21
+    points (step 5's 2^20 points ``pts20`` twice: the same tiling) with
+    fresh scalars, then the constant restored. run_gpu_msm on the plain,
+    compressed, GLV and GLV compressed configs, compute_msm_naive, a plan
+    (an ints and a words call, run_batch of 2) and the batched model (2
+    instances), each with the counters reset just before, bit-exact against
+    the folded oracle; each run's point-add launches less two passes'
+    (``per_pass``: the 2^20 runs' counts) are its merges, one per instance."""
+    import msm_tpu_torch
+    from msm_tpu_torch import bench
+    from msm_tpu_torch.models import cuzk
+    from msm_tpu_torch.models.batched import compute_msm_batched
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254
+    from msm_tpu_torch.utils.limbs import bytes_to_scalars
+
+    cv = Curve(BN254)
+    cap = len(pts20)
+    n = 2 * cap
+    t0 = time.perf_counter()
+    pts = pts20 + pts20
+    words = random_scalar_words(np.random.default_rng(SEED + 40), n)
+    rolled = np.roll(words, 1, axis=0)
+    ks, ks_rolled = (bytes_to_scalars(w.tobytes()) for w in (words, rolled))
+    want, want_rolled = (bench.folded_oracle(base, w) for w in (words, rolled))
+    print(f"chunked 2 x 2^{cap.bit_length() - 1}: inputs + oracles {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def check(tag, path, instances, fn, wants):
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts_of(tag, path)
+        # a plan call and a batched instance run the plain path's passes
+        merges = counts["point_add"] - instances * 2 * per_pass.get(path, per_pass["plain"])
+        if merges != instances:
+            raise AssertionError(f"{tag}: {merges} merge launches, not {instances}")
+        for g, w in zip(got, wants):
+            if not cv.eq(g, w):
+                raise AssertionError(f"{tag}: differs from the folded oracle")
+        print(f"{tag}: bit-exact; wall {wall:.3f} s; point-add merge launches {merges} "
+              f"(of {counts['point_add']})", flush=True)
+
+    saved = cuzk.CHUNK_MAX
+    cuzk.CHUNK_MAX = cap
+    try:
+        for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
+            cfg, run = msm_path(path, n, device)
+            tag = f"chunked 2 x 2^{cap.bit_length() - 1} {path} (c={cfg.chunk_size} S={cfg.num_subtasks})"
+            check(tag, path, 1, lambda: [cv.from_affine(*run(pts, ks))], [want])
+        cfg, _ = msm_path("plain", n, device)
+        _reset_counts()
+        plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
+        if len(plan.tables) != 2 or _kernels()["convert_pack"][0].launches != 2:
+            raise AssertionError("chunked plan: not one table and one convert per chunk")
+        for label, scalars in (("ints", ks), ("words", words)):
+            check(f"chunked plan {label} call", "plan_plain", 1, lambda: [plan.jpoint(scalars)], [want])
+        check("chunked plan run_batch B=2", "plan_plain", 2, lambda: plan.run_batch([words, rolled]),
+              [want, want_rolled])
+        check("chunked batched 2 instances", "batched", 2,
+              lambda: compute_msm_batched([(pts, ks), (pts, ks_rolled)], cfg, device=device), [want, want_rolled])
+    finally:
+        cuzk.CHUNK_MAX = saved
+
+
+def largest_cap(peaks_gib: dict, logn: int, total_gib: float, share: float = 0.75) -> int:
+    """The largest power of two n whose one-pass peak, scaled linearly
+    from each config's peak at 2^logn, stays under ``share`` of the card's
+    memory in every config."""
+    k = logn
+    while max(peaks_gib.values()) * 2 ** (k + 1 - logn) <= share * total_gib:
+        k += 1
+    return 1 << k
+
+
+def one_pass_checks(base, logn: int, seed: int, scaled: dict | None = None, device="cuda") -> tuple[dict, dict]:
+    """One pass at 2^logn points (step 5's bases tiled, their words
+    uploaded; fresh scalar words) on the plain, compressed, naive, GLV and
+    GLV compressed configs, each reset and checked for its path's kernels
+    and bit-exact against the folded oracle, with its peak device memory
+    (beside ``scaled``'s estimate, when given). Returns ({path: peak GiB},
+    {path: point-add launches})."""
+    from msm_tpu_torch import bench
+    from msm_tpu_torch.models import common, cuzk, naive
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254, pick_config
+
+    cv = Curve(BN254)
+    n = 1 << logn
+    t0 = time.perf_counter()
+    xw, yw = (np.tile(a, (n // len(base), 1)) for a in common.pad_points_words(base, pick_config(n), len(base)))
+    words = random_scalar_words(np.random.default_rng(seed), n)
+    want = bench.folded_oracle(base, words)
+    xd, yd, sd = (torch.from_numpy(a).to(device) for a in (xw, yw, words.astype(np.int32)))
+    print(f"one pass 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
+    peaks, adds = {}, {}
+    for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
+        cfg, _ = msm_path(path, n, device)
+        geom = pick_geometry(n, cfg.chunk_size, cfg.compress, cfg.glv)
+        tag = f"one pass 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks})"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if path == "naive":
+            got = naive.naive_result(naive.naive_window_sums(common.prepare_points(cfg, xd, yd), sd, cfg, geom), cfg)
+        else:
+            got = common.std_ints_to_jpoint(*cuzk.cuzk_msm_point(xd, yd, sd, cfg, geom), cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peaks[path] = torch.cuda.max_memory_allocated() / 2**30
+        adds[path] = _counts_of(tag, path)["point_add"]
+        if not cv.eq(got, want):
+            raise AssertionError(f"{tag}: differs from the folded oracle")
+        est = f" (scaled from the smaller pass: {scaled[path]:.3f})" if scaled else ""
+        print(f"{tag}: bit-exact; first call {wall:.3f} s; peak_mem_gib={peaks[path]:.3f}{est}", flush=True)
+    del xd, yd, sd
+    torch.cuda.empty_cache()
+    return peaks, adds
+
+
+def run_beyond_checks(base, logn: int = 22, device="cuda") -> None:
+    """The sizes above the JAX package's 2^22 cap. One pass at 2^22 on the
+    five configs (``one_pass_checks``): the peaks that set cuzk.CHUNK_MAX,
+    which must not exceed the cap derived here. Then one pass at CHUNK_MAX
+    itself on the five configs, each bit-exact, its peak printed beside the
+    2^22 peak scaled up and held under 75% of the card. Then a plain MSM of
+    2 x CHUNK_MAX points from host arrays, two passes at the real cap and
+    one point-add merge, bit-exact. Then a plain plan over 2^23 points, run
+    as one pass: its build time, a words call (np.uint16 [2^23, 16])
+    bit-exact against the folded oracle, the words call's wall median of 3
+    and its peak memory."""
+    import msm_tpu_torch
+    from msm_tpu_torch import bench
+    from msm_tpu_torch.models import common, cuzk
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254, pick_config
+
+    cv = Curve(BN254)
+    peaks, _ = one_pass_checks(base, logn, SEED + 50, device=device)
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    cap = largest_cap(peaks, logn, total)
+    print(f"one-pass peak memory at 2^{logn} (GiB): " + ", ".join(f"{k}={v:.3f}" for k, v in peaks.items())
+          + f"; card {total:.2f} GiB; the largest 2^k under 75% of it in every config: 2^{cap.bit_length() - 1}; "
+          f"CHUNK_MAX = 2^{cuzk.CHUNK_MAX.bit_length() - 1}", flush=True)
+    if cuzk.CHUNK_MAX > cap:
+        raise AssertionError(f"CHUNK_MAX = {cuzk.CHUNK_MAX} exceeds the cap the card allows, {cap}")
+
+    logc = cuzk.CHUNK_MAX.bit_length() - 1
+    scale = 2 ** (logc - logn)
+    peaks_c, adds_c = one_pass_checks(base, logc, SEED + 52, {k: v * scale for k, v in peaks.items()}, device)
+    over = {k: v for k, v in peaks_c.items() if v > 0.75 * total}
+    if over:
+        raise AssertionError(f"one pass at CHUNK_MAX: peaks over 75% of the card: {over}")
+    print(f"one-pass peak memory at CHUNK_MAX = 2^{logc} (GiB): "
+          + ", ".join(f"{k}={v:.3f} (scaled {peaks[k] * scale:.3f})" for k, v in peaks_c.items())
+          + f"; 75% of the card {0.75 * total:.2f}", flush=True)
+
+    n = 2 * cuzk.CHUNK_MAX
+    cfg = pick_config(n)
+    tag = f"chunked 2 x 2^{logc} plain (c={cfg.chunk_size} S={cfg.num_subtasks})"
+    t0 = time.perf_counter()
+    xw, yw = (np.tile(a, (n // len(base), 1)) for a in common.pad_points_words(base, cfg, len(base)))
+    words = random_scalar_words(np.random.default_rng(SEED + 53), n)
+    want = bench.folded_oracle(base, words)
+    sw = words.astype(np.int32)
+    print(f"{tag}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = common.std_ints_to_jpoint(*cuzk.cuzk_msm_point(
+        xw, yw, sw, cfg, pick_geometry(cuzk.CHUNK_MAX, cfg.chunk_size), device=device), cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    merges = _counts_of(tag, "plain")["point_add"] - 2 * adds_c["plain"]
+    if merges != 1:
+        raise AssertionError(f"{tag}: {merges} merge launches, not 1")
+    if not cv.eq(got, want):
+        raise AssertionError(f"{tag}: differs from the folded oracle")
+    print(f"{tag}: bit-exact from host arrays; wall {wall:.3f} s (uploads included); point-add merge "
+          f"launches {merges}; peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
+    del xw, yw, sw, words
+    torch.cuda.empty_cache()
+
+    n = 2 << logn
+    cfg = pick_config(n)
+    tag = f"plan 2^{logn + 1} plain one pass (c={cfg.chunk_size} S={cfg.num_subtasks})"
+    t0 = time.perf_counter()
+    pts = [base[i % len(base)] for i in range(n)]
+    words = random_scalar_words(np.random.default_rng(SEED + 51), n)
+    want = bench.folded_oracle(base, words)
+    print(f"{tag}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if len(plan.tables) != 1:
+        raise AssertionError(f"{tag}: {len(plan.tables)} tables, not one pass")
+    _reset_counts()
+    if not cv.eq(plan.jpoint(words), want):
+        raise AssertionError(f"{tag}: the words call differs from the folded oracle")
+    _counts_of(f"{tag} words call", "plan_plain")
+    torch.cuda.reset_peak_memory_stats()
+    med, runs = _median_ms(lambda: plan.jpoint(words), 3)
+    print(f"{tag}: bit-exact; build {build_s:.2f} s; words call wall_ms median of 3 = {med:.2f} "
+          f"(runs {', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke test runs only on a GPU")
@@ -1922,6 +2248,11 @@ def main() -> int:
     run_plan_checks(inputs)
     check_batched()
     compare_uploads(inputs[20][2])
+    run_cli_checks()
+    run_bench_checks()
+    base, pts20 = inputs[20][:2]
+    run_chunked_checks(base, pts20, {path: c["point_add"] for path, c in msm_counts.items()})
+    run_beyond_checks(base)
     rows = []
     for name, (src, rep) in REPLACES.items():
         c = checks[name]

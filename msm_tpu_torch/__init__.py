@@ -13,8 +13,11 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
                             package's, with the same names)
 - ``msm_tpu_torch.oracle``  the CPU oracles (pure Python, and C++ built at
                             first use)
-- ``msm_tpu_torch.utils``   limb serialization and the byte and u16-word
-                            wire formats
+- ``msm_tpu_torch.utils``   limb serialization, the byte and u16-word wire
+                            formats, the debug log and the stage timings
+- ``msm_tpu_torch.cli``     ``python -m msm_tpu_torch {msm,cpu,verify,bench,
+                            profile}``
+- ``msm_tpu_torch.bench``   ``python -m msm_tpu_torch.bench``: one JSON line
 
 Entry points, as ``msm_tpu`` names them: ``run_gpu_msm`` (``run_tpu_msm``),
 ``plan`` (a point table converted once, then many scalar sets, as ints or
@@ -36,12 +39,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from msm_tpu_torch.params import BN254, DEFAULT_CONFIG, MsmConfig
+from msm_tpu_torch.params import BLS12_377, BN254, CURVES, DEFAULT_CONFIG, PALLAS, CurveSpec, MsmConfig
 from msm_tpu_torch.utils.limbs import bytes_to_points, bytes_to_scalars, points_to_bytes, scalars_to_bytes
 
 __all__ = [
     "BN254",
+    "BLS12_377",
+    "PALLAS",
+    "CURVES",
     "DEFAULT_CONFIG",
+    "CurveSpec",
     "MsmConfig",
     "bytes_to_points",
     "bytes_to_scalars",

@@ -1,23 +1,38 @@
-"""Batched MSM: many independent MSMs with one upload and one copy back —
-the PyTorch port of ``msm_tpu/models/batched.py``.
+"""Batched MSM: many independent MSMs with one copy back — the PyTorch
+port of ``msm_tpu/models/batched.py``.
 
-The instances are padded to one size and shipped as one stacked upload;
-each then runs convert and the window sums on the device, one after the
-other with no host sync between them (one instance's scan already fills
-the card); one Horner launch takes the B ladders, and the B results come
-back in one copy. Only each instance's [S, 3, L] window sums outlive it on
-the device.
+The instances are padded to one size; each then runs convert and the
+window sums on the device (``batched_window_sums``), one after the other
+with no host sync between them (one instance's scan already fills the
+card); one Horner launch takes the B ladders, and the B results come back
+in one copy. Only each instance's [S, 3, L] window sums outlive it on the
+device. Host inputs are uploaded one instance's chunk at a time, so device
+memory holds one pass's inputs whatever B and n. Instances above
+``cuzk.CHUNK_MAX`` points run as chunks, merged as ``cuzk`` merges them.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from msm_tpu_torch.models import common, cuzk
 from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
 from msm_tpu_torch.oracle.pyecc import JPoint
 from msm_tpu_torch.params import DEFAULT_CONFIG, MsmConfig
+
+
+def batched_window_sums(xb, yb, sb, cfg: MsmConfig, geom: MsmGeometry, device=None) -> torch.Tensor:
+    """B instances' word inputs [B, n, 16] -> their Montgomery window
+    sums [B, S, 3, L] on the device: K2 and the window sums of each
+    instance, chunk by chunk above ``CHUNK_MAX``. The inputs are tensors on
+    the device, or host arrays (or B arrays each) that each pass uploads
+    to ``device``."""
+    if device is None:
+        if not isinstance(xb, torch.Tensor):
+            raise TypeError("host inputs need an explicit device")
+        device = xb.device
+    return torch.stack([cuzk.chunked_window_sums(cuzk.chunks(inst, device), cfg, geom)
+                        for inst in zip(xb, yb, sb)])
 
 
 def compute_msm_batched(
@@ -34,12 +49,7 @@ def compute_msm_batched(
     if not instances:
         return []
     nmax = max(len(p) for p, _ in instances)
-    N = common.pad_size(nmax)
-    if N > cuzk.CHUNK_MAX:
-        raise NotImplementedError(f"n = {N} > {cuzk.CHUNK_MAX}: chunked MSM is not ported")
     padded = [common.pad_inputs(pts, ks, config, multiple=nmax) for pts, ks in instances]
-    geom = geometry or pick_geometry(N, config.chunk_size, config.compress, config.glv)
-    xb, yb, sb = (torch.from_numpy(np.stack(a)).to(device) for a in zip(*padded))
-    ws = [cuzk.window_sums_from_table(common.prepare_points(config, x, y), s, config, geom)
-          for x, y, s in zip(xb, yb, sb)]
-    return cuzk.msm_jpoints_from_ws(ws, config)
+    N = padded[0][0].shape[0]
+    geom = geometry or pick_geometry(min(N, cuzk.CHUNK_MAX), config.chunk_size, config.compress, config.glv)
+    return cuzk.msm_jpoints_from_ws(list(batched_window_sums(*zip(*padded), config, geom, device)), config)

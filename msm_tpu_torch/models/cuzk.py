@@ -19,27 +19,45 @@
             maps it to affine with one inversion
 
 On CUDA tensors every stage runs on the kernels; on CPU tensors on their
-plain twins. An MSM of up to ``CHUNK_MAX`` points runs as one pass; the
-reference's 2^20-point slicing and host-level chunking above 2^22 are not
-ported.
+plain twins. An MSM of up to ``CHUNK_MAX`` points runs as one pass
+(``cuzk_msm_point``). Above it the padded inputs run as host-level chunks
+of ``CHUNK_MAX`` points, as the JAX package's ``compute_msm_jpoint`` does:
+each chunk is uploaded, converted and reduced to its window sums, and since
+window sums are linear in the points the chunks' sums are added on the
+device, one point-add launch (1) of S lanes per chunk after the first; one
+Horner launch and one copy follow. One pass is the same code with one
+chunk and no merge. With ``MSM_TPU_DEBUG`` set, each chunk is logged to
+stderr as its pass starts. The JAX package's 2^20-point ``SLICE``
+is not ported: it keeps a TPU's coordinate table in VMEM and computes the
+same function.
 """
 
 from __future__ import annotations
+
+from collections.abc import Iterable, Iterator
 
 import torch
 
 from msm_tpu_torch.models import common
 from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
 from msm_tpu_torch.ops.cuda_prefix import horner
-from msm_tpu_torch.ops.curve import get_curve_ctx
+from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
 from msm_tpu_torch.ops.glv import decompose_signed_glv
 from msm_tpu_torch.ops.scan import bucket_boundary_prefix, window_sum_from_pe
 from msm_tpu_torch.oracle.pyecc import IDENTITY, JPoint
 from msm_tpu_torch.params import MsmConfig, pick_config
+from msm_tpu_torch.utils.log import debug
 
-#: largest MSM run as one pass
-CHUNK_MAX = 1 << 22
+#: largest MSM run as one pass; above it, host-level chunks of CHUNK_MAX
+#: points. One pass's peak device memory at 2^22 on an NVIDIA H100 80GB
+#: HBM3 (79.18 GiB) at 700.00 W, inputs included (GiB; chip_smoke.py's
+#: "one-pass peak memory at 2^22" line): plain 5.465, compressed 11.855,
+#: naive 5.690, GLV 9.547, GLV compressed 11.975. 2^24 is the largest power
+#: of two whose peak, scaled linearly from those, stays under 75% of the
+#: card's memory in every config (GLV compressed ~47.9 GiB; ~95.8 at 2^25).
+#: Read at call time, so tests can shrink it.
+CHUNK_MAX = 1 << 24
 
 
 def decompose_scalars(s_u16: torch.Tensor, cfg: MsmConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -96,6 +114,69 @@ def msm_jpoints_from_ws(ws: list[torch.Tensor], cfg: MsmConfig) -> list[JPoint]:
     return [common.std_ints_to_jpoint(*common.mont_rows_to_ints(r, cfg), cfg) for r in host]
 
 
+def cuzk_window_sums(
+    xd: torch.Tensor, yd: torch.Tensor, sd: torch.Tensor, cfg: MsmConfig, geom: MsmGeometry
+) -> torch.Tensor:
+    """One pass: coordinate and scalar words [n, 16] on the device ->
+    Montgomery window sums [S, 3, L] (the convert kernel, then
+    ``window_sums_from_table``)."""
+    return window_sums_from_table(common.prepare_points(cfg, xd, yd), sd, cfg, geom)
+
+
+def merge_window_sums(parts: Iterable[torch.Tensor], cfg: MsmConfig) -> torch.Tensor:
+    """The sum of chunks' Montgomery window sums [S, 3, L], taken as the
+    chunks come: one point-add launch of S lanes per chunk after the first
+    (window sums are curve points, so the complete formulas hold)."""
+    ec = get_curve_ctx(cfg)
+    acc = None
+    for ws in parts:
+        if acc is None:
+            acc = ws
+        else:
+            acc = torch.stack(ec.add(PointBatch(*acc.unbind(1)), PointBatch(*ws.unbind(1))), dim=1)
+    return acc
+
+
+def chunk_slices(n: int) -> list[slice]:
+    """Row ranges of the passes over n padded rows (a power of two): one,
+    or n / CHUNK_MAX chunks of CHUNK_MAX rows."""
+    c = min(n, CHUNK_MAX)
+    return [slice(lo, lo + c) for lo in range(0, n, c)]
+
+
+def chunks(arrays, device) -> Iterator[tuple[torch.Tensor, ...]]:
+    """Each pass's rows of the arrays [n, ...] (numpy on the host, or
+    tensors) as tensors on ``device``; a host chunk is uploaded only when
+    the consumer reaches it."""
+    slices = chunk_slices(len(arrays[0]))
+    for i, s in enumerate(slices):
+        if len(slices) > 1:
+            debug(f"chunk {i + 1}/{len(slices)}: rows {s.start}..{s.stop}")
+        yield tuple(torch.as_tensor(a[s], device=device) for a in arrays)
+
+
+def chunked_window_sums(parts, cfg: MsmConfig, geom: MsmGeometry) -> torch.Tensor:
+    """Chunks (x, y, scalar words) on the device, as ``chunks`` yields them
+    -> their merged Montgomery window sums [S, 3, L]."""
+    return merge_window_sums((cuzk_window_sums(x, y, s, cfg, geom) for x, y, s in parts), cfg)
+
+
+def cuzk_msm_point(
+    x, y, s, cfg: MsmConfig, geom: MsmGeometry, device=None
+) -> tuple[int, int, int]:
+    """The device MSM of padded word inputs [n, 16] -> the standard-form
+    projective (X, Y, Z) as ints: K2, the window sums, the Horner kernel
+    and one copy of its three rows. The inputs are tensors already on the
+    device, or host arrays that each pass uploads to ``device`` as it
+    starts. Above ``CHUNK_MAX`` rows, one pass per chunk, merged on the
+    device. ``geom`` is a pass's."""
+    if device is None:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError("host inputs need an explicit device")
+        device = x.device
+    return msm_point_from_ws(chunked_window_sums(chunks((x, y, s), device), cfg, geom), cfg)
+
+
 def compute_msm_jpoint(
     points: list[tuple[int, int]],
     scalars: list[int],
@@ -104,19 +185,15 @@ def compute_msm_jpoint(
     validate: bool = False,
     device="cuda",
 ) -> JPoint:
-    """End-to-end MSM returning the oracle JPoint."""
+    """End-to-end MSM returning the oracle JPoint: ``cuzk_msm_point`` on
+    the padded host inputs, each chunk uploaded as its pass starts."""
     config = config or pick_config(len(points))
     if len(points) == 0:
         return IDENTITY
-    n = common.pad_size(len(points))
-    if n > CHUNK_MAX:
-        raise NotImplementedError(f"n = {n} > {CHUNK_MAX}: chunked MSM is not ported")
-    x_u16, y_u16, s_u16 = common.pad_inputs(points, scalars, config, validate=validate)
-    geom = geometry or pick_geometry(n, config.chunk_size, config.compress, config.glv)
-    xd, yd, sd = (torch.from_numpy(a).to(device) for a in (x_u16, y_u16, s_u16))
-    packed = common.prepare_points(config, xd, yd)
-    ws = window_sums_from_table(packed, sd, config, geom)
-    return common.std_ints_to_jpoint(*msm_point_from_ws(ws, config), config)
+    arrays = common.pad_inputs(points, scalars, config, validate=validate)
+    n = arrays[0].shape[0]
+    geom = geometry or pick_geometry(min(n, CHUNK_MAX), config.chunk_size, config.compress, config.glv)
+    return common.std_ints_to_jpoint(*cuzk_msm_point(*arrays, config, geom, device=device), config)
 
 
 def compute_msm(

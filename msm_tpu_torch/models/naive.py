@@ -13,6 +13,11 @@ reduction (2(B-1) batched point additions over all S windows at once).
   S window sums exported to standard form on the device; the host folds
   them by Horner's rule in exact integers.
 
+Above ``cuzk.CHUNK_MAX`` points the MSM runs as chunks, as the cuZK model
+does: each chunk's Montgomery window sums are added to the others' on the
+device (point add, 1) before the export. The JAX naive model has no cap;
+the port's is its device-memory bound.
+
 On CUDA tensors every step runs on the kernels; on CPU tensors on their
 plain twins.
 """
@@ -21,10 +26,9 @@ from __future__ import annotations
 
 import torch
 
-from msm_tpu_torch.models import common
-from msm_tpu_torch.models.cuzk import CHUNK_MAX
+from msm_tpu_torch.models import common, cuzk
 from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
-from msm_tpu_torch.ops.curve import get_curve_ctx
+from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
 from msm_tpu_torch.ops.decompose import extract_windows
 from msm_tpu_torch.ops.scan import bucket_accumulate, bucket_reduce_running
 from msm_tpu_torch.oracle.pyecc import IDENTITY, JPoint
@@ -39,7 +43,7 @@ def naive_window_sums(
 ) -> torch.Tensor:
     """Scalar-side naive pipeline on a prepared point table: unsigned
     windows, per-bucket sums of every window, running-sum reduction ->
-    standard-form window sums [S, 3, L] on the host."""
+    Montgomery window sums [S, 3, L] on the device."""
     ec = get_curve_ctx(cfg)
     S = cfg.num_subtasks
     keys = extract_windows(s_u16, cfg.chunk_size, S)  # [S, n]
@@ -48,7 +52,15 @@ def naive_window_sums(
         batch=min(geom.subtask_batch, S),
     )
     w = bucket_reduce_running(ec, buckets)
-    return common.export_points_std(ec, w).cpu()
+    return torch.stack([w.x, w.y, w.z], dim=1)
+
+
+def naive_result(ws: torch.Tensor, cfg: MsmConfig) -> JPoint:
+    """Montgomery window sums [S, 3, L] -> exported to standard form on the
+    device, copied to the host once, folded by Horner's rule in exact
+    integers."""
+    std = common.export_points_std(get_curve_ctx(cfg), PointBatch(*ws.unbind(1)))
+    return common.window_sums_to_result(std.cpu().numpy(), cfg)
 
 
 def compute_msm_naive(
@@ -64,12 +76,9 @@ def compute_msm_naive(
         raise NotImplementedError("the naive model has no GLV mode")
     if len(points) == 0:
         return IDENTITY
-    n = common.pad_size(len(points))
-    if n > CHUNK_MAX:
-        raise NotImplementedError(f"n = {n} > {CHUNK_MAX}: chunked MSM is not ported")
-    x_u16, y_u16, s_u16 = common.pad_inputs(points, scalars, config)
-    geom = geometry or pick_geometry(n, config.chunk_size)
-    xd, yd, sd = (torch.from_numpy(a).to(device) for a in (x_u16, y_u16, s_u16))
-    packed = common.prepare_points(config, xd, yd)
-    ws = naive_window_sums(packed, sd, config, geom)
-    return common.window_sums_to_result(ws.numpy(), config)
+    arrays = common.pad_inputs(points, scalars, config)
+    geom = geometry or pick_geometry(min(arrays[0].shape[0], cuzk.CHUNK_MAX), config.chunk_size)
+    ws = cuzk.merge_window_sums(
+        (naive_window_sums(common.prepare_points(config, x, y), s, config, geom)
+         for x, y, s in cuzk.chunks(arrays, device)), config)
+    return naive_result(ws, config)

@@ -20,10 +20,16 @@ reduced mod the order, as ``pad_inputs`` does) or as a word array, taken as
 it is (the caller guarantees k < order), which skips the Python-int
 serialization.
 
-Every call has ``compute_msm``'s geometry, one table and one pass, up to
-``cuzk.CHUNK_MAX`` points; the JAX plan's 2^20 slicing and host-level
-chunking are not ported. A wrong scalar count raises ``ValueError`` (the
-JAX package asserts).
+Every call has ``compute_msm``'s geometry and chunks: up to
+``cuzk.CHUNK_MAX`` points one table and one pass; above it one table per
+chunk of ``CHUNK_MAX`` points, as the JAX plan keeps them. A call then runs
+each chunk's scalar rows (uploaded chunk by chunk from the one pinned
+buffer) against its table, adds the chunks' window sums on the device
+(``cuzk.merge_window_sums``: one point-add launch per chunk after the
+first), and ends in the same single Horner launch over the B ladders and
+one copy back. The JAX plan's 2^20 slicing is not ported (a TPU VMEM rule
+that computes the same function). A wrong scalar count raises
+``ValueError`` (the JAX package asserts).
 """
 
 from __future__ import annotations
@@ -86,17 +92,17 @@ class MsmPlan:
         if validate:
             common.validate_inputs(points, self.cfg)
         self.n, self.N = n, common.pad_size(n)
-        if self.N > cuzk.CHUNK_MAX:
-            raise NotImplementedError(f"n = {self.N} > {cuzk.CHUNK_MAX}: chunked MSM is not ported")
         self.device = torch.device(device)
-        self.geom = geometry or pick_geometry(self.N, self.cfg.chunk_size, self.cfg.compress, self.cfg.glv)
+        #: the chunks' rows, and each chunk's point table on the device
+        self.slices = cuzk.chunk_slices(self.N)
+        chunk = self.slices[0].stop
+        self.geom = geometry or pick_geometry(chunk, self.cfg.chunk_size, self.cfg.compress, self.cfg.glv)
         # slot b of [B, N, W/2] packed scalar words; rows from _filled[b] on
         # are zero (the padding's scalars)
         self._staging = common.staging_buffer((1, self.N, _word_count(self.cfg) // 2), self.device)
         self._filled = [0]
-        x_u16, y_u16 = common.pad_points_words(points, self.cfg, self.N)
-        xd, yd = (torch.from_numpy(a).to(self.device) for a in (x_u16, y_u16))
-        self.table = common.prepare_points(self.cfg, xd, yd)
+        words = common.pad_points_words(points, self.cfg, self.N)
+        self.tables = [common.prepare_points(self.cfg, xd, yd) for xd, yd in cuzk.chunks(words, self.device)]
 
     def _stage(self, slot: int, scalars) -> None:
         """Pack one scalar set into slot ``slot`` of the host buffer. The
@@ -115,15 +121,19 @@ class MsmPlan:
             buf[rows : self._filled[slot]] = 0
         self._filled[slot] = rows
 
-    def _upload(self, sets: int) -> torch.Tensor:
-        """The first ``sets`` slots, packed [sets, N, W/2], on the device."""
-        return self._staging[:sets].to(self.device, non_blocking=True)
+    def _upload(self, slot: int, rows: slice) -> torch.Tensor:
+        """Rows ``rows`` of slot ``slot``, packed [rows, W/2], on the
+        device."""
+        return self._staging[slot, rows].to(self.device, non_blocking=True)
 
-    def _window_sums(self, packed: torch.Tensor) -> torch.Tensor:
-        """One set's packed words [N, W/2] on the device -> its Montgomery
-        window sums [S, 3, L] there."""
-        words = common.unpack_scalar_words(packed)
-        return cuzk.window_sums_from_table(self.table, words, self.cfg, self.geom)
+    def window_sums(self, rows_of) -> torch.Tensor:
+        """One scalar set's Montgomery window sums [S, 3, L]: ``rows_of``
+        gives a chunk's scalar words on the device (``rows -> [rows, W]``),
+        each chunk runs against its table, and the chunks' sums are merged
+        on the device."""
+        return cuzk.merge_window_sums(
+            (cuzk.window_sums_from_table(t, rows_of(s), self.cfg, self.geom) for t, s in zip(self.tables, self.slices)),
+            self.cfg)
 
     def jpoint(self, scalars) -> JPoint:
         """Run the plan over one scalar set (n ints, or words [n or N, W])
@@ -135,10 +145,10 @@ class MsmPlan:
         return common.result_to_affine(self.jpoint(scalars), self.cfg)
 
     def run_batch(self, scalar_sets) -> list[JPoint]:
-        """B scalar sets on the one table: one upload of [B, N, W/2], the
-        instances back to back on the device (only each one's [S, 3, L]
-        window sums kept), one Horner launch over the B ladders, one copy
-        of the B results to the host."""
+        """B scalar sets on the plan's tables: each set's rows uploaded
+        chunk by chunk from the pinned buffer, the instances back to back on
+        the device (only each one's [S, 3, L] window sums kept), one Horner
+        launch over the B ladders, one copy of the B results to the host."""
         B = len(scalar_sets)
         if B == 0:
             return []
@@ -147,6 +157,7 @@ class MsmPlan:
             self._filled = [0] * B
         for b, scalars in enumerate(scalar_sets):
             self._stage(b, scalars)
-        packed = self._upload(B)
-        return cuzk.msm_jpoints_from_ws([self._window_sums(packed[b]) for b in range(B)], self.cfg)
+        return cuzk.msm_jpoints_from_ws(
+            [self.window_sums(lambda rows, b=b: common.unpack_scalar_words(self._upload(b, rows))) for b in range(B)],
+            self.cfg)
 

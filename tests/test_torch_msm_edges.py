@@ -14,7 +14,6 @@ import msm_tpu_torch
 from msm_tpu.oracle import best_msm
 from msm_tpu.oracle.pyecc import Curve
 from msm_tpu.params import BN254 as J_BN254
-from msm_tpu_torch.models.cuzk import CHUNK_MAX
 from msm_tpu_torch.ops._build import check_cuda_config, require_cuda
 from msm_tpu_torch.params import BLS12_381, BN254, MsmConfig, pick_config
 
@@ -83,11 +82,3 @@ def test_kernel_launch_requires_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         require_cuda(pick_config(1 << 16), torch.zeros((4, 20), dtype=torch.int32))
 
-
-def test_above_one_pass_cap_raises():
-    """Above 2^22 points the reference splits the MSM; that split is not
-    ported, so the port refuses before it serializes anything."""
-    p0 = affine_points(CFG8, 1, seed=54)[0]
-    n = CHUNK_MAX + 1
-    with pytest.raises(NotImplementedError, match="chunked"):
-        msm_tpu_torch.run_gpu_msm([p0] * n, [1] * n, device="cpu")

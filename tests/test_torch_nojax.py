@@ -25,7 +25,9 @@ def _import_all(check: str) -> None:
     """Import every module of the port in a fresh process, then run
     ``check`` there."""
     mods = _modules()
-    assert {"msm_tpu_torch.ops.scan", "msm_tpu_torch.models.naive", "msm_tpu_torch.ops.glv"} <= set(mods)
+    assert {"msm_tpu_torch.ops.scan", "msm_tpu_torch.models.naive", "msm_tpu_torch.ops.glv", "msm_tpu_torch.cli",
+            "msm_tpu_torch.__main__", "msm_tpu_torch.bench", "msm_tpu_torch.utils.profiling",
+            "msm_tpu_torch.utils.log"} <= set(mods)
     code = "import importlib, sys\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods
     ) + check
