@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, builds the thirteen CUDA kernels,
-   their six GLV modes and the convert kernel's run-time-constant mode from
+   their six GLV modes, the convert kernel's run-time-constant mode and the
+   plain kernels' instances for the six other curves from
    msm_tpu_torch/csrc and prints the build time;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs, at a small shape and at the shape the 2^20 MSM gives it
@@ -126,9 +127,23 @@
    every config; then a plain plan over 2^23 points as one pass (its build
    time; a words call on np.uint16 [2^23, 16] bit-exact, its median of 3
    and its peak memory);
-15. prints the kernels' JSON line (the GLV modes and the scaled convert as
-   entries of their own), then as its last line {"ok": true, "device":
-   {...}}.
+15. the curves phase (PR 14): the plain path's six kernels (point add,
+   convert, scan, row offsets, point total, Horner) are templates over the
+   field, one instance a curve; for BN254 and each of BLS12-381,
+   BLS12-377, Grumpkin, Pallas, Vesta and secp256k1 every instance's ptxas
+   registers, frame and spills and its SASS (no CALL); each other curve's
+   six instances against their twins at a small shape, BLS12-381's and
+   secp256k1's also at their 2^20 plain shapes (c 16, S 16 or 17, R 16384,
+   C 64); each curve's MSM at 2^16 through run_gpu_msm and a plan's words
+   call, and BLS12-381's, Pallas' and secp256k1's at 2^20 through a plan's
+   words call (median of 5), all bit-exact against the folded pure-Python
+   oracle, each with its stages, device busy time, idle share and peak
+   memory, and the curve's kernels required of each run; verify --size 12
+   on BLS12-381 and secp256k1 and the bench's --plan 4 --size 20 line on
+   BLS12-381;
+16. prints the kernels' JSON line (the GLV modes, the scaled convert and
+   each other curve's instances as entries of their own), then as its last
+   line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
 It needs a CUDA device and the repository around it.
@@ -138,6 +153,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -145,6 +161,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -229,13 +246,33 @@ EXCLUDED["auto"] = tuple(k for k in REPLACES if k not in PATHS["auto"])
 HBM_BYTES_PER_S = 3.35e12
 SMS, IMAD_PER_SM_CLOCK = 132, 64
 #: the least integer work of one 254-bit Montgomery product: 2 * 8^2 + 8 = 136
-#: multiply-adds on 32-bit words, each two IMAD (low and high half)
+#: multiply-adds on 32-bit words, each two IMAD (low and high half); of a
+#: product on D words, 2 (2 D^2 + D) (_imad_per_product)
 IMAD_PER_PRODUCT = 2 * (2 * 8 * 8 + 8)
 #: a squaring's least work in products: 8 * 9 / 2 word products for a^2 and
 #: the same 8^2 + 8 for the reduction, 108 of a product's 136
 SQUARE_PER_PRODUCT = (8 * 9 // 2 + 8 * 8 + 8) / (2 * 8 * 8 + 8)
-#: bytes of one 254-bit field element, the least a coordinate needs
+#: bytes of one 254-bit field element, the least a coordinate needs; of an
+#: element of D words, 4 D (_fe_bytes)
 FE_BYTES = 32
+
+
+def _imad_per_product(cfg) -> int:
+    """IMAD of one Montgomery product's least work on the curve's D words
+    (``params.coord_words``): 2 D^2 + D multiply-adds, two IMAD each
+    (BN254: IMAD_PER_PRODUCT)."""
+    from msm_tpu_torch.params import coord_words
+
+    d = coord_words(cfg)
+    return 2 * (2 * d * d + d)
+
+
+def _fe_bytes(cfg) -> int:
+    """Bytes of one field element of the curve, the least a coordinate
+    needs: 4 D (BN254: FE_BYTES; BLS12: 48)."""
+    from msm_tpu_torch.params import coord_words
+
+    return 4 * coord_words(cfg)
 
 
 def _kernels():
@@ -319,11 +356,14 @@ def _mont(vals, cfg):
 
 
 def _rand_fe(rng, shape, cfg):
-    """Random canonical field elements as int32 limbs [..., L] (top limb
-    below the modulus' top limb, so every value is < p)."""
+    """Random canonical field elements as int32 limbs [..., L]: the
+    modulus' highest nonzero limb k drawn below its value, the limbs above
+    it 0 (BLS12-377's top limb), so every value is < p."""
     L, w = cfg.num_words, cfg.word_size
+    k = (cfg.curve.modulus_bits - 1) // w
     a = rng.integers(0, 1 << w, size=tuple(shape) + (L,), dtype=np.int64)
-    a[..., -1] = rng.integers(0, cfg.curve.modulus >> (w * (L - 1)), size=shape)
+    a[..., k] = rng.integers(0, cfg.curve.modulus >> (w * k), size=shape)
+    a[..., k + 1:] = 0
     return a.astype(np.int32)
 
 
@@ -519,50 +559,54 @@ def _least_bytes(name, args) -> float:
     row), 2 B per u16 word, the narrowest integer type per key, count or
     table index, 1 bit per flag (2 under GLV: the sign and the phi bit).
     The limb layout's padding (80 B per coordinate at 13-bit limbs, 4 B per
-    u16 word) is the kernels' choice, not the function's."""
+    u16 word) is the kernels' choice, not the function's. On another curve
+    an element is 4 D bytes (_fe_bytes; BLS12: 48) and a coordinate 2 D u16
+    words."""
     a = args[1:]
+    fe = _fe_bytes(args[0])
+    u16 = _fe_bytes(args[0]) // 2
     glv = name.endswith("_glv")
     name = name.removesuffix("_glv")
     if name == "point_add":  # six [B, L] in, three out
-        return 9 * FE_BYTES * a[0].shape[0]
-    if name == "convert_pack":  # [n, 16] u16 words x2 -> [n, 2D] (GLV: [n, 3D])
-        return a[0].shape[0] * (2 * 16 * 2 + (3 if glv else 2) * FE_BYTES)
+        return 9 * fe * a[0].shape[0]
+    if name == "convert_pack":  # [n, 2D] u16 words x2 -> [n, 2D] (GLV: [n, 3D])
+        return a[0].shape[0] * (2 * u16 * 2 + (3 if glv else 2) * fe)
     if name == "convert_pack_scaled":  # (x_scale, dual_x_scale, triple) -> [n, 2D], two or [n, 3D]
         coords = 2 if args[4] is None else 3 if args[5] else 4
-        return a[0].shape[0] * (2 * 16 * 2 + coords * FE_BYTES)
+        return a[0].shape[0] * (2 * u16 * 2 + coords * fe)
     if name == "bucket_hist":  # keys [G, n] < NB -> counts [G, NB] <= n
         keys, nb = a[0], a[1]
         return keys.numel() * _int_bytes(nb - 1) + keys.shape[0] * nb * _int_bytes(keys.shape[1])
     if name in ("row_offsets", "mont_pow"):  # [G, L, R] lanes, in and out
         lanes = a[0].shape[0] * a[0].shape[2]
-        return 2 * lanes * (3 if name == "row_offsets" else 1) * FE_BYTES
+        return 2 * lanes * (3 if name == "row_offsets" else 1) * fe
     if name in ("point_total", "horner"):  # [G, N, L], [G, S, L] or [S, L] -> one point per G
         pts = a[0].numel() // a[0].shape[-1]
-        return 3 * FE_BYTES * (pts + pts // a[0].shape[-2])
+        return 3 * fe * (pts + pts // a[0].shape[-2])
     if name == "bpr_phase1":  # [G, Bl, T, L] buckets -> m, g [G, T, L]
         G, Bl, T, _ = a[0].shape
-        return 3 * FE_BYTES * G * T * (Bl + 2)
+        return 3 * fe * G * T * (Bl + 2)
     # the scan and the pair kernels: a packed table, perm and flags [G, C, R]
     table, perm = a[0], a[1]
     rows, steps, lanes = table.shape[0], perm.numel(), perm.shape[0] * perm.shape[2]
     coords = 3 if glv else 2
-    stream = rows * coords * FE_BYTES + steps * (_int_bytes(rows - 1) + (coords - 1) / 8)
+    stream = rows * coords * fe + steps * (_int_bytes(rows - 1) + (coords - 1) / 8)
     if name == "scan_rows":  # -> pe3 per step, lane totals
-        return stream + 3 * FE_BYTES * (steps + lanes)
+        return stream + 3 * fe * (steps + lanes)
     pairs = steps // 2
     if name in ("pair_suffix", "pair_forward"):  # -> one product per pair
-        return stream + pairs * FE_BYTES
-    chain_in = (pairs + lanes) * FE_BYTES  # products per pair, inverse per lane
+        return stream + pairs * fe
+    chain_in = (pairs + lanes) * fe  # products per pair, inverse per lane
     if name == "emit_scan":  # -> pe3 per pair, lane totals
-        return stream + chain_in + 3 * FE_BYTES * (pairs + lanes)
-    return stream + chain_in + pairs * (2 * FE_BYTES + 1 / 8)  # pair_backward: x, y, inf
+        return stream + chain_in + 3 * fe * (pairs + lanes)
+    return stream + chain_in + pairs * (2 * fe + 1 / 8)  # pair_backward: x, y, inf
 
 
 def _bound(name, args, clock_hz) -> tuple[float, str]:
     """(least ms, "bytes" or "operations"): the larger of the products'
     IMAD over the card's integer rate and the least bytes over the HBM
     rate."""
-    ops_s = _products(name, args) * IMAD_PER_PRODUCT / (SMS * IMAD_PER_SM_CLOCK * clock_hz)
+    ops_s = _products(name, args) * _imad_per_product(args[0]) / (SMS * IMAD_PER_SM_CLOCK * clock_hz)
     bytes_s = _least_bytes(name, args) / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
@@ -731,13 +775,13 @@ def check_glv_kernels(kern, aff, clock_hz: float, sizes, dev) -> dict:
     return out
 
 
-def _coord_words(rng, n: int, top: int | None):
-    """x and y u16 coordinate words [n, 16], held in int16 as the host
-    serializes them: values below p when ``top`` is the modulus (top word
-    below its top word), else anywhere in [0, 2^256)."""
-    words = rng.integers(0, 1 << 16, size=(2, n, 16), dtype=np.int64)
+def _coord_words(rng, n: int, top: int | None, wu: int = 16):
+    """x and y u16 coordinate words [n, wu] (BN254: 16), held in int16 as
+    the host serializes them: values below p when ``top`` is the modulus
+    (top word below its top word), else anywhere in [0, 2^(16 wu))."""
+    words = rng.integers(0, 1 << 16, size=(2, n, wu), dtype=np.int64)
     if top is not None:
-        words[:, :, 15] = rng.integers(0, top >> 240, size=(2, n))
+        words[:, :, wu - 1] = rng.integers(0, top >> (16 * (wu - 1)), size=(2, n))
     return [np.ascontiguousarray(w.astype(np.uint16).view(np.int16)) for w in words]
 
 
@@ -749,7 +793,7 @@ def _compressed_shape(n: int, cfg=None) -> tuple[int, int, int]:
     from msm_tpu_torch.params import BN254, MsmConfig
 
     cfg = cfg or MsmConfig(curve=BN254, compress=True)
-    geo = pick_geometry(n, cfg.chunk_size, compress=True, glv=cfg.glv)
+    geo = pick_geometry(n, dataclasses.replace(cfg, compress=True))
     stream = 2 * n if cfg.glv else n
     return min(geo.subtask_batch, cfg.num_subtasks), stream // geo.num_rows, geo.num_rows
 
@@ -880,7 +924,7 @@ def check_bpr_shapes(kern, rng, dev, clock_hz) -> None:
     from msm_tpu_torch.params import pick_config
 
     cfg = pick_config(1 << 16)
-    T = pick_geometry(1 << 16, cfg.chunk_size).bpr_threads
+    T = pick_geometry(1 << 16, cfg).bpr_threads
     G, Bl = cfg.num_subtasks, (cfg.num_buckets - 1) // T
     args = [cfg, *(torch.from_numpy(a).to(dev) for a in _bpr_buckets(rng, (G, Bl, T), cfg))]
     _check_case(kern, get_field_ctx(cfg), cfg.num_words, "bpr_phase1", f"2^16 G{G} T{T} Bl{Bl}", args,
@@ -1036,26 +1080,37 @@ def _ptxas(log: str, kernel: str) -> dict:
     raise RuntimeError(f"no ptxas report for {kernel}")
 
 
-def _sass_calls(obj, kernel: str) -> tuple[int, int]:
-    """(instructions, CALL instructions) of a kernel's SASS in an object
-    file, by cuobjdump."""
-    from pathlib import Path
-
+@functools.lru_cache(maxsize=None)
+def _sass_functions(obj) -> dict[str, tuple[int, int]]:
+    """{mangled kernel name: (instructions, CALL instructions)} of an
+    object file's SASS, by cuobjdump (a function's instructions are the
+    lines that start with their address, ``/*0a10*/``)."""
     from msm_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(obj)], check=True, capture_output=True, text=True).stdout
-    n = calls = 0
-    inside = False
-    for line in text.splitlines():
-        if "Function : " in line:
-            inside = _mangled(kernel) in line
-        elif inside and re.match(r"\s*/\*[0-9a-f]+\*/\s", line):
-            n += 1
-            calls += bool(re.search(r"\bCALL\b", line))
-    if n == 0:
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = (len(re.findall(r"/\*[0-9a-f]+\*/\s", body)), len(re.findall(r"\bCALL\b", body)))
+    return out
+
+
+def _prefetch_sass(objs) -> None:
+    """cuobjdump the object files all at once (seconds each, one at a time
+    otherwise), filling _sass_functions' cache."""
+    objs = sorted(set(objs))
+    with ThreadPoolExecutor(len(objs)) as pool:
+        list(pool.map(_sass_functions, objs))
+
+
+def _sass_calls(obj, kernel: str) -> tuple[int, int]:
+    """(instructions, CALL instructions) of a kernel's SASS in an object
+    file (_sass_functions)."""
+    found = [v for k, v in _sass_functions(obj).items() if _mangled(kernel) in k]
+    if not found:
         raise RuntimeError(f"no SASS for {kernel} in {obj}")
-    return n, calls
+    return found[0]
 
 
 def report_word_core_builds(so) -> None:
@@ -1069,6 +1124,7 @@ def report_word_core_builds(so) -> None:
                                            "k_pair_forward_glv", "k_pair_backward", "k_pair_backward_glv")]
     kernels += [("k_mont_pow", "inv.o")] + [(f"k_convert_scaled<{i}>", "convert.o") for i in range(3)]
     kernels += [("k_bpr_phase1", "bpr.o")]
+    _prefetch_sass(so.parent / obj for _kernel, obj in kernels)
     for kernel, obj in kernels:
         rep = _ptxas(log, kernel)
         n, calls = _sass_calls(so.parent / obj, kernel)
@@ -1145,7 +1201,7 @@ def check_path_shapes(kern, rng, base, dev, clock_hz) -> None:
 
     cfg = pick_config(1 << 20)
     f, L = get_field_ctx(cfg), cfg.num_words
-    S, T = cfg.num_subtasks, pick_geometry(1 << 20, cfg.chunk_size).bpr_threads
+    S, T = cfg.num_subtasks, pick_geometry(1 << 20, cfg).bpr_threads
     nS, nb = NAIVE_CONFIG.num_subtasks, 1 << NAIVE_CONFIG.chunk_size
 
     def t(a):
@@ -1320,7 +1376,7 @@ def stage_times(pts, ks, cfg, path, device="cuda") -> dict:
     st["upload_scalars_MiB"] = s.nbytes / 2**20
     packed = common.prepare_points(cfg, xd, yd)
     t0 = mark("convert", t0)
-    geom = pick_geometry(x.shape[0], cfg.chunk_size, cfg.compress, cfg.glv)
+    geom = pick_geometry(x.shape[0], cfg)
     if path == "naive":
         ws = naive.naive_window_sums(packed, sd, cfg, geom)
         t0 = mark("window_sums", t0)
@@ -1380,11 +1436,19 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
             return wall_ms, busy_ms, by_name
         seen: dict[str, int] = {}
         for e in events:
-            if e.get("ph") == "X" and e.get("cat") == "kernel" and e["name"].startswith("k_"):
-                seen[e["name"].split("(")[0]] = seen.get(e["name"].split("(")[0], 0) + 1
+            if e.get("ph") == "X" and e.get("cat") == "kernel" and _our_kernel(e["name"]):
+                seen[_our_kernel(e["name"])] = seen.get(_our_kernel(e["name"]), 0) + 1
         print(f"profiled MSM: trace holds {n_ours} of {expected} kernel launches ({json.dumps(seen)} "
               f"for launches {json.dumps({k: v for k, v in counts.items() if v})}); again", flush=True)
     raise RuntimeError("the profiler dropped kernel events in three traces")
+
+
+def _our_kernel(name: str) -> str | None:
+    """This package's kernel named by a trace event, without its field
+    ("k_scan" for "k_scan(int const*, ...)" and for "void
+    msm::k_scan<msm::FpPallas>(int const*, ...)"); None for another's."""
+    m = re.match(r"(?:void )?(?:msm::)?(k_\w+)", name)
+    return m.group(1) if m else None
 
 
 def trace_breakdown(events) -> tuple[float, dict, int]:
@@ -1396,8 +1460,9 @@ def trace_breakdown(events) -> tuple[float, dict, int]:
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
-        name, ours = e["name"].split("(")[0], e["name"].startswith("k_")
-        n_ours += ours
+        ours = _our_kernel(e["name"])
+        name = ours or e["name"].split("(")[0]
+        n_ours += ours is not None
         key = TRACE_ROWS.get(name, name) if ours else "memcpy" if e["cat"] != "kernel" else "torch_ops"
         by_name[key] = by_name.get(key, 0.0) + e["dur"] / 1e3
         spans.append((e["ts"], e["ts"] + e["dur"]))
@@ -1659,7 +1724,7 @@ def check_blocked(pts, ks, want, device="cuda") -> dict:
 
     n = common.pad_size(len(pts))
     cfg = pick_config(n)
-    ec, geom = get_curve_ctx(cfg), pick_geometry(n, cfg.chunk_size)
+    ec, geom = get_curve_ctx(cfg), pick_geometry(n, cfg)
     batch = min(geom.subtask_batch, cfg.num_subtasks)
     tag = f"blocked stage 4 2^{n.bit_length() - 1} (c={cfg.chunk_size} T={geom.bpr_threads})"
     xd, yd, sd = (torch.from_numpy(a).to(device) for a in common.pad_inputs(pts, ks, cfg))
@@ -2095,7 +2160,7 @@ def one_pass_checks(base, logn: int, seed: int, scaled: dict | None = None, devi
     peaks, adds = {}, {}
     for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
         cfg, _ = msm_path(path, n, device)
-        geom = pick_geometry(n, cfg.chunk_size, cfg.compress, cfg.glv)
+        geom = pick_geometry(n, cfg)
         tag = f"one pass 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks})"
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2171,7 +2236,7 @@ def run_beyond_checks(base, logn: int = 22, device="cuda") -> None:
     _reset_counts()
     t0 = time.perf_counter()
     got = common.std_ints_to_jpoint(*cuzk.cuzk_msm_point(
-        xw, yw, sw, cfg, pick_geometry(cuzk.CHUNK_MAX, cfg.chunk_size), device=device), cfg)
+        xw, yw, sw, cfg, pick_geometry(cuzk.CHUNK_MAX, cfg), device=device), cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     merges = _counts_of(tag, "plain")["point_add"] - 2 * adds_c["plain"]
@@ -2210,6 +2275,288 @@ def run_beyond_checks(base, logn: int = 22, device="cuda") -> None:
           flush=True)
 
 
+#: the six curves besides BN254, each on the plain path (the curves phase)
+CURVE_NAMES = ("bls12_381", "bls12_377", "grumpkin", "pallas", "vesta", "secp256k1")
+#: the plain path's kernels, each instantiated for every curve (kernel 3,
+#: the histogram, has no field arithmetic)
+CURVE_KERNELS = ("point_add", "convert_pack", "scan_rows", "row_offsets", "point_total", "horner")
+#: the curves also run at 2^20 through a plan's words call (the others at
+#: 2^16 only); each curve's kernels are held at its largest MSM's shapes
+CURVES_AT_2E20 = ("bls12_381", "pallas", "secp256k1")
+#: a curve's MSM runs the plain path's kernels; its plan calls all but the convert
+for _c in CURVE_NAMES:
+    PATHS[f"curve_{_c}"], EXCLUDED[f"curve_{_c}"] = PATHS["plain"], EXCLUDED["plain"]
+    PATHS[f"plan_curve_{_c}"], EXCLUDED[f"plan_curve_{_c}"] = PATHS["plan_plain"], EXCLUDED["plan_plain"]
+#: each plain kernel's object files: BN254's instance in the kernel's own
+#: translation unit, every other curve's in csrc/curve_<name>.cu
+PLAIN_OBJECTS = {"point_add": "point_add.o", "convert_pack": "convert.o", "scan_rows": "scan.o",
+                 "row_offsets": "prefix.o", "point_total": "point_total.o", "horner": "horner.o"}
+PLAIN_TRACE = {"point_add": ("k_point_add", "k_point_add_lanes"), "convert_pack": ("k_convert",),
+               "scan_rows": ("k_scan",), "row_offsets": TRACE_KERNELS["row_offsets"],
+               "point_total": TRACE_KERNELS["point_total"], "horner": ("k_horner",)}
+
+
+def _curve_spec(name: str):
+    from msm_tpu_torch.params import CURVES
+
+    return CURVES[name]
+
+
+def _field_of(name: str) -> str:
+    """The traits type of csrc/fields.cuh for a curve name."""
+    return {"bn254": "FpBn254", "bls12_377": "FpBls12_377", "pallas": "FpPallas", "bls12_381": "FpBls12_381",
+            "secp256k1": "FpSecp256k1", "grumpkin": "FpGrumpkin", "vesta": "FpVesta"}[name]
+
+
+def report_plain_builds(so) -> dict:
+    """One line per plain kernel and curve: ptxas registers, frame and
+    spills and the SASS size; raises when a kernel makes an out-of-line
+    call (the word core inlines every formula, the row offsets' included).
+    Returns {(curve, kernel): ptxas report} for the kernel table."""
+    lines = (so.parent / "build.log").read_text().splitlines()
+    reports = {}
+    _prefetch_sass([so.parent / o for o in PLAIN_OBJECTS.values()]
+                   + [so.parent / f"curve_{curve}.o" for curve in CURVE_NAMES])
+    for curve in ("bn254",) + CURVE_NAMES:
+        field = _field_of(curve)
+        for wrapper, kernels in PLAIN_TRACE.items():
+            sass = _sass_functions(so.parent / (PLAIN_OBJECTS[wrapper] if curve == "bn254" else f"curve_{curve}.o"))
+            for kernel in kernels:
+                rep = None
+                for i, line in enumerate(lines):
+                    if "Compiling entry function" in line and _mangled(kernel) in line and field in line:
+                        text = " ".join(lines[i + 1:i + 4])
+                        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                          r"(\d+) bytes spill loads", text)
+                        regs = re.search(r"Used (\d+) registers", text)
+                        rep = {"registers": int(regs.group(1)), "frame": int(frame.group(1)),
+                               "spill_stores": int(frame.group(2)), "spill_loads": int(frame.group(3))}
+                        break
+                if rep is None:
+                    raise RuntimeError(f"no ptxas report for {kernel}<{field}>")
+                n, calls = next(v for k, v in sass.items() if _mangled(kernel) in k and field in k)
+                reports[(curve, kernel)] = rep
+                print(f"ptxas {curve} {kernel}: registers={rep['registers']} frame={rep['frame']} B "
+                      f"spill_stores={rep['spill_stores']} B spill_loads={rep['spill_loads']} B; "
+                      f"SASS {n} instructions, {calls} CALL", flush=True)
+                if calls:
+                    raise AssertionError(f"{kernel}<{field}> makes {calls} out-of-line calls")
+    return reports
+
+
+def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev) -> dict:
+    """The plain path's six kernels of one curve against their twins on the
+    card, on a random stream of the curve's own: at a small shape (chunk 8,
+    n 2048, R 512, C 4, one subtask, 4 windows) when ``logn`` is None, else
+    at the shapes the curve's 2^logn MSM gives them (pick_config(2^logn,
+    curve) and models/geometry.py's rule): the convert over n points, the
+    scan over G subtasks of C = n / R steps on R lanes and the row offsets
+    over their G x R lane totals, the point add over the boundary prefixes'
+    G x NB, the point total over S windows of NB - 1 points, the Horner
+    ladder over S windows at chunk c (2^20: c 16, R 16384, C 64, G 4; 2^16:
+    c 13, R 8192, C 8, G 4). The scan and the convert on random canonical
+    tables and coordinates (the convert also on words anywhere below
+    2^(32 D)), the row offsets and the point total on real curve points
+    (they reassociate). Returns {kernel: result} as _check_case gives it."""
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import MsmConfig, pick_config
+
+    spec = _curve_spec(curve)
+    small = logn is None
+    n = 2048 if small else 1 << logn
+    cfg = MsmConfig(curve=spec, chunk_size=8) if small else pick_config(n, spec)
+    f, L = get_field_ctx(cfg), cfg.num_words
+    rng = np.random.default_rng(SEED + 100 + CURVE_NAMES.index(curve) + (0 if small else 10))
+    aff = [Curve(spec).to_affine(p) for p in Curve(spec).sample_points(64, seed=SEED)]
+    base = torch.stack([torch.from_numpy(_mont(v, cfg)) for v in zip(*aff)]).to(dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    NB = cfg.num_buckets
+    if small:
+        R, G, S = 512, 1, 4
+    else:
+        geo = pick_geometry(n, cfg)
+        R, G, S = geo.num_rows, min(geo.subtask_batch, cfg.num_subtasks), cfg.num_subtasks
+    C = n // R
+    B = 512 if small else G * NB
+    pa = [_rand_fe(rng, (B,), cfg) for _ in range(6)]
+    pa[1][: B // 8] *= -1
+    wu = coord_u16(cfg)
+    words = _coord_words(rng, n, cfg.curve.modulus, wu)
+    anywhere = _coord_words(rng, n // 8, None, wu)
+    words = [np.concatenate([w, a]) for w, a in zip(words, anywhere)]
+    tab = torch.cat([pack_canonical(torch.from_numpy(_rand_fe(rng, (n,), cfg)), cfg) for _ in range(2)], dim=-1)
+    perm = np.stack([rng.permutation(n).reshape(R, C).T for _ in range(G)]).astype(np.int32)
+    flags = rng.integers(0, 2, size=perm.shape, dtype=np.int32)
+    rows = _curve_points(rng, (G, R), cfg, base, dev)
+    N = 512 if small else NB - 1
+    cases = {
+        "point_add": ([cfg, *map(t, pa)], False, 5),
+        "convert_pack": ([cfg, *map(t, words)], False, 5),
+        "scan_rows": ([cfg, tab.to(dev), t(perm), t(flags)], False, 3),
+        "row_offsets": ([cfg, *(a.transpose(1, 2).contiguous() for a in rows)], True, 3),
+        "point_total": ([cfg, *_curve_points(rng, (S, N), cfg, base, dev)], True, 3),
+        "horner": ([cfg, *(t(_rand_fe(rng, (S,), cfg)) for _ in range(3)), 4 if small else cfg.chunk_size],
+                   False, 3),
+    }
+    label = f"{curve} {'small' if small else f'2^{logn}'}"
+    return {name: _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz)
+            for name, (args, as_points, reps) in cases.items()}
+
+
+def sample_curve_msm(curve: str, n: int, seed: int, base=None):
+    """(bases, points, scalar words [n, 16]) of a curve's MSM: 1024 random
+    points (``base`` when given) tiled to n, uniform scalars below the
+    order as u16 words."""
+    from msm_tpu_torch.oracle.pyecc import Curve
+
+    spec = _curve_spec(curve)
+    if base is None:
+        cv = Curve(spec)
+        base = [cv.to_affine(p) for p in cv.sample_points(min(n, 1024), seed=seed)]
+    rng = np.random.default_rng(seed + 1)
+    words = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint16)
+    words[:, 15] = rng.integers(0, spec.order >> 240, size=n)
+    return base, [base[i % len(base)] for i in range(n)], words
+
+
+def run_curve_msms(device="cuda") -> dict:
+    """Each of the six curves on the plain path through the entry points a
+    user calls: at 2^16 run_gpu_msm (ints) and a plan's words call, with
+    the counters reset just before each, the path's kernels required after;
+    at 2^20 (CURVES_AT_2E20) a plan's words call, its wall median of 5. All
+    bit-exact against the folded oracle (the pure-Python one: the native
+    oracle is BN254's). One line per run: wall, stages, device busy time,
+    idle share and peak memory. Returns {curve: launch counts of its 2^16
+    run_gpu_msm}."""
+    import msm_tpu_torch
+    from msm_tpu_torch import bench
+    from msm_tpu_torch.models import common
+    from msm_tpu_torch.ops._build import BUILD_ROOT
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import pick_config
+
+    counts = {}
+    for curve in CURVE_NAMES:
+        spec = _curve_spec(curve)
+        cv = Curve(spec)
+        base = None
+        for logn in (16, 20) if curve in CURVES_AT_2E20 else (16,):
+            n = 1 << logn
+            cfg = pick_config(n, spec)
+            tag = f"curve {curve} 2^{logn} (c={cfg.chunk_size} S={cfg.num_subtasks} L={cfg.num_words})"
+            t0 = time.perf_counter()
+            base, pts, words = sample_curve_msm(curve, n, SEED + 60 + logn, base)
+            want = bench.folded_oracle(base, words, spec)
+            ks = [int.from_bytes(w.tobytes(), "little") for w in words] if logn == 16 else None
+            print(f"{tag}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
+            if ks is not None:
+                _reset_counts()
+                got = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+                torch.cuda.synchronize()
+                counts[curve] = _counts_of(f"{tag} run_gpu_msm", f"curve_{curve}")
+                if got != cv.to_affine(want):
+                    raise AssertionError(f"{tag}: run_gpu_msm differs from the oracle: {got}")
+                torch.cuda.reset_peak_memory_stats()
+                med, runs = _median_ms(lambda: msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device), 3)
+                st = stage_times(pts, ks, cfg, "plain", device)
+                print(f"{tag} run_gpu_msm: bit-exact; wall_ms median of 3 = {med:.2f} (runs "
+                      f"{', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib="
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.3f}; stages_ms "
+                      + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
+            t0 = time.perf_counter()
+            plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            _reset_counts()
+            if not cv.eq(plan.jpoint(words), want):
+                raise AssertionError(f"{tag}: the plan's words call differs from the oracle")
+            _counts_of(f"{tag} plan words call", f"plan_curve_{curve}")
+            torch.cuda.reset_peak_memory_stats()
+            med, runs = _median_ms(lambda: plan.jpoint(words), 5)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            st = plan_stage_times(plan, words)
+            wall_ms, busy_ms, by_name = device_breakdown(
+                lambda _pts, w: plan.jpoint(w), None, words, BUILD_ROOT / f"trace_{curve}_2e{logn}.json")
+            print(f"{tag} plan words call: bit-exact; build {build_s:.2f} s; wall_ms median of 5 = {med:.2f} "
+                  f"(runs {', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib={peak:.3f}; stages_ms "
+                  + ", ".join(f"{k}={v:.2f}" for k, v in st.items()), flush=True)
+            print(f"{tag} plan words call profiled: wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
+                  f"kernel_ms={busy_ms - by_name.get('memcpy', 0.0):.2f} idle_share={1 - busy_ms / wall_ms:.3f}; "
+                  "device_ms " + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
+                  flush=True)
+            del plan
+            torch.cuda.empty_cache()
+    return counts
+
+
+def run_curve_entry_checks() -> None:
+    """The command line and the bench on other curves, in this process with
+    the counters reset just before and the curve's kernels required just
+    after: verify --size 12 on BLS12-381 and secp256k1 (bit-exact against
+    the pure-Python oracle over every point), and the bench's --plan 4
+    --size 20 line on BLS12-381, verified against its folded oracle."""
+    from msm_tpu_torch import bench, cli
+
+    for curve in ("bls12_381", "secp256k1"):
+        argv = ["verify", "--size", "12", "--curve", curve]
+        line = _in_process(cli.main, argv, f"cli {' '.join(argv)}", f"curve_{curve}")
+        if json.loads(line).get("bit_exact") is not True:
+            raise AssertionError(f"cli {' '.join(argv)}: {line}")
+    argv = ["--plan", "4", "--size", "20", "--verify", "--curve", "bls12_381"]
+    line = _in_process(bench.main, argv, f"bench {' '.join(argv)}", "curve_bls12_381")
+    if json.loads(line).get("verified") is not True:
+        raise AssertionError(f"bench {' '.join(argv)}: not verified: {line}")
+
+
+def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
+    """The curves phase: the plain kernels' builds for every curve
+    (report_plain_builds), each curve's six kernel instances against their
+    twins at the small shapes and at the shapes of the curve's largest MSM
+    below (2^20 for CURVES_AT_2E20, else 2^16), then the curves' MSMs
+    (run_curve_msms) and the command line and bench on them
+    (run_curve_entry_checks). Returns the kernel table's rows for the
+    instances, each with its launches in its curve's 2^16 run_gpu_msm and
+    the times at its largest MSM's shapes."""
+    t0 = t_all = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        print(f"curves phase, {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+
+    report_plain_builds(so)
+    step("builds")
+    kern = _kernels()
+    dev = torch.device(device)
+    checks = {}
+    for curve in CURVE_NAMES:
+        for logn in (None, 20 if curve in CURVES_AT_2E20 else 16):
+            checks[curve] = check_curve_kernels(kern, curve, logn, clock_hz, dev)
+    step("kernels")
+    counts = run_curve_msms(device)
+    step("msms")
+    run_curve_entry_checks()
+    step("cli and bench")
+    rows = []
+    for curve in CURVE_NAMES:
+        for name in CURVE_KERNELS:
+            c = checks[curve][name]
+            rows.append({
+                "name": f"{name}[{curve}]", "route": "cuda", "source": f"msm_tpu_torch/csrc/curve_{curve}.cu",
+                "replaces": f"{REPLACES[name][1]} ({curve})", "launches": counts[curve][name],
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+            })
+    print(f"curves phase: {time.perf_counter() - t_all:.1f} s", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke test runs only on a GPU")
@@ -2238,21 +2585,35 @@ def main() -> int:
     report_word_core_builds(so)
 
     print(f"oracle: {'C++' if native.native_available() else 'python'}", flush=True)
+    phase_t0 = time.perf_counter()
+
+    def phase(name):
+        nonlocal phase_t0
+        print(f"phase {name}: {time.perf_counter() - phase_t0:.1f} s", flush=True)
+        phase_t0 = time.perf_counter()
+
     checks = check_kernels(clock_mhz * 1e6)
     pair_counts = {"pairs": check_pairs(), "pairs_glv": check_pairs(glv=True),
                    "convert_scaled": run_convert_scaled()}
+    phase("kernels and pairs")
     for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
         edge_checks(path)
     msm_counts, inputs = run_msm_checks()
     by_path = {**msm_counts, **pair_counts}
+    phase("edge and msm")
     run_plan_checks(inputs)
     check_batched()
     compare_uploads(inputs[20][2])
+    phase("plan and batched")
     run_cli_checks()
     run_bench_checks()
+    phase("cli and bench")
     base, pts20 = inputs[20][:2]
     run_chunked_checks(base, pts20, {path: c["point_add"] for path, c in msm_counts.items()})
     run_beyond_checks(base)
+    phase("chunked and beyond")
+    curve_rows = run_curves_phase(so, clock_mhz * 1e6)
+    phase("curves")
     rows = []
     for name, (src, rep) in REPLACES.items():
         c = checks[name]
@@ -2263,7 +2624,7 @@ def main() -> int:
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + curve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

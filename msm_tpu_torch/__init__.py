@@ -27,12 +27,15 @@ and the byte helpers.
 
 The package imports nothing of ``msm_tpu``. Every public entry takes an
 explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
-plain twins for any curve. On CUDA the kernels cover BN254 with 13-bit limbs,
-plain (``MsmConfig(curve=BN254)``, ``pick_config(n)``) or pair-compressed
-(``compress=True``, as ``msm_tpu msm --compress`` runs it), each with or
-without the GLV split (``glv=True``, ``msm_tpu msm --glv``). Karatsuba,
-other curves and other limb widths raise ``NotImplementedError`` on CUDA,
-as does the naive model under GLV (on every device).
+plain twins for any curve. On CUDA the kernels cover the seven curves of
+``CURVES`` with 13-bit limbs on the plain path (``MsmConfig(curve=...)``,
+``pick_config(n, curve)``), and BN254 also pair-compressed (``compress=True``,
+as ``msm_tpu msm --compress`` runs it), each with or without the GLV split
+(``glv=True``, ``msm_tpu msm --glv``). ``karatsuba=True`` runs where the
+JAX package builds it. Other limb widths, compression or GLV on the other
+six curves, and the naive model on them raise ``NotImplementedError`` on
+CUDA before any launch, as does the naive model under GLV (on every
+device).
 """
 
 from __future__ import annotations

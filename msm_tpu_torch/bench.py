@@ -146,7 +146,7 @@ def _msm_ms(dev, cfg, arrays, reps: int, what: str):
     ``cuzk_msm_point`` on inputs uploaded once, and the export."""
     xd, yd, sd = (torch.from_numpy(a).to(dev) for a in arrays)
     n = arrays[0].shape[0]
-    geom = pick_geometry(min(n, cuzk.CHUNK_MAX), cfg.chunk_size, cfg.compress, cfg.glv)
+    geom = pick_geometry(min(n, cuzk.CHUNK_MAX), cfg)
 
     def run():
         return common.std_ints_to_jpoint(*cuzk.cuzk_msm_point(xd, yd, sd, cfg, geom), cfg)
@@ -165,7 +165,7 @@ def _self_check(dev, cfg: MsmConfig, seed: int, logn: int = 14) -> bool:
     pts, ks = sample_inputs(1 << logn, cfg.curve, seed=seed)
     arrays = common.pad_inputs(pts, ks, cfg)
     xd, yd, sd = (torch.from_numpy(a).to(dev) for a in arrays)
-    geom = pick_geometry(arrays[0].shape[0], cfg.chunk_size, cfg.compress, cfg.glv)
+    geom = pick_geometry(arrays[0].shape[0], cfg)
     got = common.std_ints_to_jpoint(*cuzk.cuzk_msm_point(xd, yd, sd, cfg, geom), cfg)
     return Curve(cfg.curve).eq(got, folded_oracle(pts[:NBASE], arrays[2][: len(pts)], cfg.curve))
 
@@ -277,7 +277,7 @@ def bench_batched(args, dev) -> None:
         sets[b][:n] = np.roll(s[:n], b, axis=0)
     xb, yb = (torch.from_numpy(np.ascontiguousarray(np.broadcast_to(a, (B, *a.shape)))).to(dev) for a in (x, y))
     sb = torch.from_numpy(np.stack(sets)).to(dev)
-    geom = pick_geometry(min(N, cuzk.CHUNK_MAX), cfg.chunk_size, cfg.compress, cfg.glv)
+    geom = pick_geometry(min(N, cuzk.CHUNK_MAX), cfg)
 
     def run():
         return cuzk.msm_jpoints_from_ws(list(batched_window_sums(xb, yb, sb, cfg, geom)), cfg)
@@ -299,7 +299,7 @@ def bench_batched(args, dev) -> None:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m msm_tpu_torch.bench", description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=20, help="log2 MSM size")
-    ap.add_argument("--curve", default="bn254", help=f"one of {', '.join(CURVES)} (CUDA: bn254)")
+    ap.add_argument("--curve", default="bn254", help=f"one of {', '.join(CURVES)} (CUDA: all plain; --glv, --compress bn254)")
     ap.add_argument("--seed", type=int, default=0, help="the inputs' seed")
     ap.add_argument("--chunk", type=int, default=0, help="window size (0: the config's)")
     ap.add_argument("--glv", action="store_true", help="GLV endomorphism config")

@@ -25,30 +25,19 @@
 // k_convert_glv.
 #include <cuda_runtime.h>
 
-#include "convert32.cuh"
+#include "plain.cuh"
 
 using namespace msm;
 
-constexpr int THREADS = 128;
+MSM_EXTERN_OTHER_FIELDS(ConvertLaunch)
 
-__global__ void __launch_bounds__(THREADS)
-    k_convert(const int16_t* __restrict__ xw, const int16_t* __restrict__ yw,
-              int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) convert_point(xw, yw, out, i);
-}
+constexpr int THREADS = CONVERT_THREADS;
 
-// xw, yw [n, 16] int16 (u16 bits); out [n, 2D] int32; all 16-byte aligned
+// xw, yw [n, 2D] int16 (u16 bits); out [n, 2D] int32, D the curve's words
+// per coordinate; all 16-byte aligned
 extern "C" int msm_convert(const int16_t* xw, const int16_t* yw, int32_t* out,
-                           int64_t n, void* stream) {
-  if (((uintptr_t)xw | (uintptr_t)yw | (uintptr_t)out) % 16)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int64_t blocks = (n + THREADS - 1) / THREADS;
-    k_convert<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(xw, yw,
-                                                                     out, n);
-  }
-  return (int)cudaGetLastError();
+                           int64_t n, int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, ConvertLaunch, (xw, yw, out, n, (cudaStream_t)stream))
 }
 
 __global__ void __launch_bounds__(THREADS)

@@ -1,12 +1,14 @@
 // Kernel 2 (csrc/convert.cu): the per-point body on the word core.
-// __host__ __device__, so the host C++ compiler builds it for the CPU tests.
+// __host__ __device__, so the host C++ compiler builds it for the CPU tests;
+// the plain mode's kernel and launch (ConvertLaunch<F>) are in plain.cuh.
 //
-// A coordinate arrives as 16 little-endian u16 words (held in int16); read
-// as 8 little-endian 32-bit words they are already the word core's form.
-// The value may be anything in [0, 2^256) (inputs are not validated by
-// default), so it is reduced below p first; one Montgomery product by
-// R^2 mod p (R = 2^260) then gives a R mod p, canonical -- the packed
-// table's dense words, x then y.
+// A coordinate arrives as 2 NW little-endian u16 words (held in int16;
+// BN254: 16); read as NW little-endian 32-bit words they are already the
+// word core's form. The value may be anything in [0, 2^(32 NW)) (inputs
+// are not validated by default), so it is reduced below p first; one
+// Montgomery product by R^2 mod p then gives a R mod p, canonical -- the
+// packed table's dense words, x then y. The plain mode is generic over the
+// field; the GLV and scaled modes below are BN254's.
 //
 // The GLV table (convert_point_glv) has three coordinates a row, x R,
 // beta x R and y R: one more product, by beta R^2 mod p, gives the x of
@@ -22,44 +24,54 @@
 
 namespace msm {
 
-constexpr int COORD_U16 = 16;  // u16 words per input coordinate
+// u16 words per input coordinate (2 NW; BN254: 16)
+template <class F>
+constexpr int coord_u16 = 2 * F::NW;
+constexpr int COORD_U16 = coord_u16<FpBn254>;  // the BN254 modes'
 
-// One coordinate's 32 B (16 B aligned); on the device two 16-byte loads
-// through the read-only cache.
-MSM_HD void convert_load(fe32& a, const int16_t* w) {
+// One coordinate's 4 NW bytes (16 B aligned); on the device NW / 4 16-byte
+// loads through the read-only cache.
+template <class F>
+MSM_HD void convert_load(fe32t<F>& a, const int16_t* w) {
 #ifdef __CUDA_ARCH__
   const int4* q = reinterpret_cast<const int4*>(w);
-  const int4 lo = __ldg(q), hi = __ldg(q + 1);
-  a.w[0] = lo.x; a.w[1] = lo.y; a.w[2] = lo.z; a.w[3] = lo.w;
-  a.w[4] = hi.x; a.w[5] = hi.y; a.w[6] = hi.z; a.w[7] = hi.w;
+  MSM_UNROLL
+  for (int k = 0; k < F::NW / 4; ++k) {
+    const int4 v = __ldg(q + k);
+    a.w[4 * k] = v.x; a.w[4 * k + 1] = v.y; a.w[4 * k + 2] = v.z; a.w[4 * k + 3] = v.w;
+  }
 #else
   MSM_UNROLL
-  for (int k = 0; k < NW; ++k)
+  for (int k = 0; k < F::NW; ++k)
     a.w[k] = (uint32_t)(uint16_t)w[2 * k] | ((uint32_t)(uint16_t)w[2 * k + 1] << 16);
 #endif
 }
 
-// NW dense words (16 B aligned); on the device two 16-byte stores.
-MSM_HD void convert_store(int32_t* dst, const fe32& a) {
+// NW dense words (16 B aligned); on the device NW / 4 16-byte stores.
+template <class F>
+MSM_HD void convert_store(int32_t* dst, const fe32t<F>& a) {
 #ifdef __CUDA_ARCH__
   int4* q = reinterpret_cast<int4*>(dst);
-  q[0] = make_int4((int)a.w[0], (int)a.w[1], (int)a.w[2], (int)a.w[3]);
-  q[1] = make_int4((int)a.w[4], (int)a.w[5], (int)a.w[6], (int)a.w[7]);
+  MSM_UNROLL
+  for (int k = 0; k < F::NW / 4; ++k)
+    q[k] = make_int4((int)a.w[4 * k], (int)a.w[4 * k + 1], (int)a.w[4 * k + 2],
+                     (int)a.w[4 * k + 3]);
 #else
   MSM_UNROLL
-  for (int k = 0; k < NW; ++k) dst[k] = (int32_t)a.w[k];
+  for (int k = 0; k < F::NW; ++k) dst[k] = (int32_t)a.w[k];
 #endif
 }
 
-// Point i: xw[i], yw[i] ([n, 16] u16 words) -> out[i] = x R || y R
+// Point i: xw[i], yw[i] ([n, 2 NW] u16 words) -> out[i] = x R || y R
 // ([n, 2 NW] dense words, canonical).
+template <class F = FpBn254>
 MSM_HD void convert_point(const int16_t* xw, const int16_t* yw, int32_t* out,
                           int64_t i) {
-  fe32 r2, x, y;
-  MSM_UNROLL
-  for (int k = 0; k < NW; ++k) r2.w[k] = r2_word(k);
-  convert_load(x, xw + i * COORD_U16);
-  convert_load(y, yw + i * COORD_U16);
+  constexpr int NW = F::NW;
+  fe32t<F> r2, x, y;
+  fe32_const_r2(r2);
+  convert_load(x, xw + i * coord_u16<F>);
+  convert_load(y, yw + i * coord_u16<F>);
   fe32_reduce_full(x);
   fe32_reduce_full(y);
   fe32_mul(x, x, r2);
@@ -81,11 +93,9 @@ MSM_HD uint32_t beta_r2_word(int i) {
 MSM_HD void convert_point_glv(const int16_t* xw, const int16_t* yw,
                               int32_t* out, int64_t i) {
   fe32 r2, br2, x, bx, y;
+  fe32_const_r2(r2);
   MSM_UNROLL
-  for (int k = 0; k < NW; ++k) {
-    r2.w[k] = r2_word(k);
-    br2.w[k] = beta_r2_word(k);
-  }
+  for (int k = 0; k < NW; ++k) br2.w[k] = beta_r2_word(k);
   convert_load(x, xw + i * COORD_U16);
   convert_load(y, yw + i * COORD_U16);
   fe32_reduce_full(x);
@@ -115,8 +125,7 @@ MSM_HD void convert_point_scaled(const int16_t* xw, const int16_t* yw,
                                  const fe32& xs, const fe32& xs2, int32_t* out,
                                  int32_t* out2, int64_t i) {
   fe32 r2, x, y, x1;
-  MSM_UNROLL
-  for (int k = 0; k < NW; ++k) r2.w[k] = r2_word(k);
+  fe32_const_r2(r2);
   convert_load(x, xw + i * COORD_U16);
   convert_load(y, yw + i * COORD_U16);
   fe32_reduce_full(x);

@@ -1,6 +1,7 @@
 // The complete a = 0 group law (Renes-Costello-Batina 2016) on the word
-// core (fe32.cuh): the same formula sequences as curve.cuh -- Algorithm 7
-// (pt32_add), 8 (pt32_madd) and 9 (pt32_double) -- inlined, so a formula's
+// core (fe32.cuh), generic over the field: the same formula sequences as
+// curve.cuh -- Algorithm 7 (pt32_add), 8 (pt32_madd) and 9 (pt32_double),
+// the product by 3b as fe32_mul_b3 -- inlined, so a formula's
 // independent products interleave in one instruction stream and a kernel
 // keeps its points in registers (no out-of-line call, no stack frame).
 // Identity is (0 : 1 : 0) with 1 in Montgomery form.
@@ -10,19 +11,22 @@
 
 namespace msm {
 
-struct pt32 {
-  fe32 x, y, z;
+template <class F>
+struct pt32t {
+  fe32t<F> x, y, z;
 };
 
-MSM_HD void pt32_identity(pt32& p) {
+template <class F>
+MSM_HD void pt32_identity(pt32t<F>& p) {
   fe32_zero(p.x);
   fe32_mont_one(p.y);
   fe32_zero(p.z);
 }
 
 // RCB16 Algorithm 7: P + Q for any P, Q. 12 products.
-MSM_HD void pt32_add(pt32& out, const pt32& p, const pt32& q) {
-  fe32 t0, t1, t2, t3, t4, t5, u, v;
+template <class F>
+MSM_HD void pt32_add(pt32t<F>& out, const pt32t<F>& p, const pt32t<F>& q) {
+  fe32t<F> t0, t1, t2, t3, t4, t5, u, v;
   fe32_mul(t0, p.x, q.x);
   fe32_mul(t1, p.y, q.y);
   fe32_mul(t2, p.z, q.z);
@@ -43,11 +47,11 @@ MSM_HD void pt32_add(pt32& out, const pt32& p, const pt32& q) {
   fe32_sub(t5, t5, u);  // x1 z2 + x2 z1
   fe32_double(u, t0);
   fe32_add(t0, u, t0);  // 3 x1 x2
-  fe32_mul_small<B3>(t2, t2);
-  fe32 z3, t1m, y3;
+  fe32_mul_b3(t2, t2);
+  fe32t<F> z3, t1m, y3;
   fe32_add(z3, t1, t2);
   fe32_sub(t1m, t1, t2);
-  fe32_mul_small<B3>(y3, t5);
+  fe32_mul_b3(y3, t5);
   fe32_mul(u, t3, t1m);
   fe32_mul(v, t4, y3);
   fe32_sub(out.x, u, v);
@@ -61,9 +65,10 @@ MSM_HD void pt32_add(pt32& out, const pt32& p, const pt32& q) {
 
 // RCB16 Algorithm 8: projective P + affine (x2, y2), complete while the
 // affine point is a real point (never the identity). 11 products.
-MSM_HD void pt32_madd(pt32& out, const pt32& p, const fe32& x2,
-                      const fe32& y2) {
-  fe32 t0, t1, t2, t3, t4, y3, u, v;
+template <class F>
+MSM_HD void pt32_madd(pt32t<F>& out, const pt32t<F>& p, const fe32t<F>& x2,
+                      const fe32t<F>& y2) {
+  fe32t<F> t0, t1, t2, t3, t4, y3, u, v;
   fe32_mul(t0, p.x, x2);
   fe32_mul(t1, p.y, y2);
   fe32_add(u, x2, y2);
@@ -77,11 +82,11 @@ MSM_HD void pt32_madd(pt32& out, const pt32& p, const fe32& x2,
   fe32_add(y3, u, p.x);  // x1 + x2 z1
   fe32_double(u, t0);
   fe32_add(t0, u, t0);  // 3 x1 x2
-  fe32_mul_small<B3>(t2, p.z);
-  fe32 z3;
+  fe32_mul_b3(t2, p.z);
+  fe32t<F> z3;
   fe32_add(z3, t1, t2);
   fe32_sub(t1, t1, t2);
-  fe32_mul_small<B3>(y3, y3);
+  fe32_mul_b3(y3, y3);
   fe32_mul(u, t3, t1);
   fe32_mul(v, t4, y3);
   fe32_sub(out.x, u, v);
@@ -94,15 +99,16 @@ MSM_HD void pt32_madd(pt32& out, const pt32& p, const fe32& x2,
 }
 
 // RCB16 Algorithm 9: 2P for any P. 8 products.
-MSM_HD void pt32_double(pt32& out, const pt32& p) {
-  fe32 t0, t1, t2, x3, y3, z3, u;
+template <class F>
+MSM_HD void pt32_double(pt32t<F>& out, const pt32t<F>& p) {
+  fe32t<F> t0, t1, t2, x3, y3, z3, u;
   fe32_sqr(t0, p.y);
   fe32_double(z3, t0);
   fe32_double(z3, z3);
   fe32_double(z3, z3);  // 8 y^2
   fe32_mul(t1, p.y, p.z);
   fe32_sqr(u, p.z);
-  fe32_mul_small<B3>(t2, u);
+  fe32_mul_b3(t2, u);
   fe32_mul(x3, t2, z3);
   fe32_add(y3, t0, t2);
   fe32_mul(z3, t1, z3);
@@ -121,7 +127,8 @@ MSM_HD void pt32_double(pt32& out, const pt32& p) {
 
 // A point from three balanced [L] limb rows (kernel inputs that plain
 // tensor code may write).
-MSM_HD void pt32_load_balanced(pt32& p, const int32_t* x, const int32_t* y,
+template <class F>
+MSM_HD void pt32_load_balanced(pt32t<F>& p, const int32_t* x, const int32_t* y,
                                const int32_t* z) {
   fe32_from_balanced(p.x, x);
   fe32_from_balanced(p.y, y);
@@ -129,11 +136,14 @@ MSM_HD void pt32_load_balanced(pt32& p, const int32_t* x, const int32_t* y,
 }
 
 // Canonical 13-bit limbs, limb i of each coordinate at [i * stride].
+template <class F>
 MSM_HD void pt32_store_limbs(int32_t* x, int32_t* y, int32_t* z,
-                             int64_t stride, const pt32& p) {
+                             int64_t stride, const pt32t<F>& p) {
   fe32_store_limbs_strided(x, stride, p.x);
   fe32_store_limbs_strided(y, stride, p.y);
   fe32_store_limbs_strided(z, stride, p.z);
 }
+
+using pt32 = pt32t<FpBn254>;
 
 }  // namespace msm

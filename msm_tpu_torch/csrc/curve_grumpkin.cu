@@ -1,0 +1,7 @@
+// The plain path's kernels 1, 2, 4, 5, 6 and 7 for Grumpkin, in a translation
+// unit of their own (csrc/dispatch.cuh): the C entries in point_add.cu,
+// convert.cu, scan.cu, prefix.cu, point_total.cu and horner.cu call these
+// launches for curve index FpGrumpkin::ID.
+#include "plain.cuh"
+
+MSM_INSTANTIATE_PLAIN(msm::FpGrumpkin)

@@ -1,0 +1,51 @@
+// The curve dispatch of the plain path's C entries (kernels 1, 2, 4, 5, 6
+// and 7). Each kernel's launch is a class template over the field,
+// LAUNCH<F>::run(...); BN254's is instantiated in the kernel's own
+// translation unit, each other curve's in one of its own (csrc/curve_*.cu,
+// MSM_INSTANTIATE_PLAIN), so the parallel build spreads the seven. A C
+// entry takes the curve's index in params.CURVES (F::ID) and switches on
+// it; an index without an instantiation is cudaErrorInvalidValue.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "fields.cuh"
+
+#define MSM_FIELD_SWITCH(curve, LAUNCH, ARGS)                          \
+  switch (curve) {                                                     \
+    case msm::FpBn254::ID: return msm::LAUNCH<msm::FpBn254>::run ARGS; \
+    case msm::FpBls12_377::ID:                                         \
+      return msm::LAUNCH<msm::FpBls12_377>::run ARGS;                  \
+    case msm::FpPallas::ID: return msm::LAUNCH<msm::FpPallas>::run ARGS; \
+    case msm::FpBls12_381::ID:                                         \
+      return msm::LAUNCH<msm::FpBls12_381>::run ARGS;                  \
+    case msm::FpSecp256k1::ID:                                         \
+      return msm::LAUNCH<msm::FpSecp256k1>::run ARGS;                  \
+    case msm::FpGrumpkin::ID:                                          \
+      return msm::LAUNCH<msm::FpGrumpkin>::run ARGS;                   \
+    case msm::FpVesta::ID: return msm::LAUNCH<msm::FpVesta>::run ARGS; \
+    default: return (int)cudaErrorInvalidValue;                        \
+  }
+
+// In a kernel's translation unit: the six other curves' launches are
+// instantiated elsewhere.
+#define MSM_EXTERN_OTHER_FIELDS(LAUNCH)                   \
+  namespace msm {                                         \
+  extern template struct LAUNCH<FpBls12_377>;             \
+  extern template struct LAUNCH<FpPallas>;                \
+  extern template struct LAUNCH<FpBls12_381>;             \
+  extern template struct LAUNCH<FpSecp256k1>;             \
+  extern template struct LAUNCH<FpGrumpkin>;              \
+  extern template struct LAUNCH<FpVesta>;                 \
+  }
+
+// In a curve's translation unit: the plain path's six launches for field F.
+#define MSM_INSTANTIATE_PLAIN(F)              \
+  namespace msm {                             \
+  template struct PointAddLaunch<F>;          \
+  template struct ConvertLaunch<F>;           \
+  template struct ScanLaunch<F>;              \
+  template struct RowOffsetsLaunch<F>;        \
+  template struct PointTotalLaunch<F>;        \
+  template struct HornerLaunch<F>;            \
+  }

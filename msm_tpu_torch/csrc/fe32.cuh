@@ -1,136 +1,151 @@
-// BN254 base-field arithmetic in 32-bit words: the word core of the point
-// add (kernel 1), the point conversion (2), the scan (4), the point total
-// (6), the Horner ladder (7), the Fermat inversion (9) and the four pair
-// kernels: the forward products (10), the backward emission (11), the
-// suffix products (12) and the fused pair emission + scan (13).
+// Base-field arithmetic in 32-bit words, generic over the field (a traits
+// type of fields.cuh): the word core of the point add (kernel 1), the point
+// conversion (2), the scan (4), the row offsets (5), the point total (6)
+// and the Horner ladder (7) for every curve, and of the BN254-only kernels:
+// the Fermat inversion (9), the four pair kernels -- forward products (10),
+// backward emission (11), suffix products (12), fused pair emission + scan
+// (13) -- and BPR phase 1 (8), which use the BN254 names at the end of this
+// file (fe32, NW).
 //
-// An `fe32` is 8 words, least significant first, CANONICAL (value in
-// [0, p)), in the same Montgomery domain as the 13-bit core of field.cuh:
-// R = 2^260. Kernel boundaries keep field.cuh's canonical 13-bit limbs; the
-// kernels repack with shifts only (fe32_from_limbs, fe32_to_limbs), and the
-// packed table's dense words (field.cuh DENSE_WORDS, radix 2^32) are
-// already this form. A canonical value is unique, so a kernel on this core
-// writes exactly the limbs the 13-bit core would.
+// An `fe32t<F>` is F::NW words, least significant first, CANONICAL (value
+// in [0, p)), in the Montgomery domain of the 13-bit limbs the kernels
+// exchange: R = 2^(13 F::L) (BN254: 2^260). Kernel boundaries keep
+// canonical 13-bit limbs; the kernels repack with shifts only
+// (fe32_from_limbs, fe32_to_limbs), and the packed table's dense words
+// (radix 2^32, F::NW a coordinate) are already this form. A canonical
+// value is unique, so a kernel on this core writes exactly the limbs any
+// other exact implementation writes.
 //
-// The R = 2^260 product is a word-level CIOS with n0 = -p^-1 mod 2^32 (a
-// REDC by 2^256, leaving t < 2p), one 4-bit REDC step (m = t * (-p^-1 mod
-// 16) mod 16, t = (t + m p) / 16, again < 2p) and one conditional subtract:
-// a b 2^-260 mod p, with no product spent on changing domains. The CIOS is
-// the "no-carry" form (the top word of p is below 2^31 - 1, so the running
-// sum never needs a ninth word). 8 x 8 word multiply-adds for a b and as
-// many for m p, against 20 x 20 of each on 13-bit limbs.
+// The R = 2^(13 L) product is a word-level CIOS with N0W = -p^-1 mod 2^32
+// (a REDC by 2^(32 NW), leaving t < 2p), one TAIL-bit REDC step (m = t N0T
+// mod 2^TAIL, t = (t + m p) / 2^TAIL, again < 2p; BN254: 4 bits) and one
+// conditional subtract: a b R^-1 mod p, with no product spent on changing
+// domains. Where the top word of p is below 2^31 - 1 the CIOS is the
+// "no-carry" form (the running sum never needs a word NW); secp256k1
+// (F::CARRY) keeps the carry word, and its sums below 2p carry a bit 2^256
+// that the conditional subtracts take into account. NW x NW word
+// multiply-adds for a b and as many for m p.
 //
 // Portable code: 64-bit accumulators that nvcc lowers to IMAD.WIDE.U32, so
 // g++ builds this header for the CPU tests and checks the arithmetic the
-// card runs. PTX carry chains (mad.lo.cc / madc.hi.cc) are not used yet:
-// they would give the device a second product that only chip_smoke.py
-// checks. Every function inlines (MSM_HD): kernels on this core have no
+// card runs. Every function inlines (MSM_HD): kernels on this core have no
 // out-of-line call.
 #pragma once
 
 #include "field.cuh"
+#include "fields.cuh"
 
 namespace msm {
 
-constexpr int NW = 8;  // words per element
-// -p^-1 mod 2^32, and mod 16 for the last 4-bit REDC step
-constexpr uint32_t N0W = 0xe4866389u;
-constexpr uint32_t N0NIB = 9;
-
-MSM_HD uint32_t p_word(int i) {
-  const uint32_t t[NW] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
-                          0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
-  return t[i];
-}
-
-// R mod p (R = 2^260): the Montgomery form of 1
-MSM_HD uint32_t r_word(int i) {
-  const uint32_t t[NW] = {0xf6fce4b4u, 0x45520880u, 0xbaa989a8u, 0x49890849u,
-                          0x818f014au, 0x85a9201du, 0x1bb7724fu, 0x1f16424eu};
-  return t[i];
-}
-
-// R^2 mod p: a product by it enters Montgomery form (a -> a R mod p)
-MSM_HD uint32_t r2_word(int i) {
-  const uint32_t t[NW] = {0x1966eb04u, 0xb868a81du, 0x95018016u, 0x98e61561u,
-                          0x0b4f898cu, 0xbfd53160u, 0x0d3a9969u, 0x0a8469a3u};
-  return t[i];
-}
+template <class F>
+struct fe32t {
+  uint32_t w[F::NW];
+};
 
 // Word i (of NW + 1) of p << s, 0 <= s < 32.
+template <class F>
 MSM_HD uint32_t p_shl_word(int i, int s) {
-  const uint32_t lo = i < NW ? p_word(i) << s : 0u;
-  const uint32_t hi = (i > 0 && s > 0) ? p_word(i - 1) >> (32 - s) : 0u;
+  const uint32_t lo = i < F::NW ? F::p(i) << s : 0u;
+  const uint32_t hi = (i > 0 && s > 0) ? F::p(i - 1) >> (32 - s) : 0u;
   return lo | hi;
 }
 
-struct fe32 {
-  uint32_t w[NW];
-};
-
-MSM_HD void fe32_zero(fe32& a) {
+template <class F>
+MSM_HD void fe32_zero(fe32t<F>& a) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) a.w[i] = 0;
+  for (int i = 0; i < F::NW; ++i) a.w[i] = 0;
 }
 
-MSM_HD void fe32_mont_one(fe32& a) {
+template <class F>
+MSM_HD void fe32_mont_one(fe32t<F>& a) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) a.w[i] = r_word(i);
+  for (int i = 0; i < F::NW; ++i) a.w[i] = F::r(i);
+}
+
+template <class F>
+MSM_HD void fe32_const_r2(fe32t<F>& a) {
+  MSM_UNROLL
+  for (int i = 0; i < F::NW; ++i) a.w[i] = F::r2(i);
 }
 
 MSM_HD uint32_t lo32(uint64_t v) { return (uint32_t)v; }
 MSM_HD uint32_t hi32(uint64_t v) { return (uint32_t)(v >> 32); }
 
-// a <- a - p when a >= p (a < 2^256), branch-free.
-MSM_HD void fe32_reduce_once(fe32& a) {
-  uint32_t d[NW];
+// a <- a - p when a >= p (a < 2^(32 NW)), branch-free.
+template <class F>
+MSM_HD void fe32_reduce_once(fe32t<F>& a) {
+  uint32_t d[F::NW];
   uint32_t borrow = 0;
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
-    const uint64_t t = (uint64_t)a.w[i] - p_word(i) - borrow;
+  for (int i = 0; i < F::NW; ++i) {
+    const uint64_t t = (uint64_t)a.w[i] - F::p(i) - borrow;
     d[i] = lo32(t);
     borrow = hi32(t) & 1u;
   }
   const uint32_t keep = 0u - borrow;  // all ones: a < p, keep a
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) a.w[i] = (a.w[i] & keep) | (d[i] & ~keep);
+  for (int i = 0; i < F::NW; ++i) a.w[i] = (a.w[i] & keep) | (d[i] & ~keep);
 }
 
-// a <- a mod p for any a < 2^256 (< 5.3 p): branch-free conditional
-// subtracts of 4p, 2p and p.
-MSM_HD void fe32_reduce_full(fe32& a) {
+// a + hi 2^(32 NW) <- that minus p when it is >= p (the value below 2p,
+// hi 0 or 1): the carry word's conditional subtract (F::CARRY).
+template <class F>
+MSM_HD void fe32_reduce_once_hi(fe32t<F>& a, uint32_t hi) {
+  uint32_t d[F::NW];
+  uint32_t borrow = 0;
   MSM_UNROLL
-  for (int s = 2; s >= 0; --s) {
-    uint32_t d[NW];
+  for (int i = 0; i < F::NW; ++i) {
+    const uint64_t t = (uint64_t)a.w[i] - F::p(i) - borrow;
+    d[i] = lo32(t);
+    borrow = hi32(t) & 1u;
+  }
+  const uint32_t keep = 0u - (borrow & (hi ^ 1u));  // below p: keep a
+  MSM_UNROLL
+  for (int i = 0; i < F::NW; ++i) a.w[i] = (a.w[i] & keep) | (d[i] & ~keep);
+}
+
+// a <- a mod p for any a < 2^(32 NW): branch-free conditional subtracts of
+// p 2^REDUCE_TOP .. p (BN254: 4p, 2p, p), each of which fits NW words.
+template <class F>
+MSM_HD void fe32_reduce_full(fe32t<F>& a) {
+  MSM_UNROLL
+  for (int s = F::REDUCE_TOP; s >= 0; --s) {
+    uint32_t d[F::NW];
     uint32_t borrow = 0;
     MSM_UNROLL
-    for (int i = 0; i < NW; ++i) {  // 4p < 2^256: word NW of p << s is 0
-      const uint64_t t = (uint64_t)a.w[i] - p_shl_word(i, s) - borrow;
+    for (int i = 0; i < F::NW; ++i) {  // p << s < 2^(32 NW): word NW is 0
+      const uint64_t t = (uint64_t)a.w[i] - p_shl_word<F>(i, s) - borrow;
       d[i] = lo32(t);
       borrow = hi32(t) & 1u;
     }
     const uint32_t keep = 0u - borrow;
     MSM_UNROLL
-    for (int i = 0; i < NW; ++i) a.w[i] = (a.w[i] & keep) | (d[i] & ~keep);
+    for (int i = 0; i < F::NW; ++i) a.w[i] = (a.w[i] & keep) | (d[i] & ~keep);
   }
 }
 
-MSM_HD void fe32_add(fe32& out, const fe32& a, const fe32& b) {
+template <class F>
+MSM_HD void fe32_add(fe32t<F>& out, const fe32t<F>& a, const fe32t<F>& b) {
   uint32_t c = 0;
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < F::NW; ++i) {
     const uint64_t s = (uint64_t)a.w[i] + b.w[i] + c;
     out.w[i] = lo32(s);
     c = hi32(s);
   }
-  // a + b < 2p < 2^255: no carry leaves the top word
-  fe32_reduce_once(out);
+  if constexpr (F::CARRY) {
+    fe32_reduce_once_hi(out, c);
+  } else {
+    // a + b < 2p < 2^(32 NW): no carry leaves the top word
+    fe32_reduce_once(out);
+  }
 }
 
-MSM_HD void fe32_sub(fe32& out, const fe32& a, const fe32& b) {
+template <class F>
+MSM_HD void fe32_sub(fe32t<F>& out, const fe32t<F>& a, const fe32t<F>& b) {
   uint32_t borrow = 0;
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < F::NW; ++i) {
     const uint64_t t = (uint64_t)a.w[i] - b.w[i] - borrow;
     out.w[i] = lo32(t);
     borrow = hi32(t) & 1u;
@@ -138,27 +153,28 @@ MSM_HD void fe32_sub(fe32& out, const fe32& a, const fe32& b) {
   const uint32_t addp = 0u - borrow;  // wrapped below zero: add p back
   uint32_t c = 0;
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
-    const uint64_t s = (uint64_t)out.w[i] + (p_word(i) & addp) + c;
+  for (int i = 0; i < F::NW; ++i) {
+    const uint64_t s = (uint64_t)out.w[i] + (F::p(i) & addp) + c;
     out.w[i] = lo32(s);
     c = hi32(s);
   }
 }
 
-MSM_HD void fe32_neg(fe32& out, const fe32& a) {
-  fe32 z;
+template <class F>
+MSM_HD void fe32_neg(fe32t<F>& out, const fe32t<F>& a) {
+  fe32t<F> z;
   fe32_zero(z);
   fe32_sub(out, z, a);
 }
 
-MSM_HD void fe32_double(fe32& out, const fe32& a) { fe32_add(out, a, a); }
+template <class F>
+MSM_HD void fe32_double(fe32t<F>& out, const fe32t<F>& a) { fe32_add(out, a, a); }
 
-// k * a for the small curve constant (3b), by the same double-and-add over
-// fe32_add as field.cuh's fe_mul_small.
-template <int K>
-MSM_HD void fe32_mul_small(fe32& out, const fe32& a) {
+// k * a for a small positive constant, by a double-and-add over fe32_add.
+template <int K, class F>
+MSM_HD void fe32_mul_small(fe32t<F>& out, const fe32t<F>& a) {
   static_assert(K >= 1, "positive constant");
-  fe32 acc = a;
+  fe32t<F> acc = a;
   int started = 0;
   MSM_UNROLL
   for (int bit = 30; bit >= 0; --bit) {
@@ -171,55 +187,118 @@ MSM_HD void fe32_mul_small(fe32& out, const fe32& a) {
   out = acc;
 }
 
-// Montgomery product a b 2^-260 mod p; canonical in, canonical out.
-MSM_HD void fe32_mul(fe32& out, const fe32& a, const fe32& b) {
-  uint32_t t[NW];
-  // word CIOS, no-carry form: t = a b 2^-256 + (0 or p), t < 2p
-  MSM_UNROLL
-  for (int j = 0; j < NW; ++j) t[j] = 0;
-  MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
-    const uint32_t bi = b.w[i];
-    uint64_t s = (uint64_t)a.w[0] * bi + t[0];
-    uint32_t A = hi32(s);
-    const uint32_t t0 = lo32(s);
-    const uint32_t m = t0 * N0W;
-    uint32_t C = hi32((uint64_t)m * p_word(0) + t0);
-    MSM_UNROLL
-    for (int j = 1; j < NW; ++j) {
-      s = (uint64_t)a.w[j] * bi + t[j] + A;
-      A = hi32(s);
-      const uint64_t u = (uint64_t)m * p_word(j) + lo32(s) + C;
-      t[j - 1] = lo32(u);
-      C = hi32(u);
-    }
-    t[NW - 1] = C + A;
+// 3b a (the curve constant of the RCB16 formulas): F::B3 a, or -(|B3| a)
+// where 3b is a small negative residue (Grumpkin: 3b = -51).
+template <class F>
+MSM_HD void fe32_mul_b3(fe32t<F>& out, const fe32t<F>& a) {
+  if constexpr (F::B3 > 0) {
+    fe32_mul_small<F::B3>(out, a);
+  } else {
+    fe32_mul_small<-F::B3>(out, a);
+    fe32_neg(out, out);
   }
-  // one 4-bit REDC step: t = (t + m p) / 16 < (2p + 15p) / 16 < 2p
-  const uint32_t m = (t[0] * N0NIB) & 15u;
+}
+
+// The last REDC step and conditional subtract of a product: t (NW words,
+// plus its bit 2^(32 NW) in `top` under F::CARRY; t < 2p) -> (t + m p) /
+// 2^TAIL with m = t N0T mod 2^TAIL, below 2p, then below p.
+template <class F>
+MSM_HD void fe32_redc_tail(fe32t<F>& out, const uint32_t* t, uint32_t top) {
+  constexpr int NW = F::NW, TAIL = F::TAIL;
+  const uint32_t m = (t[0] * F::N0T) & ((1u << TAIL) - 1u);
   uint32_t u[NW + 1];
   uint32_t c = 0;
   MSM_UNROLL
   for (int j = 0; j < NW; ++j) {
-    const uint64_t v = (uint64_t)m * p_word(j) + t[j] + c;
+    const uint64_t v = (uint64_t)m * F::p(j) + t[j] + c;
     u[j] = lo32(v);
     c = hi32(v);
   }
-  u[NW] = c;
+  u[NW] = F::CARRY ? c + top : c;
   MSM_UNROLL
-  for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> 4) | (u[j + 1] << 28);
-  fe32_reduce_once(out);
+  for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> TAIL) | (u[j + 1] << (32 - TAIL));
+  if constexpr (F::CARRY) {
+    fe32_reduce_once_hi(out, u[NW] >> TAIL);
+  } else {
+    fe32_reduce_once(out);
+  }
 }
 
-MSM_HD void fe32_sqr(fe32& out, const fe32& a) { fe32_mul(out, a, a); }
+// Montgomery product a b R^-1 mod p; canonical in, canonical out.
+template <class F>
+MSM_HD void fe32_mul(fe32t<F>& out, const fe32t<F>& a, const fe32t<F>& b) {
+  constexpr int NW = F::NW;
+  if constexpr (F::CARRY) {
+    // word CIOS with the carry words t[NW], t[NW + 1]: t < 2p on exit
+    uint32_t t[NW + 2];
+    MSM_UNROLL
+    for (int j = 0; j < NW + 2; ++j) t[j] = 0;
+    MSM_UNROLL
+    for (int i = 0; i < NW; ++i) {
+      const uint32_t bi = b.w[i];
+      uint32_t C = 0;
+      MSM_UNROLL
+      for (int j = 0; j < NW; ++j) {
+        const uint64_t s = (uint64_t)a.w[j] * bi + t[j] + C;
+        t[j] = lo32(s);
+        C = hi32(s);
+      }
+      uint64_t s = (uint64_t)t[NW] + C;
+      t[NW] = lo32(s);
+      t[NW + 1] = hi32(s);
+      const uint32_t m = t[0] * F::N0W;
+      C = hi32((uint64_t)m * F::p(0) + t[0]);
+      MSM_UNROLL
+      for (int j = 1; j < NW; ++j) {
+        s = (uint64_t)m * F::p(j) + t[j] + C;
+        t[j - 1] = lo32(s);
+        C = hi32(s);
+      }
+      s = (uint64_t)t[NW] + C;
+      t[NW - 1] = lo32(s);
+      t[NW] = t[NW + 1] + hi32(s);
+    }
+    fe32_redc_tail(out, t, t[NW]);
+  } else {
+    uint32_t t[NW];
+    // word CIOS, no-carry form: t = a b 2^(-32 NW) + (0 or p), t < 2p
+    MSM_UNROLL
+    for (int j = 0; j < NW; ++j) t[j] = 0;
+    MSM_UNROLL
+    for (int i = 0; i < NW; ++i) {
+      const uint32_t bi = b.w[i];
+      uint64_t s = (uint64_t)a.w[0] * bi + t[0];
+      uint32_t A = hi32(s);
+      const uint32_t t0 = lo32(s);
+      const uint32_t m = t0 * F::N0W;
+      uint32_t C = hi32((uint64_t)m * F::p(0) + t0);
+      MSM_UNROLL
+      for (int j = 1; j < NW; ++j) {
+        s = (uint64_t)a.w[j] * bi + t[j] + A;
+        A = hi32(s);
+        const uint64_t u = (uint64_t)m * F::p(j) + lo32(s) + C;
+        t[j - 1] = lo32(u);
+        C = hi32(u);
+      }
+      t[NW - 1] = C + A;
+    }
+    fe32_redc_tail(out, t, 0u);
+  }
+}
 
-// a^2 2^-260 mod p by a dedicated squaring: the symmetric schoolbook square
-// (28 cross products, doubled, and 8 squares: 36 word products where
-// fe32_mul's CIOS spends 64 on a b) into 16 words, then a word REDC by
-// 2^256 (64 multiply-adds, as in fe32_mul) and the same 4-bit step and
-// conditional subtract. Canonical in, canonical out. Used by kernel 9 only;
-// fe32_sqr stays the general product for the other kernels.
-MSM_HD void fe32_sqr_sym(fe32& out, const fe32& a) {
+template <class F>
+MSM_HD void fe32_sqr(fe32t<F>& out, const fe32t<F>& a) { fe32_mul(out, a, a); }
+
+// a^2 R^-1 mod p by a dedicated squaring: the symmetric schoolbook square
+// (NW (NW - 1) / 2 cross products, doubled, and NW squares: 36 word
+// products at NW = 8 where fe32_mul's CIOS spends 64 on a b) into 2 NW
+// words, then a word REDC by 2^(32 NW) (NW^2 multiply-adds, as in
+// fe32_mul) and the same TAIL-bit step and conditional subtract. Canonical
+// in, canonical out. Used by kernel 9 only; fe32_sqr stays the general
+// product for the other kernels.
+template <class F>
+MSM_HD void fe32_sqr_sym(fe32t<F>& out, const fe32t<F>& a) {
+  constexpr int NW = F::NW;
   uint32_t t[2 * NW];
   MSM_UNROLL
   for (int k = 0; k < 2 * NW; ++k) t[k] = 0;
@@ -235,7 +314,7 @@ MSM_HD void fe32_sqr_sym(fe32& out, const fe32& a) {
     }
     t[i + NW] = c;
   }
-  // doubled (the cross sum is below 2^507), plus the squares a_i^2 at 2i
+  // doubled (the cross sum is below a^2 / 2), plus the squares a_i^2 at 2i
   MSM_UNROLL
   for (int k = 2 * NW - 1; k > 0; --k) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
   t[0] <<= 1;
@@ -249,16 +328,17 @@ MSM_HD void fe32_sqr_sym(fe32& out, const fe32& a) {
     t[2 * i + 1] = lo32(v);
     c = hi32(v);
   }
-  // REDC by 2^256: t = (a^2 + M p) / 2^256 < 2p; row i's carry out of
-  // t[i + NW] goes into t[i + 1 + NW] with the next row
+  // REDC by 2^(32 NW): t = (a^2 + M p) / 2^(32 NW) < 2p; row i's carry out
+  // of t[i + NW] goes into t[i + 1 + NW] with the next row, and the last
+  // row's (0 unless F::CARRY) is bit 2^(32 NW) of the result
   uint32_t carry = 0;
   MSM_UNROLL
   for (int i = 0; i < NW; ++i) {
-    const uint32_t m = t[i] * N0W;
-    uint32_t C = hi32((uint64_t)m * p_word(0) + t[i]);
+    const uint32_t m = t[i] * F::N0W;
+    uint32_t C = hi32((uint64_t)m * F::p(0) + t[i]);
     MSM_UNROLL
     for (int j = 1; j < NW; ++j) {
-      const uint64_t v = (uint64_t)m * p_word(j) + t[i + j] + C;
+      const uint64_t v = (uint64_t)m * F::p(j) + t[i + j] + C;
       t[i + j] = lo32(v);
       C = hi32(v);
     }
@@ -266,28 +346,16 @@ MSM_HD void fe32_sqr_sym(fe32& out, const fe32& a) {
     t[i + NW] = lo32(v);
     carry = hi32(v);
   }
-  // one 4-bit REDC step, as in fe32_mul
-  const uint32_t m = (t[NW] * N0NIB) & 15u;
-  uint32_t u[NW + 1];
-  c = 0;
-  MSM_UNROLL
-  for (int j = 0; j < NW; ++j) {
-    const uint64_t v = (uint64_t)m * p_word(j) + t[NW + j] + c;
-    u[j] = lo32(v);
-    c = hi32(v);
-  }
-  u[NW] = c;
-  MSM_UNROLL
-  for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> 4) | (u[j + 1] << 28);
-  fe32_reduce_once(out);
+  fe32_redc_tail(out, t + NW, carry);
 }
 
 // ---- repacking at the boundaries (shifts only) ----
 
-// Canonical 13-bit limbs (field.cuh) -> words.
-MSM_HD void fe32_from_limbs(fe32& out, const uint32_t (&v)[L]) {
+// Words 0 .. N - 1 of the value held in L 13-bit limbs (limbs below 2^13).
+template <int N, int L>
+MSM_HD void limbs_to_words(uint32_t (&out)[N], const uint32_t (&v)[L]) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < N; ++i) {
     uint32_t w = 0;
     MSM_UNROLL
     for (int j = 0; j < L; ++j) {
@@ -295,37 +363,47 @@ MSM_HD void fe32_from_limbs(fe32& out, const uint32_t (&v)[L]) {
       if (s >= 0 && s < 32) w |= v[j] << s;
       if (s < 0 && s > -W) w |= v[j] >> -s;
     }
-    out.w[i] = w;
+    out[i] = w;
   }
 }
 
+// Canonical 13-bit limbs -> words.
+template <class F>
+MSM_HD void fe32_from_limbs(fe32t<F>& out, const uint32_t (&v)[F::L]) {
+  limbs_to_words(out.w, v);
+}
+
 // Words -> canonical 13-bit limbs v[0 .. L).
-MSM_HD void fe32_to_limbs(uint32_t* v, const fe32& a) {
+template <class F>
+MSM_HD void fe32_to_limbs(uint32_t* v, const fe32t<F>& a) {
   MSM_UNROLL
-  for (int j = 0; j < L; ++j) {
+  for (int j = 0; j < F::L; ++j) {
     const int lo = W * j, k = lo / 32, s = lo % 32;
     uint32_t x = 0;
-    if (k < NW) {
+    if (k < F::NW) {
       x = a.w[k] >> s;
-      if (s + W > 32 && k + 1 < NW) x |= a.w[k + 1] << (32 - s);
+      if (s + W > 32 && k + 1 < F::NW) x |= a.w[k + 1] << (32 - s);
     }
     v[j] = x & MASK;
   }
 }
 
 // One dense coordinate of the packed table (NW words, radix 2^32).
-MSM_HD void fe32_load_dense(fe32& out, const int32_t* w) {
+template <class F>
+MSM_HD void fe32_load_dense(fe32t<F>& out, const int32_t* w) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) out.w[i] = (uint32_t)w[i];
+  for (int i = 0; i < F::NW; ++i) out.w[i] = (uint32_t)w[i];
 }
 
-// Balanced limbs (field.cuh fe_from_balanced's input: L signed limbs,
-// value v = sum in[i] 2^(13 i), any limb within int32) -> canonical. A
-// signed carry ripple gives v = U + c 2^260 with U in [0, 2^260) in 13-bit
-// limbs; U < 128 p is reduced by conditional subtracts of 64p .. p, and
-// each unit of c adds R mod p (c is -1 or 0 for v in (-R, R)). Canonical
-// inputs (U < p, as every kernel writes them) skip the subtracts.
-MSM_HD void fe32_from_balanced(fe32& out, const int32_t* in) {
+// Balanced limbs (L signed limbs, value v = sum in[i] 2^(13 i), any limb
+// within int32) -> canonical. A signed carry ripple gives v = U + c R with
+// U in [0, R) in 13-bit limbs; U < 2^(BALANCED_TOP + 1) p is reduced by
+// conditional subtracts of p 2^BALANCED_TOP .. p on NW + 1 words, and each
+// unit of c adds R mod p (c is -1 or 0 for v in (-R, R)). Canonical inputs
+// (U < p, as every kernel writes them) skip the subtracts.
+template <class F>
+MSM_HD void fe32_from_balanced(fe32t<F>& out, const int32_t* in) {
+  constexpr int NW = F::NW, L = F::L;
   uint32_t v[L];
   int64_t c = 0;
   MSM_UNROLL
@@ -334,26 +412,20 @@ MSM_HD void fe32_from_balanced(fe32& out, const int32_t* in) {
     v[j] = (uint32_t)(s & MASK);
     c = s >> W;  // arithmetic shift: floor division
   }
-  uint32_t u[NW + 1];  // U in words: 260 bits
-  {
-    fe32 lo;
-    fe32_from_limbs(lo, v);
-    MSM_UNROLL
-    for (int i = 0; i < NW; ++i) u[i] = lo.w[i];
-    u[NW] = v[L - 1] >> (32 * NW - W * (L - 1));
-  }
+  uint32_t u[NW + 1];  // U in words: 13 L bits
+  limbs_to_words(u, v);
   uint32_t below_p = 0;  // the borrow of U - p
   MSM_UNROLL
   for (int i = 0; i <= NW; ++i)
-    below_p = hi32((uint64_t)u[i] - p_shl_word(i, 0) - below_p) & 1u;
+    below_p = hi32((uint64_t)u[i] - p_shl_word<F>(i, 0) - below_p) & 1u;
   if (!below_p) {
     MSM_UNROLL
-    for (int s = 6; s >= 0; --s) {  // subtract (p << s) when U >= p << s
+    for (int s = F::BALANCED_TOP; s >= 0; --s) {  // U -= p << s when U >= p << s
       uint32_t d[NW + 1];
       uint32_t borrow = 0;
       MSM_UNROLL
       for (int i = 0; i <= NW; ++i) {
-        const uint64_t t = (uint64_t)u[i] - p_shl_word(i, s) - borrow;
+        const uint64_t t = (uint64_t)u[i] - p_shl_word<F>(i, s) - borrow;
         d[i] = lo32(t);
         borrow = hi32(t) & 1u;
       }
@@ -364,28 +436,112 @@ MSM_HD void fe32_from_balanced(fe32& out, const int32_t* in) {
   }
   MSM_UNROLL
   for (int i = 0; i < NW; ++i) out.w[i] = u[i];
-  fe32 rm;
+  fe32t<F> rm;
   fe32_mont_one(rm);
   for (; c < 0; ++c) fe32_sub(out, out, rm);
   for (; c > 0; --c) fe32_add(out, out, rm);
 }
 
 // Limb i of a value stored limbs-first at dst[i * stride].
+template <class F>
 MSM_HD void fe32_store_limbs_strided(int32_t* dst, int64_t stride,
-                                     const fe32& a) {
-  uint32_t v[L];
+                                     const fe32t<F>& a) {
+  uint32_t v[F::L];
   fe32_to_limbs(v, a);
   MSM_UNROLL
-  for (int i = 0; i < L; ++i) dst[i * stride] = (int32_t)v[i];
+  for (int i = 0; i < F::L; ++i) dst[i * stride] = (int32_t)v[i];
 }
 
 // Canonical 13-bit limbs stored limbs-first at src[i * stride] -> words.
-MSM_HD void fe32_load_limbs_strided(fe32& out, const int32_t* src,
+template <class F>
+MSM_HD void fe32_load_limbs_strided(fe32t<F>& out, const int32_t* src,
                                     int64_t stride) {
-  uint32_t v[L];
+  uint32_t v[F::L];
   MSM_UNROLL
-  for (int i = 0; i < L; ++i) v[i] = (uint32_t)src[i * stride];
+  for (int i = 0; i < F::L; ++i) v[i] = (uint32_t)src[i * stride];
   fe32_from_limbs(out, v);
 }
+
+// Balanced limbs stored limbs-first at src[i * stride] -> canonical words.
+template <class F>
+MSM_HD void fe32_load_balanced_strided(fe32t<F>& out, const int32_t* src,
+                                       int64_t stride) {
+  int32_t v[F::L];
+  MSM_UNROLL
+  for (int i = 0; i < F::L; ++i) v[i] = src[i * stride];
+  fe32_from_balanced(out, v);
+}
+
+// ---- rows of int32 in device memory ----
+
+// The alignment (bytes) that row_load and row_store need of a row of N
+// int32: the widest vector that N words split into.
+template <int N>
+constexpr int row_align = N % 4 == 0 ? 16 : N % 2 == 0 ? 8 : 4;
+
+// A row of N int32 (row_align<N> aligned); on the device in 16-byte (or
+// 8-byte, or 4-byte) loads through the read-only cache.
+template <int N>
+MSM_HD void row_load(int32_t (&raw)[N], const int32_t* src) {
+#ifdef __CUDA_ARCH__
+  if constexpr (N % 4 == 0) {
+    const int4* q = reinterpret_cast<const int4*>(src);
+    MSM_UNROLL
+    for (int k = 0; k < N / 4; ++k) {
+      const int4 v = __ldg(q + k);
+      raw[4 * k] = v.x;
+      raw[4 * k + 1] = v.y;
+      raw[4 * k + 2] = v.z;
+      raw[4 * k + 3] = v.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+    const int2* q = reinterpret_cast<const int2*>(src);
+    MSM_UNROLL
+    for (int k = 0; k < N / 2; ++k) {
+      const int2 v = __ldg(q + k);
+      raw[2 * k] = v.x;
+      raw[2 * k + 1] = v.y;
+    }
+  } else {
+    MSM_UNROLL
+    for (int k = 0; k < N; ++k) raw[k] = __ldg(src + k);
+  }
+#else
+  for (int k = 0; k < N; ++k) raw[k] = src[k];
+#endif
+}
+
+// A row of N int32 (row_align<N> aligned); on the device in the same
+// vector widths as row_load.
+template <int N>
+MSM_HD void row_store(int32_t* dst, const uint32_t (&v)[N]) {
+#ifdef __CUDA_ARCH__
+  if constexpr (N % 4 == 0) {
+    int4* q = reinterpret_cast<int4*>(dst);
+    MSM_UNROLL
+    for (int k = 0; k < N / 4; ++k)
+      q[k] = make_int4((int)v[4 * k], (int)v[4 * k + 1], (int)v[4 * k + 2],
+                       (int)v[4 * k + 3]);
+  } else if constexpr (N % 2 == 0) {
+    int2* q = reinterpret_cast<int2*>(dst);
+    MSM_UNROLL
+    for (int k = 0; k < N / 2; ++k)
+      q[k] = make_int2((int)v[2 * k], (int)v[2 * k + 1]);
+  } else {
+    MSM_UNROLL
+    for (int k = 0; k < N; ++k) dst[k] = (int32_t)v[k];
+  }
+#else
+  for (int k = 0; k < N; ++k) dst[k] = (int32_t)v[k];
+#endif
+}
+
+// ---- BN254 names, for the kernels that run BN254 only ----
+
+using fe32 = fe32t<FpBn254>;
+constexpr int NW = FpBn254::NW;
+static_assert(FpBn254::L == L, "the 13-bit core's limb count is BN254's");
+
+MSM_HD uint32_t p_word(int i) { return FpBn254::p(i); }
 
 }  // namespace msm

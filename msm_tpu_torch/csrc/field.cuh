@@ -21,24 +21,7 @@
 // `static inline` outside nvcc).
 #pragma once
 
-#include <stdint.h>
-
-// MSM_HD functions inline into their caller; MSM_HD_CALL functions (the
-// point formulas and the balanced-input product) stay out of line, one copy
-// per translation unit, which keeps nvcc's inlined code size bounded.
-// MSM_ROLLED keeps a loop whose body is a whole inlined point formula
-// rolled: one copy of the formula in the kernel, not one per iteration.
-#ifdef __CUDACC__
-#define MSM_HD __host__ __device__ __forceinline__
-#define MSM_HD_CALL static __host__ __device__ __noinline__
-#define MSM_UNROLL _Pragma("unroll")
-#define MSM_ROLLED _Pragma("unroll 1")
-#else
-#define MSM_HD static inline
-#define MSM_HD_CALL static inline
-#define MSM_UNROLL
-#define MSM_ROLLED
-#endif
+#include "hd.cuh"
 
 namespace msm {
 

@@ -23,42 +23,22 @@
 //     in one thread (510 against 2100 at the 2^20 MSM's S = 16, chunk 16);
 //   - the S window sums are canonicalized first, one per lane, into shared
 //     memory, so their loads stay off the chain.
+// The kernel and its launch are generic over the field (plain.cuh,
+// HornerLaunch<F>); msm_horner dispatches on the curve
+// (csrc/dispatch.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "horner.cuh"
+#include "plain.cuh"
 
-using namespace msm;
+MSM_EXTERN_OTHER_FIELDS(HornerLaunch)
 
-constexpr int WARP = 32;
-constexpr size_t SMEM_LIMIT = 48 * 1024;  // static shared memory of a block
-
-__global__ void __launch_bounds__(WARP)
-    k_horner(const int32_t* __restrict__ wx, const int32_t* __restrict__ wy,
-             const int32_t* __restrict__ wz, int32_t* __restrict__ ox,
-             int32_t* __restrict__ oy, int32_t* __restrict__ oz, int S,
-             int chunk) {
-  extern __shared__ pt32 sw[];  // [S]
-  const int64_t g = blockIdx.x, i = g * S * L, o = g * L;
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    horner_load(sw[s], wx + i, wy + i, wz + i, s);
-  __syncthreads();
-  pt32 acc;
-  horner_chain(acc, sw, S, chunk);
-  if (threadIdx.x == 0) pt32_store_limbs(ox + o, oy + o, oz + o, 1, acc);
-}
-
-// One block of one warp per ladder; its S window sums (S * 96 B) in shared
-// memory.
+// w* [G, S, L], o* [G, L], L the curve's; one block of one warp per ladder,
+// its S window sums in shared memory.
 extern "C" int msm_horner(const int32_t* wx, const int32_t* wy,
                           const int32_t* wz, int32_t* ox, int32_t* oy,
                           int32_t* oz, int64_t groups, int S, int chunk,
-                          void* stream) {
-  const size_t smem = (size_t)S * sizeof(pt32);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && S > 0) {
-    k_horner<<<(unsigned)groups, WARP, smem, (cudaStream_t)stream>>>(
-        wx, wy, wz, ox, oy, oz, S, chunk);
-  }
-  return (int)cudaGetLastError();
+                          int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, HornerLaunch, (wx, wy, wz, ox, oy, oz, groups, S,
+                                         chunk, (cudaStream_t)stream))
 }

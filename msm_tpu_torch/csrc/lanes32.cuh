@@ -21,18 +21,18 @@ namespace msm {
 // repeats the first product of its round), and the group's lanes trade
 // them with __shfl_sync, so every lane holds every product; every lane of
 // the warp must take part. On the host one thread computes all N.
-template <int N, int WIDTH = 32>
-MSM_HD void level_products(fe32 (&out)[N], const fe32 (&a)[N],
-                           const fe32 (&b)[N]) {
+template <int N, int WIDTH = 32, class F>
+MSM_HD void level_products(fe32t<F> (&out)[N], const fe32t<F> (&a)[N],
+                           const fe32t<F> (&b)[N]) {
   static_assert(WIDTH >= 2 && WIDTH <= 32 && (WIDTH & (WIDTH - 1)) == 0,
                 "a group is a power of two of lanes, at most a warp");
 #ifdef __CUDA_ARCH__
   constexpr int ROUNDS = (N + WIDTH - 1) / WIDTH;
   const int lane = threadIdx.x & (WIDTH - 1);
-  fe32 r[ROUNDS];
+  fe32t<F> r[ROUNDS];
   MSM_UNROLL
   for (int j = 0; j < ROUNDS; ++j) {
-    fe32 x = a[j * WIDTH], y = b[j * WIDTH];
+    fe32t<F> x = a[j * WIDTH], y = b[j * WIDTH];
     MSM_UNROLL
     for (int k = j * WIDTH + 1; k < N && k < (j + 1) * WIDTH; ++k)
       if (lane == k - j * WIDTH) {
@@ -44,7 +44,7 @@ MSM_HD void level_products(fe32 (&out)[N], const fe32 (&a)[N],
   MSM_UNROLL
   for (int k = 0; k < N; ++k)
     MSM_UNROLL
-    for (int i = 0; i < NW; ++i)
+    for (int i = 0; i < F::NW; ++i)
       out[k].w[i] = WIDTH == 32  // the warp: the shuffle's default width
                         ? __shfl_sync(0xffffffffu, r[k / WIDTH].w[i], k)
                         : __shfl_sync(0xffffffffu, r[k / WIDTH].w[i],
@@ -56,23 +56,24 @@ MSM_HD void level_products(fe32 (&out)[N], const fe32 (&a)[N],
 
 // RCB16 Algorithm 9 (pt32_double) with its 8 products in two levels of 4:
 // y^2, y z, z^2, x y, then 3b z^2 * 8 y^2, y z * 8 y^2, t0 y3 and t0 x y.
-MSM_HD void pt32_double_lanes(pt32& out, const pt32& p) {
-  fe32 r[4];
+template <class F>
+MSM_HD void pt32_double_lanes(pt32t<F>& out, const pt32t<F>& p) {
+  fe32t<F> r[4];
   {
-    const fe32 a[4] = {p.y, p.y, p.z, p.x}, b[4] = {p.y, p.z, p.z, p.y};
+    const fe32t<F> a[4] = {p.y, p.y, p.z, p.x}, b[4] = {p.y, p.z, p.z, p.y};
     level_products<4>(r, a, b);
   }
-  fe32 z3, t2, y3, t0, u;
+  fe32t<F> z3, t2, y3, t0, u;
   fe32_double(z3, r[0]);
   fe32_double(z3, z3);
   fe32_double(z3, z3);  // 8 y^2
-  fe32_mul_small<B3>(t2, r[2]);
+  fe32_mul_b3(t2, r[2]);
   fe32_add(y3, r[0], t2);
   fe32_double(u, t2);
   fe32_add(u, u, t2);
   fe32_sub(t0, r[0], u);  // y^2 - 3 (3b z^2)
   {
-    const fe32 a[4] = {t2, r[1], t0, t0}, b[4] = {z3, z3, y3, r[3]};
+    const fe32t<F> a[4] = {t2, r[1], t0, t0}, b[4] = {z3, z3, y3, r[3]};
     level_products<4>(r, a, b);
   }
   fe32_add(out.y, r[0], r[2]);
@@ -82,11 +83,11 @@ MSM_HD void pt32_double_lanes(pt32& out, const pt32& p) {
 
 // RCB16 Algorithm 7 (pt32_add) with its 12 products in two levels of 6,
 // over groups of WIDTH lanes.
-template <int WIDTH = 32>
-MSM_HD void pt32_add_lanes(pt32& out, const pt32& p, const pt32& q) {
-  fe32 r[6];
+template <int WIDTH = 32, class F>
+MSM_HD void pt32_add_lanes(pt32t<F>& out, const pt32t<F>& p, const pt32t<F>& q) {
+  fe32t<F> r[6];
   {
-    fe32 a[6] = {p.x, p.y, p.z}, b[6] = {q.x, q.y, q.z};
+    fe32t<F> a[6] = {p.x, p.y, p.z}, b[6] = {q.x, q.y, q.z};
     fe32_add(a[3], p.x, p.y);
     fe32_add(b[3], q.x, q.y);
     fe32_add(a[4], p.y, p.z);
@@ -95,7 +96,7 @@ MSM_HD void pt32_add_lanes(pt32& out, const pt32& p, const pt32& q) {
     fe32_add(b[5], q.x, q.z);
     level_products<6, WIDTH>(r, a, b);
   }
-  fe32 t0, t2, t3, t4, t5, u, z3, t1m, y3;
+  fe32t<F> t0, t2, t3, t4, t5, u, z3, t1m, y3;
   fe32_add(u, r[0], r[1]);
   fe32_sub(t3, r[3], u);  // x1 y2 + x2 y1
   fe32_add(u, r[1], r[2]);
@@ -104,12 +105,12 @@ MSM_HD void pt32_add_lanes(pt32& out, const pt32& p, const pt32& q) {
   fe32_sub(t5, r[5], u);  // x1 z2 + x2 z1
   fe32_double(u, r[0]);
   fe32_add(t0, u, r[0]);  // 3 x1 x2
-  fe32_mul_small<B3>(t2, r[2]);
+  fe32_mul_b3(t2, r[2]);
   fe32_add(z3, r[1], t2);
   fe32_sub(t1m, r[1], t2);
-  fe32_mul_small<B3>(y3, t5);
+  fe32_mul_b3(y3, t5);
   {
-    const fe32 a[6] = {t3, t4, t1m, y3, z3, t0}, b[6] = {t1m, y3, z3, t0, t4, t3};
+    const fe32t<F> a[6] = {t3, t4, t1m, y3, z3, t0}, b[6] = {t1m, y3, z3, t0, t4, t3};
     level_products<6, WIDTH>(r, a, b);
   }
   fe32_sub(out.x, r[0], r[1]);

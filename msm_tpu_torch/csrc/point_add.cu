@@ -13,8 +13,9 @@
 //   - the word core with pt32_add inlined: no out-of-line call, no stack
 //     frame (the 13-bit core took 2 x 400 multiply-adds per product at ~255
 //     registers);
-//   - __launch_bounds__(128, 4), as the scan (csrc/scan.cu): at most 128
-//     registers, 4 blocks of 128 per SM;
+//   - __launch_bounds__(128, F::BLOCKS_PER_SM), as the scan (csrc/scan.cu):
+//     at most 128 registers, 4 blocks of 128 per SM at 8 words an element
+//     (255 registers, 2 blocks at the BLS12 curves' 12);
 //   - each 80-byte row read with five 16-byte loads and written with five
 //     16-byte stores (scripts/torch_add_total_variants.py times this
 //     against staging a block's rows through shared memory, PERF.md).
@@ -26,59 +27,20 @@
 // Horner ladder's chain does).
 #include <cuda_runtime.h>
 
-#include "point_add.cuh"
+#include "plain.cuh"
 
 using namespace msm;
 
-constexpr int THREADS = 128;
+MSM_EXTERN_OTHER_FIELDS(PointAddLaunch)
 
-__global__ void __launch_bounds__(THREADS, 4)
-    k_point_add(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
-                const int32_t* __restrict__ az, const int32_t* __restrict__ bx,
-                const int32_t* __restrict__ by, const int32_t* __restrict__ bz,
-                int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                int32_t* __restrict__ oz, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  point_add_row(ax, ay, az, bx, by, bz, ox, oy, oz, i);
-}
-
-// One warp per add, THREADS / 32 adds per block.
-__global__ void __launch_bounds__(THREADS)
-    k_point_add_lanes(const int32_t* __restrict__ ax,
-                      const int32_t* __restrict__ ay,
-                      const int32_t* __restrict__ az,
-                      const int32_t* __restrict__ bx,
-                      const int32_t* __restrict__ by,
-                      const int32_t* __restrict__ bz, int32_t* __restrict__ ox,
-                      int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                      int64_t n) {
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  if (i >= n) return;  // whole warps: the lanes' shuffles need all 32
-  point_add_row_lanes(ax, ay, az, bx, by, bz, ox, oy, oz, i);
-}
-
-// Every pointer [n, L], 16-byte aligned; lanes != 0: a warp per add.
+// Every pointer [n, L] of the curve's L, aligned as the rows' vector loads
+// need (16 bytes at L = 20); lanes != 0: a warp per add.
 extern "C" int msm_point_add(const int32_t* ax, const int32_t* ay,
                              const int32_t* az, const int32_t* bx,
                              const int32_t* by, const int32_t* bz, int32_t* ox,
                              int32_t* oy, int32_t* oz, int64_t n, int lanes,
-                             void* stream) {
-  const uintptr_t addr = (uintptr_t)ax | (uintptr_t)ay | (uintptr_t)az |
-                         (uintptr_t)bx | (uintptr_t)by | (uintptr_t)bz |
-                         (uintptr_t)ox | (uintptr_t)oy | (uintptr_t)oz;
-  if (addr % 16) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (lanes) {
-      const int64_t blocks = (n * 32 + THREADS - 1) / THREADS;
-      k_point_add_lanes<<<(unsigned)blocks, THREADS, 0, st>>>(ax, ay, az, bx, by,
-                                                              bz, ox, oy, oz, n);
-    } else {
-      const int64_t blocks = (n + THREADS - 1) / THREADS;
-      k_point_add<<<(unsigned)blocks, THREADS, 0, st>>>(ax, ay, az, bx, by, bz,
-                                                        ox, oy, oz, n);
-    }
-  }
-  return (int)cudaGetLastError();
+                             int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, PointAddLaunch,
+                   (ax, ay, az, bx, by, bz, ox, oy, oz, n, lanes,
+                    (cudaStream_t)stream))
 }

@@ -51,5 +51,5 @@ def compute_msm_batched(
     nmax = max(len(p) for p, _ in instances)
     padded = [common.pad_inputs(pts, ks, config, multiple=nmax) for pts, ks in instances]
     N = padded[0][0].shape[0]
-    geom = geometry or pick_geometry(min(N, cuzk.CHUNK_MAX), config.chunk_size, config.compress, config.glv)
+    geom = geometry or pick_geometry(min(N, cuzk.CHUNK_MAX), config)
     return cuzk.msm_jpoints_from_ws(list(batched_window_sums(*zip(*padded), config, geom, device)), config)

@@ -6,8 +6,9 @@ The host pads inputs to a power of two, serializes coordinates and scalars
 as 16-bit words, and finishes with the single result point in exact
 integers (``mont_rows_to_ints``: no field op on any device). Uploads are
 plain ``torch.from_numpy(...).to(device)``: the coordinate words travel as
-int16 (the u16 bits; 32 B per coordinate, what the convert kernel reads),
-the scalar words as int32 (what ``ops/decompose`` reads). The serving plan
+int16 (the u16 bits, ceil(modulus_bits / 16) words a coordinate: 32 B for
+BN254, 48 B for BLS12; what the convert kernel reads), the scalar words as
+int32 (what ``ops/decompose`` reads). The serving plan
 sends scalars packed instead, two u16 words to an int32 (``pack_scalar_words``,
 32 B per scalar), from a pinned host buffer (``staging_buffer``), and
 widens them on the device (``unpack_scalar_words``).

@@ -192,7 +192,7 @@ def compute_msm_jpoint(
         return IDENTITY
     arrays = common.pad_inputs(points, scalars, config, validate=validate)
     n = arrays[0].shape[0]
-    geom = geometry or pick_geometry(min(n, CHUNK_MAX), config.chunk_size, config.compress, config.glv)
+    geom = geometry or pick_geometry(min(n, CHUNK_MAX), config)
     return common.std_ints_to_jpoint(*cuzk_msm_point(*arrays, config, geom, device=device), config)
 
 

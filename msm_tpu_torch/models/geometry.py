@@ -1,5 +1,6 @@
-"""Launch geometry: input size -> scan blocking — the same interface as
-``msm_tpu/models/geometry.py``.
+"""Launch geometry: input size and config -> scan blocking — the rule of
+``msm_tpu/models/geometry.py``, given the whole config (its window width,
+compression, GLV and limb count) where that module takes them one by one.
 
 - ``num_rows``: lanes R of the blocked prefix scan; the scan kernel runs one
   thread per lane for C = n / R steps.
@@ -30,11 +31,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from msm_tpu_torch.params import MsmConfig
+
 #: lanes of the compressed scan at most, and subtasks per compressed launch:
 #: the sweep's fastest setting at both 2^16 and 2^20
 COMPRESS_ROWS, COMPRESS_BATCH = 1 << 11, 16
-#: one pe3 row: x || y || z in 3 L int32 limbs (BN254, 13-bit limbs)
-PE3_ROW_BYTES = 3 * 20 * 4
 #: the compressed launch's pe3 buffer at most (G x m/2 rows)
 PE3_BYTES_MAX = 8 << 30
 
@@ -46,25 +47,32 @@ class MsmGeometry:
     subtask_batch: int
 
 
-def compressed_batch(m: int) -> int:
+def pe3_row_bytes(cfg: MsmConfig) -> int:
+    """One pe3 row: x || y || z in 3 L int32 limbs of the config (BN254 at
+    13-bit limbs: 240 B; the BLS12 curves': 360)."""
+    return 3 * cfg.num_words * 4
+
+
+def compressed_batch(m: int, cfg: MsmConfig) -> int:
     """Subtasks per compressed launch over a stream of m entries a subtask:
-    COMPRESS_BATCH, halved while G x m/2 pe3 rows exceed PE3_BYTES_MAX (at
-    least 1)."""
+    COMPRESS_BATCH, halved while G x m/2 of the config's pe3 rows exceed
+    PE3_BYTES_MAX (at least 1)."""
     batch = COMPRESS_BATCH
-    while batch > 1 and batch * (m // 2) * PE3_ROW_BYTES > PE3_BYTES_MAX:
+    while batch > 1 and batch * (m // 2) * pe3_row_bytes(cfg) > PE3_BYTES_MAX:
         batch //= 2
     return batch
 
 
-def pick_geometry(n: int, chunk_size: int, compress: bool = False, glv: bool = False) -> MsmGeometry:
-    """n (the padded point count) must be a power of two. Under GLV the
-    lanes stay the rule's for n points, as in the JAX package (so each lane
-    walks twice the steps), and the compressed launch is sized by the 2n
-    stream a subtask scans."""
+def pick_geometry(n: int, cfg: MsmConfig) -> MsmGeometry:
+    """The geometry of the config's path at n points (the padded point
+    count, a power of two): its window width, whether it compresses and
+    whether it splits by GLV. Under GLV the lanes stay the rule's for n
+    points, as in the JAX package (so each lane walks twice the steps), and
+    the compressed launch is sized by the 2n stream a subtask scans."""
     assert n & (n - 1) == 0 and n > 0
-    body = 1 << (chunk_size - 1)
+    body = 1 << (cfg.chunk_size - 1)
     bpr_threads = max(1, min(body // 16, 1 << 9))
-    if compress:
-        stream = 2 * n if glv else n
-        return MsmGeometry(max(1, min(n // 8, COMPRESS_ROWS)), bpr_threads, compressed_batch(stream))
+    if cfg.compress:
+        stream = 2 * n if cfg.glv else n
+        return MsmGeometry(max(1, min(n // 8, COMPRESS_ROWS)), bpr_threads, compressed_batch(stream, cfg))
     return MsmGeometry(max(1, min(n // 8, 1 << 14)), bpr_threads, subtask_batch=4)

@@ -19,10 +19,13 @@ device (point add, 1) before the export. The JAX naive model has no cap;
 the port's is its device-memory bound.
 
 On CUDA tensors every step runs on the kernels; on CPU tensors on their
-plain twins.
+plain twins (any curve). On CUDA the naive model runs BN254 only, and
+refuses another curve before any launch.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -74,10 +77,15 @@ def compute_msm_naive(
     JPoint of the result."""
     if config.glv:  # as the JAX package's naive model asserts
         raise NotImplementedError("the naive model has no GLV mode")
+    if config.curve.name != "bn254" and torch.device(device).type == "cuda":
+        raise NotImplementedError(f"the naive model runs BN254 only on CUDA; got curve={config.curve.name}")
     if len(points) == 0:
         return IDENTITY
     arrays = common.pad_inputs(points, scalars, config)
-    geom = geometry or pick_geometry(min(arrays[0].shape[0], cuzk.CHUNK_MAX), config.chunk_size)
+    # the plain path's geometry, as the JAX naive model takes it (by window
+    # width alone)
+    geom = geometry or pick_geometry(min(arrays[0].shape[0], cuzk.CHUNK_MAX),
+                                     dataclasses.replace(config, compress=False))
     ws = cuzk.merge_window_sums(
         (naive_window_sums(common.prepare_points(config, x, y), s, config, geom)
          for x, y, s in cuzk.chunks(arrays, device)), config)

@@ -96,7 +96,7 @@ class MsmPlan:
         #: the chunks' rows, and each chunk's point table on the device
         self.slices = cuzk.chunk_slices(self.N)
         chunk = self.slices[0].stop
-        self.geom = geometry or pick_geometry(chunk, self.cfg.chunk_size, self.cfg.compress, self.cfg.glv)
+        self.geom = geometry or pick_geometry(chunk, self.cfg)
         # slot b of [B, N, W/2] packed scalar words; rows from _filled[b] on
         # are zero (the padding's scalars)
         self._staging = common.staging_buffer((1, self.N, _word_count(self.cfg) // 2), self.device)

@@ -1,14 +1,18 @@
 """Build and load the CUDA kernels of ``msm_tpu_torch/csrc``.
 
-Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into an object
-file (in parallel), and the objects link into one shared library with a
+Each ``csrc/*.cu`` file (one per kernel, and one per curve besides BN254
+holding that curve's instances of the plain path's kernels) compiles with
+``nvcc`` for ``sm_90a`` into an object file (in parallel, every failure
+reported), and the objects link into one shared library with a
 plain C interface, loaded with ``ctypes``. The build happens at first use,
 into ``build/msm_tpu_torch/<hash of the sources>/`` under the repository
 root, so an edited source never meets a stale library. ``nvcc`` is found on
 ``PATH``, else under ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0.
+``cudaGetLastError()``; ``launch`` raises when that is not 0. The plain
+path's entries (kernels 1, 2, 4, 5, 6 and 7) take the curve's index in
+``params.CURVES`` (``curve_id``) before the stream and dispatch on it.
 """
 
 from __future__ import annotations
@@ -24,14 +28,10 @@ from pathlib import Path
 
 import torch
 
-from msm_tpu_torch.params import MsmConfig
+from msm_tpu_torch.params import CURVES, MsmConfig, coord_words
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "msm_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 
 #: the H100 SXM the launch plans are sized for: SMs; shared memory a block
 #: may use, an SM holds and the runtime reserves per block (bytes); threads
@@ -39,23 +39,31 @@ NVCC_FLAGS = [
 SMS = 132
 SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK = 232448, 233472, 1024
 THREADS_PER_SM = 2048
-#: threads an SM holds on the word core's kernels: 4 blocks of 128 at their
-#: 128 registers per thread (__launch_bounds__(128, 4))
-WORD_THREADS_PER_SM = 512
+#: 128-thread blocks an SM holds on the word core's kernels, by words an
+#: element (``params.coord_words``): the minimum of their __launch_bounds__,
+#: 4 at 8 words (128 registers a thread), 2 at 12 (BLS12; 255). The one
+#: table: every compile of csrc/fields.cuh gets it as MSM_BLOCKS_NW<words>
+#: (``FIELD_FLAGS``), and the launch plans read it (``word_threads_per_sm``)
+WORD_BLOCK, WORD_BLOCKS_PER_SM = 128, {8: 4, 12: 2}
+FIELD_FLAGS = [f"-DMSM_BLOCKS_NW{words}={blocks}" for words, blocks in WORD_BLOCKS_PER_SM.items()]
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *FIELD_FLAGS,
+]
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry points: argument types (every one returns the launch's error code)
 SIGNATURES = {
-    "msm_point_add": [P] * 9 + [I64, I32, P],
-    "msm_convert": [P, P, P, I64, P],
+    "msm_point_add": [P] * 9 + [I64, I32, I32, P],
+    "msm_convert": [P, P, P, I64, I32, P],
     "msm_convert_glv": [P, P, P, I64, P],
     "msm_convert_scaled": [P] * 6 + [I64, I32, P],
     "msm_hist": [P, P, I64, I64, I32, I64, I32, P],
-    "msm_scan": [P] * 7 + [I64, I32, I32, P],
+    "msm_scan": [P] * 7 + [I64, I32, I32, I32, P],
     "msm_scan_rows_glv": [P] * 7 + [I64, I32, I32, P],
-    "msm_row_offsets": [P] * 9 + [I64, I32, I32, I32, I32, P],
-    "msm_point_total": [P] * 7 + [I64, I64, I32, I32, P],
-    "msm_horner": [P] * 6 + [I64, I32, I32, P],
+    "msm_row_offsets": [P] * 9 + [I64, I32, I32, I32, I32, I32, P],
+    "msm_point_total": [P] * 7 + [I64, I64, I32, I32, I32, P],
+    "msm_horner": [P] * 6 + [I64, I32, I32, I32, P],
     "msm_mont_pow": [P] * 3 + [I32, I64, I32, P],
     "msm_pair_suffix": [P] * 4 + [I64, I32, I32, P],
     "msm_pair_suffix_glv": [P] * 4 + [I64, I32, I32, P],
@@ -72,15 +80,57 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
+#: the curve index the plain path's C entries take (fields.cuh F::ID)
+CURVE_IDS = {name: i for i, name in enumerate(CURVES)}
+
+
+def curve_id(cfg: MsmConfig) -> int:
+    return CURVE_IDS[cfg.curve.name]
+
+
+def word_threads_per_sm(cfg: MsmConfig) -> int:
+    """Threads an SM holds on the word core's kernels for this curve
+    (``WORD_BLOCKS_PER_SM``)."""
+    return WORD_BLOCK * WORD_BLOCKS_PER_SM[coord_words(cfg)]
+
+
+def karatsuba_ok(cfg: MsmConfig) -> bool:
+    """Whether the JAX package builds its Karatsuba Montgomery product for
+    this config (``msm_tpu/ops/pallas_curve.py::karatsuba_ok``, copied): an
+    even limb count and both int32 column budgets clear."""
+    w, L = cfg.word_size, cfg.num_words
+    if L % 2:
+        return False
+    h = L // 2
+    B = (1 << w) + 128
+    Dnt = (1 << w) + 4
+    Dt = 2 * B + 4
+    return (2 * h * B * B + (1 << 19) < (1 << 31)) and (
+        (h - 2) * Dnt * Dnt + 2 * Dt * Dnt + (1 << 19) < (1 << 31)
+    )
+
+
 def check_cuda_config(cfg: MsmConfig) -> None:
-    """The CUDA kernels implement BN254 with 13-bit limbs, plain or pair
-    compressed, with or without GLV (the convert, the scan and the four
-    pair kernels have GLV modes); Karatsuba is not ported."""
-    if cfg.curve.name != "bn254" or cfg.word_size != 13 or cfg.karatsuba:
+    """The CUDA kernels implement all seven curves with 13-bit limbs on the
+    plain path, and BN254 also pair compressed, with or without GLV (the
+    convert, the scan and the four pair kernels have GLV modes). Karatsuba
+    selects a TPU product for the same function, so it is accepted where
+    the JAX package builds it (``karatsuba_ok``) and refused where that
+    package refuses it. Anything else raises before a launch."""
+    if cfg.word_size != 13 or cfg.curve.name not in CURVE_IDS:
         raise NotImplementedError(
-            f"CUDA kernels support BN254 / word_size 13 without Karatsuba; "
-            f"got curve={cfg.curve.name} word_size={cfg.word_size} "
-            f"karatsuba={cfg.karatsuba}"
+            f"CUDA kernels support word_size 13 on {', '.join(CURVE_IDS)}; "
+            f"got curve={cfg.curve.name} word_size={cfg.word_size}"
+        )
+    if cfg.karatsuba and not karatsuba_ok(cfg):
+        raise NotImplementedError(
+            f"karatsuba=True is not built for {cfg.curve.name} at word_size "
+            f"{cfg.word_size} (odd limb count or int32 column budget)"
+        )
+    if cfg.curve.name != "bn254" and (cfg.compress or cfg.glv):
+        raise NotImplementedError(
+            f"CUDA kernels run {cfg.curve.name} on the plain path only; got "
+            f"compress={cfg.compress} glv={cfg.glv}"
         )
 
 
@@ -124,27 +174,28 @@ def build() -> Path:
     nvcc = find_nvcc()
     cus = [p for p in sources() if p.suffix == ".cu"]
 
-    def compile_one(src: Path) -> tuple[Path, str]:
+    def compile_one(src: Path) -> tuple[Path, str, int]:
         obj = out_dir / (src.stem + ".o")
         r = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             capture_output=True, text=True,
         )
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{r.stderr}")
-        return obj, r.stdout + r.stderr
+        return obj, r.stdout + r.stderr, r.returncode
 
     with ThreadPoolExecutor(max_workers=len(cus)) as pool:
         results = list(pool.map(compile_one, cus))
+    failed = [f"nvcc failed on {o.stem}.cu:\n{log}" for o, log, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = out_dir / f"lib.{os.getpid()}.so"
     r = subprocess.run(
         [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-         "-o", str(tmp), *[str(o) for o, _ in results]],
+         "-o", str(tmp), *[str(o) for o, _, _ in results]],
         capture_output=True, text=True,
     )
     if r.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{r.stderr}")
-    (out_dir / "build.log").write_text("".join(log for _, log in results))
+    (out_dir / "build.log").write_text("".join(log for _, log, _ in results))
     os.replace(tmp, so)
     return so
 
@@ -163,10 +214,14 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor, dtype=torch.int32) -> None:
-    """Checks before a launch: supported config, CUDA contiguous tensors of
+def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor, dtype=torch.int32,
+                 bn254_only: bool = False) -> None:
+    """Checks before a launch: supported config (BN254's only for a kernel
+    that runs BN254 alone: ``bn254_only``), CUDA contiguous tensors of
     ``dtype`` on one device."""
     check_cuda_config(cfg)
+    if bn254_only and cfg.curve.name != "bn254":
+        raise NotImplementedError(f"this CUDA kernel runs BN254 only; got curve={cfg.curve.name}")
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":

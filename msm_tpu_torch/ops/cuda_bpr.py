@@ -40,7 +40,7 @@ def bpr_phase1(cfg: MsmConfig, bx, by, bz):
     if bx.device.type == "cpu":
         return bpr_phase1_plain(cfg, bx, by, bz)
     ins = _build.aligned(bx, by, bz)
-    _build.require_cuda(cfg, *ins)
+    _build.require_cuda(cfg, *ins, bn254_only=True)
     G, Bl, T, L = ins[0].shape
     for t in ins:
         if t.shape != (G, Bl, T, L) or L != cfg.num_words:

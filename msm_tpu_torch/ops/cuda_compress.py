@@ -136,7 +136,7 @@ def _check(cfg: MsmConfig, packed, perm, flags, *chain):
     """Checks before a pair kernel's launch: the gather inputs' shapes, and
     every tensor (chain inputs included) CUDA int32; contiguous copies."""
     ts = [t.contiguous() for t in (packed, perm, flags, *chain)]
-    _build.require_cuda(cfg, *ts)
+    _build.require_cuda(cfg, *ts, bn254_only=True)
     packed, perm, flags = ts[:3]
     if (perm.dim() != 3 or flags.shape != perm.shape or perm.shape[1] % 2
             or packed.shape[1:] != (table_coords(cfg) * coord_words(cfg),)):

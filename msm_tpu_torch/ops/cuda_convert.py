@@ -2,8 +2,9 @@
 and the dense coordinate wire format.
 
 CUDA source: ``msm_tpu_torch/csrc/convert.cu`` on the word core (per-point
-body ``csrc/convert32.cuh``); it reads the u16 words as int16, 32 B per
-coordinate, the bits the host serialized. Replaces the Pallas kernel
+body ``csrc/convert32.cuh``); it reads the u16 words as int16, 4 D bytes
+per coordinate (BN254: 32), the bits the host serialized. The plain mode
+runs every curve of ``params.CURVES``; the GLV and scaled modes BN254. Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_convert.py::make_convert_pack`` (``pallas_call`` at
 :187) in all its modes: ``convert_pack`` the plain one, ``convert_pack_glv``
 the GLV one (``dual_x_scale_int`` = beta R^2, ``triple=True``), both with
@@ -14,7 +15,7 @@ entry and launch counter. ``coord_words``/``pack_coords``/
 ``unpack_coords`` port ``msm_tpu/ops/pallas_scan.py:54-199``.
 
 Wire format: a canonical coordinate bit-packed at radix 2^32 into
-D = ceil(modulus_bits / 32) int32 words (BN254: 8); a table row is x's D
+D = ceil(modulus_bits / 32) int32 words (BN254: 8, BLS12: 12); a table row is x's D
 words then y's, or under GLV x's, beta x's (the x of phi(P) = (beta x, y))
 and y's. Packing works in int64 and reinterprets the low 32 bits as int32,
 so words >= 2^31 survive.
@@ -30,12 +31,7 @@ from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.decompose import extract_windows
 from msm_tpu_torch.ops.field import get_field_ctx
 from msm_tpu_torch.ops.glv import glv_params
-from msm_tpu_torch.params import MsmConfig
-
-
-def coord_words(cfg: MsmConfig) -> int:
-    """int32 words per dense-packed canonical coordinate."""
-    return (cfg.curve.modulus_bits + 31) // 32
+from msm_tpu_torch.params import MsmConfig, coord_words
 
 
 def table_coords(cfg: MsmConfig) -> int:
@@ -135,36 +131,43 @@ def convert_pack_plain(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor)
     return convert_pack_scaled_plain(cfg, x_u16, y_u16, dual_x_scale=beta_r2, triple=True)
 
 
-def _words_in(cfg: MsmConfig, x_u16, y_u16):
-    """Checks before a convert launch: [n, 16] int16 words on CUDA, 16-byte
-    aligned (copied where they are not)."""
+def coord_u16(cfg: MsmConfig) -> int:
+    """u16 words per serialized coordinate: ceil(modulus_bits / 16), the JAX
+    package's rule (BN254: 16; BLS12: 24)."""
+    return (cfg.curve.modulus_bits + 15) // 16
+
+
+def _words_in(cfg: MsmConfig, x_u16, y_u16, bn254_only: bool = False):
+    """Checks before a convert launch: [n, Wu] int16 words on CUDA (Wu =
+    ``coord_u16``), 16-byte aligned (copied where they are not); the GLV
+    and scaled modes run BN254 only."""
     x_u16, y_u16 = _build.aligned(x_u16, y_u16)
-    _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16)
-    n = x_u16.shape[0]
-    if x_u16.shape != (n, 16) or y_u16.shape != (n, 16):
-        raise ValueError(f"expected [n, 16] u16 words, got {tuple(x_u16.shape)}")
+    _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16, bn254_only=bn254_only)
+    n, wu = x_u16.shape[0], coord_u16(cfg)
+    if x_u16.shape != (n, wu) or y_u16.shape != (n, wu):
+        raise ValueError(f"expected [n, {wu}] u16 words, got {tuple(x_u16.shape)}")
     return x_u16, y_u16
 
 
-def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter):
-    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16)
+def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter, *extra):
+    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16, bn254_only=entry != "msm_convert")
     n = x_u16.shape[0]
     out = torch.empty((n, table_coords(cfg) * coord_words(cfg)), dtype=torch.int32,
                       device=x_u16.device)
-    _build.launch(entry, x_u16, y_u16, out, n)
+    _build.launch(entry, x_u16, y_u16, out, n, *extra)
     counter.launches += 1
     return out
 
 
 def convert_pack(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
-    """Point table from u16 coordinate words: [n, 16] x2 -> [n, 2D] int32,
+    """Point table from u16 coordinate words: [n, Wu] x2 -> [n, 2D] int32,
     under GLV [n, 3D] (``convert_pack_glv``). On CUDA the words must be
     int16 (the u16 bits, as ``models.common.pad_points_words`` gives them)."""
     if cfg.glv:
         return convert_pack_glv(cfg, x_u16, y_u16)
     if x_u16.device.type == "cpu":
         return convert_pack_plain(cfg, x_u16, y_u16)
-    return _convert(cfg, x_u16, y_u16, "msm_convert", convert_pack)
+    return _convert(cfg, x_u16, y_u16, "msm_convert", convert_pack, _build.curve_id(cfg))
 
 
 def convert_pack_glv(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
@@ -198,7 +201,7 @@ def convert_pack_scaled(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor
         raise ValueError("triple mode needs dual_x_scale")
     if x_u16.device.type == "cpu":
         return convert_pack_scaled_plain(cfg, x_u16, y_u16, x_scale, dual_x_scale, triple)
-    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16)
+    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16, bn254_only=True)
     n, D, q = x_u16.shape[0], coord_words(cfg), cfg.curve.modulus
 
     def words(c):  # the canonical constant's D words, least significant first

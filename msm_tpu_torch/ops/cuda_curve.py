@@ -1,7 +1,8 @@
 """Kernel 1: batched complete point addition, and its plain twin.
 
 CUDA source: ``msm_tpu_torch/csrc/point_add.cu`` + ``point_add.cuh`` on the
-32-bit-word core ``csrc/fe32.cuh`` + ``csrc/curve32.cuh``. Replaces the
+32-bit-word core ``csrc/fe32.cuh`` + ``csrc/curve32.cuh``, generic over the
+curve (every curve of ``params.CURVES``; ``csrc/curve_*.cu``). Replaces the
 Pallas kernel ``msm_tpu/ops/pallas_curve.py::make_point_add``
 (``pallas_call`` at :467).
 
@@ -60,11 +61,12 @@ def point_add_plain(cfg: MsmConfig, ax, ay, az, bx, by, bz):
     return rcb16_add_plain(f, b3m, ax, ay, az, bx, by, bz)
 
 
-def point_add_lanes(B: int) -> bool:
+def point_add_lanes(cfg: MsmConfig, B: int) -> bool:
     """The kernel gives each add a warp (its products split over the
     lanes: lower latency, 32 times the threads) when the batch's B warps
-    fit in one wave of the word core's kernels; else a thread per add."""
-    return 32 * B <= _build.SMS * _build.WORD_THREADS_PER_SM
+    fit in one wave of the word core's kernels on this curve
+    (``_build.word_threads_per_sm``); else a thread per add."""
+    return 32 * B <= _build.SMS * _build.word_threads_per_sm(cfg)
 
 
 def point_add(cfg: MsmConfig, ax, ay, az, bx, by, bz):
@@ -78,7 +80,8 @@ def point_add(cfg: MsmConfig, ax, ay, az, bx, by, bz):
         if t.shape != (B, L) or L != cfg.num_words:
             raise ValueError(f"expected [B, {cfg.num_words}] inputs, got {tuple(t.shape)}")
     out = [torch.empty_like(ins[0]) for _ in range(3)]
-    _build.launch("msm_point_add", *ins, *out, B, int(point_add_lanes(B)))
+    lanes = point_add_lanes(cfg, B)
+    _build.launch("msm_point_add", *ins, *out, B, int(lanes), _build.curve_id(cfg))
     point_add.launches += 1
     return tuple(out)
 

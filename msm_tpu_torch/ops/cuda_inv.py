@@ -35,7 +35,7 @@ def mont_pow(cfg: MsmConfig, a: torch.Tensor, e: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return mont_pow_plain(cfg, a, e)
     a = a.contiguous()
-    _build.require_cuda(cfg, a)
+    _build.require_cuda(cfg, a, bn254_only=True)
     if a.dim() != 3 or a.shape[1] != cfg.num_words:
         raise ValueError(f"expected [G, {cfg.num_words}, R], got {tuple(a.shape)}")
     nbits = e.bit_length()

@@ -1,9 +1,10 @@
 """Kernels 5-7: row offsets, point total and the Horner ladder, with their
 plain twins.
 
-CUDA sources: ``msm_tpu_torch/csrc/prefix.cu`` (row offsets, 13-bit core),
+CUDA sources: ``msm_tpu_torch/csrc/prefix.cu`` (row offsets),
 ``csrc/point_total.cu`` (point total) and ``csrc/horner.cu`` (Horner
-ladder), the last two on the 32-bit-word core (``csrc/fe32.cuh``).
+ladder), all three on the 32-bit-word core (``csrc/fe32.cuh``), generic
+over the curve (every curve of ``params.CURVES``).
 Replaces, in ``msm_tpu/ops/pallas_prefix.py``: ``make_row_offsets``
 (``pallas_call`` at :133), ``make_point_total`` (:231) and
 ``make_horner_ladder`` (:335).
@@ -26,14 +27,19 @@ from dataclasses import dataclass
 import torch
 
 from msm_tpu_torch.ops import _build
-from msm_tpu_torch.params import MsmConfig
+from msm_tpu_torch.params import MsmConfig, coord_words
 
 THREADS = 128  # block size of the row-offsets and point-total kernels (csrc BLOCK)
-#: threads an SM holds at the 13-bit core's ~255 registers per thread
+#: threads an SM holds at the row-offsets kernels' ~255 registers per
+#: thread (no minimum of blocks per SM in their __launch_bounds__)
 RESIDENT_THREADS = 256
 LANES_PER_THREAD = (1, 2, 4, 8)
-#: words of one partial sum of the point-total kernel (a pt32: 3 x 8 words)
-PT_WORDS = 24
+
+
+def pt_words(cfg: MsmConfig) -> int:
+    """int32 words of one partial sum of the point-total kernel: x, y, z of
+    D words each (csrc/point_total.cuh pt_words<F>; BN254: 24)."""
+    return 3 * coord_words(cfg)
 
 
 @dataclass(frozen=True)
@@ -83,7 +89,7 @@ def row_offsets(cfg: MsmConfig, tx, ty, tz):
     out = [torch.empty((G, R, L), dtype=torch.int32, device=dev) for _ in range(3)]
     scratch = [torch.empty((G, plan.blocks, L), dtype=torch.int32, device=dev) for _ in range(3)]
     _build.launch("msm_row_offsets", *ins, *out, *scratch, G, R, plan.lanes_per_thread,
-                  plan.blocks, plan.scan_threads)
+                  plan.blocks, plan.scan_threads, _build.curve_id(cfg))
     row_offsets.launches += 1
     return tuple(out)
 
@@ -110,11 +116,12 @@ class PointTotalPlan:
     threads: int = THREADS
 
 
-def point_total_plan(groups: int, N: int) -> PointTotalPlan:
+def point_total_plan(cfg: MsmConfig, groups: int, N: int) -> PointTotalPlan:
     """The fewest points per thread that keep the G * N / k threads within
-    one wave of the word core's kernels (_build.WORD_THREADS_PER_SM per SM),
-    and as many blocks as cover N (one when N = 0)."""
-    k = max(1, -(-groups * N // (_build.SMS * _build.WORD_THREADS_PER_SM)))
+    one wave of the word core's kernels on this curve
+    (``_build.word_threads_per_sm``), and as many blocks as cover N (one
+    when N = 0)."""
+    k = max(1, -(-groups * N // (_build.SMS * _build.word_threads_per_sm(cfg))))
     return PointTotalPlan(k, max(1, -(-N // (k * THREADS))))
 
 
@@ -127,11 +134,12 @@ def point_total(cfg: MsmConfig, px, py, pz):
     G, N, L = ins[0].shape
     if L != cfg.num_words:
         raise ValueError(f"expected [G, N, {cfg.num_words}], got {tuple(ins[0].shape)}")
-    plan = point_total_plan(G, N)
+    plan = point_total_plan(cfg, G, N)
     dev = px.device
-    part = torch.empty((G, plan.blocks, PT_WORDS), dtype=torch.int32, device=dev)
+    part = torch.empty((G, plan.blocks, pt_words(cfg)), dtype=torch.int32, device=dev)
     out = [torch.empty((G, L), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch("msm_point_total", *ins, part, *out, G, N, plan.points_per_thread, plan.blocks)
+    _build.launch("msm_point_total", *ins, part, *out, G, N, plan.points_per_thread, plan.blocks,
+                  _build.curve_id(cfg))
     point_total.launches += 1
     return tuple(out)
 
@@ -168,7 +176,7 @@ def horner(cfg: MsmConfig, wx, wy, wz, chunk: int):
         raise ValueError(f"expected [G, S, {cfg.num_words}] or [S, {cfg.num_words}], got {tuple(shape)}")
     G = shape[0] if len(shape) == 3 else 1
     out = [torch.empty(shape[:-2] + shape[-1:], dtype=torch.int32, device=wx.device) for _ in range(3)]
-    _build.launch("msm_horner", *ins, *out, G, shape[-2], chunk)
+    _build.launch("msm_horner", *ins, *out, G, shape[-2], chunk, _build.curve_id(cfg))
     horner.launches += 1
     return tuple(out)
 

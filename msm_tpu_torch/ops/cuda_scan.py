@@ -2,7 +2,8 @@
 points (the hot kernel), and its plain twin.
 
 CUDA source: ``msm_tpu_torch/csrc/scan.cu`` (per-lane body
-``csrc/scan.cuh``, on the 32-bit-word core ``csrc/fe32.cuh``). Replaces the
+``csrc/scan.cuh``, on the 32-bit-word core ``csrc/fe32.cuh``; the plain
+mode for every curve of ``params.CURVES``, the GLV mode BN254's). Replaces the
 Pallas kernel ``msm_tpu/ops/pallas_scan.py::make_scan_rows``
 (``pallas_call`` at :374) together with the sorted-order gather
 ``packed[perm2]`` that fed it (``msm_tpu/ops/scan.py:545``): the kernel
@@ -15,7 +16,8 @@ and per subtask g the step-major permutation ``perm[g, c, r]`` (table row
 of the c-th point of lane r) with its flags (bit 0: negate y; GLV bit 1:
 take beta x). Outputs: ``pe3[g, c, r]`` = the inclusive prefix of lane r
 after step c as one x||y||z row [3L], and the lane totals
-``t{x,y,z}[g, :, r]`` limbs-first [G, L, R].
+``t{x,y,z}[g, :, r]`` limbs-first [G, L, R]. On CUDA pe3 is the [..., :3L]
+view of rows padded to ``pe3_row_limbs`` (a multiple of 4 limbs).
 """
 
 from __future__ import annotations
@@ -83,21 +85,29 @@ def scan_rows_plain(cfg: MsmConfig, packed, perm, flags):
     return (pe3, *(t.transpose(1, 2).contiguous() for t in (ax, ay, az)))
 
 
-def _scan(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
+def pe3_row_limbs(cfg: MsmConfig) -> int:
+    """int32 limbs of one pe3 row as the kernel writes it: x || y || z (3L)
+    padded to a multiple of 4, so every row takes 16-byte stores (BN254:
+    60; 21 limbs: 64; 30 limbs: 92). The wrappers return the [..., :3L]
+    view."""
+    return -(-3 * cfg.num_words // 4) * 4
+
+
+def _scan(cfg: MsmConfig, packed, perm, flags, entry: str, counter, *extra):
     packed, perm, flags = packed.contiguous(), perm.contiguous(), flags.contiguous()
     if packed.data_ptr() % 16:  # the kernel reads rows with 16-byte loads
         packed = packed.clone()
-    _build.require_cuda(cfg, packed, perm, flags)
+    _build.require_cuda(cfg, packed, perm, flags, bn254_only=entry != "msm_scan")
     L, D = cfg.num_words, coord_words(cfg)
     G, C, R = perm.shape
     if flags.shape != perm.shape or packed.shape[1:] != (table_coords(cfg) * D,):
         raise ValueError(f"bad scan shapes {tuple(packed.shape)} {tuple(perm.shape)}")
     dev = packed.device
-    pe3 = torch.empty((G, C, R, 3 * L), dtype=torch.int32, device=dev)
+    pe3 = torch.empty((G, C, R, pe3_row_limbs(cfg)), dtype=torch.int32, device=dev)
     tots = [torch.empty((G, L, R), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch(entry, packed, perm, flags, pe3, *tots, G, C, R)
+    _build.launch(entry, packed, perm, flags, pe3, *tots, G, C, R, *extra)
     counter.launches += 1
-    return (pe3, *tots)
+    return (pe3[..., :3 * L], *tots)
 
 
 def scan_rows(cfg: MsmConfig, packed, perm, flags):
@@ -107,7 +117,7 @@ def scan_rows(cfg: MsmConfig, packed, perm, flags):
         return scan_rows_glv(cfg, packed, perm, flags)
     if packed.device.type == "cpu":
         return scan_rows_plain(cfg, packed, perm, flags)
-    return _scan(cfg, packed, perm, flags, "msm_scan", scan_rows)
+    return _scan(cfg, packed, perm, flags, "msm_scan", scan_rows, _build.curve_id(cfg))
 
 
 def scan_rows_glv(cfg: MsmConfig, packed, perm, flags):

@@ -187,7 +187,8 @@ class MsmConfig:
     compress: bool = False  # batched-affine pair compression of the sorted
     #                         stream before the scan; needs (n/R) even
     karatsuba: bool = False  # the JAX package's Karatsuba Montgomery
-    #                          product: not ported (the CUDA wrappers raise)
+    #                          product: the same function, so the CUDA
+    #                          kernels take it where that package builds it
 
     # ---- limb geometry -----------------------------------------------------
     @property
@@ -282,6 +283,13 @@ class MsmConfig:
 
 #: 13-bit limbs (20 words for BN254), 16-bit windows, 16 subtasks
 DEFAULT_CONFIG = MsmConfig(curve=BN254)
+
+
+def coord_words(cfg: MsmConfig) -> int:
+    """int32 words per dense-packed canonical coordinate, ceil(bits / 32)
+    (BN254: 8, BLS12: 12): the packed table's width per coordinate and the
+    word core's element."""
+    return (cfg.curve.modulus_bits + 31) // 32
 
 
 def pick_chunk_size(n: int) -> int:

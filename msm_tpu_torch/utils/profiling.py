@@ -68,7 +68,7 @@ def stage_timings(n: int, cfg, seed: int = 0, device="cuda", reps: int = 5) -> d
     pts, ks = sample_inputs(n, cfg.curve, seed)
     arrays = common.pad_inputs(pts, ks, cfg)
     first = cuzk.chunk_slices(arrays[0].shape[0])[0]
-    geom = pick_geometry(first.stop, cfg.chunk_size, cfg.compress, cfg.glv)
+    geom = pick_geometry(first.stop, cfg)
     xd, yd, sd = (torch.from_numpy(a).to(dev) for a in arrays)
     x0, y0, s0 = xd[first], yd[first], sd[first]
     packed = common.prepare_points(cfg, x0, y0)

@@ -6,8 +6,9 @@ timed against each other on one GPU at the shapes of the plain 2^20 and
 
     python3 scripts/torch_add_total_variants.py [--rounds 3]
 
-Variants, each compiled on its own (all at once) into
-``build/add_total_variants/<name>/`` and loaded with ctypes:
+The design variants are compiled on their own (all at once) into
+``build/add_total_variants/<name>/`` and loaded with ctypes; the sources as
+they are run from the library ``msm_tpu_torch.ops._build`` builds:
 
 - point add ``thread`` (the source as it is, a thread per add): each thread
   reads its six 80-byte rows with 16-byte vector loads and writes its three
@@ -184,7 +185,7 @@ __global__ void __launch_bounds__(BLOCK, 4)
   pt32_lanes_sum(s, 32);
   unsigned ticket = 0;
   if (t == 0) {
-    pt32_store_words(part + (g * nb + b) * PT_WORDS, s);
+    pt32_store_words(part + (g * nb + b) * pt_words<FpBn254>, s);
     __threadfence();
     ticket = atomicAdd(tickets + g, 1u);
   }
@@ -212,30 +213,34 @@ extern "C" int msm_point_total_ticket(const int32_t* px, const int32_t* py, cons
 """
 
 P = ctypes.c_void_p
-#: variant -> (source text or None for the csrc file as it is, csrc file, entry, argtypes)
+
+
+#: variant -> (source text, csrc file it replaces, entry, argtypes): the
+#: design variants, BN254's alone (no curve index), each compiled on its
+#: own; the sources as they are (``thread``/``warp``, ``two_launch``) run
+#: from the library that ``_build`` builds, called with BN254's curve index
 BUILDS = {
-    "thread": (None, "point_add.cu", "msm_point_add", _build.SIGNATURES["msm_point_add"]),
-    "smem": (SMEM_ADD, "point_add.cu", "msm_point_add", _build.SIGNATURES["msm_point_add"]),
-    "two_launch": (None, "point_total.cu", "msm_point_total", _build.SIGNATURES["msm_point_total"]),
+    "smem": (SMEM_ADD, "point_add.cu", "msm_point_add",
+             _build.SIGNATURES["msm_point_add"][:-2] + [P]),
     "ticket": (TICKET_TOTAL, "point_total.cu", "msm_point_total_ticket",
                [P] * 8 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, P]),
 }
 
 
 def build_all(nvcc: str) -> dict:
-    """Compile every build at once; returns name -> C entry point."""
+    """Compile every variant at once; returns name -> C entry point, the
+    library's own point add and point total included."""
     procs = {}
     for name, (text, src, _entry, _args) in BUILDS.items():
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
-        cu = _build.CSRC / src
-        if text is not None:
-            cu = d / src
-            cu.write_text(text)
+        cu = d / src
+        cu.write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", f"-I{_build.CSRC}", "-o", str(d / "lib.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
+    lib = _build.load()
+    fns = {"thread": lib.msm_point_add, "two_launch": lib.msm_point_total}
     for name, p in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
@@ -265,36 +270,36 @@ def add_runs(fns, args) -> dict:
     B = ins[0].shape[0]
     out = [torch.empty_like(ins[0]) for _ in range(3)]
 
-    def run(fn, lanes):
+    def run(fn, *tail):
         def go():
-            _call(fn, *ins, *out, B, lanes)
+            _call(fn, *ins, *out, B, *tail)
             return out
         return go
 
-    runs = {"thread": run(fns["thread"], 0)}
+    runs = {"thread": run(fns["thread"], 0, 0)}  # lanes, BN254's curve index
     if B <= 2112:
-        runs["warp"] = run(fns["thread"], 1)
+        runs["warp"] = run(fns["thread"], 1, 0)
     runs["smem"] = run(fns["smem"], 0)
     return runs
 
 
 def total_runs(fns, args) -> dict:
     """name -> zero-argument launch of each point-total variant."""
-    from msm_tpu_torch.ops.cuda_prefix import PT_WORDS, point_total_plan
+    from msm_tpu_torch.ops.cuda_prefix import point_total_plan, pt_words
 
-    ins = args[1:]
+    cfg, ins = args[0], args[1:]
     G, N, L = ins[0].shape
-    plan = point_total_plan(G, N)
+    plan = point_total_plan(cfg, G, N)
     dev = ins[0].device
     out = [torch.empty((G, L), dtype=torch.int32, device=dev) for _ in range(3)]
     tickets = torch.zeros(G, dtype=torch.int32, device=dev)
 
     def run(name, k):
         nb = max(1, -(-N // (k * 128)))
-        part = torch.empty((G, nb, PT_WORDS), dtype=torch.int32, device=dev)
+        part = torch.empty((G, nb, pt_words(cfg)), dtype=torch.int32, device=dev)
         if name == "ticket":
             return lambda: (_call(fns[name], *ins, part, tickets, *out, G, N, k, nb), out)[1]
-        return lambda: (_call(fns[name], *ins, part, *out, G, N, k, nb), out)[1]
+        return lambda: (_call(fns[name], *ins, part, *out, G, N, k, nb, 0), out)[1]  # BN254
 
     runs = {"two_launch": run("two_launch", plan.points_per_thread),
             "ticket": run("ticket", plan.points_per_thread)}

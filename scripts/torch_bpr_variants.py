@@ -223,7 +223,7 @@ def sweep_stage4(rounds: int) -> None:
     _, pts, ks = cs.sample_msm(1 << 20)
     n = common.pad_size(len(pts))
     cfg = pick_config(n)
-    ec, geom = get_curve_ctx(cfg), pick_geometry(n, cfg.chunk_size)
+    ec, geom = get_curve_ctx(cfg), pick_geometry(n, cfg)
     batch = min(geom.subtask_batch, cfg.num_subtasks)
     xd, yd, sd = (torch.from_numpy(a).cuda() for a in common.pad_inputs(pts, ks, cfg))
     packed = common.prepare_points(cfg, xd, yd)

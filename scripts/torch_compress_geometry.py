@@ -84,11 +84,11 @@ def sweep(logn: int, rows: list[int], batches: list[int]) -> list[dict]:
     keys, signs = decompose_signed(sd, cfg.chunk_size, cfg.num_subtasks)
     S, NB = cfg.num_subtasks, cfg.num_buckets
     # the reference: the plain scan's window sums on the same digits
-    pgeo = pick_geometry(n, cfg.chunk_size)
+    pgeo = pick_geometry(n, plain)
     ref = scan.window_sum_from_pe(get_curve_ctx(plain), scan.bucket_boundary_prefix(
         get_curve_ctx(plain), packed, keys, signs, NB, pgeo.num_rows, pgeo.subtask_batch))
     ec = get_curve_ctx(cfg)
-    rule = pick_geometry(n, cfg.chunk_size, compress=True)
+    rule = pick_geometry(n, cfg)
     results = []
     for R in rows:
         C = n // R

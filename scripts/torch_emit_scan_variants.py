@@ -161,7 +161,7 @@ def emit_scan_case(n_log2: int) -> list:
     packed table, perm, flags [G, C, R], s, t0), all on the card."""
     cfg = MsmConfig(curve=BN254, compress=True)
     n = 1 << n_log2
-    geo = pick_geometry(n, cfg.chunk_size, compress=True)
+    geo = pick_geometry(n, cfg)
     G = min(geo.subtask_batch, cfg.num_subtasks)
     _, pts, ks = cs.sample_msm(n)
     x, y, s = (torch.from_numpy(a).cuda() for a in common.pad_inputs(pts, ks, cfg))

@@ -11,10 +11,14 @@ with the SASS of both builds compared kernel by kernel.
 The other checkout's library is built by its own ``msm_tpu_torch.ops._build``
 (in a subprocess, into its own ``build/``). This checkout's wrappers launch
 through ``_build.load()``; the script swaps the loaded library between the
-two builds, so of the entry points timed here (point add, scan, row
-offsets, point total, Horner ladder, forward pair products, backward pair
-emission, blocked reduction's phase 1) only those whose C signature is the
-same in both trees are timed; the others are named and skipped.
+two builds, so of the entry points timed here (point add, convert, scan,
+row offsets, point total, Horner ladder, suffix and forward pair products
+and their GLV modes, backward pair emission, blocked reduction's phase 1)
+only those whose C signature is the
+same in both trees are timed, or this tree's with the curve index before
+the stream where the other tree's has none (the other build is then
+called without it: a tree from before the kernels took a curve, which ran
+BN254 only); the others are named and skipped. The inputs are BN254's.
 Both builds' outputs must be equal bit for bit (every kernel writes
 canonical limbs, and the two builds sum in the same order).
 
@@ -22,7 +26,10 @@ Prints, per round, kernel and build, the ms per call (CUDA events over calls
 queued behind a spin kernel, as ``chip_smoke.py`` times kernels), the
 builds in alternating order; then the medians; then, per kernel present in
 both builds, whether its SASS (with the out-of-line functions it calls) is
-identical, else both instruction counts and the first difference. Needs the
+identical, else both instruction counts and the first difference; a
+kernel is matched by its name and its field (a kernel of no field is
+BN254's), so a kernel that became a template over the field is matched
+with its BN254 instance. Needs the
 CUDA toolkit and one GPU.
 """
 
@@ -31,6 +38,7 @@ from __future__ import annotations
 import argparse
 import ast
 import ctypes
+import re
 import statistics
 import subprocess
 import sys
@@ -48,9 +56,11 @@ from msm_tpu_torch.ops import _build  # noqa: E402
 from torch_sass_mix import sass  # noqa: E402
 
 #: wrapper -> its C entry point
-KERNELS = {"point_add": "msm_point_add", "scan_rows": "msm_scan", "row_offsets": "msm_row_offsets",
-           "point_total": "msm_point_total", "horner": "msm_horner", "pair_forward": "msm_pair_forward",
-           "pair_backward": "msm_pair_backward", "bpr_phase1": "msm_bpr_phase1"}
+KERNELS = {"point_add": "msm_point_add", "convert_pack": "msm_convert", "scan_rows": "msm_scan",
+           "row_offsets": "msm_row_offsets", "point_total": "msm_point_total", "horner": "msm_horner",
+           "pair_suffix": "msm_pair_suffix", "pair_forward": "msm_pair_forward",
+           "pair_backward": "msm_pair_backward", "pair_suffix_glv": "msm_pair_suffix_glv",
+           "pair_forward_glv": "msm_pair_forward_glv", "bpr_phase1": "msm_bpr_phase1"}
 
 
 def other_library(root: Path) -> tuple[Path, dict[str, str]]:
@@ -63,23 +73,43 @@ def other_library(root: Path) -> tuple[Path, dict[str, str]]:
     return Path(out[-1]), ast.literal_eval(out[-2])
 
 
-def load(so: Path, names) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(so))
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = _build.SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
+def _without_curve(sig: list) -> list:
+    """A signature of this tree less its curve index (before the stream)."""
+    return sig[:-2] + sig[-1:]
+
+
+class OtherLibrary:
+    """The other build's entry points behind this tree's calls: an entry
+    whose other signature lacks this tree's curve index gets the call
+    without it."""
+
+    def __init__(self, so: Path, sigs: dict[str, list], names) -> None:
+        self._lib = ctypes.CDLL(str(so))
+        self._drop = set()
+        for name in names:
+            fn = getattr(self._lib, name)
+            fn.argtypes = sigs[name]
+            fn.restype = ctypes.c_int
+            if len(sigs[name]) < len(_build.SIGNATURES[name]):
+                self._drop.add(name)
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name in self._drop:
+            return lambda *args: fn(*args[:-2], args[-1])
+        return fn
 
 
 def cases(rng, kern) -> dict:
     """Wrapper arguments at the plain 2^20 MSM's shapes: G = 4 subtasks,
-    R = 16384 lanes of C = 64 steps, 32769 buckets, S = 16 windows; the
-    pair-value kernels over the table of 256 real points with planted
-    doubling and infinity pairs at G = 4, C = 1024, R = 1024, the backward
-    emission on this build's forward products and their inverse; the
-    blocked reduction's phase 1 over the 16 windows' buckets at 512 lanes
-    (Bl = 64), with planted rows."""
+    R = 16384 lanes of C = 64 steps, 32769 buckets, S = 16 windows, the
+    convert over 2^20 coordinates below p; the pair-value kernels over the
+    table of 256 real points with planted doubling and infinity pairs at
+    G = 4, C = 1024, R = 1024 (the suffix products too), the backward
+    emission on this build's forward products and their inverse; the GLV
+    forward and suffix products over the GLV table of 128 points and their
+    phi images at the same shape; the blocked reduction's phase 1 over the
+    16 windows' buckets at 512 lanes (Bl = 64), with planted rows."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.params import BN254, MsmConfig, pick_config
@@ -102,23 +132,40 @@ def cases(rng, kern) -> dict:
     table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
     pair_in = [MsmConfig(curve=BN254, compress=True), table,
                *map(t, cs._pair_stream(rng, 4, 1024, 1024, table.shape[0]))]
+    glv_table = cs._glv_table(aff[:128], base_cfg).to(dev)
+    glv_in = [MsmConfig(curve=BN254, compress=True, glv=True), glv_table,
+              *map(t, cs._glv_pair_stream(rng, 4, 1024, 1024, glv_table.shape[0]))]
     return {
         "point_add": [cfg, *(t(cs._rand_fe(rng, (G * NB,), cfg)) for _ in range(6))],
+        "convert_pack": [cfg, *map(t, cs._coord_words(rng, n, cfg.curve.modulus))],
         "scan_rows": [cfg, tab, t(perm), t(rng.integers(0, 2, size=perm.shape, dtype=np.int32))],
         "row_offsets": [cfg, *(a.transpose(1, 2).contiguous() for a in rows)],
         "point_total": [cfg, *cs._curve_points(rng, (S, NB - 1), cfg, base, dev)],
         "horner": [cfg, *(t(cs._rand_fe(rng, (S,), cfg)) for _ in range(3)), cfg.chunk_size],
+        "pair_suffix": pair_in,
         "pair_forward": pair_in,
         "pair_backward": cs._backward_args(kern, pair_in),
+        "pair_suffix_glv": glv_in,
+        "pair_forward_glv": glv_in,
         "bpr_phase1": [cfg, *map(t, cs._bpr_buckets(rng, (S, (NB - 1) // 512, 512), cfg))],
     }
+
+
+def kernel_key(mangled: str) -> str:
+    """A kernel's name and field from its mangled name: ``k_scan`` for
+    ``_Z6k_scanPKi...`` and for ``_ZN3msm6k_scanINS_7FpBn254EEEv...``
+    (BN254's instance), ``k_scan<FpPallas>`` for Pallas'."""
+    name = next(m.group(2)[:int(m.group(1))] for m in re.finditer(r"(\d+)(k_\w+)", mangled)
+                if len(m.group(2)) >= int(m.group(1)))
+    field = re.search(r"\d+(Fp\w+?)E", mangled)
+    return name if field is None or field.group(1) == "FpBn254" else f"{name}<{field.group(1)}>"
 
 
 def compare_sass(mine: Path, other: Path) -> None:
     for obj in sorted(mine.glob("*.o")):
         if not (other / obj.name).exists():
             continue
-        a, b = sass(obj), sass(other / obj.name)
+        a, b = ({kernel_key(k): v for k, v in sass(o).items()} for o in (obj, other / obj.name))
         for fn in sorted(set(a) & set(b)):
             if a[fn] == b[fn]:
                 print(f"sass {obj.name} {fn}: identical ({len(a[fn])} instructions)")
@@ -142,11 +189,16 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     other_so, other_sigs = other_library(args.other.resolve())
-    names = [k for k, entry in KERNELS.items() if other_sigs.get(entry) == repr(_build.SIGNATURES[entry])]
+    sigs = {}
+    for entry, sig in _build.SIGNATURES.items():
+        for cand in (sig, _without_curve(sig)):
+            if other_sigs.get(entry) == repr(cand):
+                sigs[entry] = cand
+    names = [k for k, entry in KERNELS.items() if entry in sigs]
     for k in KERNELS:
         if k not in names:
             print(f"{k}: its C entry point differs between the two trees; not timed")
-    libs = {"this": _build.load(), "other": load(other_so, [KERNELS[k] for k in names])}
+    libs = {"this": _build.load(), "other": OtherLibrary(other_so, sigs, [KERNELS[k] for k in names])}
     kern = cs._kernels()
     inputs = cases(np.random.default_rng(cs.SEED), kern)
     times: dict[tuple[str, str], list[float]] = {}

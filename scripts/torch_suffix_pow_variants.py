@@ -532,7 +532,7 @@ def stream_case(n_log2: int, R: int | None = None) -> list:
     flags [G, C, R]) on the card."""
     cfg = MsmConfig(curve=BN254, compress=True)
     n = 1 << n_log2
-    geo = pick_geometry(n, cfg.chunk_size, compress=True)
+    geo = pick_geometry(n, cfg)
     G = min(geo.subtask_batch, cfg.num_subtasks)
     _, pts, ks = cs.sample_msm(n)
     x, y, s = (torch.from_numpy(a).cuda() for a in common.pad_inputs(pts, ks, cfg))

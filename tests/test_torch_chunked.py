@@ -41,7 +41,7 @@ def test_device_chunks_sum_to_the_whole(small_cap, case):
     oracle, and the merge of the two chunks' window sums is their point sum."""
     pts, ks, want, _ = case
     xd, yd, sd = (torch.from_numpy(a) for a in common.pad_inputs(pts, ks, CFG))
-    geom = pick_geometry(CAP, 8)
+    geom = pick_geometry(CAP, CFG)
     assert CV.eq(common.std_ints_to_jpoint(*cuzk.cuzk_msm_point(xd, yd, sd, CFG, geom), CFG), want)
     ws = [cuzk.cuzk_window_sums(xd[s], yd[s], sd[s], CFG, geom) for s in cuzk.chunk_slices(128)]
     merged = cuzk.merge_window_sums(ws, CFG)
@@ -57,7 +57,7 @@ def test_host_inputs_and_chunk_log(small_cap, case, monkeypatch, capsys):
     each chunk is logged to stderr as its pass starts."""
     pts, ks, want, _ = case
     arrays = common.pad_inputs(pts, ks, CFG)
-    geom = pick_geometry(CAP, 8)
+    geom = pick_geometry(CAP, CFG)
     with pytest.raises(TypeError, match="explicit device"):
         cuzk.cuzk_msm_point(*arrays, CFG, geom)
     monkeypatch.setenv("MSM_TPU_DEBUG", "1")

@@ -157,7 +157,7 @@ def test_loaded_jax_table_gives_jax_window_sums_compressed():
     jax_table = np.asarray(make_convert_pack(JCFG, tile=128, interpret=True)(xd, yd))
     table = msm_tpu_torch.load_point_table(jax_table, CFG, device="cpu")
     ws = cuzk.window_sums_from_table(table, torch.from_numpy(s_u16), CFG,
-                                     pick_geometry(n, 8, compress=True))
+                                     pick_geometry(n, CFG))
 
     jec = j_curve_ctx(JCFG)
     jgeom = j_pick_geometry(n, 8, compress=True)

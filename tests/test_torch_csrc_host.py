@@ -7,7 +7,8 @@ kernels and of the Fermat inversion that links them (the suffix products,
 the inversion and the emission + scan on the word core: pair32.cuh,
 pow32.cuh, emit_scan.cuh), run for every lane of a small stream with
 planted doubling and infinity pairs, and the per-thread bodies of the row
-offsets, run for every thread of the three launches' plan.
+offsets (on the word core since they moved off the 13-bit one), run for
+every thread of the three launches' plan.
 Catches arithmetic and indexing faults in the device code without a GPU.
 Outputs of the core must be canonical and equal to the twins' results after
 canonical()."""
@@ -24,6 +25,7 @@ import torch
 from _torch_helpers import (affine_points, mont_limbs, pair_stream, rand_balanced, rand_canonical,
                             same_points)
 from msm_tpu_torch.ops import cuda_compress as cc
+from msm_tpu_torch.ops._build import FIELD_FLAGS
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs, point_add_plain
 from msm_tpu_torch.ops.cuda_inv import mont_pow_plain
 from msm_tpu_torch.ops.cuda_prefix import row_offsets_plain
@@ -170,55 +172,44 @@ void h_pair_backward(const int32_t* pk, const int32_t* pm, const int32_t* fl,
 }
 }
 
-// The row offsets' three launches with blocks of T threads, K lanes each;
-// the two block scans run serially here.
-template <int K>
-static void row_offsets_host(const int32_t* tx, const int32_t* ty,
-                             const int32_t* tz, int32_t* ox, int32_t* oy,
-                             int32_t* oz, int64_t G, int R, int T) {
+// The row offsets' three launches with blocks of T threads, K lanes each,
+// on the word core (csrc/prefix.cuh); the two block scans run serially
+// here.
+extern "C" void h_row_offsets(const int32_t* tx, const int32_t* ty,
+                              const int32_t* tz, int32_t* ox, int32_t* oy,
+                              int32_t* oz, int64_t G, int R, int K, int T) {
   const int nb = (R + K * T - 1) / (K * T);
-  std::vector<point> off(nb);
+  std::vector<pt32> off(nb);
   for (int64_t g = 0; g < G; ++g) {
     for (int b = 0; b < nb; ++b) {  // 1: in-block prefixes, block totals
-      point run;
-      pt_identity(run);
+      pt32 run;
+      pt32_identity(run);
       for (int j = 0; j < T && (b * T + j) * K < R; ++j) {
         const int r0 = (b * T + j) * K;
         const int64_t o = (g * R + r0) * L;
-        point s;
-        ro_thread_total<K>(s, tx, ty, tz, g, R, r0);
-        pt_store(ox + o, oy + o, oz + o, 1, run);
-        pt_add(run, run, s);
+        pt32 s;
+        ro_thread_total(s, tx, ty, tz, g, R, r0, K);
+        pt32_store_limbs(ox + o, oy + o, oz + o, 1, run);
+        pt32_add(run, run, s);
       }
       off[b] = run;
     }
-    point acc;  // 2: exclusive block offsets
-    pt_identity(acc);
+    pt32 acc;  // 2: exclusive block offsets
+    pt32_identity(acc);
     for (int b = 0; b < nb; ++b) {
-      const point v = off[b];
+      const pt32 v = off[b];
       off[b] = acc;
-      pt_add(acc, acc, v);
+      pt32_add(acc, acc, v);
     }
     for (int b = 0; b < nb; ++b)  // 3: write-out
       for (int j = 0; j < T && (b * T + j) * K < R; ++j) {
         const int r0 = (b * T + j) * K;
         const int64_t o = (g * R + r0) * L;
-        point pre, a;
-        pt_load_canonical(pre, ox + o, oy + o, oz + o);
-        pt_add(a, off[b], pre);
-        ro_thread_write<K>(a, tx, ty, tz, ox, oy, oz, g, R, r0);
+        pt32 pre, a;
+        pt32_load_canonical(pre, ox + o, oy + o, oz + o);
+        pt32_add(a, off[b], pre);
+        ro_thread_write(a, tx, ty, tz, ox, oy, oz, g, R, r0, K);
       }
-  }
-}
-
-extern "C" void h_row_offsets(const int32_t* tx, const int32_t* ty,
-                              const int32_t* tz, int32_t* ox, int32_t* oy,
-                              int32_t* oz, int64_t G, int R, int K, int T) {
-  switch (K) {
-    case 1: row_offsets_host<1>(tx, ty, tz, ox, oy, oz, G, R, T); break;
-    case 2: row_offsets_host<2>(tx, ty, tz, ox, oy, oz, G, R, T); break;
-    case 4: row_offsets_host<4>(tx, ty, tz, ox, oy, oz, G, R, T); break;
-    default: row_offsets_host<8>(tx, ty, tz, ox, oy, oz, G, R, T); break;
   }
 }
 """
@@ -234,7 +225,7 @@ def lib(tmp_path_factory):
     src.write_text(HARNESS)
     so = d / "harness.so"
     subprocess.run(
-        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}", "-o", str(so), str(src)],
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *FIELD_FLAGS, f"-I{CSRC}", "-o", str(so), str(src)],
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(str(so))

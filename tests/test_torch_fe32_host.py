@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from _torch_helpers import glv_pair_stream, mont_limbs, pair_stream, rand_balanced, rand_canonical
+from msm_tpu_torch.ops._build import FIELD_FLAGS
 from msm_tpu_torch.ops.cuda_bpr import bpr_phase1_plain
 from msm_tpu_torch.ops.cuda_compress import (emit_scan_plain, pair_backward_plain, pair_forward_plain,
                                               pair_suffix_plain)
@@ -327,7 +328,7 @@ def lib(tmp_path_factory):
     src.write_text(HARNESS)
     so = d / "harness.so"
     subprocess.run(
-        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}", "-o", str(so), str(src)],
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *FIELD_FLAGS, f"-I{CSRC}", "-o", str(so), str(src)],
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(str(so))

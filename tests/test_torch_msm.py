@@ -57,7 +57,7 @@ def test_slice_matches_jax_and_oracle():
     # window sums [S, 3, L]: the port's vs the JAX pipeline's, as points
     x_u16, y_u16, s_u16 = common.pad_inputs(pts, ks, CFG)
     packed = common.prepare_points(CFG, torch.from_numpy(x_u16), torch.from_numpy(y_u16))
-    ws = cuzk.window_sums_from_table(packed, torch.from_numpy(s_u16), CFG, pick_geometry(n, 8))
+    ws = cuzk.window_sums_from_table(packed, torch.from_numpy(s_u16), CFG, pick_geometry(n, CFG))
     ws_std = common.export_points_std(get_curve_ctx(CFG), scan.PointBatch(*ws.unbind(1))).numpy()
     j_ws = np.asarray(jcuzk.cuzk_window_sums(
         *map(jnp.asarray, u16_words_int32(x_u16, y_u16)), jnp.asarray(s_u16), JCFG, j_pick_geometry(n, 8)))

@@ -38,7 +38,7 @@ def test_compressed_slice_matches_jax_and_oracle():
 def test_compressed_slice_matches_oracle_4096():
     n = 1 << 12
     pts, ks = _inputs(n, seed=92, nbase=256)
-    geo = pick_geometry(n, 8, compress=True)
+    geo = pick_geometry(n, CFG)
     assert (geo.num_rows, geo.subtask_batch) == (512, 16)  # C = 8 steps, 16 subtasks a launch
     got = msm_tpu_torch.run_gpu_msm(pts, ks, config=CFG, device="cpu")
     assert got == CV.to_affine(best_msm(pts, ks))

@@ -13,9 +13,12 @@ from _torch_helpers import affine_points
 import msm_tpu_torch
 from msm_tpu.oracle import best_msm
 from msm_tpu.oracle.pyecc import Curve
+from msm_tpu.ops.pallas_curve import karatsuba_ok as j_karatsuba_ok
 from msm_tpu.params import BN254 as J_BN254
+from msm_tpu.params import CURVES as J_CURVES
+from msm_tpu.params import MsmConfig as J_MsmConfig
 from msm_tpu_torch.ops._build import check_cuda_config, require_cuda
-from msm_tpu_torch.params import BLS12_381, BN254, MsmConfig, pick_config
+from msm_tpu_torch.params import BLS12_381, BN254, GRUMPKIN, PALLAS, MsmConfig, pick_config
 
 CFG8 = MsmConfig(curve=BN254, chunk_size=8)
 CV = Curve(J_BN254)
@@ -59,19 +62,38 @@ def test_identity_result_and_validation():
                                   validate=True, device="cpu")
 
 
-@pytest.mark.parametrize("change", [
-    {"curve": BLS12_381}, {"word_size": 16}, {"glv": True}, {"compress": True, "glv": True},
-    {"karatsuba": True},
-], ids=lambda c: next(iter(c)))
-def test_cuda_kernels_reject_other_configs(change):
-    """The CUDA wrappers take BN254 / 13-bit limbs, plain or pair-compressed,
-    with or without GLV (the ``glv`` and ``compress`` ids are accepted);
-    any other config (another curve, limb width, Karatsuba) raises before a
-    launch, never falls back to a twin."""
+#: config changes the CUDA kernels take (True) or refuse (False)
+CONFIG_CASES = {
+    "curve": ({"curve": BLS12_381}, True),
+    "word_size": ({"word_size": 16}, False),
+    "glv": ({"glv": True}, True),
+    "compress": ({"compress": True, "glv": True}, True),
+    "karatsuba": ({"karatsuba": True}, True),
+    "other_curve_compress": ({"curve": BLS12_381, "compress": True}, False),
+    "other_curve_glv": ({"curve": BLS12_381, "glv": True}, False),
+    "other_curve_word_size": ({"curve": GRUMPKIN, "word_size": 12}, False),
+    "karatsuba_odd_limbs": ({"curve": PALLAS, "karatsuba": True}, False),
+    "karatsuba_bls12": ({"curve": BLS12_381, "karatsuba": True}, True),
+    "karatsuba_word_size": ({"word_size": 14, "karatsuba": True}, False),
+}
+
+
+@pytest.mark.parametrize("change, accepted", CONFIG_CASES.values(), ids=CONFIG_CASES)
+def test_cuda_kernels_reject_other_configs(change, accepted):
+    """The CUDA wrappers take 13-bit limbs on every curve's plain path, and
+    on BN254 also pair-compressed and with or without GLV; Karatsuba where
+    the JAX package builds it (an even limb count within its int32 column
+    budget: BN254, BLS12, not the 21-limb curves); any other config
+    (compress or GLV on another curve, another limb width, Karatsuba where
+    the JAX package refuses it) raises before a launch, never falls back to
+    a twin."""
     check_cuda_config(pick_config(1 << 16))
     check_cuda_config(dataclasses.replace(pick_config(1 << 16), compress=True))
     cfg = dataclasses.replace(pick_config(1 << 16), **change)
-    if set(change) <= {"compress", "glv"}:
+    if cfg.karatsuba:  # the JAX package's own rule agrees
+        assert j_karatsuba_ok(J_MsmConfig(curve=J_CURVES[cfg.curve.name], word_size=cfg.word_size,
+                                          karatsuba=True)) is accepted
+    if accepted:
         check_cuda_config(cfg)
         return
     with pytest.raises(NotImplementedError):

@@ -31,12 +31,15 @@ def test_compressed_glv_slice_matches_jax_and_oracle():
 def test_compressed_geometry_sized_by_glv_stream():
     """Under GLV a subtask scans 2n entries (n pairs): the pe3 bound halves
     the subtasks a launch one size earlier; the lanes stay the rule's."""
+    comp = port_cfg(MsmConfig(curve=BN254, compress=True))
+    comp_glv = port_cfg(MsmConfig(curve=BN254, compress=True, glv=True))
     for n in (1 << 16, 1 << 20, 1 << 21, 1 << 22):
-        plain = geometry.pick_geometry(n, 16, compress=True)
-        glv = geometry.pick_geometry(n, 16, compress=True, glv=True)
+        plain = geometry.pick_geometry(n, comp)
+        glv = geometry.pick_geometry(n, comp_glv)
         assert glv.num_rows == plain.num_rows
-        assert glv.subtask_batch == geometry.compressed_batch(2 * n)
-        assert glv.subtask_batch * n * geometry.PE3_ROW_BYTES <= geometry.PE3_BYTES_MAX
-    assert geometry.pick_geometry(1 << 20, 16, compress=True, glv=True).subtask_batch == 16
-    assert geometry.pick_geometry(1 << 22, 16, compress=True, glv=True).subtask_batch == 8
-    assert geometry.pick_geometry(1 << 22, 16, compress=True).subtask_batch == 16
+        assert glv.subtask_batch == geometry.compressed_batch(2 * n, comp_glv)
+        assert glv.subtask_batch * n * geometry.pe3_row_bytes(comp_glv) <= geometry.PE3_BYTES_MAX
+    assert geometry.pe3_row_bytes(comp_glv) == 3 * 20 * 4  # BN254's 20 limbs
+    assert geometry.pick_geometry(1 << 20, comp_glv).subtask_batch == 16
+    assert geometry.pick_geometry(1 << 22, comp_glv).subtask_batch == 8
+    assert geometry.pick_geometry(1 << 22, comp).subtask_batch == 16

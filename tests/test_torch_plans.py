@@ -10,14 +10,17 @@ the compressed path's geometry rule at every padded size."""
 import pytest
 
 import _torch_helpers  # noqa: F401  (one torch thread per test process)
-from msm_tpu_torch.models.geometry import PE3_BYTES_MAX, PE3_ROW_BYTES, pick_geometry
+from msm_tpu_torch.models.geometry import PE3_BYTES_MAX, pe3_row_bytes, pick_geometry
 from msm_tpu_torch.ops import _build
 from msm_tpu_torch.ops.cuda_hist import KEYS_PER_COUNTER, HistPlan, hist_plan
 from msm_tpu_torch.ops.cuda_curve import point_add_lanes
 from msm_tpu_torch.ops.cuda_prefix import PointTotalPlan, RowOffsetsPlan, point_total_plan, row_offsets_plan
+from msm_tpu_torch.params import BN254, MsmConfig
 
 #: bucket counts the configs give: signed 2^(c-1) + 1 and unsigned 2^c
 BUCKETS = [(1 << (c - 1)) + 1 for c in range(8, 17)] + [1 << c for c in range(8, 17)]
+#: the config the plans are sized for (13-bit limbs, 8 words an element)
+BN254_CFG = MsmConfig(curve=BN254)
 #: the point formulas' bytes in shared memory per thread (a projective point)
 POINT_BYTES = 3 * 20 * 4
 
@@ -123,11 +126,11 @@ def _point_total_coverage(G: int, N: int, plan: PointTotalPlan) -> None:
 @pytest.mark.parametrize("G, N", [(16, 1 << 15), (20, 1 << 12), (16, 512), (1, 0), (1, 1), (3, 127),
                                   (3, 129), (5, 1000), (1, 1 << 20), (64, 1 << 15)])
 def test_point_total_plan_covers_every_point_once(G, N):
-    plan = point_total_plan(G, N)
+    plan = point_total_plan(BN254_CFG, G, N)
     _point_total_coverage(G, N, plan)
     # about one wave: the fewest points per thread that keep G N / k threads
     # within the resident ones
-    resident = _build.SMS * _build.WORD_THREADS_PER_SM
+    resident = _build.SMS * _build.word_threads_per_sm(BN254_CFG)  # 4 blocks of 128
     k = plan.points_per_thread
     assert G * N <= k * resident and (k == 1 or G * N > (k - 1) * resident)
 
@@ -138,7 +141,7 @@ def test_point_total_plan_covers_every_point_once(G, N):
     (16, 512, PointTotalPlan(1, 4)),  # the blocked tail
 ], ids=["plain20", "plain16", "blocked"])
 def test_point_total_plan_at_the_paths_shapes(G, N, want):
-    assert point_total_plan(G, N) == want
+    assert point_total_plan(BN254_CFG, G, N) == want
 
 
 @pytest.mark.parametrize("B, lanes", [
@@ -150,7 +153,7 @@ def test_point_total_plan_at_the_paths_shapes(G, N, want):
     (4 * ((1 << 15) + 1), False),  # the 2^20 MSM's boundary prefixes
 ])
 def test_point_add_takes_a_warp_per_add_for_batches_within_one_wave(B, lanes):
-    assert point_add_lanes(B) is lanes
+    assert point_add_lanes(BN254_CFG, B) is lanes
 
 
 @pytest.mark.parametrize("log_n", range(4, 23))
@@ -160,9 +163,9 @@ def test_compressed_geometry_fits_every_padded_size(log_n):
     launch's pe3 buffer (batch x n/2 rows) stays within the rule's cap. The
     plain rule is the TPU reference's, R = min(n/8, 2^14), 4 subtasks."""
     n = 1 << log_n
-    geo = pick_geometry(n, 16, compress=True)
+    geo = pick_geometry(n, MsmConfig(curve=BN254, compress=True))
     R, G = geo.num_rows, geo.subtask_batch
     assert n % R == 0 and (n // R) % 2 == 0 and n // R >= 2
-    assert G >= 1 and G * (n // 2) * PE3_ROW_BYTES <= PE3_BYTES_MAX
-    plain = pick_geometry(n, 16)
+    assert G >= 1 and G * (n // 2) * pe3_row_bytes(BN254_CFG) <= PE3_BYTES_MAX
+    plain = pick_geometry(n, BN254_CFG)
     assert (plain.num_rows, plain.subtask_batch) == (max(1, min(n // 8, 1 << 14)), 4)

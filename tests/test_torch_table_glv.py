@@ -38,7 +38,7 @@ def test_loaded_jax_triple_table_gives_jax_window_sums_glv():
     jax_table = np.asarray(make_convert_pack(JGLV, tile=128, interpret=True, dual_x_scale_int=beta_r2,
                                              triple=True)(xd, yd))
     table = msm_tpu_torch.load_point_table(jax_table, GLV, device="cpu")
-    geom = pick_geometry(n, 8, compress=True, glv=True)
+    geom = pick_geometry(n, GLV)
     ws = cuzk.window_sums_from_table(table, torch.from_numpy(s_u16), GLV, geom)
     assert ws.shape[0] == GLV.num_subtasks == 16
 

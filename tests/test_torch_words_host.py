@@ -22,8 +22,9 @@ import pytest
 import torch
 
 from _torch_helpers import affine_points, mont_limbs, rand_balanced, same_points
+from msm_tpu_torch.ops._build import FIELD_FLAGS
 from msm_tpu_torch.ops.cuda_curve import point_add_plain
-from msm_tpu_torch.ops.cuda_prefix import PT_WORDS, THREADS, point_total_plain
+from msm_tpu_torch.ops.cuda_prefix import THREADS, point_total_plain, pt_words
 from msm_tpu_torch.ops.field import get_field_ctx
 from msm_tpu_torch.params import BN254, MsmConfig
 
@@ -40,7 +41,7 @@ HARNESS = r"""
 using namespace msm;
 
 constexpr int BLOCK = %(threads)d;
-static_assert(PT_WORDS == %(pt_words)d, "ops/cuda_prefix.py PT_WORDS");
+static_assert(pt_words<FpBn254> == %(pt_words)d, "ops/cuda_prefix.py pt_words");
 
 // __shfl_down_sync's halving tree over v[0 .. width): at offset h, lane
 // l < h adds lane l + h's sum (csrc/point_total.cu pt32_lanes_sum; the
@@ -72,7 +73,7 @@ void w_point_total(const int32_t* px, const int32_t* py, const int32_t* pz,
       for (int h = BLOCK / 2; h >= 32; h >>= 1)  // through shared memory
         for (int t = 0; t < h; ++t) pt32_add(s[t], s[t], s[t + h]);
       lanes_sum(s.data(), 32);
-      pt32_store_words(part + (g * nb + b) * PT_WORDS, s[0]);
+      pt32_store_words(part + (g * nb + b) * pt_words<FpBn254>, s[0]);
     }
     std::vector<pt32> s(32);
     for (int lane = 0; lane < 32; ++lane)
@@ -84,7 +85,7 @@ void w_point_total(const int32_t* px, const int32_t* py, const int32_t* pz,
   }
 }
 }
-""" % {"threads": THREADS, "pt_words": PT_WORDS}
+""" % {"threads": THREADS, "pt_words": pt_words(CFG)}
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +98,7 @@ def lib(tmp_path_factory):
     src.write_text(HARNESS)
     so = d / "harness.so"
     subprocess.run(
-        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}", "-o", str(so), str(src)],
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *FIELD_FLAGS, f"-I{CSRC}", "-o", str(so), str(src)],
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(str(so))
@@ -172,7 +173,7 @@ def test_point_total_model_matches_twin(lib, G, N, k, nb):
     real points against point_total_plain, as points."""
     assert nb * THREADS * k >= N > (nb - 1) * THREADS * k  # the kernel's plan check
     pts = _curve_points(G, N, seed=62 + N)
-    part = np.zeros((G, nb, PT_WORDS), dtype=np.uint32)
+    part = np.zeros((G, nb, pt_words(CFG)), dtype=np.uint32)
     outs = [np.zeros((G, L), dtype=np.int32) for _ in range(3)]
     lib.w_point_total(*(p.ctypes.data for p in pts), part.ctypes.data,
                       *(o.ctypes.data for o in outs), G, N, k, nb)
