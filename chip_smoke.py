@@ -5,10 +5,15 @@
 
 1. prints the card's name and power limit, builds the thirteen CUDA kernels,
    their six GLV modes, the convert kernel's run-time-constant mode and the
-   plain kernels' instances for the six other curves from
-   msm_tpu_torch/csrc and prints the build time;
+   generic kernels' instances for the six other curves (the plain path's,
+   the GLV convert and scan, the Fermat inversion, the suffix products and
+   the emission + scan in both modes) from msm_tpu_torch/csrc and prints
+   the build time and each translation unit's compile seconds;
 2. holds every kernel against its plain PyTorch twin on the card, on the
-   same inputs, at a small shape and at the shape the 2^20 MSM gives it
+   same inputs (a twin of at most CPU_TWIN_ELEMS input elements, such as
+   the Horner ladder's serial chain, on copies of them on the CPU, where
+   its small ops cost less than launches), at a small shape and at the
+   shape the 2^20 MSM gives it
    (the pair kernels: the compressed 2^20 shape of models/geometry.py's
    rule, with planted doubling and infinity pairs; bpr_phase1: the blocked
    reduction of the 2^20 MSM's buckets), as exact integers after
@@ -41,8 +46,9 @@
    reduction's phase 1 at the 2^16 shape (G20 T256 Bl16; every shape of it
    with planted negated rows, identity buckets and buckets equal to the
    running sum); the ptxas report (registers, frame, spills) of the
-   word-core pair, Fermat, scaled convert and phase 1 kernels, and their
-   SASS, which must hold no call;
+   kernels that run BN254 alone (the forward and backward pair kernels,
+   the scaled convert, phase 1), and their SASS, which must hold no call
+   (the generic kernels' per curve in step 15);
 3. runs compress_pairs on the card at the TPU rule's compressed 2^20 shape
    (R = 1024 lanes, C = 1024 steps, 4 subtasks) and, under GLV, at the GLV
    compressed 2^20 shape (G = 8, C = 1024, R = 2048) over points, their
@@ -141,7 +147,23 @@
    memory, and the curve's kernels required of each run; verify --size 12
    on BLS12-381 and secp256k1 and the bench's --plan 4 --size 20 line on
    BLS12-381;
-16. prints the kernels' JSON line (the GLV modes, the scaled convert and
+16. in the same phase (PR 15) the compressed, GLV and GLV compressed
+   configs of the six curves: the ptxas and SASS lines of each curve's
+   instances of the Fermat inversion, the suffix products and the emission
+   + scan (both modes; csrc/curve_<name>_pairs.cu) and of the GLV convert
+   and scan (csrc/curve_<name>.cu), no CALL allowed; each instance against
+   its twin at a small shape and at the shapes of the curve's largest MSMs
+   on those configs (BLS12-381's at 2^20, the others' at 2^16), where the
+   kernel runs the whole launch and the twin of the scan, the Fermat
+   inversion and the pair kernels 256 of its chains on the CPU (the first
+   and last 64 lanes of its first and last subtask: chains share no state
+   there), compared exactly; each curve on each config at
+   2^16 through run_gpu_msm and a plan's words call (paths
+   curve_<name>_<config>: a compressed run launches K9, K12 and K13, a GLV
+   run only the *_glv modes), and BLS12-381's three configs at 2^20
+   through a plan's words call (median of 5, stages, device busy time,
+   idle share, peak memory), all bit-exact against the folded oracle;
+17. prints the kernels' JSON line (the GLV modes, the scaled convert and
    each other curve's instances as entries of their own), then as its last
    line {"ok": true, "device": {...}}.
 
@@ -245,31 +267,31 @@ EXCLUDED["auto"] = tuple(k for k in REPLACES if k not in PATHS["auto"])
 #: x the SM clock that nvidia-smi reports as clocks.max.sm)
 HBM_BYTES_PER_S = 3.35e12
 SMS, IMAD_PER_SM_CLOCK = 132, 64
-#: the least integer work of one 254-bit Montgomery product: 2 * 8^2 + 8 = 136
-#: multiply-adds on 32-bit words, each two IMAD (low and high half); of a
-#: product on D words, 2 (2 D^2 + D) (_imad_per_product)
-IMAD_PER_PRODUCT = 2 * (2 * 8 * 8 + 8)
-#: a squaring's least work in products: 8 * 9 / 2 word products for a^2 and
-#: the same 8^2 + 8 for the reduction, 108 of a product's 136
-SQUARE_PER_PRODUCT = (8 * 9 // 2 + 8 * 8 + 8) / (2 * 8 * 8 + 8)
-#: bytes of one 254-bit field element, the least a coordinate needs; of an
-#: element of D words, 4 D (_fe_bytes)
-FE_BYTES = 32
 
 
 def _imad_per_product(cfg) -> int:
     """IMAD of one Montgomery product's least work on the curve's D words
-    (``params.coord_words``): 2 D^2 + D multiply-adds, two IMAD each
-    (BN254: IMAD_PER_PRODUCT)."""
+    (``params.coord_words``): 2 D^2 + D multiply-adds on 32-bit words, two
+    IMAD each (low and high half; BN254: 2 * 136)."""
     from msm_tpu_torch.params import coord_words
 
     d = coord_words(cfg)
     return 2 * (2 * d * d + d)
 
 
+def _square_per_product(cfg) -> float:
+    """A squaring's least work in products on the curve's D words: D (D + 1)
+    / 2 word products for a^2 and the D^2 + D of the reduction, over a
+    product's 2 D^2 + D (BN254: 108 of 136)."""
+    from msm_tpu_torch.params import coord_words
+
+    d = coord_words(cfg)
+    return (d * (d + 1) // 2 + d * d + d) / (2 * d * d + d)
+
+
 def _fe_bytes(cfg) -> int:
     """Bytes of one field element of the curve, the least a coordinate
-    needs: 4 D (BN254: FE_BYTES; BLS12: 48)."""
+    needs: 4 D (BN254: 32; BLS12: 48)."""
     from msm_tpu_torch.params import coord_words
 
     return 4 * coord_words(cfg)
@@ -450,7 +472,7 @@ def _products(name, args) -> float:
     counted from the formulas in csrc: complete addition 12, mixed addition
     11, doubling 8 (the multiplication by 3b is free), to-Montgomery 1 per
     coordinate, Fermat inversion the shorter of the binary chain and the
-    4-bit window's (_pow_chains), a squaring at SQUARE_PER_PRODUCT; per pair,
+    4-bit window's (_pow_chains), a squaring at _square_per_product; per pair,
     suffix and forward products 1, backward emission 5, emission 5 plus the
     mixed addition's 11, and one more for a doubling; an infinity pair
     needs none of these (its d is one and its sum is not read), nor does
@@ -479,7 +501,7 @@ def _products(name, args) -> float:
         return (args[1].numel() // (shape[-2] * shape[-1])) * (shape[-2] - 1) * (8 * args[4] + 12)
     if name == "mont_pow":
         return shape[0] * shape[2] * min(
-            mul + SQUARE_PER_PRODUCT * sqr for sqr, mul in _pow_chains(args[2]))
+            mul + _square_per_product(args[0]) * sqr for sqr, mul in _pow_chains(args[2]))
     if name == "bpr_phase1":
         return 12 * _bpr_additions(args)
     pairs = args[2].numel() // 2
@@ -611,13 +633,76 @@ def _bound(name, args, clock_hz) -> tuple[float, str]:
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz) -> dict:
+#: the kernels whose launch is a grid of independent chains, one thread a
+#: (subtask g, lane r), sharing no state: the scan, the Fermat inversion,
+#: the suffix products and the emission + scan (check_case's ``subset``).
+#: By argument position, the lane axis of each argument that indexes the
+#: chains (their subtask axis is 0), and the lane axis of every output
+CHAIN_ARGS = {"scan_rows": {2: 2, 3: 2}, "mont_pow": {1: 2}, "pair_suffix": {2: 2, 3: 2},
+              "emit_scan": {2: 2, 3: 2, 4: 3, 5: 2}}
+CHAIN_OUT_LANE = {"scan_rows": 2, "mont_pow": 2, "pair_suffix": 3, "emit_scan": 2}
+
+
+def _chains(name, args, out, subset):
+    """The twin's arguments on the chains ``subset`` = (subtasks, lanes) of
+    the launch, and the kernel's outputs on those chains."""
+    base = name.removesuffix("_glv")
+    g, r = (torch.tensor(i, device=args[1].device) for i in subset)
+
+    def cut(t, lane_axis):
+        return t.index_select(0, g).index_select(lane_axis, r)
+
+    args = [cut(a, CHAIN_ARGS[base][i]) if i in CHAIN_ARGS[base] else a for i, a in enumerate(args)]
+    axis = CHAIN_OUT_LANE[base]
+    return args, tuple(cut(o, axis) for o in out) if isinstance(out, tuple) else cut(out, axis)
+
+
+def chain_subset(name, args, lanes: int = 64):
+    """(subtasks, lanes) of a launch's chains for check_case's ``subset``:
+    its first and last subtask, and in each the first and last ``lanes``
+    lanes."""
+    base = name.removesuffix("_glv")
+    pos, axis = next(iter(CHAIN_ARGS[base].items()))
+    G, R = args[pos].shape[0], args[pos].shape[axis]
+    return [0, G - 1], list(range(lanes)) + list(range(R - lanes, R))
+
+
+#: a twin whose tensor inputs hold at most this many elements runs on the
+#: host's CPU, where a small op costs less than a launch on the card (the
+#: Horner ladder's serial chain over [S, L]: ~5x faster; the small shapes)
+CPU_TWIN_ELEMS = 1 << 18
+
+
+def _to(dev, out):
+    """A twin's output (a tensor or a tuple of them) on ``dev``."""
+    return tuple(o.to(dev) for o in out) if isinstance(out, tuple) else out.to(dev)
+
+
+def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz, subset=None) -> dict:
     """One kernel against its twin on the same inputs: exact after
     canonicalization (as points: by cross-multiplication); raises on any
-    difference. Returns {max_abs_err, ms, plain_ms, bound_ms, bound_by}."""
+    difference. With ``subset`` (subtasks, lanes: chain_subset) the kernel
+    runs the whole launch and its twin only those chains (CHAIN_ARGS: the
+    chains share no state in these kernels), on the CPU, and the kernel's
+    outputs there are compared; plain_ms is then the twin's time on them.
+    A twin of at most CPU_TWIN_ELEMS input elements runs on copies of its
+    inputs on the CPU too (plain_ms then the CPU's time; the label says
+    "twin on the CPU"). Returns {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by}."""
     wrapper, plain = kern[name]
     got, ms = _kernel_ms(lambda: wrapper(*args), reps)
-    want, plain_ms = _timed(lambda: plain(*args))
+    twin_args = args
+    if subset is not None:
+        twin_args, got = _chains(name, args, got, subset)
+        (g0, g1), r = subset[0], subset[1]
+        label = (f"{label} (twin on subtasks {g0},{g1} x lanes {r[0]}-{r[len(r) // 2 - 1]},"
+                 f"{r[len(r) // 2]}-{r[-1]})")
+    dev = args[1].device
+    if subset is not None or sum(a.numel() for a in twin_args if isinstance(a, torch.Tensor)) <= CPU_TWIN_ELEMS:
+        twin_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in twin_args]
+        label = f"{label} (twin on the CPU)"
+    want, plain_ms = _timed(lambda: plain(*twin_args))
+    want = _to(dev, want)
     (gf, gi), (wf, wi) = _field_outputs(name, got, L), _field_outputs(name, want, L)
     err = max([_compare(f, gf, wf, as_points) if gf else 0]
               + [int((a.long() - b.long()).abs().max()) for a, b in zip(gi, wi)])
@@ -1066,18 +1151,27 @@ def _mangled(kernel: str) -> str:
     return f"{len(name)}{name}" + (f"ILi{arg.rstrip('>')}EE" if arg else "")
 
 
-def _ptxas(log: str, kernel: str) -> dict:
-    """ptxas's report of the kernel whose mangled name holds ``kernel``
-    (_mangled): registers, stack frame and spill bytes."""
+def _of_field(mangled: str, kernel: str, field: str) -> bool:
+    """Whether a mangled name is ``kernel``'s (_mangled) instance for the
+    traits type ``field`` of csrc/fields.cuh; a kernel that is no template
+    over the field is BN254's."""
+    if _mangled(kernel) not in mangled:
+        return False
+    return field in mangled if re.search(r"\dFp[A-Z]", mangled) else field == "FpBn254"
+
+
+def _ptxas(log: str, kernel: str, field: str = "FpBn254") -> dict:
+    """ptxas's report of ``kernel``'s instance for ``field`` (_of_field):
+    registers, stack frame and spill bytes."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and _mangled(kernel) in line:
+        if "Compiling entry function" in line and _of_field(line, kernel, field):
             text = " ".join(lines[i + 1:i + 4])
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", text)
             regs = re.search(r"Used (\d+) registers", text)
             return {"registers": int(regs.group(1)), "frame": int(frame.group(1)),
                     "spill_stores": int(frame.group(2)), "spill_loads": int(frame.group(3))}
-    raise RuntimeError(f"no ptxas report for {kernel}")
+    raise RuntimeError(f"no ptxas report for {kernel}<{field}>")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1104,25 +1198,26 @@ def _prefetch_sass(objs) -> None:
         list(pool.map(_sass_functions, objs))
 
 
-def _sass_calls(obj, kernel: str) -> tuple[int, int]:
+def _sass_calls(obj, kernel: str, field: str = "FpBn254") -> tuple[int, int]:
     """(instructions, CALL instructions) of a kernel's SASS in an object
-    file (_sass_functions)."""
-    found = [v for k, v in _sass_functions(obj).items() if _mangled(kernel) in k]
+    file (_sass_functions), its instance for ``field`` (_of_field)."""
+    found = [v for k, v in _sass_functions(obj).items() if _of_field(k, kernel, field)]
     if not found:
-        raise RuntimeError(f"no SASS for {kernel} in {obj}")
+        raise RuntimeError(f"no SASS for {kernel}<{field}> in {obj}")
     return found[0]
 
 
 def report_word_core_builds(so) -> None:
-    """One line per word-core pair kernel (both modes of the suffix
-    products, the forward products and the backward emission), the Fermat
-    kernel, each layout of the scaled convert and the blocked reduction's
-    phase 1: its ptxas registers, frame and spills and its SASS size;
-    raises when the SASS holds an out-of-line call."""
+    """One line per kernel that runs BN254 alone (both modes of the forward
+    products and the backward emission, each layout of the scaled convert,
+    the blocked reduction's phase 1): its ptxas registers, frame and spills
+    and its SASS size; raises when the SASS holds an out-of-line call. The
+    kernels generic over the field are reported per curve
+    (report_plain_builds)."""
     log = (so.parent / "build.log").read_text()
-    kernels = [(k, "compress.o") for k in ("k_pair_suffix", "k_pair_suffix_glv", "k_pair_forward",
-                                           "k_pair_forward_glv", "k_pair_backward", "k_pair_backward_glv")]
-    kernels += [("k_mont_pow", "inv.o")] + [(f"k_convert_scaled<{i}>", "convert.o") for i in range(3)]
+    kernels = [(k, "compress.o") for k in ("k_pair_forward", "k_pair_forward_glv", "k_pair_backward",
+                                           "k_pair_backward_glv")]
+    kernels += [(f"k_convert_scaled<{i}>", "convert.o") for i in range(3)]
     kernels += [("k_bpr_phase1", "bpr.o")]
     _prefetch_sass(so.parent / obj for _kernel, obj in kernels)
     for kernel, obj in kernels:
@@ -1335,9 +1430,10 @@ def folded_oracle(base, ks):
     return best_msm(base, [k % BN254.order for k in folded])
 
 
-def msm_path(path: str, n: int, device="cuda"):
-    """(config, run) of an MSM path: run(points, scalars) -> affine (x, y)
-    or None, through the entry point a user calls."""
+def msm_path(path: str, n: int, device="cuda", curve=None):
+    """(config, run) of an MSM path on ``curve`` (a params.CurveSpec; BN254
+    by default): run(points, scalars) -> affine (x, y) or None, through the
+    entry point a user calls."""
     import msm_tpu_torch
     from msm_tpu_torch.models import common
     from msm_tpu_torch.models.naive import NAIVE_CONFIG, compute_msm_naive
@@ -1346,9 +1442,10 @@ def msm_path(path: str, n: int, device="cuda"):
     if path == "naive":
         return NAIVE_CONFIG, lambda pts, ks: common.result_to_affine(
             compute_msm_naive(pts, ks, device=device), NAIVE_CONFIG)
-    cfg = {"plain": pick_config(n), "compressed": MsmConfig(curve=BN254, compress=True),
-           "glv": dataclasses.replace(pick_config(n), glv=True),
-           "glv_compressed": MsmConfig(curve=BN254, compress=True, glv=True)}[path]
+    curve = curve or BN254
+    cfg = {"plain": pick_config(n, curve), "compressed": MsmConfig(curve=curve, compress=True),
+           "glv": dataclasses.replace(pick_config(n, curve), glv=True),
+           "glv_compressed": MsmConfig(curve=curve, compress=True, glv=True)}[path]
     return cfg, lambda pts, ks: msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
 
 
@@ -2283,17 +2380,42 @@ CURVE_KERNELS = ("point_add", "convert_pack", "scan_rows", "row_offsets", "point
 #: the curves also run at 2^20 through a plan's words call (the others at
 #: 2^16 only); each curve's kernels are held at its largest MSM's shapes
 CURVES_AT_2E20 = ("bls12_381", "pallas", "secp256k1")
-#: a curve's MSM runs the plain path's kernels; its plan calls all but the convert
+#: the configs each curve also runs besides the plain path (PR 15), through
+#: msm_path's configs
+CURVE_CONFIGS = ("compressed", "glv", "glv_compressed")
+#: the generic kernels that only these configs run, each with the config
+#: whose 2^16 run_gpu_msm gives its launches in the kernel table
+CONFIG_KERNELS = {"mont_pow": "compressed", "pair_suffix": "compressed", "emit_scan": "compressed",
+                  "convert_pack_glv": "glv", "scan_rows_glv": "glv", "pair_suffix_glv": "glv_compressed",
+                  "emit_scan_glv": "glv_compressed"}
+#: the curves whose three configs also run at 2^20 (a plan's words call)
+CONFIGS_AT_2E20 = ("bls12_381",)
+#: a curve's MSM runs its config's kernels (a compressed path K9, K12 and
+#: K13, a GLV path only the *_glv modes), its plan calls all but the convert
 for _c in CURVE_NAMES:
-    PATHS[f"curve_{_c}"], EXCLUDED[f"curve_{_c}"] = PATHS["plain"], EXCLUDED["plain"]
-    PATHS[f"plan_curve_{_c}"], EXCLUDED[f"plan_curve_{_c}"] = PATHS["plan_plain"], EXCLUDED["plan_plain"]
-#: each plain kernel's object files: BN254's instance in the kernel's own
-#: translation unit, every other curve's in csrc/curve_<name>.cu
-PLAIN_OBJECTS = {"point_add": "point_add.o", "convert_pack": "convert.o", "scan_rows": "scan.o",
-                 "row_offsets": "prefix.o", "point_total": "point_total.o", "horner": "horner.o"}
-PLAIN_TRACE = {"point_add": ("k_point_add", "k_point_add_lanes"), "convert_pack": ("k_convert",),
-               "scan_rows": ("k_scan",), "row_offsets": TRACE_KERNELS["row_offsets"],
-               "point_total": TRACE_KERNELS["point_total"], "horner": ("k_horner",)}
+    for _p in ("plain",) + CURVE_CONFIGS:
+        _tag = f"curve_{_c}" + ("" if _p == "plain" else f"_{_p}")
+        PATHS[_tag], EXCLUDED[_tag] = PATHS[_p], EXCLUDED[_p]
+        PATHS[f"plan_{_tag}"], EXCLUDED[f"plan_{_tag}"] = PATHS[f"plan_{_p}"], EXCLUDED[f"plan_{_p}"]
+#: the kernels generic over the field, by wrapper: (their kernels, BN254's
+#: object file, the suffix of each other curve's translation unit): the
+#: plain kernels and the GLV modes of the convert and the scan in
+#: csrc/curve_<name>.cu, the compressed path's in csrc/curve_<name>_pairs.cu
+CURVE_INSTANCES = {
+    "point_add": (("k_point_add", "k_point_add_lanes"), "point_add.o", ""),
+    "convert_pack": (("k_convert",), "convert.o", ""),
+    "scan_rows": (("k_scan",), "scan.o", ""),
+    "row_offsets": (TRACE_KERNELS["row_offsets"], "prefix.o", ""),
+    "point_total": (TRACE_KERNELS["point_total"], "point_total.o", ""),
+    "horner": (("k_horner",), "horner.o", ""),
+    "convert_pack_glv": (("k_convert_glv",), "convert.o", ""),
+    "scan_rows_glv": (("k_scan_glv",), "scan.o", ""),
+    "mont_pow": (("k_mont_pow",), "inv.o", "_pairs"),
+    "pair_suffix": (("k_pair_suffix",), "compress.o", "_pairs"),
+    "pair_suffix_glv": (("k_pair_suffix_glv",), "compress.o", "_pairs"),
+    "emit_scan": (("k_emit_scan",), "compress.o", "_pairs"),
+    "emit_scan_glv": (("k_emit_scan_glv",), "compress.o", "_pairs"),
+}
 
 
 def _curve_spec(name: str):
@@ -2309,32 +2431,24 @@ def _field_of(name: str) -> str:
 
 
 def report_plain_builds(so) -> dict:
-    """One line per plain kernel and curve: ptxas registers, frame and
-    spills and the SASS size; raises when a kernel makes an out-of-line
-    call (the word core inlines every formula, the row offsets' included).
-    Returns {(curve, kernel): ptxas report} for the kernel table."""
-    lines = (so.parent / "build.log").read_text().splitlines()
+    """One line per generic kernel and curve (CURVE_INSTANCES: the plain
+    path's kernels, the GLV modes of the convert and the scan, and the
+    compressed path's kernels 9, 12 and 13 in both modes): ptxas registers,
+    frame and spills and the SASS size; raises when a kernel makes an
+    out-of-line call (the word core inlines every formula, the row offsets'
+    included). Returns {(curve, kernel): ptxas report} for the kernel
+    table."""
+    log = (so.parent / "build.log").read_text()
     reports = {}
-    _prefetch_sass([so.parent / o for o in PLAIN_OBJECTS.values()]
-                   + [so.parent / f"curve_{curve}.o" for curve in CURVE_NAMES])
+    _prefetch_sass([so.parent / obj for _kernels, obj, _unit in CURVE_INSTANCES.values()]
+                   + [so.parent / f"curve_{curve}{unit}.o" for curve in CURVE_NAMES for unit in ("", "_pairs")])
     for curve in ("bn254",) + CURVE_NAMES:
         field = _field_of(curve)
-        for wrapper, kernels in PLAIN_TRACE.items():
-            sass = _sass_functions(so.parent / (PLAIN_OBJECTS[wrapper] if curve == "bn254" else f"curve_{curve}.o"))
+        for wrapper, (kernels, obj, unit) in CURVE_INSTANCES.items():
+            path = so.parent / (obj if curve == "bn254" else f"curve_{curve}{unit}.o")
             for kernel in kernels:
-                rep = None
-                for i, line in enumerate(lines):
-                    if "Compiling entry function" in line and _mangled(kernel) in line and field in line:
-                        text = " ".join(lines[i + 1:i + 4])
-                        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                                          r"(\d+) bytes spill loads", text)
-                        regs = re.search(r"Used (\d+) registers", text)
-                        rep = {"registers": int(regs.group(1)), "frame": int(frame.group(1)),
-                               "spill_stores": int(frame.group(2)), "spill_loads": int(frame.group(3))}
-                        break
-                if rep is None:
-                    raise RuntimeError(f"no ptxas report for {kernel}<{field}>")
-                n, calls = next(v for k, v in sass.items() if _mangled(kernel) in k and field in k)
+                rep = _ptxas(log, kernel, field)
+                n, calls = _sass_calls(path, kernel, field)
                 reports[(curve, kernel)] = rep
                 print(f"ptxas {curve} {kernel}: registers={rep['registers']} frame={rep['frame']} B "
                       f"spill_stores={rep['spill_stores']} B spill_loads={rep['spill_loads']} B; "
@@ -2409,6 +2523,84 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
             for name, (args, as_points, reps) in cases.items()}
 
 
+def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev) -> dict:
+    """The seven instances the compressed and GLV configs add for one curve
+    (CONFIG_KERNELS: the Fermat inversion, the suffix products and the
+    emission + scan, the last two in both modes, and the GLV modes of the
+    convert and the scan) against their twins on the card, on a random
+    stream of the curve's own: at a small shape (chunk 8; the pair kernels
+    G2 C8 R64) when ``logn`` is None, else at the shapes the curve's 2^logn
+    MSMs on the three configs give them (msm_path's configs, models/
+    geometry.py's rule: the compressed launch's G x C x R and its G x R
+    Fermat lanes, the GLV compressed launch's, the GLV scan's). The pair
+    kernels run over a table of 64 real points of the curve (the GLV modes
+    over 32 points and their phi images) with planted doubling, infinity
+    and, under GLV, equal-x-across-halves pairs (_pair_stream,
+    _glv_pair_stream); the Fermat lanes with one, p - 1, zero and a negated
+    value planted; the convert on coordinates below p and anywhere below
+    2^(32 D); the GLV scan on a random canonical table. At the MSM shapes
+    the kernels run the whole launch and the twins of the scan, the Fermat
+    inversion and the pair kernels 256 of its chains, the first and last 64
+    lanes of its first and last subtask (chains share no state there;
+    chain_subset), on the CPU, and the kernels' outputs there are compared
+    exactly. Returns {kernel: result} as _check_case gives it."""
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import MsmConfig
+
+    spec = _curve_spec(curve)
+    small = logn is None
+    n = 2048 if small else 1 << logn
+    rng = np.random.default_rng(SEED + 200 + CURVE_NAMES.index(curve) + (0 if small else 10))
+    cv = Curve(spec)
+    aff = [cv.to_affine(p) for p in cv.sample_points(64, seed=SEED)]
+    base_cfg = MsmConfig(curve=spec)
+    f, L = get_field_ctx(base_cfg), base_cfg.num_words
+    base = torch.stack([torch.from_numpy(_mont(v, base_cfg)) for v in zip(*aff)]).to(dev)
+    table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
+    glv_table = _glv_table(aff[:32], base_cfg).to(dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def config(path):
+        if small:
+            return MsmConfig(curve=spec, chunk_size=8, compress=path != "glv", glv=path != "compressed")
+        return msm_path(path, n, "cuda", spec)[0]
+
+    label = f"{curve} {'small' if small else f'2^{logn}'}"
+    out = {}
+
+    def check(name, args, reps, shape=""):
+        sub = None if small else chain_subset(name, args)
+        out[name] = _check_case(kern, f, L, name, f"{label}{shape}", args, False, reps, clock_hz, subset=sub)
+
+    cc, gc, gcc = config("compressed"), config("glv"), config("glv_compressed")
+    G, C, R = (2, 8, 64) if small else _compressed_shape(n, cc)
+    check("mont_pow", [cc, t(_pow_lanes(rng, G, R, cc)), spec.modulus - 2], 3, f" {G} x {R} lanes")
+    pair_in = [cc, table, *map(t, _pair_stream(rng, G, C, R, table.shape[0]))]
+    check("pair_suffix", pair_in, 3, f" G{G} C{C} R{R}")
+    check("emit_scan", _emit_scan_args(kern, pair_in), 3, f" G{G} C{C} R{R}")
+    G, C, R = (2, 8, 64) if small else _compressed_shape(n, gcc)
+    glv_in = [gcc, glv_table, *map(t, _glv_pair_stream(rng, G, C, R, glv_table.shape[0]))]
+    check("pair_suffix_glv", glv_in, 3, f" G{G} C{C} R{R}")
+    check("emit_scan_glv", _emit_scan_args(kern, glv_in), 3, f" G{G} C{C} R{R}")
+    wu = coord_u16(gc)
+    words = [np.concatenate([w, a]) for w, a in zip(_coord_words(rng, n, spec.modulus, wu),
+                                                     _coord_words(rng, n // 8, None, wu))]
+    out["convert_pack_glv"] = _check_case(kern, f, L, "convert_pack_glv", label, [gc, *map(t, words)], False, 5,
+                                          clock_hz)
+    if small:
+        G, R = 2, 512
+    else:
+        geo = pick_geometry(n, gc)
+        G, R = min(geo.subtask_batch, gc.num_subtasks), geo.num_rows
+    check("scan_rows_glv", [gc, *_glv_scan_inputs(rng, n, G, R, gc, dev)], 3, f" G{G} C{2 * n // R} R{R}")
+    return out
+
+
 def sample_curve_msm(curve: str, n: int, seed: int, base=None):
     """(bases, points, scalar words [n, 16]) of a curve's MSM: 1024 random
     points (``base`` when given) tiled to n, uniform scalars below the
@@ -2426,72 +2618,90 @@ def sample_curve_msm(curve: str, n: int, seed: int, base=None):
 
 
 def run_curve_msms(device="cuda") -> dict:
-    """Each of the six curves on the plain path through the entry points a
-    user calls: at 2^16 run_gpu_msm (ints) and a plan's words call, with
-    the counters reset just before each, the path's kernels required after;
-    at 2^20 (CURVES_AT_2E20) a plan's words call, its wall median of 5. All
-    bit-exact against the folded oracle (the pure-Python one: the native
-    oracle is BN254's). One line per run: wall, stages, device busy time,
-    idle share and peak memory. Returns {curve: launch counts of its 2^16
-    run_gpu_msm}."""
-    import msm_tpu_torch
+    """Each of the six curves on the four configs (the plain one and
+    CURVE_CONFIGS) through the entry points a user calls, one curve's
+    inputs and folded oracle shared by its configs (run_curve_config): at
+    2^16 every config, at 2^20 the plain one for CURVES_AT_2E20 and every
+    config for CONFIGS_AT_2E20. Returns {(curve, config): launch counts of
+    its 2^16 run_gpu_msm}."""
     from msm_tpu_torch import bench
-    from msm_tpu_torch.models import common
-    from msm_tpu_torch.ops._build import BUILD_ROOT
-    from msm_tpu_torch.oracle.pyecc import Curve
-    from msm_tpu_torch.params import pick_config
 
     counts = {}
     for curve in CURVE_NAMES:
         spec = _curve_spec(curve)
-        cv = Curve(spec)
         base = None
         for logn in (16, 20) if curve in CURVES_AT_2E20 else (16,):
-            n = 1 << logn
-            cfg = pick_config(n, spec)
-            tag = f"curve {curve} 2^{logn} (c={cfg.chunk_size} S={cfg.num_subtasks} L={cfg.num_words})"
             t0 = time.perf_counter()
-            base, pts, words = sample_curve_msm(curve, n, SEED + 60 + logn, base)
+            base, pts, words = sample_curve_msm(curve, 1 << logn, SEED + 60 + logn, base)
             want = bench.folded_oracle(base, words, spec)
             ks = [int.from_bytes(w.tobytes(), "little") for w in words] if logn == 16 else None
-            print(f"{tag}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
-            if ks is not None:
-                _reset_counts()
-                got = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
-                torch.cuda.synchronize()
-                counts[curve] = _counts_of(f"{tag} run_gpu_msm", f"curve_{curve}")
-                if got != cv.to_affine(want):
-                    raise AssertionError(f"{tag}: run_gpu_msm differs from the oracle: {got}")
-                torch.cuda.reset_peak_memory_stats()
-                med, runs = _median_ms(lambda: msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device), 3)
-                st = stage_times(pts, ks, cfg, "plain", device)
-                print(f"{tag} run_gpu_msm: bit-exact; wall_ms median of 3 = {med:.2f} (runs "
-                      f"{', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib="
-                      f"{torch.cuda.max_memory_allocated() / 2**30:.3f}; stages_ms "
-                      + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
-            t0 = time.perf_counter()
-            plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-            _reset_counts()
-            if not cv.eq(plan.jpoint(words), want):
-                raise AssertionError(f"{tag}: the plan's words call differs from the oracle")
-            _counts_of(f"{tag} plan words call", f"plan_curve_{curve}")
-            torch.cuda.reset_peak_memory_stats()
-            med, runs = _median_ms(lambda: plan.jpoint(words), 5)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            st = plan_stage_times(plan, words)
-            wall_ms, busy_ms, by_name = device_breakdown(
-                lambda _pts, w: plan.jpoint(w), None, words, BUILD_ROOT / f"trace_{curve}_2e{logn}.json")
-            print(f"{tag} plan words call: bit-exact; build {build_s:.2f} s; wall_ms median of 5 = {med:.2f} "
-                  f"(runs {', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib={peak:.3f}; stages_ms "
-                  + ", ".join(f"{k}={v:.2f}" for k, v in st.items()), flush=True)
-            print(f"{tag} plan words call profiled: wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
-                  f"kernel_ms={busy_ms - by_name.get('memcpy', 0.0):.2f} idle_share={1 - busy_ms / wall_ms:.3f}; "
-                  "device_ms " + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
-                  flush=True)
-            del plan
-            torch.cuda.empty_cache()
+            print(f"curve {curve} 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
+            configs = CURVE_CONFIGS if logn == 16 or curve in CONFIGS_AT_2E20 else ()
+            for path in ("plain",) + configs:
+                c = run_curve_config(curve, path, logn, pts, ks, words, want, device)
+                if c is not None:
+                    counts[(curve, path)] = c
+    return counts
+
+
+def run_curve_config(curve: str, path: str, logn: int, pts, ks, words, want, device="cuda") -> dict | None:
+    """One curve's MSM on one config (msm_path's) on the inputs and folded
+    oracle of run_curve_msms (the pure-Python one: the native oracle is
+    BN254's): run_gpu_msm on the ints (when ``ks`` is given, the 2^16 runs)
+    and a plan's words call, each with the counters reset just before and
+    its path's kernels required just after (paths curve_<name>[_<config>],
+    plan_curve_<name>[_<config>]), both bit-exact. One line per run: the
+    wall median (run_gpu_msm of 3, words call of 5), stages and peak
+    memory, and a profiled words call's device busy time, kernel ms and
+    idle share. Returns the run_gpu_msm's launch counts (None without
+    ``ks``)."""
+    import msm_tpu_torch
+    from msm_tpu_torch.ops._build import BUILD_ROOT
+    from msm_tpu_torch.oracle.pyecc import Curve
+
+    spec = _curve_spec(curve)
+    cv = Curve(spec)
+    cfg, run = msm_path(path, 1 << logn, device, spec)
+    name = f"curve_{curve}" + ("" if path == "plain" else f"_{path}")
+    tag = f"curve {curve} 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks} L={cfg.num_words})"
+    counts = None
+    if ks is not None:
+        _reset_counts()
+        got = run(pts, ks)
+        torch.cuda.synchronize()
+        counts = _counts_of(f"{tag} run_gpu_msm", name)
+        if got != cv.to_affine(want):
+            raise AssertionError(f"{tag}: run_gpu_msm differs from the oracle: {got}")
+        torch.cuda.reset_peak_memory_stats()
+        med, runs = _median_ms(lambda: run(pts, ks), 3)
+        st = stage_times(pts, ks, cfg, path, device)
+        print(f"{tag} run_gpu_msm: bit-exact; wall_ms median of 3 = {med:.2f} (runs "
+              f"{', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f}; stages_ms "
+              + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
+    t0 = time.perf_counter()
+    plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _reset_counts()
+    if not cv.eq(plan.jpoint(words), want):
+        raise AssertionError(f"{tag}: the plan's words call differs from the oracle")
+    _counts_of(f"{tag} plan words call", f"plan_{name}")
+    torch.cuda.reset_peak_memory_stats()
+    med, runs = _median_ms(lambda: plan.jpoint(words), 5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = plan_stage_times(plan, words)
+    wall_ms, busy_ms, by_name = device_breakdown(
+        lambda _pts, w: plan.jpoint(w), None, words, BUILD_ROOT / f"trace_{name}_2e{logn}.json")
+    print(f"{tag} plan words call: bit-exact; build {build_s:.2f} s; wall_ms median of 5 = {med:.2f} "
+          f"(runs {', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib={peak:.3f}; stages_ms "
+          + ", ".join(f"{k}={v:.2f}" for k, v in st.items()), flush=True)
+    print(f"{tag} plan words call profiled: wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
+          f"kernel_ms={busy_ms - by_name.get('memcpy', 0.0):.2f} idle_share={1 - busy_ms / wall_ms:.3f}; "
+          "device_ms " + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    del plan
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2515,14 +2725,18 @@ def run_curve_entry_checks() -> None:
 
 
 def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
-    """The curves phase: the plain kernels' builds for every curve
-    (report_plain_builds), each curve's six kernel instances against their
-    twins at the small shapes and at the shapes of the curve's largest MSM
-    below (2^20 for CURVES_AT_2E20, else 2^16), then the curves' MSMs
-    (run_curve_msms) and the command line and bench on them
-    (run_curve_entry_checks). Returns the kernel table's rows for the
-    instances, each with its launches in its curve's 2^16 run_gpu_msm and
-    the times at its largest MSM's shapes."""
+    """The curves phase: the generic kernels' builds for every curve
+    (report_plain_builds), each curve's six plain kernel instances against
+    their twins at the small shapes and at the shapes of the curve's
+    largest plain MSM below (2^20 for CURVES_AT_2E20, else 2^16), its seven
+    instances of the compressed and GLV configs at the small shapes and at
+    the shapes of its largest MSMs on those configs (2^20 for
+    CONFIGS_AT_2E20, else 2^16: check_curve_config_kernels), then the
+    curves' MSMs on the four configs (run_curve_msms) and the command line
+    and bench on them (run_curve_entry_checks). Returns the kernel table's
+    rows for the instances, each with its launches in its curve's 2^16
+    run_gpu_msm on the config that runs it and the times at its largest
+    MSM's shapes."""
     t0 = t_all = time.perf_counter()
 
     def step(name):
@@ -2539,17 +2753,23 @@ def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
         for logn in (None, 20 if curve in CURVES_AT_2E20 else 16):
             checks[curve] = check_curve_kernels(kern, curve, logn, clock_hz, dev)
     step("kernels")
+    for curve in CURVE_NAMES:
+        for logn in (None, 20 if curve in CONFIGS_AT_2E20 else 16):
+            checks[curve].update(check_curve_config_kernels(kern, curve, logn, clock_hz, dev))
+    step("config kernels")
     counts = run_curve_msms(device)
     step("msms")
     run_curve_entry_checks()
     step("cli and bench")
     rows = []
     for curve in CURVE_NAMES:
-        for name in CURVE_KERNELS:
+        for name in CURVE_KERNELS + tuple(CONFIG_KERNELS):
             c = checks[curve][name]
+            path = CONFIG_KERNELS.get(name, "plain")
+            unit = CURVE_INSTANCES[name][2]
             rows.append({
-                "name": f"{name}[{curve}]", "route": "cuda", "source": f"msm_tpu_torch/csrc/curve_{curve}.cu",
-                "replaces": f"{REPLACES[name][1]} ({curve})", "launches": counts[curve][name],
+                "name": f"{name}[{curve}]", "route": "cuda", "source": f"msm_tpu_torch/csrc/curve_{curve}{unit}.cu",
+                "replaces": f"{REPLACES[name][1]} ({curve})", "launches": counts[(curve, path)][name],
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
             })
@@ -2579,6 +2799,7 @@ def main() -> int:
     so = _build.build()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so}", flush=True)
+    print(f"compile seconds by translation unit: {(so.parent / 'compile_seconds.json').read_text()}", flush=True)
     for line in (so.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())

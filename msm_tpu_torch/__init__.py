@@ -29,13 +29,13 @@ The package imports nothing of ``msm_tpu``. Every public entry takes an
 explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
 plain twins for any curve. On CUDA the kernels cover the seven curves of
 ``CURVES`` with 13-bit limbs on the plain path (``MsmConfig(curve=...)``,
-``pick_config(n, curve)``), and BN254 also pair-compressed (``compress=True``,
-as ``msm_tpu msm --compress`` runs it), each with or without the GLV split
+``pick_config(n, curve)``) and pair-compressed (``compress=True``, as
+``msm_tpu msm --compress`` runs it), each with or without the GLV split
 (``glv=True``, ``msm_tpu msm --glv``). ``karatsuba=True`` runs where the
-JAX package builds it. Other limb widths, compression or GLV on the other
-six curves, and the naive model on them raise ``NotImplementedError`` on
-CUDA before any launch, as does the naive model under GLV (on every
-device).
+JAX package builds it. Other limb widths, the naive model and
+``compress_pairs`` on the six curves besides BN254 raise
+``NotImplementedError`` on CUDA before any launch, as does the naive model
+under GLV (on every device).
 """
 
 from __future__ import annotations

@@ -299,7 +299,7 @@ def bench_batched(args, dev) -> None:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m msm_tpu_torch.bench", description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=20, help="log2 MSM size")
-    ap.add_argument("--curve", default="bn254", help=f"one of {', '.join(CURVES)} (CUDA: all plain; --glv, --compress bn254)")
+    ap.add_argument("--curve", default="bn254", help=f"one of {', '.join(CURVES)} (CUDA: all, with --glv and --compress)")
     ap.add_argument("--seed", type=int, default=0, help="the inputs' seed")
     ap.add_argument("--chunk", type=int, default=0, help="window size (0: the config's)")
     ap.add_argument("--glv", action="store_true", help="GLV endomorphism config")

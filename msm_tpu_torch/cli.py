@@ -99,7 +99,7 @@ def parser() -> argparse.ArgumentParser:
         p = sub.add_parser(name)
         p.add_argument("--size", type=int, default=16, help="log2 input size")
         p.add_argument("--curve", default="bn254",
-                       help="any of params.CURVES (CUDA: all seven plain; compress and glv bn254 only)")
+                       help="any of params.CURVES (CUDA: all seven, plain, compress and glv)")
         p.add_argument("--seed", type=int, default=0)
         if name != "cpu":
             p.add_argument("--glv", action="store_true", help="GLV endomorphism config (a=0 curves)")

@@ -2,7 +2,14 @@
 // kernels, one thread per (subtask, lane) chain, all on the word core: the
 // shared pair algebra and the per-lane bodies of the forward products, the
 // backward emission and the suffix products in pair32.cuh, the fused
-// emission + scan in emit_scan.cuh.
+// emission + scan in emit_scan.cuh. The suffix products and the emission +
+// scan (the compressed MSM's kernels 12 and 13) are generic over the field:
+// their kernels and launches are in pairs.cuh (PairSuffixLaunch<F>,
+// EmitScanLaunch<F>), BN254's instantiated here and each other curve's in
+// csrc/curve_<name>_pairs.cu, and msm_pair_suffix(_glv) and
+// msm_emit_scan(_glv) dispatch on the curve. The forward products and the
+// backward emission (kernels 10 and 11, compress_pairs only) are BN254's
+// kernels of the same generic bodies.
 //
 // Replaces, in msm_tpu/ops/pallas_compress.py: make_pair_suffix (pallas_call
 // at :427), make_emit_scan (:561), make_pair_forward (:205) and
@@ -24,9 +31,10 @@
 // chain's steps are serial, so a launch fills the card only with enough
 // chains: the compressed geometry (models/geometry.py) gives G x R = 16 x
 // 2048 chains per launch at 2^20 (the TPU's rule gave 4 x 1024).
-// Every kernel runs 128 threads a block with __launch_bounds__(128, 4), as
-// the scan kernel (csrc/scan.cu): the word core inlined, the chain values
-// in registers. With few chains (4 x 1024 at the TPU rule's shape, 32
+// Every kernel runs 128 threads a block with __launch_bounds__(128,
+// F::BLOCKS_PER_SM) (4 at 8 words, 2 at the BLS12 curves' 12), as the scan
+// kernel (csrc/scan.cu): the word core inlined, the chain values in
+// registers. With few chains (4 x 1024 at the TPU rule's shape, 32
 // blocks) each block's four warps sit on the four schedulers of one SM,
 // which gives a chain the issue rate a warp alone on an SM would.
 //   - k_emit_scan (emit_scan.cuh): the accumulator and the inverse chain
@@ -51,71 +59,67 @@
 //     needs both y), m_{j-1} read as canonical limbs, then the products.
 #include <cuda_runtime.h>
 
-#include "emit_scan.cuh"
+#include "pairs.cuh"
 
 using namespace msm;
 
-constexpr int THREADS = 128;
+MSM_EXTERN_OTHER_FIELDS(PairSuffixLaunch)
+MSM_EXTERN_OTHER_FIELDS(EmitScanLaunch)
 
-// Thread (blockIdx.y, r) walks the chain of subtask blockIdx.y, lane r.
-__device__ __forceinline__ int lane() {
-  return blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int THREADS = PAIR_THREADS;
+
+// packed [N, 2D] 16-byte aligned, D the curve's words per coordinate;
+// perm, flags [G, 2 Cp, R]; s [G, Cp, L, R]
+extern "C" int msm_pair_suffix(const int32_t* packed, const int32_t* perm,
+                               const int32_t* flags, int32_t* s,
+                               int64_t groups, int Cp, int R, int curve,
+                               void* stream) {
+  MSM_FIELD_SWITCH(curve, PairSuffixLaunch, (packed, perm, flags, s, groups,
+                                             Cp, R, 2, (cudaStream_t)stream))
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
-    k_pair_suffix(const int32_t* __restrict__ packed,
-                  const int32_t* __restrict__ perm,
-                  const int32_t* __restrict__ flags, int32_t* __restrict__ s,
-                  int Cp, int R) {
-  const int r = lane();
-  if (r < R)
-    pair_chain32_lane<2, false>(packed, perm, flags, s, blockIdx.y, Cp, R, r);
+// ... s [G, Cp, L, R] canonical; t0 [G, L, R]; pe3 [G, Cp, R, P] (P the
+// curve's pe3 row: 3L limbs padded to a multiple of 4, scan.cuh pe3_row);
+// t* [G, L, R]; packed and pe3 16-byte aligned
+extern "C" int msm_emit_scan(const int32_t* packed, const int32_t* perm,
+                             const int32_t* flags, const int32_t* s,
+                             const int32_t* t0, int32_t* pe3, int32_t* tx,
+                             int32_t* ty, int32_t* tz, int64_t groups, int Cp,
+                             int R, int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, EmitScanLaunch,
+                   (packed, perm, flags, s, t0, pe3, tx, ty, tz, groups, Cp, R,
+                    2, (cudaStream_t)stream))
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
-    k_emit_scan(const int32_t* __restrict__ packed,
-                const int32_t* __restrict__ perm,
-                const int32_t* __restrict__ flags,
-                const int32_t* __restrict__ s, const int32_t* __restrict__ t0,
-                int32_t* __restrict__ pe3, int32_t* __restrict__ tx,
-                int32_t* __restrict__ ty, int32_t* __restrict__ tz, int Cp,
-                int R) {
-  const int r = lane();
-  if (r < R)
-    emit_scan_lane(packed, perm, flags, s, t0, pe3, tx, ty, tz, blockIdx.y, Cp,
-                   R, r);
+// The GLV modes: packed [N, 3D] (the GLV table); the rest as
+// msm_pair_suffix and msm_emit_scan.
+extern "C" int msm_pair_suffix_glv(const int32_t* packed, const int32_t* perm,
+                                   const int32_t* flags, int32_t* s,
+                                   int64_t groups, int Cp, int R, int curve,
+                                   void* stream) {
+  MSM_FIELD_SWITCH(curve, PairSuffixLaunch, (packed, perm, flags, s, groups,
+                                             Cp, R, 3, (cudaStream_t)stream))
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
-    k_pair_suffix_glv(const int32_t* __restrict__ packed,
-                      const int32_t* __restrict__ perm,
-                      const int32_t* __restrict__ flags,
-                      int32_t* __restrict__ s, int Cp, int R) {
-  const int r = lane();
-  if (r < R)
-    pair_chain32_lane<3, false>(packed, perm, flags, s, blockIdx.y, Cp, R, r);
+extern "C" int msm_emit_scan_glv(const int32_t* packed, const int32_t* perm,
+                                 const int32_t* flags, const int32_t* s,
+                                 const int32_t* t0, int32_t* pe3, int32_t* tx,
+                                 int32_t* ty, int32_t* tz, int64_t groups,
+                                 int Cp, int R, int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, EmitScanLaunch,
+                   (packed, perm, flags, s, t0, pe3, tx, ty, tz, groups, Cp, R,
+                    3, (cudaStream_t)stream))
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
-    k_emit_scan_glv(const int32_t* __restrict__ packed,
-                    const int32_t* __restrict__ perm,
-                    const int32_t* __restrict__ flags,
-                    const int32_t* __restrict__ s,
-                    const int32_t* __restrict__ t0, int32_t* __restrict__ pe3,
-                    int32_t* __restrict__ tx, int32_t* __restrict__ ty,
-                    int32_t* __restrict__ tz, int Cp, int R) {
-  const int r = lane();
-  if (r < R)
-    emit_scan_lane<3>(packed, perm, flags, s, t0, pe3, tx, ty, tz, blockIdx.y,
-                      Cp, R, r);
-}
+// Kernels 10 and 11, BN254's: the forward products and the backward
+// emission (compress_pairs).
 
 __global__ void __launch_bounds__(THREADS, 4)
     k_pair_forward(const int32_t* __restrict__ packed,
                    const int32_t* __restrict__ perm,
                    const int32_t* __restrict__ flags, int32_t* __restrict__ m,
                    int Cp, int R) {
-  const int r = lane();
+  const int r = pair_lane();
   if (r < R)
     pair_chain32_lane<2, true>(packed, perm, flags, m, blockIdx.y, Cp, R, r);
 }
@@ -125,7 +129,7 @@ __global__ void __launch_bounds__(THREADS, 4)
                        const int32_t* __restrict__ perm,
                        const int32_t* __restrict__ flags,
                        int32_t* __restrict__ m, int Cp, int R) {
-  const int r = lane();
+  const int r = pair_lane();
   if (r < R)
     pair_chain32_lane<3, true>(packed, perm, flags, m, blockIdx.y, Cp, R, r);
 }
@@ -138,7 +142,7 @@ __global__ void __launch_bounds__(THREADS, 4)
                     const int32_t* __restrict__ minv,
                     int32_t* __restrict__ cx, int32_t* __restrict__ cy,
                     int32_t* __restrict__ inf, int Cp, int R) {
-  const int r = lane();
+  const int r = pair_lane();
   if (r < R)
     pair_backward32_lane<2>(packed, perm, flags, m, minv, cx, cy, inf,
                              blockIdx.y, Cp, R, r);
@@ -152,64 +156,10 @@ __global__ void __launch_bounds__(THREADS, 4)
                         const int32_t* __restrict__ minv,
                         int32_t* __restrict__ cx, int32_t* __restrict__ cy,
                         int32_t* __restrict__ inf, int Cp, int R) {
-  const int r = lane();
+  const int r = pair_lane();
   if (r < R)
     pair_backward32_lane<3>(packed, perm, flags, m, minv, cx, cy, inf,
                              blockIdx.y, Cp, R, r);
-}
-
-static dim3 lane_grid(int64_t groups, int R) {
-  return dim3((unsigned)((R + THREADS - 1) / THREADS), (unsigned)groups);
-}
-
-// packed [N, 2D] 16-byte aligned; perm, flags [G, 2 Cp, R]; s [G, Cp, L, R]
-extern "C" int msm_pair_suffix(const int32_t* packed, const int32_t* perm,
-                               const int32_t* flags, int32_t* s,
-                               int64_t groups, int Cp, int R, void* stream) {
-  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_suffix<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
-        packed, perm, flags, s, Cp, R);
-  return (int)cudaGetLastError();
-}
-
-// ... s [G, Cp, L, R] canonical; t0 [G, L, R]; pe3 [G, Cp, R, 3L];
-// t* [G, L, R]; packed and pe3 16-byte aligned
-extern "C" int msm_emit_scan(const int32_t* packed, const int32_t* perm,
-                             const int32_t* flags, const int32_t* s,
-                             const int32_t* t0, int32_t* pe3, int32_t* tx,
-                             int32_t* ty, int32_t* tz, int64_t groups, int Cp,
-                             int R, void* stream) {
-  if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_emit_scan<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
-        packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
-  return (int)cudaGetLastError();
-}
-
-// The GLV modes: packed [N, 3D] (the GLV table); the rest as
-// msm_pair_suffix and msm_emit_scan.
-extern "C" int msm_pair_suffix_glv(const int32_t* packed, const int32_t* perm,
-                                   const int32_t* flags, int32_t* s,
-                                   int64_t groups, int Cp, int R,
-                                   void* stream) {
-  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_suffix_glv<<<lane_grid(groups, R), THREADS, 0,
-                        (cudaStream_t)stream>>>(packed, perm, flags, s, Cp, R);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int msm_emit_scan_glv(const int32_t* packed, const int32_t* perm,
-                                 const int32_t* flags, const int32_t* s,
-                                 const int32_t* t0, int32_t* pe3, int32_t* tx,
-                                 int32_t* ty, int32_t* tz, int64_t groups,
-                                 int Cp, int R, void* stream) {
-  if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_emit_scan_glv<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
-        packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
-  return (int)cudaGetLastError();
 }
 
 // ... m [G, Cp, L, R]; packed 16-byte aligned
@@ -218,7 +168,7 @@ extern "C" int msm_pair_forward(const int32_t* packed, const int32_t* perm,
                                 int64_t groups, int Cp, int R, void* stream) {
   if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_forward<<<lane_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
+    k_pair_forward<<<pair_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
         packed, perm, flags, m, Cp, R);
   return (int)cudaGetLastError();
 }
@@ -232,7 +182,7 @@ extern "C" int msm_pair_backward(const int32_t* packed, const int32_t* perm,
                                  void* stream) {
   if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_backward<<<lane_grid(groups, R), THREADS, 0,
+    k_pair_backward<<<pair_grid(groups, R), THREADS, 0,
                       (cudaStream_t)stream>>>(packed, perm, flags, m, minv, cx,
                                               cy, inf, Cp, R);
   return (int)cudaGetLastError();
@@ -246,7 +196,7 @@ extern "C" int msm_pair_forward_glv(const int32_t* packed, const int32_t* perm,
                                     void* stream) {
   if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_forward_glv<<<lane_grid(groups, R), THREADS, 0,
+    k_pair_forward_glv<<<pair_grid(groups, R), THREADS, 0,
                          (cudaStream_t)stream>>>(packed, perm, flags, m, Cp, R);
   return (int)cudaGetLastError();
 }
@@ -259,7 +209,7 @@ extern "C" int msm_pair_backward_glv(const int32_t* packed,
                                      int Cp, int R, void* stream) {
   if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_backward_glv<<<lane_grid(groups, R), THREADS, 0,
+    k_pair_backward_glv<<<pair_grid(groups, R), THREADS, 0,
                           (cudaStream_t)stream>>>(packed, perm, flags, m, minv,
                                                   cx, cy, inf, Cp, R);
   return (int)cudaGetLastError();

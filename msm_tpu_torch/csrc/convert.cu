@@ -3,12 +3,17 @@
 //
 // Replaces: msm_tpu/ops/pallas_convert.py::make_convert_pack (pallas_call
 // at :187), in all its modes: k_convert the plain one, [n, 2D] rows (D = 8
-// words per BN254 coordinate, x words then y words); k_convert_glv the GLV
-// one (dual_x_scale_int = beta R^2, triple=True, :101-145), [n, 3D] rows x,
-// beta x, y; k_convert_scaled<LAYOUT> every mode with its x constants at
-// run time (x_scale_int, dual_x_scale_int; one [n, 2D] table, two, or one
-// [n, 3D]), the first two with their constants compiled in. Bit for bit,
-// since a canonical value has one encoding.
+// words per BN254 coordinate, 12 per BLS12 one, x words then y words);
+// k_convert_glv the GLV one (dual_x_scale_int = beta R^2, triple=True,
+// :101-145), [n, 3D] rows x, beta x, y; k_convert_scaled<LAYOUT> every mode
+// with its x constants at run time (x_scale_int, dual_x_scale_int; one
+// [n, 2D] table, two, or one [n, 3D]), the first two with their constants
+// compiled in (the field's R^2 and beta R^2, fields.cuh). Bit for bit,
+// since a canonical value has one encoding. The plain and GLV kernels are
+// generic over the field (plain.cuh: ConvertLaunch<F>, ConvertGlvLaunch<F>;
+// BN254's instances here, each other curve's in csrc/curve_<name>.cu);
+// msm_convert and msm_convert_glv dispatch on the curve. The scaled kernel
+// is BN254's.
 //
 // Bound: bytes. Each point reads 64 B (two coordinates of 16 u16 words,
 // int16 on the wire) and writes 64 B, against 2 Montgomery products; at
@@ -30,6 +35,7 @@
 using namespace msm;
 
 MSM_EXTERN_OTHER_FIELDS(ConvertLaunch)
+MSM_EXTERN_OTHER_FIELDS(ConvertGlvLaunch)
 
 constexpr int THREADS = CONVERT_THREADS;
 
@@ -40,25 +46,13 @@ extern "C" int msm_convert(const int16_t* xw, const int16_t* yw, int32_t* out,
   MSM_FIELD_SWITCH(curve, ConvertLaunch, (xw, yw, out, n, (cudaStream_t)stream))
 }
 
-__global__ void __launch_bounds__(THREADS)
-    k_convert_glv(const int16_t* __restrict__ xw,
-                  const int16_t* __restrict__ yw, int32_t* __restrict__ out,
-                  int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) convert_point_glv(xw, yw, out, i);
-}
-
-// xw, yw [n, 16] int16 (u16 bits); out [n, 3D] int32; all 16-byte aligned
+// xw, yw [n, 2D] int16 (u16 bits); out [n, 3D] int32 (rows x R, beta x R,
+// y R), D the curve's words per coordinate; all 16-byte aligned
 extern "C" int msm_convert_glv(const int16_t* xw, const int16_t* yw,
-                               int32_t* out, int64_t n, void* stream) {
-  if (((uintptr_t)xw | (uintptr_t)yw | (uintptr_t)out) % 16)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int64_t blocks = (n + THREADS - 1) / THREADS;
-    k_convert_glv<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        xw, yw, out, n);
-  }
-  return (int)cudaGetLastError();
+                               int32_t* out, int64_t n, int curve,
+                               void* stream) {
+  MSM_FIELD_SWITCH(curve, ConvertGlvLaunch,
+                   (xw, yw, out, n, (cudaStream_t)stream))
 }
 
 template <int LAYOUT>

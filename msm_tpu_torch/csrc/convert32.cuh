@@ -7,12 +7,13 @@
 // word core's form. The value may be anything in [0, 2^(32 NW)) (inputs
 // are not validated by default), so it is reduced below p first; one
 // Montgomery product by R^2 mod p then gives a R mod p, canonical -- the
-// packed table's dense words, x then y. The plain mode is generic over the
-// field; the GLV and scaled modes below are BN254's.
+// packed table's dense words, x then y. The plain and GLV modes are generic
+// over the field; the scaled mode below is BN254's.
 //
 // The GLV table (convert_point_glv) has three coordinates a row, x R,
-// beta x R and y R: one more product, by beta R^2 mod p, gives the x of
-// phi(P) = (beta x, y) in Montgomery form from the same reduced x.
+// beta x R and y R: one more product, by beta R^2 mod p (the field's
+// F::beta_r2), gives the x of phi(P) = (beta x, y) in Montgomery form from
+// the same reduced x.
 //
 // convert_point_scaled takes the x constants at run time (the JAX
 // factory's x_scale_int and dual_x_scale_int, canonical words) and writes
@@ -27,7 +28,7 @@ namespace msm {
 // u16 words per input coordinate (2 NW; BN254: 16)
 template <class F>
 constexpr int coord_u16 = 2 * F::NW;
-constexpr int COORD_U16 = coord_u16<FpBn254>;  // the BN254 modes'
+constexpr int COORD_U16 = coord_u16<FpBn254>;  // the scaled mode's (BN254)
 
 // One coordinate's 4 NW bytes (16 B aligned); on the device NW / 4 16-byte
 // loads through the read-only cache.
@@ -80,24 +81,20 @@ MSM_HD void convert_point(const int16_t* xw, const int16_t* yw, int32_t* out,
   convert_store(out + i * 2 * NW + NW, y);
 }
 
-// beta R^2 mod p (BN254; beta the cube root of unity of ops/glv.py's
-// glv_params, R = 2^260): a product by it takes x to beta x R mod p.
-MSM_HD uint32_t beta_r2_word(int i) {
-  const uint32_t t[NW] = {0xc5965f4du, 0x1da07d4au, 0x79524b23u, 0xaa9fd3f7u,
-                          0x717abf22u, 0x928de493u, 0x1de5790cu, 0x18ab8c66u};
-  return t[i];
-}
-
 // Point i under GLV: out[i] = x R || beta x R || y R ([n, 3 NW] dense
-// words, canonical; rows of 96 B, 16 B aligned).
+// words, canonical; rows of 12 NW bytes, 16 B aligned). beta R^2 mod p is
+// the field's compiled-in F::beta_r2 (fields.cuh), so a product by it takes
+// x to beta x R mod p.
+template <class F = FpBn254>
 MSM_HD void convert_point_glv(const int16_t* xw, const int16_t* yw,
                               int32_t* out, int64_t i) {
-  fe32 r2, br2, x, bx, y;
+  constexpr int NW = F::NW;
+  fe32t<F> r2, br2, x, bx, y;
   fe32_const_r2(r2);
   MSM_UNROLL
-  for (int k = 0; k < NW; ++k) br2.w[k] = beta_r2_word(k);
-  convert_load(x, xw + i * COORD_U16);
-  convert_load(y, yw + i * COORD_U16);
+  for (int k = 0; k < NW; ++k) br2.w[k] = F::beta_r2(k);
+  convert_load(x, xw + i * coord_u16<F>);
+  convert_load(y, yw + i * coord_u16<F>);
   fe32_reduce_full(x);
   fe32_reduce_full(y);
   fe32_mul(bx, x, br2);

@@ -1,7 +1,9 @@
-// The plain path's kernels 1, 2, 4, 5, 6 and 7 for secp256k1, in a translation
-// unit of their own (csrc/dispatch.cuh): the C entries in point_add.cu,
-// convert.cu, scan.cu, prefix.cu, point_total.cu and horner.cu call these
-// launches for curve index FpSecp256k1::ID.
+// The plain path's kernels 1, 2, 4, 5, 6 and 7, and the GLV modes of 2 and 4,
+// for secp256k1, in a translation unit of their own (csrc/dispatch.cuh):
+// the C entries in point_add.cu, convert.cu, scan.cu, prefix.cu,
+// point_total.cu and horner.cu call these launches for curve index
+// FpSecp256k1::ID. Its compressed path's kernels are in curve_secp256k1_pairs.cu.
 #include "plain.cuh"
 
 MSM_INSTANTIATE_PLAIN(msm::FpSecp256k1)
+MSM_INSTANTIATE_GLV(msm::FpSecp256k1)

@@ -1,10 +1,14 @@
-// The curve dispatch of the plain path's C entries (kernels 1, 2, 4, 5, 6
-// and 7). Each kernel's launch is a class template over the field,
+// The curve dispatch of the C entries of the kernels generic over the field:
+// the plain path's (kernels 1, 2, 4, 5, 6 and 7), the GLV modes of 2 and 4,
+// and the compressed path's (9, 12 and 13, with the GLV modes of 12 and
+// 13). Each kernel's launch is a class template over the field,
 // LAUNCH<F>::run(...); BN254's is instantiated in the kernel's own
-// translation unit, each other curve's in one of its own (csrc/curve_*.cu,
-// MSM_INSTANTIATE_PLAIN), so the parallel build spreads the seven. A C
-// entry takes the curve's index in params.CURVES (F::ID) and switches on
-// it; an index without an instantiation is cudaErrorInvalidValue.
+// translation unit, each other curve's in two of its own (csrc/curve_*.cu:
+// MSM_INSTANTIATE_PLAIN and MSM_INSTANTIATE_GLV in curve_<name>.cu,
+// MSM_INSTANTIATE_PAIRS in curve_<name>_pairs.cu), so the parallel build
+// spreads them. A C entry takes the curve's index in params.CURVES (F::ID)
+// and switches on it; an index without an instantiation is
+// cudaErrorInvalidValue.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,4 +52,21 @@
   template struct RowOffsetsLaunch<F>;        \
   template struct PointTotalLaunch<F>;        \
   template struct HornerLaunch<F>;            \
+  }
+
+// In a curve's translation unit: the GLV modes of the convert and the scan
+// for field F.
+#define MSM_INSTANTIATE_GLV(F)                \
+  namespace msm {                             \
+  template struct ConvertGlvLaunch<F>;        \
+  template struct ScanGlvLaunch<F>;           \
+  }
+
+// In a curve's second translation unit: the compressed path's launches for
+// field F (kernels 9, 12 and 13; 12 and 13 in both row layouts).
+#define MSM_INSTANTIATE_PAIRS(F)              \
+  namespace msm {                             \
+  template struct PowLaunch<F>;               \
+  template struct PairSuffixLaunch<F>;        \
+  template struct EmitScanLaunch<F>;          \
   }

@@ -26,6 +26,9 @@
 //                  table the launch plans also read
 //   p, r, r2  the modulus, R mod p (Montgomery one) and R^2 mod p, words
 //             least significant first
+//   beta_r2   beta R^2 mod p, beta the cube root of unity of the curve's GLV
+//             endomorphism phi(x, y) = (beta x, y) (ops/glv.py glv_params):
+//             the GLV convert's constant
 //
 // ID is the curve's index in params.CURVES, the `curve` argument of the
 // kernels' C entries (ops/_build.curve_id).
@@ -65,6 +68,14 @@ struct FpBn254 {
                             0x0b4f898cu, 0xbfd53160u, 0x0d3a9969u, 0x0a8469a3u};
     return t[i];
   }
+  // beta R^2 mod p (beta the cube root of unity that ops/glv.py's
+  // glv_params pairs with lambda): a product by it takes x to beta x R, the
+  // x of phi(P) = (beta x, y) in Montgomery form (the GLV convert)
+  MSM_HDM static uint32_t beta_r2(int i) {
+    const uint32_t t[NW] = {0xc5965f4du, 0x1da07d4au, 0x79524b23u, 0xaa9fd3f7u,
+                            0x717abf22u, 0x928de493u, 0x1de5790cu, 0x18ab8c66u};
+    return t[i];
+  }
 };
 
 // bls12_377: 377-bit p, R = 2^390
@@ -96,6 +107,15 @@ struct FpBls12_377 {
                             0x491d1b46u, 0x2dca7e1bu, 0xddc05807u, 0x003c5d3du};
     return t[i];
   }
+  // beta R^2 mod p (beta the cube root of unity that ops/glv.py's
+  // glv_params pairs with lambda): a product by it takes x to beta x R, the
+  // x of phi(P) = (beta x, y) in Montgomery form (the GLV convert)
+  MSM_HDM static uint32_t beta_r2(int i) {
+    const uint32_t t[NW] = {0x976e4ecdu, 0x15872eabu, 0xcb275732u, 0xa54044e8u,
+                            0xa72ee79du, 0xfe98e1c3u, 0x24415920u, 0x2ac14e5cu,
+                            0x95796032u, 0x89b36bebu, 0x37f616b1u, 0x012eb58du};
+    return t[i];
+  }
 };
 
 // pallas: 255-bit p, R = 2^273
@@ -122,6 +142,14 @@ struct FpPallas {
   MSM_HDM static uint32_t r2(int i) {
     const uint32_t t[NW] = {0x692be509u, 0x3c29b990u, 0xf0b73785u, 0x906581cau,
                             0x4b1a733fu, 0x0f257463u, 0xde5ea66fu, 0x2e72dc51u};
+    return t[i];
+  }
+  // beta R^2 mod p (beta the cube root of unity that ops/glv.py's
+  // glv_params pairs with lambda): a product by it takes x to beta x R, the
+  // x of phi(P) = (beta x, y) in Montgomery form (the GLV convert)
+  MSM_HDM static uint32_t beta_r2(int i) {
+    const uint32_t t[NW] = {0xaf226ef5u, 0x0ec2f167u, 0x42dae33fu, 0x16806065u,
+                            0x023676a2u, 0x0cf9bce7u, 0x9f6b31b3u, 0x3f24de89u};
     return t[i];
   }
 };
@@ -155,6 +183,15 @@ struct FpBls12_381 {
                             0x2d32f70au, 0x97900177u, 0x4acd918cu, 0x0f696ee0u};
     return t[i];
   }
+  // beta R^2 mod p (beta the cube root of unity that ops/glv.py's
+  // glv_params pairs with lambda): a product by it takes x to beta x R, the
+  // x of phi(P) = (beta x, y) in Montgomery form (the GLV convert)
+  MSM_HDM static uint32_t beta_r2(int i) {
+    const uint32_t t[NW] = {0x2405157bu, 0x47c8bd29u, 0x1f3f884du, 0xc9a4ffc2u,
+                            0xf4d4842cu, 0x05389ea8u, 0x40c3ca69u, 0x0299013eu,
+                            0xe73e0af1u, 0x05c5e90fu, 0x4981a1f8u, 0x022ffb5cu};
+    return t[i];
+  }
 };
 
 // secp256k1: 256-bit p, R = 2^273
@@ -181,6 +218,14 @@ struct FpSecp256k1 {
   MSM_HDM static uint32_t r2(int i) {
     const uint32_t t[NW] = {0x00000000u, 0x003a4284u, 0x00001e88u, 0x00000004u,
                             0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
+    return t[i];
+  }
+  // beta R^2 mod p (beta the cube root of unity that ops/glv.py's
+  // glv_params pairs with lambda): a product by it takes x to beta x R, the
+  // x of phi(P) = (beta x, y) in Montgomery form (the GLV convert)
+  MSM_HDM static uint32_t beta_r2(int i) {
+    const uint32_t t[NW] = {0xae483348u, 0x0e525b8fu, 0x4df91a78u, 0x53294d39u,
+                            0x60d2afb9u, 0x1195f61du, 0x0dcf7c5eu, 0xfdfa5bc7u};
     return t[i];
   }
 };
@@ -211,6 +256,14 @@ struct FpGrumpkin {
                             0x2af1b953u, 0x5e103e7cu, 0xa122c3c1u, 0x0281528fu};
     return t[i];
   }
+  // beta R^2 mod p (beta the cube root of unity that ops/glv.py's
+  // glv_params pairs with lambda): a product by it takes x to beta x R, the
+  // x of phi(P) = (beta x, y) in Montgomery form (the GLV convert)
+  MSM_HDM static uint32_t beta_r2(int i) {
+    const uint32_t t[NW] = {0x900d62e7u, 0x18f202d3u, 0x42aa9e16u, 0xdcdac82fu,
+                            0xd6144bc4u, 0x33399c79u, 0x00eba42eu, 0x2e7d19b8u};
+    return t[i];
+  }
 };
 
 // vesta: 255-bit p, R = 2^273
@@ -237,6 +290,14 @@ struct FpVesta {
   MSM_HDM static uint32_t r2(int i) {
     const uint32_t t[NW] = {0x692be509u, 0x665dc964u, 0xf31abd7au, 0x886c1d5bu,
                             0x8abb493fu, 0x1333d641u, 0xfeb88c40u, 0x333f6aa5u};
+    return t[i];
+  }
+  // beta R^2 mod p (beta the cube root of unity that ops/glv.py's
+  // glv_params pairs with lambda): a product by it takes x to beta x R, the
+  // x of phi(P) = (beta x, y) in Montgomery form (the GLV convert)
+  MSM_HDM static uint32_t beta_r2(int i) {
+    const uint32_t t[NW] = {0x143c58fau, 0x45f4f4e3u, 0x5639850au, 0x8af7f06bu,
+                            0xccad3091u, 0xda52e4d2u, 0x060b9975u, 0x3707c648u};
     return t[i];
   }
 };

@@ -1,10 +1,13 @@
-// The pair algebra on the word core, shared by the four pair kernels of
-// csrc/compress.cu: the forward products (kernel 10, k_pair_forward), the
-// backward emission (11, k_pair_backward), the suffix products (12,
-// k_pair_suffix) and the fused pair emission + scan (13, emit_scan.cuh);
-// and the per-lane bodies of kernels 10 and 12 (one body walking either
-// way) and 11. __host__ __device__, so the host C++ compiler builds it for
-// the CPU tests; every function inlines (MSM_HD), so the kernels have no
+// The pair algebra on the word core, generic over the field (a traits type
+// of fields.cuh), shared by the four pair kernels: the forward products
+// (kernel 10, csrc/compress.cu k_pair_forward), the backward emission (11,
+// k_pair_backward), the suffix products (12, csrc/pairs.cuh k_pair_suffix)
+// and the fused pair emission + scan (13, emit_scan.cuh); and the per-lane
+// bodies of kernels 10 and 12 (one body walking either way) and 11. Kernels
+// 12 and 13 are instantiated for every curve, kernels 10 and 11 for BN254
+// (the field a body's last template parameter, BN254 by default).
+// __host__ __device__, so the host C++ compiler builds it for the CPU tests
+// (every field); every function inlines (MSM_HD), so the kernels have no
 // out-of-line call.
 //
 // Pair j of lane r adds the sorted elements at steps (2j, 2j+1) of the
@@ -38,20 +41,24 @@
 
 namespace msm {
 
-MSM_HD bool fe32_eq(const fe32& a, const fe32& b) {
+template <class F>
+MSM_HD bool fe32_eq(const fe32t<F>& a, const fe32t<F>& b) {
   uint32_t diff = 0;
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) diff |= a.w[i] ^ b.w[i];
+  for (int i = 0; i < F::NW; ++i) diff |= a.w[i] ^ b.w[i];
   return diff == 0;
 }
 
-// a + b == p for canonical a, b: one carry ripple.
-MSM_HD bool fe32_sum_is_p(const fe32& a, const fe32& b) {
+// a + b == p for canonical a, b: one carry ripple over NW words. A sum that
+// carries out of word NW - 1 (secp256k1's, F::CARRY: p is within 2^32 of
+// 2^256) is at least 2^(32 NW) > p.
+template <class F>
+MSM_HD bool fe32_sum_is_p(const fe32t<F>& a, const fe32t<F>& b) {
   uint32_t c = 0, diff = 0;
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < F::NW; ++i) {
     const uint64_t s = (uint64_t)a.w[i] + b.w[i] + c;
-    diff |= lo32(s) ^ p_word(i);
+    diff |= lo32(s) ^ F::p(i);
     c = hi32(s);
   }
   return diff == 0 && c == 0;
@@ -60,15 +67,19 @@ MSM_HD bool fe32_sum_is_p(const fe32& a, const fe32& b) {
 // One pair: its coordinates with the signs applied to y, and the predicates
 //   e1 ==  e2 <=> x1 == x2 and (s1 == s2 ? y1 == y2 : y1 + y2 == p)
 //   e1 == -e2 <=> x1 == x2 and (s1 != s2 ? y1 == y2 : y1 + y2 == p)
-struct pair32 {
-  fe32 x1, y1, x2, y2;  // y1, y2 are the signed y'
+template <class F>
+struct pair32t {
+  fe32t<F> x1, y1, x2, y2;  // y1, y2 are the signed y'
   int dbl, inf;
 };
+
+using pair32 = pair32t<FpBn254>;
 
 // The predicates of a pair whose coordinates are loaded as stored (y not
 // yet signed), from its flags (bit 0: negate y); then the signs applied
 // to y.
-MSM_HD void pair32_make(pair32& pr, int f1, int f2) {
+template <class F>
+MSM_HD void pair32_make(pair32t<F>& pr, int f1, int f2) {
   const int s1 = f1 & 1, s2 = f2 & 1;
   const bool same_x = fe32_eq(pr.x1, pr.x2);
   const bool same_y = fe32_eq(pr.y1, pr.y2);
@@ -81,24 +92,26 @@ MSM_HD void pair32_make(pair32& pr, int f1, int f2) {
 
 // Gather elements e1, e2 of the step-major perm/flags arrays from the
 // packed table [N, COORDS NW].
-template <int COORDS = 2>
-MSM_HD void pair32_load(pair32& pr, const int32_t* packed, const int32_t* perm,
-                        const int32_t* flags, int64_t e1, int64_t e2) {
+template <int COORDS = 2, class F>
+MSM_HD void pair32_load(pair32t<F>& pr, const int32_t* packed,
+                        const int32_t* perm, const int32_t* flags, int64_t e1,
+                        int64_t e2) {
   scan_load_element<COORDS>(pr.x1, pr.y1, packed, perm[e1], flags + e1);
   scan_load_element<COORDS>(pr.x2, pr.y2, packed, perm[e2], flags + e2);
   pair32_make(pr, flags[e1], flags[e2]);
 }
 
 // d = R (infinity) | 2 y1' (doubling) | x2 - x1, branch-free.
-MSM_HD void pair32_denominator(fe32& d, const pair32& pr) {
-  fe32 dd, one;
+template <class F>
+MSM_HD void pair32_denominator(fe32t<F>& d, const pair32t<F>& pr) {
+  fe32t<F> dd, one;
   fe32_double(dd, pr.y1);
   fe32_sub(d, pr.x2, pr.x1);
   fe32_mont_one(one);
   const uint32_t dbl = 0u - (uint32_t)(pr.dbl != 0);
   const uint32_t inf = 0u - (uint32_t)(pr.inf != 0);
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < F::NW; ++i) {
     const uint32_t v = (dd.w[i] & dbl) | (d.w[i] & ~dbl);
     d.w[i] = (one.w[i] & inf) | (v & ~inf);
   }
@@ -106,9 +119,10 @@ MSM_HD void pair32_denominator(fe32& d, const pair32& pr) {
 
 // num = 3 x1^2 (doubling: the one product, in warps that hold a doubling)
 // | y2' - y1'.
-MSM_HD void pair32_numerator(fe32& num, const pair32& pr) {
+template <class F>
+MSM_HD void pair32_numerator(fe32t<F>& num, const pair32t<F>& pr) {
   if (pr.dbl) {
-    fe32 sq, t;
+    fe32t<F> sq, t;
     fe32_sqr(sq, pr.x1);
     fe32_double(t, sq);
     fe32_add(num, t, sq);
@@ -118,9 +132,10 @@ MSM_HD void pair32_numerator(fe32& num, const pair32& pr) {
 }
 
 // The affine pair sum from num and inv_d = 1/d: 3 products.
-MSM_HD void pair32_emit(fe32& x3, fe32& y3, const pair32& pr, const fe32& num,
-                        const fe32& inv_d) {
-  fe32 lam, t;
+template <class F>
+MSM_HD void pair32_emit(fe32t<F>& x3, fe32t<F>& y3, const pair32t<F>& pr,
+                        const fe32t<F>& num, const fe32t<F>& inv_d) {
+  fe32t<F> lam, t;
   fe32_mul(lam, num, inv_d);
   fe32_sqr(t, lam);
   fe32_sub(t, t, pr.x1);
@@ -133,14 +148,17 @@ MSM_HD void pair32_emit(fe32& x3, fe32& y3, const pair32& pr, const fe32& num,
 // What kernels 10 and 12 gather for one pair: the table rows and flags of
 // its two elements and the two x coordinates; the y coordinates only where
 // x1 == x2.
-struct pair32_x {
-  fe32 x1, x2;
+template <class F>
+struct pair32_xt {
+  fe32t<F> x1, x2;
   int64_t row1, row2;
   int f1, f2;
 };
 
-template <int COORDS = 2>
-MSM_HD void pair32_gather_x(pair32_x& q, const int32_t* packed,
+using pair32_x = pair32_xt<FpBn254>;
+
+template <int COORDS = 2, class F>
+MSM_HD void pair32_gather_x(pair32_xt<F>& q, const int32_t* packed,
                             const int32_t* perm, const int32_t* flags,
                             int64_t e1, int64_t e2) {
   q.row1 = perm[e1];
@@ -155,11 +173,11 @@ MSM_HD void pair32_gather_x(pair32_x& q, const int32_t* packed,
 // pair, or equal x with unrelated y, where d is x2 - x1 = 0 as in
 // pair32_denominator): then the y coordinates are loaded and the pair goes
 // through pair32_make and pair32_denominator.
-template <int COORDS = 2>
-MSM_HD void pair32_denominator_x(fe32& d, const pair32_x& q,
+template <int COORDS = 2, class F>
+MSM_HD void pair32_denominator_x(fe32t<F>& d, const pair32_xt<F>& q,
                                  const int32_t* packed) {
   if (fe32_eq(q.x1, q.x2)) {
-    pair32 pr;
+    pair32t<F> pr;
     pr.x1 = q.x1;
     pr.x2 = q.x2;
     scan_load_coord<COORDS>(pr.y1, packed, q.row1, COORDS - 1);
@@ -180,29 +198,29 @@ MSM_HD void pair32_denominator_x(fe32& d, const pair32_x& q,
 // needs only the x coordinates of a pair unless they are equal, so the
 // gathers read 2 x 32 B a pair, not 2 x 64 B; and the next pair's gathers
 // are issued before this pair's product (software pipelining).
-template <int COORDS, bool FORWARD>
+template <int COORDS, bool FORWARD, class F = FpBn254>
 MSM_HD void pair_chain32_lane(const int32_t* packed, const int32_t* perm,
                               const int32_t* flags, int32_t* out, int64_t g,
                               int Cp, int R, int r) {
-  const int64_t pair_step = 2 * (int64_t)R;  // perm/flags: one pair further
-  const int64_t out_step = (int64_t)L * R;   // out: one pair further
+  const int64_t pair_step = 2 * (int64_t)R;   // perm/flags: one pair further
+  const int64_t out_step = (int64_t)F::L * R;  // out: one pair further
   const int first = FORWARD ? 0 : Cp - 1;
   // step 2j and product j of the first pair (j = first)
   int64_t e = FORWARD ? g * 2 * Cp * (int64_t)R + r
                       : (g * 2 * Cp + 2 * (int64_t)(Cp - 1)) * R + r;
   int64_t o = FORWARD ? g * Cp * out_step + r : (g * Cp + Cp - 1) * out_step + r;
-  fe32 run;
+  fe32t<F> run;
   fe32_mont_one(run);
-  pair32_x next;
+  pair32_xt<F> next;
   pair32_gather_x<COORDS>(next, packed, perm, flags, e, e + R);
   MSM_ROLLED
   for (int j = first; FORWARD ? j < Cp : j >= 0; j += FORWARD ? 1 : -1) {
-    const pair32_x q = next;
+    const pair32_xt<F> q = next;
     if (FORWARD ? j + 1 < Cp : j > 0) {
       if constexpr (FORWARD) e += pair_step; else e -= pair_step;
       pair32_gather_x<COORDS>(next, packed, perm, flags, e, e + R);
     }
-    fe32 d;
+    fe32t<F> d;
     pair32_denominator_x<COORDS>(d, q, packed);
     fe32_mul(run, run, d);
     fe32_store_limbs_strided(out + o, R, run);
@@ -216,19 +234,19 @@ MSM_HD void pair_chain32_lane(const int32_t* packed, const int32_t* perm,
 // from it (pair32_emit), then run *= d_j. Writes cx, cy [G, Cp, L, R]
 // canonical 13-bit limbs and inf [G, Cp, R] (an infinity pair's cx, cy
 // mean nothing). 5 products a pair, 6 for a doubling.
-template <int COORDS = 2>
+template <int COORDS = 2, class F = FpBn254>
 MSM_HD void pair_backward32_lane(const int32_t* packed, const int32_t* perm,
                                  const int32_t* flags, const int32_t* m,
                                  const int32_t* minv, int32_t* cx,
                                  int32_t* cy, int32_t* inf, int64_t g, int Cp,
                                  int R, int r) {
-  const int64_t c_step = (int64_t)L * R;  // m, cx, cy: one pair further
-  fe32 run;
+  const int64_t c_step = (int64_t)F::L * R;  // m, cx, cy: one pair further
+  fe32t<F> run;
   {
-    int32_t v[L];
+    int32_t v[F::L];
     const int64_t lane = g * c_step + r;
     MSM_UNROLL
-    for (int i = 0; i < L; ++i) v[i] = minv[lane + i * (int64_t)R];
+    for (int i = 0; i < F::L; ++i) v[i] = minv[lane + i * (int64_t)R];
     fe32_from_balanced(run, v);
   }
   int64_t e = (g * 2 * Cp + 2 * (int64_t)(Cp - 1)) * R + r;  // step 2j, j = Cp-1
@@ -236,9 +254,9 @@ MSM_HD void pair_backward32_lane(const int32_t* packed, const int32_t* perm,
   int64_t f = (g * Cp + Cp - 1) * (int64_t)R + r;
   MSM_ROLLED
   for (int j = Cp - 1; j >= 0; --j, e -= 2 * (int64_t)R, o -= c_step, f -= R) {
-    pair32 pr;
+    pair32t<F> pr;
     pair32_load<COORDS>(pr, packed, perm, flags, e, e + R);
-    fe32 d, num, mprev, inv_d, x3, y3;
+    fe32t<F> d, num, mprev, inv_d, x3, y3;
     pair32_denominator(d, pr);
     pair32_numerator(num, pr);
     if (j > 0) {

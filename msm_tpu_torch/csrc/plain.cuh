@@ -1,12 +1,13 @@
 // The plain path's kernels and their launches, generic over the field: the
-// point add (kernel 1), the convert (2), the scan (4), the row offsets (5),
-// the point total (6) and the Horner ladder (7). nvcc only: the bodies they
-// run are in the headers named below, which the host tests build with g++.
-// Each launch is a class template LAUNCH<F> with one static run(...);
-// BN254's is instantiated in the kernel's own translation unit (point_add.cu
-// ...), each other curve's in csrc/curve_<name>.cu (MSM_INSTANTIATE_PLAIN),
-// and the C entries dispatch on the curve (dispatch.cuh). The design notes
-// of each kernel are in its .cu file.
+// point add (kernel 1), the convert (2, and its GLV mode), the scan (4, and
+// its GLV mode), the row offsets (5), the point total (6) and the Horner
+// ladder (7). nvcc only: the bodies they run are in the headers named below,
+// which the host tests build with g++. Each launch is a class template
+// LAUNCH<F> with one static run(...); BN254's is instantiated in the
+// kernel's own translation unit (point_add.cu ...), each other curve's in
+// csrc/curve_<name>.cu (MSM_INSTANTIATE_PLAIN, MSM_INSTANTIATE_GLV), and the
+// C entries dispatch on the curve (dispatch.cuh). The design notes of each
+// kernel are in its .cu file.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -115,6 +116,38 @@ int ConvertLaunch<F>::run(const int16_t* xw, const int16_t* yw, int32_t* out,
   return (int)cudaGetLastError();
 }
 
+// ---- Kernel 2, the convert, GLV mode (bodies: convert32.cuh) ----
+
+template <class F>
+__global__ void __launch_bounds__(CONVERT_THREADS)
+    k_convert_glv(const int16_t* __restrict__ xw,
+                  const int16_t* __restrict__ yw, int32_t* __restrict__ out,
+                  int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) convert_point_glv<F>(xw, yw, out, i);
+}
+
+template <class F>
+struct ConvertGlvLaunch {
+  static int run(const int16_t* xw, const int16_t* yw, int32_t* out, int64_t n,
+                 cudaStream_t st);
+};
+
+// xw, yw [n, 2 NW] int16 (u16 bits); out [n, 3 NW] int32 (rows x R,
+// beta x R, y R); all 16-byte aligned
+template <class F>
+int ConvertGlvLaunch<F>::run(const int16_t* xw, const int16_t* yw,
+                             int32_t* out, int64_t n, cudaStream_t st) {
+  if (((uintptr_t)xw | (uintptr_t)yw | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int64_t blocks = (n + CONVERT_THREADS - 1) / CONVERT_THREADS;
+    k_convert_glv<F><<<(unsigned)blocks, CONVERT_THREADS, 0, st>>>(xw, yw, out,
+                                                                  n);
+  }
+  return (int)cudaGetLastError();
+}
+
 // ---- Kernel 4, the scan, plain mode (bodies: scan.cuh) ----
 constexpr int SCAN_THREADS = 128;
 
@@ -150,6 +183,45 @@ int ScanLaunch<F>::run(const int32_t* packed, const int32_t* perm,
                     (unsigned)groups);
     k_scan<F><<<grid, SCAN_THREADS, 0, st>>>(packed, perm, flags, pe3,
                                                      tx, ty, tz, C, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- Kernel 4, the scan, GLV mode (bodies: scan.cuh, COORDS = 3) ----
+
+template <class F>
+__global__ void __launch_bounds__(SCAN_THREADS, F::BLOCKS_PER_SM)
+    k_scan_glv(const int32_t* __restrict__ packed,
+               const int32_t* __restrict__ perm,
+               const int32_t* __restrict__ flags, int32_t* __restrict__ pe3,
+               int32_t* __restrict__ tx, int32_t* __restrict__ ty,
+               int32_t* __restrict__ tz, int C, int R) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  scan_lane<3, F>(packed, perm, flags, pe3, tx, ty, tz, blockIdx.y, C, R, r);
+}
+
+template <class F>
+struct ScanGlvLaunch {
+  static int run(const int32_t* packed, const int32_t* perm,
+                 const int32_t* flags, int32_t* pe3, int32_t* tx, int32_t* ty,
+                 int32_t* tz, int64_t groups, int C, int R, cudaStream_t st);
+};
+
+// packed [N, 3D] (the GLV table) and pe3 [G, C, R, pe3_row<F>] 16-byte
+// aligned; the rest as ScanLaunch
+template <class F>
+int ScanGlvLaunch<F>::run(const int32_t* packed, const int32_t* perm,
+                          const int32_t* flags, int32_t* pe3, int32_t* tx,
+                          int32_t* ty, int32_t* tz, int64_t groups, int C,
+                          int R, cudaStream_t st) {
+  if (((uintptr_t)packed | (uintptr_t)pe3) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0) {
+    const dim3 grid((unsigned)((R + SCAN_THREADS - 1) / SCAN_THREADS),
+                    (unsigned)groups);
+    k_scan_glv<F><<<grid, SCAN_THREADS, 0, st>>>(packed, perm, flags, pe3, tx,
+                                                 ty, tz, C, R);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// Kernel 9 (csrc/inv.cu k_mont_pow): the per-lane body on the word core,
-// a^e for a Montgomery-form a, so pow(aR, e) = a^e R. __host__ __device__,
+// Kernel 9 (csrc/pairs.cuh k_mont_pow): the per-lane body on the word core,
+// generic over the field, a^e for a Montgomery-form a, so pow(aR, e) =
+// a^e R. __host__ __device__,
 // so the host C++ compiler builds it for the CPU tests; every function
 // inlines (MSM_HD).
 //
@@ -11,7 +12,7 @@
 // squarings are fe32_sqr_sym. The exponent is uniform across the launch, so
 // the digit's branch never diverges.
 //
-// The caller owns the table: POW_TABLE entries of NW words, word i of entry
+// The caller owns the table: POW_TABLE entries of F::NW words, word i of entry
 // k (1 .. 15) at tab[((k - 1) * NW + i) * stride]. On the card it is
 // shared memory laid out [entry][word][thread] (stride = the block's
 // threads), so the threads of a warp read 32 consecutive words: no bank
@@ -25,14 +26,18 @@ namespace msm {
 constexpr int POW_WINDOW = 4;
 constexpr int POW_TABLE = (1 << POW_WINDOW) - 1;  // a^1 .. a^15
 
-MSM_HD void pow32_table_store(uint32_t* tab, int stride, int k, const fe32& v) {
+template <class F>
+MSM_HD void pow32_table_store(uint32_t* tab, int stride, int k,
+                              const fe32t<F>& v) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) tab[((k - 1) * NW + i) * stride] = v.w[i];
+  for (int i = 0; i < F::NW; ++i) tab[((k - 1) * F::NW + i) * stride] = v.w[i];
 }
 
-MSM_HD void pow32_table_load(fe32& v, const uint32_t* tab, int stride, int k) {
+template <class F>
+MSM_HD void pow32_table_load(fe32t<F>& v, const uint32_t* tab, int stride,
+                             int k) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) v.w[i] = tab[((k - 1) * NW + i) * stride];
+  for (int i = 0; i < F::NW; ++i) v.w[i] = tab[((k - 1) * F::NW + i) * stride];
 }
 
 // Digit i (bits 4i .. 4i + 3) of the exponent.
@@ -42,16 +47,17 @@ MSM_HD int pow32_digit(const uint32_t* e, int i) {
 
 // out = a^e over the nbits low bits of e (e = 0 or nbits = 0: one; 0^e = 0
 // for e >= 1).
-MSM_HD void pow32_window(fe32& out, const fe32& a, const uint32_t* e,
+template <class F>
+MSM_HD void pow32_window(fe32t<F>& out, const fe32t<F>& a, const uint32_t* e,
                          int nbits, uint32_t* tab, int stride) {
   const int nd = (nbits + POW_WINDOW - 1) / POW_WINDOW;
-  fe32 acc;
+  fe32t<F> acc;
   fe32_mont_one(acc);
   if (nd == 0) {
     out = acc;
     return;
   }
-  fe32 t = a;
+  fe32t<F> t = a;
   pow32_table_store(tab, stride, 1, t);
   MSM_ROLLED
   for (int k = 2; k <= POW_TABLE; ++k) {

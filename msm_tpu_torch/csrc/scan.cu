@@ -9,10 +9,10 @@
 // (scan.cuh's COORDS = 3). Under GLV a subtask's stream holds 2n
 // elements, so each launch does twice the work at the same R.
 //
-// Generic over the field: the kernel and its launch are in plain.cuh
-// (ScanLaunch<F>); msm_scan dispatches on the curve, whose instantiation
-// is BN254's here and each other curve's in csrc/curve_*.cu. The GLV mode
-// is BN254's.
+// Generic over the field: the kernels and their launches are in plain.cuh
+// (ScanLaunch<F>, ScanGlvLaunch<F>); msm_scan and msm_scan_rows_glv
+// dispatch on the curve, whose instantiation is BN254's here and each other
+// curve's in csrc/curve_*.cu.
 //
 // Layout: subtask g, lane r owns sorted positions [r*C, (r+1)*C); step c of
 // lane r is element (c, r) of the step-major permutation. Thread (g, r)
@@ -56,6 +56,7 @@
 using namespace msm;
 
 MSM_EXTERN_OTHER_FIELDS(ScanLaunch)
+MSM_EXTERN_OTHER_FIELDS(ScanGlvLaunch)
 
 // packed [N, 2D] and pe3 [G, C, R, P] 16-byte aligned, D the curve's words
 // per coordinate and P its pe3 row (3L limbs padded to a multiple of 4,
@@ -68,30 +69,13 @@ extern "C" int msm_scan(const int32_t* packed, const int32_t* perm,
                                        groups, C, R, (cudaStream_t)stream))
 }
 
-constexpr int THREADS = SCAN_THREADS;
-
-__global__ void __launch_bounds__(THREADS, 4)
-    k_scan_glv(const int32_t* __restrict__ packed,
-               const int32_t* __restrict__ perm,
-               const int32_t* __restrict__ flags, int32_t* __restrict__ pe3,
-               int32_t* __restrict__ tx, int32_t* __restrict__ ty,
-               int32_t* __restrict__ tz, int C, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  scan_lane<3>(packed, perm, flags, pe3, tx, ty, tz, blockIdx.y, C, R, r);
-}
-
-// packed [N, 3D] (BN254's GLV table) and pe3, both 16-byte aligned; the rest
-// as msm_scan
+// packed [N, 3D] (the curve's GLV table) and pe3, both 16-byte aligned; the
+// rest as msm_scan
 extern "C" int msm_scan_rows_glv(const int32_t* packed, const int32_t* perm,
                                  const int32_t* flags, int32_t* pe3,
                                  int32_t* tx, int32_t* ty, int32_t* tz,
-                                 int64_t groups, int C, int R, void* stream) {
-  if (((uintptr_t)packed | (uintptr_t)pe3) % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0) {
-    const dim3 grid((unsigned)((R + THREADS - 1) / THREADS), (unsigned)groups);
-    k_scan_glv<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        packed, perm, flags, pe3, tx, ty, tz, C, R);
-  }
-  return (int)cudaGetLastError();
+                                 int64_t groups, int C, int R, int curve,
+                                 void* stream) {
+  MSM_FIELD_SWITCH(curve, ScanGlvLaunch, (packed, perm, flags, pe3, tx, ty, tz,
+                                          groups, C, R, (cudaStream_t)stream))
 }

@@ -1,7 +1,7 @@
 // Kernel 4 (csrc/scan.cu): the per-lane body on the word core, generic over
 // the field. __host__ __device__, so the host C++ compiler builds it for the
 // CPU tests; the plain mode's kernel and launch (ScanLaunch<F>) are in
-// plain.cuh (the GLV mode, COORDS = 3, is BN254's: csrc/scan.cu).
+// plain.cuh (and the GLV mode's, COORDS = 3, ScanGlvLaunch<F>).
 //
 // Lane r of subtask g walks its C steps: step c folds in table row
 // perm[g, c, r] (y negated when flags[g, c, r] & 1) with RCB16 Algorithm 8

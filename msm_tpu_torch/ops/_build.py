@@ -10,19 +10,27 @@ root, so an edited source never meets a stale library. ``nvcc`` is found on
 ``PATH``, else under ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0. The plain
-path's entries (kernels 1, 2, 4, 5, 6 and 7) take the curve's index in
-``params.CURVES`` (``curve_id``) before the stream and dispatch on it.
+``cudaGetLastError()``; ``launch`` raises when that is not 0. The entries
+of the kernels generic over the field (the plain path's kernels 1, 2, 4, 5,
+6 and 7, the GLV modes of 2 and 4, the compressed path's 9, 12 and 13 with
+the GLV modes of 12 and 13) take the curve's index in ``params.CURVES``
+(``curve_id``) before the stream and dispatch on it. Each other curve's
+instances compile in two translation units of their own
+(``csrc/curve_<name>.cu``, ``csrc/curve_<name>_pairs.cu``); each
+translation unit's compile seconds go to ``compile_seconds.json`` beside
+the library.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -56,19 +64,19 @@ P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "msm_point_add": [P] * 9 + [I64, I32, I32, P],
     "msm_convert": [P, P, P, I64, I32, P],
-    "msm_convert_glv": [P, P, P, I64, P],
+    "msm_convert_glv": [P, P, P, I64, I32, P],
     "msm_convert_scaled": [P] * 6 + [I64, I32, P],
     "msm_hist": [P, P, I64, I64, I32, I64, I32, P],
     "msm_scan": [P] * 7 + [I64, I32, I32, I32, P],
-    "msm_scan_rows_glv": [P] * 7 + [I64, I32, I32, P],
+    "msm_scan_rows_glv": [P] * 7 + [I64, I32, I32, I32, P],
     "msm_row_offsets": [P] * 9 + [I64, I32, I32, I32, I32, I32, P],
     "msm_point_total": [P] * 7 + [I64, I64, I32, I32, I32, P],
     "msm_horner": [P] * 6 + [I64, I32, I32, I32, P],
-    "msm_mont_pow": [P] * 3 + [I32, I64, I32, P],
-    "msm_pair_suffix": [P] * 4 + [I64, I32, I32, P],
-    "msm_pair_suffix_glv": [P] * 4 + [I64, I32, I32, P],
-    "msm_emit_scan": [P] * 9 + [I64, I32, I32, P],
-    "msm_emit_scan_glv": [P] * 9 + [I64, I32, I32, P],
+    "msm_mont_pow": [P] * 3 + [I32, I64, I32, I32, P],
+    "msm_pair_suffix": [P] * 4 + [I64, I32, I32, I32, P],
+    "msm_pair_suffix_glv": [P] * 4 + [I64, I32, I32, I32, P],
+    "msm_emit_scan": [P] * 9 + [I64, I32, I32, I32, P],
+    "msm_emit_scan_glv": [P] * 9 + [I64, I32, I32, I32, P],
     "msm_pair_forward": [P] * 4 + [I64, I32, I32, P],
     "msm_pair_backward": [P] * 8 + [I64, I32, I32, P],
     "msm_pair_forward_glv": [P] * 4 + [I64, I32, I32, P],
@@ -80,7 +88,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-#: the curve index the plain path's C entries take (fields.cuh F::ID)
+#: the curve index the generic kernels' C entries take (fields.cuh F::ID)
 CURVE_IDS = {name: i for i, name in enumerate(CURVES)}
 
 
@@ -111,12 +119,16 @@ def karatsuba_ok(cfg: MsmConfig) -> bool:
 
 
 def check_cuda_config(cfg: MsmConfig) -> None:
-    """The CUDA kernels implement all seven curves with 13-bit limbs on the
-    plain path, and BN254 also pair compressed, with or without GLV (the
-    convert, the scan and the four pair kernels have GLV modes). Karatsuba
-    selects a TPU product for the same function, so it is accepted where
-    the JAX package builds it (``karatsuba_ok``) and refused where that
-    package refuses it. Anything else raises before a launch."""
+    """The CUDA kernels implement all seven curves with 13-bit limbs, plain
+    or pair compressed, each with or without GLV (the convert, the scan,
+    the suffix products and the emission + scan have GLV modes for every
+    curve). Karatsuba selects a TPU product for the same function, so it is
+    accepted where the JAX package builds it (``karatsuba_ok``) and refused
+    where that package refuses it. Anything else raises before a launch;
+    the kernels that run BN254 alone (the forward and backward pair
+    kernels of ``compress_pairs``, BPR phase 1, the scaled convert) refuse
+    another curve through ``require_cuda(..., bn254_only=True)``, and the
+    naive model refuses it on CUDA."""
     if cfg.word_size != 13 or cfg.curve.name not in CURVE_IDS:
         raise NotImplementedError(
             f"CUDA kernels support word_size 13 on {', '.join(CURVE_IDS)}; "
@@ -126,11 +138,6 @@ def check_cuda_config(cfg: MsmConfig) -> None:
         raise NotImplementedError(
             f"karatsuba=True is not built for {cfg.curve.name} at word_size "
             f"{cfg.word_size} (odd limb count or int32 column budget)"
-        )
-    if cfg.curve.name != "bn254" and (cfg.compress or cfg.glv):
-        raise NotImplementedError(
-            f"CUDA kernels run {cfg.curve.name} on the plain path only; got "
-            f"compress={cfg.compress} glv={cfg.glv}"
         )
 
 
@@ -174,28 +181,30 @@ def build() -> Path:
     nvcc = find_nvcc()
     cus = [p for p in sources() if p.suffix == ".cu"]
 
-    def compile_one(src: Path) -> tuple[Path, str, int]:
+    def compile_one(src: Path) -> tuple[Path, str, int, float]:
         obj = out_dir / (src.stem + ".o")
+        t0 = time.perf_counter()
         r = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             capture_output=True, text=True,
         )
-        return obj, r.stdout + r.stderr, r.returncode
+        return obj, r.stdout + r.stderr, r.returncode, time.perf_counter() - t0
 
     with ThreadPoolExecutor(max_workers=len(cus)) as pool:
         results = list(pool.map(compile_one, cus))
-    failed = [f"nvcc failed on {o.stem}.cu:\n{log}" for o, log, rc in results if rc != 0]
+    failed = [f"nvcc failed on {o.stem}.cu:\n{log}" for o, log, rc, _ in results if rc != 0]
     if failed:
         raise RuntimeError("\n".join(failed))
     tmp = out_dir / f"lib.{os.getpid()}.so"
     r = subprocess.run(
         [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-         "-o", str(tmp), *[str(o) for o, _, _ in results]],
+         "-o", str(tmp), *[str(o) for o, _, _, _ in results]],
         capture_output=True, text=True,
     )
     if r.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{r.stderr}")
-    (out_dir / "build.log").write_text("".join(log for _, log, _ in results))
+    (out_dir / "build.log").write_text("".join(log for _, log, _, _ in results))
+    (out_dir / "compile_seconds.json").write_text(json.dumps({o.stem + ".cu": round(s, 1) for o, _, _, s in results}))
     os.replace(tmp, so)
     return so
 

@@ -3,7 +3,11 @@ their plain twins and the two host functions built on them.
 
 CUDA source: ``msm_tpu_torch/csrc/compress.cu``, all four kernels on the
 word core (the pair algebra and the bodies of kernels 10, 11 and 12 in
-``csrc/pair32.cuh``, kernel 13's in ``csrc/emit_scan.cuh``).
+``csrc/pair32.cuh``, kernel 13's in ``csrc/emit_scan.cuh``, all generic
+over the field). Kernels 12 and 13 (``pair_suffix``, ``emit_scan``: the
+MSM's compressed scan) and their GLV modes run every curve of
+``params.CURVES`` (``csrc/pairs.cuh``, the C entries taking the curve's
+index); kernels 10 and 11 (``compress_pairs``) run BN254 alone on CUDA.
 Replaces, in ``msm_tpu/ops/pallas_compress.py``: ``make_pair_suffix``
 (``pallas_call`` at :427), ``make_emit_scan`` (:561), ``make_pair_forward``
 (:205) and ``make_pair_backward`` (:333), with the sorted-order gather that
@@ -49,7 +53,7 @@ from msm_tpu_torch.ops import _build, bigint
 from msm_tpu_torch.ops.cuda_convert import coord_words, table_coords, unpack_coords
 from msm_tpu_torch.ops.cuda_curve import b3_mont_limbs
 from msm_tpu_torch.ops.cuda_inv import mont_pow
-from msm_tpu_torch.ops.cuda_scan import element_coords, rcb16_madd_plain
+from msm_tpu_torch.ops.cuda_scan import element_coords, pe3_row_limbs, rcb16_madd_plain
 from msm_tpu_torch.ops.field import FieldCtx, get_field_ctx
 from msm_tpu_torch.params import MsmConfig
 
@@ -132,11 +136,12 @@ def _limbs_first(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(-1, -2).contiguous()
 
 
-def _check(cfg: MsmConfig, packed, perm, flags, *chain):
+def _check(cfg: MsmConfig, packed, perm, flags, *chain, bn254_only: bool = False):
     """Checks before a pair kernel's launch: the gather inputs' shapes, and
-    every tensor (chain inputs included) CUDA int32; contiguous copies."""
+    every tensor (chain inputs included) CUDA int32; contiguous copies.
+    Kernels 10 and 11 run BN254 only (``bn254_only``)."""
     ts = [t.contiguous() for t in (packed, perm, flags, *chain)]
-    _build.require_cuda(cfg, *ts, bn254_only=True)
+    _build.require_cuda(cfg, *ts, bn254_only=bn254_only)
     packed, perm, flags = ts[:3]
     if (perm.dim() != 3 or flags.shape != perm.shape or perm.shape[1] % 2
             or packed.shape[1:] != (table_coords(cfg) * coord_words(cfg),)):
@@ -191,7 +196,7 @@ def _suffix(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     s = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
-    _build.launch(entry, packed, perm, flags, s, G, C // 2, R)
+    _build.launch(entry, packed, perm, flags, s, G, C // 2, R, _build.curve_id(cfg))
     counter.launches += 1
     return s
 
@@ -226,11 +231,12 @@ def _emit(cfg: MsmConfig, packed, perm, flags, s, t0, entry: str, counter):
     L = cfg.num_words
     _check_chain(s, (G, C // 2, L, R), t0, (G, L, R))
     dev = packed.device
-    pe3 = torch.empty((G, C // 2, R, 3 * L), dtype=torch.int32, device=dev)
+    # rows padded to a multiple of 4 limbs, as the scan writes them
+    pe3 = torch.empty((G, C // 2, R, pe3_row_limbs(cfg)), dtype=torch.int32, device=dev)
     tots = [torch.empty((G, L, R), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch(entry, packed, perm, flags, s, t0, pe3, *tots, G, C // 2, R)
+    _build.launch(entry, packed, perm, flags, s, t0, pe3, *tots, G, C // 2, R, _build.curve_id(cfg))
     counter.launches += 1
-    return (pe3, *tots)
+    return (pe3[..., :3 * L], *tots)
 
 
 def emit_scan(cfg: MsmConfig, packed, perm, flags, s, t0):
@@ -289,7 +295,7 @@ def pair_backward_plain(cfg: MsmConfig, packed, perm, flags, m, minv):
 
 
 def _forward(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
-    packed, perm, flags = _check(cfg, packed, perm, flags)
+    packed, perm, flags = _check(cfg, packed, perm, flags, bn254_only=True)
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     m = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
@@ -322,7 +328,7 @@ pair_forward_glv.launches = 0
 
 
 def _backward(cfg: MsmConfig, packed, perm, flags, m, minv, entry: str, counter):
-    packed, perm, flags, m, minv = _check(cfg, packed, perm, flags, m, minv)
+    packed, perm, flags, m, minv = _check(cfg, packed, perm, flags, m, minv, bn254_only=True)
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     L = cfg.num_words
@@ -363,7 +369,8 @@ def compress_pairs(cfg: MsmConfig, packed, perm, flags):
     """Every pair sum of every lane: forward products, one Fermat inversion
     per lane, backward emission -> (cx, cy [G, Cp, L, R] Montgomery affine,
     inf [G, Cp, R]; an infinity pair's coordinates mean nothing). Under GLV
-    (packed [N, 3D]) the GLV modes of the forward and backward kernels."""
+    (packed [N, 3D]) the GLV modes of the forward and backward kernels. On
+    CUDA BN254 only: another curve raises before any launch."""
     m = pair_forward(cfg, packed, perm, flags)
     minv = mont_pow(cfg, m[:, -1], cfg.curve.modulus - 2)
     return pair_backward(cfg, packed, perm, flags, m, minv)

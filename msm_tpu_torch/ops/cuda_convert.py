@@ -3,8 +3,9 @@ and the dense coordinate wire format.
 
 CUDA source: ``msm_tpu_torch/csrc/convert.cu`` on the word core (per-point
 body ``csrc/convert32.cuh``); it reads the u16 words as int16, 4 D bytes
-per coordinate (BN254: 32), the bits the host serialized. The plain mode
-runs every curve of ``params.CURVES``; the GLV and scaled modes BN254. Replaces the Pallas kernel
+per coordinate (BN254: 32), the bits the host serialized. The plain and
+GLV modes run every curve of ``params.CURVES`` (the GLV mode's beta R^2
+compiled in per field, ``csrc/fields.cuh``); the scaled mode BN254. Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_convert.py::make_convert_pack`` (``pallas_call`` at
 :187) in all its modes: ``convert_pack`` the plain one, ``convert_pack_glv``
 the GLV one (``dual_x_scale_int`` = beta R^2, ``triple=True``), both with
@@ -139,8 +140,8 @@ def coord_u16(cfg: MsmConfig) -> int:
 
 def _words_in(cfg: MsmConfig, x_u16, y_u16, bn254_only: bool = False):
     """Checks before a convert launch: [n, Wu] int16 words on CUDA (Wu =
-    ``coord_u16``), 16-byte aligned (copied where they are not); the GLV
-    and scaled modes run BN254 only."""
+    ``coord_u16``), 16-byte aligned (copied where they are not); the scaled
+    mode runs BN254 only."""
     x_u16, y_u16 = _build.aligned(x_u16, y_u16)
     _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16, bn254_only=bn254_only)
     n, wu = x_u16.shape[0], coord_u16(cfg)
@@ -149,12 +150,12 @@ def _words_in(cfg: MsmConfig, x_u16, y_u16, bn254_only: bool = False):
     return x_u16, y_u16
 
 
-def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter, *extra):
-    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16, bn254_only=entry != "msm_convert")
+def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter):
+    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16)
     n = x_u16.shape[0]
     out = torch.empty((n, table_coords(cfg) * coord_words(cfg)), dtype=torch.int32,
                       device=x_u16.device)
-    _build.launch(entry, x_u16, y_u16, out, n, *extra)
+    _build.launch(entry, x_u16, y_u16, out, n, _build.curve_id(cfg))
     counter.launches += 1
     return out
 
@@ -167,7 +168,7 @@ def convert_pack(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):
         return convert_pack_glv(cfg, x_u16, y_u16)
     if x_u16.device.type == "cpu":
         return convert_pack_plain(cfg, x_u16, y_u16)
-    return _convert(cfg, x_u16, y_u16, "msm_convert", convert_pack, _build.curve_id(cfg))
+    return _convert(cfg, x_u16, y_u16, "msm_convert", convert_pack)
 
 
 def convert_pack_glv(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor):

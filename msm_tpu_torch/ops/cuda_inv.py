@@ -2,7 +2,8 @@
 pair-compression chains), and its plain twin.
 
 CUDA source: ``msm_tpu_torch/csrc/inv.cu`` on the word core (a fixed
-4-bit window, ``csrc/pow32.cuh``). Replaces the Pallas kernel
+4-bit window, ``csrc/pow32.cuh``; the kernel generic over the field in
+``csrc/pairs.cuh``, every curve of ``params.CURVES``). Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_inv.py::make_mont_pow`` (``pallas_call`` at :92).
 
 ``mont_pow(cfg, a, e)`` takes a Montgomery-form batch ``a [G, L, R]``
@@ -35,7 +36,7 @@ def mont_pow(cfg: MsmConfig, a: torch.Tensor, e: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return mont_pow_plain(cfg, a, e)
     a = a.contiguous()
-    _build.require_cuda(cfg, a, bn254_only=True)
+    _build.require_cuda(cfg, a)
     if a.dim() != 3 or a.shape[1] != cfg.num_words:
         raise ValueError(f"expected [G, {cfg.num_words}, R], got {tuple(a.shape)}")
     nbits = e.bit_length()
@@ -45,7 +46,7 @@ def mont_pow(cfg: MsmConfig, a: torch.Tensor, e: int) -> torch.Tensor:
     words = (ctypes.c_uint32 * nw)(*((e >> (32 * i)) & 0xFFFFFFFF for i in range(nw)))
     out = torch.empty_like(a)
     G, _, R = a.shape
-    _build.launch("msm_mont_pow", a, out, ctypes.addressof(words), nbits, G, R)
+    _build.launch("msm_mont_pow", a, out, ctypes.addressof(words), nbits, G, R, _build.curve_id(cfg))
     mont_pow.launches += 1
     return out
 

@@ -2,8 +2,8 @@
 points (the hot kernel), and its plain twin.
 
 CUDA source: ``msm_tpu_torch/csrc/scan.cu`` (per-lane body
-``csrc/scan.cuh``, on the 32-bit-word core ``csrc/fe32.cuh``; the plain
-mode for every curve of ``params.CURVES``, the GLV mode BN254's). Replaces the
+``csrc/scan.cuh``, on the 32-bit-word core ``csrc/fe32.cuh``; both modes
+for every curve of ``params.CURVES``). Replaces the
 Pallas kernel ``msm_tpu/ops/pallas_scan.py::make_scan_rows``
 (``pallas_call`` at :374) together with the sorted-order gather
 ``packed[perm2]`` that fed it (``msm_tpu/ops/scan.py:545``): the kernel
@@ -93,11 +93,11 @@ def pe3_row_limbs(cfg: MsmConfig) -> int:
     return -(-3 * cfg.num_words // 4) * 4
 
 
-def _scan(cfg: MsmConfig, packed, perm, flags, entry: str, counter, *extra):
+def _scan(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
     packed, perm, flags = packed.contiguous(), perm.contiguous(), flags.contiguous()
     if packed.data_ptr() % 16:  # the kernel reads rows with 16-byte loads
         packed = packed.clone()
-    _build.require_cuda(cfg, packed, perm, flags, bn254_only=entry != "msm_scan")
+    _build.require_cuda(cfg, packed, perm, flags)
     L, D = cfg.num_words, coord_words(cfg)
     G, C, R = perm.shape
     if flags.shape != perm.shape or packed.shape[1:] != (table_coords(cfg) * D,):
@@ -105,7 +105,7 @@ def _scan(cfg: MsmConfig, packed, perm, flags, entry: str, counter, *extra):
     dev = packed.device
     pe3 = torch.empty((G, C, R, pe3_row_limbs(cfg)), dtype=torch.int32, device=dev)
     tots = [torch.empty((G, L, R), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch(entry, packed, perm, flags, pe3, *tots, G, C, R, *extra)
+    _build.launch(entry, packed, perm, flags, pe3, *tots, G, C, R, _build.curve_id(cfg))
     counter.launches += 1
     return (pe3[..., :3 * L], *tots)
 
@@ -117,7 +117,7 @@ def scan_rows(cfg: MsmConfig, packed, perm, flags):
         return scan_rows_glv(cfg, packed, perm, flags)
     if packed.device.type == "cpu":
         return scan_rows_plain(cfg, packed, perm, flags)
-    return _scan(cfg, packed, perm, flags, "msm_scan", scan_rows, _build.curve_id(cfg))
+    return _scan(cfg, packed, perm, flags, "msm_scan", scan_rows)
 
 
 def scan_rows_glv(cfg: MsmConfig, packed, perm, flags):

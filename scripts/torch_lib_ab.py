@@ -13,7 +13,9 @@ The other checkout's library is built by its own ``msm_tpu_torch.ops._build``
 through ``_build.load()``; the script swaps the loaded library between the
 two builds, so of the entry points timed here (point add, convert, scan,
 row offsets, point total, Horner ladder, suffix and forward pair products
-and their GLV modes, backward pair emission, blocked reduction's phase 1)
+and their GLV modes, backward pair emission, blocked reduction's phase 1,
+Fermat inversion, emission + scan and its GLV mode, the GLV convert and
+the GLV scan)
 only those whose C signature is the
 same in both trees are timed, or this tree's with the curve index before
 the stream where the other tree's has none (the other build is then
@@ -38,6 +40,7 @@ from __future__ import annotations
 import argparse
 import ast
 import ctypes
+import dataclasses
 import re
 import statistics
 import subprocess
@@ -60,7 +63,9 @@ KERNELS = {"point_add": "msm_point_add", "convert_pack": "msm_convert", "scan_ro
            "row_offsets": "msm_row_offsets", "point_total": "msm_point_total", "horner": "msm_horner",
            "pair_suffix": "msm_pair_suffix", "pair_forward": "msm_pair_forward",
            "pair_backward": "msm_pair_backward", "pair_suffix_glv": "msm_pair_suffix_glv",
-           "pair_forward_glv": "msm_pair_forward_glv", "bpr_phase1": "msm_bpr_phase1"}
+           "pair_forward_glv": "msm_pair_forward_glv", "bpr_phase1": "msm_bpr_phase1",
+           "mont_pow": "msm_mont_pow", "emit_scan": "msm_emit_scan", "emit_scan_glv": "msm_emit_scan_glv",
+           "convert_pack_glv": "msm_convert_glv", "scan_rows_glv": "msm_scan_rows_glv"}
 
 
 def other_library(root: Path) -> tuple[Path, dict[str, str]]:
@@ -109,7 +114,11 @@ def cases(rng, kern) -> dict:
     emission on this build's forward products and their inverse; the GLV
     forward and suffix products over the GLV table of 128 points and their
     phi images at the same shape; the blocked reduction's phase 1 over the
-    16 windows' buckets at 512 lanes (Bl = 64), with planted rows."""
+    16 windows' buckets at 512 lanes (Bl = 64), with planted rows; then
+    the Fermat inversion over 16 x 2048 lanes (e = p - 2), the emission +
+    scan on the suffix products of the pair streams above and their inverse
+    (both modes), the GLV convert over 2^20 coordinates below p and the GLV
+    scan at the GLV 2^20 shape (G = 4, C = 128, R = 16384)."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
     from msm_tpu_torch.params import BN254, MsmConfig, pick_config
@@ -135,7 +144,7 @@ def cases(rng, kern) -> dict:
     glv_table = cs._glv_table(aff[:128], base_cfg).to(dev)
     glv_in = [MsmConfig(curve=BN254, compress=True, glv=True), glv_table,
               *map(t, cs._glv_pair_stream(rng, 4, 1024, 1024, glv_table.shape[0]))]
-    return {
+    out = {
         "point_add": [cfg, *(t(cs._rand_fe(rng, (G * NB,), cfg)) for _ in range(6))],
         "convert_pack": [cfg, *map(t, cs._coord_words(rng, n, cfg.curve.modulus))],
         "scan_rows": [cfg, tab, t(perm), t(rng.integers(0, 2, size=perm.shape, dtype=np.int32))],
@@ -149,6 +158,15 @@ def cases(rng, kern) -> dict:
         "pair_forward_glv": glv_in,
         "bpr_phase1": [cfg, *map(t, cs._bpr_buckets(rng, (S, (NB - 1) // 512, 512), cfg))],
     }
+    glv_cfg = dataclasses.replace(cfg, glv=True)
+    out.update({
+        "mont_pow": [pair_in[0], t(cs._pow_lanes(rng, 16, 2048, cfg)), BN254.modulus - 2],
+        "emit_scan": cs._emit_scan_args(kern, pair_in),
+        "emit_scan_glv": cs._emit_scan_args(kern, glv_in),
+        "convert_pack_glv": [glv_cfg, *map(t, cs._coord_words(rng, n, cfg.curve.modulus))],
+        "scan_rows_glv": [glv_cfg, *cs._glv_scan_inputs(rng, n, G, R, glv_cfg, dev)],
+    })
+    return out
 
 
 def kernel_key(mangled: str) -> str:

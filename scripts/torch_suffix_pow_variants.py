@@ -517,12 +517,12 @@ def build(nvcc: str) -> ctypes.CDLL:
             stats = " ".join(x.strip() for x in lines[i + 1:i + 4] if "ptxas info    : Compiling" not in x)
             print(f"ptxas {m.group(1)}: {stats}", flush=True)
     lib = ctypes.CDLL(str(so))
-    for name in SUFFIX_VARIANTS:
+    for name in SUFFIX_VARIANTS:  # BN254 only: the kept entry's signature less its curve index
         fn = getattr(lib, f"sfx_{name}")
-        fn.argtypes, fn.restype = _build.SIGNATURES["msm_pair_suffix"], ctypes.c_int
+        fn.argtypes, fn.restype = _build.SIGNATURES["msm_pair_suffix"][:-2] + [ctypes.c_void_p], ctypes.c_int
     for name in POW_VARIANTS:
         fn = getattr(lib, f"pow_{name}")
-        fn.argtypes, fn.restype = _build.SIGNATURES["msm_mont_pow"], ctypes.c_int
+        fn.argtypes, fn.restype = _build.SIGNATURES["msm_mont_pow"][:-2] + [ctypes.c_void_p], ctypes.c_int
     return lib
 
 
@@ -591,9 +591,11 @@ def main() -> int:
         _cfg, packed, perm, flags = a
         G, C, R = perm.shape
 
+        curve = (0,) if name == "kernel" else ()  # the kept kernel's entry takes BN254's index
+
         def run():
             err = fn(packed.data_ptr(), perm.data_ptr(), flags.data_ptr(), out.data_ptr(), G, C // 2, R,
-                     stream().cuda_stream)
+                     *curve, stream().cuda_stream)
             if err:
                 raise RuntimeError(f"suffix variant {name}: CUDA error {err}")
         return run
@@ -606,9 +608,11 @@ def main() -> int:
         lanes = a[1]
         G, _, R = lanes.shape
 
+        curve = (0,) if name == "kernel" else ()
+
         def run():
             err = fn(lanes.data_ptr(), out.data_ptr(), ctypes.addressof(e_words), e.bit_length(), G, R,
-                     stream().cuda_stream)
+                     *curve, stream().cuda_stream)
             if err:
                 raise RuntimeError(f"pow variant {name}: CUDA error {err}")
         return run

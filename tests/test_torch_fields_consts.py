@@ -2,8 +2,9 @@
 fields the word core is generic over) against msm_tpu_torch.params: the
 curve index, the word and limb counts, the REDC constants, 3b, the carry
 flag, the reduction shifts, the launch bound's blocks per SM, and the
-modulus, R mod p and R^2 mod p word by word; and the build's curve
-translation units, one per curve besides BN254."""
+modulus, R mod p, R^2 mod p and the GLV convert's beta R^2 mod p (beta
+from ops/glv.py's glv_params) word by word; and the build's curve
+translation units, two per curve besides BN254."""
 
 import re
 from pathlib import Path
@@ -11,6 +12,7 @@ from pathlib import Path
 import pytest
 
 from msm_tpu_torch.ops import _build
+from msm_tpu_torch.ops.glv import glv_params
 from msm_tpu_torch.params import CURVES, MsmConfig, coord_words
 
 CSRC = Path(__file__).resolve().parent.parent / "msm_tpu_torch" / "csrc"
@@ -32,7 +34,7 @@ def _traits() -> dict[str, dict]:
                 vals[k] = int(v, 16) if v.startswith("0x") else int(v)
             elif vals[k] is None:
                 vals[k] = v
-        for arr in ("p", "r", "r2"):
+        for arr in ("p", "r", "r2", "beta_r2"):
             words = re.search(rf"static uint32_t {arr}\(int i\) \{{\s*const uint32_t t\[NW\] = \{{(.*?)\}};",
                               body, re.S).group(1)
             vals[arr] = [int(w.strip().rstrip("u"), 16) for w in words.split(",")]
@@ -74,11 +76,16 @@ def test_traits_match_params(name):
     assert value(t["p"]) == p
     assert value(t["r"]) == cfg.r == (1 << (13 * L)) % p
     assert value(t["r2"]) == cfg.r2
+    # the GLV convert's constant: a product by it takes x to beta x R
+    beta = glv_params(cfg.curve).beta
+    assert value(t["beta_r2"]) == beta * cfg.r2 % p and pow(beta, 3, p) == 1 != beta
 
 
 def test_each_other_curve_has_a_translation_unit():
-    """One csrc/curve_<name>.cu per curve besides BN254, instantiating its
-    plain kernels; the dispatch switch names every traits type."""
+    """Two translation units per curve besides BN254: csrc/curve_<name>.cu
+    instantiating its plain kernels and the GLV modes of the convert and the
+    scan, csrc/curve_<name>_pairs.cu its compressed path's kernels (9, 12,
+    13); the dispatch switch names every traits type."""
     dispatch = (CSRC / "dispatch.cuh").read_text()
     for name in CURVES:
         struct = next(f"Fp{k}" for k in re.findall(r"struct Fp(\w+) \{", (CSRC / "fields.cuh").read_text())
@@ -87,3 +94,6 @@ def test_each_other_curve_has_a_translation_unit():
         if name != "bn254":
             unit = (CSRC / f"curve_{name}.cu").read_text()
             assert f"MSM_INSTANTIATE_PLAIN(msm::{struct})" in unit
+            assert f"MSM_INSTANTIATE_GLV(msm::{struct})" in unit
+            pairs = (CSRC / f"curve_{name}_pairs.cu").read_text()
+            assert f"MSM_INSTANTIATE_PAIRS(msm::{struct})" in pairs

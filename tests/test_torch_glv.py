@@ -1,5 +1,6 @@
 """The port's GLV module (msm_tpu_torch/ops/glv.py) against the JAX
-package's (msm_tpu/ops/glv.py): the derived parameters on five a = 0 curves,
+package's (msm_tpu/ops/glv.py): the derived parameters on the seven a = 0
+curves,
 the window count under GLV, the host split, the tensor split (on edge,
 knife-edge and random scalars, and with degraded Babai multipliers that
 force the rounding correction), the decomposition's keys and signs, and
@@ -24,7 +25,7 @@ from msm_tpu_torch.models.common import pad_scalars_words
 from msm_tpu_torch.ops import glv
 from msm_tpu_torch.ops.scan import _decode_payload_step_major
 
-CURVES = ["bn254", "bls12_381", "bls12_377", "pallas", "secp256k1"]
+CURVES = ["bn254", "bls12_381", "bls12_377", "pallas", "secp256k1", "grumpkin", "vesta"]
 
 
 def _scalars(g, r, extra, seed):
@@ -103,32 +104,34 @@ def test_rounding_correction_matches_jax(name):
     assert list(zip(_signed(a1, n1), _signed(a2, n2))) == want
 
 
-def test_tensor_split_matches_jax_device_split():
-    """BN254: the tensor split word for word and sign for sign against the
-    JAX device split."""
-    jcfg = jparams.MsmConfig(curve=jparams.BN254, glv=True)
-    g = glv.glv_params(params.BN254)
-    s = _words(_scalars(g, params.BN254.order, extra=100, seed=4))
+@pytest.mark.parametrize("name", CURVES)
+def test_tensor_split_matches_jax_device_split(name):
+    """Every curve: the tensor split word for word and sign for sign against
+    the JAX device split (Pallas' basis signs, BLS12-381's dense order)."""
+    jcfg = jparams.MsmConfig(curve=jparams.CURVES[name], glv=True)
+    g = glv.glv_params(params.CURVES[name])
+    s = _words(_scalars(g, params.CURVES[name].order, extra=100, seed=4))
     got = glv.split_scalars_device(torch.from_numpy(s), port_cfg(jcfg))
     want = jglv.split_scalars_device(jnp.asarray(s), jcfg)
     for a, b in zip(got, want):
         assert np.array_equal(a.numpy(), np.asarray(b))
 
 
-def test_glv_decomposition_matches_jax():
-    """Keys and signs [S, 2n] at c = 16 (S = 8) on edge scalars (0, 1,
-    r - 1, lambda, r - lambda, scalars with a negative half) and random
-    ones; every key within the bucket range."""
-    jcfg = jparams.MsmConfig(curve=jparams.BN254, glv=True)
+@pytest.mark.parametrize("name", CURVES)
+def test_glv_decomposition_matches_jax(name):
+    """Keys and signs [S, 2n] at c = 16 (S = 8; secp256k1 9) on edge
+    scalars (0, 1, r - 1, lambda, r - lambda, scalars with a negative half)
+    and random ones, on every curve; every key within the bucket range."""
+    jcfg = jparams.MsmConfig(curve=jparams.CURVES[name], glv=True)
     cfg = port_cfg(jcfg)
-    r, lam = params.BN254.order, glv.glv_params(cfg.curve).lam
+    r, lam = cfg.curve.order, glv.glv_params(cfg.curve).lam
     rng = np.random.default_rng(6)
     ks = [0, 1, r - 1, lam, r - lam, 2, r - 2] + [int.from_bytes(rng.bytes(32), "little") % r
                                                   for _ in range(57)]
     s = pad_scalars_words(ks, cfg, len(ks))
     keys, signs = glv.decompose_signed_glv(torch.from_numpy(s), 16, cfg.num_subtasks, cfg)
     jkeys, jsigns = j_decompose_signed_glv(jnp.asarray(s), 16, jcfg.num_subtasks, jcfg)
-    assert keys.shape == (8, 2 * len(ks))
+    assert keys.shape == (cfg.num_subtasks, 2 * len(ks)) and cfg.num_subtasks in (8, 9)
     assert np.array_equal(keys.numpy(), np.asarray(jkeys))
     assert np.array_equal(signs.numpy(), np.asarray(jsigns))
     assert int(keys.max()) <= 1 << 15

@@ -78,10 +78,10 @@ def test_naive_model_refuses_other_curves_on_cuda():
 
 @pytest.mark.parametrize("name", ["bls12_381", "secp256k1"])
 def test_bn254_only_kernels_refuse_other_curves(name):
-    """The kernels that run BN254 alone (BPR phase 1, the Fermat inversion,
-    the pair kernels, the GLV and scaled convert modes) refuse another
-    curve's plain config before any launch, where the plain kernels take
-    it (and then ask for CUDA tensors)."""
+    """The kernels that run BN254 alone (BPR phase 1, the forward and
+    backward pair kernels of compress_pairs, the scaled convert) refuse
+    another curve's plain config before any launch, where the generic
+    kernels take it (and then ask for CUDA tensors)."""
     import torch
 
     from msm_tpu_torch.ops._build import require_cuda

@@ -69,8 +69,9 @@ CONFIG_CASES = {
     "glv": ({"glv": True}, True),
     "compress": ({"compress": True, "glv": True}, True),
     "karatsuba": ({"karatsuba": True}, True),
-    "other_curve_compress": ({"curve": BLS12_381, "compress": True}, False),
-    "other_curve_glv": ({"curve": BLS12_381, "glv": True}, False),
+    "other_curve_compress": ({"curve": BLS12_381, "compress": True}, True),
+    "other_curve_glv": ({"curve": BLS12_381, "glv": True}, True),
+    "other_curve_glv_compress": ({"curve": GRUMPKIN, "compress": True, "glv": True}, True),
     "other_curve_word_size": ({"curve": GRUMPKIN, "word_size": 12}, False),
     "karatsuba_odd_limbs": ({"curve": PALLAS, "karatsuba": True}, False),
     "karatsuba_bls12": ({"curve": BLS12_381, "karatsuba": True}, True),
@@ -80,13 +81,12 @@ CONFIG_CASES = {
 
 @pytest.mark.parametrize("change, accepted", CONFIG_CASES.values(), ids=CONFIG_CASES)
 def test_cuda_kernels_reject_other_configs(change, accepted):
-    """The CUDA wrappers take 13-bit limbs on every curve's plain path, and
-    on BN254 also pair-compressed and with or without GLV; Karatsuba where
-    the JAX package builds it (an even limb count within its int32 column
-    budget: BN254, BLS12, not the 21-limb curves); any other config
-    (compress or GLV on another curve, another limb width, Karatsuba where
-    the JAX package refuses it) raises before a launch, never falls back to
-    a twin."""
+    """The CUDA wrappers take 13-bit limbs on every curve, plain or
+    pair-compressed, with or without GLV; Karatsuba where the JAX package
+    builds it (an even limb count within its int32 column budget: BN254,
+    BLS12, not the 21-limb curves); any other config (another limb width,
+    Karatsuba where the JAX package refuses it) raises before a launch,
+    never falls back to a twin."""
     check_cuda_config(pick_config(1 << 16))
     check_cuda_config(dataclasses.replace(pick_config(1 << 16), compress=True))
     cfg = dataclasses.replace(pick_config(1 << 16), **change)
@@ -104,3 +104,33 @@ def test_kernel_launch_requires_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         require_cuda(pick_config(1 << 16), torch.zeros((4, 20), dtype=torch.int32))
 
+
+
+@pytest.mark.parametrize("name", ["bls12_381", "secp256k1", "pallas"])
+@pytest.mark.parametrize("kernel", ["compress_pairs", "bpr_phase1", "convert_pack_scaled"])
+def test_bn254_only_wrappers_refuse_other_curves_before_launch(kernel, name):
+    """The wrappers whose kernels run BN254 alone (compress_pairs' forward
+    and backward pair kernels, BPR phase 1, the scaled convert) raise on
+    another curve before any launch when their tensors are not on the CPU
+    (meta tensors here stand for the card's: no kernel can launch on
+    them), where the compressed and GLV configs' kernels take that curve;
+    on CPU tensors they run their twins."""
+    from msm_tpu_torch.ops.cuda_bpr import bpr_phase1
+    from msm_tpu_torch.ops.cuda_compress import compress_pairs
+    from msm_tpu_torch.ops.cuda_convert import convert_pack_scaled, coord_u16
+    from msm_tpu_torch.params import CURVES, coord_words
+
+    cfg = MsmConfig(curve=CURVES[name], compress=True)
+    check_cuda_config(cfg)
+    check_cuda_config(dataclasses.replace(cfg, glv=True))
+    meta = {"device": "meta", "dtype": torch.int32}
+    L, D = cfg.num_words, coord_words(cfg)
+    calls = {
+        "compress_pairs": lambda: compress_pairs(cfg, torch.empty((8, 2 * D), **meta),
+                                                 torch.empty((1, 4, 8), **meta), torch.empty((1, 4, 8), **meta)),
+        "bpr_phase1": lambda: bpr_phase1(cfg, *(torch.empty((1, 4, 8, L), **meta) for _ in range(3))),
+        "convert_pack_scaled": lambda: convert_pack_scaled(
+            cfg, *(torch.empty((8, coord_u16(cfg)), device="meta", dtype=torch.int16) for _ in range(2))),
+    }
+    with pytest.raises(NotImplementedError, match="BN254 only"):
+        calls[kernel]()
