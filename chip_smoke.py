@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, builds the thirteen CUDA kernels,
-   their six GLV modes, the convert kernel's run-time-constant mode and the
-   generic kernels' instances for the six other curves (the plain path's,
-   the GLV convert and scan, the Fermat inversion, the suffix products and
-   the emission + scan in both modes) from msm_tpu_torch/csrc and prints
-   the build time and each translation unit's compile seconds;
+   their six GLV modes and the convert kernel's run-time-constant mode, all
+   generic over the field, with every instance for the six other curves,
+   from msm_tpu_torch/csrc, and prints the build time, each translation
+   unit's compile seconds and every kernel's ptxas report (registers,
+   frame, spills) and SASS size for every curve, failing if a SASS holds
+   an out-of-line call (report_plain_builds);
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs (a twin of at most CPU_TWIN_ELEMS input elements, such as
    the Horner ladder's serial chain, on copies of them on the CPU, where
@@ -36,8 +37,7 @@
    time beside the depth of its chain in products, the scan timed alone
    and just after a histogram or a row-offsets launch, the convert kernel
    at 2^16 points and on 2^20 coordinates anywhere in [0, 2^256) (most of
-   them >= p), the emission + scan at the compressed 2^16 shape and at
-   the TPU rule's old 2^20 shape (R = 1024 lanes, 4 subtasks), the suffix
+   them >= p), the emission + scan at the compressed 2^16 shape, the suffix
    products at the compressed 2^16 shape, the Fermat kernel over 16 x
    1024, 16 x 2048 and 16 x 4096 lanes (one, p - 1, zero and negated
    balanced lanes planted) and for e = 0, 1, p - 2 and a 1000-bit e, and
@@ -45,10 +45,7 @@
    compressed 2^20 shape as well as the TPU rule's, and the blocked
    reduction's phase 1 at the 2^16 shape (G20 T256 Bl16; every shape of it
    with planted negated rows, identity buckets and buckets equal to the
-   running sum); the ptxas report (registers, frame, spills) of the
-   kernels that run BN254 alone (the forward and backward pair kernels,
-   the scaled convert, phase 1), and their SASS, which must hold no call
-   (the generic kernels' per curve in step 15);
+   running sum);
 3. runs compress_pairs on the card at the TPU rule's compressed 2^20 shape
    (R = 1024 lanes, C = 1024 steps, 4 subtasks) and, under GLV, at the GLV
    compressed 2^20 shape (G = 8, C = 1024, R = 2048) over points, their
@@ -135,25 +132,20 @@
    and its peak memory);
 15. the curves phase (PR 14): the plain path's six kernels (point add,
    convert, scan, row offsets, point total, Horner) are templates over the
-   field, one instance a curve; for BN254 and each of BLS12-381,
-   BLS12-377, Grumpkin, Pallas, Vesta and secp256k1 every instance's ptxas
-   registers, frame and spills and its SASS (no CALL); each other curve's
-   six instances against their twins at a small shape, BLS12-381's and
-   secp256k1's also at their 2^20 plain shapes (c 16, S 16 or 17, R 16384,
-   C 64); each curve's MSM at 2^16 through run_gpu_msm and a plan's words
-   call, and BLS12-381's, Pallas' and secp256k1's at 2^20 through a plan's
-   words call (median of 5), all bit-exact against the folded pure-Python
+   field, one instance a curve; each other curve's six instances against
+   their twins at a small shape and at its largest plain MSM's shapes
+   (BLS12-381's 2^20: c 16, S 16, R 16384, C 64; the others' 2^16); each
+   curve's MSM at 2^16 through run_gpu_msm and a plan's words call, and
+   BLS12-381's at 2^20 through a plan's words call (median of 5), all
+   bit-exact against the folded pure-Python
    oracle, each with its stages, device busy time, idle share and peak
    memory, and the curve's kernels required of each run; verify --size 12
    on BLS12-381 and secp256k1 and the bench's --plan 4 --size 20 line on
    BLS12-381;
 16. in the same phase (PR 15) the compressed, GLV and GLV compressed
-   configs of the six curves: the ptxas and SASS lines of each curve's
-   instances of the Fermat inversion, the suffix products and the emission
-   + scan (both modes; csrc/curve_<name>_pairs.cu) and of the GLV convert
-   and scan (csrc/curve_<name>.cu), no CALL allowed; each instance against
-   its twin at a small shape and at the shapes of the curve's largest MSMs
-   on those configs (BLS12-381's at 2^20, the others' at 2^16), where the
+   configs of the six curves: each instance against
+   its twin at a small shape and at the shapes of the curve's 2^16 MSMs
+   on those configs, where the
    kernel runs the whole launch and the twin of the scan, the Fermat
    inversion and the pair kernels 256 of its chains on the CPU (the first
    and last 64 lanes of its first and last subtask: chains share no state
@@ -163,9 +155,25 @@
    run only the *_glv modes), and BLS12-381's three configs at 2^20
    through a plan's words call (median of 5, stages, device busy time,
    idle share, peak memory), all bit-exact against the folded oracle;
-17. prints the kernels' JSON line (the GLV modes, the scaled convert and
-   each other curve's instances as entries of their own), then as its last
-   line {"ok": true, "device": {...}}.
+17. in the same phase each other curve's forward products and
+   backward emission (kernels 10 and 11) in both modes at the shapes of
+   its largest compressed and GLV compressed MSMs (twin over 256 chains on
+   the CPU), its BPR phase 1 at the blocked stage 4's 2^16 shape (BLS12-381
+   also at 2^20) and its scaled convert in five modes at 2^16, against
+   their twins; then on each curve's 2^16 MSM compress_pairs without and
+   with GLV against the oracle's pair sums, the scaled convert's five
+   modes, the blocked stage 4 (window sums against the telescoped ones,
+   the MSM bit-exact) and the naive model (8-bit windows, bit-exact), each
+   a path of its own (counters reset just before); and validate=True
+   through run_gpu_msm and a plan on BLS12-381 at 2^16 and 2^20 and on
+   BLS12-377 at 2^16 (SUBGROUP_CHECKS): subgroup points pass bit-exact,
+   the curve's smallest-x point outside the order-r subgroup, planted at
+   n/3 + 1, raises ValueError at its index; each line with its seconds and
+   point-add (K1) launches;
+18. prints the kernels' JSON line (the GLV modes, the scaled convert and
+   each other curve's instances as entries of their own; each with its
+   ptxas registers and spill bytes), then as its last line {"ok": true,
+   "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
 It needs a CUDA device and the repository around it.
@@ -635,12 +643,15 @@ def _bound(name, args, clock_hz) -> tuple[float, str]:
 
 #: the kernels whose launch is a grid of independent chains, one thread a
 #: (subtask g, lane r), sharing no state: the scan, the Fermat inversion,
-#: the suffix products and the emission + scan (check_case's ``subset``).
+#: the four pair kernels and BPR phase 1 (check_case's ``subset``).
 #: By argument position, the lane axis of each argument that indexes the
-#: chains (their subtask axis is 0), and the lane axis of every output
+#: chains (their subtask axis is 0), and the lane axis of every output (or
+#: of each output)
 CHAIN_ARGS = {"scan_rows": {2: 2, 3: 2}, "mont_pow": {1: 2}, "pair_suffix": {2: 2, 3: 2},
-              "emit_scan": {2: 2, 3: 2, 4: 3, 5: 2}}
-CHAIN_OUT_LANE = {"scan_rows": 2, "mont_pow": 2, "pair_suffix": 3, "emit_scan": 2}
+              "emit_scan": {2: 2, 3: 2, 4: 3, 5: 2}, "pair_forward": {2: 2, 3: 2},
+              "pair_backward": {2: 2, 3: 2, 4: 3, 5: 2}, "bpr_phase1": {1: 2, 2: 2, 3: 2}}
+CHAIN_OUT_LANE = {"scan_rows": 2, "mont_pow": 2, "pair_suffix": 3, "emit_scan": 2, "pair_forward": 3,
+                  "pair_backward": (3, 3, 2), "bpr_phase1": 1}
 
 
 def _chains(name, args, out, subset):
@@ -654,7 +665,10 @@ def _chains(name, args, out, subset):
 
     args = [cut(a, CHAIN_ARGS[base][i]) if i in CHAIN_ARGS[base] else a for i, a in enumerate(args)]
     axis = CHAIN_OUT_LANE[base]
-    return args, tuple(cut(o, axis) for o in out) if isinstance(out, tuple) else cut(out, axis)
+    if not isinstance(out, tuple):
+        return args, cut(out, axis)
+    axes = axis if isinstance(axis, tuple) else (axis,) * len(out)
+    return args, tuple(cut(o, a) for o, a in zip(out, axes))
 
 
 def chain_subset(name, args, lanes: int = 64):
@@ -671,6 +685,24 @@ def chain_subset(name, args, lanes: int = 64):
 #: host's CPU, where a small op costs less than a launch on the card (the
 #: Horner ladder's serial chain over [S, L]: ~5x faster; the small shapes)
 CPU_TWIN_ELEMS = 1 << 18
+#: a chain kernel's twin over more inputs than that, whose chains walk at
+#: least this many serial steps (_serial_steps), runs on chain_subset's 256
+#: chains on the CPU: its cost is its steps' op overhead, not its lanes
+#: (BN254's emission + scan under GLV at 2^20, 1024 steps: 52 s on the
+#: card for the whole launch)
+SUBSET_STEPS = 128
+
+
+def _serial_steps(name, args) -> int:
+    """Serial steps of a chain kernel's chains, in its twin's launches: the
+    exponent's bits (the Fermat kernel), BPR phase 1's 2 Bl point
+    additions of 12 products each, else the stream's steps (perm [G, C,
+    R])."""
+    if name == "mont_pow":
+        return args[2].bit_length()
+    if name == "bpr_phase1":
+        return 2 * args[1].shape[1] * 12
+    return args[2].shape[1]
 
 
 def _to(dev, out):
@@ -681,16 +713,21 @@ def _to(dev, out):
 def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz, subset=None) -> dict:
     """One kernel against its twin on the same inputs: exact after
     canonicalization (as points: by cross-multiplication); raises on any
-    difference. With ``subset`` (subtasks, lanes: chain_subset) the kernel
-    runs the whole launch and its twin only those chains (CHAIN_ARGS: the
-    chains share no state in these kernels), on the CPU, and the kernel's
-    outputs there are compared; plain_ms is then the twin's time on them.
+    difference. With ``subset`` (subtasks, lanes: chain_subset; by default
+    for a chain kernel of SUBSET_STEPS steps or more over more than
+    CPU_TWIN_ELEMS inputs) the kernel runs the whole launch and its twin
+    only those chains (CHAIN_ARGS: the chains share no state in these
+    kernels), on the CPU, and the kernel's outputs there are compared;
+    plain_ms is then the twin's time on them.
     A twin of at most CPU_TWIN_ELEMS input elements runs on copies of its
     inputs on the CPU too (plain_ms then the CPU's time; the label says
     "twin on the CPU"). Returns {max_abs_err, ms, plain_ms, bound_ms,
     bound_by}."""
     wrapper, plain = kern[name]
     got, ms = _kernel_ms(lambda: wrapper(*args), reps)
+    if (subset is None and name.removesuffix("_glv") in CHAIN_ARGS and _serial_steps(name, args) >= SUBSET_STEPS
+            and sum(a.numel() for a in args if isinstance(a, torch.Tensor)) > CPU_TWIN_ELEMS):
+        subset = chain_subset(name, args)
     twin_args = args
     if subset is not None:
         twin_args, got = _chains(name, args, got, subset)
@@ -1057,28 +1094,30 @@ def check_convert_scaled(kern, clock_hz: float, sizes, dev) -> dict:
     return out
 
 
-def run_convert_scaled(device="cuda") -> dict:
-    """The scaled convert driven in its five modes at 2^20 points whose
-    coordinates lie anywhere in [0, 2^256), counters reset just before:
-    every output equal to its twin's. Returns the counts."""
-    from msm_tpu_torch.ops.cuda_convert import convert_pack_scaled, convert_pack_scaled_plain
+def run_convert_scaled(device="cuda", curve=None, logn: int = 20) -> dict:
+    """The scaled convert driven in its five modes at 2^logn points whose
+    coordinates lie anywhere in [0, 2^(32 D)), counters reset just before:
+    every output equal to its twin's (BN254, or ``curve``, a
+    params.CurveSpec). Returns the counts."""
+    from msm_tpu_torch.ops.cuda_convert import coord_u16, convert_pack_scaled, convert_pack_scaled_plain
     from msm_tpu_torch.params import BN254, MsmConfig
 
-    cfg = MsmConfig(curve=BN254)
-    rng = np.random.default_rng(SEED + 11)
-    x, y = (torch.from_numpy(a).to(device) for a in _coord_words(rng, 1 << 20, None))
+    cfg = MsmConfig(curve=curve or BN254)
+    rng = np.random.default_rng(SEED + 11 + (0 if curve is None else 500 + CURVE_NAMES.index(curve.name)))
+    x, y = (torch.from_numpy(a).to(device) for a in _coord_words(rng, 1 << logn, None, coord_u16(cfg)))
     modes = _scaled_modes(cfg)
     _reset_counts()
     outs = [convert_pack_scaled(cfg, x, y, xs, xs2, triple) for _, xs, xs2, triple in modes]
     torch.cuda.synchronize()
-    counts = _counts_of("convert_pack_scaled 2^20 (five modes)", "convert_scaled")
+    tag = f"convert_pack_scaled{'' if curve is None else ' ' + curve.name} 2^{logn}"
+    counts = _counts_of(f"{tag} (five modes)", "convert_scaled")
     for (label, xs, xs2, triple), got in zip(modes, outs):
         want = convert_pack_scaled_plain(cfg, x, y, xs, xs2, triple)
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"convert_pack_scaled ({label}) differs from its twin")
-    print(f"convert_pack_scaled: {', '.join(m[0] for m in modes)} at 2^20 (coordinates in [0, 2^256)) "
-          "equal the twin's tables", flush=True)
+    print(f"{tag}: {', '.join(m[0] for m in modes)} (coordinates anywhere below 2^(32 D)) equal the twin's "
+          "tables", flush=True)
     return counts
 
 
@@ -1087,8 +1126,8 @@ def check_convert_emit_shapes(kern, rng, table, dev, clock_hz) -> None:
     above miss, exact against their twins: the convert kernel at 2^16
     points and on 2^20 coordinates anywhere in [0, 2^256) (unvalidated
     input; most of them >= p), and the emission + scan at the compressed
-    2^16 MSM's shape and at the TPU rule's old 2^20 shape (R = 1024 lanes,
-    C = 1024 steps, 4 subtasks)."""
+    2^16 MSM's shape (not at the TPU rule's old 2^20 shape, R = 1024
+    lanes, C = 1024 steps, 4 subtasks, which no path runs)."""
     from msm_tpu_torch.ops.field import get_field_ctx
     from msm_tpu_torch.params import BN254, MsmConfig
 
@@ -1101,7 +1140,7 @@ def check_convert_emit_shapes(kern, rng, table, dev, clock_hz) -> None:
     for label, n, top in (("2^16", 1 << 16, cfg.curve.modulus), ("2^20 >=p", 1 << 20, None)):
         _check_case(kern, f, L, "convert_pack", label, [cfg, *map(t, _coord_words(rng, n, top))], False, 5,
                     clock_hz)
-    for label, (G, C, R) in (("2^16", _compressed_shape(1 << 16, cfg)), ("R1024 G4 (TPU rule)", (4, 1024, 1024))):
+    for label, (G, C, R) in (("2^16", _compressed_shape(1 << 16, cfg)),):
         pair_in = [cfg, table, *map(t, _pair_stream(rng, G, C, R, table.shape[0]))]
         _check_case(kern, f, L, "emit_scan", f"{label} G{G} C{C} R{R}", _emit_scan_args(kern, pair_in), False, 3,
                     clock_hz)
@@ -1144,18 +1183,14 @@ def check_suffix_pow_shapes(kern, rng, table, dev, clock_hz) -> None:
                     False, 3, clock_hz)
 
 
-def _mangled(kernel: str) -> str:
-    """The part of a kernel's mangled name that names it: ``k_x`` ->
-    ``3k_x``, a template's instance ``k_x<1>`` -> ``3k_xILi1EE``."""
-    name, _, arg = kernel.partition("<")
-    return f"{len(name)}{name}" + (f"ILi{arg.rstrip('>')}EE" if arg else "")
-
-
 def _of_field(mangled: str, kernel: str, field: str) -> bool:
-    """Whether a mangled name is ``kernel``'s (_mangled) instance for the
-    traits type ``field`` of csrc/fields.cuh; a kernel that is no template
-    over the field is BN254's."""
-    if _mangled(kernel) not in mangled:
+    """Whether a mangled name is ``kernel``'s instance for the traits type
+    ``field`` of csrc/fields.cuh: ``k_x`` is named ``3k_x``, and ``k_x<1>``
+    is the instance of a kernel templated on the field and then on an int
+    (``3k_xI<field>ELi1EE``); a kernel that is no template over the field
+    is BN254's."""
+    name, _, arg = kernel.partition("<")
+    if f"{len(name)}{name}" not in mangled or (arg and f"ELi{arg.rstrip('>')}EE" not in mangled):
         return False
     return field in mangled if re.search(r"\dFp[A-Z]", mangled) else field == "FpBn254"
 
@@ -1205,29 +1240,6 @@ def _sass_calls(obj, kernel: str, field: str = "FpBn254") -> tuple[int, int]:
     if not found:
         raise RuntimeError(f"no SASS for {kernel}<{field}> in {obj}")
     return found[0]
-
-
-def report_word_core_builds(so) -> None:
-    """One line per kernel that runs BN254 alone (both modes of the forward
-    products and the backward emission, each layout of the scaled convert,
-    the blocked reduction's phase 1): its ptxas registers, frame and spills
-    and its SASS size; raises when the SASS holds an out-of-line call. The
-    kernels generic over the field are reported per curve
-    (report_plain_builds)."""
-    log = (so.parent / "build.log").read_text()
-    kernels = [(k, "compress.o") for k in ("k_pair_forward", "k_pair_forward_glv", "k_pair_backward",
-                                           "k_pair_backward_glv")]
-    kernels += [(f"k_convert_scaled<{i}>", "convert.o") for i in range(3)]
-    kernels += [("k_bpr_phase1", "bpr.o")]
-    _prefetch_sass(so.parent / obj for _kernel, obj in kernels)
-    for kernel, obj in kernels:
-        rep = _ptxas(log, kernel)
-        n, calls = _sass_calls(so.parent / obj, kernel)
-        print(f"ptxas {kernel}: registers={rep['registers']} frame={rep['frame']} B "
-              f"spill_stores={rep['spill_stores']} B spill_loads={rep['spill_loads']} B; "
-              f"SASS {n} instructions, {calls} CALL", flush=True)
-        if calls:
-            raise AssertionError(f"{kernel} makes {calls} out-of-line calls")
 
 
 def _ms_each(fn, before, reps: int) -> float:
@@ -1439,9 +1451,10 @@ def msm_path(path: str, n: int, device="cuda", curve=None):
     from msm_tpu_torch.models.naive import NAIVE_CONFIG, compute_msm_naive
     from msm_tpu_torch.params import BN254, MsmConfig, pick_config
 
-    if path == "naive":
-        return NAIVE_CONFIG, lambda pts, ks: common.result_to_affine(
-            compute_msm_naive(pts, ks, device=device), NAIVE_CONFIG)
+    if path == "naive":  # 8-bit unsigned windows on any curve
+        ncfg = NAIVE_CONFIG if curve is None else dataclasses.replace(NAIVE_CONFIG, curve=curve)
+        return ncfg, lambda pts, ks: common.result_to_affine(
+            compute_msm_naive(pts, ks, config=ncfg, device=device), ncfg)
     curve = curve or BN254
     cfg = {"plain": pick_config(n, curve), "compressed": MsmConfig(curve=curve, compress=True),
            "glv": dataclasses.replace(pick_config(n, curve), glv=True),
@@ -1502,23 +1515,33 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
     gathers, elementwise) are summed as "torch_ops". A trace must hold every
     kernel the wrappers launched (launches x the kernels per launch,
     TRACE_KERNELS; the profiler has been seen to drop device events); an
-    incomplete one is taken again, at most three times."""
-    from torch.profiler import ProfilerActivity, profile
+    incomplete one is taken again, at most three times. Only the device
+    events that start within the MSM's own span (a user annotation around
+    it) count."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from msm_tpu_torch.ops.cuda_curve import point_add
+    from msm_tpu_torch.params import BN254, MsmConfig
 
     kern = _kernels()
+    zero = torch.zeros((1, MsmConfig(curve=BN254).num_words), dtype=torch.int32, device="cuda")
     for _ in range(3):
-        _reset_counts()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # a trace has been seen to miss its first kernel when the MSM's
-            # first launch came ~60 ms after the trace began (2^16): a
-            # one-element zero fill goes first (its ~us count in torch_ops)
+            # first launch came ~60 ms after the trace began (2^16), and
+            # (with a zero fill first) this package's first kernel on a
+            # slower host: a fill and one point add of zero rows go first,
+            # outside the MSM's span
             torch.zeros(1, device="cuda")
+            point_add(MsmConfig(curve=BN254), *[zero] * 6)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(pts, ks)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            _reset_counts()
+            with record_function("chip_smoke_msm"):
+                t0 = time.perf_counter()
+                run(pts, ks)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
             # the device's last records reach a trace that stops at once
             # after them late or not at all (seen once the host tail took
             # ~1 ms instead of ~20 ms)
@@ -1526,6 +1549,8 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
         trace_path.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_path))
         events = json.loads(trace_path.read_text())["traceEvents"]
+        start = min(e["ts"] for e in events if e.get("name") == "chip_smoke_msm")
+        events = [e for e in events if e.get("ts", start) >= start]
         busy_ms, by_name, n_ours = trace_breakdown(events)
         counts = {name: w.launches for name, (w, _plain) in kern.items()}
         expected = sum(n * len(TRACE_KERNELS.get(name, (name,))) for name, n in counts.items())
@@ -1634,7 +1659,7 @@ def edge_checks(path: str, device="cuda") -> None:
     print(f"edge MSMs ({path}: {', '.join(cases)}, n = 0): bit-exact", flush=True)
 
 
-def check_pairs(glv: bool = False, device="cuda") -> dict:
+def check_pairs(glv: bool = False, device="cuda", curve=None) -> dict:
     """compress_pairs on the card, counters reset just before: every pair
     sum and every infinity flag against the oracle (the sums of all signed
     elements precomputed), and only the path's kernels launched. Without
@@ -1643,7 +1668,9 @@ def check_pairs(glv: bool = False, device="cuda") -> dict:
     infinity pairs; under GLV at the GLV compressed 2^20 shape (8 subtasks,
     C = 1024, R = 2048) over a table of 8 points and their phi images, an
     element taking x or beta x by flag bit 1, with planted doubling,
-    infinity and equal-x-across-halves pairs. Returns the counts."""
+    infinity and equal-x-across-halves pairs. On another ``curve`` (a
+    params.CurveSpec) at the shape of its compressed (or GLV compressed)
+    2^16 MSM over its own points. Returns the counts."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import BN254, MsmConfig
     from msm_tpu_torch.ops.cuda_compress import compress_pairs
@@ -1651,20 +1678,25 @@ def check_pairs(glv: bool = False, device="cuda") -> dict:
     from msm_tpu_torch.ops.field import get_field_ctx
     from msm_tpu_torch.ops.glv import glv_params
 
-    cfg = MsmConfig(curve=BN254, compress=True, glv=glv)
-    f, cv, q = get_field_ctx(cfg), Curve(BN254), BN254.modulus
-    beta = glv_params(BN254).beta
+    spec = curve or BN254
+    cfg = MsmConfig(curve=spec, compress=True, glv=glv)
+    f, cv, q = get_field_ctx(cfg), Curve(spec), spec.modulus
+    beta = glv_params(spec).beta
+    seed = SEED if curve is None else SEED + 400 + 2 * CURVE_NAMES.index(spec.name)
     if glv:
-        aff = [cv.to_affine(p) for p in cv.sample_points(8, seed=SEED + 12)]
+        aff = [cv.to_affine(p) for p in cv.sample_points(8, seed=seed + 12)]
         table = _glv_table(aff, cfg)
         aff = aff + [(x * beta % q, y) for x, y in aff]  # the table's rows
-        rng, shape, phis = np.random.default_rng(SEED + 13), (8, 1024, 2048), 2
-        perm, flags = _glv_pair_stream(rng, *shape, len(aff))
+        rng, shape, phis = np.random.default_rng(seed + 13), (8, 1024, 2048), 2
+        perm, flags = _glv_pair_stream(rng, *(shape if curve is None else _compressed_shape(1 << 16, cfg)),
+                                       len(aff))
     else:
-        aff = [cv.to_affine(p) for p in cv.sample_points(16, seed=SEED + 7)]
+        aff = [cv.to_affine(p) for p in cv.sample_points(16, seed=seed + 7)]
         table = torch.cat([pack_canonical(torch.from_numpy(_mont(c, cfg)), cfg) for c in zip(*aff)], dim=-1)
-        rng, shape, phis = np.random.default_rng(SEED + 8), (4, 1024, 1024), 1
-        perm, flags = _pair_stream(rng, *shape, len(aff))
+        rng, shape, phis = np.random.default_rng(seed + 8), (4, 1024, 1024), 1
+        perm, flags = _pair_stream(rng, *(shape if curve is None else _compressed_shape(1 << 16, cfg)),
+                                   len(aff))
+    shape = perm.shape
     rows = len(aff)
     # element k = row + rows (phi bit) + rows phis (sign): its affine point
     elems = [(x * beta ** phi % q, (q - y) % q if sign else y)
@@ -1679,7 +1711,8 @@ def check_pairs(glv: bool = False, device="cuda") -> dict:
     n_el = len(elems)
     want_x, want_y = (torch.from_numpy(_mont([v[i] for row in xy for v in row], cfg).reshape(n_el, n_el, -1)).to(dev)
                       for i in range(2))
-    tag = f"compress_pairs{' GLV' if glv else ''} G{shape[0]} C{shape[1]} R{shape[2]}"
+    tag = (f"compress_pairs{'' if curve is None else ' ' + spec.name}{' GLV' if glv else ''} "
+           f"G{shape[0]} C{shape[1]} R{shape[2]}")
     args = [table.to(dev), *(torch.from_numpy(a).to(dev) for a in (perm, flags))]
     _reset_counts()
     cx, cy, inf = compress_pairs(cfg, *args)
@@ -1803,14 +1836,16 @@ def print_compressed_geometry(n: int, cfg, by_name: dict, counts: dict) -> None:
           + ", ".join(f"{k}={v:.3f}" for k, v in ms.items()) + f", sum={sum(ms.values()):.3f}", flush=True)
 
 
-def check_blocked(pts, ks, want, device="cuda") -> dict:
+def check_blocked(pts, ks, want, device="cuda", curve=None) -> dict:
     """The reference-shaped stage 4 on the plain config (pick_config: c = 16,
     S = 16, B = 2^15 + 1 buckets, T = bpr_threads lanes), counters reset just
     before: convert, signed decomposition, bucket_accumulate over every
     window, bucket_reduce_blocked (kernel 8 and its tail), Horner. Its window
     sums must equal window_sum_from_pe's on freshly taken boundary prefixes
     of the same points (by cross-multiplication) and its MSM the oracle's.
-    Prints the device time of both stage-4 reductions. Returns the counts."""
+    Prints the device time of both stage-4 reductions. On ``curve`` (a
+    params.CurveSpec; BN254 by default) with its pick_config. Returns the
+    counts."""
     from msm_tpu_torch.models import common, cuzk
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops import scan
@@ -1820,10 +1855,11 @@ def check_blocked(pts, ks, want, device="cuda") -> dict:
     from msm_tpu_torch.params import pick_config
 
     n = common.pad_size(len(pts))
-    cfg = pick_config(n)
+    cfg = pick_config(n) if curve is None else pick_config(n, curve)
     ec, geom = get_curve_ctx(cfg), pick_geometry(n, cfg)
     batch = min(geom.subtask_batch, cfg.num_subtasks)
-    tag = f"blocked stage 4 2^{n.bit_length() - 1} (c={cfg.chunk_size} T={geom.bpr_threads})"
+    tag = (f"blocked stage 4{'' if curve is None else ' ' + curve.name} 2^{n.bit_length() - 1} "
+           f"(c={cfg.chunk_size} T={geom.bpr_threads})")
     xd, yd, sd = (torch.from_numpy(a).to(device) for a in common.pad_inputs(pts, ks, cfg))
     _reset_counts()
     packed = common.prepare_points(cfg, xd, yd)
@@ -2379,7 +2415,7 @@ CURVE_NAMES = ("bls12_381", "bls12_377", "grumpkin", "pallas", "vesta", "secp256
 CURVE_KERNELS = ("point_add", "convert_pack", "scan_rows", "row_offsets", "point_total", "horner")
 #: the curves also run at 2^20 through a plan's words call (the others at
 #: 2^16 only); each curve's kernels are held at its largest MSM's shapes
-CURVES_AT_2E20 = ("bls12_381", "pallas", "secp256k1")
+CURVES_AT_2E20 = ("bls12_381",)
 #: the configs each curve also runs besides the plain path (PR 15), through
 #: msm_path's configs
 CURVE_CONFIGS = ("compressed", "glv", "glv_compressed")
@@ -2400,7 +2436,8 @@ for _c in CURVE_NAMES:
 #: the kernels generic over the field, by wrapper: (their kernels, BN254's
 #: object file, the suffix of each other curve's translation unit): the
 #: plain kernels and the GLV modes of the convert and the scan in
-#: csrc/curve_<name>.cu, the compressed path's in csrc/curve_<name>_pairs.cu
+#: csrc/curve_<name>.cu, the pair kernels, BPR phase 1 and the scaled
+#: convert in csrc/curve_<name>_pairs.cu
 CURVE_INSTANCES = {
     "point_add": (("k_point_add", "k_point_add_lanes"), "point_add.o", ""),
     "convert_pack": (("k_convert",), "convert.o", ""),
@@ -2415,7 +2452,33 @@ CURVE_INSTANCES = {
     "pair_suffix_glv": (("k_pair_suffix_glv",), "compress.o", "_pairs"),
     "emit_scan": (("k_emit_scan",), "compress.o", "_pairs"),
     "emit_scan_glv": (("k_emit_scan_glv",), "compress.o", "_pairs"),
+    "pair_forward": (("k_pair_forward",), "compress.o", "_pairs"),
+    "pair_forward_glv": (("k_pair_forward_glv",), "compress.o", "_pairs"),
+    "pair_backward": (("k_pair_backward",), "compress.o", "_pairs"),
+    "pair_backward_glv": (("k_pair_backward_glv",), "compress.o", "_pairs"),
+    "bpr_phase1": (("k_bpr_phase1",), "bpr.o", "_pairs"),
+    "convert_pack_scaled": (tuple(f"k_convert_scaled<{i}>" for i in range(3)), "convert.o", "_pairs"),
 }
+#: each other curve's instances off every served config's path
+#: (csrc/curve_<name>_pairs.cu), each with the path whose run on the curve
+#: gives its launches: compress_pairs without and with GLV, the blocked
+#: stage 4, the scaled convert's five modes
+OFFPATH_KERNELS = {"pair_forward": "pairs", "pair_backward": "pairs", "pair_forward_glv": "pairs_glv",
+                   "pair_backward_glv": "pairs_glv", "bpr_phase1": "blocked", "convert_pack_scaled": "convert_scaled"}
+#: every kernel instance's ptxas report by (curve, kernel name), filled by
+#: report_plain_builds for the kernels line
+PTXAS: dict = {}
+
+
+def _ptxas_fields(curve: str, name: str) -> dict:
+    """A wrapper's kernel's registers and spill bytes on a curve for the
+    kernels line (PTXAS; the scaled convert's two-table layout, the first
+    kernel of a wrapper that runs several); none for the histogram."""
+    if name not in CURVE_INSTANCES:
+        return {}
+    kernel = "k_convert_scaled<1>" if name == "convert_pack_scaled" else CURVE_INSTANCES[name][0][0]
+    rep = PTXAS[(curve, kernel)]
+    return {"registers": rep["registers"], "spill_stores": rep["spill_stores"], "spill_loads": rep["spill_loads"]}
 
 
 def _curve_spec(name: str):
@@ -2431,13 +2494,11 @@ def _field_of(name: str) -> str:
 
 
 def report_plain_builds(so) -> dict:
-    """One line per generic kernel and curve (CURVE_INSTANCES: the plain
-    path's kernels, the GLV modes of the convert and the scan, and the
-    compressed path's kernels 9, 12 and 13 in both modes): ptxas registers,
-    frame and spills and the SASS size; raises when a kernel makes an
-    out-of-line call (the word core inlines every formula, the row offsets'
-    included). Returns {(curve, kernel): ptxas report} for the kernel
-    table."""
+    """One line per kernel and curve (CURVE_INSTANCES: every kernel is
+    generic over the field): ptxas registers, frame and spills and the SASS
+    size; raises when a kernel makes an out-of-line call (the word core
+    inlines every formula, the row offsets' included). Returns and keeps in
+    PTXAS {(curve, kernel): ptxas report} for the kernel table."""
     log = (so.parent / "build.log").read_text()
     reports = {}
     _prefetch_sass([so.parent / obj for _kernels, obj, _unit in CURVE_INSTANCES.values()]
@@ -2449,7 +2510,7 @@ def report_plain_builds(so) -> dict:
             for kernel in kernels:
                 rep = _ptxas(log, kernel, field)
                 n, calls = _sass_calls(path, kernel, field)
-                reports[(curve, kernel)] = rep
+                reports[(curve, kernel)] = PTXAS[(curve, kernel)] = rep
                 print(f"ptxas {curve} {kernel}: registers={rep['registers']} frame={rep['frame']} B "
                       f"spill_stores={rep['spill_stores']} B spill_loads={rep['spill_loads']} B; "
                       f"SASS {n} instructions, {calls} CALL", flush=True)
@@ -2468,7 +2529,9 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
     over their G x R lane totals, the point add over the boundary prefixes'
     G x NB, the point total over S windows of NB - 1 points, the Horner
     ladder over S windows at chunk c (2^20: c 16, R 16384, C 64, G 4; 2^16:
-    c 13, R 8192, C 8, G 4). The scan and the convert on random canonical
+    c 13, R 8192, C 8, G 4) on the 12-word curves (the 8-word ones share
+    BN254's body, held at its 2^20 and 2^16 shapes: only their small-shape
+    ladder runs, the large one's twin taking ~6 s). The scan and the convert on random canonical
     tables and coordinates (the convert also on words anywhere below
     2^(32 D)), the row offsets and the point total on real curve points
     (they reassociate). Returns {kernel: result} as _check_case gives it."""
@@ -2476,7 +2539,7 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
     from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
     from msm_tpu_torch.oracle.pyecc import Curve
-    from msm_tpu_torch.params import MsmConfig, pick_config
+    from msm_tpu_torch.params import MsmConfig, coord_words, pick_config
 
     spec = _curve_spec(curve)
     small = logn is None
@@ -2515,9 +2578,10 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
         "scan_rows": ([cfg, tab.to(dev), t(perm), t(flags)], False, 3),
         "row_offsets": ([cfg, *(a.transpose(1, 2).contiguous() for a in rows)], True, 3),
         "point_total": ([cfg, *_curve_points(rng, (S, N), cfg, base, dev)], True, 3),
-        "horner": ([cfg, *(t(_rand_fe(rng, (S,), cfg)) for _ in range(3)), 4 if small else cfg.chunk_size],
-                   False, 3),
     }
+    if small or coord_words(cfg) == 12:  # the 8-word curves' ladder at the small shape only
+        cases["horner"] = ([cfg, *(t(_rand_fe(rng, (S,), cfg)) for _ in range(3)), 4 if small else cfg.chunk_size],
+                           False, 3)
     label = f"{curve} {'small' if small else f'2^{logn}'}"
     return {name: _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz)
             for name, (args, as_points, reps) in cases.items()}
@@ -2601,6 +2665,154 @@ def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: flo
     return out
 
 
+def check_curve_offpath_kernels(kern, curve: str, clock_hz: float, dev) -> dict:
+    """One curve's six instances off the served paths (OFFPATH_KERNELS) against
+    their twins on the card, on a random stream of the curve's own: the
+    forward products and the backward emission (kernels 10 and 11) in both
+    modes at the shapes of the curve's largest compressed and GLV
+    compressed MSMs (2^20 for CONFIGS_AT_2E20, else 2^16; models/
+    geometry.py's rule) over the tables of check_curve_config_kernels, the
+    kernel running the whole launch and its twin 256 of its chains on the
+    CPU (chain_subset); BPR phase 1 at the blocked stage 4's shape of the
+    curve's 2^16 plain MSM (pick_config: every window's body buckets over
+    bpr_threads lanes; BLS12-381 also at 2^20), with planted rows
+    (_bpr_buckets); the scaled convert in its five modes (_scaled_modes) on
+    the 2^16 MSM's coordinates below p and n / 8 anywhere below 2^(32 D).
+    Returns {kernel: result} as _check_case gives it, from the largest
+    shape."""
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
+    from msm_tpu_torch.ops.field import get_field_ctx
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import MsmConfig, pick_config
+
+    spec = _curve_spec(curve)
+    logn = 20 if curve in CONFIGS_AT_2E20 else 16
+    n = 1 << logn
+    rng = np.random.default_rng(SEED + 300 + CURVE_NAMES.index(curve))
+    cv = Curve(spec)
+    aff = [cv.to_affine(p) for p in cv.sample_points(64, seed=SEED)]
+    base_cfg = MsmConfig(curve=spec)
+    f, L = get_field_ctx(base_cfg), base_cfg.num_words
+    base = torch.stack([torch.from_numpy(_mont(v, base_cfg)) for v in zip(*aff)]).to(dev)
+    table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
+    glv_table = _glv_table(aff[:32], base_cfg).to(dev)
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def check(name, args, label, subset):
+        out[name] = _check_case(kern, f, L, name, f"{curve} {label}", args, False, 3, clock_hz,
+                                subset=chain_subset(name, args) if subset else None)
+
+    for path, stream, tab in (("compressed", _pair_stream, table), ("glv_compressed", _glv_pair_stream, glv_table)):
+        cfg = msm_path(path, n, "cuda", spec)[0]
+        G, C, R = _compressed_shape(n, cfg)
+        pair_in = [cfg, tab, *map(t, stream(rng, G, C, R, tab.shape[0]))]
+        mode = "_glv" if cfg.glv else ""
+        check(f"pair_forward{mode}", pair_in, f"2^{logn} G{G} C{C} R{R}", True)
+        check(f"pair_backward{mode}", _backward_args(kern, pair_in), f"2^{logn} G{G} C{C} R{R}", True)
+    for bl_logn in (16, 20) if curve == "bls12_381" else (16,):
+        cfg = pick_config(1 << bl_logn, spec)
+        T = pick_geometry(1 << bl_logn, cfg).bpr_threads
+        G, Bl = cfg.num_subtasks, (cfg.num_buckets - 1) // T
+        check("bpr_phase1", [cfg, *map(t, _bpr_buckets(rng, (G, Bl, T), cfg))], f"2^{bl_logn} G{G} T{T} Bl{Bl}",
+              False)
+    wu = coord_u16(base_cfg)
+    words = [t(np.concatenate([w, a])) for w, a in zip(_coord_words(rng, 1 << 16, spec.modulus, wu),
+                                                        _coord_words(rng, 1 << 13, None, wu))]
+    scaled = {}
+    for label, xs, xs2, triple in _scaled_modes(base_cfg):
+        check("convert_pack_scaled", [base_cfg, *words, xs, xs2, triple], f"2^16 {label}", False)
+        scaled[label] = out["convert_pack_scaled"]
+    out["convert_pack_scaled"] = scaled["dual"]
+    return out
+
+
+def run_curve_offpath_paths(curve: str, pts, ks, want, device="cuda") -> dict:
+    """The paths that run one curve's OFFPATH_KERNELS, each with the
+    counters reset just before and its kernels required just after:
+    compress_pairs without and with GLV (check_pairs: every pair sum and
+    flag against the oracle), the scaled convert's five modes
+    (run_convert_scaled), the blocked stage 4 (check_blocked) and the naive
+    model (compute_msm_naive, 8-bit unsigned windows) on the curve's 2^16
+    MSM, both bit-exact against its folded oracle. Returns {path: launch
+    counts}."""
+    from msm_tpu_torch.oracle.pyecc import Curve
+
+    spec = _curve_spec(curve)
+    counts = {"pairs": check_pairs(device=device, curve=spec), "pairs_glv": check_pairs(True, device, spec),
+              "convert_scaled": run_convert_scaled(device, spec, 16)}
+    counts["blocked"] = check_blocked(pts, ks, want, device, spec)
+    cfg, run = msm_path("naive", len(pts), device, spec)
+    tag = f"curve {curve} 2^{len(pts).bit_length() - 1} naive (c={cfg.chunk_size} S={cfg.num_subtasks})"
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = run(pts, ks)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts["naive"] = _counts_of(tag, "naive")
+    if got != Curve(spec).to_affine(want):
+        raise AssertionError(f"{tag} differs from the oracle: {got}")
+    med, runs = _median_ms(lambda: run(pts, ks), 3)
+    print(f"{tag}: bit-exact; first call {first:.3f} s; wall_ms median of 3 = {med:.2f} (runs "
+          f"{', '.join(f'{r:.2f}' for r in runs)}); point_add launches {counts['naive']['point_add']}", flush=True)
+    return counts
+
+
+#: the subgroup checks (cofactor > 1): (curve, log2 n)
+SUBGROUP_CHECKS = (("bls12_381", 16), ("bls12_381", 20), ("bls12_377", 16))
+
+
+def check_subgroup(curve: str, pts, ks, words, want, device="cuda") -> None:
+    """validate=True on a curve of cofactor > 1 through run_gpu_msm and a
+    plan (pick_config's config): each passes on the MSM's points (the
+    result, or the plan's words call, bit-exact against the folded
+    oracle), and rejects the same points with the curve's smallest-x point
+    outside the order-r subgroup planted at index n/3 + 1 with ValueError
+    naming that index. One line per entry with the seconds and the point
+    add (K1) launches of the pass (validation and MSM) and of the reject
+    (validation alone: one ladder of K1 launches over the padded points)."""
+    import msm_tpu_torch
+    from msm_tpu_torch.ops.cuda_curve import point_add
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import pick_config
+
+    spec = _curve_spec(curve)
+    cv = Curve(spec)
+    n = len(pts)
+    cfg = pick_config(n, spec)
+    needle, at = cv.first_point_outside_subgroup(), n // 3 + 1
+    bad = list(pts)
+    bad[at] = needle
+    runs = {"run_gpu_msm": lambda p: msm_tpu_torch.run_gpu_msm(p, ks, config=cfg, validate=True, device=device),
+            "plan": lambda p: msm_tpu_torch.plan(p, config=cfg, validate=True, device=device)}
+    for entry, run in runs.items():
+        tag = f"subgroup {curve} 2^{n.bit_length() - 1} {entry}(validate=True)"
+        point_add.launches = 0
+        t0 = time.perf_counter()
+        got = run(pts)
+        got = cv.to_affine(got.jpoint(words)) if entry == "plan" else got
+        torch.cuda.synchronize()
+        pass_s, pass_k1 = time.perf_counter() - t0, point_add.launches
+        if got != cv.to_affine(want):
+            raise AssertionError(f"{tag}: differs from the oracle: {got}")
+        point_add.launches = 0
+        t0 = time.perf_counter()
+        try:
+            run(bad)
+        except ValueError as e:
+            if not str(e).startswith(f"point {at} is outside the prime-order subgroup (cofactor {spec.cofactor})"):
+                raise AssertionError(f"{tag}: the needle at {at} raised {e!r}") from e
+        else:
+            raise AssertionError(f"{tag}: the needle at {at} passed")
+        torch.cuda.synchronize()
+        print(f"{tag}: subgroup points pass, bit-exact: {pass_s:.3f} s, {pass_k1} K1 launches; the needle "
+              f"x={needle[0]} at {at} rejected: {time.perf_counter() - t0:.3f} s, {point_add.launches} K1 launches",
+              flush=True)
+
+
 def sample_curve_msm(curve: str, n: int, seed: int, base=None):
     """(bases, points, scalar words [n, 16]) of a curve's MSM: 1024 random
     points (``base`` when given) tiled to n, uniform scalars below the
@@ -2622,8 +2834,10 @@ def run_curve_msms(device="cuda") -> dict:
     CURVE_CONFIGS) through the entry points a user calls, one curve's
     inputs and folded oracle shared by its configs (run_curve_config): at
     2^16 every config, at 2^20 the plain one for CURVES_AT_2E20 and every
-    config for CONFIGS_AT_2E20. Returns {(curve, config): launch counts of
-    its 2^16 run_gpu_msm}."""
+    config for CONFIGS_AT_2E20; at 2^16 also the paths of OFFPATH_KERNELS
+    and the naive model (run_curve_offpath_paths), and validate=True where
+    SUBGROUP_CHECKS names the curve and size (check_subgroup). Returns
+    {(curve, config or path): launch counts of its 2^16 run}."""
     from msm_tpu_torch import bench
 
     counts = {}
@@ -2641,6 +2855,12 @@ def run_curve_msms(device="cuda") -> dict:
                 c = run_curve_config(curve, path, logn, pts, ks, words, want, device)
                 if c is not None:
                     counts[(curve, path)] = c
+            if logn == 16:
+                for path, c in run_curve_offpath_paths(curve, pts, ks, want, device).items():
+                    counts[(curve, path)] = c
+            if (curve, logn) in SUBGROUP_CHECKS:
+                ints = ks or [int.from_bytes(w.tobytes(), "little") for w in words]
+                check_subgroup(curve, pts, ints, words, want, device)
     return counts
 
 
@@ -2730,10 +2950,12 @@ def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
     their twins at the small shapes and at the shapes of the curve's
     largest plain MSM below (2^20 for CURVES_AT_2E20, else 2^16), its seven
     instances of the compressed and GLV configs at the small shapes and at
-    the shapes of its largest MSMs on those configs (2^20 for
-    CONFIGS_AT_2E20, else 2^16: check_curve_config_kernels), then the
-    curves' MSMs on the four configs (run_curve_msms) and the command line
-    and bench on them (run_curve_entry_checks). Returns the kernel table's
+    the shapes of its 2^16 MSMs on those configs
+    (check_curve_config_kernels), its six OFFPATH_KERNELS
+    (check_curve_offpath_kernels), then the curves' MSMs on the four
+    configs with the OFFPATH_KERNELS' paths and the subgroup checks
+    (run_curve_msms) and the command line and bench on them
+    (run_curve_entry_checks). Returns the kernel table's
     rows for the instances, each with its launches in its curve's 2^16
     run_gpu_msm on the config that runs it and the times at its largest
     MSM's shapes."""
@@ -2744,34 +2966,36 @@ def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
         print(f"curves phase, {name}: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
 
-    report_plain_builds(so)
-    step("builds")
     kern = _kernels()
     dev = torch.device(device)
     checks = {}
     for curve in CURVE_NAMES:
         for logn in (None, 20 if curve in CURVES_AT_2E20 else 16):
-            checks[curve] = check_curve_kernels(kern, curve, logn, clock_hz, dev)
+            checks.setdefault(curve, {}).update(check_curve_kernels(kern, curve, logn, clock_hz, dev))
     step("kernels")
-    for curve in CURVE_NAMES:
-        for logn in (None, 20 if curve in CONFIGS_AT_2E20 else 16):
+    for curve in CURVE_NAMES:  # at 2^16 on every curve
+        for logn in (None, 16):
             checks[curve].update(check_curve_config_kernels(kern, curve, logn, clock_hz, dev))
     step("config kernels")
+    for curve in CURVE_NAMES:
+        checks[curve].update(check_curve_offpath_kernels(kern, curve, clock_hz, dev))
+    step("pair-value, bpr and scaled convert kernels")
     counts = run_curve_msms(device)
     step("msms")
     run_curve_entry_checks()
     step("cli and bench")
     rows = []
     for curve in CURVE_NAMES:
-        for name in CURVE_KERNELS + tuple(CONFIG_KERNELS):
+        for name in CURVE_KERNELS + tuple(CONFIG_KERNELS) + tuple(OFFPATH_KERNELS):
             c = checks[curve][name]
-            path = CONFIG_KERNELS.get(name, "plain")
+            path = CONFIG_KERNELS.get(name) or OFFPATH_KERNELS.get(name, "plain")
             unit = CURVE_INSTANCES[name][2]
             rows.append({
                 "name": f"{name}[{curve}]", "route": "cuda", "source": f"msm_tpu_torch/csrc/curve_{curve}{unit}.cu",
                 "replaces": f"{REPLACES[name][1]} ({curve})", "launches": counts[(curve, path)][name],
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+                **_ptxas_fields(curve, name),
             })
     print(f"curves phase: {time.perf_counter() - t_all:.1f} s", flush=True)
     return rows
@@ -2800,10 +3024,7 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so}", flush=True)
     print(f"compile seconds by translation unit: {(so.parent / 'compile_seconds.json').read_text()}", flush=True)
-    for line in (so.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
-    report_word_core_builds(so)
+    report_plain_builds(so)
 
     print(f"oracle: {'C++' if native.native_available() else 'python'}", flush=True)
     phase_t0 = time.perf_counter()
@@ -2844,6 +3065,7 @@ def main() -> int:
             "replaces": rep, "launches": by_path[path][name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            **_ptxas_fields("bn254", name),
         })
     print(json.dumps({"kernels": rows + curve_rows}))
     print(json.dumps({"ok": True, "device": {

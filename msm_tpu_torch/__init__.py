@@ -73,7 +73,10 @@ def run_gpu_msm(points, scalars, config=None, validate=False, device="cuda"):
 
     ``points``: affine (x, y) int pairs; ``scalars``: ints. Returns the
     affine (x, y) result, or None for the identity. ``validate=True`` checks
-    that every point lies on the curve first."""
+    first that every point lies on the curve and, on BLS12-381 and
+    BLS12-377 (cofactor > 1), in the order-r subgroup: [r]P == O by one
+    ladder over all points on ``device`` (``ValueError`` at the first bad
+    point's index)."""
     from msm_tpu_torch.models.cuzk import compute_msm
 
     return compute_msm(points, scalars, config=config, validate=validate, device=device)
@@ -84,7 +87,8 @@ def plan(points, config=None, validate=False, device="cuda"):
     ``msm_tpu.plan``): the points are serialized, uploaded and converted
     once; each ``plan(scalars)`` runs only the scalar side, with scalars as
     ints or as u16 words [n, 16] (k < order), and ``plan.run_batch([ks,
-    ...])`` runs several scalar sets on the one table."""
+    ...])`` runs several scalar sets on the one table. ``validate`` as
+    ``run_gpu_msm``'s."""
     from msm_tpu_torch.models.plan import MsmPlan
 
     return MsmPlan(points, config=config, validate=validate, device=device)

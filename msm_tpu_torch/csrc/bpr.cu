@@ -1,12 +1,15 @@
-// Kernel 8: phase 1 of the blocked bucket reduction on the word core. The
-// chain body is in bpr.cuh.
+// Kernel 8: phase 1 of the blocked bucket reduction on the word core,
+// generic over the field. The chain body is in bpr.cuh, the kernel and its
+// launch (BprLaunch<F>) in offpath.cuh; BN254's launch is instantiated here
+// and each other curve's in csrc/curve_<name>_pairs.cu, and msm_bpr_phase1
+// dispatches on the curve.
 //
 // Replaces msm_tpu/ops/pallas_bpr.py::make_bpr_phase1 (pallas_call at :97).
 // The TPU kept (m, g) in VMEM scratch across the sequential grid axis of Bl
 // steps and read the buckets descending through its index map; here a group
 // of lanes keeps them in registers and its loop index runs backwards. The
 // input stays step-major [G, Bl, T, L], so at every step neighbouring
-// groups read neighbouring 80-byte rows.
+// groups read neighbouring rows (80 B at 8 words, 120 B at 12).
 //
 // Bound: integer multiply-adds, 2 * Bl dependent complete additions (12
 // Montgomery products each) per chain, of which the first two start from
@@ -30,38 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bpr.cuh"
+#include "offpath.cuh"
 
-using namespace msm;
+MSM_EXTERN_OTHER_FIELDS(BprLaunch)
 
-constexpr int LANES = 4, THREADS = 256;
-constexpr int CHAINS = THREADS / LANES;  // chains per block
-
-__global__ void __launch_bounds__(THREADS)
-    k_bpr_phase1(const int32_t* __restrict__ bx, const int32_t* __restrict__ by,
-                 const int32_t* __restrict__ bz, int32_t* __restrict__ mx,
-                 int32_t* __restrict__ my, int32_t* __restrict__ mz,
-                 int32_t* __restrict__ gx, int32_t* __restrict__ gy,
-                 int32_t* __restrict__ gz, int Bl, int T) {
-  const int t = blockIdx.x * CHAINS + threadIdx.x / LANES;
-  bpr_phase1_chain<LANES>(bx, by, bz, mx, my, mz, gx, gy, gz, blockIdx.y, Bl,
-                          T, t < T ? t : T - 1, t < T);
-}
-
-// b* [G, Bl, T, L]; m*, g* [G, T, L]; every pointer 16-byte aligned
+// b* [G, Bl, T, L]; m*, g* [G, T, L]; every pointer row_align<L> aligned
 extern "C" int msm_bpr_phase1(const int32_t* bx, const int32_t* by,
                               const int32_t* bz, int32_t* mx, int32_t* my,
                               int32_t* mz, int32_t* gx, int32_t* gy,
                               int32_t* gz, int64_t groups, int Bl, int T,
-                              void* stream) {
-  const uintptr_t addr = (uintptr_t)bx | (uintptr_t)by | (uintptr_t)bz |
-                         (uintptr_t)mx | (uintptr_t)my | (uintptr_t)mz |
-                         (uintptr_t)gx | (uintptr_t)gy | (uintptr_t)gz;
-  if (addr % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && Bl > 0 && T > 0) {
-    const dim3 grid((unsigned)((T + CHAINS - 1) / CHAINS), (unsigned)groups);
-    k_bpr_phase1<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        bx, by, bz, mx, my, mz, gx, gy, gz, Bl, T);
-  }
-  return (int)cudaGetLastError();
+                              int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, BprLaunch, (bx, by, bz, mx, my, mz, gx, gy, gz,
+                                      groups, Bl, T, (cudaStream_t)stream))
 }

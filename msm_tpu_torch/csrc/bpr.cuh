@@ -1,8 +1,9 @@
 // Phase 1 of the blocked bucket reduction (cuZK Algorithm 4): the chain
-// body of kernel 8 (csrc/bpr.cu) on the word core. __host__ __device__, so
-// the host C++ compiler builds it for the CPU tests (there one thread runs
-// both halves of a group, step by step, and computes every product of a
-// level).
+// body of kernel 8 (csrc/bpr.cu; kernel and launch in offpath.cuh) on the
+// word core, generic over the field (the last template parameter, BN254 by
+// default). __host__ __device__, so the host C++ compiler builds it for the
+// CPU tests (there one thread runs both halves of a group, step by step,
+// and computes every product of a level).
 #pragma once
 
 #include "point_add.cuh"
@@ -10,7 +11,8 @@
 namespace msm {
 
 // The bucket at offset o of b* onto the word core.
-MSM_HD void bpr_load(pt32& s, const int32_t* bx, const int32_t* by,
+template <class F>
+MSM_HD void bpr_load(pt32t<F>& s, const int32_t* bx, const int32_t* by,
                      const int32_t* bz, int64_t o) {
   pa_load(s.x, bx + o);
   pa_load(s.y, by + o);
@@ -18,9 +20,11 @@ MSM_HD void bpr_load(pt32& s, const int32_t* bx, const int32_t* by,
 }
 
 // a where c, else b: word by word, so neither point needs an address.
-MSM_HD void pt32_select(pt32& out, bool c, const pt32& a, const pt32& b) {
+template <class F>
+MSM_HD void pt32_select(pt32t<F>& out, bool c, const pt32t<F>& a,
+                        const pt32t<F>& b) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < F::NW; ++i) {
     out.x.w[i] = c ? a.x.w[i] : b.x.w[i];
     out.y.w[i] = c ? a.y.w[i] : b.y.w[i];
     out.z.w[i] = c ? a.z.w[i] : b.z.w[i];
@@ -38,11 +42,11 @@ __device__ __forceinline__ int bpr_half(int) {
   return (threadIdx.x & (LANES - 1)) >= LANES / 2;
 }
 
-template <int LANES>
-__device__ __forceinline__ void bpr_from_half(pt32& out,
-                                              const pt32 (&own)[1], int h) {
+template <int LANES, class F>
+__device__ __forceinline__ void bpr_from_half(pt32t<F>& out,
+                                              const pt32t<F> (&own)[1], int h) {
   MSM_UNROLL
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < F::NW; ++i) {
     out.x.w[i] = __shfl_sync(0xffffffffu, own[0].x.w[i], h * LANES / 2, LANES);
     out.y.w[i] = __shfl_sync(0xffffffffu, own[0].y.w[i], h * LANES / 2, LANES);
     out.z.w[i] = __shfl_sync(0xffffffffu, own[0].z.w[i], h * LANES / 2, LANES);
@@ -56,8 +60,8 @@ int bpr_half(int h) {
   return h;
 }
 
-template <int LANES>
-void bpr_from_half(pt32& out, const pt32 (&own)[2], int h) {
+template <int LANES, class F>
+void bpr_from_half(pt32t<F>& out, const pt32t<F> (&own)[2], int h) {
   out = own[h];
 }
 #endif
@@ -79,9 +83,9 @@ void bpr_from_half(pt32& out, const pt32 (&own)[2], int h) {
 // shuffles take the whole warp): a group past the last chain runs chain
 // T - 1 with store = false. Buckets b* [G, Bl, T, L] step-major (balanced
 // limbs); outputs m*, g* [G, T, L] (canonical), each row stored by one
-// lane of the group. Rows 16-byte aligned on the device (point_add.cuh
-// pa_load).
-template <int LANES>
+// lane of the group. Rows row_align<F::L> aligned on the device
+// (point_add.cuh pa_load).
+template <int LANES, class F = FpBn254>
 MSM_HD void bpr_phase1_chain(const int32_t* bx, const int32_t* by,
                              const int32_t* bz, int32_t* mx, int32_t* my,
                              int32_t* mz, int32_t* gx, int32_t* gy,
@@ -89,7 +93,8 @@ MSM_HD void bpr_phase1_chain(const int32_t* bx, const int32_t* by,
                              bool store) {
   static_assert(LANES >= 4 && LANES <= 32 && (LANES & (LANES - 1)) == 0,
                 "two halves of a power of two of lanes, 2 to 16 each");
-  pt32 own[BPR_HALVES], handed, s;  // own: m on the lower half, acc on the upper
+  constexpr int L = F::L;
+  pt32t<F> own[BPR_HALVES], handed, s;  // own: m on the lower half, acc on the upper
   pt32_identity(handed);
   s = handed;
   MSM_UNROLL
@@ -102,17 +107,17 @@ MSM_HD void bpr_phase1_chain(const int32_t* bx, const int32_t* by,
     MSM_UNROLL
     for (int h = 0; h < BPR_HALVES; ++h) {
       const bool acc_half = bpr_half<LANES>(h);
-      pt32 in, r;
+      pt32t<F> in, r;
       pt32_select(in, acc_half, handed, s);
       pt32_add_lanes<LANES / 2>(r, own[h], in);
       pt32_select(own[h], acc_half ? b < Bl - 1 : b >= 0, r, own[h]);
     }
     bpr_from_half<LANES>(handed, own, 0);
   }
-  pt32 acc;
+  pt32t<F> acc;
   bpr_from_half<LANES>(acc, own, 1);
   if (!store) return;
-  const pt32& m = handed;
+  const pt32t<F>& m = handed;
 #ifdef __CUDA_ARCH__
   const int lane = threadIdx.x & (LANES - 1), stride = LANES;
 #else

@@ -3,13 +3,12 @@
 // shared pair algebra and the per-lane bodies of the forward products, the
 // backward emission and the suffix products in pair32.cuh, the fused
 // emission + scan in emit_scan.cuh. The suffix products and the emission +
-// scan (the compressed MSM's kernels 12 and 13) are generic over the field:
-// their kernels and launches are in pairs.cuh (PairSuffixLaunch<F>,
-// EmitScanLaunch<F>), BN254's instantiated here and each other curve's in
-// csrc/curve_<name>_pairs.cu, and msm_pair_suffix(_glv) and
-// msm_emit_scan(_glv) dispatch on the curve. The forward products and the
-// backward emission (kernels 10 and 11, compress_pairs only) are BN254's
-// kernels of the same generic bodies.
+// scan (the compressed MSM's kernels 12 and 13), the forward products and
+// the backward emission (kernels 10 and 11, compress_pairs) are generic
+// over the field: their kernels and launches are in pairs.cuh
+// (PairSuffixLaunch<F>, EmitScanLaunch<F>, PairForwardLaunch<F>,
+// PairBackwardLaunch<F>), BN254's instantiated here and each other curve's
+// in csrc/curve_<name>_pairs.cu, and every C entry dispatches on the curve.
 //
 // Replaces, in msm_tpu/ops/pallas_compress.py: make_pair_suffix (pallas_call
 // at :427), make_emit_scan (:561), make_pair_forward (:205) and
@@ -65,8 +64,8 @@ using namespace msm;
 
 MSM_EXTERN_OTHER_FIELDS(PairSuffixLaunch)
 MSM_EXTERN_OTHER_FIELDS(EmitScanLaunch)
-
-constexpr int THREADS = PAIR_THREADS;
+MSM_EXTERN_OTHER_FIELDS(PairForwardLaunch)
+MSM_EXTERN_OTHER_FIELDS(PairBackwardLaunch)
 
 // packed [N, 2D] 16-byte aligned, D the curve's words per coordinate;
 // perm, flags [G, 2 Cp, R]; s [G, Cp, L, R]
@@ -111,66 +110,16 @@ extern "C" int msm_emit_scan_glv(const int32_t* packed, const int32_t* perm,
                     3, (cudaStream_t)stream))
 }
 
-// Kernels 10 and 11, BN254's: the forward products and the backward
-// emission (compress_pairs).
-
-__global__ void __launch_bounds__(THREADS, 4)
-    k_pair_forward(const int32_t* __restrict__ packed,
-                   const int32_t* __restrict__ perm,
-                   const int32_t* __restrict__ flags, int32_t* __restrict__ m,
-                   int Cp, int R) {
-  const int r = pair_lane();
-  if (r < R)
-    pair_chain32_lane<2, true>(packed, perm, flags, m, blockIdx.y, Cp, R, r);
-}
-
-__global__ void __launch_bounds__(THREADS, 4)
-    k_pair_forward_glv(const int32_t* __restrict__ packed,
-                       const int32_t* __restrict__ perm,
-                       const int32_t* __restrict__ flags,
-                       int32_t* __restrict__ m, int Cp, int R) {
-  const int r = pair_lane();
-  if (r < R)
-    pair_chain32_lane<3, true>(packed, perm, flags, m, blockIdx.y, Cp, R, r);
-}
-
-__global__ void __launch_bounds__(THREADS, 4)
-    k_pair_backward(const int32_t* __restrict__ packed,
-                    const int32_t* __restrict__ perm,
-                    const int32_t* __restrict__ flags,
-                    const int32_t* __restrict__ m,
-                    const int32_t* __restrict__ minv,
-                    int32_t* __restrict__ cx, int32_t* __restrict__ cy,
-                    int32_t* __restrict__ inf, int Cp, int R) {
-  const int r = pair_lane();
-  if (r < R)
-    pair_backward32_lane<2>(packed, perm, flags, m, minv, cx, cy, inf,
-                             blockIdx.y, Cp, R, r);
-}
-
-__global__ void __launch_bounds__(THREADS, 4)
-    k_pair_backward_glv(const int32_t* __restrict__ packed,
-                        const int32_t* __restrict__ perm,
-                        const int32_t* __restrict__ flags,
-                        const int32_t* __restrict__ m,
-                        const int32_t* __restrict__ minv,
-                        int32_t* __restrict__ cx, int32_t* __restrict__ cy,
-                        int32_t* __restrict__ inf, int Cp, int R) {
-  const int r = pair_lane();
-  if (r < R)
-    pair_backward32_lane<3>(packed, perm, flags, m, minv, cx, cy, inf,
-                             blockIdx.y, Cp, R, r);
-}
+// Kernels 10 and 11: the forward products and the backward emission
+// (compress_pairs).
 
 // ... m [G, Cp, L, R]; packed 16-byte aligned
 extern "C" int msm_pair_forward(const int32_t* packed, const int32_t* perm,
                                 const int32_t* flags, int32_t* m,
-                                int64_t groups, int Cp, int R, void* stream) {
-  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_forward<<<pair_grid(groups, R), THREADS, 0, (cudaStream_t)stream>>>(
-        packed, perm, flags, m, Cp, R);
-  return (int)cudaGetLastError();
+                                int64_t groups, int Cp, int R, int curve,
+                                void* stream) {
+  MSM_FIELD_SWITCH(curve, PairForwardLaunch, (packed, perm, flags, m, groups,
+                                              Cp, R, 2, (cudaStream_t)stream))
 }
 
 // ... m [G, Cp, L, R] canonical; minv [G, L, R]; cx, cy [G, Cp, L, R];
@@ -179,26 +128,20 @@ extern "C" int msm_pair_backward(const int32_t* packed, const int32_t* perm,
                                  const int32_t* flags, const int32_t* m,
                                  const int32_t* minv, int32_t* cx, int32_t* cy,
                                  int32_t* inf, int64_t groups, int Cp, int R,
-                                 void* stream) {
-  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_backward<<<pair_grid(groups, R), THREADS, 0,
-                      (cudaStream_t)stream>>>(packed, perm, flags, m, minv, cx,
-                                              cy, inf, Cp, R);
-  return (int)cudaGetLastError();
+                                 int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, PairBackwardLaunch,
+                   (packed, perm, flags, m, minv, cx, cy, inf, groups, Cp, R,
+                    2, (cudaStream_t)stream))
 }
 
 // The GLV modes of kernels 10 and 11: packed [N, 3D] (the GLV table); the
 // rest as msm_pair_forward and msm_pair_backward.
 extern "C" int msm_pair_forward_glv(const int32_t* packed, const int32_t* perm,
                                     const int32_t* flags, int32_t* m,
-                                    int64_t groups, int Cp, int R,
+                                    int64_t groups, int Cp, int R, int curve,
                                     void* stream) {
-  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_forward_glv<<<pair_grid(groups, R), THREADS, 0,
-                         (cudaStream_t)stream>>>(packed, perm, flags, m, Cp, R);
-  return (int)cudaGetLastError();
+  MSM_FIELD_SWITCH(curve, PairForwardLaunch, (packed, perm, flags, m, groups,
+                                              Cp, R, 3, (cudaStream_t)stream))
 }
 
 extern "C" int msm_pair_backward_glv(const int32_t* packed,
@@ -206,11 +149,8 @@ extern "C" int msm_pair_backward_glv(const int32_t* packed,
                                      const int32_t* flags, const int32_t* m,
                                      const int32_t* minv, int32_t* cx,
                                      int32_t* cy, int32_t* inf, int64_t groups,
-                                     int Cp, int R, void* stream) {
-  if ((uintptr_t)packed % 16) return (int)cudaErrorInvalidValue;
-  if (groups > 0 && R > 0 && Cp > 0)
-    k_pair_backward_glv<<<pair_grid(groups, R), THREADS, 0,
-                          (cudaStream_t)stream>>>(packed, perm, flags, m, minv,
-                                                  cx, cy, inf, Cp, R);
-  return (int)cudaGetLastError();
+                                     int Cp, int R, int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, PairBackwardLaunch,
+                   (packed, perm, flags, m, minv, cx, cy, inf, groups, Cp, R,
+                    3, (cudaStream_t)stream))
 }

@@ -9,11 +9,11 @@
 // with its x constants at run time (x_scale_int, dual_x_scale_int; one
 // [n, 2D] table, two, or one [n, 3D]), the first two with their constants
 // compiled in (the field's R^2 and beta R^2, fields.cuh). Bit for bit,
-// since a canonical value has one encoding. The plain and GLV kernels are
-// generic over the field (plain.cuh: ConvertLaunch<F>, ConvertGlvLaunch<F>;
-// BN254's instances here, each other curve's in csrc/curve_<name>.cu);
-// msm_convert and msm_convert_glv dispatch on the curve. The scaled kernel
-// is BN254's.
+// since a canonical value has one encoding. Every kernel is generic over
+// the field (plain.cuh: ConvertLaunch<F>, ConvertGlvLaunch<F>; offpath.cuh:
+// ConvertScaledLaunch<F>; BN254's instances here, each other curve's in
+// csrc/curve_<name>.cu, the scaled one in csrc/curve_<name>_pairs.cu);
+// every C entry dispatches on the curve.
 //
 // Bound: bytes. Each point reads 64 B (two coordinates of 16 u16 words,
 // int16 on the wire) and writes 64 B, against 2 Montgomery products; at
@@ -30,14 +30,13 @@
 // k_convert_glv.
 #include <cuda_runtime.h>
 
-#include "plain.cuh"
+#include "offpath.cuh"
 
 using namespace msm;
 
 MSM_EXTERN_OTHER_FIELDS(ConvertLaunch)
 MSM_EXTERN_OTHER_FIELDS(ConvertGlvLaunch)
-
-constexpr int THREADS = CONVERT_THREADS;
+MSM_EXTERN_OTHER_FIELDS(ConvertScaledLaunch)
 
 // xw, yw [n, 2D] int16 (u16 bits); out [n, 2D] int32, D the curve's words
 // per coordinate; all 16-byte aligned
@@ -55,49 +54,16 @@ extern "C" int msm_convert_glv(const int16_t* xw, const int16_t* yw,
                    (xw, yw, out, n, (cudaStream_t)stream))
 }
 
-template <int LAYOUT>
-__global__ void __launch_bounds__(THREADS)
-    k_convert_scaled(const int16_t* __restrict__ xw,
-                     const int16_t* __restrict__ yw, const fe32 xs,
-                     const fe32 xs2, int32_t* __restrict__ out,
-                     int32_t* __restrict__ out2, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) convert_point_scaled<LAYOUT>(xw, yw, xs, xs2, out, out2, i);
-}
-
-// xw, yw [n, 16] int16 (u16 bits); xs, xs2: HOST pointers to the x
-// constants' NW canonical words (xs2 read only by the two-table and triple
+// xw, yw [n, 2D] int16 (u16 bits); xs, xs2: HOST pointers to the x
+// constants' D canonical words (xs2 read only by the two-table and triple
 // layouts, may be null otherwise); layout CONVERT_ONE (out [n, 2D]),
 // CONVERT_DUAL (out, out2 [n, 2D]) or CONVERT_TRIPLE (out [n, 3D]); the
 // device arrays 16-byte aligned
 extern "C" int msm_convert_scaled(const int16_t* xw, const int16_t* yw,
                                   const uint32_t* xs, const uint32_t* xs2,
                                   int32_t* out, int32_t* out2, int64_t n,
-                                  int layout, void* stream) {
-  const bool two = layout == CONVERT_DUAL;
-  if (layout < CONVERT_ONE || layout > CONVERT_TRIPLE || !xs ||
-      (layout != CONVERT_ONE && !xs2) || (two && !out2))
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)xw | (uintptr_t)yw | (uintptr_t)out |
-       (two ? (uintptr_t)out2 : 0)) % 16)
-    return (int)cudaErrorInvalidValue;
-  fe32 a, b;
-  for (int k = 0; k < NW; ++k) {
-    a.w[k] = xs[k];
-    b.w[k] = xs2 ? xs2[k] : 0u;
-  }
-  if (n > 0) {
-    const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (layout == CONVERT_ONE)
-      k_convert_scaled<CONVERT_ONE><<<blocks, THREADS, 0, st>>>(xw, yw, a, b,
-                                                               out, out2, n);
-    else if (two)
-      k_convert_scaled<CONVERT_DUAL><<<blocks, THREADS, 0, st>>>(xw, yw, a, b,
-                                                                out, out2, n);
-    else
-      k_convert_scaled<CONVERT_TRIPLE><<<blocks, THREADS, 0, st>>>(
-          xw, yw, a, b, out, out2, n);
-  }
-  return (int)cudaGetLastError();
+                                  int layout, int curve, void* stream) {
+  MSM_FIELD_SWITCH(curve, ConvertScaledLaunch,
+                   (xw, yw, xs, xs2, out, out2, n, layout,
+                    (cudaStream_t)stream))
 }

@@ -7,8 +7,8 @@
 // word core's form. The value may be anything in [0, 2^(32 NW)) (inputs
 // are not validated by default), so it is reduced below p first; one
 // Montgomery product by R^2 mod p then gives a R mod p, canonical -- the
-// packed table's dense words, x then y. The plain and GLV modes are generic
-// over the field; the scaled mode below is BN254's.
+// packed table's dense words, x then y. Every mode is generic over the
+// field (the last template parameter, BN254 by default).
 //
 // The GLV table (convert_point_glv) has three coordinates a row, x R,
 // beta x R and y R: one more product, by beta R^2 mod p (the field's
@@ -28,7 +28,6 @@ namespace msm {
 // u16 words per input coordinate (2 NW; BN254: 16)
 template <class F>
 constexpr int coord_u16 = 2 * F::NW;
-constexpr int COORD_U16 = coord_u16<FpBn254>;  // the scaled mode's (BN254)
 
 // One coordinate's 4 NW bytes (16 B aligned); on the device NW / 4 16-byte
 // loads through the read-only cache.
@@ -117,20 +116,21 @@ constexpr int CONVERT_TRIPLE = 2;
 // takes x to x c R^-1 mod p, so c = R^2 gives x R and c = beta R^2 gives
 // beta x R); y always enters Montgomery form by R^2. xs2 and out2 are read
 // only by the layouts that name them.
-template <int LAYOUT>
+template <int LAYOUT, class F = FpBn254>
 MSM_HD void convert_point_scaled(const int16_t* xw, const int16_t* yw,
-                                 const fe32& xs, const fe32& xs2, int32_t* out,
-                                 int32_t* out2, int64_t i) {
-  fe32 r2, x, y, x1;
+                                 const fe32t<F>& xs, const fe32t<F>& xs2,
+                                 int32_t* out, int32_t* out2, int64_t i) {
+  constexpr int NW = F::NW;
+  fe32t<F> r2, x, y, x1;
   fe32_const_r2(r2);
-  convert_load(x, xw + i * COORD_U16);
-  convert_load(y, yw + i * COORD_U16);
+  convert_load(x, xw + i * coord_u16<F>);
+  convert_load(y, yw + i * coord_u16<F>);
   fe32_reduce_full(x);
   fe32_reduce_full(y);
   fe32_mul(x1, x, xs);
   fe32_mul(y, y, r2);
   if constexpr (LAYOUT == CONVERT_TRIPLE) {
-    fe32 x2;
+    fe32t<F> x2;
     fe32_mul(x2, x, xs2);
     int32_t* row = out + i * 3 * NW;
     convert_store(row, x1);
@@ -140,7 +140,7 @@ MSM_HD void convert_point_scaled(const int16_t* xw, const int16_t* yw,
     convert_store(out + i * 2 * NW, x1);
     convert_store(out + i * 2 * NW + NW, y);
     if constexpr (LAYOUT == CONVERT_DUAL) {
-      fe32 x2;
+      fe32t<F> x2;
       fe32_mul(x2, x, xs2);
       convert_store(out2 + i * 2 * NW, x2);
       convert_store(out2 + i * 2 * NW + NW, y);

@@ -2,7 +2,7 @@
 // for Grumpkin, in a translation unit of their own (csrc/dispatch.cuh):
 // the C entries in point_add.cu, convert.cu, scan.cu, prefix.cu,
 // point_total.cu and horner.cu call these launches for curve index
-// FpGrumpkin::ID. Its compressed path's kernels are in curve_grumpkin_pairs.cu.
+// FpGrumpkin::ID. Its pair kernels, BPR phase 1 and scaled convert are in curve_grumpkin_pairs.cu.
 #include "plain.cuh"
 
 MSM_INSTANTIATE_PLAIN(msm::FpGrumpkin)

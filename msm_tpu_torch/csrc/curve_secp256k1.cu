@@ -2,7 +2,7 @@
 // for secp256k1, in a translation unit of their own (csrc/dispatch.cuh):
 // the C entries in point_add.cu, convert.cu, scan.cu, prefix.cu,
 // point_total.cu and horner.cu call these launches for curve index
-// FpSecp256k1::ID. Its compressed path's kernels are in curve_secp256k1_pairs.cu.
+// FpSecp256k1::ID. Its pair kernels, BPR phase 1 and scaled convert are in curve_secp256k1_pairs.cu.
 #include "plain.cuh"
 
 MSM_INSTANTIATE_PLAIN(msm::FpSecp256k1)

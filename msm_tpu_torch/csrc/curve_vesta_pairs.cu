@@ -1,7 +1,10 @@
-// The compressed path's kernels 9, 12 and 13 (12 and 13 also in their GLV
-// modes) for Vesta, in a translation unit of their own
-// (csrc/dispatch.cuh): the C entries in inv.cu and compress.cu call these
-// launches for curve index FpVesta::ID.
+// The pair kernels 9-13 (10-13 also in their GLV modes), BPR phase 1
+// (kernel 8) and the scaled convert (kernel 2's run-time constants) for
+// Vesta, in a translation unit of their own (csrc/dispatch.cuh): the C
+// entries in inv.cu, compress.cu, bpr.cu and convert.cu call these launches
+// for curve index FpVesta::ID.
+#include "offpath.cuh"
 #include "pairs.cuh"
 
 MSM_INSTANTIATE_PAIRS(msm::FpVesta)
+MSM_INSTANTIATE_OFFPATH(msm::FpVesta)

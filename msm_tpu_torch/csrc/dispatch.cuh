@@ -1,12 +1,12 @@
-// The curve dispatch of the C entries of the kernels generic over the field:
-// the plain path's (kernels 1, 2, 4, 5, 6 and 7), the GLV modes of 2 and 4,
-// and the compressed path's (9, 12 and 13, with the GLV modes of 12 and
-// 13). Each kernel's launch is a class template over the field,
-// LAUNCH<F>::run(...); BN254's is instantiated in the kernel's own
-// translation unit, each other curve's in two of its own (csrc/curve_*.cu:
-// MSM_INSTANTIATE_PLAIN and MSM_INSTANTIATE_GLV in curve_<name>.cu,
-// MSM_INSTANTIATE_PAIRS in curve_<name>_pairs.cu), so the parallel build
-// spreads them. A C entry takes the curve's index in params.CURVES (F::ID)
+// The curve dispatch of the C entries, every kernel being generic over the
+// field: the plain path's (kernels 1, 2, 4, 5, 6 and 7), the GLV modes of 2
+// and 4, the pair kernels (9-13, with the GLV modes of 10-13), BPR phase 1
+// (8) and the scaled modes of 2. Each kernel's launch is a class template
+// over the field, LAUNCH<F>::run(...); BN254's is instantiated in the
+// kernel's own translation unit, each other curve's in two of its own
+// (csrc/curve_*.cu: MSM_INSTANTIATE_PLAIN and MSM_INSTANTIATE_GLV in
+// curve_<name>.cu, MSM_INSTANTIATE_PAIRS and MSM_INSTANTIATE_OFFPATH in
+// curve_<name>_pairs.cu), so the parallel build spreads them. A C entry takes the curve's index in params.CURVES (F::ID)
 // and switches on it; an index without an instantiation is
 // cudaErrorInvalidValue.
 #pragma once
@@ -62,11 +62,21 @@
   template struct ScanGlvLaunch<F>;           \
   }
 
-// In a curve's second translation unit: the compressed path's launches for
-// field F (kernels 9, 12 and 13; 12 and 13 in both row layouts).
+// In a curve's second translation unit: the pair kernels' launches for
+// field F (kernels 9-13; 10-13 in both row layouts).
 #define MSM_INSTANTIATE_PAIRS(F)              \
   namespace msm {                             \
   template struct PowLaunch<F>;               \
   template struct PairSuffixLaunch<F>;        \
   template struct EmitScanLaunch<F>;          \
+  template struct PairForwardLaunch<F>;       \
+  template struct PairBackwardLaunch<F>;      \
+  }
+
+// In a curve's second translation unit: the launches no served config runs
+// (offpath.cuh) for field F: BPR phase 1 (kernel 8) and the scaled convert.
+#define MSM_INSTANTIATE_OFFPATH(F)            \
+  namespace msm {                             \
+  template struct BprLaunch<F>;               \
+  template struct ConvertScaledLaunch<F>;     \
   }

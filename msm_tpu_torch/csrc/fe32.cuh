@@ -1,11 +1,10 @@
 // Base-field arithmetic in 32-bit words, generic over the field (a traits
-// type of fields.cuh): the word core of the point add (kernel 1), the point
-// conversion (2), the scan (4), the row offsets (5), the point total (6)
-// and the Horner ladder (7) for every curve, and of the BN254-only kernels:
-// the Fermat inversion (9), the four pair kernels -- forward products (10),
-// backward emission (11), suffix products (12), fused pair emission + scan
-// (13) -- and BPR phase 1 (8), which use the BN254 names at the end of this
-// file (fe32, NW).
+// type of fields.cuh): the word core of every kernel -- the point add
+// (kernel 1), the point conversion (2), the scan (4), the row offsets (5),
+// the point total (6), the Horner ladder (7), BPR phase 1 (8), the Fermat
+// inversion (9) and the four pair kernels (10-13) -- for every curve. The
+// BN254 names at the end of this file (fe32, NW) serve the host tests and
+// the variant scripts; no kernel uses them.
 //
 // An `fe32t<F>` is F::NW words, least significant first, CANONICAL (value
 // in [0, p)), in the Montgomery domain of the 13-bit limbs the kernels
@@ -536,7 +535,7 @@ MSM_HD void row_store(int32_t* dst, const uint32_t (&v)[N]) {
 #endif
 }
 
-// ---- BN254 names, for the kernels that run BN254 only ----
+// ---- BN254 names, for the host tests and the variant scripts ----
 
 using fe32 = fe32t<FpBn254>;
 constexpr int NW = FpBn254::NW;

@@ -1,10 +1,11 @@
 // The compressed path's kernels and their launches, generic over the field:
 // the Fermat inversion (kernel 9, k_mont_pow), the suffix products (12,
-// k_pair_suffix) and the fused pair emission + scan (13, k_emit_scan), the
-// last two also in their GLV modes (k_pair_suffix_glv, k_emit_scan_glv:
-// the bodies at COORDS = 3). nvcc only: the bodies are pow32.cuh,
-// pair32.cuh and emit_scan.cuh, which the host tests build with g++. Each
-// launch is a class template LAUNCH<F> with one static run(...); BN254's is
+// k_pair_suffix), the fused pair emission + scan (13, k_emit_scan), and
+// compress_pairs' forward products (10, k_pair_forward) and backward
+// emission (11, k_pair_backward); 10-13 also in their GLV modes (*_glv: the
+// bodies at COORDS = 3). nvcc only: the bodies are pow32.cuh, pair32.cuh
+// and emit_scan.cuh, which the host tests build with g++. Each launch is a
+// class template LAUNCH<F> with one static run(...); BN254's is
 // instantiated in inv.cu and compress.cu, each other curve's in
 // csrc/curve_<name>_pairs.cu (MSM_INSTANTIATE_PAIRS), and the C entries
 // dispatch on the curve (dispatch.cuh). The design notes are in inv.cu and
@@ -73,7 +74,7 @@ int PowLaunch<F>::run(const int32_t* a, int32_t* out, const pow_exp_words& e,
   return (int)cudaGetLastError();
 }
 
-// ---- Kernels 12 and 13, and their GLV modes (bodies: pair32.cuh,
+// ---- Kernels 10-13, and their GLV modes (bodies: pair32.cuh,
 // emit_scan.cuh) ----
 constexpr int PAIR_THREADS = 128;
 
@@ -194,6 +195,117 @@ int EmitScanLaunch<F>::run(const int32_t* packed, const int32_t* perm,
     else
       k_emit_scan_glv<F><<<pair_grid(groups, R), PAIR_THREADS, 0, st>>>(
           packed, perm, flags, s, t0, pe3, tx, ty, tz, Cp, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+__global__ void __launch_bounds__(PAIR_THREADS, F::BLOCKS_PER_SM)
+    k_pair_forward(const int32_t* __restrict__ packed,
+                   const int32_t* __restrict__ perm,
+                   const int32_t* __restrict__ flags, int32_t* __restrict__ m,
+                   int Cp, int R) {
+  const int r = pair_lane();
+  if (r < R)
+    pair_chain32_lane<2, true, F>(packed, perm, flags, m, blockIdx.y, Cp, R,
+                                  r);
+}
+
+template <class F>
+__global__ void __launch_bounds__(PAIR_THREADS, F::BLOCKS_PER_SM)
+    k_pair_forward_glv(const int32_t* __restrict__ packed,
+                       const int32_t* __restrict__ perm,
+                       const int32_t* __restrict__ flags,
+                       int32_t* __restrict__ m, int Cp, int R) {
+  const int r = pair_lane();
+  if (r < R)
+    pair_chain32_lane<3, true, F>(packed, perm, flags, m, blockIdx.y, Cp, R,
+                                  r);
+}
+
+template <class F>
+__global__ void __launch_bounds__(PAIR_THREADS, F::BLOCKS_PER_SM)
+    k_pair_backward(const int32_t* __restrict__ packed,
+                    const int32_t* __restrict__ perm,
+                    const int32_t* __restrict__ flags,
+                    const int32_t* __restrict__ m,
+                    const int32_t* __restrict__ minv,
+                    int32_t* __restrict__ cx, int32_t* __restrict__ cy,
+                    int32_t* __restrict__ inf, int Cp, int R) {
+  const int r = pair_lane();
+  if (r < R)
+    pair_backward32_lane<2, F>(packed, perm, flags, m, minv, cx, cy, inf,
+                               blockIdx.y, Cp, R, r);
+}
+
+template <class F>
+__global__ void __launch_bounds__(PAIR_THREADS, F::BLOCKS_PER_SM)
+    k_pair_backward_glv(const int32_t* __restrict__ packed,
+                        const int32_t* __restrict__ perm,
+                        const int32_t* __restrict__ flags,
+                        const int32_t* __restrict__ m,
+                        const int32_t* __restrict__ minv,
+                        int32_t* __restrict__ cx, int32_t* __restrict__ cy,
+                        int32_t* __restrict__ inf, int Cp, int R) {
+  const int r = pair_lane();
+  if (r < R)
+    pair_backward32_lane<3, F>(packed, perm, flags, m, minv, cx, cy, inf,
+                               blockIdx.y, Cp, R, r);
+}
+
+// Kernel 10 in the table's row layout `coords` (2, or 3 under GLV).
+template <class F>
+struct PairForwardLaunch {
+  static int run(const int32_t* packed, const int32_t* perm,
+                 const int32_t* flags, int32_t* m, int64_t groups, int Cp,
+                 int R, int coords, cudaStream_t st);
+};
+
+// packed [N, coords NW] 16-byte aligned; perm, flags [G, 2 Cp, R];
+// m [G, Cp, L, R]
+template <class F>
+int PairForwardLaunch<F>::run(const int32_t* packed, const int32_t* perm,
+                              const int32_t* flags, int32_t* m, int64_t groups,
+                              int Cp, int R, int coords, cudaStream_t st) {
+  if ((uintptr_t)packed % 16 || (coords != 2 && coords != 3))
+    return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0) {
+    if (coords == 2)
+      k_pair_forward<F><<<pair_grid(groups, R), PAIR_THREADS, 0, st>>>(
+          packed, perm, flags, m, Cp, R);
+    else
+      k_pair_forward_glv<F><<<pair_grid(groups, R), PAIR_THREADS, 0, st>>>(
+          packed, perm, flags, m, Cp, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel 11 in the table's row layout `coords` (2, or 3 under GLV).
+template <class F>
+struct PairBackwardLaunch {
+  static int run(const int32_t* packed, const int32_t* perm,
+                 const int32_t* flags, const int32_t* m, const int32_t* minv,
+                 int32_t* cx, int32_t* cy, int32_t* inf, int64_t groups,
+                 int Cp, int R, int coords, cudaStream_t st);
+};
+
+// ... m [G, Cp, L, R] canonical; minv [G, L, R]; cx, cy [G, Cp, L, R];
+// inf [G, Cp, R]; packed 16-byte aligned
+template <class F>
+int PairBackwardLaunch<F>::run(const int32_t* packed, const int32_t* perm,
+                               const int32_t* flags, const int32_t* m,
+                               const int32_t* minv, int32_t* cx, int32_t* cy,
+                               int32_t* inf, int64_t groups, int Cp, int R,
+                               int coords, cudaStream_t st) {
+  if ((uintptr_t)packed % 16 || (coords != 2 && coords != 3))
+    return (int)cudaErrorInvalidValue;
+  if (groups > 0 && R > 0 && Cp > 0) {
+    if (coords == 2)
+      k_pair_backward<F><<<pair_grid(groups, R), PAIR_THREADS, 0, st>>>(
+          packed, perm, flags, m, minv, cx, cy, inf, Cp, R);
+    else
+      k_pair_backward_glv<F><<<pair_grid(groups, R), PAIR_THREADS, 0, st>>>(
+          packed, perm, flags, m, minv, cx, cy, inf, Cp, R);
   }
   return (int)cudaGetLastError();
 }

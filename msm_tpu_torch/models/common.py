@@ -16,13 +16,15 @@ widens them on the device (``unpack_scalar_words``).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from msm_tpu_torch.ops.cuda_convert import convert_pack
-from msm_tpu_torch.ops.curve import CurveCtx, PointBatch
+from msm_tpu_torch.ops.curve import CurveCtx, PointBatch, get_curve_ctx
 from msm_tpu_torch.oracle.pyecc import IDENTITY, Curve, JPoint
-from msm_tpu_torch.params import MsmConfig
+from msm_tpu_torch.params import MsmConfig, coord_words
 from msm_tpu_torch.utils import limbs as L
 
 
@@ -38,18 +40,65 @@ def ints_to_u16_array(xs: list[int], nbytes: int = 32) -> np.ndarray:
     return np.frombuffer(buf, dtype="<u2").reshape(len(xs), nbytes // 2)
 
 
-def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig) -> None:
-    """Raise ``ValueError`` for a coordinate outside [0, q) or a point off
-    the curve. The subgroup check for cofactor > 1 curves is not ported
-    and raises ``NotImplementedError``."""
-    if cfg.curve.cofactor > 1:
-        raise NotImplementedError("subgroup validation (cofactor > 1) is not ported")
+#: points per pass of the subgroup ladder: its batches stay a few GiB
+SUBGROUP_ROWS = 1 << 22
+
+
+def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig, device="cpu") -> None:
+    """Raise ``ValueError`` at the first coordinate outside [0, q), the
+    first point off the curve (both on the host, in exact integers), and,
+    on a curve with cofactor > 1, the first point outside the order-r
+    subgroup: [r]P == O checked for the whole padded batch at once on
+    ``device`` (``subgroup_mask_device``). The generator padding is in the
+    subgroup, so padded rows always pass."""
     q, a, b = cfg.curve.modulus, cfg.curve.a, cfg.curve.b
     for i, (x, y) in enumerate(points):
         if not (0 <= x < q and 0 <= y < q):
             raise ValueError(f"point {i} coordinates out of field range [0, q)")
         if (y * y - (x * x * x + a * x + b)) % q != 0:
             raise ValueError(f"point {i} is not on the curve")
+    if cfg.curve.cofactor > 1 and points:
+        n = len(points)
+        x_u16, y_u16 = pad_points_words(points, cfg, pad_size(n))
+        mask = subgroup_mask_device(x_u16, y_u16, cfg, device).cpu().numpy()
+        bad = np.flatnonzero(~mask[:n])
+        if bad.size:
+            raise ValueError(
+                f"point {int(bad[0])} is outside the prime-order subgroup "
+                f"(cofactor {cfg.curve.cofactor})"
+            )
+
+
+def subgroup_mask_device(x_u16, y_u16, cfg: MsmConfig, device="cpu") -> torch.Tensor:
+    """Per-point membership of the order-r subgroup, [r]P == O, for u16
+    coordinate words [N, W] (numpy or tensors, held in int16): the points
+    converted to Montgomery form (kernel 2) and one ladder
+    (``CurveCtx.scalar_mul_static`` with the unreduced r: a ladder mod r
+    would make [r]P the identity for every point) over the whole batch on
+    ``device``, ``SUBGROUP_ROWS`` points a pass. Returns bool [N] on
+    ``device``.
+
+    The identity is (0 : Y : 0) with Y != 0. The complete formulas are
+    complete only on a group without points of order 2; BLS12-377's has
+    them (its cofactor is even), and there an addition P + Q with P - Q of
+    order 2 gives (0 : 0 : 0), which every later step keeps. A ladder over
+    a point of the subgroup (odd order r) never meets such a pair, so the
+    point passes exactly when [r]P is a true identity; a point that meets
+    one (e.g. (2, 3), of order 6, or (-1, 0), of order 2) ends at
+    (0 : 0 : 0) and fails, as it must. The JAX package's mask tests Z alone
+    and passes such points."""
+    from msm_tpu_torch.ops.cuda_convert import unpack_coords
+
+    ec = get_curve_ctx(dataclasses.replace(cfg, glv=False))  # the [N, 2D] table
+    D = coord_words(ec.cfg)
+    x_u16, y_u16 = (torch.as_tensor(a).to(device) for a in (x_u16, y_u16))
+    masks = []
+    for lo in range(0, x_u16.shape[0], SUBGROUP_ROWS):
+        packed = convert_pack(ec.cfg, x_u16[lo : lo + SUBGROUP_ROWS], y_u16[lo : lo + SUBGROUP_ROWS])
+        pts = ec.from_affine_mont(unpack_coords(packed[:, :D], ec.cfg), unpack_coords(packed[:, D:], ec.cfg))
+        rp = ec.scalar_mul_static(pts, cfg.curve.order)
+        masks.append(ec.is_identity(rp) & ~ec.f.is_zero(rp.y))
+    return torch.cat(masks)
 
 
 def pad_points_words(
@@ -84,16 +133,18 @@ def pad_inputs(
     cfg: MsmConfig,
     multiple: int = 1,
     validate: bool = False,
+    device="cpu",
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Pad to a power of two, at least ``multiple``, with generator points
     and zero scalars; serialize to u16-word arrays (x, y in int16, scalars
     in int32). ``multiple`` gives instances of different sizes one padded
-    size (the batched model)."""
+    size (the batched model). ``validate`` checks the points first
+    (``validate_inputs``, its subgroup ladder on ``device``)."""
     n = len(points)
     if n != len(scalars):
         raise ValueError(f"{n} points but {len(scalars)} scalars")
     if validate:
-        validate_inputs(points, cfg)
+        validate_inputs(points, cfg, device)
     N = pad_size(max(n, multiple))
     x_u16, y_u16 = pad_points_words(points, cfg, N)
     return x_u16, y_u16, pad_scalars_words(scalars, cfg, N)

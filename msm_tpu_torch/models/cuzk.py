@@ -190,7 +190,7 @@ def compute_msm_jpoint(
     config = config or pick_config(len(points))
     if len(points) == 0:
         return IDENTITY
-    arrays = common.pad_inputs(points, scalars, config, validate=validate)
+    arrays = common.pad_inputs(points, scalars, config, validate=validate, device=device)
     n = arrays[0].shape[0]
     geom = geometry or pick_geometry(min(n, CHUNK_MAX), config)
     return common.std_ints_to_jpoint(*cuzk_msm_point(*arrays, config, geom, device=device), config)

@@ -18,9 +18,8 @@ does: each chunk's Montgomery window sums are added to the others' on the
 device (point add, 1) before the export. The JAX naive model has no cap;
 the port's is its device-memory bound.
 
-On CUDA tensors every step runs on the kernels; on CPU tensors on their
-plain twins (any curve). On CUDA the naive model runs BN254 only, and
-refuses another curve before any launch.
+On CUDA tensors every step runs on the kernels, on CPU tensors on their
+plain twins; either for every curve of ``params.CURVES``.
 """
 
 from __future__ import annotations
@@ -77,8 +76,6 @@ def compute_msm_naive(
     JPoint of the result."""
     if config.glv:  # as the JAX package's naive model asserts
         raise NotImplementedError("the naive model has no GLV mode")
-    if config.curve.name != "bn254" and torch.device(device).type == "cuda":
-        raise NotImplementedError(f"the naive model runs BN254 only on CUDA; got curve={config.curve.name}")
     if len(points) == 0:
         return IDENTITY
     arrays = common.pad_inputs(points, scalars, config)

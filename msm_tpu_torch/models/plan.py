@@ -90,7 +90,7 @@ class MsmPlan:
             raise ValueError("a plan needs a non-empty point set")
         self.cfg = config or pick_config(n)
         if validate:
-            common.validate_inputs(points, self.cfg)
+            common.validate_inputs(points, self.cfg, device)
         self.n, self.N = n, common.pad_size(n)
         self.device = torch.device(device)
         #: the chunks' rows, and each chunk's point table on the device

@@ -10,15 +10,14 @@ root, so an edited source never meets a stale library. ``nvcc`` is found on
 ``PATH``, else under ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0. The entries
-of the kernels generic over the field (the plain path's kernels 1, 2, 4, 5,
-6 and 7, the GLV modes of 2 and 4, the compressed path's 9, 12 and 13 with
-the GLV modes of 12 and 13) take the curve's index in ``params.CURVES``
-(``curve_id``) before the stream and dispatch on it. Each other curve's
-instances compile in two translation units of their own
-(``csrc/curve_<name>.cu``, ``csrc/curve_<name>_pairs.cu``); each
-translation unit's compile seconds go to ``compile_seconds.json`` beside
-the library.
+``cudaGetLastError()``; ``launch`` raises when that is not 0. Every kernel
+is generic over the field, and every entry but the histogram's (which has
+no field) takes the curve's index in ``params.CURVES`` (``curve_id``)
+before the stream and dispatches on it. Each other curve's instances
+compile in two translation units of their own (``csrc/curve_<name>.cu``:
+the plain path and the GLV convert and scan; ``csrc/curve_<name>_pairs.cu``:
+the pair kernels, BPR phase 1 and the scaled convert); each translation
+unit's compile seconds go to ``compile_seconds.json`` beside the library.
 """
 
 from __future__ import annotations
@@ -65,7 +64,7 @@ SIGNATURES = {
     "msm_point_add": [P] * 9 + [I64, I32, I32, P],
     "msm_convert": [P, P, P, I64, I32, P],
     "msm_convert_glv": [P, P, P, I64, I32, P],
-    "msm_convert_scaled": [P] * 6 + [I64, I32, P],
+    "msm_convert_scaled": [P] * 6 + [I64, I32, I32, P],
     "msm_hist": [P, P, I64, I64, I32, I64, I32, P],
     "msm_scan": [P] * 7 + [I64, I32, I32, I32, P],
     "msm_scan_rows_glv": [P] * 7 + [I64, I32, I32, I32, P],
@@ -77,11 +76,11 @@ SIGNATURES = {
     "msm_pair_suffix_glv": [P] * 4 + [I64, I32, I32, I32, P],
     "msm_emit_scan": [P] * 9 + [I64, I32, I32, I32, P],
     "msm_emit_scan_glv": [P] * 9 + [I64, I32, I32, I32, P],
-    "msm_pair_forward": [P] * 4 + [I64, I32, I32, P],
-    "msm_pair_backward": [P] * 8 + [I64, I32, I32, P],
-    "msm_pair_forward_glv": [P] * 4 + [I64, I32, I32, P],
-    "msm_pair_backward_glv": [P] * 8 + [I64, I32, I32, P],
-    "msm_bpr_phase1": [P] * 9 + [I64, I32, I32, P],
+    "msm_pair_forward": [P] * 4 + [I64, I32, I32, I32, P],
+    "msm_pair_backward": [P] * 8 + [I64, I32, I32, I32, P],
+    "msm_pair_forward_glv": [P] * 4 + [I64, I32, I32, I32, P],
+    "msm_pair_backward_glv": [P] * 8 + [I64, I32, I32, I32, P],
+    "msm_bpr_phase1": [P] * 9 + [I64, I32, I32, I32, P],
 }
 
 _lock = threading.Lock()
@@ -120,15 +119,11 @@ def karatsuba_ok(cfg: MsmConfig) -> bool:
 
 def check_cuda_config(cfg: MsmConfig) -> None:
     """The CUDA kernels implement all seven curves with 13-bit limbs, plain
-    or pair compressed, each with or without GLV (the convert, the scan,
-    the suffix products and the emission + scan have GLV modes for every
-    curve). Karatsuba selects a TPU product for the same function, so it is
-    accepted where the JAX package builds it (``karatsuba_ok``) and refused
-    where that package refuses it. Anything else raises before a launch;
-    the kernels that run BN254 alone (the forward and backward pair
-    kernels of ``compress_pairs``, BPR phase 1, the scaled convert) refuse
-    another curve through ``require_cuda(..., bn254_only=True)``, and the
-    naive model refuses it on CUDA."""
+    or pair compressed, each with or without GLV (the convert, the scan and
+    the four pair kernels have GLV modes for every curve). Karatsuba
+    selects a TPU product for the same function, so it is accepted where
+    the JAX package builds it (``karatsuba_ok``) and refused where that
+    package refuses it. Anything else raises before a launch."""
     if cfg.word_size != 13 or cfg.curve.name not in CURVE_IDS:
         raise NotImplementedError(
             f"CUDA kernels support word_size 13 on {', '.join(CURVE_IDS)}; "
@@ -223,14 +218,10 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor, dtype=torch.int32,
-                 bn254_only: bool = False) -> None:
-    """Checks before a launch: supported config (BN254's only for a kernel
-    that runs BN254 alone: ``bn254_only``), CUDA contiguous tensors of
+def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor, dtype=torch.int32) -> None:
+    """Checks before a launch: supported config, CUDA contiguous tensors of
     ``dtype`` on one device."""
     check_cuda_config(cfg)
-    if bn254_only and cfg.curve.name != "bn254":
-        raise NotImplementedError(f"this CUDA kernel runs BN254 only; got curve={cfg.curve.name}")
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":

@@ -1,7 +1,8 @@
 """Kernel 8: phase 1 of the blocked bucket reduction, and its plain twin.
 
 CUDA source: ``msm_tpu_torch/csrc/bpr.cu`` (chain body in
-``csrc/bpr.cuh``, on the word core: a group of lanes per chain). Replaces
+``csrc/bpr.cuh``, on the word core: a group of lanes per chain; kernel and
+launch in ``csrc/offpath.cuh``), for every curve of ``params.CURVES``. Replaces
 the Pallas kernel ``msm_tpu/ops/pallas_bpr.py::make_bpr_phase1``
 (``pallas_call`` at :97).
 
@@ -40,13 +41,13 @@ def bpr_phase1(cfg: MsmConfig, bx, by, bz):
     if bx.device.type == "cpu":
         return bpr_phase1_plain(cfg, bx, by, bz)
     ins = _build.aligned(bx, by, bz)
-    _build.require_cuda(cfg, *ins, bn254_only=True)
+    _build.require_cuda(cfg, *ins)
     G, Bl, T, L = ins[0].shape
     for t in ins:
         if t.shape != (G, Bl, T, L) or L != cfg.num_words:
             raise ValueError(f"expected [G, Bl, T, {cfg.num_words}] inputs, got {tuple(t.shape)}")
     out = [torch.empty((G, T, L), dtype=torch.int32, device=bx.device) for _ in range(6)]
-    _build.launch("msm_bpr_phase1", *ins, *out, G, Bl, T)
+    _build.launch("msm_bpr_phase1", *ins, *out, G, Bl, T, _build.curve_id(cfg))
     bpr_phase1.launches += 1
     return tuple(out)
 

@@ -5,9 +5,10 @@ CUDA source: ``msm_tpu_torch/csrc/compress.cu``, all four kernels on the
 word core (the pair algebra and the bodies of kernels 10, 11 and 12 in
 ``csrc/pair32.cuh``, kernel 13's in ``csrc/emit_scan.cuh``, all generic
 over the field). Kernels 12 and 13 (``pair_suffix``, ``emit_scan``: the
-MSM's compressed scan) and their GLV modes run every curve of
-``params.CURVES`` (``csrc/pairs.cuh``, the C entries taking the curve's
-index); kernels 10 and 11 (``compress_pairs``) run BN254 alone on CUDA.
+MSM's compressed scan), kernels 10 and 11 (``pair_forward``,
+``pair_backward``: ``compress_pairs``) and their GLV modes run every curve
+of ``params.CURVES`` (``csrc/pairs.cuh``, the C entries taking the curve's
+index).
 Replaces, in ``msm_tpu/ops/pallas_compress.py``: ``make_pair_suffix``
 (``pallas_call`` at :427), ``make_emit_scan`` (:561), ``make_pair_forward``
 (:205) and ``make_pair_backward`` (:333), with the sorted-order gather that
@@ -136,12 +137,11 @@ def _limbs_first(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(-1, -2).contiguous()
 
 
-def _check(cfg: MsmConfig, packed, perm, flags, *chain, bn254_only: bool = False):
+def _check(cfg: MsmConfig, packed, perm, flags, *chain):
     """Checks before a pair kernel's launch: the gather inputs' shapes, and
-    every tensor (chain inputs included) CUDA int32; contiguous copies.
-    Kernels 10 and 11 run BN254 only (``bn254_only``)."""
+    every tensor (chain inputs included) CUDA int32; contiguous copies."""
     ts = [t.contiguous() for t in (packed, perm, flags, *chain)]
-    _build.require_cuda(cfg, *ts, bn254_only=bn254_only)
+    _build.require_cuda(cfg, *ts)
     packed, perm, flags = ts[:3]
     if (perm.dim() != 3 or flags.shape != perm.shape or perm.shape[1] % 2
             or packed.shape[1:] != (table_coords(cfg) * coord_words(cfg),)):
@@ -295,11 +295,11 @@ def pair_backward_plain(cfg: MsmConfig, packed, perm, flags, m, minv):
 
 
 def _forward(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
-    packed, perm, flags = _check(cfg, packed, perm, flags, bn254_only=True)
+    packed, perm, flags = _check(cfg, packed, perm, flags)
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     m = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
-    _build.launch(entry, packed, perm, flags, m, G, C // 2, R)
+    _build.launch(entry, packed, perm, flags, m, G, C // 2, R, _build.curve_id(cfg))
     counter.launches += 1
     return m
 
@@ -328,7 +328,7 @@ pair_forward_glv.launches = 0
 
 
 def _backward(cfg: MsmConfig, packed, perm, flags, m, minv, entry: str, counter):
-    packed, perm, flags, m, minv = _check(cfg, packed, perm, flags, m, minv, bn254_only=True)
+    packed, perm, flags, m, minv = _check(cfg, packed, perm, flags, m, minv)
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     L = cfg.num_words
@@ -336,7 +336,8 @@ def _backward(cfg: MsmConfig, packed, perm, flags, m, minv, entry: str, counter)
     dev = packed.device
     cx, cy = (torch.empty((G, C // 2, L, R), dtype=torch.int32, device=dev) for _ in range(2))
     inf = torch.empty((G, C // 2, R), dtype=torch.int32, device=dev)
-    _build.launch(entry, packed, perm, flags, m, minv, cx, cy, inf, G, C // 2, R)
+    _build.launch(entry, packed, perm, flags, m, minv, cx, cy, inf, G, C // 2, R,
+                  _build.curve_id(cfg))
     counter.launches += 1
     return cx, cy, inf
 
@@ -369,8 +370,7 @@ def compress_pairs(cfg: MsmConfig, packed, perm, flags):
     """Every pair sum of every lane: forward products, one Fermat inversion
     per lane, backward emission -> (cx, cy [G, Cp, L, R] Montgomery affine,
     inf [G, Cp, R]; an infinity pair's coordinates mean nothing). Under GLV
-    (packed [N, 3D]) the GLV modes of the forward and backward kernels. On
-    CUDA BN254 only: another curve raises before any launch."""
+    (packed [N, 3D]) the GLV modes of the forward and backward kernels."""
     m = pair_forward(cfg, packed, perm, flags)
     minv = mont_pow(cfg, m[:, -1], cfg.curve.modulus - 2)
     return pair_backward(cfg, packed, perm, flags, m, minv)

@@ -3,9 +3,10 @@ and the dense coordinate wire format.
 
 CUDA source: ``msm_tpu_torch/csrc/convert.cu`` on the word core (per-point
 body ``csrc/convert32.cuh``); it reads the u16 words as int16, 4 D bytes
-per coordinate (BN254: 32), the bits the host serialized. The plain and
-GLV modes run every curve of ``params.CURVES`` (the GLV mode's beta R^2
-compiled in per field, ``csrc/fields.cuh``); the scaled mode BN254. Replaces the Pallas kernel
+per coordinate (BN254: 32), the bits the host serialized. Every mode runs
+every curve of ``params.CURVES`` (the GLV mode's beta R^2 compiled in per
+field, ``csrc/fields.cuh``; the scaled mode's constants given at run time
+in the curve's D words). Replaces the Pallas kernel
 ``msm_tpu/ops/pallas_convert.py::make_convert_pack`` (``pallas_call`` at
 :187) in all its modes: ``convert_pack`` the plain one, ``convert_pack_glv``
 the GLV one (``dual_x_scale_int`` = beta R^2, ``triple=True``), both with
@@ -138,12 +139,11 @@ def coord_u16(cfg: MsmConfig) -> int:
     return (cfg.curve.modulus_bits + 15) // 16
 
 
-def _words_in(cfg: MsmConfig, x_u16, y_u16, bn254_only: bool = False):
+def _words_in(cfg: MsmConfig, x_u16, y_u16):
     """Checks before a convert launch: [n, Wu] int16 words on CUDA (Wu =
-    ``coord_u16``), 16-byte aligned (copied where they are not); the scaled
-    mode runs BN254 only."""
+    ``coord_u16``), 16-byte aligned (copied where they are not)."""
     x_u16, y_u16 = _build.aligned(x_u16, y_u16)
-    _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16, bn254_only=bn254_only)
+    _build.require_cuda(cfg, x_u16, y_u16, dtype=torch.int16)
     n, wu = x_u16.shape[0], coord_u16(cfg)
     if x_u16.shape != (n, wu) or y_u16.shape != (n, wu):
         raise ValueError(f"expected [n, {wu}] u16 words, got {tuple(x_u16.shape)}")
@@ -202,7 +202,7 @@ def convert_pack_scaled(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor
         raise ValueError("triple mode needs dual_x_scale")
     if x_u16.device.type == "cpu":
         return convert_pack_scaled_plain(cfg, x_u16, y_u16, x_scale, dual_x_scale, triple)
-    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16, bn254_only=True)
+    x_u16, y_u16 = _words_in(cfg, x_u16, y_u16)
     n, D, q = x_u16.shape[0], coord_words(cfg), cfg.curve.modulus
 
     def words(c):  # the canonical constant's D words, least significant first
@@ -217,7 +217,7 @@ def convert_pack_scaled(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor
             for _ in range(2 if layout == CONVERT_DUAL else 1)]
     _build.launch("msm_convert_scaled", x_u16, y_u16, ctypes.addressof(xs),
                   ctypes.addressof(xs2) if xs2 is not None else None, outs[0],
-                  outs[-1] if layout == CONVERT_DUAL else None, n, layout)
+                  outs[-1] if layout == CONVERT_DUAL else None, n, layout, _build.curve_id(cfg))
     convert_pack_scaled.launches += 1
     return tuple(outs) if layout == CONVERT_DUAL else outs[0]
 

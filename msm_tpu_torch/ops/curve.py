@@ -7,7 +7,10 @@ on homogeneous (X : Y : Z) Montgomery coordinates, identity (0 : 1 : 0).
 ``CurveCtx.add`` is the one op with a kernel: it goes to
 ``cuda_curve.point_add``, which launches the CUDA kernel for CUDA tensors
 and runs the plain twin for CPU tensors — the tensor's device decides,
-nothing else. The other ops are plain tensor code on any device.
+nothing else. The ladders (``double_and_add``, ``scalar_mul_static``) are
+built on it alone, each doubling an addition of a point to itself (the
+formula is complete), so on CUDA each of their steps is one kernel launch
+over the batch. The other ops are plain tensor code on any device.
 """
 
 from __future__ import annotations
@@ -98,6 +101,37 @@ class CurveCtx:
 
     def is_identity(self, p: PointBatch) -> torch.Tensor:
         return self.f.is_zero(p.z)
+
+    def double_and_add(self, p: PointBatch, k: torch.Tensor, nbits: int) -> PointBatch:
+        """p * k for per-element nonnegative scalars k (int32 ``[...]``) of
+        at most ``nbits`` bits: branch-free, least significant bit first,
+        the additions selected per element."""
+        acc, base = self.identity(p.x.shape[:-1], p.x.device), p
+        for i in range(nbits):
+            bit = ((k >> i) & 1).to(torch.bool)
+            acc = point_where(bit, self.add(acc, base), acc)
+            base = self.add(base, base)
+        return acc
+
+    def scalar_mul_static(self, p: PointBatch, k: int) -> PointBatch:
+        """p * k for one python-int scalar of any width, the same for the
+        whole batch: most significant bit first, a doubling every bit and an
+        addition of p where the bit is set. k is not reduced mod the order,
+        so [r]P is the identity exactly for P in the order-r subgroup."""
+        if k < 0:
+            raise ValueError("negative static scalars are not supported")
+        acc = self.identity(p.x.shape[:-1], p.x.device)
+        for bit in bin(k)[2:] if k else "":
+            acc = self.add(acc, acc)
+            if bit == "1":
+                acc = self.add(acc, p)
+        return acc
+
+    def to_affine_mont(self, p: PointBatch) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x / z, y / z) in Montgomery form, by Fermat inversion of z."""
+        f = self.f
+        zinv = f.mont_pow(p.z, self.cfg.curve.modulus - 2)
+        return f.mont_mul(p.x, zinv), f.mont_mul(p.y, zinv)
 
     def eq(self, p: PointBatch, q: PointBatch) -> torch.Tensor:
         """Projective equality by cross-multiplication; identity == identity."""

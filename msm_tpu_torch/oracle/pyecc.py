@@ -30,6 +30,28 @@ class JPoint:
 IDENTITY = JPoint(0, 1, 0)
 
 
+def sqrt_mod(a: int, p: int) -> int | None:
+    """A square root of a mod the odd prime p (Tonelli-Shanks), or None
+    where a is not a square."""
+    a %= p
+    if a == 0:
+        return 0
+    if pow(a, (p - 1) // 2, p) != 1:
+        return None
+    q, s = p - 1, 0
+    while q % 2 == 0:
+        q, s = q // 2, s + 1
+    z = next(z for z in range(2, p) if pow(z, (p - 1) // 2, p) == p - 1)
+    m, c, t, r = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
+    while t != 1:
+        i, t2 = 0, t
+        while t2 != 1:
+            t2, i = t2 * t2 % p, i + 1
+        b = pow(c, 1 << (m - i - 1), p)
+        m, c, t, r = i, b * b % p, t * b * b % p, r * b % p
+    return r
+
+
 class Curve:
     """Group ops over a CurveSpec, plus MSM oracles."""
 
@@ -127,6 +149,35 @@ class Curve:
             if bit == "1":
                 acc = self.add(acc, a)
         return acc
+
+    def in_subgroup(self, a: JPoint) -> bool:
+        """[r]P == O with r not reduced (scalar_mul's k mod r would make it
+        hold for every point): membership of the order-r subgroup."""
+        acc = IDENTITY
+        for bit in bin(self.order)[2:]:
+            acc = self.double(acc)
+            if bit == "1":
+                acc = self.add(acc, a)
+        return acc.is_identity()
+
+    def lift_x(self, x: int) -> tuple[int, int] | None:
+        """An affine point of the curve with this x (the smaller root y), or
+        None where x^3 + a x + b is not a square mod p."""
+        y = sqrt_mod((x * x * x + self.spec.a * x + self.spec.b) % self.p, self.p)
+        return None if y is None else (x % self.p, min(y, self.p - y))
+
+    def first_point_outside_subgroup(self, start: int = 2) -> tuple[int, int]:
+        """The on-curve affine point of smallest x >= start that lies
+        outside the order-r subgroup (on a curve of cofactor 1 there is
+        none, and this raises)."""
+        if self.spec.cofactor == 1:
+            raise ValueError(f"{self.spec.name} has cofactor 1: every point is in the subgroup")
+        x = start
+        while True:
+            pt = self.lift_x(x)
+            if pt is not None and not self.in_subgroup(self.from_affine(*pt)):
+                return pt
+            x += 1
 
     # -- MSM oracles ---------------------------------------------------------
     def msm_naive(self, points: list[JPoint], scalars: list[int]) -> JPoint:

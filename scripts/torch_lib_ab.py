@@ -12,10 +12,11 @@ The other checkout's library is built by its own ``msm_tpu_torch.ops._build``
 (in a subprocess, into its own ``build/``). This checkout's wrappers launch
 through ``_build.load()``; the script swaps the loaded library between the
 two builds, so of the entry points timed here (point add, convert, scan,
-row offsets, point total, Horner ladder, suffix and forward pair products
-and their GLV modes, backward pair emission, blocked reduction's phase 1,
-Fermat inversion, emission + scan and its GLV mode, the GLV convert and
-the GLV scan)
+row offsets, point total, Horner ladder, suffix and forward pair products,
+backward pair emission, all three in their GLV modes too, blocked
+reduction's phase 1, the scaled convert's two-table mode, Fermat
+inversion, emission + scan and its GLV mode, the GLV convert and the GLV
+scan)
 only those whose C signature is the
 same in both trees are timed, or this tree's with the curve index before
 the stream where the other tree's has none (the other build is then
@@ -63,7 +64,8 @@ KERNELS = {"point_add": "msm_point_add", "convert_pack": "msm_convert", "scan_ro
            "row_offsets": "msm_row_offsets", "point_total": "msm_point_total", "horner": "msm_horner",
            "pair_suffix": "msm_pair_suffix", "pair_forward": "msm_pair_forward",
            "pair_backward": "msm_pair_backward", "pair_suffix_glv": "msm_pair_suffix_glv",
-           "pair_forward_glv": "msm_pair_forward_glv", "bpr_phase1": "msm_bpr_phase1",
+           "pair_forward_glv": "msm_pair_forward_glv", "pair_backward_glv": "msm_pair_backward_glv",
+           "bpr_phase1": "msm_bpr_phase1", "convert_pack_scaled": "msm_convert_scaled",
            "mont_pow": "msm_mont_pow", "emit_scan": "msm_emit_scan", "emit_scan_glv": "msm_emit_scan_glv",
            "convert_pack_glv": "msm_convert_glv", "scan_rows_glv": "msm_scan_rows_glv"}
 
@@ -112,8 +114,10 @@ def cases(rng, kern) -> dict:
     table of 256 real points with planted doubling and infinity pairs at
     G = 4, C = 1024, R = 1024 (the suffix products too), the backward
     emission on this build's forward products and their inverse; the GLV
-    forward and suffix products over the GLV table of 128 points and their
-    phi images at the same shape; the blocked reduction's phase 1 over the
+    forward and suffix products and backward emission over the GLV table of
+    128 points and their phi images at the same shape; the scaled convert's
+    two tables (x R and beta x R) over 2^20 coordinates below p; the
+    blocked reduction's phase 1 over the
     16 windows' buckets at 512 lanes (Bl = 64), with planted rows; then
     the Fermat inversion over 16 x 2048 lanes (e = p - 2), the emission +
     scan on the suffix products of the pair streams above and their inverse
@@ -156,6 +160,9 @@ def cases(rng, kern) -> dict:
         "pair_backward": cs._backward_args(kern, pair_in),
         "pair_suffix_glv": glv_in,
         "pair_forward_glv": glv_in,
+        "pair_backward_glv": cs._backward_args(kern, glv_in),
+        "convert_pack_scaled": [cfg, *map(t, cs._coord_words(rng, n, cfg.curve.modulus)), None,
+                                cs._scaled_modes(cfg)[1][2], False],
         "bpr_phase1": [cfg, *map(t, cs._bpr_buckets(rng, (S, (NB - 1) // 512, 512), cfg))],
     }
     glv_cfg = dataclasses.replace(cfg, glv=True)

@@ -226,7 +226,7 @@ def lib(tmp_path_factory):
     so = d / "harness.so"
     subprocess.run(
         [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *FIELD_FLAGS, f"-I{CSRC}", "-o", str(so), str(src)],
-        check=True, capture_output=True, text=True,
+        check=True, capture_output=True, text=True, timeout=600,
     )
     lib = ctypes.CDLL(str(so))
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

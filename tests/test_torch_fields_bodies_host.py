@@ -223,7 +223,7 @@ def lib(tmp_path_factory):
     src, so = d / "harness.cpp", d / "harness.so"
     src.write_text(HARNESS)
     subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *FIELD_FLAGS, f"-I{CSRC}", "-o", str(so), str(src)],
-                   check=True, capture_output=True, text=True)
+                   check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(str(so))
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for name, argtypes in (("h_point_add", [P] * 9 + [I64, I32]), ("h_convert", [P] * 3 + [I64]),

@@ -84,8 +84,9 @@ def test_traits_match_params(name):
 def test_each_other_curve_has_a_translation_unit():
     """Two translation units per curve besides BN254: csrc/curve_<name>.cu
     instantiating its plain kernels and the GLV modes of the convert and the
-    scan, csrc/curve_<name>_pairs.cu its compressed path's kernels (9, 12,
-    13); the dispatch switch names every traits type."""
+    scan, csrc/curve_<name>_pairs.cu its pair kernels (9-13), BPR phase 1
+    (8) and the scaled convert; the dispatch switch names every traits
+    type."""
     dispatch = (CSRC / "dispatch.cuh").read_text()
     for name in CURVES:
         struct = next(f"Fp{k}" for k in re.findall(r"struct Fp(\w+) \{", (CSRC / "fields.cuh").read_text())
@@ -97,3 +98,4 @@ def test_each_other_curve_has_a_translation_unit():
             assert f"MSM_INSTANTIATE_GLV(msm::{struct})" in unit
             pairs = (CSRC / f"curve_{name}_pairs.cu").read_text()
             assert f"MSM_INSTANTIATE_PAIRS(msm::{struct})" in pairs
+            assert f"MSM_INSTANTIATE_OFFPATH(msm::{struct})" in pairs

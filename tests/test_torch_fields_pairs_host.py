@@ -255,7 +255,7 @@ def lib(tmp_path_factory):
     src, so = d / "harness.cpp", d / "harness.so"
     src.write_text(HARNESS)
     subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *FIELD_FLAGS, f"-I{CSRC}", "-o", str(so),
-                    str(src)], check=True, capture_output=True, text=True)
+                    str(src)], check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -62,15 +62,17 @@ def test_compressed_batch_rule_takes_the_config_limbs():
 
 
 def test_naive_model_refuses_other_curves_on_cuda():
-    """The naive model runs BN254 alone on the card: another curve raises
-    before any launch (and before any tensor reaches the device), where the
-    CPU twins take every curve."""
+    """The naive model takes every curve on the card as on the CPU (the JAX
+    package's refuses only GLV): on another curve it gets past the config
+    checks to the convert kernel's launch, which stops at the check for
+    CUDA tensors on meta tensors (they stand for the card's here), and the
+    CPU twins give the oracle's result."""
     from msm_tpu_torch.models.naive import compute_msm_naive
 
     cfg = MsmConfig(curve=BLS12_381, chunk_size=8)
     pts = affine_points(cfg, 4, seed=3)
-    with pytest.raises(NotImplementedError, match="BN254 only"):
-        compute_msm_naive(pts, [1, 2, 3, 4], config=cfg, device="cuda")
+    with pytest.raises(ValueError, match="expected tensors on one CUDA device, got meta"):
+        compute_msm_naive(pts, [1, 2, 3, 4], config=cfg, device="meta")
     cv = Curve(cfg.curve)
     want = cv.to_affine(cv.msm([cv.from_affine(*p) for p in pts], [1, 2, 3, 4]))
     assert cv.to_affine(compute_msm_naive(pts, [1, 2, 3, 4], config=cfg, device="cpu")) == want
@@ -78,17 +80,17 @@ def test_naive_model_refuses_other_curves_on_cuda():
 
 @pytest.mark.parametrize("name", ["bls12_381", "secp256k1"])
 def test_bn254_only_kernels_refuse_other_curves(name):
-    """The kernels that run BN254 alone (BPR phase 1, the forward and
-    backward pair kernels of compress_pairs, the scaled convert) refuse
-    another curve's plain config before any launch, where the generic
-    kernels take it (and then ask for CUDA tensors)."""
+    """require_cuda, which every wrapper calls before a launch, takes every
+    curve's plain config since no kernel runs BN254 alone: it has no curve
+    refusal left (no bn254_only) and asks only for CUDA tensors."""
+    import inspect
+
     import torch
 
     from msm_tpu_torch.ops._build import require_cuda
 
+    assert "bn254_only" not in inspect.signature(require_cuda).parameters
     cfg = MsmConfig(curve=CURVES[name])
     t = torch.zeros((4, cfg.num_words), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="BN254 only"):
-        require_cuda(cfg, t, bn254_only=True)
     with pytest.raises(ValueError, match="CUDA"):
         require_cuda(cfg, t)

@@ -1,7 +1,8 @@
 """The slice on the CPU against the oracle: the production window size
 (pick_config, c = 13) at n = 2^12, and the edge inputs — scalars 0, 1,
 order - 1 and out of range, n not a power of two, duplicate points, an
-identity result, and the validation of off-curve points."""
+identity result, and the validation of off-curve points and, on
+BLS12-381, of points outside the order-r subgroup."""
 
 import dataclasses
 
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from _torch_helpers import affine_points
+from test_torch_subgroup import check_validate
 import msm_tpu_torch
 from msm_tpu.oracle import best_msm
 from msm_tpu.oracle.pyecc import Curve
@@ -57,9 +59,9 @@ def test_identity_result_and_validation():
     with pytest.raises(ValueError, match="not on the curve"):
         msm_tpu_torch.run_gpu_msm([p0, (p1[0], p1[1] + 1)], [1, 2], config=CFG8,
                                   validate=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        msm_tpu_torch.run_gpu_msm([p0], [1], config=MsmConfig(curve=BLS12_381),
-                                  validate=True, device="cpu")
+    # BLS12-381 (cofactor > 1): subgroup points pass, a point outside the
+    # subgroup raises at its index
+    check_validate("bls12_381", "run_gpu_msm")
 
 
 #: config changes the CUDA kernels take (True) or refuse (False)
@@ -109,11 +111,11 @@ def test_kernel_launch_requires_cuda_tensors():
 @pytest.mark.parametrize("name", ["bls12_381", "secp256k1", "pallas"])
 @pytest.mark.parametrize("kernel", ["compress_pairs", "bpr_phase1", "convert_pack_scaled"])
 def test_bn254_only_wrappers_refuse_other_curves_before_launch(kernel, name):
-    """The wrappers whose kernels run BN254 alone (compress_pairs' forward
-    and backward pair kernels, BPR phase 1, the scaled convert) raise on
-    another curve before any launch when their tensors are not on the CPU
-    (meta tensors here stand for the card's: no kernel can launch on
-    them), where the compressed and GLV configs' kernels take that curve;
+    """The wrappers whose kernels ran BN254 alone before they were built for
+    every curve (compress_pairs' forward and backward pair kernels, BPR
+    phase 1, the scaled convert) take another curve: on tensors not on the
+    CPU (meta tensors here stand for the card's: no kernel can launch on
+    them) they stop at the check for CUDA tensors, not at a curve refusal;
     on CPU tensors they run their twins."""
     from msm_tpu_torch.ops.cuda_bpr import bpr_phase1
     from msm_tpu_torch.ops.cuda_compress import compress_pairs
@@ -132,5 +134,5 @@ def test_bn254_only_wrappers_refuse_other_curves_before_launch(kernel, name):
         "convert_pack_scaled": lambda: convert_pack_scaled(
             cfg, *(torch.empty((8, coord_u16(cfg)), device="meta", dtype=torch.int16) for _ in range(2))),
     }
-    with pytest.raises(NotImplementedError, match="BN254 only"):
+    with pytest.raises(ValueError, match="expected tensors on one CUDA device, got meta"):
         calls[kernel]()
