@@ -6,15 +6,22 @@
 1. prints the card's name and power limit, builds the thirteen CUDA kernels,
    their six GLV modes and the convert kernel's run-time-constant mode, all
    generic over the field, with every instance for the six other curves,
-   from msm_tpu_torch/csrc, and prints the build time, each translation
-   unit's compile seconds and every kernel's ptxas report (registers,
-   frame, spills) and SASS size for every curve, failing if a SASS holds
-   an out-of-line call (report_plain_builds);
+   from msm_tpu_torch/csrc at 13-bit limbs, and prints the build time, each
+   translation unit's compile seconds (with the host's os.cpu_count()) and
+   every kernel's ptxas report (registers, frame, spills) and SASS size for
+   every curve, failing if a SASS holds an out-of-line call
+   (report_plain_builds); the 12-bit library's build (the same sources
+   with -DMSM_LIMB_BITS=12) starts after it and runs beside the steps
+   below, in a process of its own at nice 19 on half the host's cores
+   (BUILD12), and step 18 waits for it;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs (a twin of at most CPU_TWIN_ELEMS input elements, such as
    the Horner ladder's serial chain, on copies of them on the CPU, where
-   its small ops cost less than launches), at a small shape and at the
-   shape the 2^20 MSM gives it
+   its small ops cost less than launches; several such twins at a time in
+   worker processes, the host's cores but two, while the kernels are
+   timed, each group of checks compared when its twins return: settle,
+   here and in steps 15-18), at a small shape and at the shape the 2^20
+   MSM gives it
    (the pair kernels: the compressed 2^20 shape of models/geometry.py's
    rule, with planted doubling and infinity pairs; bpr_phase1: the blocked
    reduction of the 2^20 MSM's buckets), as exact integers after
@@ -133,12 +140,13 @@
 15. the curves phase (PR 14): the plain path's six kernels (point add,
    convert, scan, row offsets, point total, Horner) are templates over the
    field, one instance a curve; each other curve's six instances against
-   their twins at a small shape and at its largest plain MSM's shapes
-   (BLS12-381's 2^20: c 16, S 16, R 16384, C 64; the others' 2^16); each
+   their twins at a small shape and at the shapes of its 2^16 MSM
+   (BLS12-381's at its 2^20 MSM's: c 16, S 16, R 16384, C 64); each
    curve's MSM at 2^16 through run_gpu_msm and a plan's words call, and
    BLS12-381's at 2^20 through a plan's words call (median of 5), all
    bit-exact against the folded pure-Python
-   oracle, each with its stages, device busy time, idle share and peak
+   oracle, BLS12-381's each with its stages, device busy time, idle share
+   and peak
    memory, and the curve's kernels required of each run; verify --size 12
    on BLS12-381 and secp256k1 and the bench's --plan 4 --size 20 line on
    BLS12-381;
@@ -156,23 +164,38 @@
    through a plan's words call (median of 5, stages, device busy time,
    idle share, peak memory), all bit-exact against the folded oracle;
 17. in the same phase each other curve's forward products and
-   backward emission (kernels 10 and 11) in both modes at the shapes of
-   its largest compressed and GLV compressed MSMs (twin over 256 chains on
-   the CPU), its BPR phase 1 at the blocked stage 4's 2^16 shape (BLS12-381
-   also at 2^20) and its scaled convert in five modes at 2^16, against
-   their twins; then on each curve's 2^16 MSM compress_pairs without and
-   with GLV against the oracle's pair sums, the scaled convert's five
+   backward emission (kernels 10 and 11) in both modes, its BPR phase 1
+   and its scaled convert in five modes at the shapes of its 2^16
+   compressed and GLV compressed MSMs (BLS12-381's at its 2^20 ones),
+   twin over 256 chains on the CPU, BPR phase 1 at the blocked stage 4's
+   2^16 shape (BLS12-381 also at 2^20), the scaled convert at 2^16,
+   against their twins; then
+   on each curve's 2^16 MSM compress_pairs without and with GLV against
+   the oracle's pair sums, the scaled convert's five
    modes, the blocked stage 4 (window sums against the telescoped ones,
    the MSM bit-exact) and the naive model (8-bit windows, bit-exact), each
    a path of its own (counters reset just before); and validate=True
-   through run_gpu_msm and a plan on BLS12-381 at 2^16 and 2^20 and on
-   BLS12-377 at 2^16 (SUBGROUP_CHECKS): subgroup points pass bit-exact,
+   through run_gpu_msm and a plan on BLS12-381 and BLS12-377 at 2^16
+   (SUBGROUP_CHECKS): subgroup points pass bit-exact,
    the curve's smallest-x point outside the order-r subgroup, planted at
    n/3 + 1, raises ValueError at its index; each line with its seconds and
    point-add (K1) launches;
-18. prints the kernels' JSON line (the GLV modes, the scaled convert and
-   each other curve's instances as entries of their own; each with its
-   ptxas registers and spill bytes), then as its last line {"ok": true,
+18. the width-12 phase (run_width12_phase): the 12-bit library's
+   build seconds, each unit's compile seconds and os.cpu_count(); the
+   ptxas reports and SASS of every kernel instance of that library for the
+   seven curves (no CALL); every instance against its twin at the small
+   shapes, BN254's and BLS12-381's also at their 2^20 MSMs' shapes (BN254's
+   Horner ladder too); each
+   curve's 2^16 MSM at word_size 12 on the four configs (run_gpu_msm and a
+   plan's words call), with compress_pairs, the scaled convert, the
+   blocked stage 4 and the naive model, validate=True on BLS12-381, BN254's
+   edge MSMs on five paths and a karatsuba=True MSM; BN254's 2^20 plan
+   words calls on the four configs at 12- and 13-bit limbs in turn and
+   BLS12-381's plain one at 12, all bit-exact against the folded oracle;
+19. prints the kernels' JSON line (the GLV modes, the scaled convert,
+   each other curve's instances and each 12-bit instance,
+   ``name[curve,w12]``, as entries of their own; each with its ptxas
+   registers and spill bytes), then as its last line {"ok": true,
    "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -186,7 +209,9 @@ import dataclasses
 import functools
 import io
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -359,21 +384,33 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
+#: device clock cycles of the spin kernel that holds the device while the
+#: host enqueues the timed calls (~10 ms at 1980 MHz; _kernel_ms
+#: lengthens it where the enqueueing outlasts it)
+SPIN_CYCLES = 20_000_000
+
+
 def _kernel_ms(fn, reps: int):
     """(result, ms per call) of the device work a wrapper enqueues: CUDA
     events around ``reps`` calls that the host enqueues while a spin kernel
     holds the device, so the calls run back to back and the wrappers' host
     overhead (larger than the shortest kernels) stays out of the time. One
-    warm-up call first."""
+    warm-up call first. When the spin has ended before the last call was
+    enqueued (the start event already passed), the round is timed again
+    behind a spin 8 and then 64 times as long."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # ~0.1 s of device clock cycles
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
+    for cycles in (SPIN_CYCLES, 8 * SPIN_CYCLES, 64 * SPIN_CYCLES):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            break
     return out, start.elapsed_time(end) / reps
 
 
@@ -710,6 +747,49 @@ def _to(dev, out):
     return tuple(o.to(dev) for o in out) if isinstance(out, tuple) else out.to(dev)
 
 
+#: worker processes for the twins that run on the CPU: the host's cores but
+#: two. A twin's time is its serial steps' op overhead on one core, so
+#: several run side by side while the main process times the kernels
+TWIN_WORKERS = max(1, (os.cpu_count() or 2) - 2)
+_TWIN_POOL = None
+#: the comparisons of the checks whose twins are still in the workers, in
+#: the order the checks were made (settle runs them)
+_UNSETTLED: list = []
+
+
+def _twin_worker_init() -> None:
+    torch.set_num_threads(1)
+
+
+def _run_twin(name, args):
+    """(output, ms) of a kernel's twin on CPU tensors, in a worker process."""
+    plain = _kernels()[name][1]
+    t0 = time.perf_counter()
+    out = plain(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _twin_pool():
+    global _TWIN_POOL
+    if _TWIN_POOL is None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        _TWIN_POOL = ProcessPoolExecutor(TWIN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                                         initializer=_twin_worker_init)
+    return _TWIN_POOL
+
+
+def settle() -> None:
+    """Wait for the twins in the workers and compare each with its kernel's
+    output, in the order the checks were made: each check's line printed
+    and its result dict filled (a difference raises). Every group of
+    checks (BN254's kernels, one curve's instances at one width) ends with
+    it, so no kernel output outlives its group."""
+    while _UNSETTLED:
+        _UNSETTLED.pop(0)()
+
+
 def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz, subset=None) -> dict:
     """One kernel against its twin on the same inputs: exact after
     canonicalization (as points: by cross-multiplication); raises on any
@@ -721,7 +801,9 @@ def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz, subset
     plain_ms is then the twin's time on them.
     A twin of at most CPU_TWIN_ELEMS input elements runs on copies of its
     inputs on the CPU too (plain_ms then the CPU's time; the label says
-    "twin on the CPU"). Returns {max_abs_err, ms, plain_ms, bound_ms,
+    "twin on the CPU"). A twin on the CPU runs in a worker process
+    (_twin_pool) and its comparison waits for settle(); the returned dict
+    is filled then. Returns {max_abs_err, ms, plain_ms, bound_ms,
     bound_by}."""
     wrapper, plain = kern[name]
     got, ms = _kernel_ms(lambda: wrapper(*args), reps)
@@ -735,26 +817,36 @@ def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz, subset
         label = (f"{label} (twin on subtasks {g0},{g1} x lanes {r[0]}-{r[len(r) // 2 - 1]},"
                  f"{r[len(r) // 2]}-{r[-1]})")
     dev = args[1].device
-    if subset is not None or sum(a.numel() for a in twin_args if isinstance(a, torch.Tensor)) <= CPU_TWIN_ELEMS:
+    on_cpu = subset is not None or sum(a.numel() for a in twin_args if isinstance(a, torch.Tensor)) <= CPU_TWIN_ELEMS
+    if on_cpu:
         twin_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in twin_args]
         label = f"{label} (twin on the CPU)"
-    want, plain_ms = _timed(lambda: plain(*twin_args))
-    want = _to(dev, want)
-    (gf, gi), (wf, wi) = _field_outputs(name, got, L), _field_outputs(name, want, L)
-    err = max([_compare(f, gf, wf, as_points) if gf else 0]
-              + [int((a.long() - b.long()).abs().max()) for a, b in zip(gi, wi)])
     bound_ms, bound_by = _bound(name, args, clock_hz)
     # the Horner ladder is one dependent chain: its depth in products is
     # the floor that matters there
     depth = ""
     if name == "horner":
         depth = f" products={_products(name, args)} chain_depth={_horner_depth(args)}"
-    print(f"check {name:13s} {label:5s} max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f}"
-          f" bound_ms={bound_ms:.4f} ({bound_by}){depth}", flush=True)
-    if err != 0:
-        raise AssertionError(f"{name} ({label}) disagrees with its twin: max_abs_err={err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    result = {}
+
+    def finish(want, plain_ms):
+        want = _to(dev, want)
+        (gf, gi), (wf, wi) = _field_outputs(name, got, L), _field_outputs(name, want, L)
+        err = max([_compare(f, gf, wf, as_points) if gf else 0]
+                  + [int((a.long() - b.long()).abs().max()) for a, b in zip(gi, wi)])
+        print(f"check {name:13s} {label:5s} max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f}"
+              f" bound_ms={bound_ms:.4f} ({bound_by}){depth}", flush=True)
+        if err != 0:
+            raise AssertionError(f"{name} ({label}) disagrees with its twin: max_abs_err={err}")
+        result.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+
+    if on_cpu:
+        twin = _twin_pool().submit(_run_twin, name, twin_args)
+        _UNSETTLED.append(lambda: finish(*twin.result()))
+    else:
+        finish(*_timed(lambda: plain(*twin_args)))
+    return result
 
 
 def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> dict:
@@ -778,6 +870,8 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
+    # first: their 2^20 chain twins, the longest, overlap the checks below
+    out.update(check_glv_kernels(kern, aff, clock_hz, sizes, dev))
     for size in sizes:
         small = size == "small"
         cfg = MsmConfig(curve=BN254, chunk_size=8) if small else pick_config(1 << 20)
@@ -834,8 +928,8 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         G3, T3, Bl3 = (1, 16, 16) if small else (cfg.num_subtasks, 512, (NB - 1) // 512)
         cases["bpr_phase1"] = ([cfg, *map(t, _bpr_buckets(rng, (G3, Bl3, T3), cfg))], False, 3)
         for name, (args, as_points, reps) in cases.items():
-            out[name] = {**_check_case(kern, f, L, name, size, args, as_points, reps, clock_hz),
-                         "library_ms": None}
+            out[name] = _check_case(kern, f, L, name, size, args, as_points, reps, clock_hz)
+            out[name]["library_ms"] = None
         # the one PyTorch call that computes a kernel's function: the
         # histogram as torch.bincount over keys offset by subtask
         lib_ms = _bincount_ms(cases["bucket_hist"][0][1], NB)
@@ -850,15 +944,15 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         check_suffix_pow_shapes(kern, rng, table, dev, clock_hz)
         check_pair_value_shapes(kern, rng, table, dev, clock_hz)
         check_bpr_shapes(kern, rng, dev, clock_hz)
-    out.update(check_glv_kernels(kern, aff, clock_hz, sizes, dev))
     out.update(check_convert_scaled(kern, clock_hz, sizes, dev))
+    settle()
     return out
 
 
 def check_glv_kernels(kern, aff, clock_hz: float, sizes, dev) -> dict:
-    """The six GLV modes against their twins, after every other check and
-    on a random stream of their own (so the checks above draw the same
-    inputs as before GLV came): at a small shape and at the GLV 2^20 MSM's
+    """The six GLV modes against their twins, before the other checks of
+    check_kernels and on a random stream of their own (so those draw the
+    same inputs as before GLV came): at a small shape and at the GLV 2^20 MSM's
     shapes (c = 16, S = 8, every subtask 2^21 entries; the scan G4 C128
     R16384, the pair modes the compressed rule's G8 C1024 R2048 over a
     table of 128 points and their phi images: the four pair kernels on one
@@ -891,7 +985,8 @@ def check_glv_kernels(kern, aff, clock_hz: float, sizes, dev) -> dict:
             "pair_backward_glv": (_backward_args(kern, pair_in), 3),
         }
         for name, (args, reps) in cases.items():
-            out[name] = {**_check_case(kern, f, L, name, size, args, False, reps, clock_hz), "library_ms": None}
+            out[name] = _check_case(kern, f, L, name, size, args, False, reps, clock_hz)
+            out[name]["library_ms"] = None
     if "slice" in sizes:
         check_glv_shapes(kern, rng, glv_table, dev, clock_hz)
     return out
@@ -1090,26 +1185,28 @@ def check_convert_scaled(kern, clock_hz: float, sizes, dev) -> dict:
                 res = _check_case(kern, f, L, "convert_pack_scaled", f"{size}{top_label} {label}",
                                   [cfg, *words, xs, xs2, triple], False, 5, clock_hz)
                 if label == "dual" and top is not None:
-                    out["convert_pack_scaled"] = {**res, "library_ms": None}
+                    out["convert_pack_scaled"] = res
+                    res["library_ms"] = None
     return out
 
 
-def run_convert_scaled(device="cuda", curve=None, logn: int = 20) -> dict:
+def run_convert_scaled(device="cuda", curve=None, logn: int = 20, word_size: int = 13) -> dict:
     """The scaled convert driven in its five modes at 2^logn points whose
     coordinates lie anywhere in [0, 2^(32 D)), counters reset just before:
     every output equal to its twin's (BN254, or ``curve``, a
-    params.CurveSpec). Returns the counts."""
+    params.CurveSpec; at ``word_size``-bit limbs). Returns the counts."""
     from msm_tpu_torch.ops.cuda_convert import coord_u16, convert_pack_scaled, convert_pack_scaled_plain
     from msm_tpu_torch.params import BN254, MsmConfig
 
-    cfg = MsmConfig(curve=curve or BN254)
-    rng = np.random.default_rng(SEED + 11 + (0 if curve is None else 500 + CURVE_NAMES.index(curve.name)))
+    cfg = MsmConfig(curve=curve or BN254, word_size=word_size)
+    rng = np.random.default_rng(SEED + 11 + (0 if curve is None else 500 + _curve_index(curve.name))
+                                + WIDTH_SEED[word_size])
     x, y = (torch.from_numpy(a).to(device) for a in _coord_words(rng, 1 << logn, None, coord_u16(cfg)))
     modes = _scaled_modes(cfg)
     _reset_counts()
     outs = [convert_pack_scaled(cfg, x, y, xs, xs2, triple) for _, xs, xs2, triple in modes]
     torch.cuda.synchronize()
-    tag = f"convert_pack_scaled{'' if curve is None else ' ' + curve.name} 2^{logn}"
+    tag = f"convert_pack_scaled{'' if curve is None else ' ' + curve.name}{_w(word_size)} 2^{logn}"
     counts = _counts_of(f"{tag} (five modes)", "convert_scaled")
     for (label, xs, xs2, triple), got in zip(modes, outs):
         want = convert_pack_scaled_plain(cfg, x, y, xs, xs2, triple)
@@ -1188,16 +1285,20 @@ def _of_field(mangled: str, kernel: str, field: str) -> bool:
     ``field`` of csrc/fields.cuh: ``k_x`` is named ``3k_x``, and ``k_x<1>``
     is the instance of a kernel templated on the field and then on an int
     (``3k_xI<field>ELi1EE``); a kernel that is no template over the field
-    is BN254's."""
+    is BN254's. The field is matched whole, by its length-prefixed name
+    (``7FpBn254``), so no traits name matches another that it begins. The
+    limb width is not in the name: each width's library has its own build
+    log and objects (ops/_build.library_path), which the callers read."""
     name, _, arg = kernel.partition("<")
     if f"{len(name)}{name}" not in mangled or (arg and f"ELi{arg.rstrip('>')}EE" not in mangled):
         return False
-    return field in mangled if re.search(r"\dFp[A-Z]", mangled) else field == "FpBn254"
+    return f"{len(field)}{field}" in mangled if re.search(r"\dFp[A-Z]", mangled) else field == "FpBn254"
 
 
 def _ptxas(log: str, kernel: str, field: str = "FpBn254") -> dict:
-    """ptxas's report of ``kernel``'s instance for ``field`` (_of_field):
-    registers, stack frame and spill bytes."""
+    """ptxas's report of ``kernel``'s instance for ``field`` (_of_field) in
+    one library's build log (the limb width's): registers, stack frame and
+    spill bytes."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and _of_field(line, kernel, field):
@@ -1235,7 +1336,8 @@ def _prefetch_sass(objs) -> None:
 
 def _sass_calls(obj, kernel: str, field: str = "FpBn254") -> tuple[int, int]:
     """(instructions, CALL instructions) of a kernel's SASS in an object
-    file (_sass_functions), its instance for ``field`` (_of_field)."""
+    file of one library (the limb width's: _sass_functions), its instance
+    for ``field`` (_of_field)."""
     found = [v for k, v in _sass_functions(obj).items() if _of_field(k, kernel, field)]
     if not found:
         raise RuntimeError(f"no SASS for {kernel}<{field}> in {obj}")
@@ -1442,10 +1544,10 @@ def folded_oracle(base, ks):
     return best_msm(base, [k % BN254.order for k in folded])
 
 
-def msm_path(path: str, n: int, device="cuda", curve=None):
+def msm_path(path: str, n: int, device="cuda", curve=None, word_size: int = 13):
     """(config, run) of an MSM path on ``curve`` (a params.CurveSpec; BN254
-    by default): run(points, scalars) -> affine (x, y) or None, through the
-    entry point a user calls."""
+    by default) at ``word_size``-bit limbs: run(points, scalars) -> affine
+    (x, y) or None, through the entry point a user calls."""
     import msm_tpu_torch
     from msm_tpu_torch.models import common
     from msm_tpu_torch.models.naive import NAIVE_CONFIG, compute_msm_naive
@@ -1453,12 +1555,14 @@ def msm_path(path: str, n: int, device="cuda", curve=None):
 
     if path == "naive":  # 8-bit unsigned windows on any curve
         ncfg = NAIVE_CONFIG if curve is None else dataclasses.replace(NAIVE_CONFIG, curve=curve)
+        ncfg = dataclasses.replace(ncfg, word_size=word_size)
         return ncfg, lambda pts, ks: common.result_to_affine(
             compute_msm_naive(pts, ks, config=ncfg, device=device), ncfg)
     curve = curve or BN254
     cfg = {"plain": pick_config(n, curve), "compressed": MsmConfig(curve=curve, compress=True),
            "glv": dataclasses.replace(pick_config(n, curve), glv=True),
            "glv_compressed": MsmConfig(curve=curve, compress=True, glv=True)}[path]
+    cfg = dataclasses.replace(cfg, word_size=word_size)
     return cfg, lambda pts, ks: msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
 
 
@@ -1595,7 +1699,7 @@ def trace_breakdown(events) -> tuple[float, dict, int]:
     return busy / 1e3, by_name, n_ours
 
 
-def edge_checks(path: str, device="cuda") -> None:
+def edge_checks(path: str, device="cuda", word_size: int = 13) -> None:
     """Small MSMs through the kernels of a path (plain: pick_config):
     n = 35 (padded to 64) with repeated points and scalars at the recode
     edges and out of range; P and -P interleaved under one scalar (infinity
@@ -1604,7 +1708,7 @@ def edge_checks(path: str, device="cuda") -> None:
     also: lambda, r - lambda and scalars whose k1 or k2 is negative; P
     beside phi(P) and -phi(P) (a point of the input that is phi of another:
     equal x across the table's halves); k phi(P) + (r - k lambda) P, the
-    identity."""
+    identity. At ``word_size``-bit limbs."""
     from msm_tpu_torch.oracle import best_msm
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.ops.glv import glv_params, split_scalar
@@ -1615,7 +1719,7 @@ def edge_checks(path: str, device="cuda") -> None:
     neg = [(x, q - y) for x, y in base]
 
     def run(pts, ks):
-        return msm_path(path, len(pts), device)[1](pts, ks)
+        return msm_path(path, len(pts), device, word_size=word_size)[1](pts, ks)
 
     def oracle(pts, ks):
         want = best_msm(pts, [k % r for k in ks])
@@ -1656,10 +1760,11 @@ def edge_checks(path: str, device="cuda") -> None:
         raise AssertionError("identity cases lost their identity")
     if run([], []) is not None:
         raise AssertionError("empty MSM should be the identity")
-    print(f"edge MSMs ({path}: {', '.join(cases)}, n = 0): bit-exact", flush=True)
+    print(f"edge MSMs ({path}{'' if word_size == 13 else f' w{word_size}'}: {', '.join(cases)}, n = 0): bit-exact",
+          flush=True)
 
 
-def check_pairs(glv: bool = False, device="cuda", curve=None) -> dict:
+def check_pairs(glv: bool = False, device="cuda", curve=None, word_size: int = 13) -> dict:
     """compress_pairs on the card, counters reset just before: every pair
     sum and every infinity flag against the oracle (the sums of all signed
     elements precomputed), and only the path's kernels launched. Without
@@ -1670,7 +1775,8 @@ def check_pairs(glv: bool = False, device="cuda", curve=None) -> dict:
     element taking x or beta x by flag bit 1, with planted doubling,
     infinity and equal-x-across-halves pairs. On another ``curve`` (a
     params.CurveSpec) at the shape of its compressed (or GLV compressed)
-    2^16 MSM over its own points. Returns the counts."""
+    2^16 MSM over its own points. At ``word_size``-bit limbs. Returns the
+    counts."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import BN254, MsmConfig
     from msm_tpu_torch.ops.cuda_compress import compress_pairs
@@ -1679,10 +1785,10 @@ def check_pairs(glv: bool = False, device="cuda", curve=None) -> dict:
     from msm_tpu_torch.ops.glv import glv_params
 
     spec = curve or BN254
-    cfg = MsmConfig(curve=spec, compress=True, glv=glv)
+    cfg = MsmConfig(curve=spec, compress=True, glv=glv, word_size=word_size)
     f, cv, q = get_field_ctx(cfg), Curve(spec), spec.modulus
     beta = glv_params(spec).beta
-    seed = SEED if curve is None else SEED + 400 + 2 * CURVE_NAMES.index(spec.name)
+    seed = SEED if curve is None else SEED + 400 + 2 * _curve_index(spec.name) + WIDTH_SEED[word_size]
     if glv:
         aff = [cv.to_affine(p) for p in cv.sample_points(8, seed=seed + 12)]
         table = _glv_table(aff, cfg)
@@ -1711,7 +1817,7 @@ def check_pairs(glv: bool = False, device="cuda", curve=None) -> dict:
     n_el = len(elems)
     want_x, want_y = (torch.from_numpy(_mont([v[i] for row in xy for v in row], cfg).reshape(n_el, n_el, -1)).to(dev)
                       for i in range(2))
-    tag = (f"compress_pairs{'' if curve is None else ' ' + spec.name}{' GLV' if glv else ''} "
+    tag = (f"compress_pairs{'' if curve is None else ' ' + spec.name}{' GLV' if glv else ''}{_w(word_size)} "
            f"G{shape[0]} C{shape[1]} R{shape[2]}")
     args = [table.to(dev), *(torch.from_numpy(a).to(dev) for a in (perm, flags))]
     _reset_counts()
@@ -1836,7 +1942,7 @@ def print_compressed_geometry(n: int, cfg, by_name: dict, counts: dict) -> None:
           + ", ".join(f"{k}={v:.3f}" for k, v in ms.items()) + f", sum={sum(ms.values()):.3f}", flush=True)
 
 
-def check_blocked(pts, ks, want, device="cuda", curve=None) -> dict:
+def check_blocked(pts, ks, want, device="cuda", curve=None, word_size: int = 13) -> dict:
     """The reference-shaped stage 4 on the plain config (pick_config: c = 16,
     S = 16, B = 2^15 + 1 buckets, T = bpr_threads lanes), counters reset just
     before: convert, signed decomposition, bucket_accumulate over every
@@ -1844,8 +1950,8 @@ def check_blocked(pts, ks, want, device="cuda", curve=None) -> dict:
     sums must equal window_sum_from_pe's on freshly taken boundary prefixes
     of the same points (by cross-multiplication) and its MSM the oracle's.
     Prints the device time of both stage-4 reductions. On ``curve`` (a
-    params.CurveSpec; BN254 by default) with its pick_config. Returns the
-    counts."""
+    params.CurveSpec; BN254 by default) with its pick_config, at
+    ``word_size``-bit limbs. Returns the counts."""
     from msm_tpu_torch.models import common, cuzk
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops import scan
@@ -1856,9 +1962,10 @@ def check_blocked(pts, ks, want, device="cuda", curve=None) -> dict:
 
     n = common.pad_size(len(pts))
     cfg = pick_config(n) if curve is None else pick_config(n, curve)
+    cfg = dataclasses.replace(cfg, word_size=word_size)
     ec, geom = get_curve_ctx(cfg), pick_geometry(n, cfg)
     batch = min(geom.subtask_batch, cfg.num_subtasks)
-    tag = (f"blocked stage 4{'' if curve is None else ' ' + curve.name} 2^{n.bit_length() - 1} "
+    tag = (f"blocked stage 4{'' if curve is None else ' ' + curve.name}{_w(word_size)} 2^{n.bit_length() - 1} "
            f"(c={cfg.chunk_size} T={geom.bpr_threads})")
     xd, yd, sd = (torch.from_numpy(a).to(device) for a in common.pad_inputs(pts, ks, cfg))
     _reset_counts()
@@ -2410,6 +2517,22 @@ def run_beyond_checks(base, logn: int = 22, device="cuda") -> None:
 
 #: the six curves besides BN254, each on the plain path (the curves phase)
 CURVE_NAMES = ("bls12_381", "bls12_377", "grumpkin", "pallas", "vesta", "secp256k1")
+#: the limb widths of the kernels' libraries (ops/_build.WIDTHS): the
+#: phases above run the 13-bit one, the width-12 phase the other; each
+#: width's random streams start at their own offset
+WIDTH_SEED = {13: 0, 12: 1000}
+
+
+def _curve_index(curve: str) -> int:
+    """A curve's index in the curves phase's seeds: CURVE_NAMES', BN254
+    after them."""
+    return CURVE_NAMES.index(curve) if curve in CURVE_NAMES else len(CURVE_NAMES)
+
+
+def _w(word_size: int) -> str:
+    """A label's width suffix: none at 13-bit limbs, " w12" at 12."""
+    return "" if word_size == 13 else f" w{word_size}"
+
 #: the plain path's kernels, each instantiated for every curve (kernel 3,
 #: the histogram, has no field arithmetic)
 CURVE_KERNELS = ("point_add", "convert_pack", "scan_rows", "row_offsets", "point_total", "horner")
@@ -2428,11 +2551,12 @@ CONFIG_KERNELS = {"mont_pow": "compressed", "pair_suffix": "compressed", "emit_s
 CONFIGS_AT_2E20 = ("bls12_381",)
 #: a curve's MSM runs its config's kernels (a compressed path K9, K12 and
 #: K13, a GLV path only the *_glv modes), its plan calls all but the convert
-for _c in CURVE_NAMES:
+for _c in ("bn254",) + CURVE_NAMES:
     for _p in ("plain",) + CURVE_CONFIGS:
-        _tag = f"curve_{_c}" + ("" if _p == "plain" else f"_{_p}")
-        PATHS[_tag], EXCLUDED[_tag] = PATHS[_p], EXCLUDED[_p]
-        PATHS[f"plan_{_tag}"], EXCLUDED[f"plan_{_tag}"] = PATHS[f"plan_{_p}"], EXCLUDED[f"plan_{_p}"]
+        for _ws in WIDTH_SEED:
+            _tag = f"curve_{_c}" + ("" if _p == "plain" else f"_{_p}") + _w(_ws).replace(" ", "_")
+            PATHS[_tag], EXCLUDED[_tag] = PATHS[_p], EXCLUDED[_p]
+            PATHS[f"plan_{_tag}"], EXCLUDED[f"plan_{_tag}"] = PATHS[f"plan_{_p}"], EXCLUDED[f"plan_{_p}"]
 #: the kernels generic over the field, by wrapper: (their kernels, BN254's
 #: object file, the suffix of each other curve's translation unit): the
 #: plain kernels and the GLV modes of the convert and the scan in
@@ -2465,19 +2589,20 @@ CURVE_INSTANCES = {
 #: stage 4, the scaled convert's five modes
 OFFPATH_KERNELS = {"pair_forward": "pairs", "pair_backward": "pairs", "pair_forward_glv": "pairs_glv",
                    "pair_backward_glv": "pairs_glv", "bpr_phase1": "blocked", "convert_pack_scaled": "convert_scaled"}
-#: every kernel instance's ptxas report by (curve, kernel name), filled by
-#: report_plain_builds for the kernels line
+#: every kernel instance's ptxas report by (curve, kernel name, limb
+#: width), filled by report_plain_builds for the kernels line
 PTXAS: dict = {}
 
 
-def _ptxas_fields(curve: str, name: str) -> dict:
-    """A wrapper's kernel's registers and spill bytes on a curve for the
-    kernels line (PTXAS; the scaled convert's two-table layout, the first
-    kernel of a wrapper that runs several); none for the histogram."""
+def _ptxas_fields(curve: str, name: str, word_size: int = 13) -> dict:
+    """A wrapper's kernel's registers and spill bytes on a curve at a limb
+    width for the kernels line (PTXAS; the scaled convert's two-table
+    layout, the first kernel of a wrapper that runs several); none for the
+    histogram."""
     if name not in CURVE_INSTANCES:
         return {}
     kernel = "k_convert_scaled<1>" if name == "convert_pack_scaled" else CURVE_INSTANCES[name][0][0]
-    rep = PTXAS[(curve, kernel)]
+    rep = PTXAS[(curve, kernel, word_size)]
     return {"registers": rep["registers"], "spill_stores": rep["spill_stores"], "spill_loads": rep["spill_loads"]}
 
 
@@ -2493,12 +2618,14 @@ def _field_of(name: str) -> str:
             "secp256k1": "FpSecp256k1", "grumpkin": "FpGrumpkin", "vesta": "FpVesta"}[name]
 
 
-def report_plain_builds(so) -> dict:
+def report_plain_builds(so, word_size: int = 13) -> dict:
     """One line per kernel and curve (CURVE_INSTANCES: every kernel is
-    generic over the field): ptxas registers, frame and spills and the SASS
-    size; raises when a kernel makes an out-of-line call (the word core
-    inlines every formula, the row offsets' included). Returns and keeps in
-    PTXAS {(curve, kernel): ptxas report} for the kernel table."""
+    generic over the field) of the library ``so`` of limb width
+    ``word_size`` (its own build log and objects): ptxas registers, frame
+    and spills and the SASS size; raises when a kernel makes an out-of-line
+    call (the word core inlines every formula, the row offsets' included).
+    Returns and keeps in PTXAS {(curve, kernel, word_size): ptxas report}
+    for the kernel table."""
     log = (so.parent / "build.log").read_text()
     reports = {}
     _prefetch_sass([so.parent / obj for _kernels, obj, _unit in CURVE_INSTANCES.values()]
@@ -2510,16 +2637,16 @@ def report_plain_builds(so) -> dict:
             for kernel in kernels:
                 rep = _ptxas(log, kernel, field)
                 n, calls = _sass_calls(path, kernel, field)
-                reports[(curve, kernel)] = PTXAS[(curve, kernel)] = rep
-                print(f"ptxas {curve} {kernel}: registers={rep['registers']} frame={rep['frame']} B "
+                reports[(curve, kernel)] = PTXAS[(curve, kernel, word_size)] = rep
+                print(f"ptxas {curve}{_w(word_size)} {kernel}: registers={rep['registers']} frame={rep['frame']} B "
                       f"spill_stores={rep['spill_stores']} B spill_loads={rep['spill_loads']} B; "
                       f"SASS {n} instructions, {calls} CALL", flush=True)
                 if calls:
-                    raise AssertionError(f"{kernel}<{field}> makes {calls} out-of-line calls")
+                    raise AssertionError(f"{kernel}<{field}>{_w(word_size)} makes {calls} out-of-line calls")
     return reports
 
 
-def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev) -> dict:
+def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev, word_size: int = 13) -> dict:
     """The plain path's six kernels of one curve against their twins on the
     card, on a random stream of the curve's own: at a small shape (chunk 8,
     n 2048, R 512, C 4, one subtask, 4 windows) when ``logn`` is None, else
@@ -2529,12 +2656,14 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
     over their G x R lane totals, the point add over the boundary prefixes'
     G x NB, the point total over S windows of NB - 1 points, the Horner
     ladder over S windows at chunk c (2^20: c 16, R 16384, C 64, G 4; 2^16:
-    c 13, R 8192, C 8, G 4) on the 12-word curves (the 8-word ones share
-    BN254's body, held at its 2^20 and 2^16 shapes: only their small-shape
-    ladder runs, the large one's twin taking ~6 s). The scan and the convert on random canonical
+    c 13, R 8192, C 8, G 4) on the 12-word curves and BN254 (the other
+    8-word curves share BN254's body, held at its 2^20 and 2^16 shapes:
+    only their small-shape ladder runs, the large one's twin taking ~6 s).
+    The scan and the convert on random canonical
     tables and coordinates (the convert also on words anywhere below
     2^(32 D)), the row offsets and the point total on real curve points
-    (they reassociate). Returns {kernel: result} as _check_case gives it."""
+    (they reassociate). At ``word_size``-bit limbs (the instances of that
+    width's library). Returns {kernel: result} as _check_case gives it."""
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
@@ -2545,8 +2674,9 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
     small = logn is None
     n = 2048 if small else 1 << logn
     cfg = MsmConfig(curve=spec, chunk_size=8) if small else pick_config(n, spec)
+    cfg = dataclasses.replace(cfg, word_size=word_size)
     f, L = get_field_ctx(cfg), cfg.num_words
-    rng = np.random.default_rng(SEED + 100 + CURVE_NAMES.index(curve) + (0 if small else 10))
+    rng = np.random.default_rng(SEED + 100 + _curve_index(curve) + (0 if small else 10) + WIDTH_SEED[word_size])
     aff = [Curve(spec).to_affine(p) for p in Curve(spec).sample_points(64, seed=SEED)]
     base = torch.stack([torch.from_numpy(_mont(v, cfg)) for v in zip(*aff)]).to(dev)
 
@@ -2579,15 +2709,16 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
         "row_offsets": ([cfg, *(a.transpose(1, 2).contiguous() for a in rows)], True, 3),
         "point_total": ([cfg, *_curve_points(rng, (S, N), cfg, base, dev)], True, 3),
     }
-    if small or coord_words(cfg) == 12:  # the 8-word curves' ladder at the small shape only
+    if small or coord_words(cfg) == 12 or curve == "bn254":
         cases["horner"] = ([cfg, *(t(_rand_fe(rng, (S,), cfg)) for _ in range(3)), 4 if small else cfg.chunk_size],
                            False, 3)
-    label = f"{curve} {'small' if small else f'2^{logn}'}"
+    label = f"{curve}{_w(word_size)} {'small' if small else f'2^{logn}'}"
     return {name: _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz)
             for name, (args, as_points, reps) in cases.items()}
 
 
-def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev) -> dict:
+def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev,
+                               word_size: int = 13) -> dict:
     """The seven instances the compressed and GLV configs add for one curve
     (CONFIG_KERNELS: the Fermat inversion, the suffix products and the
     emission + scan, the last two in both modes, and the GLV modes of the
@@ -2607,7 +2738,8 @@ def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: flo
     inversion and the pair kernels 256 of its chains, the first and last 64
     lanes of its first and last subtask (chains share no state there;
     chain_subset), on the CPU, and the kernels' outputs there are compared
-    exactly. Returns {kernel: result} as _check_case gives it."""
+    exactly. At ``word_size``-bit limbs. Returns {kernel: result} as
+    _check_case gives it."""
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
@@ -2617,10 +2749,10 @@ def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: flo
     spec = _curve_spec(curve)
     small = logn is None
     n = 2048 if small else 1 << logn
-    rng = np.random.default_rng(SEED + 200 + CURVE_NAMES.index(curve) + (0 if small else 10))
+    rng = np.random.default_rng(SEED + 200 + _curve_index(curve) + (0 if small else 10) + WIDTH_SEED[word_size])
     cv = Curve(spec)
     aff = [cv.to_affine(p) for p in cv.sample_points(64, seed=SEED)]
-    base_cfg = MsmConfig(curve=spec)
+    base_cfg = MsmConfig(curve=spec, word_size=word_size)
     f, L = get_field_ctx(base_cfg), base_cfg.num_words
     base = torch.stack([torch.from_numpy(_mont(v, base_cfg)) for v in zip(*aff)]).to(dev)
     table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
@@ -2631,10 +2763,11 @@ def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: flo
 
     def config(path):
         if small:
-            return MsmConfig(curve=spec, chunk_size=8, compress=path != "glv", glv=path != "compressed")
-        return msm_path(path, n, "cuda", spec)[0]
+            return MsmConfig(curve=spec, chunk_size=8, compress=path != "glv", glv=path != "compressed",
+                             word_size=word_size)
+        return msm_path(path, n, "cuda", spec, word_size)[0]
 
-    label = f"{curve} {'small' if small else f'2^{logn}'}"
+    label = f"{curve}{_w(word_size)} {'small' if small else f'2^{logn}'}"
     out = {}
 
     def check(name, args, reps, shape=""):
@@ -2665,21 +2798,23 @@ def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: flo
     return out
 
 
-def check_curve_offpath_kernels(kern, curve: str, clock_hz: float, dev) -> dict:
+def check_curve_offpath_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev,
+                                word_size: int = 13) -> dict:
     """One curve's six instances off the served paths (OFFPATH_KERNELS) against
     their twins on the card, on a random stream of the curve's own: the
     forward products and the backward emission (kernels 10 and 11) in both
-    modes at the shapes of the curve's largest compressed and GLV
-    compressed MSMs (2^20 for CONFIGS_AT_2E20, else 2^16; models/
-    geometry.py's rule) over the tables of check_curve_config_kernels, the
-    kernel running the whole launch and its twin 256 of its chains on the
-    CPU (chain_subset); BPR phase 1 at the blocked stage 4's shape of the
-    curve's 2^16 plain MSM (pick_config: every window's body buckets over
-    bpr_threads lanes; BLS12-381 also at 2^20), with planted rows
-    (_bpr_buckets); the scaled convert in its five modes (_scaled_modes) on
-    the 2^16 MSM's coordinates below p and n / 8 anywhere below 2^(32 D).
-    Returns {kernel: result} as _check_case gives it, from the largest
-    shape."""
+    modes at the shapes of the curve's 2^logn compressed and GLV compressed
+    MSMs (models/geometry.py's rule) over the tables of
+    check_curve_config_kernels, the kernel running the whole launch and its
+    twin 256 of its chains on the CPU (chain_subset); BPR phase 1 at the
+    blocked stage 4's shape of the curve's 2^16 plain MSM (pick_config:
+    every window's body buckets over bpr_threads lanes; also at 2^20 when
+    logn is 20), with planted rows (_bpr_buckets); the scaled convert in
+    its five modes (_scaled_modes) on the 2^16 MSM's coordinates below p
+    and n / 8 anywhere below 2^(32 D). When ``logn`` is None all at small
+    shapes (the pair kernels G2 C8 R64, BPR phase 1 G1 T16 Bl16, the
+    convert 2048 + 256 points). At ``word_size``-bit limbs. Returns
+    {kernel: result} as _check_case gives it, from the largest shape."""
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
@@ -2687,66 +2822,73 @@ def check_curve_offpath_kernels(kern, curve: str, clock_hz: float, dev) -> dict:
     from msm_tpu_torch.params import MsmConfig, pick_config
 
     spec = _curve_spec(curve)
-    logn = 20 if curve in CONFIGS_AT_2E20 else 16
-    n = 1 << logn
-    rng = np.random.default_rng(SEED + 300 + CURVE_NAMES.index(curve))
+    small = logn is None
+    n = 2048 if small else 1 << logn
+    rng = np.random.default_rng(SEED + 300 + _curve_index(curve) + WIDTH_SEED[word_size])
     cv = Curve(spec)
     aff = [cv.to_affine(p) for p in cv.sample_points(64, seed=SEED)]
-    base_cfg = MsmConfig(curve=spec)
+    base_cfg = MsmConfig(curve=spec, word_size=word_size)
     f, L = get_field_ctx(base_cfg), base_cfg.num_words
     base = torch.stack([torch.from_numpy(_mont(v, base_cfg)) for v in zip(*aff)]).to(dev)
     table = torch.cat([pack_canonical(base[i], base_cfg) for i in range(2)], dim=-1)
     glv_table = _glv_table(aff[:32], base_cfg).to(dev)
     out = {}
+    size = "small" if small else f"2^{logn}"
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def check(name, args, label, subset):
-        out[name] = _check_case(kern, f, L, name, f"{curve} {label}", args, False, 3, clock_hz,
+        out[name] = _check_case(kern, f, L, name, f"{curve}{_w(word_size)} {label}", args, False, 3, clock_hz,
                                 subset=chain_subset(name, args) if subset else None)
 
     for path, stream, tab in (("compressed", _pair_stream, table), ("glv_compressed", _glv_pair_stream, glv_table)):
-        cfg = msm_path(path, n, "cuda", spec)[0]
-        G, C, R = _compressed_shape(n, cfg)
+        cfg = msm_path(path, n, "cuda", spec, word_size)[0]
+        G, C, R = (2, 8, 64) if small else _compressed_shape(n, cfg)
         pair_in = [cfg, tab, *map(t, stream(rng, G, C, R, tab.shape[0]))]
         mode = "_glv" if cfg.glv else ""
-        check(f"pair_forward{mode}", pair_in, f"2^{logn} G{G} C{C} R{R}", True)
-        check(f"pair_backward{mode}", _backward_args(kern, pair_in), f"2^{logn} G{G} C{C} R{R}", True)
-    for bl_logn in (16, 20) if curve == "bls12_381" else (16,):
-        cfg = pick_config(1 << bl_logn, spec)
+        check(f"pair_forward{mode}", pair_in, f"{size} G{G} C{C} R{R}", not small)
+        check(f"pair_backward{mode}", _backward_args(kern, pair_in), f"{size} G{G} C{C} R{R}", not small)
+    for bl_logn in () if small else (16, 20) if logn == 20 else (16,):
+        cfg = dataclasses.replace(pick_config(1 << bl_logn, spec), word_size=word_size)
         T = pick_geometry(1 << bl_logn, cfg).bpr_threads
         G, Bl = cfg.num_subtasks, (cfg.num_buckets - 1) // T
         check("bpr_phase1", [cfg, *map(t, _bpr_buckets(rng, (G, Bl, T), cfg))], f"2^{bl_logn} G{G} T{T} Bl{Bl}",
               False)
-    wu = coord_u16(base_cfg)
-    words = [t(np.concatenate([w, a])) for w, a in zip(_coord_words(rng, 1 << 16, spec.modulus, wu),
-                                                        _coord_words(rng, 1 << 13, None, wu))]
+    if small:
+        check("bpr_phase1", [base_cfg, *map(t, _bpr_buckets(rng, (1, 16, 16), base_cfg))], "small G1 T16 Bl16",
+              False)
+    wu, m = coord_u16(base_cfg), 2048 if small else 1 << 16
+    words = [t(np.concatenate([w, a])) for w, a in zip(_coord_words(rng, m, spec.modulus, wu),
+                                                        _coord_words(rng, m // 8, None, wu))]
     scaled = {}
     for label, xs, xs2, triple in _scaled_modes(base_cfg):
-        check("convert_pack_scaled", [base_cfg, *words, xs, xs2, triple], f"2^16 {label}", False)
+        check("convert_pack_scaled", [base_cfg, *words, xs, xs2, triple],
+              f"{'small' if small else '2^16'} {label}", False)
         scaled[label] = out["convert_pack_scaled"]
     out["convert_pack_scaled"] = scaled["dual"]
     return out
 
 
-def run_curve_offpath_paths(curve: str, pts, ks, want, device="cuda") -> dict:
+def run_curve_offpath_paths(curve: str, pts, ks, want, device="cuda", word_size: int = 13) -> dict:
     """The paths that run one curve's OFFPATH_KERNELS, each with the
     counters reset just before and its kernels required just after:
     compress_pairs without and with GLV (check_pairs: every pair sum and
     flag against the oracle), the scaled convert's five modes
     (run_convert_scaled), the blocked stage 4 (check_blocked) and the naive
     model (compute_msm_naive, 8-bit unsigned windows) on the curve's 2^16
-    MSM, both bit-exact against its folded oracle. Returns {path: launch
-    counts}."""
+    MSM, both bit-exact against its folded oracle; at ``word_size``-bit
+    limbs. Returns {path: launch counts}."""
     from msm_tpu_torch.oracle.pyecc import Curve
 
     spec = _curve_spec(curve)
-    counts = {"pairs": check_pairs(device=device, curve=spec), "pairs_glv": check_pairs(True, device, spec),
-              "convert_scaled": run_convert_scaled(device, spec, 16)}
-    counts["blocked"] = check_blocked(pts, ks, want, device, spec)
-    cfg, run = msm_path("naive", len(pts), device, spec)
-    tag = f"curve {curve} 2^{len(pts).bit_length() - 1} naive (c={cfg.chunk_size} S={cfg.num_subtasks})"
+    counts = {"pairs": check_pairs(device=device, curve=spec, word_size=word_size),
+              "pairs_glv": check_pairs(True, device, spec, word_size),
+              "convert_scaled": run_convert_scaled(device, spec, 16, word_size)}
+    counts["blocked"] = check_blocked(pts, ks, want, device, spec, word_size)
+    cfg, run = msm_path("naive", len(pts), device, spec, word_size)
+    tag = (f"curve {curve}{_w(word_size)} 2^{len(pts).bit_length() - 1} naive "
+           f"(c={cfg.chunk_size} S={cfg.num_subtasks})")
     _reset_counts()
     t0 = time.perf_counter()
     got = run(pts, ks)
@@ -2762,10 +2904,10 @@ def run_curve_offpath_paths(curve: str, pts, ks, want, device="cuda") -> dict:
 
 
 #: the subgroup checks (cofactor > 1): (curve, log2 n)
-SUBGROUP_CHECKS = (("bls12_381", 16), ("bls12_381", 20), ("bls12_377", 16))
+SUBGROUP_CHECKS = (("bls12_381", 16), ("bls12_377", 16))
 
 
-def check_subgroup(curve: str, pts, ks, words, want, device="cuda") -> None:
+def check_subgroup(curve: str, pts, ks, words, want, device="cuda", word_size: int = 13) -> None:
     """validate=True on a curve of cofactor > 1 through run_gpu_msm and a
     plan (pick_config's config): each passes on the MSM's points (the
     result, or the plan's words call, bit-exact against the folded
@@ -2773,7 +2915,8 @@ def check_subgroup(curve: str, pts, ks, words, want, device="cuda") -> None:
     outside the order-r subgroup planted at index n/3 + 1 with ValueError
     naming that index. One line per entry with the seconds and the point
     add (K1) launches of the pass (validation and MSM) and of the reject
-    (validation alone: one ladder of K1 launches over the padded points)."""
+    (validation alone: one ladder of K1 launches over the padded points).
+    At ``word_size``-bit limbs."""
     import msm_tpu_torch
     from msm_tpu_torch.ops.cuda_curve import point_add
     from msm_tpu_torch.oracle.pyecc import Curve
@@ -2782,14 +2925,14 @@ def check_subgroup(curve: str, pts, ks, words, want, device="cuda") -> None:
     spec = _curve_spec(curve)
     cv = Curve(spec)
     n = len(pts)
-    cfg = pick_config(n, spec)
+    cfg = dataclasses.replace(pick_config(n, spec), word_size=word_size)
     needle, at = cv.first_point_outside_subgroup(), n // 3 + 1
     bad = list(pts)
     bad[at] = needle
     runs = {"run_gpu_msm": lambda p: msm_tpu_torch.run_gpu_msm(p, ks, config=cfg, validate=True, device=device),
             "plan": lambda p: msm_tpu_torch.plan(p, config=cfg, validate=True, device=device)}
     for entry, run in runs.items():
-        tag = f"subgroup {curve} 2^{n.bit_length() - 1} {entry}(validate=True)"
+        tag = f"subgroup {curve}{_w(word_size)} 2^{n.bit_length() - 1} {entry}(validate=True)"
         point_add.launches = 0
         t0 = time.perf_counter()
         got = run(pts)
@@ -2829,6 +2972,12 @@ def sample_curve_msm(curve: str, n: int, seed: int, base=None):
     return base, [base[i % len(base)] for i in range(n)], words
 
 
+#: each curve's MSM inputs and folded oracle by (curve, log2 n), kept by
+#: run_curve_msms for the width-12 phase: (bases, points, scalar words,
+#: oracle JPoint)
+CURVE_INPUTS: dict = {}
+
+
 def run_curve_msms(device="cuda") -> dict:
     """Each of the six curves on the four configs (the plain one and
     CURVE_CONFIGS) through the entry points a user calls, one curve's
@@ -2836,8 +2985,10 @@ def run_curve_msms(device="cuda") -> dict:
     2^16 every config, at 2^20 the plain one for CURVES_AT_2E20 and every
     config for CONFIGS_AT_2E20; at 2^16 also the paths of OFFPATH_KERNELS
     and the naive model (run_curve_offpath_paths), and validate=True where
-    SUBGROUP_CHECKS names the curve and size (check_subgroup). Returns
-    {(curve, config or path): launch counts of its 2^16 run}."""
+    SUBGROUP_CHECKS names the curve and size (check_subgroup); the stage
+    split and the profile (run_curve_config's detail) for CONFIGS_AT_2E20
+    only. Returns {(curve, config or path): launch counts of its 2^16
+    run}."""
     from msm_tpu_torch import bench
 
     counts = {}
@@ -2848,11 +2999,13 @@ def run_curve_msms(device="cuda") -> dict:
             t0 = time.perf_counter()
             base, pts, words = sample_curve_msm(curve, 1 << logn, SEED + 60 + logn, base)
             want = bench.folded_oracle(base, words, spec)
+            CURVE_INPUTS[(curve, logn)] = (base, pts, words, want)
             ks = [int.from_bytes(w.tobytes(), "little") for w in words] if logn == 16 else None
             print(f"curve {curve} 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
             configs = CURVE_CONFIGS if logn == 16 or curve in CONFIGS_AT_2E20 else ()
             for path in ("plain",) + configs:
-                c = run_curve_config(curve, path, logn, pts, ks, words, want, device)
+                c, _ = run_curve_config(curve, path, logn, pts, ks, words, want, device,
+                                        detail=curve in CONFIGS_AT_2E20)
                 if c is not None:
                     counts[(curve, path)] = c
             if logn == 16:
@@ -2864,41 +3017,48 @@ def run_curve_msms(device="cuda") -> dict:
     return counts
 
 
-def run_curve_config(curve: str, path: str, logn: int, pts, ks, words, want, device="cuda") -> dict | None:
-    """One curve's MSM on one config (msm_path's) on the inputs and folded
-    oracle of run_curve_msms (the pure-Python one: the native oracle is
-    BN254's): run_gpu_msm on the ints (when ``ks`` is given, the 2^16 runs)
-    and a plan's words call, each with the counters reset just before and
-    its path's kernels required just after (paths curve_<name>[_<config>],
-    plan_curve_<name>[_<config>]), both bit-exact. One line per run: the
-    wall median (run_gpu_msm of 3, words call of 5), stages and peak
-    memory, and a profiled words call's device busy time, kernel ms and
-    idle share. Returns the run_gpu_msm's launch counts (None without
-    ``ks``)."""
+def run_curve_config(curve: str, path: str, logn: int, pts, ks, words, want, device="cuda",
+                     word_size: int = 13, detail: bool = True) -> tuple[dict | None, float]:
+    """One curve's MSM on one config (msm_path's, at ``word_size``-bit
+    limbs) on the inputs and folded oracle of run_curve_msms (the
+    pure-Python one: the native oracle is BN254's): run_gpu_msm on the ints
+    (when ``ks`` is given) and a plan's words call, each with the counters
+    reset just before and its path's kernels required just after (paths
+    curve_<name>[_<config>][_w12], plan_curve_<name>[_<config>][_w12]),
+    both bit-exact. One line per run: the wall median (run_gpu_msm of 3,
+    words call of 5), and with ``detail`` the stages and peak memory, and a
+    profiled words call's device busy time, kernel ms and idle share.
+    Returns (the run_gpu_msm's launch counts or None without ``ks``, the
+    words call's median ms)."""
     import msm_tpu_torch
     from msm_tpu_torch.ops._build import BUILD_ROOT
     from msm_tpu_torch.oracle.pyecc import Curve
 
     spec = _curve_spec(curve)
     cv = Curve(spec)
-    cfg, run = msm_path(path, 1 << logn, device, spec)
-    name = f"curve_{curve}" + ("" if path == "plain" else f"_{path}")
-    tag = f"curve {curve} 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks} L={cfg.num_words})"
+    cfg, run = msm_path(path, 1 << logn, device, spec, word_size)
+    name = f"curve_{curve}" + ("" if path == "plain" else f"_{path}") + _w(word_size).replace(" ", "_")
+    tag = f"curve {curve}{_w(word_size)} 2^{logn} {path} (c={cfg.chunk_size} S={cfg.num_subtasks} L={cfg.num_words})"
     counts = None
     if ks is not None:
         _reset_counts()
+        t0 = time.perf_counter()
         got = run(pts, ks)
         torch.cuda.synchronize()
+        first = time.perf_counter() - t0
         counts = _counts_of(f"{tag} run_gpu_msm", name)
         if got != cv.to_affine(want):
             raise AssertionError(f"{tag}: run_gpu_msm differs from the oracle: {got}")
-        torch.cuda.reset_peak_memory_stats()
-        med, runs = _median_ms(lambda: run(pts, ks), 3)
-        st = stage_times(pts, ks, cfg, path, device)
-        print(f"{tag} run_gpu_msm: bit-exact; wall_ms median of 3 = {med:.2f} (runs "
-              f"{', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib="
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f}; stages_ms "
-              + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
+        if not detail:
+            print(f"{tag} run_gpu_msm: bit-exact; first call {first * 1e3:.2f} ms", flush=True)
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            med, runs = _median_ms(lambda: run(pts, ks), 3)
+            st = stage_times(pts, ks, cfg, path, device)
+            print(f"{tag} run_gpu_msm: bit-exact; wall_ms median of 3 = {med:.2f} (runs "
+                  f"{', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib="
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f}; stages_ms "
+                  + ", ".join(f"{k}={v:.1f}" for k, v in st.items()), flush=True)
     t0 = time.perf_counter()
     plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
     torch.cuda.synchronize()
@@ -2910,19 +3070,22 @@ def run_curve_config(curve: str, path: str, logn: int, pts, ks, words, want, dev
     torch.cuda.reset_peak_memory_stats()
     med, runs = _median_ms(lambda: plan.jpoint(words), 5)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    st = plan_stage_times(plan, words)
-    wall_ms, busy_ms, by_name = device_breakdown(
-        lambda _pts, w: plan.jpoint(w), None, words, BUILD_ROOT / f"trace_{name}_2e{logn}.json")
-    print(f"{tag} plan words call: bit-exact; build {build_s:.2f} s; wall_ms median of 5 = {med:.2f} "
-          f"(runs {', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib={peak:.3f}; stages_ms "
-          + ", ".join(f"{k}={v:.2f}" for k, v in st.items()), flush=True)
-    print(f"{tag} plan words call profiled: wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
-          f"kernel_ms={busy_ms - by_name.get('memcpy', 0.0):.2f} idle_share={1 - busy_ms / wall_ms:.3f}; "
-          "device_ms " + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
-          flush=True)
+    line = (f"{tag} plan words call: bit-exact; build {build_s:.2f} s; wall_ms median of 5 = {med:.2f} "
+            f"(runs {', '.join(f'{r:.2f}' for r in runs)}); peak_mem_gib={peak:.3f}")
+    if not detail:
+        print(line, flush=True)
+    else:
+        st = plan_stage_times(plan, words)
+        wall_ms, busy_ms, by_name = device_breakdown(
+            lambda _pts, w: plan.jpoint(w), None, words, BUILD_ROOT / f"trace_{name}_2e{logn}.json")
+        print(f"{line}; stages_ms " + ", ".join(f"{k}={v:.2f}" for k, v in st.items()), flush=True)
+        print(f"{tag} plan words call profiled: wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
+              f"kernel_ms={busy_ms - by_name.get('memcpy', 0.0):.2f} idle_share={1 - busy_ms / wall_ms:.3f}; "
+              "device_ms " + ", ".join(f"{k}={v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
+              flush=True)
     del plan
     torch.cuda.empty_cache()
-    return counts
+    return counts, med
 
 
 def run_curve_entry_checks() -> None:
@@ -2947,18 +3110,19 @@ def run_curve_entry_checks() -> None:
 def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
     """The curves phase: the generic kernels' builds for every curve
     (report_plain_builds), each curve's six plain kernel instances against
-    their twins at the small shapes and at the shapes of the curve's
-    largest plain MSM below (2^20 for CURVES_AT_2E20, else 2^16), its seven
-    instances of the compressed and GLV configs at the small shapes and at
-    the shapes of its 2^16 MSMs on those configs
-    (check_curve_config_kernels), its six OFFPATH_KERNELS
-    (check_curve_offpath_kernels), then the curves' MSMs on the four
+    their twins at the small shapes and at the shapes of its largest plain
+    MSM below (2^20 for CURVES_AT_2E20, else 2^16), its seven instances of
+    the compressed and GLV configs at the small shapes and at the shapes
+    of its 2^16 MSMs on those configs (check_curve_config_kernels), its six
+    OFFPATH_KERNELS at the shapes of its 2^16 MSMs (the pair kernels at
+    its 2^20 MSMs' for CONFIGS_AT_2E20; check_curve_offpath_kernels), each
+    curve's checks settled before the next curve's, then the curves' MSMs on the four
     configs with the OFFPATH_KERNELS' paths and the subgroup checks
     (run_curve_msms) and the command line and bench on them
     (run_curve_entry_checks). Returns the kernel table's
     rows for the instances, each with its launches in its curve's 2^16
     run_gpu_msm on the config that runs it and the times at its largest
-    MSM's shapes."""
+    checked shape."""
     t0 = t_all = time.perf_counter()
 
     def step(name):
@@ -2970,16 +3134,16 @@ def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
     dev = torch.device(device)
     checks = {}
     for curve in CURVE_NAMES:
-        for logn in (None, 20 if curve in CURVES_AT_2E20 else 16):
-            checks.setdefault(curve, {}).update(check_curve_kernels(kern, curve, logn, clock_hz, dev))
-    step("kernels")
-    for curve in CURVE_NAMES:  # at 2^16 on every curve
-        for logn in (None, 16):
-            checks[curve].update(check_curve_config_kernels(kern, curve, logn, clock_hz, dev))
-    step("config kernels")
-    for curve in CURVE_NAMES:
-        checks[curve].update(check_curve_offpath_kernels(kern, curve, clock_hz, dev))
-    step("pair-value, bpr and scaled convert kernels")
+        # the MSM shapes first (their chain twins, the longest, overlap the
+        # rest); a kernel's result is its MSM shape's
+        large = check_curve_offpath_kernels(kern, curve, 20 if curve in CONFIGS_AT_2E20 else 16, clock_hz, dev)
+        large.update(check_curve_config_kernels(kern, curve, 16, clock_hz, dev))
+        large.update(check_curve_kernels(kern, curve, 20 if curve in CURVES_AT_2E20 else 16, clock_hz, dev))
+        small = check_curve_config_kernels(kern, curve, None, clock_hz, dev)
+        small.update(check_curve_kernels(kern, curve, None, clock_hz, dev))
+        checks[curve] = {**small, **large}
+        settle()
+    step("kernels, config kernels, pair-value, bpr and scaled convert kernels")
     counts = run_curve_msms(device)
     step("msms")
     run_curve_entry_checks()
@@ -3001,6 +3165,155 @@ def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
     return rows
 
 
+#: the curves whose width-12 instances are also held at their 2^20 MSMs'
+#: shapes (every curve's at the small shapes; every curve's 2^16 MSMs at
+#: 12-bit limbs run them all)
+W12_AT_2E20 = ("bn254", "bls12_381")
+
+
+#: the 12-bit library's build, in a process of its own at nice 19 on half
+#: the host's cores (its nvcc processes inherit both), behind the 13-bit
+#: build and beside the 13-bit phases: it takes the cores they leave idle
+BUILD12 = ("import os; os.nice(19); cpus = sorted(os.sched_getaffinity(0)); "
+           "os.sched_setaffinity(0, cpus[len(cpus) // 2:]); "
+           "from msm_tpu_torch.ops import _build; _build.build(12)")
+
+
+def start_build12() -> subprocess.Popen:
+    """Start the 12-bit library's build (BUILD12; a process group of its
+    own, so stop_build12 ends its nvcc processes too, in this session, so
+    its nice value ranks it below this process's work)."""
+    return subprocess.Popen([sys.executable, "-c", BUILD12], cwd=ROOT, process_group=0,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build12(proc: subprocess.Popen) -> tuple[Path, float]:
+    """Wait for the 12-bit build (a failed build fails the run) and load the
+    library; returns (library, the build's wall seconds)."""
+    from msm_tpu_torch.ops import _build
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the 12-bit build failed (exit {proc.returncode}):\n{log}")
+    _build.load(12)
+    so = _build.library_path(12)
+    return so, json.loads((so.parent / "compile_seconds.json").read_text())["wall"]
+
+
+def stop_build12(proc: subprocess.Popen) -> None:
+    """End the 12-bit build's process group if it still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def run_width12_phase(so12, clock_hz: float, device="cuda") -> list[dict]:
+    """The width-12 phase: the 12-bit library's instances of every kernel
+    generic over the field (every wrapper of CURVE_INSTANCES) on the seven
+    curves. Their ptxas reports and SASS (report_plain_builds on the
+    12-bit library: no CALL); each curve's instances against their twins
+    at the small shapes, BN254's and BLS12-381's also at their 2^20 MSMs'
+    shapes (W12_AT_2E20; a chain kernel's twin over 256 chains on the CPU
+    there), all exact after canonicalization; each curve's 2^16 MSM at
+    word_size 12 on the plain, compressed, GLV and GLV compressed configs
+    (run_gpu_msm and a plan's words call, bit-exact against the folded
+    oracle, the curve's kernels required: paths curve_<name>[_<config>]_w12)
+    with compress_pairs in both modes, the scaled convert's five modes, the
+    blocked stage 4 and the naive model (run_curve_offpath_paths), and
+    validate=True on BLS12-381 (check_subgroup); BN254's edge MSMs on the
+    five paths and a karatsuba=True MSM at 2^16; BN254 at 2^20 through a
+    plan's words call on the four configs at 12- and 13-bit limbs in turn
+    (one line each with both medians) and BLS12-381's plain 2^20 words
+    call, bit-exact. Returns the kernel table's rows, ``name[curve,w12]``,
+    each with its launches in its curve's 2^16 run on the config (or path)
+    that runs it and the times at its largest checked shape."""
+    import msm_tpu_torch
+    from msm_tpu_torch import bench
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254, pick_config
+
+    t0 = t_all = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        print(f"width 12 phase, {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+
+    curves = ("bn254",) + CURVE_NAMES
+    report_plain_builds(so12, 12)
+    step("ptxas and SASS")
+    kern = _kernels()
+    dev = torch.device(device)
+    checks = {}
+    for curve in curves:
+        # the 2^20 shapes first (their chain twins, the longest, overlap the
+        # rest); a kernel's result is its largest shape's
+        c = {}
+        for logn in (20, None) if curve in W12_AT_2E20 else (None,):
+            got = check_curve_config_kernels(kern, curve, logn, clock_hz, dev, 12)
+            got.update(check_curve_offpath_kernels(kern, curve, logn, clock_hz, dev, 12))
+            got.update(check_curve_kernels(kern, curve, logn, clock_hz, dev, 12))
+            c = {**got, **c}
+        checks[curve] = c
+        settle()
+    step("kernels")
+    counts = {}
+    for curve in curves:
+        spec = _curve_spec(curve)
+        if (curve, 16) not in CURVE_INPUTS:
+            base, pts, words = sample_curve_msm(curve, 1 << 16, SEED + 76)
+            CURVE_INPUTS[(curve, 16)] = (base, pts, words, bench.folded_oracle(base, words, spec))
+        base, pts, words, want = CURVE_INPUTS[(curve, 16)]
+        ks = [int.from_bytes(w.tobytes(), "little") for w in words]
+        for path in ("plain",) + CURVE_CONFIGS:
+            counts[(curve, path)] = run_curve_config(curve, path, 16, pts, ks, words, want, device, 12, False)[0]
+        for path, c in run_curve_offpath_paths(curve, pts, ks, want, device, 12).items():
+            counts[(curve, path)] = c
+        if curve == "bls12_381":
+            check_subgroup(curve, pts, ks, words, want, device, 12)
+        if curve == "bn254":
+            cfg = dataclasses.replace(pick_config(1 << 16), word_size=12, karatsuba=True)
+            tag = f"curve bn254 w12 2^16 plain karatsuba=True (c={cfg.chunk_size} L={cfg.num_words})"
+            _reset_counts()
+            got = msm_tpu_torch.run_gpu_msm(pts, ks, config=cfg, device=device)
+            torch.cuda.synchronize()
+            _counts_of(tag, "curve_bn254_w12")
+            if got != Curve(BN254).to_affine(want):
+                raise AssertionError(f"{tag}: differs from the oracle: {got}")
+            print(f"{tag}: bit-exact", flush=True)
+            for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
+                edge_checks(path, device, 12)
+    step("2^16 msms, off-path runs, edges, karatsuba and validate")
+    base = CURVE_INPUTS[("bn254", 16)][0]
+    base, pts, words = sample_curve_msm("bn254", 1 << 20, SEED + 80, base)
+    want = bench.folded_oracle(base, words, BN254)
+    for path in ("plain",) + CURVE_CONFIGS:
+        ms12 = run_curve_config("bn254", path, 20, pts, None, words, want, device, 12)[1]
+        ms13 = run_curve_config("bn254", path, 20, pts, None, words, want, device, 13, False)[1]
+        print(f"width 12 vs 13: bn254 2^20 {path} plan words call wall_ms median of 5: w12={ms12:.2f} "
+              f"w13={ms13:.2f} (w12/w13 = {ms12 / ms13:.3f})", flush=True)
+    base, pts, words, want = CURVE_INPUTS[("bls12_381", 20)]
+    run_curve_config("bls12_381", "plain", 20, pts, None, words, want, device, 12)
+    step("2^20 msms")
+    rows = []
+    for curve in curves:
+        for name in CURVE_KERNELS + tuple(CONFIG_KERNELS) + tuple(OFFPATH_KERNELS):
+            c = checks[curve][name]
+            path = CONFIG_KERNELS.get(name) or OFFPATH_KERNELS.get(name, "plain")
+            obj, unit = CURVE_INSTANCES[name][1:]
+            src = obj.removesuffix(".o") + ".cu" if curve == "bn254" else f"curve_{curve}{unit}.cu"
+            rows.append({
+                "name": f"{name}[{curve},w12]", "route": "cuda", "source": f"msm_tpu_torch/csrc/{src}",
+                "replaces": f"{REPLACES[name][1]} ({curve}, word_size 12)",
+                "launches": counts[(curve, path)][name],
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+                **_ptxas_fields(curve, name, 12),
+            })
+    print(f"width 12 phase: {time.perf_counter() - t_all:.1f} s", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke test runs only on a GPU")
@@ -3017,12 +3330,25 @@ def main() -> int:
           f"clocks.max.sm {clock_mhz:.0f} MHz")
 
     from msm_tpu_torch.ops import _build
-    from msm_tpu_torch.oracle import native
 
     t0 = time.perf_counter()
-    so = _build.build()
-    _build.load()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {so}", flush=True)
+    so = _build.build(13)
+    _build.load(13)
+    build_s = time.perf_counter() - t0
+    build12 = start_build12()
+    try:
+        return run_phases(clock_mhz, so, build_s, build12)
+    finally:
+        stop_build12(build12)
+
+
+def run_phases(clock_mhz: float, so: Path, build_s: float, build12: subprocess.Popen) -> int:
+    """Every phase after the 13-bit build (main): its report, the 13-bit
+    phases, the 12-bit phase once build12 has ended, the kernels line and
+    the last line."""
+    from msm_tpu_torch.oracle import native
+
+    print(f"build: {build_s:.1f} s -> {so}", flush=True)
     print(f"compile seconds by translation unit: {(so.parent / 'compile_seconds.json').read_text()}", flush=True)
     report_plain_builds(so)
 
@@ -3056,6 +3382,14 @@ def main() -> int:
     phase("chunked and beyond")
     curve_rows = run_curves_phase(so, clock_mhz * 1e6)
     phase("curves")
+    t0 = time.perf_counter()
+    so12, build12_s = finish_build12(build12)
+    print(f"build w12: {build12_s:.1f} s at nice 19 on half the cores beside the 13-bit phases (waited "
+          f"{time.perf_counter() - t0:.1f} s for it after the 13-bit phases) -> {so12}", flush=True)
+    print(f"compile seconds by translation unit (w12): {(so12.parent / 'compile_seconds.json').read_text()}",
+          flush=True)
+    w12_rows = run_width12_phase(so12, clock_mhz * 1e6)
+    phase("width 12")
     rows = []
     for name, (src, rep) in REPLACES.items():
         c = checks[name]
@@ -3067,7 +3401,9 @@ def main() -> int:
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             **_ptxas_fields("bn254", name),
         })
-    print(json.dumps({"kernels": rows + curve_rows}))
+    if _TWIN_POOL is not None:
+        _TWIN_POOL.shutdown()
+    print(json.dumps({"kernels": rows + curve_rows + w12_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

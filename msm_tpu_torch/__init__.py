@@ -28,14 +28,14 @@ and the byte helpers.
 The package imports nothing of ``msm_tpu``. Every public entry takes an
 explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
 plain twins for any curve. On CUDA the kernels cover the seven curves of
-``CURVES`` with 13-bit limbs on the plain path (``MsmConfig(curve=...)``,
-``pick_config(n, curve)``) and pair-compressed (``compress=True``, as
-``msm_tpu msm --compress`` runs it), each with or without the GLV split
-(``glv=True``, ``msm_tpu msm --glv``). ``karatsuba=True`` runs where the
-JAX package builds it. Other limb widths, the naive model and
-``compress_pairs`` on the six curves besides BN254 raise
-``NotImplementedError`` on CUDA before any launch, as does the naive model
-under GLV (on every device).
+``CURVES`` with 13-bit limbs and with 12-bit limbs (``MsmConfig(...,
+word_size=12)``: the same kernels in a library of their own, built at its
+first use) on the plain path (``MsmConfig(curve=...)``, ``pick_config(n,
+curve)``) and pair-compressed (``compress=True``, as ``msm_tpu msm
+--compress`` runs it), each with or without the GLV split (``glv=True``,
+``msm_tpu msm --glv``). ``karatsuba=True`` runs where the JAX package
+builds it. Other limb widths raise ``NotImplementedError`` on CUDA before
+any launch, as does the naive model under GLV (on every device).
 """
 
 from __future__ import annotations

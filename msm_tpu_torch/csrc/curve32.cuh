@@ -135,7 +135,7 @@ MSM_HD void pt32_load_balanced(pt32t<F>& p, const int32_t* x, const int32_t* y,
   fe32_from_balanced(p.z, z);
 }
 
-// Canonical 13-bit limbs, limb i of each coordinate at [i * stride].
+// Canonical W-bit limbs, limb i of each coordinate at [i * stride].
 template <class F>
 MSM_HD void pt32_store_limbs(int32_t* x, int32_t* y, int32_t* z,
                              int64_t stride, const pt32t<F>& p) {

@@ -8,7 +8,9 @@
 // curve_<name>.cu, MSM_INSTANTIATE_PAIRS and MSM_INSTANTIATE_OFFPATH in
 // curve_<name>_pairs.cu), so the parallel build spreads them. A C entry takes the curve's index in params.CURVES (F::ID)
 // and switches on it; an index without an instantiation is
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. The limb width is not an argument: each width's
+// library (ops/_build.py, -DMSM_LIMB_BITS) instantiates the same launches
+// over its own traits table (fields.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -20,10 +20,10 @@
 // t_j s_{j+1} (s_Cp = one), t_{j+1} = t_j d_j. The pair sum goes straight
 // into the running point (RCB16 mixed add); an infinity pair leaves it
 // unchanged. The boundary contract is kernel 4's: the inclusive prefix after
-// pair j as one pe3[g, j, r] row x || y || z of canonical 13-bit limbs
+// pair j as one pe3[g, j, r] row x || y || z of canonical W-bit limbs
 // (padded with zero limbs to pe3_row<F>, a multiple of 4: scan.cuh), the
 // lane total limbs-first in t{x,y,z}[g, :, r]. The chain input s [G, Cp, L,
-// R] is read as canonical 13-bit limbs (the suffix kernel's output), t0
+// R] is read as canonical W-bit limbs (the suffix kernel's output), t0
 // [G, L, R] as balanced ones.
 #pragma once
 

@@ -7,18 +7,18 @@
 // the variant scripts; no kernel uses them.
 //
 // An `fe32t<F>` is F::NW words, least significant first, CANONICAL (value
-// in [0, p)), in the Montgomery domain of the 13-bit limbs the kernels
-// exchange: R = 2^(13 F::L) (BN254: 2^260). Kernel boundaries keep
-// canonical 13-bit limbs; the kernels repack with shifts only
+// in [0, p)), in the Montgomery domain of the F::W-bit limbs the kernels
+// exchange: R = 2^(W L) (BN254: 2^260 at 13-bit limbs, 2^264 at 12). Kernel
+// boundaries keep canonical W-bit limbs; the kernels repack with shifts only
 // (fe32_from_limbs, fe32_to_limbs), and the packed table's dense words
 // (radix 2^32, F::NW a coordinate) are already this form. A canonical
 // value is unique, so a kernel on this core writes exactly the limbs any
 // other exact implementation writes.
 //
-// The R = 2^(13 L) product is a word-level CIOS with N0W = -p^-1 mod 2^32
+// The R = 2^(W L) product is a word-level CIOS with N0W = -p^-1 mod 2^32
 // (a REDC by 2^(32 NW), leaving t < 2p), one TAIL-bit REDC step (m = t N0T
-// mod 2^TAIL, t = (t + m p) / 2^TAIL, again < 2p; BN254: 4 bits) and one
-// conditional subtract: a b R^-1 mod p, with no product spent on changing
+// mod 2^TAIL, t = (t + m p) / 2^TAIL, again < 2p; BN254: 4 bits at 13-bit
+// limbs; none where TAIL is 0, BLS12-377 at 12) and one conditional subtract: a b R^-1 mod p, with no product spent on changing
 // domains. Where the top word of p is below 2^31 - 1 the CIOS is the
 // "no-carry" form (the running sum never needs a word NW); secp256k1
 // (F::CARRY) keeps the carry word, and its sums below 2p carry a bit 2^256
@@ -200,24 +200,33 @@ MSM_HD void fe32_mul_b3(fe32t<F>& out, const fe32t<F>& a) {
 
 // The last REDC step and conditional subtract of a product: t (NW words,
 // plus its bit 2^(32 NW) in `top` under F::CARRY; t < 2p) -> (t + m p) /
-// 2^TAIL with m = t N0T mod 2^TAIL, below 2p, then below p.
+// 2^TAIL with m = t N0T mod 2^TAIL, below 2p, then below p. At TAIL = 0
+// (R = 2^(32 NW)) t is the product already: only the subtract is left.
 template <class F>
 MSM_HD void fe32_redc_tail(fe32t<F>& out, const uint32_t* t, uint32_t top) {
   constexpr int NW = F::NW, TAIL = F::TAIL;
-  const uint32_t m = (t[0] * F::N0T) & ((1u << TAIL) - 1u);
-  uint32_t u[NW + 1];
-  uint32_t c = 0;
-  MSM_UNROLL
-  for (int j = 0; j < NW; ++j) {
-    const uint64_t v = (uint64_t)m * F::p(j) + t[j] + c;
-    u[j] = lo32(v);
-    c = hi32(v);
+  static_assert(0 <= TAIL && TAIL < 32, "the tail step is below a word");
+  uint32_t hi = top;  // bit 2^(32 NW) of out's value (F::CARRY)
+  if constexpr (TAIL == 0) {
+    MSM_UNROLL
+    for (int j = 0; j < NW; ++j) out.w[j] = t[j];
+  } else {
+    const uint32_t m = (t[0] * F::N0T) & ((1u << TAIL) - 1u);
+    uint32_t u[NW + 1];
+    uint32_t c = 0;
+    MSM_UNROLL
+    for (int j = 0; j < NW; ++j) {
+      const uint64_t v = (uint64_t)m * F::p(j) + t[j] + c;
+      u[j] = lo32(v);
+      c = hi32(v);
+    }
+    u[NW] = F::CARRY ? c + top : c;
+    MSM_UNROLL
+    for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> TAIL) | (u[j + 1] << (32 - TAIL));
+    hi = u[NW] >> TAIL;
   }
-  u[NW] = F::CARRY ? c + top : c;
-  MSM_UNROLL
-  for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> TAIL) | (u[j + 1] << (32 - TAIL));
   if constexpr (F::CARRY) {
-    fe32_reduce_once_hi(out, u[NW] >> TAIL);
+    fe32_reduce_once_hi(out, hi);
   } else {
     fe32_reduce_once(out);
   }
@@ -350,8 +359,8 @@ MSM_HD void fe32_sqr_sym(fe32t<F>& out, const fe32t<F>& a) {
 
 // ---- repacking at the boundaries (shifts only) ----
 
-// Words 0 .. N - 1 of the value held in L 13-bit limbs (limbs below 2^13).
-template <int N, int L>
+// Words 0 .. N - 1 of the value held in L W-bit limbs (limbs below 2^W).
+template <int W, int N, int L>
 MSM_HD void limbs_to_words(uint32_t (&out)[N], const uint32_t (&v)[L]) {
   MSM_UNROLL
   for (int i = 0; i < N; ++i) {
@@ -366,15 +375,16 @@ MSM_HD void limbs_to_words(uint32_t (&out)[N], const uint32_t (&v)[L]) {
   }
 }
 
-// Canonical 13-bit limbs -> words.
+// Canonical F::W-bit limbs -> words.
 template <class F>
 MSM_HD void fe32_from_limbs(fe32t<F>& out, const uint32_t (&v)[F::L]) {
-  limbs_to_words(out.w, v);
+  limbs_to_words<F::W>(out.w, v);
 }
 
-// Words -> canonical 13-bit limbs v[0 .. L).
+// Words -> canonical F::W-bit limbs v[0 .. L).
 template <class F>
 MSM_HD void fe32_to_limbs(uint32_t* v, const fe32t<F>& a) {
+  constexpr int W = F::W;
   MSM_UNROLL
   for (int j = 0; j < F::L; ++j) {
     const int lo = W * j, k = lo / 32, s = lo % 32;
@@ -383,7 +393,7 @@ MSM_HD void fe32_to_limbs(uint32_t* v, const fe32t<F>& a) {
       x = a.w[k] >> s;
       if (s + W > 32 && k + 1 < F::NW) x |= a.w[k + 1] << (32 - s);
     }
-    v[j] = x & MASK;
+    v[j] = x & F::MASK;
   }
 }
 
@@ -394,9 +404,9 @@ MSM_HD void fe32_load_dense(fe32t<F>& out, const int32_t* w) {
   for (int i = 0; i < F::NW; ++i) out.w[i] = (uint32_t)w[i];
 }
 
-// Balanced limbs (L signed limbs, value v = sum in[i] 2^(13 i), any limb
+// Balanced limbs (L signed limbs, value v = sum in[i] 2^(W i), any limb
 // within int32) -> canonical. A signed carry ripple gives v = U + c R with
-// U in [0, R) in 13-bit limbs; U < 2^(BALANCED_TOP + 1) p is reduced by
+// U in [0, R) in W-bit limbs; U < 2^(BALANCED_TOP + 1) p is reduced by
 // conditional subtracts of p 2^BALANCED_TOP .. p on NW + 1 words, and each
 // unit of c adds R mod p (c is -1 or 0 for v in (-R, R)). Canonical inputs
 // (U < p, as every kernel writes them) skip the subtracts.
@@ -408,11 +418,11 @@ MSM_HD void fe32_from_balanced(fe32t<F>& out, const int32_t* in) {
   MSM_UNROLL
   for (int j = 0; j < L; ++j) {
     const int64_t s = (int64_t)in[j] + c;
-    v[j] = (uint32_t)(s & MASK);
-    c = s >> W;  // arithmetic shift: floor division
+    v[j] = (uint32_t)(s & F::MASK);
+    c = s >> F::W;  // arithmetic shift: floor division
   }
-  uint32_t u[NW + 1];  // U in words: 13 L bits
-  limbs_to_words(u, v);
+  uint32_t u[NW + 1];  // U in words: W L bits
+  limbs_to_words<F::W>(u, v);
   uint32_t below_p = 0;  // the borrow of U - p
   MSM_UNROLL
   for (int i = 0; i <= NW; ++i)
@@ -451,7 +461,7 @@ MSM_HD void fe32_store_limbs_strided(int32_t* dst, int64_t stride,
   for (int i = 0; i < F::L; ++i) dst[i * stride] = (int32_t)v[i];
 }
 
-// Canonical 13-bit limbs stored limbs-first at src[i * stride] -> words.
+// Canonical W-bit limbs stored limbs-first at src[i * stride] -> words.
 template <class F>
 MSM_HD void fe32_load_limbs_strided(fe32t<F>& out, const int32_t* src,
                                     int64_t stride) {
@@ -539,7 +549,8 @@ MSM_HD void row_store(int32_t* dst, const uint32_t (&v)[N]) {
 
 using fe32 = fe32t<FpBn254>;
 constexpr int NW = FpBn254::NW;
-static_assert(FpBn254::L == L, "the 13-bit core's limb count is BN254's");
+static_assert(FpBn254::W != W || FpBn254::L == L,
+              "the 13-bit core's limb count is BN254's at 13-bit limbs");
 
 MSM_HD uint32_t p_word(int i) { return FpBn254::p(i); }
 

@@ -30,7 +30,7 @@
 // the third coordinate.
 //
 // Chain arrays (the running products m of kernel 10, the suffix products
-// s of kernel 12, the pair sums cx, cy of kernel 11) are canonical 13-bit
+// s of kernel 12, the pair sums cx, cy of kernel 11) are canonical W-bit
 // limbs, limbs-first per lane, [G, Cp, L, R]: neighbouring threads (lanes)
 // touch neighbouring words, and the kernels that read them (9, 11, 13)
 // take that layout. The one-per-lane inverse minv = inv(m_last) may be
@@ -193,7 +193,7 @@ MSM_HD void pair32_denominator_x(fe32t<F>& d, const pair32_xt<F>& q,
 // product a pair. FORWARD (kernel 10) walks the pairs forwards and stores
 // m_j = d_0 * ... * d_j; else (kernel 12) it walks them backwards and
 // stores the suffix products s_j = d_j * ... * d_{Cp-1}. The products,
-// [G, Cp, L, R] canonical 13-bit limbs, are the contract kernels 9, 11 and
+// [G, Cp, L, R] canonical W-bit limbs, are the contract kernels 9, 11 and
 // 13 read. A step is as long as its gathers unless they are hidden: d
 // needs only the x coordinates of a pair unless they are equal, so the
 // gathers read 2 x 32 B a pair, not 2 x 64 B; and the next pair's gathers
@@ -232,7 +232,7 @@ MSM_HD void pair_chain32_lane(const int32_t* packed, const int32_t* perm,
 // minv = inv(m_{Cp-1}) (balanced limbs [G, L, R]); pair j, from Cp - 1 down
 // to 0, reads m_{j-1} (one at j = 0): inv(d_j) = m_{j-1} run, the pair sum
 // from it (pair32_emit), then run *= d_j. Writes cx, cy [G, Cp, L, R]
-// canonical 13-bit limbs and inf [G, Cp, R] (an infinity pair's cx, cy
+// canonical W-bit limbs and inf [G, Cp, R] (an infinity pair's cx, cy
 // mean nothing). 5 products a pair, 6 for a doubling.
 template <int COORDS = 2, class F = FpBn254>
 MSM_HD void pair_backward32_lane(const int32_t* packed, const int32_t* perm,

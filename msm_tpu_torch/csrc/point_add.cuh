@@ -5,7 +5,7 @@
 //
 // Row i of the six [B, L] balanced-limb inputs is added with RCB16
 // Algorithm 7 and written as row i of the three [B, L] outputs in canonical
-// 13-bit limbs: by one thread (point_add_row, pt32_add inlined), or, for
+// W-bit limbs: by one thread (point_add_row, pt32_add inlined), or, for
 // small batches, by one warp that splits the 12 products over its lanes
 // (point_add_row_lanes, csrc/lanes32.cuh pt32_add_lanes).
 #pragma once

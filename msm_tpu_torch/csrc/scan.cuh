@@ -6,7 +6,7 @@
 // Lane r of subtask g walks its C steps: step c folds in table row
 // perm[g, c, r] (y negated when flags[g, c, r] & 1) with RCB16 Algorithm 8
 // and writes the running sum as one pe3[g, c, r] row x || y || z of
-// canonical 13-bit limbs [3L]; the sum after the last step goes to the lane
+// canonical W-bit limbs [3L]; the sum after the last step goes to the lane
 // totals t{x,y,z}[g, :, r], limbs-first.
 //
 // The table's row layout is a compile-time parameter COORDS of the loads:

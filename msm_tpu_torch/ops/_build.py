@@ -17,7 +17,16 @@ before the stream and dispatches on it. Each other curve's instances
 compile in two translation units of their own (``csrc/curve_<name>.cu``:
 the plain path and the GLV convert and scan; ``csrc/curve_<name>_pairs.cu``:
 the pair kernels, BPR phase 1 and the scaled convert); each translation
-unit's compile seconds go to ``compile_seconds.json`` beside the library.
+unit's compile seconds go to ``compile_seconds.json`` beside the library,
+with the build's wall seconds and ``os.cpu_count()``.
+
+The limb width (``MsmConfig.word_size``) is a build-time property: each
+width of ``WIDTHS`` is a library of its own, every ``.cu`` compiled again
+with ``-DMSM_LIMB_BITS=<width>`` (``csrc/fields.cuh`` then takes that
+width's traits table) into ``<hash>/w<width>/`` beside the 13-bit library;
+the C entries keep their names and signatures. A library is built and
+loaded the first time a config of its width launches a kernel, so a
+13-bit run never builds the 12-bit instances.
 """
 
 from __future__ import annotations
@@ -83,8 +92,12 @@ SIGNATURES = {
     "msm_bpr_phase1": [P] * 9 + [I64, I32, I32, I32, P],
 }
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+#: the limb widths the kernels build for; 13, the first, is the default
+#: library's (compiled without -DMSM_LIMB_BITS)
+WIDTHS = (13, 12)
+_locks = {width: threading.Lock() for width in WIDTHS}
+#: the loaded library of each width
+_libs: dict[int, ctypes.CDLL] = {}
 
 
 #: the curve index the generic kernels' C entries take (fields.cuh F::ID)
@@ -118,15 +131,16 @@ def karatsuba_ok(cfg: MsmConfig) -> bool:
 
 
 def check_cuda_config(cfg: MsmConfig) -> None:
-    """The CUDA kernels implement all seven curves with 13-bit limbs, plain
-    or pair compressed, each with or without GLV (the convert, the scan and
-    the four pair kernels have GLV modes for every curve). Karatsuba
-    selects a TPU product for the same function, so it is accepted where
-    the JAX package builds it (``karatsuba_ok``) and refused where that
-    package refuses it. Anything else raises before a launch."""
-    if cfg.word_size != 13 or cfg.curve.name not in CURVE_IDS:
+    """The CUDA kernels implement all seven curves with 13- and 12-bit
+    limbs (``WIDTHS``), plain or pair compressed, each with or without GLV
+    (the convert, the scan and the four pair kernels have GLV modes for
+    every curve). Karatsuba selects a TPU product for the same function,
+    so it is accepted where the JAX package builds it (``karatsuba_ok``)
+    and refused where that package refuses it. Anything else raises before
+    a launch."""
+    if cfg.word_size not in WIDTHS or cfg.curve.name not in CURVE_IDS:
         raise NotImplementedError(
-            f"CUDA kernels support word_size 13 on {', '.join(CURVE_IDS)}; "
+            f"CUDA kernels support word_size {' and '.join(map(str, WIDTHS))} on {', '.join(CURVE_IDS)}; "
             f"got curve={cfg.curve.name} word_size={cfg.word_size}"
         )
     if cfg.karatsuba and not karatsuba_ok(cfg):
@@ -160,27 +174,40 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_ROOT / source_hash() / "libmsm_tpu_torch.so"
+def width_flags(width: int) -> list[str]:
+    """The compile flags that select a limb width's traits (none for the
+    default 13)."""
+    if width not in WIDTHS:
+        raise NotImplementedError(f"no CUDA kernels for word_size {width}")
+    return [] if width == WIDTHS[0] else [f"-DMSM_LIMB_BITS={width}"]
 
 
-def build() -> Path:
-    """Compile the kernels if this source hash has no library yet; returns
-    the library path. The compiler's register/spill report goes to
-    ``build.log`` beside the library."""
-    so = library_path()
+def library_path(width: int = 13) -> Path:
+    """The library of a limb width: ``<hash>/`` for 13, ``<hash>/w<width>/``
+    for another."""
+    out = BUILD_ROOT / source_hash()
+    return (out if width == WIDTHS[0] else out / f"w{width}") / "libmsm_tpu_torch.so"
+
+
+def build(width: int = 13) -> Path:
+    """Compile the kernels at a limb width if this source hash has no
+    library of it yet; returns the library path. The compiler's
+    register/spill report goes to ``build.log`` beside the library."""
+    flags = [*NVCC_FLAGS, *width_flags(width)]
+    so = library_path(width)
     if so.exists():
         return so
     out_dir = so.parent
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     cus = [p for p in sources() if p.suffix == ".cu"]
+    t_all = time.perf_counter()
 
     def compile_one(src: Path) -> tuple[Path, str, int, float]:
         obj = out_dir / (src.stem + ".o")
         t0 = time.perf_counter()
         r = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *flags, "-c", str(src), "-o", str(obj)],
             capture_output=True, text=True,
         )
         return obj, r.stdout + r.stderr, r.returncode, time.perf_counter() - t0
@@ -199,23 +226,26 @@ def build() -> Path:
     if r.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{r.stderr}")
     (out_dir / "build.log").write_text("".join(log for _, log, _, _ in results))
-    (out_dir / "compile_seconds.json").write_text(json.dumps({o.stem + ".cu": round(s, 1) for o, _, _, s in results}))
+    (out_dir / "compile_seconds.json").write_text(json.dumps({
+        "wall": round(time.perf_counter() - t_all, 1), "cpu_count": os.cpu_count(),
+        **{o.stem + ".cu": round(s, 1) for o, _, _, s in results}}))
     os.replace(tmp, so)
     return so
 
 
-def load() -> ctypes.CDLL:
-    """Build if needed and load the library (once per process)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+def load(width: int = 13) -> ctypes.CDLL:
+    """Build if needed and load the library of a limb width (once per
+    process and width; another thread asking for the same width waits for
+    the build)."""
+    with _locks[width]:
+        if width not in _libs:
+            lib = ctypes.CDLL(str(build(width)))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[width] = lib
+        return _libs[width]
 
 
 def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor, dtype=torch.int32) -> None:
@@ -239,10 +269,11 @@ def aligned(*tensors: torch.Tensor) -> list[torch.Tensor]:
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in out]
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry ``name`` on the current stream. Tensors pass as device
+def launch(name: str, *args, width: int) -> None:
+    """Call C entry ``name`` of the library of limb width ``width`` (the
+    config's ``word_size``) on the current stream. Tensors pass as device
     pointers, ints as they are; the stream is appended."""
-    lib = load()
+    lib = load(width)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):

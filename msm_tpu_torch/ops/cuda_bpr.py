@@ -47,7 +47,7 @@ def bpr_phase1(cfg: MsmConfig, bx, by, bz):
         if t.shape != (G, Bl, T, L) or L != cfg.num_words:
             raise ValueError(f"expected [G, Bl, T, {cfg.num_words}] inputs, got {tuple(t.shape)}")
     out = [torch.empty((G, T, L), dtype=torch.int32, device=bx.device) for _ in range(6)]
-    _build.launch("msm_bpr_phase1", *ins, *out, G, Bl, T, _build.curve_id(cfg))
+    _build.launch("msm_bpr_phase1", *ins, *out, G, Bl, T, _build.curve_id(cfg), width=cfg.word_size)
     bpr_phase1.launches += 1
     return tuple(out)
 

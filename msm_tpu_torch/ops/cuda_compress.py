@@ -196,7 +196,7 @@ def _suffix(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     s = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
-    _build.launch(entry, packed, perm, flags, s, G, C // 2, R, _build.curve_id(cfg))
+    _build.launch(entry, packed, perm, flags, s, G, C // 2, R, _build.curve_id(cfg), width=cfg.word_size)
     counter.launches += 1
     return s
 
@@ -234,7 +234,8 @@ def _emit(cfg: MsmConfig, packed, perm, flags, s, t0, entry: str, counter):
     # rows padded to a multiple of 4 limbs, as the scan writes them
     pe3 = torch.empty((G, C // 2, R, pe3_row_limbs(cfg)), dtype=torch.int32, device=dev)
     tots = [torch.empty((G, L, R), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch(entry, packed, perm, flags, s, t0, pe3, *tots, G, C // 2, R, _build.curve_id(cfg))
+    _build.launch(entry, packed, perm, flags, s, t0, pe3, *tots, G, C // 2, R, _build.curve_id(cfg),
+                  width=cfg.word_size)
     counter.launches += 1
     return (pe3[..., :3 * L], *tots)
 
@@ -299,7 +300,7 @@ def _forward(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
     (packed,) = _build.aligned(packed)  # 16-byte row loads
     G, C, R = perm.shape
     m = torch.empty((G, C // 2, cfg.num_words, R), dtype=torch.int32, device=packed.device)
-    _build.launch(entry, packed, perm, flags, m, G, C // 2, R, _build.curve_id(cfg))
+    _build.launch(entry, packed, perm, flags, m, G, C // 2, R, _build.curve_id(cfg), width=cfg.word_size)
     counter.launches += 1
     return m
 
@@ -337,7 +338,7 @@ def _backward(cfg: MsmConfig, packed, perm, flags, m, minv, entry: str, counter)
     cx, cy = (torch.empty((G, C // 2, L, R), dtype=torch.int32, device=dev) for _ in range(2))
     inf = torch.empty((G, C // 2, R), dtype=torch.int32, device=dev)
     _build.launch(entry, packed, perm, flags, m, minv, cx, cy, inf, G, C // 2, R,
-                  _build.curve_id(cfg))
+                  _build.curve_id(cfg), width=cfg.word_size)
     counter.launches += 1
     return cx, cy, inf
 

@@ -155,7 +155,7 @@ def _convert(cfg: MsmConfig, x_u16, y_u16, entry: str, counter):
     n = x_u16.shape[0]
     out = torch.empty((n, table_coords(cfg) * coord_words(cfg)), dtype=torch.int32,
                       device=x_u16.device)
-    _build.launch(entry, x_u16, y_u16, out, n, _build.curve_id(cfg))
+    _build.launch(entry, x_u16, y_u16, out, n, _build.curve_id(cfg), width=cfg.word_size)
     counter.launches += 1
     return out
 
@@ -217,7 +217,7 @@ def convert_pack_scaled(cfg: MsmConfig, x_u16: torch.Tensor, y_u16: torch.Tensor
             for _ in range(2 if layout == CONVERT_DUAL else 1)]
     _build.launch("msm_convert_scaled", x_u16, y_u16, ctypes.addressof(xs),
                   ctypes.addressof(xs2) if xs2 is not None else None, outs[0],
-                  outs[-1] if layout == CONVERT_DUAL else None, n, layout, _build.curve_id(cfg))
+                  outs[-1] if layout == CONVERT_DUAL else None, n, layout, _build.curve_id(cfg), width=cfg.word_size)
     convert_pack_scaled.launches += 1
     return tuple(outs) if layout == CONVERT_DUAL else outs[0]
 

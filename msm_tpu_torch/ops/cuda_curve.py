@@ -81,7 +81,7 @@ def point_add(cfg: MsmConfig, ax, ay, az, bx, by, bz):
             raise ValueError(f"expected [B, {cfg.num_words}] inputs, got {tuple(t.shape)}")
     out = [torch.empty_like(ins[0]) for _ in range(3)]
     lanes = point_add_lanes(cfg, B)
-    _build.launch("msm_point_add", *ins, *out, B, int(lanes), _build.curve_id(cfg))
+    _build.launch("msm_point_add", *ins, *out, B, int(lanes), _build.curve_id(cfg), width=cfg.word_size)
     point_add.launches += 1
     return tuple(out)
 

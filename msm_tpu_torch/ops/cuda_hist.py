@@ -75,7 +75,7 @@ def bucket_hist(cfg: MsmConfig, keys: torch.Tensor, num_buckets: int) -> torch.T
     G, n = keys.shape
     counts = torch.zeros((G, num_buckets), dtype=torch.int32, device=keys.device)
     plan = hist_plan(G, n, num_buckets)
-    _build.launch("msm_hist", keys, counts, G, n, num_buckets, plan.key_chunk, plan.bucket_tile)
+    _build.launch("msm_hist", keys, counts, G, n, num_buckets, plan.key_chunk, plan.bucket_tile, width=cfg.word_size)
     bucket_hist.launches += 1
     return counts
 

@@ -46,7 +46,8 @@ def mont_pow(cfg: MsmConfig, a: torch.Tensor, e: int) -> torch.Tensor:
     words = (ctypes.c_uint32 * nw)(*((e >> (32 * i)) & 0xFFFFFFFF for i in range(nw)))
     out = torch.empty_like(a)
     G, _, R = a.shape
-    _build.launch("msm_mont_pow", a, out, ctypes.addressof(words), nbits, G, R, _build.curve_id(cfg))
+    _build.launch("msm_mont_pow", a, out, ctypes.addressof(words), nbits, G, R, _build.curve_id(cfg),
+                  width=cfg.word_size)
     mont_pow.launches += 1
     return out
 

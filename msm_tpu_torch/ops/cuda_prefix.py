@@ -89,7 +89,7 @@ def row_offsets(cfg: MsmConfig, tx, ty, tz):
     out = [torch.empty((G, R, L), dtype=torch.int32, device=dev) for _ in range(3)]
     scratch = [torch.empty((G, plan.blocks, L), dtype=torch.int32, device=dev) for _ in range(3)]
     _build.launch("msm_row_offsets", *ins, *out, *scratch, G, R, plan.lanes_per_thread,
-                  plan.blocks, plan.scan_threads, _build.curve_id(cfg))
+                  plan.blocks, plan.scan_threads, _build.curve_id(cfg), width=cfg.word_size)
     row_offsets.launches += 1
     return tuple(out)
 
@@ -139,7 +139,7 @@ def point_total(cfg: MsmConfig, px, py, pz):
     part = torch.empty((G, plan.blocks, pt_words(cfg)), dtype=torch.int32, device=dev)
     out = [torch.empty((G, L), dtype=torch.int32, device=dev) for _ in range(3)]
     _build.launch("msm_point_total", *ins, part, *out, G, N, plan.points_per_thread, plan.blocks,
-                  _build.curve_id(cfg))
+                  _build.curve_id(cfg), width=cfg.word_size)
     point_total.launches += 1
     return tuple(out)
 
@@ -176,7 +176,7 @@ def horner(cfg: MsmConfig, wx, wy, wz, chunk: int):
         raise ValueError(f"expected [G, S, {cfg.num_words}] or [S, {cfg.num_words}], got {tuple(shape)}")
     G = shape[0] if len(shape) == 3 else 1
     out = [torch.empty(shape[:-2] + shape[-1:], dtype=torch.int32, device=wx.device) for _ in range(3)]
-    _build.launch("msm_horner", *ins, *out, G, shape[-2], chunk, _build.curve_id(cfg))
+    _build.launch("msm_horner", *ins, *out, G, shape[-2], chunk, _build.curve_id(cfg), width=cfg.word_size)
     horner.launches += 1
     return tuple(out)
 

@@ -105,7 +105,7 @@ def _scan(cfg: MsmConfig, packed, perm, flags, entry: str, counter):
     dev = packed.device
     pe3 = torch.empty((G, C, R, pe3_row_limbs(cfg)), dtype=torch.int32, device=dev)
     tots = [torch.empty((G, L, R), dtype=torch.int32, device=dev) for _ in range(3)]
-    _build.launch(entry, packed, perm, flags, pe3, *tots, G, C, R, _build.curve_id(cfg))
+    _build.launch(entry, packed, perm, flags, pe3, *tots, G, C, R, _build.curve_id(cfg), width=cfg.word_size)
     counter.launches += 1
     return (pe3[..., :3 * L], *tots)
 

@@ -30,10 +30,12 @@ queued behind a spin kernel, as ``chip_smoke.py`` times kernels), the
 builds in alternating order; then the medians; then, per kernel present in
 both builds, whether its SASS (with the out-of-line functions it calls) is
 identical, else both instruction counts and the first difference; a
-kernel is matched by its name and its field (a kernel of no field is
-BN254's), so a kernel that became a template over the field is matched
-with its BN254 instance. Needs the
-CUDA toolkit and one GPU.
+kernel is matched by its name, its field (a kernel of no field is
+BN254's) and its library's limb width, so a kernel that became a template
+over the field is matched with its BN254 instance, and the 12-bit
+library's instances (``<hash>/w12/``, built with -DMSM_LIMB_BITS=12) only
+with the other tree's 12-bit ones, where it has them. Needs the CUDA
+toolkit and one GPU.
 """
 
 from __future__ import annotations
@@ -176,21 +178,31 @@ def cases(rng, kern) -> dict:
     return out
 
 
-def kernel_key(mangled: str) -> str:
-    """A kernel's name and field from its mangled name: ``k_scan`` for
-    ``_Z6k_scanPKi...`` and for ``_ZN3msm6k_scanINS_7FpBn254EEEv...``
-    (BN254's instance), ``k_scan<FpPallas>`` for Pallas'."""
+def kernel_key(mangled: str, width: int = 13) -> str:
+    """A kernel's name, field and limb width from its mangled name and its
+    library's width (the names are the same in every width's library):
+    ``k_scan`` for ``_Z6k_scanPKi...`` and for
+    ``_ZN3msm6k_scanINS_7FpBn254EEEv...`` (BN254's instance),
+    ``k_scan<FpPallas>`` for Pallas', ``k_scan<FpPallas>@w12`` for Pallas'
+    in the 12-bit library. The field is read whole, by its length prefix."""
     name = next(m.group(2)[:int(m.group(1))] for m in re.finditer(r"(\d+)(k_\w+)", mangled)
                 if len(m.group(2)) >= int(m.group(1)))
-    field = re.search(r"\d+(Fp\w+?)E", mangled)
-    return name if field is None or field.group(1) == "FpBn254" else f"{name}<{field.group(1)}>"
+    found = re.search(r"(\d+)(Fp\w+)", mangled)
+    field = found.group(2)[:int(found.group(1))] if found else "FpBn254"
+    key = name if field == "FpBn254" else f"{name}<{field}>"
+    return key if width == 13 else f"{key}@w{width}"
 
 
 def compare_sass(mine: Path, other: Path) -> None:
-    for obj in sorted(mine.glob("*.o")):
-        if not (other / obj.name).exists():
+    """Every kernel in both trees' libraries, by kernel_key: the 13-bit
+    objects beside each library, and the 12-bit ones under ``w12/`` where
+    both trees built them."""
+    pairs = [(obj, other / obj.name, 13) for obj in sorted(mine.glob("*.o"))]
+    pairs += [(obj, other / "w12" / obj.name, 12) for obj in sorted((mine / "w12").glob("*.o"))]
+    for obj, theirs, width in pairs:
+        if not theirs.exists():
             continue
-        a, b = ({kernel_key(k): v for k, v in sass(o).items()} for o in (obj, other / obj.name))
+        a, b = ({kernel_key(k, width): v for k, v in sass(o).items()} for o in (obj, theirs))
         for fn in sorted(set(a) & set(b)):
             if a[fn] == b[fn]:
                 print(f"sass {obj.name} {fn}: identical ({len(a[fn])} instructions)")
@@ -232,13 +244,13 @@ def main() -> int:
         for name in names:
             outs = {}
             for side in order:
-                _build._lib = libs[side]
+                _build._libs[13] = libs[side]
                 outs[side], ms = cs._kernel_ms(lambda: kern[name][0](*inputs[name]), 3)
                 times.setdefault((name, side), []).append(ms)
                 print(f"round {rnd} {name:12s} {side:5s} {ms:.4f} ms", flush=True)
             if not all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"])):
                 raise AssertionError(f"{name}: the two builds' outputs differ")
-    _build._lib = libs["this"]
+    _build._libs[13] = libs["this"]
     for name in names:
         a, b = (statistics.median(times[(name, s)]) for s in ("this", "other"))
         print(f"median {name:12s} this {a:.4f} ms  other {b:.4f} ms  ({a / b:.3f} x other)")

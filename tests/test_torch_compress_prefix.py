@@ -136,7 +136,7 @@ def test_glv_with_compression_raises(device, monkeypatch):
         return
     entries = []
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
-    monkeypatch.setattr(_build, "launch", lambda name, *args: entries.append(name))
+    monkeypatch.setattr(_build, "launch", lambda name, *args, width: entries.append(name) if width == 13 else None)
     wrappers = (cuda_compress.pair_forward, cuda_compress.pair_forward_glv, cuda_inv.mont_pow,
                 cuda_compress.pair_backward, cuda_compress.pair_backward_glv)
     for w in wrappers:

@@ -3,8 +3,9 @@ fields the word core is generic over) against msm_tpu_torch.params: the
 curve index, the word and limb counts, the REDC constants, 3b, the carry
 flag, the reduction shifts, the launch bound's blocks per SM, and the
 modulus, R mod p, R^2 mod p and the GLV convert's beta R^2 mod p (beta
-from ops/glv.py's glv_params) word by word; and the build's curve
-translation units, two per curve besides BN254."""
+from ops/glv.py's glv_params) word by word, in the 13-bit table and in
+the 12-bit one (the library built with -DMSM_LIMB_BITS=12); and the
+build's curve translation units, two per curve besides BN254."""
 
 import re
 from pathlib import Path
@@ -18,13 +19,16 @@ from msm_tpu_torch.params import CURVES, MsmConfig, coord_words
 CSRC = Path(__file__).resolve().parent.parent / "msm_tpu_torch" / "csrc"
 
 
-def _traits() -> dict[str, dict]:
-    """{curve name: {constant: value, "p"/"r"/"r2": [words]}} parsed from
-    fields.cuh (struct FpXxx -> curve name xxx)."""
+def _traits(width: int = 13) -> dict[str, dict]:
+    """{curve name: {constant: value, "p"/"r"/"r2"/"beta_r2": [words]}}
+    parsed from fields.cuh (struct FpXxx -> curve name xxx): the constants
+    before the per-width tables and those of ``width``'s table (#if
+    MSM_LIMB_BITS == width)."""
     text = (CSRC / "fields.cuh").read_text()
     out = {}
     for m in re.finditer(r"struct Fp(\w+) \{(.*?)\n\};", text, re.S):
-        body = m.group(2)
+        tables = dict(re.findall(r"#(?:el)?if MSM_LIMB_BITS == (\d+)[^\n]*\n(.*?)(?=#elif|#endif)", m.group(2), re.S))
+        body = m.group(2).split("#if MSM_LIMB_BITS")[0] + tables[str(width)]
         consts = {k: v for k, v in re.findall(r"(\b[A-Z][A-Z0-9_]*) = ([^,;]+)", body)}
         vals = {}
         for k, v in consts.items():
@@ -43,6 +47,7 @@ def _traits() -> dict[str, dict]:
 
 
 TRAITS = _traits()
+TRAITS12 = _traits(12)
 
 
 def test_every_curve_has_traits():
@@ -79,6 +84,37 @@ def test_traits_match_params(name):
     # the GLV convert's constant: a product by it takes x to beta x R
     beta = glv_params(cfg.curve).beta
     assert value(t["beta_r2"]) == beta * cfg.r2 % p and pow(beta, 3, p) == 1 != beta
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_width12_traits_match_params(name):
+    """The 12-bit table of each traits type (the library built with
+    -DMSM_LIMB_BITS=12) against MsmConfig(word_size=12): W and MASK, L and R
+    = 2^(12 L), TAIL in [0, 32) (0 on BLS12-377: R = 2^(32 NW), no tail
+    step, N0T unused and 0), N0T, BALANCED_TOP, R mod p, R^2 mod p and beta
+    R^2 mod p; the constants that do not depend on the width are those of
+    the 13-bit table's traits."""
+    t, t13, cfg = TRAITS12[name], TRAITS[name], MsmConfig(curve=CURVES[name], word_size=12)
+    p, nw, L = cfg.curve.modulus, t["NW"], t["L"]
+    assert (t13["W"], t13["MASK"]) == (13, (1 << 13) - 1)
+    assert (t["W"], t["MASK"]) == (12, (1 << 12) - 1) == (cfg.word_size, cfg.mask)
+    for k in ("ID", "NW", "N0W", "B3", "CARRY", "REDUCE_TOP", "BLOCKS_PER_SM", "p"):
+        assert t[k] == t13[k], k
+    assert L == cfg.num_words and t["TAIL"] == 12 * L - 32 * nw and 0 <= t["TAIL"] < 32
+    if t["TAIL"] > 0:
+        assert t["N0T"] == (-pow(p, -1, 1 << t["TAIL"])) % (1 << t["TAIL"])
+    else:
+        assert name == "bls12_377" and t["N0T"] == 0
+    bt = t["BALANCED_TOP"]
+    assert p << bt < 1 << (12 * L) <= p << (bt + 1) and bt < 32
+
+    def value(words):
+        assert len(words) == nw
+        return sum(w << (32 * i) for i, w in enumerate(words))
+
+    assert value(t["r"]) == cfg.r == (1 << (12 * L)) % p
+    assert value(t["r2"]) == cfg.r2
+    assert value(t["beta_r2"]) == glv_params(cfg.curve).beta * cfg.r2 % p
 
 
 def test_each_other_curve_has_a_translation_unit():

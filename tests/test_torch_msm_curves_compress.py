@@ -39,10 +39,12 @@ def config_inputs(name: str, n: int, seed: int):
     return pts[:n], ks
 
 
-def check_curve_config(name: str, compress: bool, glv: bool, n: int = 40, seed: int = 90) -> None:
-    """One curve on a config at chunk 8: run_gpu_msm and a plan's words
-    call against compute_msm_jpoint and the oracle, exact."""
-    cfg = MsmConfig(curve=CURVES[name], chunk_size=8, compress=compress, glv=glv)
+def check_curve_config(name: str, compress: bool, glv: bool, n: int = 40, seed: int = 90,
+                       word_size: int = 13) -> None:
+    """One curve on a config at chunk 8 and ``word_size``-bit limbs:
+    run_gpu_msm and a plan's words call against compute_msm_jpoint and the
+    oracle, exact."""
+    cfg = MsmConfig(curve=CURVES[name], chunk_size=8, compress=compress, glv=glv, word_size=word_size)
     pts, ks = config_inputs(name, n, seed)
     cv = Curve(cfg.curve)
     want = cv.msm([cv.from_affine(*p) for p in pts], ks)
@@ -50,7 +52,7 @@ def check_curve_config(name: str, compress: bool, glv: bool, n: int = 40, seed: 
     plan = msm_tpu_torch.plan(pts, config=cfg, device="cpu")
     words = common.ints_to_u16_array(ks)
     jax = j_compute_msm_jpoint(pts, ks, J_MsmConfig(curve=J_CURVES[name], chunk_size=8, compress=compress,
-                                                    glv=glv))
+                                                    glv=glv, word_size=word_size))
     assert got == cv.to_affine(want)
     assert plan(words) == cv.to_affine(want)
     assert cv.eq(jax, want)

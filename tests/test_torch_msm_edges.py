@@ -20,7 +20,7 @@ from msm_tpu.params import BN254 as J_BN254
 from msm_tpu.params import CURVES as J_CURVES
 from msm_tpu.params import MsmConfig as J_MsmConfig
 from msm_tpu_torch.ops._build import check_cuda_config, require_cuda
-from msm_tpu_torch.params import BLS12_381, BN254, GRUMPKIN, PALLAS, MsmConfig, pick_config
+from msm_tpu_torch.params import BLS12_377, BLS12_381, BN254, GRUMPKIN, PALLAS, MsmConfig, pick_config
 
 CFG8 = MsmConfig(curve=BN254, chunk_size=8)
 CV = Curve(J_BN254)
@@ -74,7 +74,15 @@ CONFIG_CASES = {
     "other_curve_compress": ({"curve": BLS12_381, "compress": True}, True),
     "other_curve_glv": ({"curve": BLS12_381, "glv": True}, True),
     "other_curve_glv_compress": ({"curve": GRUMPKIN, "compress": True, "glv": True}, True),
-    "other_curve_word_size": ({"curve": GRUMPKIN, "word_size": 12}, False),
+    "other_curve_word_size": ({"curve": GRUMPKIN, "word_size": 12}, True),
+    "word_size_12": ({"word_size": 12}, True),
+    "other_curve_word_size_12_glv_compress": ({"curve": BLS12_381, "word_size": 12, "compress": True, "glv": True},
+                                              True),
+    "word_size_11": ({"word_size": 11}, False),
+    "word_size_8": ({"word_size": 8}, False),
+    "karatsuba_word_size_12": ({"word_size": 12, "karatsuba": True}, True),
+    "karatsuba_bls12_377_word_size_12": ({"curve": BLS12_377, "word_size": 12, "karatsuba": True}, True),
+    "karatsuba_bls12_381_word_size_12": ({"curve": BLS12_381, "word_size": 12, "karatsuba": True}, False),
     "karatsuba_odd_limbs": ({"curve": PALLAS, "karatsuba": True}, False),
     "karatsuba_bls12": ({"curve": BLS12_381, "karatsuba": True}, True),
     "karatsuba_word_size": ({"word_size": 14, "karatsuba": True}, False),
@@ -83,12 +91,13 @@ CONFIG_CASES = {
 
 @pytest.mark.parametrize("change, accepted", CONFIG_CASES.values(), ids=CONFIG_CASES)
 def test_cuda_kernels_reject_other_configs(change, accepted):
-    """The CUDA wrappers take 13-bit limbs on every curve, plain or
+    """The CUDA wrappers take 13- and 12-bit limbs on every curve, plain or
     pair-compressed, with or without GLV; Karatsuba where the JAX package
-    builds it (an even limb count within its int32 column budget: BN254,
-    BLS12, not the 21-limb curves); any other config (another limb width,
-    Karatsuba where the JAX package refuses it) raises before a launch,
-    never falls back to a twin."""
+    builds it (an even limb count within its int32 column budget: at 13
+    bits BN254 and BLS12, not the 21-limb curves; at 12 bits every curve
+    but BLS12-381's 33 limbs); any other config (another limb width, named
+    in the refusal, or Karatsuba where the JAX package refuses it) raises
+    before a launch, never falls back to a twin."""
     check_cuda_config(pick_config(1 << 16))
     check_cuda_config(dataclasses.replace(pick_config(1 << 16), compress=True))
     cfg = dataclasses.replace(pick_config(1 << 16), **change)
@@ -98,8 +107,51 @@ def test_cuda_kernels_reject_other_configs(change, accepted):
     if accepted:
         check_cuda_config(cfg)
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=f"word_size[ =]{cfg.word_size}"):
         check_cuda_config(cfg)
+
+
+@pytest.mark.parametrize("width", [13, 12])
+def test_a_width_builds_and_loads_only_its_library(monkeypatch, width):
+    """A config's launches go to the library of its word_size: the wrappers
+    pass it to _build.launch, which loads (_build.load(width)) and calls
+    that library's entry; a 13-bit config never builds or loads the 12-bit
+    instances, nor a 12-bit one the 13-bit library. Meta tensors stand for
+    the card's (no kernel can launch on them); the build and the library's
+    entries are recorded, not run, and the stream is a stand-in."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from msm_tpu_torch.ops import _build, cuda_convert, cuda_curve, cuda_hist
+
+    built, called = [], []
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, name):
+            def entry(*args):
+                called.append((self.path, name))
+                return 0
+
+            setattr(self, name, entry)
+            return entry
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build", lambda w=13: built.append(w) or f"lib{w}.so")
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(_build, "require_cuda", lambda cfg, *t, dtype=None: check_cuda_config(cfg))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: SimpleNamespace(cuda_stream=0))
+    cfg = MsmConfig(curve=BN254, word_size=width)
+    meta = {"device": "meta", "dtype": torch.int32}
+    for _ in range(2):
+        cuda_curve.point_add(cfg, *(torch.empty((8, cfg.num_words), **meta) for _ in range(6)))
+        cuda_hist.bucket_hist(cfg, torch.empty((2, 64), **meta), 16)
+        cuda_convert.convert_pack(cfg, *(torch.empty((8, 16), device="meta", dtype=torch.int16) for _ in range(2)))
+    assert built == [width] and list(_build._libs) == [width]
+    assert {path for path, _ in called} == {f"lib{width}.so"} and len(called) == 6
 
 
 def test_kernel_launch_requires_cuda_tensors():
