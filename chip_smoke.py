@@ -13,14 +13,14 @@
    (report_plain_builds); the 12-bit library's build (the same sources
    with -DMSM_LIMB_BITS=12) starts after it and runs beside the steps
    below, in a process of its own at nice 19 on half the host's cores
-   (BUILD12), and step 18 waits for it;
+   (BUILD12), and step 19 waits for it;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs (a twin of at most CPU_TWIN_ELEMS input elements, such as
    the Horner ladder's serial chain, on copies of them on the CPU, where
    its small ops cost less than launches; several such twins at a time in
    worker processes, the host's cores but two, while the kernels are
    timed, each group of checks compared when its twins return: settle,
-   here and in steps 15-18), at a small shape and at the shape the 2^20
+   here and in steps 15-17 and 19), at a small shape and at the shape the 2^20
    MSM gives it
    (the pair kernels: the compressed 2^20 shape of models/geometry.py's
    rule, with planted doubling and infinity pairs; bpr_phase1: the blocked
@@ -180,7 +180,22 @@
    the curve's smallest-x point outside the order-r subgroup, planted at
    n/3 + 1, raises ValueError at its index; each line with its seconds and
    point-add (K1) launches;
-18. the width-12 phase (run_width12_phase): the 12-bit library's
+18. the sharded phase (parallel/, run_sharded_phase): two bench
+   processes as two ranks of a gloo group and one as a one-rank NCCL group
+   (``python -m msm_tpu_torch.bench --sharded R --multihost --verify`` at
+   2^16, all on cuda:0, loopback only), started first and run beside the
+   untimed checks, each rank's result equal and bit-exact, rank 0 alone
+   printing the line; sharded_window_sums over 1, 2 and 4 shards of step
+   5's 2^20 plain MSM on the card, counters reset just before, bit-exact
+   against the folded oracle, the K1 tree checked alone (D - 1 additions
+   a window in log2 D launches); plan_sharded over 2 shards at 2^20: an
+   ints call, a words call and run_batch of 2, bit-exact; then, the bench
+   processes ended: run_gpu_msm_sharded over 2 shards at 2^16 on the
+   compressed and GLV configs and BLS12-381 plain, bit-exact; each shard
+   count's wall median of 3 with each shard's host issue time and device
+   span; the sharded plan's words call's median of 5 beside the
+   single-device plan's, in turn;
+19. the width-12 phase (run_width12_phase): the 12-bit library's
    build seconds, each unit's compile seconds and os.cpu_count(); the
    ptxas reports and SASS of every kernel instance of that library for the
    seven curves (no CALL); every instance against its twin at the small
@@ -192,7 +207,7 @@
    edge MSMs on five paths and a karatsuba=True MSM; BN254's 2^20 plan
    words calls on the four configs at 12- and 13-bit limbs in turn and
    BLS12-381's plain one at 12, all bit-exact against the folded oracle;
-19. prints the kernels' JSON line (the GLV modes, the scaled convert,
+20. prints the kernels' JSON line (the GLV modes, the scaled convert,
    each other curve's instances and each 12-bit instance,
    ``name[curve,w12]``, as entries of their own; each with its ptxas
    registers and spill bytes), then as its last line {"ok": true,
@@ -3165,6 +3180,268 @@ def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
     return rows
 
 
+#: the shard counts of the sharded phase's 2^20 BN254 plain runs (all on
+#: the one card: the shards run in turn)
+SHARDS = (1, 2, 4)
+#: its multi-process runs: (ranks, backend); every rank on cuda:0
+MULTIHOST_RUNS = ((2, "gloo"), (1, "nccl"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_multihost_runs(logn: int = 16) -> list[tuple[str, list[subprocess.Popen]]]:
+    """MULTIHOST_RUNS through ``python -m msm_tpu_torch.bench --sharded R
+    --multihost --verify --size logn``, each rank a process of its own at a
+    localhost port (loopback only: GLOO_SOCKET_IFNAME and NCCL_SOCKET_IFNAME
+    set to lo), all started at once; read by finish_multihost_runs."""
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
+    runs = []
+    for ranks, backend in MULTIHOST_RUNS:
+        port = _free_port()
+        argv = ["--sharded", str(ranks), "--multihost", "--backend", backend, "--coordinator", f"localhost:{port}",
+                "--num-processes", str(ranks), "--size", str(logn), "--verify", "--reps", "3"]
+        runs.append((f"multihost {ranks} rank(s) {backend} 2^{logn}", [
+            subprocess.Popen([sys.executable, "-m", "msm_tpu_torch.bench", *argv, "--process-id", str(r)],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             start_new_session=True)
+            for r in range(ranks)]))
+    return runs
+
+
+def finish_multihost_runs(runs, want_xy) -> None:
+    """Each multi-process run: every rank must exit 0, print its result
+    (equal on every rank and to ``want_xy``, the oracle's affine point as
+    hex), rank 0 alone the verified JSON line; a rank still running after
+    the deadline is killed with its session and fails the phase."""
+    deadline = time.perf_counter() + 300
+    for tag, procs in runs:
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=max(1.0, deadline - time.perf_counter())))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        for r, (proc, (out, err)) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0:
+                raise AssertionError(f"{tag}: rank {r} exit {proc.returncode}\n{out}\n{err[-4000:]}")
+        results = [re.search(r"rank (\d+) of (\d+) on (\S+) \((\w+)\): result (.*?); verified True", err)
+                   for _, err in outs]
+        if any(m is None for m in results):
+            raise AssertionError(f"{tag}: a rank printed no verified result: {[e[-2000:] for _, e in outs]}")
+        xys = {m.group(5) for m in results}
+        if xys != {want_xy}:
+            raise AssertionError(f"{tag}: ranks' results {xys} differ from each other or from the oracle")
+        lines = [out.strip() for out, _ in outs]
+        if lines[0].count("\n") != 0 or any(lines[1:]) or json.loads(lines[0]).get("verified") is not True:
+            raise AssertionError(f"{tag}: rank 0 alone must print one verified line: {lines}")
+        ranks = ", ".join(f"rank {m.group(1)} on {m.group(3)} ({m.group(4)})" for m in results)
+        print(f"{tag}: every rank bit-exact and equal ({ranks}); {lines[0]}", flush=True)
+
+
+def _tree_check(tag: str, parts, cfg, device) -> torch.Tensor:
+    """The point-add tree alone over the shards' window sums ``parts``,
+    counters reset just before and every kernel-1 batch recorded: D - 1
+    additions a window in log2 D launches. Returns the merged sums."""
+    from msm_tpu_torch.ops.curve import get_curve_ctx
+    from msm_tpu_torch.parallel.sharded import merge_shards
+
+    d, S = len(parts), parts[0].shape[0]
+    lanes = []
+    ec = get_curve_ctx(cfg)  # the instance the tree adds with
+
+    def recorded(p, q):
+        lanes.append(p.x[..., 0].numel())
+        return type(ec).add(ec, p, q)
+
+    _reset_counts()
+    ec.add = recorded
+    try:
+        merged = merge_shards(parts, cfg, device)
+        torch.cuda.synchronize()
+    finally:
+        del ec.add
+    launches = _kernels()["point_add"][0].launches
+    if launches != (d - 1).bit_length() or sum(lanes) != (d - 1) * S or launches != len(lanes):
+        raise AssertionError(f"{tag}: tree of {launches} K1 launches over lanes {lanes}; want "
+                             f"{(d - 1).bit_length()} launches, {d - 1} additions of {S} windows")
+    print(f"{tag}: tree {launches} K1 launch(es), {sum(lanes) // S} additions of {S} windows "
+          f"(lanes per launch {lanes})", flush=True)
+    return merged
+
+
+def run_sharded_phase(inputs, device="cuda") -> None:
+    """The sharded phase (parallel/): MULTIHOST_RUNS started first, beside
+    the untimed checks only: sharded_window_sums over SHARDS shards of the
+    2^20 BN254 plain MSM (run_msm_checks' inputs, uploaded once) with the
+    counters reset just before, bit-exact against the folded oracle, its K1
+    tree checked alone (_tree_check; the full run's K1 launches less the
+    shards' own are the tree's); plan_sharded with D = 2 at 2^20: an ints
+    call, a words call and run_batch of 2, bit-exact. Then the multi-process
+    runs' results (finish_multihost_runs), and with no other process left:
+    D = 2 at 2^16 through run_gpu_msm_sharded for the compressed and GLV
+    configs and BLS12-381 plain (the curves phase's inputs), each call's
+    seconds; each shard count's wall median of 3 and, per shard, the host's
+    issue time and the device's span of its pass (_issue_times); the
+    sharded plan's words call's median of 5 beside the single-device
+    plan's, the two taken in turn. The bench processes are killed if the
+    checks fail before them."""
+    t_all = time.perf_counter()
+    runs = start_multihost_runs()
+    try:
+        _sharded_checks(runs, inputs, device)
+    finally:
+        for _, procs in runs:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+    print(f"sharded phase: {time.perf_counter() - t_all:.1f} s", flush=True)
+
+
+def _issue_times(shards, cfg, geom, devices, reps: int = 3) -> tuple[list[float], list[float], float]:
+    """One sharded 2^20 MSM from inputs on the card, ``reps`` times, the
+    card idle before each: (per shard, the median host ms until its pass
+    returns from shard_window_sums, before any wait; per shard, the median
+    device ms between CUDA events recorded around that issue; the median
+    wall ms of the whole MSM, tree, Horner and copy back included)."""
+    from msm_tpu_torch.models import common, cuzk
+    from msm_tpu_torch.parallel.sharded import merge_shards, shard_window_sums
+
+    issue, span, wall = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2 * len(shards))]
+        host, parts = [], []
+        t0 = time.perf_counter()
+        for i, (rows, dv) in enumerate(zip(shards, devices)):
+            t = time.perf_counter()
+            events[2 * i].record()
+            parts.append(shard_window_sums([rows], cfg, geom, [dv])[0])
+            events[2 * i + 1].record()
+            host.append((time.perf_counter() - t) * 1e3)
+        ws = merge_shards(parts, cfg, devices[0])
+        common.std_ints_to_jpoint(*cuzk.msm_point_from_ws(ws, cfg), cfg)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        issue.append(host)
+        span.append([events[2 * i].elapsed_time(events[2 * i + 1]) for i in range(len(shards))])
+    med = [statistics.median(col) for col in zip(*issue)], [statistics.median(col) for col in zip(*span)]
+    return *med, statistics.median(wall)
+
+
+def _sharded_checks(runs, inputs, device) -> None:
+    """run_sharded_phase's checks and timings, the multi-process ``runs``
+    started."""
+    import msm_tpu_torch
+    from msm_tpu_torch import bench
+    from msm_tpu_torch.models import common, cuzk
+    from msm_tpu_torch.models.geometry import pick_geometry
+    from msm_tpu_torch.oracle.pyecc import Curve
+    from msm_tpu_torch.params import BN254
+    from msm_tpu_torch.parallel.sharded import shard_window_sums, sharded_window_sums, split_rows
+
+    cv = Curve(BN254)
+    base, pts, ks, want = inputs[20]
+    n = len(pts)
+    cfg, _ = msm_path("plain", n, device)
+    dev = torch.device(device)
+    arrays = [torch.from_numpy(a).to(dev) for a in common.pad_inputs(pts, ks, cfg, multiple=16 * max(SHARDS))]
+    runners = {}
+    for d in SHARDS:
+        devices = [dev] * d
+        geom = pick_geometry(min(n // d, cuzk.CHUNK_MAX), cfg)
+        tag = f"sharded 2^20 plain D={d} (c={cfg.chunk_size} S={cfg.num_subtasks})"
+
+        def run(devices=devices, geom=geom):
+            ws = sharded_window_sums(*arrays, cfg, geom, devices)
+            return common.std_ints_to_jpoint(*cuzk.msm_point_from_ws(ws, cfg), cfg)
+
+        _reset_counts()
+        got = run()
+        full = _counts_of(tag, "plain")
+        if not cv.eq(got, want):
+            raise AssertionError(f"{tag} differs from the oracle")
+        _reset_counts()
+        parts = shard_window_sums(split_rows(arrays, d), cfg, geom, devices)
+        torch.cuda.synchronize()
+        own = _kernels()["point_add"][0].launches
+        merged = _tree_check(tag, parts, cfg, dev)
+        if full["point_add"] - own != (d - 1).bit_length():
+            raise AssertionError(f"{tag}: {full['point_add']} K1 launches, the shards' own {own}")
+        if not cv.eq(common.std_ints_to_jpoint(*cuzk.msm_point_from_ws(merged, cfg), cfg), want):
+            raise AssertionError(f"{tag}: the tree over the shards differs from the oracle")
+        print(f"{tag}: bit-exact", flush=True)
+        runners[d] = (tag, run, split_rows(arrays, d), geom, devices)
+    words = common.ints_to_u16_array(ks)
+    sets = batch_sets(base, n, 2, SEED + 90)
+    ptag = f"plan_sharded 2^20 plain D=2 (c={cfg.chunk_size} S={cfg.num_subtasks})"
+    _reset_counts()
+    t0 = time.perf_counter()
+    splan = msm_tpu_torch.plan_sharded(pts, devices=[dev] * 2, config=cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if _kernels()["convert_pack"][0].launches != 2:
+        raise AssertionError(f"{ptag}: the build did not launch the convert once a shard")
+    want_aff = cv.to_affine(want)
+    for label, scalars in (("ints", ks), ("words", words)):
+        _reset_counts()
+        got = splan(scalars)
+        torch.cuda.synchronize()
+        _counts_of(f"{ptag} {label} call", "plan_plain")
+        if got != want_aff:
+            raise AssertionError(f"{ptag}: the {label} call differs from the oracle")
+    _reset_counts()
+    got = splan.run_batch([w for w, _ in sets])
+    _counts_of(f"{ptag} run_batch B=2", "plan_plain")
+    if not all(cv.eq(g, w) for g, (_, w) in zip(got, sets)):
+        raise AssertionError(f"{ptag}: run_batch differs from the oracle")
+    print(f"{ptag}: build {build_s:.3f} s; bit-exact (ints, words, run_batch B=2)", flush=True)
+    mpts, mks = bench.sample_inputs(1 << 16, BN254, 0)
+    mwant = bench.folded_oracle(mpts[:bench.NBASE], common.ints_to_u16_array(mks))
+    finish_multihost_runs(runs, " ".join(hex(v) for v in cv.to_affine(mwant)))
+    # every timing below runs with no other process of this script alive
+    cases = [(path, BN254, *inputs[16]) for path in ("compressed", "glv")]
+    b381 = CURVE_INPUTS[("bls12_381", 16)]
+    cases.append(("plain", _curve_spec("bls12_381"), b381[0], b381[1],
+                  [int.from_bytes(w.tobytes(), "little") for w in b381[2]], b381[3]))
+    for path, curve, _base, cpts, cks, cwant in cases:
+        c, _ = msm_path(path, len(cpts), device, curve=curve)
+        tag = f"sharded 2^16 {curve.name} {path} D=2"
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = msm_tpu_torch.run_gpu_msm_sharded(cpts, cks, c, devices=[dev] * 2)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _counts_of(tag, path)
+        if not Curve(curve).eq(got, cwant):
+            raise AssertionError(f"{tag} differs from the oracle")
+        print(f"{tag}: bit-exact; {secs:.3f} s", flush=True)
+    for d, (tag, run, shards, geom, devices) in runners.items():
+        wall, walls = _median_ms(run, 3)
+        issue, span, iwall = _issue_times(shards, cfg, geom, devices)
+        print(f"{tag}: wall_ms median of 3 = {wall:.2f} (runs {', '.join(f'{w:.2f}' for w in walls)}); "
+              f"per shard, medians of 3: host issue ms {', '.join(f'{t:.3f}' for t in issue)} (sum "
+              f"{sum(issue):.3f}), device span ms {', '.join(f'{t:.3f}' for t in span)} (sum {sum(span):.3f}); "
+              f"that run's wall {iwall:.2f}", flush=True)
+    plan = msm_tpu_torch.plan(pts, config=cfg, device=device)
+    single, sharded = [], []
+    for _ in range(5):
+        single.append(_median_ms(lambda: plan(words), 1)[0])
+        sharded.append(_median_ms(lambda: splan(words), 1)[0])
+    print(f"{ptag}: words wall_ms median of 5 sharded {statistics.median(sharded):.2f} (runs "
+          f"{', '.join(f'{w:.2f}' for w in sharded)}) vs one device {statistics.median(single):.2f} (runs "
+          f"{', '.join(f'{w:.2f}' for w in single)}), in turn", flush=True)
+    del splan, plan
+
+
 #: the curves whose width-12 instances are also held at their 2^20 MSMs'
 #: shapes (every curve's at the small shapes; every curve's 2^16 MSMs at
 #: 12-bit limbs run them all)
@@ -3382,6 +3659,8 @@ def run_phases(clock_mhz: float, so: Path, build_s: float, build12: subprocess.P
     phase("chunked and beyond")
     curve_rows = run_curves_phase(so, clock_mhz * 1e6)
     phase("curves")
+    run_sharded_phase(inputs)
+    phase("sharded")
     t0 = time.perf_counter()
     so12, build12_s = finish_build12(build12)
     print(f"build w12: {build12_s:.1f} s at nice 19 on half the cores beside the 13-bit phases (waited "

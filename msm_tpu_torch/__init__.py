@@ -9,6 +9,9 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
                             (``cuzk``), the serving plan (``plan``), the
                             batched MSM (``batched``) and the naive
                             Pippenger (``naive``)
+- ``msm_tpu_torch.parallel`` the sharded MSM over a list of devices, its
+                            serving plan, and several processes on
+                            torch.distributed (``multihost``)
 - ``msm_tpu_torch.params``  curves and ``MsmConfig`` (a copy of the JAX
                             package's, with the same names)
 - ``msm_tpu_torch.oracle``  the CPU oracles (pure Python, and C++ built at
@@ -22,8 +25,10 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 Entry points, as ``msm_tpu`` names them: ``run_gpu_msm`` (``run_tpu_msm``),
 ``plan`` (a point table converted once, then many scalar sets, as ints or
 as u16 words [n, 16]; ``MsmPlan.run_batch`` for several at once),
-``run_gpu_msm_batched`` (``run_tpu_msm_batched``), ``cpu_msm``, the samplers
-and the byte helpers.
+``run_gpu_msm_batched`` (``run_tpu_msm_batched``), ``run_gpu_msm_sharded``
+(``run_tpu_msm_sharded``: D shards, one a device, merged by a point-add
+tree), ``plan_sharded`` (``msm_tpu.plan_sharded``: a plan whose table is
+cut into those shards), ``cpu_msm``, the samplers and the byte helpers.
 
 The package imports nothing of ``msm_tpu``. Every public entry takes an
 explicit ``device``: CUDA tensors run the kernels, CPU tensors run the
@@ -58,9 +63,11 @@ __all__ = [
     "cpu_msm",
     "load_point_table",
     "plan",
+    "plan_sharded",
     "points_to_bytes",
     "run_gpu_msm",
     "run_gpu_msm_batched",
+    "run_gpu_msm_sharded",
     "sample_32_bit_scalars",
     "sample_points",
     "sample_scalars",
@@ -101,6 +108,26 @@ def run_gpu_msm_batched(instances, config=DEFAULT_CONFIG, device="cuda"):
     from msm_tpu_torch.models.batched import compute_msm_batched
 
     return compute_msm_batched(instances, config, device=device)
+
+
+def run_gpu_msm_sharded(points, scalars, config=None, devices=None):
+    """The MSM cut into D equal shards, one on each of ``devices`` (a power
+    of two of them; one may repeat; default: every visible CUDA device),
+    merged by a point-add tree (counterpart of
+    ``msm_tpu.run_tpu_msm_sharded``). Returns the oracle JPoint."""
+    from msm_tpu_torch.parallel import compute_msm_sharded
+
+    return compute_msm_sharded(points, scalars, config, devices=devices)
+
+
+def plan_sharded(points, devices=None, config=None, validate=False):
+    """A plan (``plan``) whose point table is cut into the shards of
+    ``run_gpu_msm_sharded``: each device converts and keeps its shard; a
+    call uploads each shard's scalar rows to its device and merges the
+    window sums by the tree (counterpart of ``msm_tpu.plan_sharded``)."""
+    from msm_tpu_torch.parallel import ShardedMsmPlan
+
+    return ShardedMsmPlan(points, devices=devices, config=config, validate=validate)
 
 
 def load_point_table(packed: np.ndarray, cfg: MsmConfig, device="cuda"):

@@ -5,6 +5,8 @@
     python -m msm_tpu_torch.bench --size 20 --glv --compress
     python -m msm_tpu_torch.bench --plan 4 --size 20     # the serving plan
     python -m msm_tpu_torch.bench --batched 4 --size 16  # the batched model
+    python -m msm_tpu_torch.bench --sharded 2 --size 20  # 1 shard against 2
+    torchrun --nproc-per-node 2 -m msm_tpu_torch.bench --sharded 2 --multihost
 
 Inputs (``sample_inputs``): 1024 random points tiled to n and uniform
 scalars, from ``--seed``, the same points and scalars as the JAX package's
@@ -27,8 +29,28 @@ verify when ``--verify`` is given or n <= 2^20.
 - ``--batched B``: ``batched_window_sums`` over B stacked instances on the
   device (instance b: the scalars rolled by b), then one Horner launch over
   the B ladders and one copy.
+- ``--sharded D``: the sharded MSM (``parallel/sharded``) with 1 and with D
+  shards, each shard's rows uploaded to its device once; a rep is the
+  shards' window sums, the point-add tree, the Horner launch and one copy.
+  The shards go round-robin onto the visible cards (``--device cpu``: all
+  on the CPU). ``detail`` has a row for each shard count: ``shards``,
+  ``devices`` (distinct devices used), ``wall_ms`` (least of ``--reps``)
+  and ``efficiency`` = (t_1 / t_D) / devices. With fewer devices than
+  shards the line says ``"plumbing_only": true`` and that row's
+  efficiency (and ``value``) is null: the shards then share a device, and
+  no scaling is measured.
+- ``--sharded D --multihost``: every rank of a ``torch.distributed`` group
+  of D processes runs this command (torchrun's environment, or
+  ``--coordinator host:port --num-processes D --process-id r``;
+  ``--backend`` ``nccl``, the default, or ``gloo`` for the CPU or ranks
+  that share a card): each uploads and reduces its own shard, the window
+  sums are gathered and merged by the tree on every rank; each rank logs
+  its result, rank 0 alone prints the line (one row: D shards, the
+  distinct devices of the ranks; efficiency null, as no one-shard run is
+  timed in the group).
 
-Each line carries ``device`` (the card's name, or ``cpu``), ``config`` and
+Every timed call has one untimed call before it (the library's build at
+first use, the first launches). Each line carries ``device`` (the card's name, or ``cpu``), ``config`` and
 ``verified``; each rep's time and the peak device memory go to stderr.
 ``vs_baseline`` is against ``bench.py``'s estimate of the reference
 (WebGPU cuZK, ~2 s at 2^20).
@@ -51,6 +73,7 @@ from msm_tpu_torch.models.geometry import pick_geometry
 from msm_tpu_torch.oracle import best_msm
 from msm_tpu_torch.oracle.pyecc import Curve
 from msm_tpu_torch.params import BN254, CURVES, MsmConfig, pick_config
+from msm_tpu_torch.parallel.sharded import split_rows, window_sums_of_shards
 
 BASELINE_MS = 2000.0  # bench.py's estimate of the reference at 2^20
 NBASE = 1024
@@ -116,6 +139,14 @@ def _log_peak(dev: torch.device, what: str) -> None:
         log(f"{what}: peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
 
 
+def _warm(fn, what: str) -> None:
+    """One untimed call of fn (the library's build at first use, the first
+    launches)."""
+    t0 = time.perf_counter()
+    fn()
+    log(f"{what}: first run (library build and first launches) {time.perf_counter() - t0:.1f} s")
+
+
 def _min_ms(fn, reps: int, what: str) -> tuple[float, object]:
     """(least wall-clock in ms, last result) of ``reps`` calls of fn; each
     call must end in a copy to the host (a synchronize)."""
@@ -151,9 +182,7 @@ def _msm_ms(dev, cfg, arrays, reps: int, what: str):
     def run():
         return common.std_ints_to_jpoint(*cuzk.cuzk_msm_point(xd, yd, sd, cfg, geom), cfg)
 
-    t0 = time.perf_counter()
-    run()
-    log(f"{what}: first run (library build and first launches) {time.perf_counter() - t0:.1f} s")
+    _warm(run, what)
     _reset_peak(dev)
     out = _min_ms(run, reps, what)
     _log_peak(dev, what)
@@ -232,7 +261,7 @@ def bench_plan(args, dev) -> None:
     verify = args.verify or args.size <= 20
     cv = Curve(cfg.curve)
     wants = [folded_oracle(pts[:NBASE], w, cfg.curve) for w in sets] if verify else []
-    plan.jpoint(sets[0])  # warm
+    _warm(lambda: plan.jpoint(sets[0]), "plan call (words)")
     call_ms, got = _min_ms(lambda: plan.jpoint(sets[0]), args.reps, "plan call (words)")
     if verify:
         _check(cv, got, wants[0], "the plan call")
@@ -242,14 +271,14 @@ def bench_plan(args, dev) -> None:
     def program(ws):
         return cuzk.msm_jpoints_from_ws([plan.window_sums(w.__getitem__) for w in ws], cfg)
 
-    program(dwords[:1])
+    _warm(lambda: program(dwords[:1]), "plan program")
     program_ms, got = _min_ms(lambda: program(dwords[:1]), args.reps, "plan program (words on the device)")
     if verify:
         _check(cv, got[0], wants[0], "the plan program")
     extra = {"call_ms": round(call_ms, 2)}
     value = call_ms
     if B > 1:
-        plan.run_batch(sets)
+        _warm(lambda: plan.run_batch(sets), f"plan run_batch B={B}")
         batch_ms, got = _min_ms(lambda: plan.run_batch(sets), args.reps, f"plan run_batch B={B}")
         prog_ms, got_prog = _min_ms(lambda: program(dwords), args.reps, f"plan program B={B}")
         if verify:
@@ -282,7 +311,7 @@ def bench_batched(args, dev) -> None:
     def run():
         return cuzk.msm_jpoints_from_ws(list(batched_window_sums(xb, yb, sb, cfg, geom)), cfg)
 
-    run()
+    _warm(run, f"batched B={B}")
     _reset_peak(dev)
     t, got = _min_ms(run, args.reps, f"batched B={B}")
     _log_peak(dev, "batched")
@@ -294,6 +323,100 @@ def bench_batched(args, dev) -> None:
         log(f"all {B} instances verified vs CPU oracle")
     log(f"B={B} x 2^{args.size}: {t:.1f} ms total, {t / B:.2f} ms/instance")
     _line(dev, cfg, f"{cfg.curve.name}_batched_msm_{B}x2^{args.size}_per_instance", t / B, verify)
+
+
+def _shard_devices(dev: torch.device, d: int) -> list[torch.device]:
+    """d shards round-robin on the visible cards, or all on the CPU."""
+    if dev.type == "cpu":
+        return [dev] * d
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(d)]
+
+
+def _sharded_line(cfg, metric: str, rows: list, verified: bool, dev) -> None:
+    plumbing = any(r["devices"] < r["shards"] for r in rows)
+    print(json.dumps({
+        "metric": metric, "value": rows[-1]["efficiency"], "unit": "scaling_efficiency",
+        "plumbing_only": plumbing, "detail": rows, "config": _label(cfg), "verified": verified,
+        "device": _device_name(dev),
+    }), flush=True)
+
+
+def bench_sharded(args, dev) -> None:
+    D, n = args.sharded, 1 << args.size
+    if D & (D - 1):
+        sys.exit(f"[bench] --sharded {D}: the shard count must be a power of two")
+    if args.multihost:
+        return bench_multihost(args, dev)
+    cfg = _config(args, n)
+    pts, ks = sample_inputs(n, cfg.curve, args.seed)
+    arrays = common.pad_inputs(pts, ks, cfg, multiple=16 * D)
+    verify = args.verify or args.size <= 20
+    want = folded_oracle(pts[:NBASE], arrays[2][:n], cfg.curve) if verify else None
+    rows, t1 = [], None
+    for d in sorted({1, D}):
+        devices = _shard_devices(dev, d)
+        geom = pick_geometry(min(arrays[0].shape[0] // d, cuzk.CHUNK_MAX), cfg)
+        shards = [tuple(torch.as_tensor(a, device=sd) for a in part) for part, sd in zip(split_rows(arrays, d), devices)]
+
+        def run():
+            ws = window_sums_of_shards(shards, cfg, geom, devices)
+            return common.std_ints_to_jpoint(*cuzk.msm_point_from_ws(ws, cfg), cfg)
+
+        _warm(run, f"sharded D={d}")
+        t, got = _min_ms(run, args.reps, f"sharded D={d}")
+        if verify:
+            _check(Curve(cfg.curve), got, want, f"sharded D={d}")
+        t1 = t1 or t
+        used = len(set(devices))
+        rows.append({"shards": d, "devices": used, "wall_ms": round(t, 3),
+                     "efficiency": round(t1 / t / used, 4) if used == d else None})
+    if verify:
+        log(f"every shard count verified vs CPU oracle on {_device_name(dev)}")
+    _sharded_line(cfg, f"{cfg.curve.name}_msm_2^{args.size}_sharded_{D}x", rows, verify, dev)
+
+
+def bench_multihost(args, dev) -> None:
+    import torch.distributed as dist
+
+    from msm_tpu_torch.parallel import multihost
+
+    multihost.init_multihost(args.coordinator, args.num_processes, args.process_id, backend=args.backend)
+    try:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if world != args.sharded:
+            sys.exit(f"[bench] --multihost measures the whole group: pass --sharded {world}")
+        device = dev if dev.type == "cpu" else multihost.rank_device()
+        n = 1 << args.size
+        cfg = _config(args, n)
+        pts, ks = sample_inputs(n, cfg.curve, args.seed)
+        arrays = common.pad_inputs(pts, ks, cfg, multiple=16 * world)
+        geom = pick_geometry(min(arrays[0].shape[0] // world, cuzk.CHUNK_MAX), cfg)
+        mine = multihost.shard_rows(device, *arrays)
+
+        def run():
+            ws = multihost.multihost_window_sums(mine, cfg, geom, device)
+            return common.std_ints_to_jpoint(*cuzk.msm_point_from_ws(ws, cfg), cfg)
+
+        _warm(run, f"rank {rank}")
+        times = []
+        for _ in range(args.reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        verify = args.verify or args.size <= 20
+        if verify:
+            _check(Curve(cfg.curve), got, folded_oracle(pts[:NBASE], arrays[2][:n], cfg.curve),
+                   f"rank {rank} of {world}")
+        xy = "identity" if got.is_identity() else " ".join(hex(v) for v in Curve(cfg.curve).to_affine(got))
+        log(f"rank {rank} of {world} on {device} ({args.backend or 'nccl'}): result {xy}; "
+            f"verified {verify}; reps ms {', '.join(f'{t:.3f}' for t in times)}")
+        used = len(set(multihost.global_mesh(device)))
+        if rank == 0:
+            rows = [{"shards": world, "devices": used, "wall_ms": round(min(times), 3), "efficiency": None}]
+            _sharded_line(cfg, f"{cfg.curve.name}_msm_2^{args.size}_multihost_{world}ranks", rows, verify, dev)
+    finally:
+        dist.destroy_process_group()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -311,6 +434,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--auto", action="store_true", help="also measure the GLV + compressed candidate")
     ap.add_argument("--batched", type=int, default=0, metavar="B", help="batched mode: B instances")
     ap.add_argument("--plan", type=int, default=0, metavar="B", help="serving-plan mode: B scalar sets")
+    ap.add_argument("--sharded", type=int, default=0, metavar="D", help="sharded mode: 1 against D shards")
+    ap.add_argument("--multihost", action="store_true",
+                    help="with --sharded D: one shard a rank of a torch.distributed group of D processes")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="--multihost: the group's address (default: torchrun's environment)")
+    ap.add_argument("--num-processes", type=int, default=None, help="--multihost with --coordinator: D")
+    ap.add_argument("--process-id", type=int, default=None, help="--multihost with --coordinator: this rank")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="--multihost: nccl (default; a card a rank) or gloo (CPU, or ranks sharing a card)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
@@ -332,7 +464,9 @@ def main(argv=None) -> None:
 
         log("stage timings: " + json.dumps(stage_timings(1 << args.size, _config(args, 1 << args.size),
                                                           args.seed, dev)))
-    if args.plan:
+    if args.sharded:
+        bench_sharded(args, dev)
+    elif args.plan:
         bench_plan(args, dev)
     elif args.batched:
         bench_batched(args, dev)

@@ -24,8 +24,9 @@ plain twins. An MSM of up to ``CHUNK_MAX`` points runs as one pass
 of ``CHUNK_MAX`` points, as the JAX package's ``compute_msm_jpoint`` does:
 each chunk is uploaded, converted and reduced to its window sums, and since
 window sums are linear in the points the chunks' sums are added on the
-device, one point-add launch (1) of S lanes per chunk after the first; one
-Horner launch and one copy follow. One pass is the same code with one
+device by the point-add tree (``tree_add_points``: kernel 1, one launch a
+level, the sharded MSM's merge too); one Horner launch and one copy
+follow. One pass is the same code with one
 chunk and no merge. With ``MSM_TPU_DEBUG`` set, each chunk is logged to
 stderr as its pass starts. The JAX package's 2^20-point ``SLICE``
 is not ported: it keeps a TPU's coordinate table in VMEM and computes the
@@ -41,7 +42,7 @@ import torch
 from msm_tpu_torch.models import common
 from msm_tpu_torch.models.geometry import MsmGeometry, pick_geometry
 from msm_tpu_torch.ops.cuda_prefix import horner
-from msm_tpu_torch.ops.curve import PointBatch, get_curve_ctx
+from msm_tpu_torch.ops.curve import CurveCtx, PointBatch, get_curve_ctx
 from msm_tpu_torch.ops.decompose import decompose_signed
 from msm_tpu_torch.ops.glv import decompose_signed_glv
 from msm_tpu_torch.ops.scan import bucket_boundary_prefix, window_sum_from_pe
@@ -123,18 +124,29 @@ def cuzk_window_sums(
     return window_sums_from_table(common.prepare_points(cfg, xd, yd), sd, cfg, geom)
 
 
+def tree_add_points(ec: CurveCtx, stacked: torch.Tensor) -> torch.Tensor:
+    """[D, S, 3, L] Montgomery points -> their sum over axis 0, [S, 3, L]:
+    each level adds the first half to the second (an odd tail carried), as
+    the JAX package's ``_tree_add_points`` pairs them; one kernel-1 launch
+    of half x S lanes a level, D - 1 additions in ceil(log2 D) launches."""
+    while stacked.shape[0] > 1:
+        d = stacked.shape[0]
+        half = d // 2
+        s = ec.add(PointBatch(*stacked[:half].unbind(2)), PointBatch(*stacked[half : 2 * half].unbind(2)))
+        merged = torch.stack(s, dim=2)
+        stacked = torch.cat([merged, stacked[2 * half :]]) if d % 2 else merged
+    return stacked[0]
+
+
 def merge_window_sums(parts: Iterable[torch.Tensor], cfg: MsmConfig) -> torch.Tensor:
-    """The sum of chunks' Montgomery window sums [S, 3, L], taken as the
-    chunks come: one point-add launch of S lanes per chunk after the first
-    (window sums are curve points, so the complete formulas hold)."""
-    ec = get_curve_ctx(cfg)
-    acc = None
-    for ws in parts:
-        if acc is None:
-            acc = ws
-        else:
-            acc = torch.stack(ec.add(PointBatch(*acc.unbind(1)), PointBatch(*ws.unbind(1))), dim=1)
-    return acc
+    """The sum of passes' Montgomery window sums [S, 3, L] (chunks, or
+    shards on one device) by the point-add tree (window sums are curve
+    points, so the complete formulas hold); one part is returned as it
+    is."""
+    parts = list(parts)
+    if len(parts) == 1:
+        return parts[0]
+    return tree_add_points(get_curve_ctx(cfg), torch.stack(parts))
 
 
 def chunk_slices(n: int) -> list[slice]:

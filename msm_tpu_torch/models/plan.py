@@ -25,8 +25,8 @@ Every call has ``compute_msm``'s geometry and chunks: up to
 chunk of ``CHUNK_MAX`` points, as the JAX plan keeps them. A call then runs
 each chunk's scalar rows (uploaded chunk by chunk from the one pinned
 buffer) against its table, adds the chunks' window sums on the device
-(``cuzk.merge_window_sums``: one point-add launch per chunk after the
-first), and ends in the same single Horner launch over the B ladders and
+(``cuzk.merge_window_sums``: the point-add tree, one launch a level), and
+ends in the same single Horner launch over the B ladders and
 one copy back. The JAX plan's 2^20 slicing is not ported (a TPU VMEM rule
 that computes the same function). A wrong scalar count raises
 ``ValueError`` (the JAX package asserts).
@@ -85,24 +85,29 @@ class MsmPlan:
         validate: bool = False,
         device="cuda",
     ):
+        words = self._setup(points, config, validate, device, 1)
+        #: the chunks' rows, and each chunk's point table on the device
+        self.slices = cuzk.chunk_slices(self.N)
+        self.geom = geometry or pick_geometry(self.slices[0].stop, self.cfg)
+        self.tables = [common.prepare_points(self.cfg, xd, yd) for xd, yd in cuzk.chunks(words, self.device)]
+
+    def _setup(self, points, config, validate: bool, device, shards: int) -> tuple[np.ndarray, np.ndarray]:
+        """What every plan holds: the config, n and the padded N (a power
+        of two of at least 16 rows a shard), the device of the uploads, the
+        pinned buffer. Returns the points' padded coordinate words."""
         n = len(points)
         if n == 0:
             raise ValueError("a plan needs a non-empty point set")
         self.cfg = config or pick_config(n)
         if validate:
             common.validate_inputs(points, self.cfg, device)
-        self.n, self.N = n, common.pad_size(n)
+        self.n, self.N = n, common.pad_size(max(n, 16 * shards))
         self.device = torch.device(device)
-        #: the chunks' rows, and each chunk's point table on the device
-        self.slices = cuzk.chunk_slices(self.N)
-        chunk = self.slices[0].stop
-        self.geom = geometry or pick_geometry(chunk, self.cfg)
         # slot b of [B, N, W/2] packed scalar words; rows from _filled[b] on
         # are zero (the padding's scalars)
         self._staging = common.staging_buffer((1, self.N, _word_count(self.cfg) // 2), self.device)
         self._filled = [0]
-        words = common.pad_points_words(points, self.cfg, self.N)
-        self.tables = [common.prepare_points(self.cfg, xd, yd) for xd, yd in cuzk.chunks(words, self.device)]
+        return common.pad_points_words(points, self.cfg, self.N)
 
     def _stage(self, slot: int, scalars) -> None:
         """Pack one scalar set into slot ``slot`` of the host buffer. The

@@ -33,6 +33,29 @@ def _same_canonical(jf, tf, j_out, t_out):
     return np.array_equal(jc, tc)
 
 
+@pytest.mark.parametrize("word_size", [13, 12])
+@pytest.mark.parametrize("curve", CURVE_PARAMS, ids=lambda c: c.name)
+def test_mont_mul_limbs_match_reference_on_both_paths(curve, word_size):
+    """The Montgomery product's balanced limbs, not only their residues,
+    equal the reference's: on CPU tensors (numpy arrays) and on the tensor
+    path that CUDA tensors take (here run on CPU tensors), over a batch, a
+    broadcast operand and a single element."""
+    jcfg = MsmConfig(curve=curve, word_size=word_size)
+    cfg, jf, tf = port_cfg(jcfg), JField(jcfg), FieldCtx(port_cfg(jcfg))
+    rng = np.random.default_rng(4)
+    L = tf.L
+    for sa, sb in (((37,), (37,)), ((5, 8), (1, 8)), ((), ())):
+        a, b = rand_balanced(rng, sa, cfg), rand_balanced(rng, sb, cfg)
+        want = np.asarray(jf.mont_mul(jnp.asarray(a), jnp.asarray(b)))
+        got = tf.mont_mul(torch.from_numpy(a), torch.from_numpy(b))
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+        ta, tb = (t.reshape(-1, L).T.contiguous() for t in torch.broadcast_tensors(torch.from_numpy(a),
+                                                                                    torch.from_numpy(b)))
+        tensor_path = tf._cios(ta, tb, torch.from_numpy(tf.p_limbs)[:, None], torch.from_numpy(tf.fold_c)[:, None],
+                               lambda rows: torch.zeros((rows, ta.shape[1]), dtype=torch.int32))
+        assert np.array_equal(tensor_path.T.reshape(want.shape).numpy(), want)
+
+
 @pytest.mark.parametrize("curve", CURVE_PARAMS, ids=lambda c: c.name)
 def test_field_ops_match_reference(curve):
     cfg, jf, tf = _pair(curve)

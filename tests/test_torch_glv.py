@@ -14,41 +14,19 @@ import numpy as np
 import pytest
 import torch
 
+from _glv_split import check_decomposition, check_tensor_split, scalars, signed, words
 from _torch_helpers import port_cfg
 from msm_tpu import params as jparams
-from msm_tpu.models.common import ints_to_u16_array
-from msm_tpu.ops.glv import decompose_signed_glv as j_decompose_signed_glv
 from msm_tpu.ops import glv as jglv
 from msm_tpu.ops.scan import _decode_payload_step_major as j_decode
 from msm_tpu_torch import params
-from msm_tpu_torch.models.common import pad_scalars_words
 from msm_tpu_torch.ops import glv
 from msm_tpu_torch.ops.scan import _decode_payload_step_major
 
 CURVES = ["bn254", "bls12_381", "bls12_377", "pallas", "secp256k1", "grumpkin", "vesta"]
-
-
-def _scalars(g, r, extra, seed):
-    """0, 1, r - 1, lambda, r - lambda; scalars whose k b_j / r lies next to
-    a half-integer (the remainder's extremes); random ones."""
-    ks = [0, 1, r - 1, g.lam, r - g.lam]
-    for b in (g.v2[1], -g.v1[1]):
-        for m in (0, 1, 2, 5, 11):
-            k = ((2 * m + 1) * r) // (2 * b)
-            ks += [(k + d) % r for d in (-1, 0, 1)]
-    rng = np.random.default_rng(seed)
-    return ks + [int.from_bytes(rng.bytes(32), "little") % r for _ in range(extra)]
-
-
-def _signed(a, neg):
-    """|k| words [n, W] and signs [n] -> python ints."""
-    a, neg = np.asarray(a), np.asarray(neg)
-    vals = [sum(int(a[i, j]) << (16 * j) for j in range(a.shape[1])) for i in range(a.shape[0])]
-    return [-v if s else v for v, s in zip(vals, neg)]
-
-
-def _words(ks):
-    return ints_to_u16_array([k % (1 << 256) for k in ks]).astype(np.int32)
+#: the curves of the split and decomposition checks in this file (their
+#: JAX programs compile for tens of seconds each on a cold cache)
+SPLIT_CURVES = ["bn254", "bls12_381", "bls12_377"]
 
 
 @pytest.mark.parametrize("name", CURVES)
@@ -71,13 +49,13 @@ def test_splits_match_jax_host_split(name):
     """The host split and the tensor split against the JAX host split."""
     curve, jcurve = params.CURVES[name], jparams.CURVES[name]
     g, jg, r = glv.glv_params(curve), jglv.glv_params(jcurve), curve.order
-    ks = _scalars(g, r, extra=200, seed=3)
+    ks = scalars(g, r, extra=200, seed=3)
     want = [jglv.split_scalar(k, jg, r) for k in ks]
     assert [glv.split_scalar(k, g, r) for k in ks] == want
-    a1, n1, a2, n2 = glv.split_scalars_device(torch.from_numpy(_words(ks)), port_cfg(
+    a1, n1, a2, n2 = glv.split_scalars_device(torch.from_numpy(words(ks)), port_cfg(
         jparams.MsmConfig(curve=jcurve, glv=True)))
     assert a1.shape[1] == -(-(g.half_bits + 1) // 16) and a1.dtype == torch.int32
-    assert list(zip(_signed(a1, n1), _signed(a2, n2))) == want
+    assert list(zip(signed(a1, n1), signed(a2, n2))) == want
     assert any(k1 < 0 for k1, _ in want) and any(k2 < 0 for _, k2 in want)
 
 
@@ -99,42 +77,24 @@ def test_rounding_correction_matches_jax(name):
                 for k in ks for gj, b in ((bad.g1, g.v2[1]), (bad.g2, -g.v1[1])))
     assert fires > 0
     cfg = port_cfg(jparams.MsmConfig(curve=jcurve, glv=True))
-    a1, n1, a2, n2 = glv._split_scalars_device(torch.from_numpy(_words(ks)), cfg, bad)
+    a1, n1, a2, n2 = glv._split_scalars_device(torch.from_numpy(words(ks)), cfg, bad)
     want = [jglv.split_scalar(k, jbad, r) for k in ks]
-    assert list(zip(_signed(a1, n1), _signed(a2, n2))) == want
+    assert list(zip(signed(a1, n1), signed(a2, n2))) == want
 
 
-@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("name", SPLIT_CURVES)
 def test_tensor_split_matches_jax_device_split(name):
-    """Every curve: the tensor split word for word and sign for sign against
-    the JAX device split (Pallas' basis signs, BLS12-381's dense order)."""
-    jcfg = jparams.MsmConfig(curve=jparams.CURVES[name], glv=True)
-    g = glv.glv_params(params.CURVES[name])
-    s = _words(_scalars(g, params.CURVES[name].order, extra=100, seed=4))
-    got = glv.split_scalars_device(torch.from_numpy(s), port_cfg(jcfg))
-    want = jglv.split_scalars_device(jnp.asarray(s), jcfg)
-    for a, b in zip(got, want):
-        assert np.array_equal(a.numpy(), np.asarray(b))
+    """The tensor split word for word and sign for sign against the JAX
+    device split (tests/_glv_split.py; the other curves in
+    test_torch_glv_pasta.py and _256.py)."""
+    check_tensor_split(name)
 
 
-@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("name", SPLIT_CURVES)
 def test_glv_decomposition_matches_jax(name):
-    """Keys and signs [S, 2n] at c = 16 (S = 8; secp256k1 9) on edge
-    scalars (0, 1, r - 1, lambda, r - lambda, scalars with a negative half)
-    and random ones, on every curve; every key within the bucket range."""
-    jcfg = jparams.MsmConfig(curve=jparams.CURVES[name], glv=True)
-    cfg = port_cfg(jcfg)
-    r, lam = cfg.curve.order, glv.glv_params(cfg.curve).lam
-    rng = np.random.default_rng(6)
-    ks = [0, 1, r - 1, lam, r - lam, 2, r - 2] + [int.from_bytes(rng.bytes(32), "little") % r
-                                                  for _ in range(57)]
-    s = pad_scalars_words(ks, cfg, len(ks))
-    keys, signs = glv.decompose_signed_glv(torch.from_numpy(s), 16, cfg.num_subtasks, cfg)
-    jkeys, jsigns = j_decompose_signed_glv(jnp.asarray(s), 16, jcfg.num_subtasks, jcfg)
-    assert keys.shape == (cfg.num_subtasks, 2 * len(ks)) and cfg.num_subtasks in (8, 9)
-    assert np.array_equal(keys.numpy(), np.asarray(jkeys))
-    assert np.array_equal(signs.numpy(), np.asarray(jsigns))
-    assert int(keys.max()) <= 1 << 15
+    """Keys and signs [S, 2n] at c = 16 on edge scalars (0, 1, r - 1,
+    lambda, r - lambda, scalars with a negative half) and random ones."""
+    check_decomposition(name)
 
 
 def test_payload_decode_with_table_rows_matches_jax():
