@@ -6,14 +6,18 @@
 1. prints the card's name and power limit, builds the thirteen CUDA kernels,
    their six GLV modes and the convert kernel's run-time-constant mode, all
    generic over the field, with every instance for the six other curves,
-   from msm_tpu_torch/csrc at 13-bit limbs, and prints the build time, each
-   translation unit's compile seconds (with the host's os.cpu_count()) and
-   every kernel's ptxas report (registers, frame, spills) and SASS size for
-   every curve, failing if a SASS holds an out-of-line call
-   (report_plain_builds); the 12-bit library's build (the same sources
-   with -DMSM_LIMB_BITS=12) starts after it and runs beside the steps
-   below, in a process of its own at nice 19 on half the host's cores
-   (BUILD12), and step 19 waits for it;
+   from msm_tpu_torch/csrc at 13-bit limbs, and prints the build time and
+   each translation unit's compile seconds (with the host's
+   os.cpu_count()); every kernel's ptxas report (registers, frame, spills)
+   and SASS size for every curve, failing if a SASS holds an out-of-line
+   call (report_plain_builds), prints before the curves phase, its SASS
+   read by a thread (cuobjdump at nice 19) beside the steps before it; the
+   narrow library's build (the same sources
+   with -DMSM_LIMB_BITS=0: the limb width 8 to 12 read at run time from
+   csrc/widths.cuh) starts after it and runs beside the steps below, in a
+   process of its own at nice 19 on half the host's cores (BUILD_NARROW;
+   NarrowBuild, whose thread then runs cuobjdump over its objects), and
+   step 19 waits for it;
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs (a twin of at most CPU_TWIN_ELEMS input elements, such as
    the Horner ladder's serial chain, on copies of them on the CPU, where
@@ -120,9 +124,10 @@
    --size 16 against cpu --size 16; profile --size 20, its report printed;
 12. the bench (python -m msm_tpu_torch.bench): --size 20 --verify on the
    four configs, --plan 4 --size 20 --verify, --batched 4 --size 16
-   --verify and --auto --size 20, every JSON line printed and verified
-   (the first in a process of its own, the others in this one, checked for
-   their path's kernels);
+   --verify and --auto --size 16 (its GLV compressed candidate's
+   self-check at 2^14, then the faster verified candidate), every JSON
+   line printed and verified (in this process, each checked for its
+   path's kernels; step 18's bench processes start it as a user does);
 13. the MSM above the one-pass cap: models.cuzk.CHUNK_MAX set to 2^20 and
    2^21 points run as two chunks (step 5's points twice, fresh scalars):
    run_gpu_msm on the four configs, the naive model, a plan (ints and
@@ -195,23 +200,31 @@
    count's wall median of 3 with each shard's host issue time and device
    span; the sharded plan's words call's median of 5 beside the
    single-device plan's, in turn;
-19. the width-12 phase (run_width12_phase): the 12-bit library's
-   build seconds, each unit's compile seconds and os.cpu_count(); the
-   ptxas reports and SASS of every kernel instance of that library for the
-   seven curves (no CALL); every instance against its twin at the small
-   shapes, BN254's and BLS12-381's also at their 2^20 MSMs' shapes (BN254's
-   Horner ladder too); each
-   curve's 2^16 MSM at word_size 12 on the four configs (run_gpu_msm and a
-   plan's words call), with compress_pairs, the scaled convert, the
-   blocked stage 4 and the naive model, validate=True on BLS12-381, BN254's
-   edge MSMs on five paths and a karatsuba=True MSM; BN254's 2^20 plan
-   words calls on the four configs at 12- and 13-bit limbs in turn and
-   BLS12-381's plain one at 12, all bit-exact against the folded oracle;
-20. prints the kernels' JSON line (the GLV modes, the scaled convert,
-   each other curve's instances and each 12-bit instance,
-   ``name[curve,w12]``, as entries of their own; each with its ptxas
-   registers and spill bytes), then as its last line {"ok": true,
-   "device": {...}}.
+19. the narrow library (widths 8 to 12): its build seconds, each unit's
+   compile seconds and os.cpu_count(); the ptxas reports and SASS of every
+   kernel instance of that library for the seven curves (no CALL; one
+   instance serves every narrow width); then the width-12 phase
+   (run_width_phase(12)): every instance against its twin at the small
+   shapes, BN254's and BLS12-381's also at their 2^20 MSMs' shapes;
+   each curve's 2^16 MSM at word_size 12 on the four configs (run_gpu_msm
+   and a plan's words call), with compress_pairs, the scaled convert, the
+   blocked stage 4 and the naive model, validate=True on BLS12-381,
+   BN254's edge MSMs on five paths and a karatsuba=True MSM; BN254's 2^20
+   plan words calls on the four configs and BLS12-381's plain one, all
+   bit-exact against the folded oracle;
+20. the narrow-widths phase (run_narrow_phase): run_width_phase at 8, 11,
+   10 and 9 (the same checks and 2^16 MSMs on the four configs, the
+   off-path instances against their twins only; at 8 BN254's and
+   BLS12-381's instances also at their 2^20 MSMs' shapes, L 33 and 49); BN254's plain 2^20 words call at 8, 11
+   and 13 in turn and BLS12-381's at 8, each with its peak memory; then
+   the narrow library at width 13 against the default library, limb for
+   limb, every wrapper of K1, K2 and K4 to K13 on the seven curves at the
+   small shapes (check_libraries);
+21. prints the kernels' JSON line (the GLV modes, the scaled convert,
+   each other curve's instances and each narrow instance,
+   ``name[curve,w8]`` to ``name[curve,w12]``, as entries of their own; each
+   with its ptxas registers and spill bytes), then as its last line
+   {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
 It needs a CUDA device and the repository around it.
@@ -230,6 +243,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -799,8 +813,9 @@ def settle() -> None:
     """Wait for the twins in the workers and compare each with its kernel's
     output, in the order the checks were made: each check's line printed
     and its result dict filled (a difference raises). Every group of
-    checks (BN254's kernels, one curve's instances at one width) ends with
-    it, so no kernel output outlives its group."""
+    checks (BN254's kernels; one curve's instances at 13 bits; every
+    curve's at one narrow width) ends with it, so no kernel output
+    outlives its group."""
     while _UNSETTLED:
         _UNSETTLED.pop(0)()
 
@@ -821,6 +836,8 @@ def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz, subset
     is filled then. Returns {max_abs_err, ms, plain_ms, bound_ms,
     bound_by}."""
     wrapper, plain = kern[name]
+    if _LIB_CHECK is not None:
+        return _compare_libraries(wrapper, name, label, args, L)
     got, ms = _kernel_ms(lambda: wrapper(*args), reps)
     if (subset is None and name.removesuffix("_glv") in CHAIN_ARGS and _serial_steps(name, args) >= SUBSET_STEPS
             and sum(a.numel() for a in args if isinstance(a, torch.Tensor)) > CPU_TWIN_ELEMS):
@@ -1328,12 +1345,14 @@ def _ptxas(log: str, kernel: str, field: str = "FpBn254") -> dict:
 @functools.lru_cache(maxsize=None)
 def _sass_functions(obj) -> dict[str, tuple[int, int]]:
     """{mangled kernel name: (instructions, CALL instructions)} of an
-    object file's SASS, by cuobjdump (a function's instructions are the
-    lines that start with their address, ``/*0a10*/``)."""
+    object file's SASS, by cuobjdump at nice 19 (it runs beside the phases:
+    _prefetch_sass) (a function's instructions are the lines that start
+    with their address, ``/*0a10*/``)."""
     from msm_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(cuobjdump), "-sass", str(obj)], check=True, capture_output=True, text=True).stdout
+    text = subprocess.run([str(cuobjdump), "-sass", str(obj)], check=True, capture_output=True, text=True,
+                          preexec_fn=lambda: os.nice(19)).stdout
     out = {}
     for part in text.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
@@ -2296,20 +2315,20 @@ BENCH_RUNS = (
     (["--size", "20", "--verify", "--glv", "--compress"], "glv_compressed"),
     (["--plan", "4", "--size", "20", "--verify"], "plain"),
     (["--batched", "4", "--size", "16", "--verify"], "batched"),
-    (["--auto", "--size", "20"], "auto"),
+    (["--auto", "--size", "16"], "auto"),
 )
 
 
 def run_bench_checks() -> None:
     """The port's bench (python -m msm_tpu_torch.bench) in each of
-    BENCH_RUNS (the first in a process of its own, the others in this one,
-    each reset and checked for its path's kernels): every JSON line printed
-    and each one verified against the oracle."""
+    BENCH_RUNS, in this process (the sharded phase's bench processes start
+    it as a user does), each reset and checked for its path's kernels:
+    every JSON line printed and each one verified against the oracle."""
     from msm_tpu_torch import bench
 
-    for i, (argv, path) in enumerate(BENCH_RUNS):
+    for argv, path in BENCH_RUNS:
         tag = f"bench {' '.join(argv)}"
-        line = _as_module("msm_tpu_torch.bench", argv, tag) if i == 0 else _in_process(bench.main, argv, tag, path)
+        line = _in_process(bench.main, argv, tag, path)
         if json.loads(line).get("verified") is not True:
             raise AssertionError(f"{tag}: not verified: {line}")
 
@@ -2532,10 +2551,10 @@ def run_beyond_checks(base, logn: int = 22, device="cuda") -> None:
 
 #: the six curves besides BN254, each on the plain path (the curves phase)
 CURVE_NAMES = ("bls12_381", "bls12_377", "grumpkin", "pallas", "vesta", "secp256k1")
-#: the limb widths of the kernels' libraries (ops/_build.WIDTHS): the
-#: phases above run the 13-bit one, the width-12 phase the other; each
-#: width's random streams start at their own offset
-WIDTH_SEED = {13: 0, 12: 1000}
+#: the limb widths of the kernels (ops/_build.WIDTHS): the phases above
+#: run the 13-bit library, the width-12 and narrow-widths phases the
+#: narrow one; each width's random streams start at their own offset
+WIDTH_SEED = {13: 0, 12: 1000, 11: 2000, 10: 3000, 9: 4000, 8: 5000}
 
 
 def _curve_index(curve: str) -> int:
@@ -2545,7 +2564,8 @@ def _curve_index(curve: str) -> int:
 
 
 def _w(word_size: int) -> str:
-    """A label's width suffix: none at 13-bit limbs, " w12" at 12."""
+    """A label's width suffix: none at 13-bit limbs, " w<width>" at the
+    narrow library's widths."""
     return "" if word_size == 13 else f" w{word_size}"
 
 #: the plain path's kernels, each instantiated for every curve (kernel 3,
@@ -2621,6 +2641,16 @@ def _ptxas_fields(curve: str, name: str, word_size: int = 13) -> dict:
     return {"registers": rep["registers"], "spill_stores": rep["spill_stores"], "spill_loads": rep["spill_loads"]}
 
 
+@functools.lru_cache(maxsize=None)
+def _curve_affine(name: str) -> tuple:
+    """A curve's 64 affine sample points (seed SEED) of the kernel checks,
+    made once: every width's checks of the curve share them."""
+    from msm_tpu_torch.oracle.pyecc import Curve
+
+    cv = Curve(_curve_spec(name))
+    return tuple(cv.to_affine(p) for p in cv.sample_points(64, seed=SEED))
+
+
 def _curve_spec(name: str):
     from msm_tpu_torch.params import CURVES
 
@@ -2633,18 +2663,25 @@ def _field_of(name: str) -> str:
             "secp256k1": "FpSecp256k1", "grumpkin": "FpGrumpkin", "vesta": "FpVesta"}[name]
 
 
-def report_plain_builds(so, word_size: int = 13) -> dict:
+def _kernel_objects(lib_dir: Path) -> list[Path]:
+    """The object files of a library's generic kernels (CURVE_INSTANCES'
+    BN254 units and every other curve's two)."""
+    return ([lib_dir / obj for _kernels, obj, _unit in CURVE_INSTANCES.values()]
+            + [lib_dir / f"curve_{curve}{unit}.o" for curve in CURVE_NAMES for unit in ("", "_pairs")])
+
+
+def report_plain_builds(so, word_size: int = 13, widths: tuple = ()) -> dict:
     """One line per kernel and curve (CURVE_INSTANCES: every kernel is
-    generic over the field) of the library ``so`` of limb width
+    generic over the field) of the library ``so`` that serves limb width
     ``word_size`` (its own build log and objects): ptxas registers, frame
     and spills and the SASS size; raises when a kernel makes an out-of-line
     call (the word core inlines every formula, the row offsets' included).
-    Returns and keeps in PTXAS {(curve, kernel, word_size): ptxas report}
-    for the kernel table."""
+    Returns and keeps in PTXAS {(curve, kernel, width): ptxas report} for
+    the kernel table, for ``word_size`` and every width of ``widths`` (the
+    narrow library: one instance serves its widths 8 to 12)."""
     log = (so.parent / "build.log").read_text()
     reports = {}
-    _prefetch_sass([so.parent / obj for _kernels, obj, _unit in CURVE_INSTANCES.values()]
-                   + [so.parent / f"curve_{curve}{unit}.o" for curve in CURVE_NAMES for unit in ("", "_pairs")])
+    _prefetch_sass(_kernel_objects(so.parent))
     for curve in ("bn254",) + CURVE_NAMES:
         field = _field_of(curve)
         for wrapper, (kernels, obj, unit) in CURVE_INSTANCES.items():
@@ -2652,8 +2689,10 @@ def report_plain_builds(so, word_size: int = 13) -> dict:
             for kernel in kernels:
                 rep = _ptxas(log, kernel, field)
                 n, calls = _sass_calls(path, kernel, field)
-                reports[(curve, kernel)] = PTXAS[(curve, kernel, word_size)] = rep
-                print(f"ptxas {curve}{_w(word_size)} {kernel}: registers={rep['registers']} frame={rep['frame']} B "
+                reports[(curve, kernel)] = rep
+                for w in {word_size, *widths}:
+                    PTXAS[(curve, kernel, w)] = rep
+                print(f"ptxas {curve}{' narrow' if widths else _w(word_size)} {kernel}: registers={rep['registers']} frame={rep['frame']} B "
                       f"spill_stores={rep['spill_stores']} B spill_loads={rep['spill_loads']} B; "
                       f"SASS {n} instructions, {calls} CALL", flush=True)
                 if calls:
@@ -2682,7 +2721,6 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
-    from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import MsmConfig, coord_words, pick_config
 
     spec = _curve_spec(curve)
@@ -2692,7 +2730,7 @@ def check_curve_kernels(kern, curve: str, logn: int | None, clock_hz: float, dev
     cfg = dataclasses.replace(cfg, word_size=word_size)
     f, L = get_field_ctx(cfg), cfg.num_words
     rng = np.random.default_rng(SEED + 100 + _curve_index(curve) + (0 if small else 10) + WIDTH_SEED[word_size])
-    aff = [Curve(spec).to_affine(p) for p in Curve(spec).sample_points(64, seed=SEED)]
+    aff = list(_curve_affine(curve))
     base = torch.stack([torch.from_numpy(_mont(v, cfg)) for v in zip(*aff)]).to(dev)
 
     def t(a):
@@ -2758,15 +2796,13 @@ def check_curve_config_kernels(kern, curve: str, logn: int | None, clock_hz: flo
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
-    from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import MsmConfig
 
     spec = _curve_spec(curve)
     small = logn is None
     n = 2048 if small else 1 << logn
     rng = np.random.default_rng(SEED + 200 + _curve_index(curve) + (0 if small else 10) + WIDTH_SEED[word_size])
-    cv = Curve(spec)
-    aff = [cv.to_affine(p) for p in cv.sample_points(64, seed=SEED)]
+    aff = list(_curve_affine(curve))
     base_cfg = MsmConfig(curve=spec, word_size=word_size)
     f, L = get_field_ctx(base_cfg), base_cfg.num_words
     base = torch.stack([torch.from_numpy(_mont(v, base_cfg)) for v in zip(*aff)]).to(dev)
@@ -2833,15 +2869,13 @@ def check_curve_offpath_kernels(kern, curve: str, logn: int | None, clock_hz: fl
     from msm_tpu_torch.models.geometry import pick_geometry
     from msm_tpu_torch.ops.cuda_convert import coord_u16, pack_canonical
     from msm_tpu_torch.ops.field import get_field_ctx
-    from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import MsmConfig, pick_config
 
     spec = _curve_spec(curve)
     small = logn is None
     n = 2048 if small else 1 << logn
     rng = np.random.default_rng(SEED + 300 + _curve_index(curve) + WIDTH_SEED[word_size])
-    cv = Curve(spec)
-    aff = [cv.to_affine(p) for p in cv.sample_points(64, seed=SEED)]
+    aff = list(_curve_affine(curve))
     base_cfg = MsmConfig(curve=spec, word_size=word_size)
     f, L = get_field_ctx(base_cfg), base_cfg.num_words
     base = torch.stack([torch.from_numpy(_mont(v, base_cfg)) for v in zip(*aff)]).to(dev)
@@ -2988,7 +3022,7 @@ def sample_curve_msm(curve: str, n: int, seed: int, base=None):
 
 
 #: each curve's MSM inputs and folded oracle by (curve, log2 n), kept by
-#: run_curve_msms for the width-12 phase: (bases, points, scalar words,
+#: run_curve_msms for the narrow library's phases: (bases, points, scalar words,
 #: oracle JPoint)
 CURVE_INPUTS: dict = {}
 
@@ -3039,7 +3073,7 @@ def run_curve_config(curve: str, path: str, logn: int, pts, ks, words, want, dev
     pure-Python one: the native oracle is BN254's): run_gpu_msm on the ints
     (when ``ks`` is given) and a plan's words call, each with the counters
     reset just before and its path's kernels required just after (paths
-    curve_<name>[_<config>][_w12], plan_curve_<name>[_<config>][_w12]),
+    curve_<name>[_<config>][_w<width>], plan_curve_<name>[_<config>][_w<width>]),
     both bit-exact. One line per run: the wall median (run_gpu_msm of 3,
     words call of 5), and with ``detail`` the stages and peak memory, and a
     profiled words call's device busy time, kernel ms and idle share.
@@ -3123,8 +3157,7 @@ def run_curve_entry_checks() -> None:
 
 
 def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
-    """The curves phase: the generic kernels' builds for every curve
-    (report_plain_builds), each curve's six plain kernel instances against
+    """The curves phase: each curve's six plain kernel instances against
     their twins at the small shapes and at the shapes of its largest plain
     MSM below (2^20 for CURVES_AT_2E20, else 2^16), its seven instances of
     the compressed and GLV configs at the small shapes and at the shapes
@@ -3442,83 +3475,106 @@ def _sharded_checks(runs, inputs, device) -> None:
     del splan, plan
 
 
-#: the curves whose width-12 instances are also held at their 2^20 MSMs'
-#: shapes (every curve's at the small shapes; every curve's 2^16 MSMs at
-#: 12-bit limbs run them all)
-W12_AT_2E20 = ("bn254", "bls12_381")
+#: the narrow library's widths by phase: 12 in the width-12 phase, the
+#: others in the narrow-widths phase, in this order
+NARROW_PHASE_WIDTHS = (8, 11, 10, 9)
+#: by width, the curves whose narrow instances are also held at their
+#: 2^20 MSMs' shapes (every curve's at the small shapes; every curve's 2^16
+#: MSMs at that width run them all): at 12 those whose 2^20 MSMs run at
+#: that width (run_width_phase), at 8 the widest rows (L 33 and 49)
+AT_2E20 = {12: ("bn254", "bls12_381"), 8: ("bn254", "bls12_381")}
+#: the widths whose 2^16 MSMs also drive the off-path runs
+#: (run_curve_offpath_paths); at the others those instances are held
+#: against their twins only
+OFFPATH_WIDTHS = (12,)
 
 
-#: the 12-bit library's build, in a process of its own at nice 19 on half
-#: the host's cores (its nvcc processes inherit both), behind the 13-bit
-#: build and beside the 13-bit phases: it takes the cores they leave idle
-BUILD12 = ("import os; os.nice(19); cpus = sorted(os.sched_getaffinity(0)); "
-           "os.sched_setaffinity(0, cpus[len(cpus) // 2:]); "
-           "from msm_tpu_torch.ops import _build; _build.build(12)")
+#: the narrow library's build (widths 8 to 12), in a process of its own at
+#: nice 19 on half the host's cores (its nvcc processes inherit both),
+#: behind the 13-bit build and beside the 13-bit phases: it takes the cores
+#: they leave idle
+BUILD_NARROW = ("import os; os.nice(19); cpus = sorted(os.sched_getaffinity(0)); "
+                "os.sched_setaffinity(0, cpus[len(cpus) // 2:]); "
+                "from msm_tpu_torch.ops import _build; _build.build(12)")
 
 
-def start_build12() -> subprocess.Popen:
-    """Start the 12-bit library's build (BUILD12; a process group of its
-    own, so stop_build12 ends its nvcc processes too, in this session, so
-    its nice value ranks it below this process's work)."""
-    return subprocess.Popen([sys.executable, "-c", BUILD12], cwd=ROOT, process_group=0,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+class NarrowBuild:
+    """The narrow library's build (BUILD_NARROW) in a process of its own
+    (a process group of its own, so stop ends its nvcc processes too; its
+    nice value ranks it below this process's work)
+    and a thread that waits for it and then runs cuobjdump over its kernel
+    objects (_prefetch_sass), beside the 13-bit phases."""
+
+    def __init__(self) -> None:
+        self.proc = subprocess.Popen([sys.executable, "-c", BUILD_NARROW], cwd=ROOT, process_group=0,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.log = ""
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self) -> None:
+        from msm_tpu_torch.ops import _build
+
+        self.log, _ = self.proc.communicate()
+        if self.proc.returncode == 0:
+            _prefetch_sass(_kernel_objects(_build.library_path(12).parent))
+
+    def finish(self) -> tuple[Path, float]:
+        """Wait for the build (a failed build fails the run) and load the
+        library; returns (library, the build's wall seconds)."""
+        from msm_tpu_torch.ops import _build
+
+        self.thread.join()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"the narrow library's build failed (exit {self.proc.returncode}):\n{self.log}")
+        _build.load(12)
+        so = _build.library_path(12)
+        return so, json.loads((so.parent / "compile_seconds.json").read_text())["wall"]
+
+    def stop(self) -> None:
+        """End the build's process group if it still runs."""
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
 
 
-def finish_build12(proc: subprocess.Popen) -> tuple[Path, float]:
-    """Wait for the 12-bit build (a failed build fails the run) and load the
-    library; returns (library, the build's wall seconds)."""
-    from msm_tpu_torch.ops import _build
-
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"the 12-bit build failed (exit {proc.returncode}):\n{log}")
-    _build.load(12)
-    so = _build.library_path(12)
-    return so, json.loads((so.parent / "compile_seconds.json").read_text())["wall"]
-
-
-def stop_build12(proc: subprocess.Popen) -> None:
-    """End the 12-bit build's process group if it still runs."""
-    if proc.poll() is None:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-
-
-def run_width12_phase(so12, clock_hz: float, device="cuda") -> list[dict]:
-    """The width-12 phase: the 12-bit library's instances of every kernel
-    generic over the field (every wrapper of CURVE_INSTANCES) on the seven
-    curves. Their ptxas reports and SASS (report_plain_builds on the
-    12-bit library: no CALL); each curve's instances against their twins
-    at the small shapes, BN254's and BLS12-381's also at their 2^20 MSMs'
-    shapes (W12_AT_2E20; a chain kernel's twin over 256 chains on the CPU
-    there), all exact after canonicalization; each curve's 2^16 MSM at
-    word_size 12 on the plain, compressed, GLV and GLV compressed configs
-    (run_gpu_msm and a plan's words call, bit-exact against the folded
-    oracle, the curve's kernels required: paths curve_<name>[_<config>]_w12)
-    with compress_pairs in both modes, the scaled convert's five modes, the
-    blocked stage 4 and the naive model (run_curve_offpath_paths), and
-    validate=True on BLS12-381 (check_subgroup); BN254's edge MSMs on the
-    five paths and a karatsuba=True MSM at 2^16; BN254 at 2^20 through a
-    plan's words call on the four configs at 12- and 13-bit limbs in turn
-    (one line each with both medians) and BLS12-381's plain 2^20 words
-    call, bit-exact. Returns the kernel table's rows, ``name[curve,w12]``,
-    each with its launches in its curve's 2^16 run on the config (or path)
-    that runs it and the times at its largest checked shape."""
+def run_width_phase(word_size: int, clock_hz: float, device="cuda") -> list[dict]:
+    """The checks of one width of the narrow library (8 to 12): its
+    instances of every kernel generic over the field (every wrapper of
+    CURVE_INSTANCES) on the seven curves against their twins at the small
+    shapes, the curves of AT_2E20[word_size] also at their 2^20 MSMs'
+    shapes (a chain kernel's twin over 256 chains on the CPU there), all
+    exact after canonicalization; each curve's 2^16 MSM at that width on
+    the plain, compressed, GLV and GLV compressed configs (run_gpu_msm and
+    a plan's words call, bit-exact against the folded oracle, the curve's
+    kernels required: paths curve_<name>[_<config>]_w<width>), at
+    OFFPATH_WIDTHS with compress_pairs in both modes, the scaled convert's
+    five modes, the blocked stage 4 and the naive model
+    (run_curve_offpath_paths). At width 12 also validate=True on BLS12-381
+    (check_subgroup), BN254's edge MSMs on the five paths and a
+    karatsuba=True MSM at 2^16, and a plan's words call at 2^20 on BN254's
+    four configs and BLS12-381's plain one, bit-exact. The twins that run
+    in the workers are compared after the 2^16 MSMs (settle), so those
+    MSMs' wall times share the host with them; the 2^20 ones run after.
+    Returns the kernel
+    table's rows, ``name[curve,w<width>]``, each with its launches in its
+    curve's 2^16 run on the config (or path) that runs it (0 for an
+    off-path instance at a width that does not drive its path) and the
+    times at its largest checked shape."""
     import msm_tpu_torch
     from msm_tpu_torch import bench
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import BN254, pick_config
 
     t0 = t_all = time.perf_counter()
+    w = _w(word_size).strip()
 
     def step(name):
         nonlocal t0
-        print(f"width 12 phase, {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"width {word_size} phase, {name}: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
 
     curves = ("bn254",) + CURVE_NAMES
-    report_plain_builds(so12, 12)
-    step("ptxas and SASS")
     kern = _kernels()
     dev = torch.device(device)
     checks = {}
@@ -3526,14 +3582,15 @@ def run_width12_phase(so12, clock_hz: float, device="cuda") -> list[dict]:
         # the 2^20 shapes first (their chain twins, the longest, overlap the
         # rest); a kernel's result is its largest shape's
         c = {}
-        for logn in (20, None) if curve in W12_AT_2E20 else (None,):
-            got = check_curve_config_kernels(kern, curve, logn, clock_hz, dev, 12)
-            got.update(check_curve_offpath_kernels(kern, curve, logn, clock_hz, dev, 12))
-            got.update(check_curve_kernels(kern, curve, logn, clock_hz, dev, 12))
+        for logn in (20, None) if curve in AT_2E20.get(word_size, ()) else (None,):
+            got = check_curve_config_kernels(kern, curve, logn, clock_hz, dev, word_size)
+            got.update(check_curve_offpath_kernels(kern, curve, logn, clock_hz, dev, word_size))
+            got.update(check_curve_kernels(kern, curve, logn, clock_hz, dev, word_size))
             c = {**got, **c}
         checks[curve] = c
-        settle()
-    step("kernels")
+    # one group a width, settled after the 2^16 MSMs: the curves' twins in
+    # the workers overlap each other's kernel checks and those MSMs
+    step("kernels issued")
     counts = {}
     for curve in curves:
         spec = _curve_spec(curve)
@@ -3541,11 +3598,15 @@ def run_width12_phase(so12, clock_hz: float, device="cuda") -> list[dict]:
             base, pts, words = sample_curve_msm(curve, 1 << 16, SEED + 76)
             CURVE_INPUTS[(curve, 16)] = (base, pts, words, bench.folded_oracle(base, words, spec))
         base, pts, words, want = CURVE_INPUTS[(curve, 16)]
-        ks = [int.from_bytes(w.tobytes(), "little") for w in words]
+        ks = [int.from_bytes(x.tobytes(), "little") for x in words]
         for path in ("plain",) + CURVE_CONFIGS:
-            counts[(curve, path)] = run_curve_config(curve, path, 16, pts, ks, words, want, device, 12, False)[0]
-        for path, c in run_curve_offpath_paths(curve, pts, ks, want, device, 12).items():
-            counts[(curve, path)] = c
+            counts[(curve, path)] = run_curve_config(curve, path, 16, pts, ks, words, want, device, word_size,
+                                                     False)[0]
+        if word_size in OFFPATH_WIDTHS:
+            for path, c in run_curve_offpath_paths(curve, pts, ks, want, device, word_size).items():
+                counts[(curve, path)] = c
+        if word_size != 12:
+            continue
         if curve == "bls12_381":
             check_subgroup(curve, pts, ks, words, want, device, 12)
         if curve == "bn254":
@@ -3560,18 +3621,17 @@ def run_width12_phase(so12, clock_hz: float, device="cuda") -> list[dict]:
             print(f"{tag}: bit-exact", flush=True)
             for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
                 edge_checks(path, device, 12)
-    step("2^16 msms, off-path runs, edges, karatsuba and validate")
-    base = CURVE_INPUTS[("bn254", 16)][0]
-    base, pts, words = sample_curve_msm("bn254", 1 << 20, SEED + 80, base)
-    want = bench.folded_oracle(base, words, BN254)
-    for path in ("plain",) + CURVE_CONFIGS:
-        ms12 = run_curve_config("bn254", path, 20, pts, None, words, want, device, 12)[1]
-        ms13 = run_curve_config("bn254", path, 20, pts, None, words, want, device, 13, False)[1]
-        print(f"width 12 vs 13: bn254 2^20 {path} plan words call wall_ms median of 5: w12={ms12:.2f} "
-              f"w13={ms13:.2f} (w12/w13 = {ms12 / ms13:.3f})", flush=True)
-    base, pts, words, want = CURVE_INPUTS[("bls12_381", 20)]
-    run_curve_config("bls12_381", "plain", 20, pts, None, words, want, device, 12)
-    step("2^20 msms")
+    step("2^16 msms" + (" and off-path runs" if word_size in OFFPATH_WIDTHS else "")
+         + (", edges, karatsuba and validate" if word_size == 12 else ""))
+    settle()
+    step("the kernels' twins settled")
+    if word_size == 12:
+        base, pts, words, want = bn254_2e20_inputs()
+        for path in ("plain",) + CURVE_CONFIGS:
+            run_curve_config("bn254", path, 20, pts, None, words, want, device, 12)
+        base, pts, words, want = CURVE_INPUTS[("bls12_381", 20)]
+        run_curve_config("bls12_381", "plain", 20, pts, None, words, want, device, 12)
+        step("2^20 msms")
     rows = []
     for curve in curves:
         for name in CURVE_KERNELS + tuple(CONFIG_KERNELS) + tuple(OFFPATH_KERNELS):
@@ -3580,15 +3640,110 @@ def run_width12_phase(so12, clock_hz: float, device="cuda") -> list[dict]:
             obj, unit = CURVE_INSTANCES[name][1:]
             src = obj.removesuffix(".o") + ".cu" if curve == "bn254" else f"curve_{curve}{unit}.cu"
             rows.append({
-                "name": f"{name}[{curve},w12]", "route": "cuda", "source": f"msm_tpu_torch/csrc/{src}",
-                "replaces": f"{REPLACES[name][1]} ({curve}, word_size 12)",
-                "launches": counts[(curve, path)][name],
+                "name": f"{name}[{curve},{w}]", "route": "cuda", "source": f"msm_tpu_torch/csrc/{src}",
+                "replaces": f"{REPLACES[name][1]} ({curve}, word_size {word_size})",
+                "launches": counts[(curve, path)][name] if (curve, path) in counts else 0,
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
-                **_ptxas_fields(curve, name, 12),
+                **_ptxas_fields(curve, name, word_size),
             })
-    print(f"width 12 phase: {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(f"width {word_size} phase: {time.perf_counter() - t_all:.1f} s", flush=True)
     return rows
+
+
+def bn254_2e20_inputs():
+    """BN254's 2^20 MSM inputs of the narrow phases (step 5's 1024 bases
+    of the 2^16 curve MSM, fresh scalars) and their folded oracle, made
+    once (CURVE_INPUTS[("bn254", 20)])."""
+    from msm_tpu_torch import bench
+    from msm_tpu_torch.params import BN254
+
+    if ("bn254", 20) not in CURVE_INPUTS:
+        base = CURVE_INPUTS[("bn254", 16)][0]
+        base, pts, words = sample_curve_msm("bn254", 1 << 20, SEED + 80, base)
+        CURVE_INPUTS[("bn254", 20)] = (base, pts, words, bench.folded_oracle(base, words, BN254))
+    return CURVE_INPUTS[("bn254", 20)]
+
+
+def run_narrow_phase(clock_hz: float, device="cuda") -> list[dict]:
+    """The narrow-widths phase: run_width_phase at each width of
+    NARROW_PHASE_WIDTHS (8 to 11; BN254's and BLS12-381's instances at
+    their 2^20 MSMs' shapes at width 8, the widest rows: L 33 and 49);
+    then BN254's plain 2^20 MSM through a plan's words call at widths 8, 11
+    and 13 in turn and BLS12-381's at 8 (each bit-exact, its wall median of
+    5, stages, a profiled call's device busy time and idle share, and peak
+    device memory); then the library check (check_libraries). Returns the
+    kernel table's rows of the four widths."""
+    t0 = time.perf_counter()
+    rows = []
+    for word_size in NARROW_PHASE_WIDTHS:
+        rows += run_width_phase(word_size, clock_hz, device)
+    t1 = time.perf_counter()
+    base, pts, words, want = bn254_2e20_inputs()
+    ms = {ws: run_curve_config("bn254", "plain", 20, pts, None, words, want, device, ws)[1] for ws in (8, 11, 13)}
+    print("narrow widths: bn254 2^20 plain plan words call wall_ms median of 5: "
+          + ", ".join(f"w{ws}={m:.2f} ({m / ms[13]:.3f} of w13)" for ws, m in ms.items()), flush=True)
+    base, pts, words, want = CURVE_INPUTS[("bls12_381", 20)]
+    run_curve_config("bls12_381", "plain", 20, pts, None, words, want, device, 8)
+    print(f"narrow widths phase, 2^20 msms: {time.perf_counter() - t1:.1f} s", flush=True)
+    check_libraries(clock_hz, device)
+    print(f"narrow widths phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+#: when a list, _check_case holds the narrow library at width 13 against
+#: the default library instead of the twin (check_libraries), and records
+#: each kernel it compared
+_LIB_CHECK: list | None = None
+
+
+def _compare_libraries(wrapper, name, label, args, L) -> dict:
+    """One wrapper's outputs on the default library and on the narrow one
+    at width 13 (_build.narrow_at_13: its W = 13 rows of csrc/widths.cuh),
+    the same inputs: equal limb for limb (no canonicalization), else
+    raises."""
+    from msm_tpu_torch.ops import _build
+
+    want = wrapper(*args)
+    with _build.narrow_at_13():
+        got = wrapper(*args)
+    torch.cuda.synchronize()
+    (gf, gi), (wf, wi) = _field_outputs(name, got, L), _field_outputs(name, want, L)
+    if [a.shape for a in gf + gi] != [b.shape for b in wf + wi]:
+        raise AssertionError(f"library check {name} ({label}): shapes differ")
+    err = max([int((a.long() - b.long()).abs().max()) for a, b in zip(gf + gi, wf + wi) if a.numel()] + [0])
+    print(f"library check {name:13s} {label}: narrow at 13 vs default max_abs_err={err}", flush=True)
+    if err != 0:
+        raise AssertionError(f"{name} ({label}): the narrow library at 13 differs from the default one: {err}")
+    _LIB_CHECK.append(name)
+    return {"max_abs_err": err}
+
+
+def check_libraries(clock_hz: float, device="cuda") -> None:
+    """The narrow library at width 13 against the default library, limb for
+    limb on the same inputs: every instance of K1, K2 and K4 to K13 (every
+    wrapper of CURVE_INSTANCES, in every mode) on the seven curves at the
+    small shapes of check_curve_kernels, check_curve_config_kernels and
+    check_curve_offpath_kernels (_check_case calls _compare_libraries, no
+    twin). A check's hook: no wrapper sends 13 to the narrow library
+    outside it."""
+    global _LIB_CHECK
+    t0 = time.perf_counter()
+    kern = _kernels()
+    dev = torch.device(device)
+    _LIB_CHECK = []
+    try:
+        for curve in ("bn254",) + CURVE_NAMES:
+            check_curve_config_kernels(kern, curve, None, clock_hz, dev, 13)
+            check_curve_offpath_kernels(kern, curve, None, clock_hz, dev, 13)
+            check_curve_kernels(kern, curve, None, clock_hz, dev, 13)
+        missing = set(CURVE_INSTANCES) - set(_LIB_CHECK)
+        if missing:
+            raise AssertionError(f"library check: no comparison of {sorted(missing)}")
+        print(f"library check: {len(_LIB_CHECK)} launches of {len(set(_LIB_CHECK))} wrappers on 7 curves equal "
+              f"limb for limb; {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        _LIB_CHECK = None
 
 
 def main() -> int:
@@ -3612,22 +3767,27 @@ def main() -> int:
     so = _build.build(13)
     _build.load(13)
     build_s = time.perf_counter() - t0
-    build12 = start_build12()
+    build_narrow = NarrowBuild()
+    sass13 = threading.Thread(target=_prefetch_sass, args=(_kernel_objects(so.parent),), daemon=True)
+    sass13.start()
     try:
-        return run_phases(clock_mhz, so, build_s, build12)
+        return run_phases(clock_mhz, so, build_s, build_narrow, sass13)
     finally:
-        stop_build12(build12)
+        build_narrow.stop()
 
 
-def run_phases(clock_mhz: float, so: Path, build_s: float, build12: subprocess.Popen) -> int:
-    """Every phase after the 13-bit build (main): its report, the 13-bit
-    phases, the 12-bit phase once build12 has ended, the kernels line and
-    the last line."""
+def run_phases(clock_mhz: float, so: Path, build_s: float, build_narrow: NarrowBuild,
+               sass13: threading.Thread) -> int:
+    """Every phase after the 13-bit build (main): the 13-bit phases, the
+    13-bit library's ptxas and SASS report (report_plain_builds, its SASS
+    read by ``sass13`` beside the first phases) before the curves phase,
+    the narrow library's phases (width 12, then 8 to 11 and the library
+    check) once build_narrow has ended, the kernels line and the last
+    line."""
     from msm_tpu_torch.oracle import native
 
     print(f"build: {build_s:.1f} s -> {so}", flush=True)
     print(f"compile seconds by translation unit: {(so.parent / 'compile_seconds.json').read_text()}", flush=True)
-    report_plain_builds(so)
 
     print(f"oracle: {'C++' if native.native_available() else 'python'}", flush=True)
     phase_t0 = time.perf_counter()
@@ -3657,18 +3817,27 @@ def run_phases(clock_mhz: float, so: Path, build_s: float, build12: subprocess.P
     run_chunked_checks(base, pts20, {path: c["point_add"] for path, c in msm_counts.items()})
     run_beyond_checks(base)
     phase("chunked and beyond")
+    sass13.join()
+    report_plain_builds(so)
+    phase("the 13-bit library's ptxas and SASS")
     curve_rows = run_curves_phase(so, clock_mhz * 1e6)
     phase("curves")
     run_sharded_phase(inputs)
     phase("sharded")
     t0 = time.perf_counter()
-    so12, build12_s = finish_build12(build12)
-    print(f"build w12: {build12_s:.1f} s at nice 19 on half the cores beside the 13-bit phases (waited "
-          f"{time.perf_counter() - t0:.1f} s for it after the 13-bit phases) -> {so12}", flush=True)
-    print(f"compile seconds by translation unit (w12): {(so12.parent / 'compile_seconds.json').read_text()}",
+    so_n, build_n_s = build_narrow.finish()
+    print(f"build narrow: {build_n_s:.1f} s at nice 19 on half the cores beside the 13-bit phases (waited "
+          f"{time.perf_counter() - t0:.1f} s for it after the 13-bit phases) -> {so_n}", flush=True)
+    print(f"compile seconds by translation unit (narrow): {(so_n.parent / 'compile_seconds.json').read_text()}",
           flush=True)
-    w12_rows = run_width12_phase(so12, clock_mhz * 1e6)
+    from msm_tpu_torch.ops._build import NARROW_WIDTHS
+
+    report_plain_builds(so_n, 12, NARROW_WIDTHS)
+    phase("narrow library's ptxas and SASS")
+    narrow_rows = run_width_phase(12, clock_mhz * 1e6)
     phase("width 12")
+    narrow_rows += run_narrow_phase(clock_mhz * 1e6)
+    phase("narrow widths")
     rows = []
     for name, (src, rep) in REPLACES.items():
         c = checks[name]
@@ -3682,7 +3851,7 @@ def run_phases(clock_mhz: float, so: Path, build_s: float, build12: subprocess.P
         })
     if _TWIN_POOL is not None:
         _TWIN_POOL.shutdown()
-    print(json.dumps({"kernels": rows + curve_rows + w12_rows}))
+    print(json.dumps({"kernels": rows + curve_rows + narrow_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

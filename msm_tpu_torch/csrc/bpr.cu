@@ -37,12 +37,13 @@
 
 MSM_EXTERN_OTHER_FIELDS(BprLaunch)
 
-// b* [G, Bl, T, L]; m*, g* [G, T, L]; every pointer row_align<L> aligned
+// b* [G, Bl, T, L]; m*, g* [G, T, L]; every pointer rows_aligned<F>
+// (row_align<L>; a word in the narrow build)
 extern "C" int msm_bpr_phase1(const int32_t* bx, const int32_t* by,
                               const int32_t* bz, int32_t* mx, int32_t* my,
                               int32_t* mz, int32_t* gx, int32_t* gy,
                               int32_t* gz, int64_t groups, int Bl, int T,
-                              int curve, void* stream) {
+                              int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, BprLaunch, (bx, by, bz, mx, my, mz, gx, gy, gz,
-                                      groups, Bl, T, (cudaStream_t)stream))
+                                      groups, Bl, T, width, (cudaStream_t)stream))
 }

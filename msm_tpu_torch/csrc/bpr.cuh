@@ -83,7 +83,7 @@ void bpr_from_half(pt32t<F>& out, const pt32t<F> (&own)[2], int h) {
 // shuffles take the whole warp): a group past the last chain runs chain
 // T - 1 with store = false. Buckets b* [G, Bl, T, L] step-major (balanced
 // limbs); outputs m*, g* [G, T, L] (canonical), each row stored by one
-// lane of the group. Rows row_align<F::L> aligned on the device
+// lane of the group. Rows rows_aligned<F> on the device
 // (point_add.cuh pa_load).
 template <int LANES, class F = FpBn254>
 MSM_HD void bpr_phase1_chain(const int32_t* bx, const int32_t* by,
@@ -93,7 +93,7 @@ MSM_HD void bpr_phase1_chain(const int32_t* bx, const int32_t* by,
                              bool store) {
   static_assert(LANES >= 4 && LANES <= 32 && (LANES & (LANES - 1)) == 0,
                 "two halves of a power of two of lanes, 2 to 16 each");
-  constexpr int L = F::L;
+  const int L = limb_count<F>();
   pt32t<F> own[BPR_HALVES], handed, s;  // own: m on the lower half, acc on the upper
   pt32_identity(handed);
   s = handed;

@@ -72,9 +72,9 @@ MSM_EXTERN_OTHER_FIELDS(PairBackwardLaunch)
 extern "C" int msm_pair_suffix(const int32_t* packed, const int32_t* perm,
                                const int32_t* flags, int32_t* s,
                                int64_t groups, int Cp, int R, int curve,
-                               void* stream) {
+                               int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PairSuffixLaunch, (packed, perm, flags, s, groups,
-                                             Cp, R, 2, (cudaStream_t)stream))
+                                             Cp, R, 2, width, (cudaStream_t)stream))
 }
 
 // ... s [G, Cp, L, R] canonical; t0 [G, L, R]; pe3 [G, Cp, R, P] (P the
@@ -84,10 +84,10 @@ extern "C" int msm_emit_scan(const int32_t* packed, const int32_t* perm,
                              const int32_t* flags, const int32_t* s,
                              const int32_t* t0, int32_t* pe3, int32_t* tx,
                              int32_t* ty, int32_t* tz, int64_t groups, int Cp,
-                             int R, int curve, void* stream) {
+                             int R, int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, EmitScanLaunch,
                    (packed, perm, flags, s, t0, pe3, tx, ty, tz, groups, Cp, R,
-                    2, (cudaStream_t)stream))
+                    2, width, (cudaStream_t)stream))
 }
 
 // The GLV modes: packed [N, 3D] (the GLV table); the rest as
@@ -95,19 +95,19 @@ extern "C" int msm_emit_scan(const int32_t* packed, const int32_t* perm,
 extern "C" int msm_pair_suffix_glv(const int32_t* packed, const int32_t* perm,
                                    const int32_t* flags, int32_t* s,
                                    int64_t groups, int Cp, int R, int curve,
-                                   void* stream) {
+                                   int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PairSuffixLaunch, (packed, perm, flags, s, groups,
-                                             Cp, R, 3, (cudaStream_t)stream))
+                                             Cp, R, 3, width, (cudaStream_t)stream))
 }
 
 extern "C" int msm_emit_scan_glv(const int32_t* packed, const int32_t* perm,
                                  const int32_t* flags, const int32_t* s,
                                  const int32_t* t0, int32_t* pe3, int32_t* tx,
                                  int32_t* ty, int32_t* tz, int64_t groups,
-                                 int Cp, int R, int curve, void* stream) {
+                                 int Cp, int R, int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, EmitScanLaunch,
                    (packed, perm, flags, s, t0, pe3, tx, ty, tz, groups, Cp, R,
-                    3, (cudaStream_t)stream))
+                    3, width, (cudaStream_t)stream))
 }
 
 // Kernels 10 and 11: the forward products and the backward emission
@@ -117,9 +117,9 @@ extern "C" int msm_emit_scan_glv(const int32_t* packed, const int32_t* perm,
 extern "C" int msm_pair_forward(const int32_t* packed, const int32_t* perm,
                                 const int32_t* flags, int32_t* m,
                                 int64_t groups, int Cp, int R, int curve,
-                                void* stream) {
+                                int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PairForwardLaunch, (packed, perm, flags, m, groups,
-                                              Cp, R, 2, (cudaStream_t)stream))
+                                              Cp, R, 2, width, (cudaStream_t)stream))
 }
 
 // ... m [G, Cp, L, R] canonical; minv [G, L, R]; cx, cy [G, Cp, L, R];
@@ -128,10 +128,10 @@ extern "C" int msm_pair_backward(const int32_t* packed, const int32_t* perm,
                                  const int32_t* flags, const int32_t* m,
                                  const int32_t* minv, int32_t* cx, int32_t* cy,
                                  int32_t* inf, int64_t groups, int Cp, int R,
-                                 int curve, void* stream) {
+                                 int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PairBackwardLaunch,
                    (packed, perm, flags, m, minv, cx, cy, inf, groups, Cp, R,
-                    2, (cudaStream_t)stream))
+                    2, width, (cudaStream_t)stream))
 }
 
 // The GLV modes of kernels 10 and 11: packed [N, 3D] (the GLV table); the
@@ -139,9 +139,9 @@ extern "C" int msm_pair_backward(const int32_t* packed, const int32_t* perm,
 extern "C" int msm_pair_forward_glv(const int32_t* packed, const int32_t* perm,
                                     const int32_t* flags, int32_t* m,
                                     int64_t groups, int Cp, int R, int curve,
-                                    void* stream) {
+                                    int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PairForwardLaunch, (packed, perm, flags, m, groups,
-                                              Cp, R, 3, (cudaStream_t)stream))
+                                              Cp, R, 3, width, (cudaStream_t)stream))
 }
 
 extern "C" int msm_pair_backward_glv(const int32_t* packed,
@@ -149,8 +149,8 @@ extern "C" int msm_pair_backward_glv(const int32_t* packed,
                                      const int32_t* flags, const int32_t* m,
                                      const int32_t* minv, int32_t* cx,
                                      int32_t* cy, int32_t* inf, int64_t groups,
-                                     int Cp, int R, int curve, void* stream) {
+                                     int Cp, int R, int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PairBackwardLaunch,
                    (packed, perm, flags, m, minv, cx, cy, inf, groups, Cp, R,
-                    3, (cudaStream_t)stream))
+                    3, width, (cudaStream_t)stream))
 }

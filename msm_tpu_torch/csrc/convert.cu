@@ -41,17 +41,17 @@ MSM_EXTERN_OTHER_FIELDS(ConvertScaledLaunch)
 // xw, yw [n, 2D] int16 (u16 bits); out [n, 2D] int32, D the curve's words
 // per coordinate; all 16-byte aligned
 extern "C" int msm_convert(const int16_t* xw, const int16_t* yw, int32_t* out,
-                           int64_t n, int curve, void* stream) {
-  MSM_FIELD_SWITCH(curve, ConvertLaunch, (xw, yw, out, n, (cudaStream_t)stream))
+                           int64_t n, int curve, int width, void* stream) {
+  MSM_FIELD_SWITCH(curve, ConvertLaunch, (xw, yw, out, n, width, (cudaStream_t)stream))
 }
 
 // xw, yw [n, 2D] int16 (u16 bits); out [n, 3D] int32 (rows x R, beta x R,
 // y R), D the curve's words per coordinate; all 16-byte aligned
 extern "C" int msm_convert_glv(const int16_t* xw, const int16_t* yw,
                                int32_t* out, int64_t n, int curve,
-                               void* stream) {
+                               int width, void* stream) {
   MSM_FIELD_SWITCH(curve, ConvertGlvLaunch,
-                   (xw, yw, out, n, (cudaStream_t)stream))
+                   (xw, yw, out, n, width, (cudaStream_t)stream))
 }
 
 // xw, yw [n, 2D] int16 (u16 bits); xs, xs2: HOST pointers to the x
@@ -62,8 +62,8 @@ extern "C" int msm_convert_glv(const int16_t* xw, const int16_t* yw,
 extern "C" int msm_convert_scaled(const int16_t* xw, const int16_t* yw,
                                   const uint32_t* xs, const uint32_t* xs2,
                                   int32_t* out, int32_t* out2, int64_t n,
-                                  int layout, int curve, void* stream) {
+                                  int layout, int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, ConvertScaledLaunch,
                    (xw, yw, xs, xs2, out, out2, n, layout,
-                    (cudaStream_t)stream))
+                    width, (cudaStream_t)stream))
 }

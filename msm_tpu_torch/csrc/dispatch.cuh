@@ -8,14 +8,78 @@
 // curve_<name>.cu, MSM_INSTANTIATE_PAIRS and MSM_INSTANTIATE_OFFPATH in
 // curve_<name>_pairs.cu), so the parallel build spreads them. A C entry takes the curve's index in params.CURVES (F::ID)
 // and switches on it; an index without an instantiation is
-// cudaErrorInvalidValue. The limb width is not an argument: each width's
-// library (ops/_build.py, -DMSM_LIMB_BITS) instantiates the same launches
-// over its own traits table (fields.cuh).
+// cudaErrorInvalidValue. Every C entry also takes the limb width after
+// the curve, and each launch opens a WidthScope<F> with it: in the default
+// library (13-bit traits at compile time) any other width is
+// cudaErrorInvalidValue; in the narrow library (-DMSM_LIMB_BITS=0,
+// ops/_build.py) the scope makes the (curve, width) row of widths.cuh the
+// curve's width block in this translation unit's constant memory (the
+// copy its kernels read), on the launch's stream, when the device's copy
+// holds another width, and holds a lock until the launch is enqueued. A
+// width change of one curve is thus ordered behind the earlier launches
+// of its stream. A launch on another stream than the one that loaded the
+// block first waits for the device (the other stream's launches may still
+// read the block, and its copy may not have run yet), then loads the block
+// if its width differs: any mix of streams and widths reads the right
+// block, and the port's one stream a device (torch's current stream) never
+// waits.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 #include "fields.cuh"
+
+namespace msm {
+
+#if MSM_NARROW
+// The width whose block a device's constant copy holds for a curve (0:
+// none yet) and the stream that loaded it
+struct WidthLoaded {
+  int width;
+  cudaStream_t stream;
+};
+
+// This translation unit's lock and loaded blocks, for the first 64 devices
+// (a device above is cudaErrorInvalidDevice)
+static std::mutex width_lock;
+static WidthLoaded width_loaded[64][WIDTH_CURVES];
+
+template <class F>
+struct WidthScope {
+  std::lock_guard<std::mutex> hold;
+  int err = 0;
+  WidthScope(int width, cudaStream_t st) : hold(width_lock) {
+    if (width < WIDTH_MIN || width > WIDTH_MAX) {
+      err = (int)cudaErrorInvalidValue;
+      return;
+    }
+    int dev = 0;
+    if ((err = (int)cudaGetDevice(&dev))) return;
+    if (dev >= 64) {
+      err = (int)cudaErrorInvalidDevice;
+      return;
+    }
+    WidthLoaded& loaded = width_loaded[dev][F::ID];
+    if (loaded.width == width && loaded.stream == st) return;
+    if (loaded.width && loaded.stream != st && (err = (int)cudaDeviceSynchronize())) return;
+    if (loaded.width != width &&
+        (err = (int)cudaMemcpyToSymbolAsync(width_dev, &WIDTH_BLOCKS[F::ID][width - WIDTH_MIN], sizeof(WidthBlock),
+                                            F::ID * sizeof(WidthBlock), cudaMemcpyHostToDevice, st)))
+      return;
+    loaded = {width, st};
+  }
+};
+#else
+template <class F>
+struct WidthScope {
+  int err;
+  WidthScope(int width, cudaStream_t) : err(width == F::W ? 0 : (int)cudaErrorInvalidValue) {}
+};
+#endif
+
+}  // namespace msm
 
 #define MSM_FIELD_SWITCH(curve, LAUNCH, ARGS)                          \
   switch (curve) {                                                     \

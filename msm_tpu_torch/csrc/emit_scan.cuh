@@ -39,13 +39,15 @@ MSM_HD void emit_scan_lane(const int32_t* packed, const int32_t* perm,
                            const int32_t* t0, int32_t* pe3, int32_t* tx,
                            int32_t* ty, int32_t* tz, int64_t g, int Cp, int R,
                            int r) {
-  constexpr int L = F::L, ROW = pe3_row<F>;
+  const int L = limb_count<F>(), ROW = pe3_row_limbs<F>();
   const int64_t lane = g * L * (int64_t)R + r;
   fe32t<F> t;
-  {
-    int32_t v[L];
+  if constexpr (F::RT) {
+    fe32_load_balanced_rt(t, t0 + lane, R);
+  } else {
+    int32_t v[F::L];
     MSM_UNROLL
-    for (int i = 0; i < L; ++i) v[i] = t0[lane + i * (int64_t)R];
+    for (int i = 0; i < F::L; ++i) v[i] = t0[lane + i * (int64_t)R];
     fe32_from_balanced(t, v);
   }
   pt32t<F> acc;

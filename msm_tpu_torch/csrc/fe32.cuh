@@ -70,6 +70,16 @@ MSM_HD void fe32_const_r2(fe32t<F>& a) {
 MSM_HD uint32_t lo32(uint64_t v) { return (uint32_t)v; }
 MSM_HD uint32_t hi32(uint64_t v) { return (uint32_t)(v >> 32); }
 
+// The low word of (hi:lo) >> s, 0 <= s < 32 (lo itself at s = 0): a funnel
+// shift on the device, where s may be a run-time count.
+MSM_HD uint32_t shr_pair(uint32_t lo, uint32_t hi, int s) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, s);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> s);
+#endif
+}
+
 // a <- a - p when a >= p (a < 2^(32 NW)), branch-free.
 template <class F>
 MSM_HD void fe32_reduce_once(fe32t<F>& a) {
@@ -204,14 +214,13 @@ MSM_HD void fe32_mul_b3(fe32t<F>& out, const fe32t<F>& a) {
 // (R = 2^(32 NW)) t is the product already: only the subtract is left.
 template <class F>
 MSM_HD void fe32_redc_tail(fe32t<F>& out, const uint32_t* t, uint32_t top) {
-  constexpr int NW = F::NW, TAIL = F::TAIL;
-  static_assert(0 <= TAIL && TAIL < 32, "the tail step is below a word");
+  constexpr int NW = F::NW;
   uint32_t hi = top;  // bit 2^(32 NW) of out's value (F::CARRY)
-  if constexpr (TAIL == 0) {
-    MSM_UNROLL
-    for (int j = 0; j < NW; ++j) out.w[j] = t[j];
-  } else {
-    const uint32_t m = (t[0] * F::N0T) & ((1u << TAIL) - 1u);
+  if constexpr (F::RT) {
+    // the run-time width's step (the narrow build): TAIL = 0 gives m = 0
+    // and a shift by 0, t itself
+    const int tail = tail_bits<F>();
+    const uint32_t m = (t[0] * tail_n0<F>()) & ((1u << tail) - 1u);
     uint32_t u[NW + 1];
     uint32_t c = 0;
     MSM_UNROLL
@@ -222,8 +231,29 @@ MSM_HD void fe32_redc_tail(fe32t<F>& out, const uint32_t* t, uint32_t top) {
     }
     u[NW] = F::CARRY ? c + top : c;
     MSM_UNROLL
-    for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> TAIL) | (u[j + 1] << (32 - TAIL));
-    hi = u[NW] >> TAIL;
+    for (int j = 0; j < NW; ++j) out.w[j] = shr_pair(u[j], u[j + 1], tail);
+    hi = u[NW] >> tail;
+  } else {
+    constexpr int TAIL = F::TAIL;
+    static_assert(0 <= TAIL && TAIL < 32, "the tail step is below a word");
+    if constexpr (TAIL == 0) {
+      MSM_UNROLL
+      for (int j = 0; j < NW; ++j) out.w[j] = t[j];
+    } else {
+      const uint32_t m = (t[0] * F::N0T) & ((1u << TAIL) - 1u);
+      uint32_t u[NW + 1];
+      uint32_t c = 0;
+      MSM_UNROLL
+      for (int j = 0; j < NW; ++j) {
+        const uint64_t v = (uint64_t)m * F::p(j) + t[j] + c;
+        u[j] = lo32(v);
+        c = hi32(v);
+      }
+      u[NW] = F::CARRY ? c + top : c;
+      MSM_UNROLL
+      for (int j = 0; j < NW; ++j) out.w[j] = (u[j] >> TAIL) | (u[j + 1] << (32 - TAIL));
+      hi = u[NW] >> TAIL;
+    }
   }
   if constexpr (F::CARRY) {
     fe32_reduce_once_hi(out, hi);
@@ -359,6 +389,153 @@ MSM_HD void fe32_sqr_sym(fe32t<F>& out, const fe32t<F>& a) {
 
 // ---- repacking at the boundaries (shifts only) ----
 
+// The narrow build's boundary (F::RT: W and L at run time) streams limbs
+// between memory and the words, with no array sized by L: the words go
+// in order at compile-time indices through a 64-bit bit buffer, and the
+// limbs in order at a run-time count (loops whose trips depend on W, so
+// nothing per limb is loop-invariant for an enclosing loop to hoist).
+
+// v = sum src[j stride] 2^(W j), j < L (any int32 limbs) -> u = v mod
+// 2^(W L) in NW + 1 words and c = floor(v / 2^(W L)) (-1 or 0 for v in
+// (-R, R), 0 for canonical limbs).
+template <class F, class T>
+MSM_HD void rt_gather(uint32_t (&u)[F::NW + 1], int64_t& c, const T* src, int64_t stride) {
+  constexpr int NW = F::NW;
+  const int W = limb_bits<F>(), L = limb_count<F>(), tail = tail_bits<F>();
+  int64_t acc = 0;  // the value from bit 32 i on, less what words < i took
+  int nb = 0, j = 0;  // limb j's bit offset from word i's; limbs taken
+  // limbs j .. j + 3, loaded together (four loads in flight, not one)
+  int32_t q0 = 0, q1 = 0, q2 = 0, q3 = 0;
+  int held = 0;
+  MSM_UNROLL
+  for (int i = 0; i <= NW; ++i) {
+    for (; nb < 32 && j < L; ++j, nb += W, --held) {
+      if (held == 0) {
+        q0 = (int32_t)src[0];
+        q1 = j + 1 < L ? (int32_t)src[stride] : 0;
+        q2 = j + 2 < L ? (int32_t)src[2 * stride] : 0;
+        q3 = j + 3 < L ? (int32_t)src[3 * stride] : 0;
+        src += 4 * stride;
+        held = 4;
+      }
+      acc += (int64_t)((uint64_t)(int64_t)q0 << nb);
+      q0 = q1, q1 = q2, q2 = q3;
+    }
+    u[i] = (uint32_t)acc;
+    acc >>= 32;  // arithmetic shift: floor division
+    nb -= 32;
+  }
+  // bits W L and up (word NW from bit TAIL on, and acc) are c
+  c = (int64_t)((uint64_t)acc << (32 - tail)) + (int64_t)(u[NW] >> tail);
+  u[NW] &= (1u << tail) - 1u;
+}
+
+// Canonical words -> their L W-bit limbs, in order, each to sink(limb).
+template <class F, class Sink>
+MSM_HD void rt_scatter(Sink& sink, const fe32t<F>& a) {
+  constexpr int NW = F::NW;
+  const int W = limb_bits<F>(), L = limb_count<F>();
+  const uint32_t mask = limb_mask<F>();
+  uint64_t buf = 0;  // bits not yet written, from limb j's first on
+  int nb = 0, j = 0;  // bits in buf; limbs written
+  MSM_UNROLL
+  for (int i = 0; i < NW; ++i) {
+    buf |= (uint64_t)a.w[i] << nb;
+    for (nb += 32; nb >= W; nb -= W, ++j, buf >>= W) sink((uint32_t)buf & mask);
+  }
+  for (; j < L; ++j, buf >>= W) sink((uint32_t)buf & mask);
+}
+
+// rt_scatter's sinks: limbs at dst[j stride], and limbs into the 16-byte
+// stores of a 16-byte aligned row (pad() completes its last store with
+// zeros).
+template <class T>
+struct StridedLimbs {
+  T* dst;
+  int64_t stride;
+  MSM_HDM void operator()(uint32_t v) {
+    *dst = (T)v;
+    dst += stride;
+  }
+};
+
+struct RowLimbs4 {
+  int32_t* dst;
+  uint32_t b0 = 0, b1 = 0, b2 = 0;
+  int n = 0;  // limbs held
+  MSM_HDM void operator()(uint32_t v) {
+    if (n == 3) {
+#ifdef __CUDA_ARCH__
+      *reinterpret_cast<int4*>(dst) = make_int4((int)b0, (int)b1, (int)b2, (int)v);
+#else
+      dst[0] = (int32_t)b0, dst[1] = (int32_t)b1, dst[2] = (int32_t)b2, dst[3] = (int32_t)v;
+#endif
+      dst += 4;
+    }
+    b0 = n == 0 ? v : b0;
+    b1 = n == 1 ? v : b1;
+    b2 = n == 2 ? v : b2;
+    n = (n + 1) & 3;
+  }
+  MSM_HDM void pad() {
+    while (n) (*this)(0u);
+  }
+};
+
+// Canonical words -> L W-bit limbs at dst[j stride].
+template <class F, class T>
+MSM_HD void rt_scatter(T* dst, int64_t stride, const fe32t<F>& a) {
+  StridedLimbs<T> sink{dst, stride};
+  rt_scatter(sink, a);
+}
+
+// Balanced limbs at src[j stride] -> canonical (the narrow build's
+// fe32_from_balanced): U < 2^(BALANCED_TOP + 1) p reduced by conditional
+// subtracts of p 2^s, s = BALANCED_TOP .. 0 (a run-time count), skipped
+// when U < p; then c times R mod p.
+template <class F, class T>
+MSM_HD void fe32_load_balanced_rt(fe32t<F>& out, const T* src, int64_t stride) {
+  constexpr int NW = F::NW;
+  uint32_t u[NW + 1];
+  int64_t c;
+  rt_gather<F>(u, c, src, stride);
+  uint32_t below_p = 0;  // the borrow of U - p
+  MSM_UNROLL
+  for (int i = 0; i <= NW; ++i)
+    below_p = hi32((uint64_t)u[i] - p_shl_word<F>(i, 0) - below_p) & 1u;
+  if (!below_p) {
+    for (int s = balanced_top<F>(); s >= 0; --s) {  // U -= p << s when U >= p << s
+      uint32_t d[NW + 1];
+      uint32_t borrow = 0;
+      MSM_UNROLL
+      for (int i = 0; i <= NW; ++i) {
+        const uint64_t t = (uint64_t)u[i] - p_shl_word<F>(i, s) - borrow;
+        d[i] = lo32(t);
+        borrow = hi32(t) & 1u;
+      }
+      const uint32_t keep = 0u - borrow;
+      MSM_UNROLL
+      for (int i = 0; i <= NW; ++i) u[i] = (u[i] & keep) | (d[i] & ~keep);
+    }
+  }
+  MSM_UNROLL
+  for (int i = 0; i < NW; ++i) out.w[i] = u[i];
+  fe32t<F> rm;
+  fe32_mont_one(rm);
+  for (; c < 0; ++c) fe32_sub(out, out, rm);
+  for (; c > 0; --c) fe32_add(out, out, rm);
+}
+
+// Canonical limbs at src[j stride] -> words (the narrow build's load).
+template <class F, class T>
+MSM_HD void fe32_load_limbs_rt(fe32t<F>& out, const T* src, int64_t stride) {
+  uint32_t u[F::NW + 1];
+  int64_t c;
+  rt_gather<F>(u, c, src, stride);
+  MSM_UNROLL
+  for (int i = 0; i < F::NW; ++i) out.w[i] = u[i];
+}
+
 // Words 0 .. N - 1 of the value held in L W-bit limbs (limbs below 2^W).
 template <int W, int N, int L>
 MSM_HD void limbs_to_words(uint32_t (&out)[N], const uint32_t (&v)[L]) {
@@ -384,16 +561,20 @@ MSM_HD void fe32_from_limbs(fe32t<F>& out, const uint32_t (&v)[F::L]) {
 // Words -> canonical F::W-bit limbs v[0 .. L).
 template <class F>
 MSM_HD void fe32_to_limbs(uint32_t* v, const fe32t<F>& a) {
-  constexpr int W = F::W;
-  MSM_UNROLL
-  for (int j = 0; j < F::L; ++j) {
-    const int lo = W * j, k = lo / 32, s = lo % 32;
-    uint32_t x = 0;
-    if (k < F::NW) {
-      x = a.w[k] >> s;
-      if (s + W > 32 && k + 1 < F::NW) x |= a.w[k + 1] << (32 - s);
+  if constexpr (F::RT) {
+    rt_scatter(v, 1, a);
+  } else {
+    constexpr int W = F::W;
+    MSM_UNROLL
+    for (int j = 0; j < F::L; ++j) {
+      const int lo = W * j, k = lo / 32, s = lo % 32;
+      uint32_t x = 0;
+      if (k < F::NW) {
+        x = a.w[k] >> s;
+        if (s + W > 32 && k + 1 < F::NW) x |= a.w[k + 1] << (32 - s);
+      }
+      v[j] = x & F::MASK;
     }
-    v[j] = x & F::MASK;
   }
 }
 
@@ -412,73 +593,89 @@ MSM_HD void fe32_load_dense(fe32t<F>& out, const int32_t* w) {
 // (U < p, as every kernel writes them) skip the subtracts.
 template <class F>
 MSM_HD void fe32_from_balanced(fe32t<F>& out, const int32_t* in) {
-  constexpr int NW = F::NW, L = F::L;
-  uint32_t v[L];
-  int64_t c = 0;
-  MSM_UNROLL
-  for (int j = 0; j < L; ++j) {
-    const int64_t s = (int64_t)in[j] + c;
-    v[j] = (uint32_t)(s & F::MASK);
-    c = s >> F::W;  // arithmetic shift: floor division
-  }
-  uint32_t u[NW + 1];  // U in words: W L bits
-  limbs_to_words<F::W>(u, v);
-  uint32_t below_p = 0;  // the borrow of U - p
-  MSM_UNROLL
-  for (int i = 0; i <= NW; ++i)
-    below_p = hi32((uint64_t)u[i] - p_shl_word<F>(i, 0) - below_p) & 1u;
-  if (!below_p) {
+  if constexpr (F::RT) {
+    fe32_load_balanced_rt(out, in, 1);
+  } else {
+    constexpr int NW = F::NW, L = F::L;
+    uint32_t v[L];
+    int64_t c = 0;
     MSM_UNROLL
-    for (int s = F::BALANCED_TOP; s >= 0; --s) {  // U -= p << s when U >= p << s
-      uint32_t d[NW + 1];
-      uint32_t borrow = 0;
-      MSM_UNROLL
-      for (int i = 0; i <= NW; ++i) {
-        const uint64_t t = (uint64_t)u[i] - p_shl_word<F>(i, s) - borrow;
-        d[i] = lo32(t);
-        borrow = hi32(t) & 1u;
-      }
-      const uint32_t keep = 0u - borrow;
-      MSM_UNROLL
-      for (int i = 0; i <= NW; ++i) u[i] = (u[i] & keep) | (d[i] & ~keep);
+    for (int j = 0; j < L; ++j) {
+      const int64_t s = (int64_t)in[j] + c;
+      v[j] = (uint32_t)(s & F::MASK);
+      c = s >> F::W;  // arithmetic shift: floor division
     }
+    uint32_t u[NW + 1];  // U in words: W L bits
+    limbs_to_words<F::W>(u, v);
+    uint32_t below_p = 0;  // the borrow of U - p
+    MSM_UNROLL
+    for (int i = 0; i <= NW; ++i)
+      below_p = hi32((uint64_t)u[i] - p_shl_word<F>(i, 0) - below_p) & 1u;
+    if (!below_p) {
+      MSM_UNROLL
+      for (int s = F::BALANCED_TOP; s >= 0; --s) {  // U -= p << s when U >= p << s
+        uint32_t d[NW + 1];
+        uint32_t borrow = 0;
+        MSM_UNROLL
+        for (int i = 0; i <= NW; ++i) {
+          const uint64_t t = (uint64_t)u[i] - p_shl_word<F>(i, s) - borrow;
+          d[i] = lo32(t);
+          borrow = hi32(t) & 1u;
+        }
+        const uint32_t keep = 0u - borrow;
+        MSM_UNROLL
+        for (int i = 0; i <= NW; ++i) u[i] = (u[i] & keep) | (d[i] & ~keep);
+      }
+    }
+    MSM_UNROLL
+    for (int i = 0; i < NW; ++i) out.w[i] = u[i];
+    fe32t<F> rm;
+    fe32_mont_one(rm);
+    for (; c < 0; ++c) fe32_sub(out, out, rm);
+    for (; c > 0; --c) fe32_add(out, out, rm);
   }
-  MSM_UNROLL
-  for (int i = 0; i < NW; ++i) out.w[i] = u[i];
-  fe32t<F> rm;
-  fe32_mont_one(rm);
-  for (; c < 0; ++c) fe32_sub(out, out, rm);
-  for (; c > 0; --c) fe32_add(out, out, rm);
 }
 
 // Limb i of a value stored limbs-first at dst[i * stride].
 template <class F>
 MSM_HD void fe32_store_limbs_strided(int32_t* dst, int64_t stride,
                                      const fe32t<F>& a) {
-  uint32_t v[F::L];
-  fe32_to_limbs(v, a);
-  MSM_UNROLL
-  for (int i = 0; i < F::L; ++i) dst[i * stride] = (int32_t)v[i];
+  if constexpr (F::RT) {
+    rt_scatter(dst, stride, a);
+  } else {
+    uint32_t v[F::L];
+    fe32_to_limbs(v, a);
+    MSM_UNROLL
+    for (int i = 0; i < F::L; ++i) dst[i * stride] = (int32_t)v[i];
+  }
 }
 
 // Canonical W-bit limbs stored limbs-first at src[i * stride] -> words.
 template <class F>
 MSM_HD void fe32_load_limbs_strided(fe32t<F>& out, const int32_t* src,
                                     int64_t stride) {
-  uint32_t v[F::L];
-  MSM_UNROLL
-  for (int i = 0; i < F::L; ++i) v[i] = (uint32_t)src[i * stride];
-  fe32_from_limbs(out, v);
+  if constexpr (F::RT) {
+    fe32_load_limbs_rt(out, src, stride);
+  } else {
+    uint32_t v[F::L];
+    MSM_UNROLL
+    for (int i = 0; i < F::L; ++i) v[i] = (uint32_t)src[i * stride];
+    fe32_from_limbs(out, v);
+  }
 }
 
 // Balanced limbs stored limbs-first at src[i * stride] -> canonical words.
 template <class F>
 MSM_HD void fe32_load_balanced_strided(fe32t<F>& out, const int32_t* src,
                                        int64_t stride) {
-  int32_t v[F::L];
-  MSM_UNROLL
-  for (int i = 0; i < F::L; ++i) v[i] = src[i * stride];
-  fe32_from_balanced(out, v);
+  if constexpr (F::RT) {
+    fe32_load_balanced_rt(out, src, stride);
+  } else {
+    int32_t v[F::L];
+    MSM_UNROLL
+    for (int i = 0; i < F::L; ++i) v[i] = src[i * stride];
+    fe32_from_balanced(out, v);
+  }
 }
 
 // ---- rows of int32 in device memory ----
@@ -487,6 +684,18 @@ MSM_HD void fe32_load_balanced_strided(fe32t<F>& out, const int32_t* src,
 // int32: the widest vector that N words split into.
 template <int N>
 constexpr int row_align = N % 4 == 0 ? 16 : N % 2 == 0 ? 8 : 4;
+
+// Whether an address (the OR of a launch's row pointers) is as aligned as
+// the kernels' row loads and stores need: row_align<L> in the default
+// build, a word in the narrow one (a load or store a limb).
+template <class F>
+inline bool rows_aligned(uintptr_t addr) {
+  if constexpr (F::RT) {
+    return addr % 4 == 0;
+  } else {
+    return addr % row_align<F::L> == 0;
+  }
+}
 
 // A row of N int32 (row_align<N> aligned); on the device in 16-byte (or
 // 8-byte, or 4-byte) loads through the read-only cache.
@@ -549,8 +758,10 @@ MSM_HD void row_store(int32_t* dst, const uint32_t (&v)[N]) {
 
 using fe32 = fe32t<FpBn254>;
 constexpr int NW = FpBn254::NW;
+#if !MSM_NARROW
 static_assert(FpBn254::W != W || FpBn254::L == L,
               "the 13-bit core's limb count is BN254's at 13-bit limbs");
+#endif
 
 MSM_HD uint32_t p_word(int i) { return FpBn254::p(i); }
 

@@ -3,11 +3,18 @@
 // built on it. Every constant here is derived from msm_tpu_torch/params.py
 // (tests/test_torch_fields_consts.py checks each one against it).
 //
-// The limb width W of the kernel boundaries is one per build:
-// MSM_LIMB_BITS, 13 unless the compile defines 12 (ops/_build.py builds one
-// library per width, the same sources under the same names). Each traits
-// type holds a table per width; the constants that do not depend on it
-// stand before the tables.
+// The limb width W of the kernel boundaries is one per build
+// (ops/_build.py builds two libraries, the same sources under the same
+// names): MSM_LIMB_BITS 13 (the default) selects each traits type's 13-bit
+// table, compile-time constants; MSM_LIMB_BITS 0 (the narrow library,
+// widths 8 to 12) takes the width at run time: W, L, TAIL, N0T, MASK,
+// BALANCED_TOP, r, r2 and beta_r2 come from the launch's width block
+// (widths.cuh, one row per curve and width, generated from params.py),
+// which each launch makes its curve's block in constant memory
+// (dispatch.cuh WidthScope). F::RT says which; fe32.cuh and the kernels
+// read the width's constants through limb_bits<F>() ... balanced_top<F>()
+// below, and size no array by L in the narrow build. The constants that do
+// not depend on the width stand before the tables.
 //
 //   NW      32-bit words per element: ceil(modulus bits / 32), the dense
 //           coordinate width of the packed table (params coord_words)
@@ -51,8 +58,48 @@
 #ifndef MSM_LIMB_BITS
 #define MSM_LIMB_BITS 13
 #endif
-#if MSM_LIMB_BITS != 13 && MSM_LIMB_BITS != 12
-#error "fields.cuh holds traits tables for 13- and 12-bit limbs only"
+#if MSM_LIMB_BITS != 13 && MSM_LIMB_BITS != 0
+#error "MSM_LIMB_BITS is 13 (the default library) or 0 (the narrow library)"
+#endif
+#define MSM_NARROW (MSM_LIMB_BITS == 0)
+
+#if MSM_NARROW
+#include "widths.cuh"
+
+namespace msm {
+
+// The width block of each curve's launches: on the device the translation
+// unit's copy in constant memory, which a launch fills (dispatch.cuh
+// WidthScope) and every thread reads as an operand; on the host (the g++
+// tests) a plain copy the caller fills (use_width_on_host).
+#ifdef __CUDACC__
+static __constant__ WidthBlock width_dev[WIDTH_CURVES];
+#endif
+static WidthBlock width_host[WIDTH_CURVES];
+
+MSM_HD const WidthBlock& width_block(int id) {
+#ifdef __CUDA_ARCH__
+  return width_dev[id];
+#else
+  return width_host[id];
+#endif
+}
+
+// The host copy of curve `id`'s block at `width` (8 .. 13): 0, or -1 for
+// a width the table lacks.
+static inline int use_width_on_host(int id, int width) {
+  if (id < 0 || id >= WIDTH_CURVES || width < WIDTH_MIN || width > WIDTH_MAX) return -1;
+  width_host[id] = WIDTH_BLOCKS[id][width - WIDTH_MIN];
+  return 0;
+}
+
+}  // namespace msm
+
+// A traits type's width-dependent members in the narrow build.
+#define MSM_WIDTH_AT_RUN_TIME                                                   \
+  MSM_HDM static uint32_t r(int i) { return width_block(ID).r[i]; }             \
+  MSM_HDM static uint32_t r2(int i) { return width_block(ID).r2[i]; }           \
+  MSM_HDM static uint32_t beta_r2(int i) { return width_block(ID).beta_r2[i]; }
 #endif
 
 namespace msm {
@@ -65,6 +112,7 @@ struct FpBn254 {
   static constexpr bool CARRY = false;
   static constexpr int REDUCE_TOP = 2;
   static constexpr int BLOCKS_PER_SM = MSM_BLOCKS_NW8;
+  static constexpr bool RT = MSM_NARROW;
   // the modulus
   MSM_HDM static uint32_t p(int i) {
     const uint32_t t[NW] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
@@ -92,27 +140,8 @@ struct FpBn254 {
                             0x717abf22u, 0x928de493u, 0x1de5790cu, 0x18ab8c66u};
     return t[i];
   }
-#elif MSM_LIMB_BITS == 12  // R = 2^264
-  static constexpr int W = 12, L = 22, TAIL = 8, BALANCED_TOP = 10;
-  static constexpr uint32_t MASK = 0xfffu, N0T = 0x89u;
-  // R mod p: the Montgomery form of 1
-  MSM_HDM static uint32_t r(int i) {
-    const uint32_t t[NW] = {0xfaec667au, 0xfbdb0f2au, 0x9626b0ffu, 0xad825aedu,
-                            0x09e2a0fcu, 0x276f48b7u, 0xef86e357u, 0x0d791464u};
-    return t[i];
-  }
-  // R^2 mod p: a product by it enters Montgomery form
-  MSM_HDM static uint32_t r2(int i) {
-    const uint32_t t[NW] = {0xe41099bfu, 0x7daa0430u, 0x910d9260u, 0x59477c57u,
-                            0x7cbf907du, 0x3bf265d5u, 0xd8f000c9u, 0x1edcc85eu};
-    return t[i];
-  }
-  // beta R^2 mod p: a product by it takes x to beta x R
-  MSM_HDM static uint32_t beta_r2(int i) {
-    const uint32_t t[NW] = {0xa6e6aef2u, 0x17f6272bu, 0x48824765u, 0xb01bd9a2u,
-                            0xb7104323u, 0xf5212cc3u, 0x8a45b762u, 0x189c8fc7u};
-    return t[i];
-  }
+#else
+  MSM_WIDTH_AT_RUN_TIME
 #endif
 };
 
@@ -124,6 +153,7 @@ struct FpBls12_377 {
   static constexpr bool CARRY = false;
   static constexpr int REDUCE_TOP = 7;
   static constexpr int BLOCKS_PER_SM = MSM_BLOCKS_NW12;
+  static constexpr bool RT = MSM_NARROW;
   // the modulus
   MSM_HDM static uint32_t p(int i) {
     const uint32_t t[NW] = {0x00000001u, 0x8508c000u, 0x30000000u, 0x170b5d44u,
@@ -155,30 +185,8 @@ struct FpBls12_377 {
                             0x95796032u, 0x89b36bebu, 0x37f616b1u, 0x012eb58du};
     return t[i];
   }
-#elif MSM_LIMB_BITS == 12  // R = 2^384
-  static constexpr int W = 12, L = 32, TAIL = 0, BALANCED_TOP = 7;
-  static constexpr uint32_t MASK = 0xfffu, N0T = 0x0u;
-  // R mod p: the Montgomery form of 1
-  MSM_HDM static uint32_t r(int i) {
-    const uint32_t t[NW] = {0xffffff68u, 0x02cdffffu, 0x7fffffb1u, 0x51409f83u,
-                            0x8a7d3ff2u, 0x9f7db3a9u, 0x6e7c6305u, 0x7b4e97b7u,
-                            0x803c84e8u, 0x4cf495bfu, 0xe2fdf49au, 0x008d6661u};
-    return t[i];
-  }
-  // R^2 mod p: a product by it enters Montgomery form
-  MSM_HDM static uint32_t r2(int i) {
-    const uint32_t t[NW] = {0x9400cd22u, 0xb786686cu, 0xb00431b1u, 0x0329fcaau,
-                            0x62d6b46du, 0x22a5f111u, 0x827dc3acu, 0xbfdf7d03u,
-                            0x41790bf9u, 0x837e92f0u, 0x1e914b88u, 0x006dfccbu};
-    return t[i];
-  }
-  // beta R^2 mod p: a product by it takes x to beta x R
-  MSM_HDM static uint32_t beta_r2(int i) {
-    const uint32_t t[NW] = {0xeab976e5u, 0x7d19f056u, 0xdae5b275u, 0xfb947e11u,
-                            0x0ffc0503u, 0xdc31c77au, 0xcc64a27cu, 0x212828cau,
-                            0x1addae43u, 0x03d427b5u, 0x79bb9496u, 0x002051e9u};
-    return t[i];
-  }
+#else
+  MSM_WIDTH_AT_RUN_TIME
 #endif
 };
 
@@ -190,6 +198,7 @@ struct FpPallas {
   static constexpr bool CARRY = false;
   static constexpr int REDUCE_TOP = 1;
   static constexpr int BLOCKS_PER_SM = MSM_BLOCKS_NW8;
+  static constexpr bool RT = MSM_NARROW;
   // the modulus
   MSM_HDM static uint32_t p(int i) {
     const uint32_t t[NW] = {0x00000001u, 0x992d30edu, 0x094cf91bu, 0x224698fcu,
@@ -217,27 +226,8 @@ struct FpPallas {
                             0x023676a2u, 0x0cf9bce7u, 0x9f6b31b3u, 0x3f24de89u};
     return t[i];
   }
-#elif MSM_LIMB_BITS == 12  // R = 2^264
-  static constexpr int W = 12, L = 22, TAIL = 8, BALANCED_TOP = 9;
-  static constexpr uint32_t MASK = 0xfffu, N0T = 0xffu;
-  // R mod p: the Montgomery form of 1
-  MSM_HDM static uint32_t r(int i) {
-    const uint32_t t[NW] = {0xfffffc01u, 0xe4697cecu, 0xd5688ab6u, 0x07e2a8d6u,
-                            0xffffff77u, 0xffffffffu, 0xffffffffu, 0x3fffffffu};
-    return t[i];
-  }
-  // R^2 mod p: a product by it enters Montgomery form
-  MSM_HDM static uint32_t r2(int i) {
-    const uint32_t t[NW] = {0x000eda4bu, 0x17ad276fu, 0x2d7a6ed2u, 0x9db6f383u,
-                            0x5d18d2c6u, 0xa99bc3c9u, 0xb7147797u, 0x01af7b9cu};
-    return t[i];
-  }
-  // beta R^2 mod p: a product by it takes x to beta x R
-  MSM_HDM static uint32_t beta_r2(int i) {
-    const uint32_t t[NW] = {0xd225abc9u, 0x74979b55u, 0xef72ced7u, 0xab15094au,
-                            0x6f39c08du, 0xcc6cc33eu, 0x37a267dau, 0x1910bfc9u};
-    return t[i];
-  }
+#else
+  MSM_WIDTH_AT_RUN_TIME
 #endif
 };
 
@@ -249,6 +239,7 @@ struct FpBls12_381 {
   static constexpr bool CARRY = false;
   static constexpr int REDUCE_TOP = 3;
   static constexpr int BLOCKS_PER_SM = MSM_BLOCKS_NW12;
+  static constexpr bool RT = MSM_NARROW;
   // the modulus
   MSM_HDM static uint32_t p(int i) {
     const uint32_t t[NW] = {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
@@ -280,30 +271,8 @@ struct FpBls12_381 {
                             0xe73e0af1u, 0x05c5e90fu, 0x4981a1f8u, 0x022ffb5cu};
     return t[i];
   }
-#elif MSM_LIMB_BITS == 12  // R = 2^396
-  static constexpr int W = 12, L = 33, TAIL = 12, BALANCED_TOP = 15;
-  static constexpr uint32_t MASK = 0xfffu, N0T = 0xffdu;
-  // R mod p: the Montgomery form of 1
-  MSM_HDM static uint32_t r(int i) {
-    const uint32_t t[NW] = {0x3480cb7fu, 0x6f830000u, 0xbe042b12u, 0xd1fccdeau,
-                            0x3c7de4b4u, 0x40d78057u, 0xc66805c5u, 0x6da3d19eu,
-                            0x2746752au, 0x9afe6676u, 0x23205efbu, 0x09772fe1u};
-    return t[i];
-  }
-  // R^2 mod p: a product by it enters Montgomery form
-  MSM_HDM static uint32_t r2(int i) {
-    const uint32_t t[NW] = {0x0399ecd7u, 0x0f973451u, 0x0ac83d84u, 0x9e484666u,
-                            0x90cd6e7bu, 0xa22ad5dcu, 0x73188958u, 0xcb99297cu,
-                            0x3101060eu, 0xf0e875e3u, 0xb98990b2u, 0x0ec92d1du};
-    return t[i];
-  }
-  // beta R^2 mod p: a product by it takes x to beta x R
-  MSM_HDM static uint32_t beta_r2(int i) {
-    const uint32_t t[NW] = {0x51ca5a38u, 0x9d2a9240u, 0xafa4d4dau, 0x18dc23b5u,
-                            0xca780c11u, 0xe04f8701u, 0x01d55f20u, 0x8fc66965u,
-                            0x72fecebau, 0x7167a189u, 0xd641a107u, 0x0e45b1dau};
-    return t[i];
-  }
+#else
+  MSM_WIDTH_AT_RUN_TIME
 #endif
 };
 
@@ -315,6 +284,7 @@ struct FpSecp256k1 {
   static constexpr bool CARRY = true;
   static constexpr int REDUCE_TOP = 0;
   static constexpr int BLOCKS_PER_SM = MSM_BLOCKS_NW8;
+  static constexpr bool RT = MSM_NARROW;
   // the modulus
   MSM_HDM static uint32_t p(int i) {
     const uint32_t t[NW] = {0xfffffc2fu, 0xfffffffeu, 0xffffffffu, 0xffffffffu,
@@ -342,27 +312,8 @@ struct FpSecp256k1 {
                             0x60d2afb9u, 0x1195f61du, 0x0dcf7c5eu, 0xfdfa5bc7u};
     return t[i];
   }
-#elif MSM_LIMB_BITS == 12  // R = 2^264
-  static constexpr int W = 12, L = 22, TAIL = 8, BALANCED_TOP = 8;
-  static constexpr uint32_t MASK = 0xfffu, N0T = 0x31u;
-  // R mod p: the Montgomery form of 1
-  MSM_HDM static uint32_t r(int i) {
-    const uint32_t t[NW] = {0x0003d100u, 0x00000100u, 0x00000000u, 0x00000000u,
-                            0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
-    return t[i];
-  }
-  // R^2 mod p: a product by it enters Montgomery form
-  MSM_HDM static uint32_t r2(int i) {
-    const uint32_t t[NW] = {0x90a10000u, 0x07a2000eu, 0x00010000u, 0x00000000u,
-                            0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
-    return t[i];
-  }
-  // beta R^2 mod p: a product by it takes x to beta x R
-  MSM_HDM static uint32_t beta_r2(int i) {
-    const uint32_t t[NW] = {0xa8b1e805u, 0x469e0393u, 0x534e537eu, 0xabee54cau,
-                            0x7d875834u, 0xdf178465u, 0x96f1c373u, 0xee323f7eu};
-    return t[i];
-  }
+#else
+  MSM_WIDTH_AT_RUN_TIME
 #endif
 };
 
@@ -374,6 +325,7 @@ struct FpGrumpkin {
   static constexpr bool CARRY = false;
   static constexpr int REDUCE_TOP = 2;
   static constexpr int BLOCKS_PER_SM = MSM_BLOCKS_NW8;
+  static constexpr bool RT = MSM_NARROW;
   // the modulus
   MSM_HDM static uint32_t p(int i) {
     const uint32_t t[NW] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
@@ -401,27 +353,8 @@ struct FpGrumpkin {
                             0xd6144bc4u, 0x33399c79u, 0x00eba42eu, 0x2e7d19b8u};
     return t[i];
   }
-#elif MSM_LIMB_BITS == 12  // R = 2^264
-  static constexpr int W = 12, L = 22, TAIL = 8, BALANCED_TOP = 10;
-  static constexpr uint32_t MASK = 0xfffu, N0T = 0xffu;
-  // R mod p: the Montgomery form of 1
-  MSM_HDM static uint32_t r(int i) {
-    const uint32_t t[NW] = {0x9ffffab6u, 0xf6e31f8cu, 0x31329faeu, 0x5d7570acu,
-                            0x09e2a349u, 0x276f48b7u, 0xef86e357u, 0x0d791464u};
-    return t[i];
-  }
-  // R^2 mod p: a product by it enters Montgomery form
-  MSM_HDM static uint32_t r2(int i) {
-    const uint32_t t[NW] = {0x3da6f4f3u, 0xbe3eda4eu, 0x33a2266du, 0xf513fa73u,
-                            0x5e27d688u, 0xb42af1e6u, 0xb33e9f3fu, 0x0c3a93cbu};
-    return t[i];
-  }
-  // beta R^2 mod p: a product by it takes x to beta x R
-  MSM_HDM static uint32_t beta_r2(int i) {
-    const uint32_t t[NW] = {0x5d62e60bu, 0xfac2ccfbu, 0x2c255b12u, 0x611ae1e6u,
-                            0x238233b5u, 0xd4c9c22cu, 0x6725e645u, 0x2d1aa40fu};
-    return t[i];
-  }
+#else
+  MSM_WIDTH_AT_RUN_TIME
 #endif
 };
 
@@ -433,6 +366,7 @@ struct FpVesta {
   static constexpr bool CARRY = false;
   static constexpr int REDUCE_TOP = 1;
   static constexpr int BLOCKS_PER_SM = MSM_BLOCKS_NW8;
+  static constexpr bool RT = MSM_NARROW;
   // the modulus
   MSM_HDM static uint32_t p(int i) {
     const uint32_t t[NW] = {0x00000001u, 0x8c46eb21u, 0x0994a8ddu, 0x224698fcu,
@@ -460,28 +394,30 @@ struct FpVesta {
                             0xccad3091u, 0xda52e4d2u, 0x060b9975u, 0x3707c648u};
     return t[i];
   }
-#elif MSM_LIMB_BITS == 12  // R = 2^264
-  static constexpr int W = 12, L = 22, TAIL = 8, BALANCED_TOP = 9;
-  static constexpr uint32_t MASK = 0xfffu, N0T = 0xffu;
-  // R mod p: the Montgomery form of 1
-  MSM_HDM static uint32_t r(int i) {
-    const uint32_t t[NW] = {0xfffffc01u, 0x709a6720u, 0xb6f132acu, 0x07e2a8d5u,
-                            0xffffff77u, 0xffffffffu, 0xffffffffu, 0x3fffffffu};
-    return t[i];
-  }
-  // R^2 mod p: a product by it enters Montgomery form
-  MSM_HDM static uint32_t r2(int i) {
-    const uint32_t t[NW] = {0x000eda4bu, 0x0adefcabu, 0xd46092acu, 0xd336f184u,
-                            0xf59062aeu, 0x231004ccu, 0xdaa97faeu, 0x01af7ccfu};
-    return t[i];
-  }
-  // beta R^2 mod p: a product by it takes x to beta x R
-  MSM_HDM static uint32_t beta_r2(int i) {
-    const uint32_t t[NW] = {0xffaa4510u, 0xa964a518u, 0x0354611du, 0x6b708c58u,
-                            0xb934b32bu, 0xe65d7694u, 0xf1920182u, 0x3a706dc1u};
-    return t[i];
-  }
+#else
+  MSM_WIDTH_AT_RUN_TIME
 #endif
 };
+
+// ---- the width's constants as values ----
+//
+// limb_bits (W), limb_count (L), limb_mask (MASK), tail_bits (TAIL),
+// tail_n0 (N0T) and balanced_top (BALANCED_TOP): compile-time in the
+// default build, the launch's width block in the narrow one.
+#if MSM_NARROW
+template <class F> MSM_HD int limb_bits() { return width_block(F::ID).W; }
+template <class F> MSM_HD int limb_count() { return width_block(F::ID).L; }
+template <class F> MSM_HD uint32_t limb_mask() { return width_block(F::ID).MASK; }
+template <class F> MSM_HD int tail_bits() { return width_block(F::ID).TAIL; }
+template <class F> MSM_HD uint32_t tail_n0() { return width_block(F::ID).N0T; }
+template <class F> MSM_HD int balanced_top() { return width_block(F::ID).BALANCED_TOP; }
+#else
+template <class F> MSM_HD constexpr int limb_bits() { return F::W; }
+template <class F> MSM_HD constexpr int limb_count() { return F::L; }
+template <class F> MSM_HD constexpr uint32_t limb_mask() { return F::MASK; }
+template <class F> MSM_HD constexpr int tail_bits() { return F::TAIL; }
+template <class F> MSM_HD constexpr uint32_t tail_n0() { return F::N0T; }
+template <class F> MSM_HD constexpr int balanced_top() { return F::BALANCED_TOP; }
+#endif
 
 }  // namespace msm

@@ -38,7 +38,7 @@ MSM_EXTERN_OTHER_FIELDS(HornerLaunch)
 extern "C" int msm_horner(const int32_t* wx, const int32_t* wy,
                           const int32_t* wz, int32_t* ox, int32_t* oy,
                           int32_t* oz, int64_t groups, int S, int chunk,
-                          int curve, void* stream) {
+                          int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, HornerLaunch, (wx, wy, wz, ox, oy, oz, groups, S,
-                                         chunk, (cudaStream_t)stream))
+                                         chunk, width, (cudaStream_t)stream))
 }

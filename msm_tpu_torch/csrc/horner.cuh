@@ -14,7 +14,7 @@ namespace msm {
 template <class F>
 MSM_HD void horner_load(pt32t<F>& p, const int32_t* wx, const int32_t* wy,
                         const int32_t* wz, int s) {
-  const int64_t o = (int64_t)s * F::L;
+  const int64_t o = (int64_t)s * limb_count<F>();
   pt32_load_balanced(p, wx + o, wy + o, wz + o);
 }
 

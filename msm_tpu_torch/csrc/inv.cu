@@ -43,10 +43,10 @@ MSM_EXTERN_OTHER_FIELDS(PowLaunch)
 // significant first, covering nbits bits.
 extern "C" int msm_mont_pow(const int32_t* a, int32_t* out,
                             const uint32_t* e_words, int nbits, int64_t batch,
-                            int R, int curve, void* stream) {
+                            int R, int curve, int width, void* stream) {
   if (nbits < 0 || nbits > 32 * POW_EXP_WORDS) return (int)cudaErrorInvalidValue;
   pow_exp_words e = {};
   for (int i = 0; i < (nbits + 31) / 32; ++i) e.w[i] = e_words[i];
   MSM_FIELD_SWITCH(curve, PowLaunch,
-                   (a, out, e, nbits, batch, R, (cudaStream_t)stream))
+                   (a, out, e, nbits, batch, R, width, (cudaStream_t)stream))
 }

@@ -42,19 +42,22 @@ struct BprLaunch {
   static int run(const int32_t* bx, const int32_t* by, const int32_t* bz,
                  int32_t* mx, int32_t* my, int32_t* mz, int32_t* gx,
                  int32_t* gy, int32_t* gz, int64_t groups, int Bl, int T,
-                 cudaStream_t st);
+                 int width, cudaStream_t st);
 };
 
-// b* [G, Bl, T, L]; m*, g* [G, T, L]; every pointer row_align<L> aligned
+// b* [G, Bl, T, L]; m*, g* [G, T, L]; every pointer rows_aligned<F>
+// (row_align<L>; a word in the narrow build)
 template <class F>
 int BprLaunch<F>::run(const int32_t* bx, const int32_t* by, const int32_t* bz,
                       int32_t* mx, int32_t* my, int32_t* mz, int32_t* gx,
                       int32_t* gy, int32_t* gz, int64_t groups, int Bl, int T,
-                      cudaStream_t st) {
+                      int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   const uintptr_t addr = (uintptr_t)bx | (uintptr_t)by | (uintptr_t)bz |
                          (uintptr_t)mx | (uintptr_t)my | (uintptr_t)mz |
                          (uintptr_t)gx | (uintptr_t)gy | (uintptr_t)gz;
-  if (addr % row_align<F::L>) return (int)cudaErrorInvalidValue;
+  if (!rows_aligned<F>(addr)) return (int)cudaErrorInvalidValue;
   if (groups > 0 && Bl > 0 && T > 0) {
     const dim3 grid((unsigned)((T + BPR_CHAINS - 1) / BPR_CHAINS),
                     (unsigned)groups);
@@ -81,7 +84,7 @@ template <class F>
 struct ConvertScaledLaunch {
   static int run(const int16_t* xw, const int16_t* yw, const uint32_t* xs,
                  const uint32_t* xs2, int32_t* out, int32_t* out2, int64_t n,
-                 int layout, cudaStream_t st);
+                 int layout, int width, cudaStream_t st);
 };
 
 // xw, yw [n, 2 NW] int16 (u16 bits); xs, xs2: HOST pointers to the x
@@ -93,7 +96,9 @@ template <class F>
 int ConvertScaledLaunch<F>::run(const int16_t* xw, const int16_t* yw,
                                 const uint32_t* xs, const uint32_t* xs2,
                                 int32_t* out, int32_t* out2, int64_t n,
-                                int layout, cudaStream_t st) {
+                                int layout, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   const bool two = layout == CONVERT_DUAL;
   if (layout < CONVERT_ONE || layout > CONVERT_TRIPLE || !xs ||
       (layout != CONVERT_ONE && !xs2) || (two && !out2))

@@ -203,7 +203,7 @@ MSM_HD void pair_chain32_lane(const int32_t* packed, const int32_t* perm,
                               const int32_t* flags, int32_t* out, int64_t g,
                               int Cp, int R, int r) {
   const int64_t pair_step = 2 * (int64_t)R;   // perm/flags: one pair further
-  const int64_t out_step = (int64_t)F::L * R;  // out: one pair further
+  const int64_t out_step = (int64_t)limb_count<F>() * R;  // out: one pair further
   const int first = FORWARD ? 0 : Cp - 1;
   // step 2j and product j of the first pair (j = first)
   int64_t e = FORWARD ? g * 2 * Cp * (int64_t)R + r
@@ -240,9 +240,11 @@ MSM_HD void pair_backward32_lane(const int32_t* packed, const int32_t* perm,
                                  const int32_t* minv, int32_t* cx,
                                  int32_t* cy, int32_t* inf, int64_t g, int Cp,
                                  int R, int r) {
-  const int64_t c_step = (int64_t)F::L * R;  // m, cx, cy: one pair further
+  const int64_t c_step = (int64_t)limb_count<F>() * R;  // m, cx, cy: one pair further
   fe32t<F> run;
-  {
+  if constexpr (F::RT) {
+    fe32_load_balanced_rt(run, minv + g * c_step + r, R);
+  } else {
     int32_t v[F::L];
     const int64_t lane = g * c_step + r;
     MSM_UNROLL

@@ -36,7 +36,7 @@ template <class F>
 __global__ void __launch_bounds__(POW_THREADS)
     k_mont_pow(const int32_t* __restrict__ a, int32_t* __restrict__ out,
                const pow_exp_words e, int nbits, int R) {
-  constexpr int L = F::L, TABLE_WORDS = POW_TABLE * F::NW * POW_THREADS;
+  constexpr int TABLE_WORDS = POW_TABLE * F::NW * POW_THREADS;
   __shared__ uint32_t ew[POW_EXP_WORDS];
   __shared__ uint32_t tab[TABLE_WORDS];
   if (threadIdx.x == 0) {
@@ -46,12 +46,16 @@ __global__ void __launch_bounds__(POW_THREADS)
   __syncthreads();
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const int64_t o = (int64_t)blockIdx.y * L * R + r;
-  int32_t v[L];
-  MSM_UNROLL
-  for (int i = 0; i < L; ++i) v[i] = a[o + i * (int64_t)R];
+  const int64_t o = (int64_t)blockIdx.y * limb_count<F>() * R + r;
   fe32t<F> x, y;
-  fe32_from_balanced(x, v);
+  if constexpr (F::RT) {
+    fe32_load_balanced_rt(x, a + o, R);
+  } else {
+    int32_t v[F::L];
+    MSM_UNROLL
+    for (int i = 0; i < F::L; ++i) v[i] = a[o + i * (int64_t)R];
+    fe32_from_balanced(x, v);
+  }
   pow32_window(y, x, ew, nbits, tab + threadIdx.x, POW_THREADS);
   fe32_store_limbs_strided(out + o, R, y);
 }
@@ -59,13 +63,15 @@ __global__ void __launch_bounds__(POW_THREADS)
 template <class F>
 struct PowLaunch {
   static int run(const int32_t* a, int32_t* out, const pow_exp_words& e,
-                 int nbits, int64_t batch, int R, cudaStream_t st);
+                 int nbits, int64_t batch, int R, int width, cudaStream_t st);
 };
 
 // a, out [B, L, R] (limbs-first; a balanced, out canonical)
 template <class F>
 int PowLaunch<F>::run(const int32_t* a, int32_t* out, const pow_exp_words& e,
-                      int nbits, int64_t batch, int R, cudaStream_t st) {
+                      int nbits, int64_t batch, int R, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (batch > 0 && R > 0) {
     const dim3 grid((unsigned)((R + POW_THREADS - 1) / POW_THREADS),
                     (unsigned)batch);
@@ -147,7 +153,7 @@ template <class F>
 struct PairSuffixLaunch {
   static int run(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, int32_t* s, int64_t groups, int Cp,
-                 int R, int coords, cudaStream_t st);
+                 int R, int coords, int width, cudaStream_t st);
 };
 
 // packed [N, coords NW] 16-byte aligned; perm, flags [G, 2 Cp, R];
@@ -155,7 +161,9 @@ struct PairSuffixLaunch {
 template <class F>
 int PairSuffixLaunch<F>::run(const int32_t* packed, const int32_t* perm,
                              const int32_t* flags, int32_t* s, int64_t groups,
-                             int Cp, int R, int coords, cudaStream_t st) {
+                             int Cp, int R, int coords, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if ((uintptr_t)packed % 16 || (coords != 2 && coords != 3))
     return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0) {
@@ -175,7 +183,7 @@ struct EmitScanLaunch {
   static int run(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, const int32_t* s, const int32_t* t0,
                  int32_t* pe3, int32_t* tx, int32_t* ty, int32_t* tz,
-                 int64_t groups, int Cp, int R, int coords, cudaStream_t st);
+                 int64_t groups, int Cp, int R, int coords, int width, cudaStream_t st);
 };
 
 // ... s [G, Cp, L, R] canonical; t0 [G, L, R]; pe3 [G, Cp, R, pe3_row<F>];
@@ -185,7 +193,9 @@ int EmitScanLaunch<F>::run(const int32_t* packed, const int32_t* perm,
                            const int32_t* flags, const int32_t* s,
                            const int32_t* t0, int32_t* pe3, int32_t* tx,
                            int32_t* ty, int32_t* tz, int64_t groups, int Cp,
-                           int R, int coords, cudaStream_t st) {
+                           int R, int coords, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (((uintptr_t)packed | (uintptr_t)pe3) % 16 || (coords != 2 && coords != 3))
     return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0) {
@@ -258,7 +268,7 @@ template <class F>
 struct PairForwardLaunch {
   static int run(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, int32_t* m, int64_t groups, int Cp,
-                 int R, int coords, cudaStream_t st);
+                 int R, int coords, int width, cudaStream_t st);
 };
 
 // packed [N, coords NW] 16-byte aligned; perm, flags [G, 2 Cp, R];
@@ -266,7 +276,9 @@ struct PairForwardLaunch {
 template <class F>
 int PairForwardLaunch<F>::run(const int32_t* packed, const int32_t* perm,
                               const int32_t* flags, int32_t* m, int64_t groups,
-                              int Cp, int R, int coords, cudaStream_t st) {
+                              int Cp, int R, int coords, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if ((uintptr_t)packed % 16 || (coords != 2 && coords != 3))
     return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0) {
@@ -286,7 +298,7 @@ struct PairBackwardLaunch {
   static int run(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, const int32_t* m, const int32_t* minv,
                  int32_t* cx, int32_t* cy, int32_t* inf, int64_t groups,
-                 int Cp, int R, int coords, cudaStream_t st);
+                 int Cp, int R, int coords, int width, cudaStream_t st);
 };
 
 // ... m [G, Cp, L, R] canonical; minv [G, L, R]; cx, cy [G, Cp, L, R];
@@ -296,7 +308,9 @@ int PairBackwardLaunch<F>::run(const int32_t* packed, const int32_t* perm,
                                const int32_t* flags, const int32_t* m,
                                const int32_t* minv, int32_t* cx, int32_t* cy,
                                int32_t* inf, int64_t groups, int Cp, int R,
-                               int coords, cudaStream_t st) {
+                               int coords, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if ((uintptr_t)packed % 16 || (coords != 2 && coords != 3))
     return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0 && Cp > 0) {

@@ -57,20 +57,23 @@ struct PointAddLaunch {
   static int run(const int32_t* ax, const int32_t* ay, const int32_t* az,
                  const int32_t* bx, const int32_t* by, const int32_t* bz,
                  int32_t* ox, int32_t* oy, int32_t* oz, int64_t n, int lanes,
-                 cudaStream_t st);
+                 int width, cudaStream_t st);
 };
 
-// Every pointer [n, L], row_align<L> aligned; lanes != 0: a warp per add.
+// Every pointer [n, L], rows_aligned<F> (row_align<L>; a word in the narrow
+// build); lanes != 0: a warp per add.
 template <class F>
 int PointAddLaunch<F>::run(const int32_t* ax, const int32_t* ay,
                            const int32_t* az, const int32_t* bx,
                            const int32_t* by, const int32_t* bz, int32_t* ox,
                            int32_t* oy, int32_t* oz, int64_t n, int lanes,
-                           cudaStream_t st) {
+                           int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   const uintptr_t addr = (uintptr_t)ax | (uintptr_t)ay | (uintptr_t)az |
                          (uintptr_t)bx | (uintptr_t)by | (uintptr_t)bz |
                          (uintptr_t)ox | (uintptr_t)oy | (uintptr_t)oz;
-  if (addr % row_align<F::L>) return (int)cudaErrorInvalidValue;
+  if (!rows_aligned<F>(addr)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     if (lanes) {
       const int64_t blocks = (n * 32 + PA_THREADS - 1) / PA_THREADS;
@@ -99,14 +102,16 @@ __global__ void __launch_bounds__(CONVERT_THREADS)
 template <class F>
 struct ConvertLaunch {
   static int run(const int16_t* xw, const int16_t* yw, int32_t* out, int64_t n,
-                 cudaStream_t st);
+                 int width, cudaStream_t st);
 };
 
 // xw, yw [n, 2 NW] int16 (u16 bits); out [n, 2 NW] int32; all 16-byte
 // aligned
 template <class F>
 int ConvertLaunch<F>::run(const int16_t* xw, const int16_t* yw, int32_t* out,
-                          int64_t n, cudaStream_t st) {
+                          int64_t n, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (((uintptr_t)xw | (uintptr_t)yw | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
@@ -130,14 +135,16 @@ __global__ void __launch_bounds__(CONVERT_THREADS)
 template <class F>
 struct ConvertGlvLaunch {
   static int run(const int16_t* xw, const int16_t* yw, int32_t* out, int64_t n,
-                 cudaStream_t st);
+                 int width, cudaStream_t st);
 };
 
 // xw, yw [n, 2 NW] int16 (u16 bits); out [n, 3 NW] int32 (rows x R,
 // beta x R, y R); all 16-byte aligned
 template <class F>
 int ConvertGlvLaunch<F>::run(const int16_t* xw, const int16_t* yw,
-                             int32_t* out, int64_t n, cudaStream_t st) {
+                             int32_t* out, int64_t n, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (((uintptr_t)xw | (uintptr_t)yw | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
@@ -166,7 +173,7 @@ template <class F>
 struct ScanLaunch {
   static int run(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, int32_t* pe3, int32_t* tx, int32_t* ty,
-                 int32_t* tz, int64_t groups, int C, int R, cudaStream_t st);
+                 int32_t* tz, int64_t groups, int C, int R, int width, cudaStream_t st);
 };
 
 // packed [N, 2D] and pe3 [G, C, R, pe3_row<F>] 16-byte aligned; perm,
@@ -175,7 +182,9 @@ template <class F>
 int ScanLaunch<F>::run(const int32_t* packed, const int32_t* perm,
                                const int32_t* flags, int32_t* pe3, int32_t* tx,
                                int32_t* ty, int32_t* tz, int64_t groups, int C,
-                               int R, cudaStream_t st) {
+                               int R, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (((uintptr_t)packed | (uintptr_t)pe3) % 16)
     return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0) {
@@ -205,7 +214,7 @@ template <class F>
 struct ScanGlvLaunch {
   static int run(const int32_t* packed, const int32_t* perm,
                  const int32_t* flags, int32_t* pe3, int32_t* tx, int32_t* ty,
-                 int32_t* tz, int64_t groups, int C, int R, cudaStream_t st);
+                 int32_t* tz, int64_t groups, int C, int R, int width, cudaStream_t st);
 };
 
 // packed [N, 3D] (the GLV table) and pe3 [G, C, R, pe3_row<F>] 16-byte
@@ -214,7 +223,9 @@ template <class F>
 int ScanGlvLaunch<F>::run(const int32_t* packed, const int32_t* perm,
                           const int32_t* flags, int32_t* pe3, int32_t* tx,
                           int32_t* ty, int32_t* tz, int64_t groups, int C,
-                          int R, cudaStream_t st) {
+                          int R, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (((uintptr_t)packed | (uintptr_t)pe3) % 16)
     return (int)cudaErrorInvalidValue;
   if (groups > 0 && R > 0) {
@@ -276,11 +287,11 @@ __global__ void __launch_bounds__(RO_BLOCK)
       e = sp[t - 1];
     else
       pt32_identity(e);
-    const int64_t o = (g * R + r0) * F::L;
+    const int64_t o = (g * R + r0) * limb_count<F>();
     pt32_store_limbs(ox + o, oy + o, oz + o, 1, e);
   }
   if (t == RO_BLOCK - 1) {
-    const int64_t o = (g * nb + b) * F::L;
+    const int64_t o = (g * nb + b) * limb_count<F>();
     pt32_store_limbs(sx + o, sy + o, sz + o, 1, s);
   }
 }
@@ -299,7 +310,7 @@ __global__ void __launch_bounds__(RO_BLOCK)
   pt32_identity(s);
   MSM_ROLLED
   for (int c = 0; c < m && t * m + c < nb; ++c) {
-    const int64_t o = (g * nb + t * m + c) * F::L;
+    const int64_t o = (g * nb + t * m + c) * limb_count<F>();
     pt32_load_canonical(v, sx + o, sy + o, sz + o);
     if (c == 0)
       s = v;
@@ -314,7 +325,7 @@ __global__ void __launch_bounds__(RO_BLOCK)
     pt32_identity(acc);
   MSM_ROLLED
   for (int c = 0; c < m && t * m + c < nb; ++c) {
-    const int64_t o = (g * nb + t * m + c) * F::L;
+    const int64_t o = (g * nb + t * m + c) * limb_count<F>();
     pt32_load_canonical(v, sx + o, sy + o, sz + o);
     pt32_store_limbs(sx + o, sy + o, sz + o, 1, acc);
     if (c + 1 < m) pt32_add(acc, acc, v);
@@ -335,9 +346,9 @@ __global__ void __launch_bounds__(RO_BLOCK)
   const int64_t r0 = (b * RO_BLOCK + t) * K;
   if (r0 >= R) return;
   pt32t<F> off, pre, acc;
-  int64_t o = (g * nb + b) * F::L;
+  int64_t o = (g * nb + b) * limb_count<F>();
   pt32_load_canonical(off, sx + o, sy + o, sz + o);
-  o = (g * R + r0) * F::L;
+  o = (g * R + r0) * limb_count<F>();
   pt32_load_canonical(pre, ox + o, oy + o, oz + o);
   pt32_add(acc, off, pre);
   ro_thread_write(acc, tx, ty, tz, ox, oy, oz, g, R, (int)r0, K);
@@ -348,7 +359,7 @@ struct RowOffsetsLaunch {
   static int run(const int32_t* tx, const int32_t* ty, const int32_t* tz,
                  int32_t* ox, int32_t* oy, int32_t* oz, int32_t* sx,
                  int32_t* sy, int32_t* sz, int64_t groups, int R, int K,
-                 int nb, int scan_threads, cudaStream_t st);
+                 int nb, int scan_threads, int width, cudaStream_t st);
 };
 
 // Three launches on the stream. Inputs t* [G, L, R] limbs-first; outputs
@@ -360,7 +371,9 @@ int RowOffsetsLaunch<F>::run(const int32_t* tx, const int32_t* ty,
                              const int32_t* tz, int32_t* ox, int32_t* oy,
                              int32_t* oz, int32_t* sx, int32_t* sy,
                              int32_t* sz, int64_t groups, int R, int K, int nb,
-                             int scan_threads, cudaStream_t st) {
+                             int scan_threads, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (groups > 0 && R > 0) {
     const int64_t span = (int64_t)RO_BLOCK * K;
     if ((K != 1 && K != 2 && K != 4 && K != 8) || R % K != 0 || nb < 1 ||
@@ -435,7 +448,7 @@ __global__ void __launch_bounds__(32)
                          int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                          int32_t* __restrict__ oz, int nb) {
   const int lane = threadIdx.x;
-  const int64_t g = blockIdx.x, o = g * F::L;
+  const int64_t g = blockIdx.x, o = g * limb_count<F>();
   pt32t<F> s;
   pt_total_partials(s, part, g, nb, lane, 32);
   int width = 1;  // lanes holding a partial, rounded up to a power of two
@@ -448,7 +461,7 @@ template <class F>
 struct PointTotalLaunch {
   static int run(const int32_t* px, const int32_t* py, const int32_t* pz,
                  uint32_t* part, int32_t* ox, int32_t* oy, int32_t* oz,
-                 int64_t groups, int64_t N, int k, int nb, cudaStream_t st);
+                 int64_t groups, int64_t N, int k, int nb, int width, cudaStream_t st);
 };
 
 // p* [G, N, L], aligned as the rows' vector loads need (16 bytes at
@@ -459,11 +472,13 @@ template <class F>
 int PointTotalLaunch<F>::run(const int32_t* px, const int32_t* py,
                              const int32_t* pz, uint32_t* part, int32_t* ox,
                              int32_t* oy, int32_t* oz, int64_t groups,
-                             int64_t N, int k, int nb, cudaStream_t st) {
+                             int64_t N, int k, int nb, int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   if (groups > 0) {
     const uintptr_t addr = (uintptr_t)px | (uintptr_t)py | (uintptr_t)pz;
     const int64_t span = (int64_t)PT_BLOCK * k;
-    if (addr % row_align<F::L> || k < 1 || nb < 1 || nb * span < N ||
+    if (!rows_aligned<F>(addr) || k < 1 || nb < 1 || nb * span < N ||
         (nb - 1) * span >= (N > 0 ? N : 1))
       return (int)cudaErrorInvalidValue;
     k_point_total<F><<<dim3((unsigned)nb, (unsigned)groups), PT_BLOCK, 0, st>>>(
@@ -487,7 +502,7 @@ __global__ void __launch_bounds__(HORNER_WARP)
              int chunk) {
   extern __shared__ __align__(16) unsigned char horner_smem[];
   pt32t<F>* sw = reinterpret_cast<pt32t<F>*>(horner_smem);  // [S]
-  const int64_t g = blockIdx.x, i = g * S * F::L, o = g * F::L;
+  const int64_t g = blockIdx.x, i = g * S * limb_count<F>(), o = g * limb_count<F>();
   for (int s = threadIdx.x; s < S; s += blockDim.x)
     horner_load(sw[s], wx + i, wy + i, wz + i, s);
   __syncthreads();
@@ -500,7 +515,7 @@ template <class F>
 struct HornerLaunch {
   static int run(const int32_t* wx, const int32_t* wy, const int32_t* wz,
                  int32_t* ox, int32_t* oy, int32_t* oz, int64_t groups, int S,
-                 int chunk, cudaStream_t st);
+                 int chunk, int width, cudaStream_t st);
 };
 
 // One block of one warp per ladder; its S window sums (S * sizeof(pt32t<F>))
@@ -509,7 +524,9 @@ template <class F>
 int HornerLaunch<F>::run(const int32_t* wx, const int32_t* wy,
                          const int32_t* wz, int32_t* ox, int32_t* oy,
                          int32_t* oz, int64_t groups, int S, int chunk,
-                         cudaStream_t st) {
+                         int width, cudaStream_t st) {
+  WidthScope<F> scope(width, st);
+  if (scope.err) return scope.err;
   const size_t smem = (size_t)S * sizeof(pt32t<F>);
   if (smem > HORNER_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (groups > 0 && S > 0) {

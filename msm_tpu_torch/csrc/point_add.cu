@@ -39,8 +39,8 @@ extern "C" int msm_point_add(const int32_t* ax, const int32_t* ay,
                              const int32_t* az, const int32_t* bx,
                              const int32_t* by, const int32_t* bz, int32_t* ox,
                              int32_t* oy, int32_t* oz, int64_t n, int lanes,
-                             int curve, void* stream) {
+                             int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PointAddLaunch,
                    (ax, ay, az, bx, by, bz, ox, oy, oz, n, lanes,
-                    (cudaStream_t)stream))
+                    width, (cudaStream_t)stream))
 }

@@ -16,21 +16,30 @@ namespace msm {
 
 // One [L] limb row onto the word core; on the device in the widest vector
 // loads the row allows (BN254: 80 B, five 16-byte loads) through the
-// read-only cache.
+// read-only cache (the narrow build: a load a limb).
 template <class F>
 MSM_HD void pa_load(fe32t<F>& out, const int32_t* src) {
-  int32_t raw[F::L];
-  row_load(raw, src);
-  fe32_from_balanced(out, raw);
+  if constexpr (F::RT) {
+    fe32_load_balanced_rt(out, src, 1);
+  } else {
+    int32_t raw[F::L];
+    row_load(raw, src);
+    fe32_from_balanced(out, raw);
+  }
 }
 
 // One [L] row of canonical limbs; on the device in the widest vector
-// stores the row allows (BN254: five 16-byte stores).
+// stores the row allows (BN254: five 16-byte stores; the narrow build: a
+// store a limb).
 template <class F>
 MSM_HD void pa_store(int32_t* dst, const fe32t<F>& a) {
-  uint32_t v[F::L];
-  fe32_to_limbs(v, a);
-  row_store(dst, v);
+  if constexpr (F::RT) {
+    rt_scatter(dst, 1, a);
+  } else {
+    uint32_t v[F::L];
+    fe32_to_limbs(v, a);
+    row_store(dst, v);
+  }
 }
 
 template <class F>
@@ -51,7 +60,7 @@ MSM_HD void point_add_row(const int32_t* ax, const int32_t* ay,
                           const int32_t* az, const int32_t* bx,
                           const int32_t* by, const int32_t* bz, int32_t* ox,
                           int32_t* oy, int32_t* oz, int64_t i) {
-  const int64_t o = i * F::L;
+  const int64_t o = i * limb_count<F>();
   pt32t<F> p, q, r;
   pa_load_points(p, q, ax, ay, az, bx, by, bz, o);
   pt32_add(r, p, q);
@@ -68,7 +77,7 @@ MSM_HD void point_add_row_lanes(const int32_t* ax, const int32_t* ay,
                                 const int32_t* by, const int32_t* bz,
                                 int32_t* ox, int32_t* oy, int32_t* oz,
                                 int64_t i) {
-  const int64_t o = i * F::L;
+  const int64_t o = i * limb_count<F>();
   pt32t<F> p, q, r;
   pa_load_points(p, q, ax, ay, az, bx, by, bz, o);
   pt32_add_lanes(r, p, q);

@@ -50,8 +50,8 @@ extern "C" int msm_point_total(const int32_t* px, const int32_t* py,
                                const int32_t* pz, uint32_t* part, int32_t* ox,
                                int32_t* oy, int32_t* oz, int64_t groups,
                                int64_t N, int k, int nb, int curve,
-                               void* stream) {
+                               int width, void* stream) {
   MSM_FIELD_SWITCH(curve, PointTotalLaunch, (px, py, pz, part, ox, oy, oz,
                                              groups, N, k, nb,
-                                             (cudaStream_t)stream))
+                                             width, (cudaStream_t)stream))
 }

@@ -28,7 +28,7 @@ MSM_HD void pt_total_run(pt32t<F>& s, const int32_t* px, const int32_t* py,
     pt32_identity(s);
     return;
   }
-  constexpr int L = F::L;
+  const int L = limb_count<F>();
   int64_t o = (g * N + lo) * L;
   pa_load(s.x, px + o);
   pa_load(s.y, py + o);

@@ -41,8 +41,8 @@ extern "C" int msm_row_offsets(const int32_t* tx, const int32_t* ty,
                                int32_t* oz, int32_t* sx, int32_t* sy,
                                int32_t* sz, int64_t groups, int R, int K,
                                int nb, int scan_threads, int curve,
-                               void* stream) {
+                               int width, void* stream) {
   MSM_FIELD_SWITCH(curve, RowOffsetsLaunch,
                    (tx, ty, tz, ox, oy, oz, sx, sy, sz, groups, R, K, nb,
-                    scan_threads, (cudaStream_t)stream))
+                    scan_threads, width, (cudaStream_t)stream))
 }

@@ -17,7 +17,7 @@ namespace msm {
 template <class F>
 MSM_HD void ro_load_lane(pt32t<F>& p, const int32_t* tx, const int32_t* ty,
                          const int32_t* tz, int64_t g, int R, int r) {
-  const int64_t o = g * F::L * R + r;
+  const int64_t o = g * limb_count<F>() * R + r;
   fe32_load_balanced_strided(p.x, tx + o, R);
   fe32_load_balanced_strided(p.y, ty + o, R);
   fe32_load_balanced_strided(p.z, tz + o, R);
@@ -45,7 +45,7 @@ MSM_HD void ro_thread_write(pt32t<F> acc, const int32_t* tx, const int32_t* ty,
                             int32_t* oz, int64_t g, int R, int r0, int K) {
   MSM_ROLLED
   for (int c = 0; c < K; ++c) {
-    const int64_t o = (g * R + r0 + c) * F::L;
+    const int64_t o = (g * R + r0 + c) * limb_count<F>();
     pt32_store_limbs(ox + o, oy + o, oz + o, 1, acc);
     if (c + 1 < K) {
       pt32t<F> v;

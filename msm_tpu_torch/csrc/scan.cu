@@ -64,9 +64,9 @@ MSM_EXTERN_OTHER_FIELDS(ScanGlvLaunch)
 extern "C" int msm_scan(const int32_t* packed, const int32_t* perm,
                         const int32_t* flags, int32_t* pe3, int32_t* tx,
                         int32_t* ty, int32_t* tz, int64_t groups, int C, int R,
-                        int curve, void* stream) {
+                        int curve, int width, void* stream) {
   MSM_FIELD_SWITCH(curve, ScanLaunch, (packed, perm, flags, pe3, tx, ty, tz,
-                                       groups, C, R, (cudaStream_t)stream))
+                                       groups, C, R, width, (cudaStream_t)stream))
 }
 
 // packed [N, 3D] (the curve's GLV table) and pe3, both 16-byte aligned; the
@@ -75,7 +75,7 @@ extern "C" int msm_scan_rows_glv(const int32_t* packed, const int32_t* perm,
                                  const int32_t* flags, int32_t* pe3,
                                  int32_t* tx, int32_t* ty, int32_t* tz,
                                  int64_t groups, int C, int R, int curve,
-                                 void* stream) {
+                                 int width, void* stream) {
   MSM_FIELD_SWITCH(curve, ScanGlvLaunch, (packed, perm, flags, pe3, tx, ty, tz,
-                                          groups, C, R, (cudaStream_t)stream))
+                                          groups, C, R, width, (cudaStream_t)stream))
 }

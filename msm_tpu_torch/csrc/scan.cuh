@@ -65,18 +65,36 @@ MSM_HD void scan_load_element(fe32t<F>& x, fe32t<F>& y, const int32_t* packed,
 template <class F>
 constexpr int pe3_row = (3 * F::L + 3) / 4 * 4;
 
+// pe3_row<F> as a value: the width block's PE3_ROW in the narrow build.
+template <class F>
+MSM_HD int pe3_row_limbs() {
+  if constexpr (F::RT) {
+    return width_block(F::ID).PE3_ROW;
+  } else {
+    return pe3_row<F>;
+  }
+}
+
 // One pe3 row (pe3_row<F> limbs; BN254: 240 B, 16 B aligned); on the
 // device 16-byte stores (BN254: 15).
 template <class F>
 MSM_HD void scan_store_row(int32_t* dst, const pt32t<F>& p) {
-  constexpr int L = F::L;
-  uint32_t v[pe3_row<F>];
-  fe32_to_limbs(v, p.x);
-  fe32_to_limbs(v + L, p.y);
-  fe32_to_limbs(v + 2 * L, p.z);
-  MSM_UNROLL
-  for (int k = 3 * L; k < pe3_row<F>; ++k) v[k] = 0;
-  row_store(dst, v);
+  if constexpr (F::RT) {  // x || y || z || zeros in 16-byte stores
+    RowLimbs4 row{dst};
+    rt_scatter(row, p.x);
+    rt_scatter(row, p.y);
+    rt_scatter(row, p.z);
+    row.pad();
+  } else {
+    constexpr int L = F::L;
+    uint32_t v[pe3_row<F>];
+    fe32_to_limbs(v, p.x);
+    fe32_to_limbs(v + L, p.y);
+    fe32_to_limbs(v + 2 * L, p.z);
+    MSM_UNROLL
+    for (int k = 3 * L; k < pe3_row<F>; ++k) v[k] = 0;
+    row_store(dst, v);
+  }
 }
 
 // y <- p - y where neg, else y (branch-free; 0 stays 0).
@@ -96,7 +114,7 @@ MSM_HD void scan_lane(const int32_t* packed, const int32_t* perm,
                       const int32_t* flags, int32_t* pe3, int32_t* tx,
                       int32_t* ty, int32_t* tz, int64_t g, int C, int R,
                       int r) {
-  constexpr int L = F::L;
+  const int L = limb_count<F>();
   pt32t<F> acc;
   pt32_identity(acc);
   int64_t e = g * C * R + r;
@@ -105,7 +123,7 @@ MSM_HD void scan_lane(const int32_t* packed, const int32_t* perm,
     scan_load_element<COORDS>(x2, y2, packed, perm[e], flags + e);
     fe32_cond_neg(y2, flags[e] & 1);
     pt32_madd(acc, acc, x2, y2);
-    scan_store_row(pe3 + e * pe3_row<F>, acc);
+    scan_store_row(pe3 + e * pe3_row_limbs<F>(), acc);
   }
   const int64_t t = g * L * R + r;
   pt32_store_limbs(tx + t, ty + t, tz + t, R, acc);

@@ -20,17 +20,22 @@ the pair kernels, BPR phase 1 and the scaled convert); each translation
 unit's compile seconds go to ``compile_seconds.json`` beside the library,
 with the build's wall seconds and ``os.cpu_count()``.
 
-The limb width (``MsmConfig.word_size``) is a build-time property: each
-width of ``WIDTHS`` is a library of its own, every ``.cu`` compiled again
-with ``-DMSM_LIMB_BITS=<width>`` (``csrc/fields.cuh`` then takes that
-width's traits table) into ``<hash>/w<width>/`` beside the 13-bit library;
-the C entries keep their names and signatures. A library is built and
-loaded the first time a config of its width launches a kernel, so a
-13-bit run never builds the 12-bit instances.
+The limb width (``MsmConfig.word_size``, ``WIDTHS``) picks one of two
+libraries of the same sources and C entries. The default one serves 13-bit
+limbs, whose constants ``csrc/fields.cuh`` holds at compile time. The
+narrow one serves widths 8 to 12: every ``.cu`` compiled again with
+``-DMSM_LIMB_BITS=0`` (``NARROW_FLAGS``) into ``<hash>/narrow/``, where
+the kernels read the width's constants at run time from a width block
+(``csrc/widths.cuh``). Every C entry but the histogram's takes the width
+after the curve index (``launch`` appends it), and the default library
+refuses any width but 13. A library is built and loaded the first time a
+config of one of its widths launches a kernel, so a 13-bit run never
+builds the narrow one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -68,7 +73,9 @@ NVCC_FLAGS = [
 ]
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-#: C entry points: argument types (every one returns the launch's error code)
+#: C entry points: argument types (every one returns the launch's error
+#: code); every entry but the histogram's gains the limb width (I32) after
+#: its curve index, below
 SIGNATURES = {
     "msm_point_add": [P] * 9 + [I64, I32, I32, P],
     "msm_convert": [P, P, P, I64, I32, P],
@@ -91,13 +98,24 @@ SIGNATURES = {
     "msm_pair_backward_glv": [P] * 8 + [I64, I32, I32, I32, P],
     "msm_bpr_phase1": [P] * 9 + [I64, I32, I32, I32, P],
 }
+#: the C entry without a field (and so without a width)
+FIELDLESS = ("msm_hist",)
+SIGNATURES = {name: args if name in FIELDLESS else args[:-1] + [I32, P] for name, args in SIGNATURES.items()}
 
-#: the limb widths the kernels build for; 13, the first, is the default
-#: library's (compiled without -DMSM_LIMB_BITS)
-WIDTHS = (13, 12)
-_locks = {width: threading.Lock() for width in WIDTHS}
-#: the loaded library of each width
-_libs: dict[int, ctypes.CDLL] = {}
+#: the limb widths the kernels run: 13, the first, the default library's
+#: (compiled without -DMSM_LIMB_BITS); the others (NARROW_WIDTHS) the
+#: narrow library's, compiled with NARROW_FLAGS
+WIDTHS = (13, 12, 11, 10, 9, 8)
+NARROW_WIDTHS = WIDTHS[1:]
+NARROW_FLAGS = ["-DMSM_LIMB_BITS=0"]
+#: the two libraries
+LIBRARIES = ("default", "narrow")
+_locks = {lib: threading.Lock() for lib in LIBRARIES}
+#: the loaded library by name
+_libs: dict[str, ctypes.CDLL] = {}
+#: a check's hook: when set, width 13 launches on the narrow library
+#: (narrow_at_13)
+_narrow_13 = False
 
 
 #: the curve index the generic kernels' C entries take (fields.cuh F::ID)
@@ -131,8 +149,8 @@ def karatsuba_ok(cfg: MsmConfig) -> bool:
 
 
 def check_cuda_config(cfg: MsmConfig) -> None:
-    """The CUDA kernels implement all seven curves with 13- and 12-bit
-    limbs (``WIDTHS``), plain or pair compressed, each with or without GLV
+    """The CUDA kernels implement all seven curves with 8- to 13-bit limbs
+    (``WIDTHS``), plain or pair compressed, each with or without GLV
     (the convert, the scan and the four pair kernels have GLV modes for
     every curve). Karatsuba selects a TPU product for the same function,
     so it is accepted where the JAX package builds it (``karatsuba_ok``)
@@ -140,7 +158,7 @@ def check_cuda_config(cfg: MsmConfig) -> None:
     a launch."""
     if cfg.word_size not in WIDTHS or cfg.curve.name not in CURVE_IDS:
         raise NotImplementedError(
-            f"CUDA kernels support word_size {' and '.join(map(str, WIDTHS))} on {', '.join(CURVE_IDS)}; "
+            f"CUDA kernels support word_size {min(WIDTHS)} to {max(WIDTHS)} on {', '.join(CURVE_IDS)}; "
             f"got curve={cfg.curve.name} word_size={cfg.word_size}"
         )
     if cfg.karatsuba and not karatsuba_ok(cfg):
@@ -174,25 +192,45 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def width_flags(width: int) -> list[str]:
-    """The compile flags that select a limb width's traits (none for the
-    default 13)."""
+def library_of(width: int) -> str:
+    """The library that serves a limb width: "default" for 13 (or "narrow"
+    inside ``narrow_at_13``), "narrow" for the other widths of WIDTHS."""
     if width not in WIDTHS:
         raise NotImplementedError(f"no CUDA kernels for word_size {width}")
-    return [] if width == WIDTHS[0] else [f"-DMSM_LIMB_BITS={width}"]
+    return "narrow" if width in NARROW_WIDTHS or _narrow_13 else "default"
+
+
+def width_flags(width: int) -> list[str]:
+    """The compile flags of the library that serves a limb width (none for
+    the default 13; NARROW_FLAGS for 8 to 12)."""
+    return NARROW_FLAGS if library_of(width) == "narrow" else []
 
 
 def library_path(width: int = 13) -> Path:
-    """The library of a limb width: ``<hash>/`` for 13, ``<hash>/w<width>/``
-    for another."""
+    """The library that serves a limb width: ``<hash>/`` for 13,
+    ``<hash>/narrow/`` for 8 to 12."""
     out = BUILD_ROOT / source_hash()
-    return (out if width == WIDTHS[0] else out / f"w{width}") / "libmsm_tpu_torch.so"
+    return (out if library_of(width) == "default" else out / "narrow") / "libmsm_tpu_torch.so"
+
+
+@contextlib.contextmanager
+def narrow_at_13():
+    """Within the block, width 13 launches run on the narrow library (its
+    W = 13 rows of csrc/widths.cuh): a check's hook, which holds the narrow
+    library's outputs at 13 against the default library's limb for limb.
+    No wrapper sends 13 to the narrow library outside it."""
+    global _narrow_13
+    _narrow_13 = True
+    try:
+        yield
+    finally:
+        _narrow_13 = False
 
 
 def build(width: int = 13) -> Path:
-    """Compile the kernels at a limb width if this source hash has no
-    library of it yet; returns the library path. The compiler's
-    register/spill report goes to ``build.log`` beside the library."""
+    """Compile the library that serves a limb width if this source hash
+    has none yet; returns its path. The compiler's register/spill report
+    goes to ``build.log`` beside the library."""
     flags = [*NVCC_FLAGS, *width_flags(width)]
     so = library_path(width)
     if so.exists():
@@ -234,18 +272,19 @@ def build(width: int = 13) -> Path:
 
 
 def load(width: int = 13) -> ctypes.CDLL:
-    """Build if needed and load the library of a limb width (once per
-    process and width; another thread asking for the same width waits for
-    the build)."""
-    with _locks[width]:
-        if width not in _libs:
+    """Build if needed and load the library that serves a limb width (once
+    per process and library; another thread asking for the same library
+    waits for the build)."""
+    name = library_of(width)
+    with _locks[name]:
+        if name not in _libs:
             lib = ctypes.CDLL(str(build(width)))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
+            for entry, argtypes in SIGNATURES.items():
+                fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _libs[width] = lib
-        return _libs[width]
+            _libs[name] = lib
+        return _libs[name]
 
 
 def require_cuda(cfg: MsmConfig, *tensors: torch.Tensor, dtype=torch.int32) -> None:
@@ -270,12 +309,15 @@ def aligned(*tensors: torch.Tensor) -> list[torch.Tensor]:
 
 
 def launch(name: str, *args, width: int) -> None:
-    """Call C entry ``name`` of the library of limb width ``width`` (the
-    config's ``word_size``) on the current stream. Tensors pass as device
-    pointers, ints as they are; the stream is appended."""
+    """Call C entry ``name`` of the library that serves limb width ``width``
+    (the config's ``word_size``) on the current stream. Tensors pass as
+    device pointers, ints as they are; the width (but to the histogram,
+    which has no field) and the stream are appended."""
     lib = load(width)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if name not in FIELDLESS:
+        cargs.append(width)
     with torch.cuda.device(dev):
         err = getattr(lib, name)(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:

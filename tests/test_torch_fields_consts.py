@@ -3,10 +3,14 @@ fields the word core is generic over) against msm_tpu_torch.params: the
 curve index, the word and limb counts, the REDC constants, 3b, the carry
 flag, the reduction shifts, the launch bound's blocks per SM, and the
 modulus, R mod p, R^2 mod p and the GLV convert's beta R^2 mod p (beta
-from ops/glv.py's glv_params) word by word, in the 13-bit table and in
-the 12-bit one (the library built with -DMSM_LIMB_BITS=12); and the
-build's curve translation units, two per curve besides BN254."""
+from ops/glv.py's glv_params) word by word, in the 13-bit table (the
+default library's compile-time constants); every row of csrc/widths.cuh,
+the narrow library's run-time width blocks (curve x width 8 to 13),
+against MsmConfig at that width, and the file against its generator
+(scripts/torch_gen_widths.py); and the build's curve translation units,
+two per curve besides BN254."""
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -27,7 +31,8 @@ def _traits(width: int = 13) -> dict[str, dict]:
     text = (CSRC / "fields.cuh").read_text()
     out = {}
     for m in re.finditer(r"struct Fp(\w+) \{(.*?)\n\};", text, re.S):
-        tables = dict(re.findall(r"#(?:el)?if MSM_LIMB_BITS == (\d+)[^\n]*\n(.*?)(?=#elif|#endif)", m.group(2), re.S))
+        tables = dict(re.findall(r"#(?:el)?if MSM_LIMB_BITS == (\d+)[^\n]*\n(.*?)(?=#elif|#else|#endif)", m.group(2),
+                                 re.S))
         body = m.group(2).split("#if MSM_LIMB_BITS")[0] + tables[str(width)]
         consts = {k: v for k, v in re.findall(r"(\b[A-Z][A-Z0-9_]*) = ([^,;]+)", body)}
         vals = {}
@@ -47,7 +52,35 @@ def _traits(width: int = 13) -> dict[str, dict]:
 
 
 TRAITS = _traits()
-TRAITS12 = _traits(12)
+ROOT = CSRC.parent.parent
+NARROW = (8, 9, 10, 11, 12, 13)
+
+
+def _width_blocks() -> dict[tuple[str, int], dict]:
+    """{(curve name, width): row} parsed from csrc/widths.cuh's
+    WIDTH_BLOCKS (rows in params.CURVES order, widths 8 .. 13); a row's
+    fields as the WidthBlock struct orders them, the word arrays as lists."""
+    text = (CSRC / "widths.cuh").read_text()
+    fields = re.search(r"struct WidthBlock \{(.*?)\};", text, re.S).group(1)
+    names = re.findall(r"(\w+)(?:\[\d+\])?[,;]", fields)
+    table = text.split("WIDTH_BLOCKS", 2)[2]
+    out = {}
+    for name, body in re.findall(r"\{\s*// (\w+)\n(.*?)\n    \},", table, re.S):
+        for i, row in enumerate(re.findall(r"\{(\d+, .*?\})\}", body, re.S)):
+            items = re.findall(r"\{([^{}]*)\}|(0x[0-9a-f]+u|-?\d+)", row)
+            vals = [[int(v.strip().rstrip("u"), 0) for v in arr.split(",")] if arr else int(one.rstrip("u"), 0)
+                    for arr, one in items]
+            out[(name, NARROW[i])] = dict(zip(names, vals))
+    return out
+
+
+BLOCKS = _width_blocks()
+#: the 12-bit rows in the form of TRAITS (the narrow library's width 12)
+TRAITS12 = {name: {**{k: v for k, v in TRAITS[name].items() if k not in ("W", "L", "TAIL", "N0T", "MASK",
+                                                                          "BALANCED_TOP", "r", "r2", "beta_r2")},
+                   **{k: (v[:TRAITS[name]["NW"]] if isinstance(v, list) else v)
+                      for k, v in BLOCKS[(name, 12)].items()}}
+            for name in CURVES}
 
 
 def test_every_curve_has_traits():
@@ -88,12 +121,13 @@ def test_traits_match_params(name):
 
 @pytest.mark.parametrize("name", list(CURVES))
 def test_width12_traits_match_params(name):
-    """The 12-bit table of each traits type (the library built with
-    -DMSM_LIMB_BITS=12) against MsmConfig(word_size=12): W and MASK, L and R
+    """The 12-bit row of each curve in csrc/widths.cuh (the narrow library,
+    -DMSM_LIMB_BITS=0, at width 12) against MsmConfig(word_size=12): W and MASK, L and R
     = 2^(12 L), TAIL in [0, 32) (0 on BLS12-377: R = 2^(32 NW), no tail
     step, N0T unused and 0), N0T, BALANCED_TOP, R mod p, R^2 mod p and beta
     R^2 mod p; the constants that do not depend on the width are those of
-    the 13-bit table's traits."""
+    the 13-bit table's traits, and the fields.cuh traits hold no 12-bit
+    table of their own."""
     t, t13, cfg = TRAITS12[name], TRAITS[name], MsmConfig(curve=CURVES[name], word_size=12)
     p, nw, L = cfg.curve.modulus, t["NW"], t["L"]
     assert (t13["W"], t13["MASK"]) == (13, (1 << 13) - 1)
@@ -115,6 +149,47 @@ def test_width12_traits_match_params(name):
     assert value(t["r"]) == cfg.r == (1 << (12 * L)) % p
     assert value(t["r2"]) == cfg.r2
     assert value(t["beta_r2"]) == glv_params(cfg.curve).beta * cfg.r2 % p
+    assert "MSM_LIMB_BITS == 12" not in (CSRC / "fields.cuh").read_text()
+
+
+@pytest.mark.parametrize("width", NARROW)
+@pytest.mark.parametrize("name", list(CURVES))
+def test_width_blocks_match_params(name, width):
+    """Every run-time width block (csrc/widths.cuh, curve x width 8 to 13)
+    against MsmConfig(word_size=width): W, MASK, L with R = 2^(W L), TAIL =
+    W L - 32 NW in [0, 32) and N0T = -p^-1 mod 2^TAIL (0 at TAIL 0),
+    BALANCED_TOP the largest s with p 2^s < R, PE3_ROW 3 L rounded up to 4,
+    and R, R^2 and beta R^2 mod p word by word (zero above NW). The
+    row at 13 equals the default library's compile-time 13-bit constants."""
+    b, cfg = BLOCKS[(name, width)], MsmConfig(curve=CURVES[name], word_size=width)
+    p, nw, L = cfg.curve.modulus, coord_words(cfg), cfg.num_words
+    assert (b["W"], b["MASK"], b["L"]) == (width, (1 << width) - 1, L) == (cfg.word_size, cfg.mask, cfg.num_words)
+    tail = b["TAIL"]
+    assert tail == width * L - 32 * nw and 0 <= tail < 32
+    assert b["N0T"] == ((-pow(p, -1, 1 << tail)) % (1 << tail) if tail else 0)
+    assert p << b["BALANCED_TOP"] < 1 << (width * L) <= p << (b["BALANCED_TOP"] + 1)
+    assert b["PE3_ROW"] % 4 == 0 and 0 <= b["PE3_ROW"] - 3 * L < 4
+    beta = glv_params(cfg.curve).beta
+    for arr, want in (("r", cfg.r), ("r2", cfg.r2), ("beta_r2", beta * cfg.r2 % p)):
+        assert sum(w << (32 * i) for i, w in enumerate(b[arr])) == want, arr
+    assert cfg.r == (1 << (width * L)) % p
+    if width == 13:
+        t = TRAITS[name]
+        assert [b[k] for k in ("W", "L", "TAIL", "N0T", "MASK", "BALANCED_TOP")] == \
+            [t[k] for k in ("W", "L", "TAIL", "N0T", "MASK", "BALANCED_TOP")]
+        assert all(b[k][:nw] == t[k] for k in ("r", "r2", "beta_r2"))
+
+
+def test_width_blocks_are_generated():
+    """csrc/widths.cuh is what scripts/torch_gen_widths.py writes from
+    params.py, and its rows cover every curve at the narrow library's
+    widths (ops/_build.NARROW_WIDTHS) and 13."""
+    spec = importlib.util.spec_from_file_location("torch_gen_widths", ROOT / "scripts" / "torch_gen_widths.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert (CSRC / "widths.cuh").read_text() == gen.render()
+    assert set(BLOCKS) == {(name, w) for name in CURVES for w in NARROW}
+    assert set(_build.NARROW_WIDTHS) | {13} == set(NARROW) == set(_build.WIDTHS)
 
 
 def test_each_other_curve_has_a_translation_unit():

@@ -1,128 +1,48 @@
-"""The word core at 12-bit limbs (csrc/fe32.cuh over the 12-bit traits
-tables of csrc/fields.cuh, selected by -DMSM_LIMB_BITS=12 as in the
-library ops/_build.py builds for word_size 12) compiled for the host with
-g++ for all seven fields and held against Python integers at R = 2^(12 L):
-the Montgomery product and the other field operations (BLS12-377 at TAIL
-0, where R = 2^(32 NW) and the REDC has no tail step; BLS12-381 at 12
-words and L = 33), the 12-bit limb <-> word repacking, balanced loads in
-(-R, R), kernel 1's point add (point_add_row and its warp form) on real
-curve points, and kernel 2's convert in its plain and GLV modes (the
-beta R^2 row) on coordinates below p and anywhere below 2^(32 NW)."""
-
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
+"""The word core at 12-bit limbs, which the narrow library serves
+(csrc/fe32.cuh and the kernels' bodies compiled with -DMSM_LIMB_BITS=0,
+ops/_build.width_flags(12): the width read at run time from the 12-bit
+rows of csrc/widths.cuh), compiled for the host with g++ for all seven
+fields and held against Python integers at R = 2^(12 L): the Montgomery
+product and the other field operations (BLS12-377 at TAIL 0, where R =
+2^(32 NW) and the REDC has no tail step; BLS12-381 at 12 words and L =
+33), the 12-bit limb <-> word repacking, balanced loads in (-R, R),
+kernel 1's point add (point_add_row and its warp form) on real curve
+points, and kernel 2's convert in its plain and GLV modes (the beta R^2
+row) on coordinates below p and anywhere below 2^(32 NW)."""
 
 import numpy as np
 import pytest
 import torch
 
 import test_torch_fields_host as host
+import test_torch_fields_narrow_host as narrow
 from _torch_helpers import affine_points, mont_limbs, rand_balanced
 from msm_tpu_torch.models.common import pad_points_words
-from msm_tpu_torch.ops._build import FIELD_FLAGS, curve_id, width_flags
+from msm_tpu_torch.ops._build import NARROW_FLAGS, curve_id, width_flags
 from msm_tpu_torch.ops.cuda_convert import convert_pack_plain, coord_u16
 from msm_tpu_torch.oracle.pyecc import Curve
 from msm_tpu_torch.params import CURVES, MsmConfig
 from msm_tpu_torch.utils.limbs import ints_to_limbs, limbs_to_int
 
-CSRC = Path(__file__).resolve().parent.parent / "msm_tpu_torch" / "csrc"
-
-BODIES = r"""
-#include "convert32.cuh"
-#include "point_add.cuh"
-using namespace msm;
-
-static_assert(FpBn254::W == 12 && FpBls12_377::TAIL == 0 && FpBls12_381::L == 33,
-              "the 12-bit traits tables");
-
-template <class F>
-struct PointAdd {  // rows [n, L]
-  static void run(const int32_t* ax, const int32_t* ay, const int32_t* az,
-                  const int32_t* bx, const int32_t* by, const int32_t* bz,
-                  int32_t* ox, int32_t* oy, int32_t* oz, int64_t n, int lanes) {
-    for (int64_t i = 0; i < n; ++i) {
-      if (lanes)
-        point_add_row_lanes<F>(ax, ay, az, bx, by, bz, ox, oy, oz, i);
-      else
-        point_add_row<F>(ax, ay, az, bx, by, bz, ox, oy, oz, i);
-    }
-  }
-};
-
-template <class F>
-struct Convert {  // xw, yw [n, 2 NW] int16; out [n, 2 NW], or [n, 3 NW] under GLV
-  static void run(const int16_t* xw, const int16_t* yw, int32_t* out, int64_t n, int glv) {
-    for (int64_t i = 0; i < n; ++i) {
-      if (glv)
-        convert_point_glv<F>(xw, yw, out, i);
-      else
-        convert_point<F>(xw, yw, out, i);
-    }
-  }
-};
-
-template <template <class> class OP, class... A>
-static void dispatch(int curve, A... args) {
-  switch (curve) {
-    case FpBn254::ID: OP<FpBn254>::run(args...); break;
-    case FpBls12_377::ID: OP<FpBls12_377>::run(args...); break;
-    case FpPallas::ID: OP<FpPallas>::run(args...); break;
-    case FpBls12_381::ID: OP<FpBls12_381>::run(args...); break;
-    case FpSecp256k1::ID: OP<FpSecp256k1>::run(args...); break;
-    case FpGrumpkin::ID: OP<FpGrumpkin>::run(args...); break;
-    case FpVesta::ID: OP<FpVesta>::run(args...); break;
-  }
-}
-
-typedef const int32_t* I;
-typedef int32_t* O;
-extern "C" {
-void h_point_add(int c, I ax, I ay, I az, I bx, I by, I bz, O ox, O oy, O oz,
-                 int64_t n, int lanes) {
-  dispatch<PointAdd>(c, ax, ay, az, bx, by, bz, ox, oy, oz, n, lanes);
-}
-void h_convert(int c, const int16_t* xw, const int16_t* yw, O out, int64_t n, int glv) {
-  dispatch<Convert>(c, xw, yw, out, n, glv);
-}
-}
-"""
-
 NAMES = list(CURVES)
-
-
-def _gxx_build(d: Path, source: str) -> ctypes.CDLL:
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available")
-    src, so = d / "harness.cpp", d / "harness.so"
-    src.write_text(source)
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *FIELD_FLAGS, *width_flags(12), f"-I{CSRC}",
-                    "-o", str(so), str(src)], check=True, capture_output=True, text=True, timeout=600)
-    return ctypes.CDLL(str(so))
 
 
 @pytest.fixture(scope="module")
 def core(tmp_path_factory):
-    """test_torch_fields_host's harness (product, squaring, add, sub, neg,
-    double, 3b, full reduction, repacking, balanced load) at 12-bit limbs."""
-    lib = _gxx_build(tmp_path_factory.mktemp("fields_w12_core"), host.HARNESS)
-    P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for name, nargs in (("h_arith", 3), ("h_reduce", 2), ("h_repack", 3), ("h_balanced", 2)):
-        fn = getattr(lib, name)
-        fn.argtypes = [I32] + [P] * nargs + [I64]
-        fn.restype = None
+    """The narrow core's harness (test_torch_fields_narrow_host: product,
+    squaring, add, sub, neg, double, 3b, full reduction, repacking,
+    balanced loads, point add, convert) with every curve's width block at
+    12."""
+    assert width_flags(12) == NARROW_FLAGS
+    lib = narrow.build_harness(tmp_path_factory.mktemp("fields_w12"))
+    for name in NAMES:
+        assert lib.h_width(curve_id(_cfg(name)), 12) == 0
     return lib
 
 
 @pytest.fixture(scope="module")
-def bodies(tmp_path_factory):
-    lib = _gxx_build(tmp_path_factory.mktemp("fields_w12_bodies"), BODIES)
-    P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.h_point_add.argtypes, lib.h_point_add.restype = [I32] + [P] * 9 + [I64, I32], None
-    lib.h_convert.argtypes, lib.h_convert.restype = [I32] + [P] * 3 + [I64, I32], None
-    return lib
+def bodies(core):
+    return core
 
 
 def _cfg(name) -> MsmConfig:
@@ -167,10 +87,11 @@ def test_limbs_and_words_at_12_bits(core, name):
     cfg = _cfg(name)
     p, nw, L = cfg.curve.modulus, host._nw(cfg), cfg.num_words
     vals = host._canonical_values(np.random.default_rng(71), p, 100)
-    dense = host._words(vals, nw).view(np.int32)
-    limbs = np.zeros((len(vals), L), dtype=np.int32)
+    dense = host._words(vals, nw)
+    limbs = np.zeros((L, len(vals)), dtype=np.int32)  # limbs-first
     words = np.zeros((len(vals), nw), dtype=np.uint32)
     core.h_repack(curve_id(cfg), dense.ctypes.data, limbs.ctypes.data, words.ctypes.data, len(vals))
+    limbs = limbs.T
     assert np.array_equal(limbs, ints_to_limbs(vals, 12, L).astype(np.int32))
     assert limbs.max() < 1 << 12
     assert host._ints(words) == vals
@@ -192,8 +113,11 @@ def test_balanced_loads_at_12_bits(core, name):
     top[2, -1] = -(1 << 11)  # -(R / 2)
     a = np.concatenate([bal, canon, top])
     assert all(-(1 << (12 * L)) < limbs_to_int(row, 12) < 1 << (12 * L) for row in a)
-    out = host._run(core, "h_balanced", cfg, (len(a), nw), np.uint32, a)
-    assert host._ints(out) == [limbs_to_int(row, 12) % p for row in a]
+    out = np.zeros((len(a), 2, nw), dtype=np.uint32)  # a row, and limbs-first
+    scratch = np.zeros((L, len(a)), dtype=np.int32)
+    core.h_balanced(curve_id(cfg), a.ctypes.data, out.ctypes.data, scratch.ctypes.data, len(a))
+    want = [limbs_to_int(row, 12) % p for row in a]
+    assert host._ints(out[:, 0]) == want and host._ints(out[:, 1]) == want
 
 
 def _from_mont(rows, cfg) -> list[int]:

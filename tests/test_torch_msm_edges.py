@@ -78,8 +78,18 @@ CONFIG_CASES = {
     "word_size_12": ({"word_size": 12}, True),
     "other_curve_word_size_12_glv_compress": ({"curve": BLS12_381, "word_size": 12, "compress": True, "glv": True},
                                               True),
-    "word_size_11": ({"word_size": 11}, False),
-    "word_size_8": ({"word_size": 8}, False),
+    "word_size_11": ({"word_size": 11}, True),
+    "word_size_8": ({"word_size": 8}, True),
+    "word_size_9_glv_compress": ({"word_size": 9, "compress": True, "glv": True}, True),
+    "other_curve_word_size_10_compress": ({"curve": PALLAS, "word_size": 10, "compress": True}, True),
+    "other_curve_word_size_8_glv": ({"curve": BLS12_381, "word_size": 8, "glv": True}, True),
+    "word_size_14": ({"word_size": 14}, False),
+    "word_size_15": ({"word_size": 15}, False),
+    "karatsuba_word_size_8": ({"word_size": 8, "karatsuba": True}, False),
+    "karatsuba_word_size_10": ({"word_size": 10, "karatsuba": True}, True),
+    "karatsuba_bls12_377_word_size_8": ({"curve": BLS12_377, "word_size": 8, "karatsuba": True}, True),
+    "karatsuba_bls12_381_word_size_11": ({"curve": BLS12_381, "word_size": 11, "karatsuba": True}, True),
+    "karatsuba_bls12_381_word_size_9": ({"curve": BLS12_381, "word_size": 9, "karatsuba": True}, False),
     "karatsuba_word_size_12": ({"word_size": 12, "karatsuba": True}, True),
     "karatsuba_bls12_377_word_size_12": ({"curve": BLS12_377, "word_size": 12, "karatsuba": True}, True),
     "karatsuba_bls12_381_word_size_12": ({"curve": BLS12_381, "word_size": 12, "karatsuba": True}, False),
@@ -91,13 +101,14 @@ CONFIG_CASES = {
 
 @pytest.mark.parametrize("change, accepted", CONFIG_CASES.values(), ids=CONFIG_CASES)
 def test_cuda_kernels_reject_other_configs(change, accepted):
-    """The CUDA wrappers take 13- and 12-bit limbs on every curve, plain or
+    """The CUDA wrappers take 8- to 13-bit limbs on every curve, plain or
     pair-compressed, with or without GLV; Karatsuba where the JAX package
     builds it (an even limb count within its int32 column budget: at 13
     bits BN254 and BLS12, not the 21-limb curves; at 12 bits every curve
-    but BLS12-381's 33 limbs); any other config (another limb width, named
-    in the refusal, or Karatsuba where the JAX package refuses it) raises
-    before a launch, never falls back to a twin."""
+    but BLS12-381's 33 limbs; at 8 bits BLS12-377's 48 limbs, not the odd
+    33 or 49); any other config (a limb width of 14 to 16, named in the
+    refusal, or Karatsuba where the JAX package refuses it) raises before
+    a launch, never falls back to a twin."""
     check_cuda_config(pick_config(1 << 16))
     check_cuda_config(dataclasses.replace(pick_config(1 << 16), compress=True))
     cfg = dataclasses.replace(pick_config(1 << 16), **change)
@@ -111,12 +122,14 @@ def test_cuda_kernels_reject_other_configs(change, accepted):
         check_cuda_config(cfg)
 
 
-@pytest.mark.parametrize("width", [13, 12])
+@pytest.mark.parametrize("width", [13, 12, 11, 10, 9, 8])
 def test_a_width_builds_and_loads_only_its_library(monkeypatch, width):
-    """A config's launches go to the library of its word_size: the wrappers
-    pass it to _build.launch, which loads (_build.load(width)) and calls
-    that library's entry; a 13-bit config never builds or loads the 12-bit
-    instances, nor a 12-bit one the 13-bit library. Meta tensors stand for
+    """A config's launches go to the library that serves its word_size: the
+    wrappers pass it to _build.launch, which loads (_build.load(width)) and
+    calls that library's entry with the width after the curve (but the
+    histogram's, which has no field); a 13-bit config never builds or loads
+    the narrow library, nor an 8- to 12-bit one the 13-bit library, and a
+    second narrow width reuses the narrow library. Meta tensors stand for
     the card's (no kernel can launch on them); the build and the library's
     entries are recorded, not run, and the stream is a stand-in."""
     import contextlib
@@ -132,7 +145,7 @@ def test_a_width_builds_and_loads_only_its_library(monkeypatch, width):
 
         def __getattr__(self, name):
             def entry(*args):
-                called.append((self.path, name))
+                called.append((self.path, name, args))
                 return 0
 
             setattr(self, name, entry)
@@ -150,8 +163,18 @@ def test_a_width_builds_and_loads_only_its_library(monkeypatch, width):
         cuda_curve.point_add(cfg, *(torch.empty((8, cfg.num_words), **meta) for _ in range(6)))
         cuda_hist.bucket_hist(cfg, torch.empty((2, 64), **meta), 16)
         cuda_convert.convert_pack(cfg, *(torch.empty((8, 16), device="meta", dtype=torch.int16) for _ in range(2)))
-    assert built == [width] and list(_build._libs) == [width]
-    assert {path for path, _ in called} == {f"lib{width}.so"} and len(called) == 6
+    lib = "default" if width == 13 else "narrow"
+    assert built == [width] and list(_build._libs) == [lib] and _build.library_of(width) == lib
+    assert {path for path, _, _ in called} == {f"lib{width}.so"} and len(called) == 6
+    assert all(len(args) == len(_build.SIGNATURES[name]) for _, name, args in called)
+    assert all(args[-2] == width for _, name, args in called if name not in _build.FIELDLESS)
+    assert _build.library_path(width).parent.name == ("narrow" if width != 13 else _build.source_hash())
+    if width != 13:  # another narrow width: the same library, no second build
+        other = 8 if width != 8 else 11
+        cuda_curve.point_add(MsmConfig(curve=BN254, word_size=other),
+                             *(torch.empty((8, MsmConfig(curve=BN254, word_size=other).num_words), **meta)
+                               for _ in range(6)))
+        assert built == [width] and list(_build._libs) == ["narrow"] and called[-1][2][-2] == other
 
 
 def test_kernel_launch_requires_cuda_tensors():
