@@ -14,17 +14,20 @@
    read by a thread (cuobjdump at nice 19) beside the steps before it; the
    narrow library's build (the same sources
    with -DMSM_LIMB_BITS=0: the limb width 8 to 12 read at run time from
-   csrc/widths.cuh) starts after it and runs beside the steps below, in a
+   csrc/widths.cuh) starts after it and runs beside steps 2-4, 11 and 12,
+   which run first, in a
    process of its own at nice 19 on half the host's cores (BUILD_NARROW;
-   NarrowBuild, whose thread then runs cuobjdump over its objects), and
-   step 19 waits for it;
+   NarrowBuild, whose thread then runs cuobjdump over its objects); the
+   steps from 5 on wait for it (beside it, their host-bound work ran up to
+   5x slower and the profiler dropped kernel events);
 2. holds every kernel against its plain PyTorch twin on the card, on the
    same inputs (a twin of at most CPU_TWIN_ELEMS input elements, such as
    the Horner ladder's serial chain, on copies of them on the CPU, where
    its small ops cost less than launches; several such twins at a time in
    worker processes, the host's cores but two, while the kernels are
    timed, each group of checks compared when its twins return: settle,
-   here and in steps 15-17 and 19), at a small shape and at the shape the 2^20
+   here after steps 3 and 4, which run beside these twins, and in steps
+   15-17 and 20), at a small shape and at the shape the 2^20
    MSM gives it
    (the pair kernels: the compressed 2^20 shape of models/geometry.py's
    rule, with planted doubling and infinity pairs; bpr_phase1: the blocked
@@ -123,37 +126,42 @@
    reset just before and the path's kernels required just after); msm
    --size 16 against cpu --size 16; profile --size 20, its report printed;
 12. the bench (python -m msm_tpu_torch.bench): --size 20 --verify on the
-   four configs, --plan 4 --size 20 --verify, --batched 4 --size 16
+   plain config and --size 16 --verify on the other three, --plan 4
+   --size 20 --verify, --batched 4 --size 16
    --verify and --auto --size 16 (its GLV compressed candidate's
    self-check at 2^14, then the faster verified candidate), every JSON
    line printed and verified (in this process, each checked for its
    path's kernels; step 18's bench processes start it as a user does);
-13. the MSM above the one-pass cap: models.cuzk.CHUNK_MAX set to 2^20 and
-   2^21 points run as two chunks (step 5's points twice, fresh scalars):
-   run_gpu_msm on the four configs, the naive model, a plan (ints and
-   words calls, run_batch of 2) and the batched model (2 instances), each
-   bit-exact against the folded oracle, with its wall-clock and its
-   point-add merge launches (the run's point adds less two passes', one
-   per instance); then the constant restored;
-14. one pass at 2^22 points on the plain, compressed, naive, GLV and GLV
-   compressed configs, bit-exact, each with its peak device memory: the
-   line that sets CHUNK_MAX, which must not exceed the largest power of two
-   whose peak, scaled linearly, stays under 75% of the card's memory in
-   every config; then a plain plan over 2^23 points as one pass (its build
-   time; a words call on np.uint16 [2^23, 16] bit-exact, its median of 3
-   and its peak memory);
+13. the MSM above the one-pass cap, at a small depth: models.cuzk.CHUNK_MAX
+   set to 2^16 and 2^17 points run as two chunks (step 5's 2^16 points
+   twice, fresh scalars): run_gpu_msm on the four configs, the naive
+   model, a plan (ints and words calls, run_batch of 2) and the batched
+   model (2 instances), each bit-exact against the folded oracle, with its
+   wall-clock and its point-add merge launches (the run's point adds less
+   two passes', one per instance, a pass's counted first); then the
+   constant restored;
+14. one pass at CHUNK_MAX = 2^24 points on the plain, compressed, naive,
+   GLV and GLV compressed configs, bit-exact, each with its peak device
+   memory, which must stay under 75% of the card's (the line that bounds
+   CHUNK_MAX; it also prints the largest power of two whose peak, scaled
+   linearly, would stay there in every config); a plain MSM of
+   2^25 points from host arrays (two passes at the cap, one merge); then a
+   plain plan over 2^23 points as one pass (its build time; a words call
+   on np.uint16 [2^23, 16] bit-exact, its median of 3 and its peak
+   memory);
 15. the curves phase (PR 14): the plain path's six kernels (point add,
    convert, scan, row offsets, point total, Horner) are templates over the
    field, one instance a curve; each other curve's six instances against
-   their twins at a small shape and at the shapes of its 2^16 MSM
-   (BLS12-381's at its 2^20 MSM's: c 16, S 16, R 16384, C 64); each
-   curve's MSM at 2^16 through run_gpu_msm and a plan's words call, and
-   BLS12-381's at 2^20 through a plan's words call (median of 5), all
+   their twins at a small shape and at the shapes of its 2^16 MSM, the
+   six curves' twins in the workers side by side, settled together before
+   the MSMs; each
+   curve's MSM at 2^16 through run_gpu_msm and a plan's words call (median
+   of 5), all
    bit-exact against the folded pure-Python
    oracle, BLS12-381's each with its stages, device busy time, idle share
    and peak
    memory, and the curve's kernels required of each run; verify --size 12
-   on BLS12-381 and secp256k1 and the bench's --plan 4 --size 20 line on
+   on BLS12-381 and secp256k1 and the bench's --plan 4 --size 16 line on
    BLS12-381;
 16. in the same phase (PR 15) the compressed, GLV and GLV compressed
    configs of the six curves: each instance against
@@ -165,15 +173,14 @@
    there), compared exactly; each curve on each config at
    2^16 through run_gpu_msm and a plan's words call (paths
    curve_<name>_<config>: a compressed run launches K9, K12 and K13, a GLV
-   run only the *_glv modes), and BLS12-381's three configs at 2^20
-   through a plan's words call (median of 5, stages, device busy time,
-   idle share, peak memory), all bit-exact against the folded oracle;
+   run only the *_glv modes), BLS12-381's with its stages, device busy
+   time, idle share and peak memory, all bit-exact against the folded
+   oracle;
 17. in the same phase each other curve's forward products and
    backward emission (kernels 10 and 11) in both modes, its BPR phase 1
    and its scaled convert in five modes at the shapes of its 2^16
-   compressed and GLV compressed MSMs (BLS12-381's at its 2^20 ones),
-   twin over 256 chains on the CPU, BPR phase 1 at the blocked stage 4's
-   2^16 shape (BLS12-381 also at 2^20), the scaled convert at 2^16,
+   compressed and GLV compressed MSMs, BPR phase 1 at the blocked stage
+   4's 2^16 shape, the scaled convert at 2^16,
    against their twins; then
    on each curve's 2^16 MSM compress_pairs without and with GLV against
    the oracle's pair sums, the scaled convert's five
@@ -200,29 +207,40 @@
    count's wall median of 3 with each shard's host issue time and device
    span; the sharded plan's words call's median of 5 beside the
    single-device plan's, in turn;
-19. the narrow library (widths 8 to 12): its build seconds, each unit's
+19. the rest of the package (run_rest_phase): python -m msm_tpu_torch
+   variants --size 16 in this process, kernel 1 its only kernel (path
+   variants), every key of its report present and finite; then on 4096
+   lanes barrett_mul and inv_standard, mont_mul_eager and mont_mul_nsafe
+   at word sizes 13 to 16, JacobianCtx add and double (with the four
+   branches) and TwistedEdwardsCtx add and double (Baby Jubjub), each on
+   CUDA tensors equal limb for limb to the same call on CPU tensors and
+   to the integers;
+20. the narrow library (widths 8 to 12): its build seconds, each unit's
    compile seconds and os.cpu_count(); the ptxas reports and SASS of every
    kernel instance of that library for the seven curves (no CALL; one
    instance serves every narrow width); then the width-12 phase
    (run_width_phase(12)): every instance against its twin at the small
-   shapes, BN254's and BLS12-381's also at their 2^20 MSMs' shapes;
+   shapes, BN254's and BLS12-381's also at their 2^16 MSMs' shapes;
    each curve's 2^16 MSM at word_size 12 on the four configs (run_gpu_msm
    and a plan's words call), with compress_pairs, the scaled convert, the
    blocked stage 4 and the naive model, validate=True on BLS12-381,
-   BN254's edge MSMs on five paths and a karatsuba=True MSM; BN254's 2^20
-   plan words calls on the four configs and BLS12-381's plain one, all
+   BN254's edge MSMs on five paths and a karatsuba=True MSM, all
    bit-exact against the folded oracle;
-20. the narrow-widths phase (run_narrow_phase): run_width_phase at 8, 11,
-   10 and 9 (the same checks and 2^16 MSMs on the four configs, the
-   off-path instances against their twins only; at 8 BN254's and
-   BLS12-381's instances also at their 2^20 MSMs' shapes, L 33 and 49); BN254's plain 2^20 words call at 8, 11
-   and 13 in turn and BLS12-381's at 8, each with its peak memory; then
+21. the narrow-widths phase (run_narrow_phase): run_width_phase at 8, 11,
+   10 and 9 (at 8 the same checks, BN254's and BLS12-381's instances also
+   at their 2^16 MSMs' shapes, L 33 and 49; at every width the 2^16 MSMs
+   on the four configs: one narrow instance serves every width, so at 11,
+   10 and 9 only the off-path instances, which no MSM there runs, are
+   held against their twins at the small shapes, CHECKED_WIDTHS); BN254's
+   plain 2^16 words call at 8, 11 and 13 in turn, each with its peak
+   memory; then
    the narrow library at width 13 against the default library, limb for
    limb, every wrapper of K1, K2 and K4 to K13 on the seven curves at the
    small shapes (check_libraries);
-21. prints the kernels' JSON line (the GLV modes, the scaled convert,
-   each other curve's instances and each narrow instance,
-   ``name[curve,w8]`` to ``name[curve,w12]``, as entries of their own; each
+22. prints the kernels' JSON line (the GLV modes, the scaled convert,
+   each other curve's instances and each narrow instance checked at a
+   width, ``name[curve,w8]`` ... ``[curve,w12]`` (at 9 to 11 the
+   off-path ones), as entries of their own; each
    with its ptxas registers and spill bytes), then as its last line
    {"ok": true, "device": {...}}.
 
@@ -325,6 +343,10 @@ EXCLUDED["batched"] = EXCLUDED["plain"]
 #: the bench's --auto run: the plain config and the GLV compressed candidate
 PATHS["auto"] = tuple(dict.fromkeys(PATHS["plain"] + PATHS["glv_compressed"]))
 EXCLUDED["auto"] = tuple(k for k in REPLACES if k not in PATHS["auto"])
+#: the variants command (mont_variant_bench): kernel 1 alone, the field
+#: products being plain PyTorch
+PATHS["variants"] = ("point_add",)
+EXCLUDED["variants"] = tuple(k for k in REPLACES if k != "point_add")
 #: H100 SXM peaks: HBM bytes/s, and 32-bit IMAD per SM per clock (x 132 SMs
 #: x the SM clock that nvidia-smi reports as clocks.max.sm)
 HBM_BYTES_PER_S = 3.35e12
@@ -884,7 +906,8 @@ def _check_case(kern, f, L, name, label, args, as_points, reps, clock_hz, subset
 def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> dict:
     """Every kernel against its twin on the card; returns per-kernel
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} from the
-    slice shape (or the last size)."""
+    slice shape (or the last size), filled when the twins in the workers
+    are settled (the caller's settle())."""
     from msm_tpu_torch.oracle.pyecc import Curve
     from msm_tpu_torch.params import BN254, MsmConfig, pick_config
     from msm_tpu_torch.ops.cuda_convert import pack_canonical
@@ -977,7 +1000,6 @@ def check_kernels(clock_hz: float, sizes=("small", "slice"), device="cuda") -> d
         check_pair_value_shapes(kern, rng, table, dev, clock_hz)
         check_bpr_shapes(kern, rng, dev, clock_hz)
     out.update(check_convert_scaled(kern, clock_hz, sizes, dev))
-    settle()
     return out
 
 
@@ -1655,7 +1677,7 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
     TRACE_KERNELS; the profiler has been seen to drop device events); an
     incomplete one is taken again, at most three times. Only the device
     events that start within the MSM's own span (a user annotation around
-    it) count."""
+    it), or whose launch does, count."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from msm_tpu_torch.ops.cuda_curve import point_add
@@ -1688,7 +1710,17 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
         prof.export_chrome_trace(str(trace_path))
         events = json.loads(trace_path.read_text())["traceEvents"]
         start = min(e["ts"] for e in events if e.get("name") == "chip_smoke_msm")
-        events = [e for e in events if e.get("ts", start) >= start]
+        # a device event counts when it starts within the span or its launch
+        # (the runtime call of its correlation id) does: on a loaded host
+        # the MSM's first kernel has been stamped before the span's start,
+        # missing from three traces in a row at 2^16
+        launched = {e["args"]["correlation"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("ts", start - 1) >= start
+                    and "correlation" in e.get("args", {})}
+        early = sum(1 for e in events if e.get("cat") == "kernel" and e.get("ts", start) < start
+                    and _our_kernel(e["name"]) and e.get("args", {}).get("correlation") in launched)
+        events = [e for e in events if e.get("ts", start) >= start
+                  or e.get("args", {}).get("correlation") in launched]
         busy_ms, by_name, n_ours = trace_breakdown(events)
         counts = {name: w.launches for name, (w, _plain) in kern.items()}
         expected = sum(n * len(TRACE_KERNELS.get(name, (name,))) for name, n in counts.items())
@@ -1699,7 +1731,8 @@ def device_breakdown(run, pts, ks, trace_path) -> tuple[float, float, dict]:
             if e.get("ph") == "X" and e.get("cat") == "kernel" and _our_kernel(e["name"]):
                 seen[_our_kernel(e["name"])] = seen.get(_our_kernel(e["name"]), 0) + 1
         print(f"profiled MSM: trace holds {n_ours} of {expected} kernel launches ({json.dumps(seen)} "
-              f"for launches {json.dumps({k: v for k, v in counts.items() if v})}); again", flush=True)
+              f"for launches {json.dumps({k: v for k, v in counts.items() if v})}; {early} stamped before "
+              "the span, launched in it); again", flush=True)
     raise RuntimeError("the profiler dropped kernel events in three traces")
 
 
@@ -2307,12 +2340,13 @@ def run_cli_checks() -> None:
     json.loads(_in_process(cli.main, ["profile", "--size", "20"], "cli profile --size 20", "plain"))
 
 
-#: the bench runs of the bench phase: (arguments, the path its kernels take)
+#: the bench runs of the bench phase: (arguments, the path its kernels take);
+#: the other configs' 2^20 MSMs and plan calls are timed in steps 5 and 10
 BENCH_RUNS = (
     (["--size", "20", "--verify"], "plain"),
-    (["--size", "20", "--verify", "--compress"], "compressed"),
-    (["--size", "20", "--verify", "--glv"], "glv"),
-    (["--size", "20", "--verify", "--glv", "--compress"], "glv_compressed"),
+    (["--size", "16", "--verify", "--compress"], "compressed"),
+    (["--size", "16", "--verify", "--glv"], "glv"),
+    (["--size", "16", "--verify", "--glv", "--compress"], "glv_compressed"),
     (["--plan", "4", "--size", "20", "--verify"], "plain"),
     (["--batched", "4", "--size", "16", "--verify"], "batched"),
     (["--auto", "--size", "16"], "auto"),
@@ -2333,15 +2367,17 @@ def run_bench_checks() -> None:
             raise AssertionError(f"{tag}: not verified: {line}")
 
 
-def run_chunked_checks(base, pts20, per_pass: dict, device="cuda") -> None:
-    """The MSM above the one-pass cap: cuzk.CHUNK_MAX set to 2^20 and 2^21
-    points (step 5's 2^20 points ``pts20`` twice: the same tiling) with
-    fresh scalars, then the constant restored. run_gpu_msm on the plain,
-    compressed, GLV and GLV compressed configs, compute_msm_naive, a plan
-    (an ints and a words call, run_batch of 2) and the batched model (2
-    instances), each with the counters reset just before, bit-exact against
-    the folded oracle; each run's point-add launches less two passes'
-    (``per_pass``: the 2^20 runs' counts) are its merges, one per instance."""
+def run_chunked_checks(base, pts16, device="cuda") -> None:
+    """The MSM above the one-pass cap, at a small depth: cuzk.CHUNK_MAX set
+    to 2^16 and 2^17 points (step 5's 2^16 points ``pts16`` twice: the same
+    tiling) with fresh scalars, then the constant restored. run_gpu_msm on
+    the plain, compressed, GLV and GLV compressed configs,
+    compute_msm_naive, a plan (an ints and a words call, run_batch of 2)
+    and the batched model (2 instances), each with the counters reset just
+    before, bit-exact against the folded oracle; each run's point-add
+    launches less two passes' (each path's one pass over the first 2^16
+    points, its config and geometry the chunked run's, counted first) are
+    its merges, one per instance."""
     import msm_tpu_torch
     from msm_tpu_torch import bench
     from msm_tpu_torch.models import cuzk
@@ -2351,10 +2387,10 @@ def run_chunked_checks(base, pts20, per_pass: dict, device="cuda") -> None:
     from msm_tpu_torch.utils.limbs import bytes_to_scalars
 
     cv = Curve(BN254)
-    cap = len(pts20)
+    cap = len(pts16)
     n = 2 * cap
     t0 = time.perf_counter()
-    pts = pts20 + pts20
+    pts = pts16 + pts16
     words = random_scalar_words(np.random.default_rng(SEED + 40), n)
     rolled = np.roll(words, 1, axis=0)
     ks, ks_rolled = (bytes_to_scalars(w.tobytes()) for w in (words, rolled))
@@ -2378,6 +2414,12 @@ def run_chunked_checks(base, pts20, per_pass: dict, device="cuda") -> None:
         print(f"{tag}: bit-exact; wall {wall:.3f} s; point-add merge launches {merges} "
               f"(of {counts['point_add']})", flush=True)
 
+    per_pass = {}
+    for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
+        _, run = msm_path(path, n, device)
+        _reset_counts()
+        run(pts[:cap], ks[:cap])
+        per_pass[path] = _counts_of(f"chunked: one pass over 2^{cap.bit_length() - 1} {path}", path)["point_add"]
     saved = cuzk.CHUNK_MAX
     cuzk.CHUNK_MAX = cap
     try:
@@ -2410,13 +2452,12 @@ def largest_cap(peaks_gib: dict, logn: int, total_gib: float, share: float = 0.7
     return 1 << k
 
 
-def one_pass_checks(base, logn: int, seed: int, scaled: dict | None = None, device="cuda") -> tuple[dict, dict]:
+def one_pass_checks(base, logn: int, seed: int, device="cuda") -> tuple[dict, dict]:
     """One pass at 2^logn points (step 5's bases tiled, their words
     uploaded; fresh scalar words) on the plain, compressed, naive, GLV and
     GLV compressed configs, each reset and checked for its path's kernels
-    and bit-exact against the folded oracle, with its peak device memory
-    (beside ``scaled``'s estimate, when given). Returns ({path: peak GiB},
-    {path: point-add launches})."""
+    and bit-exact against the folded oracle, with its peak device memory.
+    Returns ({path: peak GiB}, {path: point-add launches})."""
     from msm_tpu_torch import bench
     from msm_tpu_torch.models import common, cuzk, naive
     from msm_tpu_torch.models.geometry import pick_geometry
@@ -2451,24 +2492,22 @@ def one_pass_checks(base, logn: int, seed: int, scaled: dict | None = None, devi
         adds[path] = _counts_of(tag, path)["point_add"]
         if not cv.eq(got, want):
             raise AssertionError(f"{tag}: differs from the folded oracle")
-        est = f" (scaled from the smaller pass: {scaled[path]:.3f})" if scaled else ""
-        print(f"{tag}: bit-exact; first call {wall:.3f} s; peak_mem_gib={peaks[path]:.3f}{est}", flush=True)
+        print(f"{tag}: bit-exact; first call {wall:.3f} s; peak_mem_gib={peaks[path]:.3f}", flush=True)
     del xd, yd, sd
     torch.cuda.empty_cache()
     return peaks, adds
 
 
 def run_beyond_checks(base, logn: int = 22, device="cuda") -> None:
-    """The sizes above the JAX package's 2^22 cap. One pass at 2^22 on the
-    five configs (``one_pass_checks``): the peaks that set cuzk.CHUNK_MAX,
-    which must not exceed the cap derived here. Then one pass at CHUNK_MAX
-    itself on the five configs, each bit-exact, its peak printed beside the
-    2^22 peak scaled up and held under 75% of the card. Then a plain MSM of
-    2 x CHUNK_MAX points from host arrays, two passes at the real cap and
-    one point-add merge, bit-exact. Then a plain plan over 2^23 points, run
-    as one pass: its build time, a words call (np.uint16 [2^23, 16])
-    bit-exact against the folded oracle, the words call's wall median of 3
-    and its peak memory."""
+    """The sizes above the JAX package's 2^22 cap. One pass at
+    cuzk.CHUNK_MAX on the five configs (``one_pass_checks``), each
+    bit-exact, each peak held under 75% of the card (so CHUNK_MAX fits),
+    and the largest power of two whose peak, scaled linearly, would stay
+    there. Then a plain MSM of 2 x CHUNK_MAX points from host
+    arrays, two passes at the real cap and one point-add merge, bit-exact.
+    Then a plain plan over 2^(logn + 1) points, run as one pass: its build
+    time, a words call (np.uint16 [n, 16]) bit-exact against the folded
+    oracle, the words call's wall median of 3 and its peak memory."""
     import msm_tpu_torch
     from msm_tpu_torch import bench
     from msm_tpu_torch.models import common, cuzk
@@ -2477,24 +2516,17 @@ def run_beyond_checks(base, logn: int = 22, device="cuda") -> None:
     from msm_tpu_torch.params import BN254, pick_config
 
     cv = Curve(BN254)
-    peaks, _ = one_pass_checks(base, logn, SEED + 50, device=device)
     total = torch.cuda.get_device_properties(0).total_memory / 2**30
-    cap = largest_cap(peaks, logn, total)
-    print(f"one-pass peak memory at 2^{logn} (GiB): " + ", ".join(f"{k}={v:.3f}" for k, v in peaks.items())
-          + f"; card {total:.2f} GiB; the largest 2^k under 75% of it in every config: 2^{cap.bit_length() - 1}; "
-          f"CHUNK_MAX = 2^{cuzk.CHUNK_MAX.bit_length() - 1}", flush=True)
-    if cuzk.CHUNK_MAX > cap:
-        raise AssertionError(f"CHUNK_MAX = {cuzk.CHUNK_MAX} exceeds the cap the card allows, {cap}")
-
     logc = cuzk.CHUNK_MAX.bit_length() - 1
-    scale = 2 ** (logc - logn)
-    peaks_c, adds_c = one_pass_checks(base, logc, SEED + 52, {k: v * scale for k, v in peaks.items()}, device)
+    peaks_c, adds_c = one_pass_checks(base, logc, SEED + 52, device=device)
     over = {k: v for k, v in peaks_c.items() if v > 0.75 * total}
     if over:
         raise AssertionError(f"one pass at CHUNK_MAX: peaks over 75% of the card: {over}")
+    cap = largest_cap(peaks_c, logc, total)
     print(f"one-pass peak memory at CHUNK_MAX = 2^{logc} (GiB): "
-          + ", ".join(f"{k}={v:.3f} (scaled {peaks[k] * scale:.3f})" for k, v in peaks_c.items())
-          + f"; 75% of the card {0.75 * total:.2f}", flush=True)
+          + ", ".join(f"{k}={v:.3f}" for k, v in peaks_c.items())
+          + f"; card {total:.2f} GiB, 75% of it {0.75 * total:.2f}; the largest 2^k under 75% of it in every "
+          f"config, scaled linearly: 2^{cap.bit_length() - 1}", flush=True)
 
     n = 2 * cuzk.CHUNK_MAX
     cfg = pick_config(n)
@@ -2571,9 +2603,10 @@ def _w(word_size: int) -> str:
 #: the plain path's kernels, each instantiated for every curve (kernel 3,
 #: the histogram, has no field arithmetic)
 CURVE_KERNELS = ("point_add", "convert_pack", "scan_rows", "row_offsets", "point_total", "horner")
-#: the curves also run at 2^20 through a plan's words call (the others at
-#: 2^16 only); each curve's kernels are held at its largest MSM's shapes
-CURVES_AT_2E20 = ("bls12_381",)
+#: the curve whose 2^16 runs also print their stages and a profiled call
+#: (run_curve_config's detail); every curve runs at 2^16, and its kernels
+#: are held at its 2^16 MSMs' shapes
+DETAIL_CURVES = ("bls12_381",)
 #: the configs each curve also runs besides the plain path (PR 15), through
 #: msm_path's configs
 CURVE_CONFIGS = ("compressed", "glv", "glv_compressed")
@@ -2582,8 +2615,6 @@ CURVE_CONFIGS = ("compressed", "glv", "glv_compressed")
 CONFIG_KERNELS = {"mont_pow": "compressed", "pair_suffix": "compressed", "emit_scan": "compressed",
                   "convert_pack_glv": "glv", "scan_rows_glv": "glv", "pair_suffix_glv": "glv_compressed",
                   "emit_scan_glv": "glv_compressed"}
-#: the curves whose three configs also run at 2^20 (a plan's words call)
-CONFIGS_AT_2E20 = ("bls12_381",)
 #: a curve's MSM runs its config's kernels (a compressed path K9, K12 and
 #: K13, a GLV path only the *_glv modes), its plan calls all but the convert
 for _c in ("bn254",) + CURVE_NAMES:
@@ -2594,15 +2625,17 @@ for _c in ("bn254",) + CURVE_NAMES:
             PATHS[f"plan_{_tag}"], EXCLUDED[f"plan_{_tag}"] = PATHS[f"plan_{_p}"], EXCLUDED[f"plan_{_p}"]
 #: the kernels generic over the field, by wrapper: (their kernels, BN254's
 #: object file, the suffix of each other curve's translation unit): the
-#: plain kernels and the GLV modes of the convert and the scan in
-#: csrc/curve_<name>.cu, the pair kernels, BPR phase 1 and the scaled
-#: convert in csrc/curve_<name>_pairs.cu
+#: point add, the convert, the scan, the Horner ladder and the GLV modes of
+#: the convert and the scan in csrc/curve_<name>.cu, the row offsets in
+#: curve_<name>_prefix.cu, the point total in curve_<name>_total.cu, the
+#: pair kernels, BPR phase 1 and the scaled convert in
+#: csrc/curve_<name>_pairs.cu
 CURVE_INSTANCES = {
     "point_add": (("k_point_add", "k_point_add_lanes"), "point_add.o", ""),
     "convert_pack": (("k_convert",), "convert.o", ""),
     "scan_rows": (("k_scan",), "scan.o", ""),
-    "row_offsets": (TRACE_KERNELS["row_offsets"], "prefix.o", ""),
-    "point_total": (TRACE_KERNELS["point_total"], "point_total.o", ""),
+    "row_offsets": (TRACE_KERNELS["row_offsets"], "prefix.o", "_prefix"),
+    "point_total": (TRACE_KERNELS["point_total"], "point_total.o", "_total"),
     "horner": (("k_horner",), "horner.o", ""),
     "convert_pack_glv": (("k_convert_glv",), "convert.o", ""),
     "scan_rows_glv": (("k_scan_glv",), "scan.o", ""),
@@ -2618,6 +2651,8 @@ CURVE_INSTANCES = {
     "bpr_phase1": (("k_bpr_phase1",), "bpr.o", "_pairs"),
     "convert_pack_scaled": (tuple(f"k_convert_scaled<{i}>" for i in range(3)), "convert.o", "_pairs"),
 }
+#: the suffixes of each other curve's four translation units
+CURVE_UNITS = ("", "_prefix", "_total", "_pairs")
 #: each other curve's instances off every served config's path
 #: (csrc/curve_<name>_pairs.cu), each with the path whose run on the curve
 #: gives its launches: compress_pairs without and with GLV, the blocked
@@ -2665,9 +2700,9 @@ def _field_of(name: str) -> str:
 
 def _kernel_objects(lib_dir: Path) -> list[Path]:
     """The object files of a library's generic kernels (CURVE_INSTANCES'
-    BN254 units and every other curve's two)."""
+    BN254 units and every other curve's four, CURVE_UNITS)."""
     return ([lib_dir / obj for _kernels, obj, _unit in CURVE_INSTANCES.values()]
-            + [lib_dir / f"curve_{curve}{unit}.o" for curve in CURVE_NAMES for unit in ("", "_pairs")])
+            + [lib_dir / f"curve_{curve}{unit}.o" for curve in CURVE_NAMES for unit in CURVE_UNITS])
 
 
 def report_plain_builds(so, word_size: int = 13, widths: tuple = ()) -> dict:
@@ -3021,48 +3056,39 @@ def sample_curve_msm(curve: str, n: int, seed: int, base=None):
     return base, [base[i % len(base)] for i in range(n)], words
 
 
-#: each curve's MSM inputs and folded oracle by (curve, log2 n), kept by
-#: run_curve_msms for the narrow library's phases: (bases, points, scalar words,
-#: oracle JPoint)
+#: each curve's 2^16 MSM inputs and folded oracle by (curve, 16), kept by
+#: run_curve_msms for the narrow library's phases: (bases, points, scalar
+#: words, oracle JPoint)
 CURVE_INPUTS: dict = {}
 
 
 def run_curve_msms(device="cuda") -> dict:
     """Each of the six curves on the four configs (the plain one and
     CURVE_CONFIGS) through the entry points a user calls, one curve's
-    inputs and folded oracle shared by its configs (run_curve_config): at
-    2^16 every config, at 2^20 the plain one for CURVES_AT_2E20 and every
-    config for CONFIGS_AT_2E20; at 2^16 also the paths of OFFPATH_KERNELS
-    and the naive model (run_curve_offpath_paths), and validate=True where
-    SUBGROUP_CHECKS names the curve and size (check_subgroup); the stage
-    split and the profile (run_curve_config's detail) for CONFIGS_AT_2E20
-    only. Returns {(curve, config or path): launch counts of its 2^16
-    run}."""
+    inputs and folded oracle shared by its configs (run_curve_config), at
+    2^16: every config, the paths of OFFPATH_KERNELS and the naive model
+    (run_curve_offpath_paths), and validate=True where SUBGROUP_CHECKS
+    names the curve (check_subgroup); the stage split and the profile
+    (run_curve_config's detail) for DETAIL_CURVES only. Returns {(curve,
+    config or path): launch counts of its 2^16 run}."""
     from msm_tpu_torch import bench
 
     counts = {}
     for curve in CURVE_NAMES:
         spec = _curve_spec(curve)
-        base = None
-        for logn in (16, 20) if curve in CURVES_AT_2E20 else (16,):
-            t0 = time.perf_counter()
-            base, pts, words = sample_curve_msm(curve, 1 << logn, SEED + 60 + logn, base)
-            want = bench.folded_oracle(base, words, spec)
-            CURVE_INPUTS[(curve, logn)] = (base, pts, words, want)
-            ks = [int.from_bytes(w.tobytes(), "little") for w in words] if logn == 16 else None
-            print(f"curve {curve} 2^{logn}: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
-            configs = CURVE_CONFIGS if logn == 16 or curve in CONFIGS_AT_2E20 else ()
-            for path in ("plain",) + configs:
-                c, _ = run_curve_config(curve, path, logn, pts, ks, words, want, device,
-                                        detail=curve in CONFIGS_AT_2E20)
-                if c is not None:
-                    counts[(curve, path)] = c
-            if logn == 16:
-                for path, c in run_curve_offpath_paths(curve, pts, ks, want, device).items():
-                    counts[(curve, path)] = c
-            if (curve, logn) in SUBGROUP_CHECKS:
-                ints = ks or [int.from_bytes(w.tobytes(), "little") for w in words]
-                check_subgroup(curve, pts, ints, words, want, device)
+        t0 = time.perf_counter()
+        base, pts, words = sample_curve_msm(curve, 1 << 16, SEED + 76)
+        want = bench.folded_oracle(base, words, spec)
+        CURVE_INPUTS[(curve, 16)] = (base, pts, words, want)
+        ks = [int.from_bytes(w.tobytes(), "little") for w in words]
+        print(f"curve {curve} 2^16: inputs + oracle {time.perf_counter() - t0:.1f} s", flush=True)
+        for path in ("plain",) + CURVE_CONFIGS:
+            counts[(curve, path)], _ = run_curve_config(curve, path, 16, pts, ks, words, want, device,
+                                                        detail=curve in DETAIL_CURVES)
+        for path, c in run_curve_offpath_paths(curve, pts, ks, want, device).items():
+            counts[(curve, path)] = c
+        if (curve, 16) in SUBGROUP_CHECKS:
+            check_subgroup(curve, pts, ks, words, want, device)
     return counts
 
 
@@ -3142,7 +3168,8 @@ def run_curve_entry_checks() -> None:
     the counters reset just before and the curve's kernels required just
     after: verify --size 12 on BLS12-381 and secp256k1 (bit-exact against
     the pure-Python oracle over every point), and the bench's --plan 4
-    --size 20 line on BLS12-381, verified against its folded oracle."""
+    --size 16 line on BLS12-381 (its 2^16 words calls are timed in
+    run_curve_msms), verified against its folded oracle."""
     from msm_tpu_torch import bench, cli
 
     for curve in ("bls12_381", "secp256k1"):
@@ -3150,7 +3177,7 @@ def run_curve_entry_checks() -> None:
         line = _in_process(cli.main, argv, f"cli {' '.join(argv)}", f"curve_{curve}")
         if json.loads(line).get("bit_exact") is not True:
             raise AssertionError(f"cli {' '.join(argv)}: {line}")
-    argv = ["--plan", "4", "--size", "20", "--verify", "--curve", "bls12_381"]
+    argv = ["--plan", "4", "--size", "16", "--verify", "--curve", "bls12_381"]
     line = _in_process(bench.main, argv, f"bench {' '.join(argv)}", "curve_bls12_381")
     if json.loads(line).get("verified") is not True:
         raise AssertionError(f"bench {' '.join(argv)}: not verified: {line}")
@@ -3158,13 +3185,13 @@ def run_curve_entry_checks() -> None:
 
 def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
     """The curves phase: each curve's six plain kernel instances against
-    their twins at the small shapes and at the shapes of its largest plain
-    MSM below (2^20 for CURVES_AT_2E20, else 2^16), its seven instances of
+    their twins at the small shapes and at the shapes of its 2^16 plain
+    MSM, its seven instances of
     the compressed and GLV configs at the small shapes and at the shapes
     of its 2^16 MSMs on those configs (check_curve_config_kernels), its six
-    OFFPATH_KERNELS at the shapes of its 2^16 MSMs (the pair kernels at
-    its 2^20 MSMs' for CONFIGS_AT_2E20; check_curve_offpath_kernels), each
-    curve's checks settled before the next curve's, then the curves' MSMs on the four
+    OFFPATH_KERNELS at the shapes of its 2^16 MSMs
+    (check_curve_offpath_kernels), the six curves' twins in the workers
+    side by side and settled together, then the curves' MSMs on the four
     configs with the OFFPATH_KERNELS' paths and the subgroup checks
     (run_curve_msms) and the command line and bench on them
     (run_curve_entry_checks). Returns the kernel table's
@@ -3184,14 +3211,15 @@ def run_curves_phase(so, clock_hz: float, device="cuda") -> list[dict]:
     for curve in CURVE_NAMES:
         # the MSM shapes first (their chain twins, the longest, overlap the
         # rest); a kernel's result is its MSM shape's
-        large = check_curve_offpath_kernels(kern, curve, 20 if curve in CONFIGS_AT_2E20 else 16, clock_hz, dev)
+        large = check_curve_offpath_kernels(kern, curve, 16, clock_hz, dev)
         large.update(check_curve_config_kernels(kern, curve, 16, clock_hz, dev))
-        large.update(check_curve_kernels(kern, curve, 20 if curve in CURVES_AT_2E20 else 16, clock_hz, dev))
+        large.update(check_curve_kernels(kern, curve, 16, clock_hz, dev))
         small = check_curve_config_kernels(kern, curve, None, clock_hz, dev)
         small.update(check_curve_kernels(kern, curve, None, clock_hz, dev))
         checks[curve] = {**small, **large}
-        settle()
-    step("kernels, config kernels, pair-value, bpr and scaled convert kernels")
+    step("kernels issued")
+    settle()
+    step("the kernels' twins settled")
     counts = run_curve_msms(device)
     step("msms")
     run_curve_entry_checks()
@@ -3475,14 +3503,186 @@ def _sharded_checks(runs, inputs, device) -> None:
     del splan, plan
 
 
+#: lanes of the rest-of-the-package phase's field and curve checks
+REST_LANES = 4096
+#: Baby Jubjub's base point (EIP-2494), whose multiples that phase adds
+TE_BX = 5299619240641551281634865583518297030282874472190772894086521144482721001553
+TE_BY = 16950150798460657717958625567821834550301663161624707787222815936182638968203
+#: the keys of mont_variant_bench's report
+VARIANT_KEYS = ("batch", "word_size", "num_words", "mont_torch_ms", "barrett_torch_ms", "cuda_add_ms",
+                "mont_cuda_ms_per_mul_equiv") + tuple(f"mont_{v}_w{w}_ms" for w in (13, 14, 15, 16)
+                                                      for v in ("eager", "nsafe"))
+
+
+def _same_on_both(tag: str, device, fn, *args) -> tuple:
+    """fn on the arguments as tensors on ``device`` and as CPU tensors: the
+    outputs (a tensor or a tuple of them) equal limb for limb, else raises.
+    Returns the CPU outputs as numpy arrays."""
+    got = fn(*(a.to(device) for a in args))
+    want = fn(*(a.cpu() for a in args))
+    got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+    torch.cuda.synchronize()
+    if len(got) != len(want) or not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError(f"rest of the package, {tag}: CUDA and CPU tensors differ")
+    return tuple(w.numpy() for w in want)
+
+
+def run_rest_phase(base, device="cuda") -> None:
+    """The modules beside the MSM paths (the rest of the package). First
+    ``python -m msm_tpu_torch variants --size 16`` on BN254 in this process
+    (counters reset just before; kernel 1 and no other kernel required of
+    it: the path ``variants``), every key of its report present and every
+    time finite. Then, on REST_LANES lanes, each call on CUDA tensors equal
+    limb for limb to the same call on CPU tensors, and its result to the
+    integers: BN254 at 13 bits barrett_mul and inv_standard (with the
+    edges 0, 1, p - 1); mont_mul_eager and mont_mul_nsafe at word sizes 13
+    to 16 (random elements below p and the extremes); JacobianCtx add and
+    double on ``base`` (affine BN254 points) with random Z and the four
+    branches P + P, P + (-P), O + P, P + O planted in the first lanes, held
+    against the oracle's addition; TwistedEdwardsCtx add and double on
+    Baby Jubjub's base point's multiples 1 to REST_LANES, held against the
+    affine formulas."""
+    import dataclasses
+
+    from msm_tpu_torch import cli
+    from msm_tpu_torch.ops import field, twisted_ec
+    from msm_tpu_torch.ops.curve import PointBatch, get_jacobian_ctx
+    from msm_tpu_torch.oracle.pyecc import IDENTITY, Curve, JPoint
+    from msm_tpu_torch.params import BN254, MsmConfig
+    from msm_tpu_torch.utils.limbs import ints_to_limbs, limbs_to_ints
+
+    t_all = t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        print(f"rest of the package, {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+
+    report = json.loads(_in_process(cli.main, ["variants", "--size", "16"], "cli variants --size 16", "variants"))
+    bad = [k for k in VARIANT_KEYS if not (k in report and np.isfinite(report[k]))]
+    if bad or set(report) != set(VARIANT_KEYS) or report["batch"] != 1 << 16:
+        raise AssertionError(f"variants: keys missing, extra or not finite: {bad} {sorted(report)}")
+    step("variants --size 16")
+
+    n = REST_LANES
+    rng = np.random.default_rng(SEED + 90)
+    cfg = MsmConfig(curve=BN254)
+    f = field.get_field_ctx(cfg)
+    p = BN254.modulus
+
+    def field_ints(k: int) -> list[int]:
+        return [0, 1, p - 1] + [int.from_bytes(rng.bytes(40), "little") % p for _ in range(k - 3)]
+
+    def limbs(vals, w, words):
+        return torch.from_numpy(ints_to_limbs(vals, w, words).astype(np.int32))
+
+    va, vb = field_ints(n), field_ints(n)[::-1]
+    a, b = limbs(va, 13, cfg.num_words), limbs(vb, 13, cfg.num_words)
+    got = limbs_to_ints(_same_on_both("barrett_mul", device, f.barrett_mul, a, b)[0], 13)
+    if got != [x * y % p for x, y in zip(va, vb)]:
+        raise AssertionError("rest of the package: barrett_mul differs from the integers")
+    got = limbs_to_ints(_same_on_both("inv_standard", device, f.inv_standard, a)[0], 13)
+    if got != [pow(x, -1, p) if x else 0 for x in va]:
+        raise AssertionError("rest of the package: inv_standard differs from the integers")
+    step(f"barrett_mul and inv_standard on {n} lanes")
+
+    for w in (13, 14, 15, 16):
+        cw = dataclasses.replace(cfg, word_size=w)
+        R = 1 << (w * cw.num_words)
+        va, vb = field_ints(n), field_ints(n)
+        va[3:6], vb[3:6] = [R % p, p - 1, p - 1], [R % p, p - 1, p - 2]
+        a, b = limbs(va, w, cw.num_words), limbs(vb, w, cw.num_words)
+        want = [x * y * cw.rinv % p for x, y in zip(va, vb)]
+        for name in ("mont_mul_eager", "mont_mul_nsafe"):
+            fn = getattr(field, name)
+            if limbs_to_ints(_same_on_both(f"{name} w{w}", device, lambda x, y: fn(cw, x, y), a, b)[0], w) != want:
+                raise AssertionError(f"rest of the package: {name} at w{w} differs from the integers")
+    step(f"mont_mul_eager and mont_mul_nsafe at 13 to 16 on {n} lanes")
+
+    cv = Curve(BN254)
+    jc = get_jacobian_ctx(cfg)
+    pa = [base[int(i)] for i in rng.integers(0, len(base), size=n)]
+    qa = [base[int(i)] for i in rng.integers(0, len(base), size=n)]
+    pa[:4], qa[:4] = [pa[0], pa[1], None, pa[3]], [pa[0], (pa[1][0], p - pa[1][1]), qa[2], None]
+
+    def jacobian(pts):
+        zs = [int(z) for z in rng.integers(2, 1 << 62, size=len(pts))]
+        coords = [(0, 1, 0) if pt is None else (pt[0] * z * z % p, pt[1] * z**3 % p, z) for pt, z in zip(pts, zs)]
+        return [limbs([c[k] * cfg.r % p for c in coords], 13, cfg.num_words) for k in range(3)]
+
+    def affine(coords):
+        x, y, z = (np.array(limbs_to_ints(c, 13), dtype=object) * cfg.rinv % p for c in coords)
+        return [None if zi == 0 else (xi * pow(int(zi), -2, p) % p, yi * pow(int(zi), -3, p) % p)
+                for xi, yi, zi in zip(x, y, z)]
+
+    def oracle(pt):
+        return IDENTITY if pt is None else JPoint(pt[0], pt[1], 1)
+
+    def as_affine(jp):
+        return None if jp.is_identity() else cv.to_affine(jp)
+
+    pj, qj = jacobian(pa), jacobian(qa)
+    s = affine(_same_on_both("JacobianCtx.add", device,
+                             lambda *c: tuple(jc.add(PointBatch(*c[:3]), PointBatch(*c[3:]))), *pj, *qj))
+    d = affine(_same_on_both("JacobianCtx.double", device, lambda *c: tuple(jc.double(PointBatch(*c))), *pj))
+    if s != [as_affine(cv.add(oracle(x), oracle(y))) for x, y in zip(pa, qa)]:
+        raise AssertionError("rest of the package: JacobianCtx.add differs from the oracle")
+    if d != [as_affine(cv.double(oracle(x))) for x in pa]:
+        raise AssertionError("rest of the package: JacobianCtx.double differs from the oracle")
+    if s[:4] != [d[0], None, qa[2], pa[3]]:
+        raise AssertionError("rest of the package: JacobianCtx.add's branches")
+    step(f"JacobianCtx add and double on {n} lanes")
+
+    te = twisted_ec.get_twisted_ctx(twisted_ec.BABY_JUBJUB)
+    spec, q = te.spec, te.spec.modulus
+
+    def te_add(p1, p2):
+        (x1, y1), (x2, y2) = p1, p2
+        t = spec.d * x1 * x2 * y1 * y2 % q
+        return ((x1 * y2 + y1 * x2) * pow((1 + t) % q, -1, q) % q,
+                (y1 * y2 - spec.a * x1 * x2) * pow((1 - t) % q, -1, q) % q)
+
+    mults = [(TE_BX, TE_BY)]
+    while len(mults) < n:
+        mults.append(te_add(mults[-1], mults[0]))
+    order = rng.permutation(n)
+    tp, tq = mults, [mults[int(i)] for i in order]
+
+    def extended(pts):
+        tc = te.cfg
+        return [limbs([v % q * tc.r % q for v in vals], tc.word_size, tc.num_words)
+                for vals in ([x for x, _ in pts], [y for _, y in pts], [x * y for x, y in pts], [1] * len(pts))]
+
+    def te_affine(coords):
+        x, y, _, z = (np.array(limbs_to_ints(c, te.cfg.word_size), dtype=object) * te.cfg.rinv % q for c in coords)
+        return [(xi * pow(int(zi), -1, q) % q, yi * pow(int(zi), -1, q) % q) for xi, yi, zi in zip(x, y, z)]
+
+    ep, eq = extended(tp), extended(tq)
+    s = te_affine(_same_on_both("TwistedEdwardsCtx.add", device,
+                                lambda *c: tuple(te.add(twisted_ec.ExtPoint(*c[:4]), twisted_ec.ExtPoint(*c[4:]))),
+                                *ep, *eq))
+    d = te_affine(_same_on_both("TwistedEdwardsCtx.double", device,
+                                lambda *c: tuple(te.double(twisted_ec.ExtPoint(*c))), *ep))
+    if s != [te_add(x, y) for x, y in zip(tp, tq)] or d != [te_add(x, x) for x in tp]:
+        raise AssertionError("rest of the package: TwistedEdwardsCtx differs from the affine formulas")
+    step(f"TwistedEdwardsCtx add and double on {n} lanes")
+    print(f"rest of the package phase: {time.perf_counter() - t_all:.1f} s", flush=True)
+
+
 #: the narrow library's widths by phase: 12 in the width-12 phase, the
 #: others in the narrow-widths phase, in this order
 NARROW_PHASE_WIDTHS = (8, 11, 10, 9)
-#: by width, the curves whose narrow instances are also held at their
-#: 2^20 MSMs' shapes (every curve's at the small shapes; every curve's 2^16
-#: MSMs at that width run them all): at 12 those whose 2^20 MSMs run at
-#: that width (run_width_phase), at 8 the widest rows (L 33 and 49)
-AT_2E20 = {12: ("bn254", "bls12_381"), 8: ("bn254", "bls12_381")}
+#: the widths whose instances are all held against their twins (every
+#: width's 2^16 MSMs run the served ones, bit-exact): one narrow instance
+#: serves every width, so 11, 10 and 9, between 8 and 12, hold only the
+#: instances off the served paths (OFFPATH_KERNELS), which their MSMs do
+#: not run, against their twins
+CHECKED_WIDTHS = (12, 8)
+#: the curves whose narrow instances are also held at their 2^16 MSMs'
+#: shapes at CHECKED_WIDTHS (every curve's at the small shapes; every
+#: curve's 2^16 MSMs at every width run them all): at 8 the widest rows, L
+#: 33 and 49
+MSM_SHAPE_CURVES = ("bn254", "bls12_381")
 #: the widths whose 2^16 MSMs also drive the off-path runs
 #: (run_curve_offpath_paths); at the others those instances are held
 #: against their twins only
@@ -3491,8 +3691,9 @@ OFFPATH_WIDTHS = (12,)
 
 #: the narrow library's build (widths 8 to 12), in a process of its own at
 #: nice 19 on half the host's cores (its nvcc processes inherit both),
-#: behind the 13-bit build and beside the 13-bit phases: it takes the cores
-#: they leave idle
+#: behind the 13-bit build and beside the first 13-bit phases, which run no
+#: profiled MSM (the bench's times taken there share the host with it;
+#: run_phases waits for it before the timed and profiled MSMs)
 BUILD_NARROW = ("import os; os.nice(19); cpus = sorted(os.sched_getaffinity(0)); "
                 "os.sched_setaffinity(0, cpus[len(cpus) // 2:]); "
                 "from msm_tpu_torch.ops import _build; _build.build(12)")
@@ -3539,12 +3740,14 @@ class NarrowBuild:
 
 
 def run_width_phase(word_size: int, clock_hz: float, device="cuda") -> list[dict]:
-    """The checks of one width of the narrow library (8 to 12): its
-    instances of every kernel generic over the field (every wrapper of
-    CURVE_INSTANCES) on the seven curves against their twins at the small
-    shapes, the curves of AT_2E20[word_size] also at their 2^20 MSMs'
-    shapes (a chain kernel's twin over 256 chains on the CPU there), all
-    exact after canonicalization; each curve's 2^16 MSM at that width on
+    """The checks of one width of the narrow library (8 to 12): at
+    CHECKED_WIDTHS its instances of every kernel generic over the field
+    (every wrapper of CURVE_INSTANCES; at the other widths those of
+    OFFPATH_KERNELS only) on the seven curves against their
+    twins at the small shapes, the curves of MSM_SHAPE_CURVES also at
+    their 2^16 MSMs' shapes at that width, all exact after
+    canonicalization; each curve's 2^16 MSM at
+    that width on
     the plain, compressed, GLV and GLV compressed configs (run_gpu_msm and
     a plan's words call, bit-exact against the folded oracle, the curve's
     kernels required: paths curve_<name>[_<config>]_w<width>), at
@@ -3552,15 +3755,15 @@ def run_width_phase(word_size: int, clock_hz: float, device="cuda") -> list[dict
     five modes, the blocked stage 4 and the naive model
     (run_curve_offpath_paths). At width 12 also validate=True on BLS12-381
     (check_subgroup), BN254's edge MSMs on the five paths and a
-    karatsuba=True MSM at 2^16, and a plan's words call at 2^20 on BN254's
-    four configs and BLS12-381's plain one, bit-exact. The twins that run
+    karatsuba=True MSM at 2^16, bit-exact. The twins that run
     in the workers are compared after the 2^16 MSMs (settle), so those
-    MSMs' wall times share the host with them; the 2^20 ones run after.
+    MSMs' wall times share the host with them.
     Returns the kernel
     table's rows, ``name[curve,w<width>]``, each with its launches in its
     curve's 2^16 run on the config (or path) that runs it (0 for an
     off-path instance at a width that does not drive its path) and the
-    times at its largest checked shape."""
+    times at its largest checked shape: at a width outside CHECKED_WIDTHS
+    the off-path instances' only."""
     import msm_tpu_torch
     from msm_tpu_torch import bench
     from msm_tpu_torch.oracle.pyecc import Curve
@@ -3579,10 +3782,13 @@ def run_width_phase(word_size: int, clock_hz: float, device="cuda") -> list[dict
     dev = torch.device(device)
     checks = {}
     for curve in curves:
-        # the 2^20 shapes first (their chain twins, the longest, overlap the
+        if word_size not in CHECKED_WIDTHS:
+            checks[curve] = check_curve_offpath_kernels(kern, curve, None, clock_hz, dev, word_size)
+            continue
+        # the MSM shapes first (their chain twins, the longest, overlap the
         # rest); a kernel's result is its largest shape's
         c = {}
-        for logn in (20, None) if curve in AT_2E20.get(word_size, ()) else (None,):
+        for logn in (16, None) if curve in MSM_SHAPE_CURVES else (None,):
             got = check_curve_config_kernels(kern, curve, logn, clock_hz, dev, word_size)
             got.update(check_curve_offpath_kernels(kern, curve, logn, clock_hz, dev, word_size))
             got.update(check_curve_kernels(kern, curve, logn, clock_hz, dev, word_size))
@@ -3625,16 +3831,11 @@ def run_width_phase(word_size: int, clock_hz: float, device="cuda") -> list[dict
          + (", edges, karatsuba and validate" if word_size == 12 else ""))
     settle()
     step("the kernels' twins settled")
-    if word_size == 12:
-        base, pts, words, want = bn254_2e20_inputs()
-        for path in ("plain",) + CURVE_CONFIGS:
-            run_curve_config("bn254", path, 20, pts, None, words, want, device, 12)
-        base, pts, words, want = CURVE_INPUTS[("bls12_381", 20)]
-        run_curve_config("bls12_381", "plain", 20, pts, None, words, want, device, 12)
-        step("2^20 msms")
     rows = []
-    for curve in curves:
+    for curve in checks:
         for name in CURVE_KERNELS + tuple(CONFIG_KERNELS) + tuple(OFFPATH_KERNELS):
+            if name not in checks[curve]:
+                continue
             c = checks[curve][name]
             path = CONFIG_KERNELS.get(name) or OFFPATH_KERNELS.get(name, "plain")
             obj, unit = CURVE_INSTANCES[name][1:]
@@ -3651,41 +3852,23 @@ def run_width_phase(word_size: int, clock_hz: float, device="cuda") -> list[dict
     return rows
 
 
-def bn254_2e20_inputs():
-    """BN254's 2^20 MSM inputs of the narrow phases (step 5's 1024 bases
-    of the 2^16 curve MSM, fresh scalars) and their folded oracle, made
-    once (CURVE_INPUTS[("bn254", 20)])."""
-    from msm_tpu_torch import bench
-    from msm_tpu_torch.params import BN254
-
-    if ("bn254", 20) not in CURVE_INPUTS:
-        base = CURVE_INPUTS[("bn254", 16)][0]
-        base, pts, words = sample_curve_msm("bn254", 1 << 20, SEED + 80, base)
-        CURVE_INPUTS[("bn254", 20)] = (base, pts, words, bench.folded_oracle(base, words, BN254))
-    return CURVE_INPUTS[("bn254", 20)]
-
-
 def run_narrow_phase(clock_hz: float, device="cuda") -> list[dict]:
     """The narrow-widths phase: run_width_phase at each width of
     NARROW_PHASE_WIDTHS (8 to 11; BN254's and BLS12-381's instances at
-    their 2^20 MSMs' shapes at width 8, the widest rows: L 33 and 49);
-    then BN254's plain 2^20 MSM through a plan's words call at widths 8, 11
-    and 13 in turn and BLS12-381's at 8 (each bit-exact, its wall median of
-    5, stages, a profiled call's device busy time and idle share, and peak
-    device memory); then the library check (check_libraries). Returns the
-    kernel table's rows of the four widths."""
+    their 2^16 MSMs' shapes at width 8, the widest rows: L 33 and 49);
+    then BN254's plain 2^16 MSM through a plan's words call at widths 8, 11
+    and 13 in turn (each bit-exact, its wall median of 5 and peak device
+    memory); then the library check (check_libraries). Returns the kernel
+    table's rows of the four widths."""
     t0 = time.perf_counter()
     rows = []
     for word_size in NARROW_PHASE_WIDTHS:
         rows += run_width_phase(word_size, clock_hz, device)
-    t1 = time.perf_counter()
-    base, pts, words, want = bn254_2e20_inputs()
-    ms = {ws: run_curve_config("bn254", "plain", 20, pts, None, words, want, device, ws)[1] for ws in (8, 11, 13)}
-    print("narrow widths: bn254 2^20 plain plan words call wall_ms median of 5: "
+    base, pts, words, want = CURVE_INPUTS[("bn254", 16)]
+    ms = {ws: run_curve_config("bn254", "plain", 16, pts, None, words, want, device, ws, False)[1]
+          for ws in (8, 11, 13)}
+    print("narrow widths: bn254 2^16 plain plan words call wall_ms median of 5: "
           + ", ".join(f"w{ws}={m:.2f} ({m / ms[13]:.3f} of w13)" for ws, m in ms.items()), flush=True)
-    base, pts, words, want = CURVE_INPUTS[("bls12_381", 20)]
-    run_curve_config("bls12_381", "plain", 20, pts, None, words, want, device, 8)
-    print(f"narrow widths phase, 2^20 msms: {time.perf_counter() - t1:.1f} s", flush=True)
     check_libraries(clock_hz, device)
     print(f"narrow widths phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows
@@ -3778,12 +3961,15 @@ def main() -> int:
 
 def run_phases(clock_mhz: float, so: Path, build_s: float, build_narrow: NarrowBuild,
                sass13: threading.Thread) -> int:
-    """Every phase after the 13-bit build (main): the 13-bit phases, the
-    13-bit library's ptxas and SASS report (report_plain_builds, its SASS
-    read by ``sass13`` beside the first phases) before the curves phase,
-    the narrow library's phases (width 12, then 8 to 11 and the library
-    check) once build_narrow has ended, the kernels line and the last
-    line."""
+    """Every phase after the 13-bit build (main): BN254's kernel checks,
+    the pair and edge checks, the command line and the bench beside the
+    narrow library's build (build_narrow), whose end the timed and profiled
+    MSMs after them wait for (beside them it made their host-bound work up
+    to 5x slower and the profiler drop kernel events); the 13-bit
+    library's ptxas and SASS report (report_plain_builds, its SASS read by
+    ``sass13`` beside the first phases) before the curves phase, the narrow
+    library's report and phases (width 12, then 8 to 11 and the library
+    check), the kernels line and the last line."""
     from msm_tpu_torch.oracle import native
 
     print(f"build: {build_s:.1f} s -> {so}", flush=True)
@@ -3798,24 +3984,32 @@ def run_phases(clock_mhz: float, so: Path, build_s: float, build_narrow: NarrowB
         phase_t0 = time.perf_counter()
 
     checks = check_kernels(clock_mhz * 1e6)
+    print(f"kernels and pairs, kernels issued: {time.perf_counter() - phase_t0:.1f} s", flush=True)
     pair_counts = {"pairs": check_pairs(), "pairs_glv": check_pairs(glv=True),
                    "convert_scaled": run_convert_scaled()}
     phase("kernels and pairs")
     for path in ("plain", "compressed", "naive", "glv", "glv_compressed"):
         edge_checks(path)
+    # the kernels' twins in the workers ran beside the pair and edge checks;
+    # the timed MSMs below run without them
+    settle()
+    phase("edge checks, the kernels' twins settled")
+    run_cli_checks()
+    run_bench_checks()
+    phase("cli and bench")
+    t0 = time.perf_counter()
+    so_n, build_n_s = build_narrow.finish()
+    print(f"build narrow: {build_n_s:.1f} s at nice 19 on half the cores beside the phases above (waited "
+          f"{time.perf_counter() - t0:.1f} s for it after them) -> {so_n}", flush=True)
     msm_counts, inputs = run_msm_checks()
     by_path = {**msm_counts, **pair_counts}
-    phase("edge and msm")
+    phase("msm")
     run_plan_checks(inputs)
     check_batched()
     compare_uploads(inputs[20][2])
     phase("plan and batched")
-    run_cli_checks()
-    run_bench_checks()
-    phase("cli and bench")
-    base, pts20 = inputs[20][:2]
-    run_chunked_checks(base, pts20, {path: c["point_add"] for path, c in msm_counts.items()})
-    run_beyond_checks(base)
+    run_chunked_checks(*inputs[16][:2])
+    run_beyond_checks(inputs[20][0])
     phase("chunked and beyond")
     sass13.join()
     report_plain_builds(so)
@@ -3824,13 +4018,12 @@ def run_phases(clock_mhz: float, so: Path, build_s: float, build_narrow: NarrowB
     phase("curves")
     run_sharded_phase(inputs)
     phase("sharded")
-    t0 = time.perf_counter()
-    so_n, build_n_s = build_narrow.finish()
-    print(f"build narrow: {build_n_s:.1f} s at nice 19 on half the cores beside the 13-bit phases (waited "
-          f"{time.perf_counter() - t0:.1f} s for it after the 13-bit phases) -> {so_n}", flush=True)
+    run_rest_phase(inputs[20][0])
+    phase("rest of the package")
+    from msm_tpu_torch.ops._build import NARROW_WIDTHS
+
     print(f"compile seconds by translation unit (narrow): {(so_n.parent / 'compile_seconds.json').read_text()}",
           flush=True)
-    from msm_tpu_torch.ops._build import NARROW_WIDTHS
 
     report_plain_builds(so_n, 12, NARROW_WIDTHS)
     phase("narrow library's ptxas and SASS")

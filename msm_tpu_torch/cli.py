@@ -5,13 +5,15 @@
     python -m msm_tpu_torch verify  --size 12     # the card against the oracle
     python -m msm_tpu_torch bench   --size 20     # python -m msm_tpu_torch.bench
     python -m msm_tpu_torch profile --size 16     # stage timings
+    python -m msm_tpu_torch variants --size 16    # the field multipliers' times
 
-Each prints the JSON of the JAX package's command. ``msm``, ``verify`` and
-``profile`` take ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain twins) and exit non-zero when it names a CUDA device that is not
-there; ``cpu`` runs on the host alone, for every curve. ``bench`` hands its
-arguments to ``msm_tpu_torch.bench.main`` in this process. The inputs are
-``msm_tpu_torch.bench.sample_inputs``'s from ``--seed``.
+Each prints the JSON of the JAX package's command. ``msm``, ``verify``,
+``profile`` and ``variants`` take ``--device`` (default ``cuda``; ``cpu``
+runs the kernels' plain twins) and exit non-zero when it names a CUDA
+device that is not there; ``cpu`` runs on the host alone, for every
+curve. ``bench`` hands its arguments to ``msm_tpu_torch.bench.main`` in
+this process. The inputs are ``msm_tpu_torch.bench.sample_inputs``'s
+from ``--seed`` (``variants``: its random limbs).
 """
 
 from __future__ import annotations
@@ -86,7 +88,17 @@ def cmd_profile(args) -> None:
     print(json.dumps(stage_timings(1 << args.size, _config(args), seed=args.seed, device=args.device), indent=2))
 
 
-COMMANDS = {"msm": cmd_msm, "cpu": cmd_cpu, "verify": cmd_verify, "profile": cmd_profile}
+def cmd_variants(args) -> None:
+    from msm_tpu_torch.bench import require_device
+    from msm_tpu_torch.params import CURVES, MsmConfig
+    from msm_tpu_torch.utils.profiling import mont_variant_bench
+
+    require_device(args.device)
+    cfg = MsmConfig(curve=CURVES[args.curve])
+    print(json.dumps(mont_variant_bench(cfg, batch=1 << args.size, device=args.device, seed=args.seed), indent=2))
+
+
+COMMANDS = {"msm": cmd_msm, "cpu": cmd_cpu, "verify": cmd_verify, "profile": cmd_profile, "variants": cmd_variants}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -101,9 +113,10 @@ def parser() -> argparse.ArgumentParser:
         p.add_argument("--curve", default="bn254",
                        help="any of params.CURVES (CUDA: all seven, plain, compress and glv)")
         p.add_argument("--seed", type=int, default=0)
-        if name != "cpu":
+        if name not in ("cpu", "variants"):
             p.add_argument("--glv", action="store_true", help="GLV endomorphism config (a=0 curves)")
             p.add_argument("--compress", action="store_true", help="pair-compressed config")
+        if name != "cpu":
             p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 

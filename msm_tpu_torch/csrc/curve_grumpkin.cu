@@ -1,8 +1,9 @@
-// The plain path's kernels 1, 2, 4, 5, 6 and 7, and the GLV modes of 2 and 4,
-// for Grumpkin, in a translation unit of their own (csrc/dispatch.cuh):
-// the C entries in point_add.cu, convert.cu, scan.cu, prefix.cu,
-// point_total.cu and horner.cu call these launches for curve index
-// FpGrumpkin::ID. Its pair kernels, BPR phase 1 and scaled convert are in curve_grumpkin_pairs.cu.
+// The plain path's kernels 1, 2, 4 and 7, and the GLV modes of 2 and 4, for
+// Grumpkin, in a translation unit of their own (csrc/dispatch.cuh): the C
+// entries in point_add.cu, convert.cu, scan.cu and horner.cu call these
+// launches for curve index FpGrumpkin::ID. Its row offsets (kernel 5) are in
+// curve_grumpkin_prefix.cu, its point total (6) in curve_grumpkin_total.cu, its
+// pair kernels, BPR phase 1 and scaled convert in curve_grumpkin_pairs.cu.
 #include "plain.cuh"
 
 MSM_INSTANTIATE_PLAIN(msm::FpGrumpkin)

@@ -1,0 +1,6 @@
+// The row offsets (kernel 5) for Grumpkin, in a translation unit of its
+// own (csrc/dispatch.cuh): the C entry in prefix.cu calls this launch for
+// curve index FpGrumpkin::ID.
+#include "plain.cuh"
+
+MSM_INSTANTIATE_ROW_OFFSETS(msm::FpGrumpkin)

@@ -3,9 +3,11 @@
 // and 4, the pair kernels (9-13, with the GLV modes of 10-13), BPR phase 1
 // (8) and the scaled modes of 2. Each kernel's launch is a class template
 // over the field, LAUNCH<F>::run(...); BN254's is instantiated in the
-// kernel's own translation unit, each other curve's in two of its own
+// kernel's own translation unit, each other curve's in four of its own
 // (csrc/curve_*.cu: MSM_INSTANTIATE_PLAIN and MSM_INSTANTIATE_GLV in
-// curve_<name>.cu, MSM_INSTANTIATE_PAIRS and MSM_INSTANTIATE_OFFPATH in
+// curve_<name>.cu, MSM_INSTANTIATE_ROW_OFFSETS in curve_<name>_prefix.cu,
+// MSM_INSTANTIATE_POINT_TOTAL in curve_<name>_total.cu,
+// MSM_INSTANTIATE_PAIRS and MSM_INSTANTIATE_OFFPATH in
 // curve_<name>_pairs.cu), so the parallel build spreads them. A C entry takes the curve's index in params.CURVES (F::ID)
 // and switches on it; an index without an instantiation is
 // cudaErrorInvalidValue. Every C entry also takes the limb width after
@@ -109,15 +111,26 @@ struct WidthScope {
   extern template struct LAUNCH<FpVesta>;                 \
   }
 
-// In a curve's translation unit: the plain path's six launches for field F.
+// In a curve's translation unit: four of the plain path's six launches for
+// field F (the point add, the convert, the scan and the Horner ladder).
 #define MSM_INSTANTIATE_PLAIN(F)              \
   namespace msm {                             \
   template struct PointAddLaunch<F>;          \
   template struct ConvertLaunch<F>;           \
   template struct ScanLaunch<F>;              \
-  template struct RowOffsetsLaunch<F>;        \
-  template struct PointTotalLaunch<F>;        \
   template struct HornerLaunch<F>;            \
+  }
+
+// In translation units of their own (the longest compiles of a curve's
+// plain path): the row offsets' and the point total's launches for field F.
+#define MSM_INSTANTIATE_ROW_OFFSETS(F)        \
+  namespace msm {                             \
+  template struct RowOffsetsLaunch<F>;        \
+  }
+
+#define MSM_INSTANTIATE_POINT_TOTAL(F)        \
+  namespace msm {                             \
+  template struct PointTotalLaunch<F>;        \
   }
 
 // In a curve's translation unit: the GLV modes of the convert and the scan

@@ -5,7 +5,9 @@
 // which the host tests build with g++. Each launch is a class template
 // LAUNCH<F> with one static run(...); BN254's is instantiated in the
 // kernel's own translation unit (point_add.cu ...), each other curve's in
-// csrc/curve_<name>.cu (MSM_INSTANTIATE_PLAIN, MSM_INSTANTIATE_GLV), and the
+// csrc/curve_<name>.cu (MSM_INSTANTIATE_PLAIN, MSM_INSTANTIATE_GLV),
+// curve_<name>_prefix.cu (MSM_INSTANTIATE_ROW_OFFSETS) and
+// curve_<name>_total.cu (MSM_INSTANTIATE_POINT_TOTAL), and the
 // C entries dispatch on the curve (dispatch.cuh). The design notes of each
 // kernel are in its .cu file.
 #pragma once

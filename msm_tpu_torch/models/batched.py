@@ -46,6 +46,7 @@ def compute_msm_batched(
     per instance. The geometry is ``compute_msm``'s for the padded size and
     the config (compress and GLV included; the JAX package's takes the
     plain rule for every config, which changes only the launch plan)."""
+    common.check_config(config, device)
     if not instances:
         return []
     nmax = max(len(p) for p, _ in instances)

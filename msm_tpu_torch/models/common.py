@@ -28,6 +28,20 @@ from msm_tpu_torch.params import MsmConfig, coord_words
 from msm_tpu_torch.utils import limbs as L
 
 
+def check_config(cfg: MsmConfig, *devices) -> None:
+    """Refuse, before any work, a config that an entry cannot run on
+    ``devices``: on a CUDA device the kernels' rule first
+    (``_build.check_cuda_config``: ``NotImplementedError``), then on every
+    device the field layer's int32 column budget (``FieldCtx``:
+    ``ValueError`` at word_size 14 to 16, as the JAX package raises)."""
+    from msm_tpu_torch.ops._build import check_cuda_config
+    from msm_tpu_torch.ops.field import get_field_ctx
+
+    if any(torch.device(d).type == "cuda" for d in devices):
+        check_cuda_config(cfg)
+    get_field_ctx(cfg)
+
+
 def pad_size(n: int) -> int:
     """Next power of two >= max(n, 16)."""
     n = max(n, 16)
@@ -44,7 +58,7 @@ def ints_to_u16_array(xs: list[int], nbytes: int = 32) -> np.ndarray:
 SUBGROUP_ROWS = 1 << 22
 
 
-def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig, device="cpu") -> None:
+def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig, device="cuda") -> None:
     """Raise ``ValueError`` at the first coordinate outside [0, q), the
     first point off the curve (both on the host, in exact integers), and,
     on a curve with cofactor > 1, the first point outside the order-r
@@ -69,7 +83,7 @@ def validate_inputs(points: list[tuple[int, int]], cfg: MsmConfig, device="cpu")
             )
 
 
-def subgroup_mask_device(x_u16, y_u16, cfg: MsmConfig, device="cpu") -> torch.Tensor:
+def subgroup_mask_device(x_u16, y_u16, cfg: MsmConfig, device="cuda") -> torch.Tensor:
     """Per-point membership of the order-r subgroup, [r]P == O, for u16
     coordinate words [N, W] (numpy or tensors, held in int16): the points
     converted to Montgomery form (kernel 2) and one ladder

@@ -200,6 +200,7 @@ def compute_msm_jpoint(
     """End-to-end MSM returning the oracle JPoint: ``cuzk_msm_point`` on
     the padded host inputs, each chunk uploaded as its pass starts."""
     config = config or pick_config(len(points))
+    common.check_config(config, device)
     if len(points) == 0:
         return IDENTITY
     arrays = common.pad_inputs(points, scalars, config, validate=validate, device=device)

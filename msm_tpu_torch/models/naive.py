@@ -76,6 +76,7 @@ def compute_msm_naive(
     JPoint of the result."""
     if config.glv:  # as the JAX package's naive model asserts
         raise NotImplementedError("the naive model has no GLV mode")
+    common.check_config(config, device)
     if len(points) == 0:
         return IDENTITY
     arrays = common.pad_inputs(points, scalars, config)

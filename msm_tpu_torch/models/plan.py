@@ -99,6 +99,7 @@ class MsmPlan:
         if n == 0:
             raise ValueError("a plan needs a non-empty point set")
         self.cfg = config or pick_config(n)
+        common.check_config(self.cfg, device)
         if validate:
             common.validate_inputs(points, self.cfg, device)
         self.n, self.N = n, common.pad_size(max(n, 16 * shards))

@@ -14,9 +14,12 @@ Every C entry point launches on the stream it is given and returns
 is generic over the field, and every entry but the histogram's (which has
 no field) takes the curve's index in ``params.CURVES`` (``curve_id``)
 before the stream and dispatches on it. Each other curve's instances
-compile in two translation units of their own (``csrc/curve_<name>.cu``:
-the plain path and the GLV convert and scan; ``csrc/curve_<name>_pairs.cu``:
-the pair kernels, BPR phase 1 and the scaled convert); each translation
+compile in four translation units of their own (``csrc/curve_<name>.cu``:
+the point add, convert, scan and Horner ladder and the GLV convert and
+scan; ``csrc/curve_<name>_prefix.cu``: the row offsets;
+``csrc/curve_<name>_total.cu``: the point total; ``csrc/curve_<name>_pairs.cu``:
+the pair kernels, BPR phase 1 and the scaled convert), so that no one
+unit's compile outlasts the rest of the parallel build; each translation
 unit's compile seconds go to ``compile_seconds.json`` beside the library,
 with the build's wall seconds and ``os.cpu_count()``.
 

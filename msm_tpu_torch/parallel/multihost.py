@@ -128,8 +128,9 @@ def run_msm_multihost(
     if len(points) == 0:
         return IDENTITY
     config = config or pick_config(len(points))
-    d = shard_count(range(dist.get_world_size()))
     device = torch.device(device) if device is not None else rank_device()
+    common.check_config(config, device)
+    d = shard_count(range(dist.get_world_size()))
     arrays = common.pad_inputs(points, scalars, config, multiple=16 * d)
     geom = pick_geometry(min(arrays[0].shape[0] // d, cuzk.CHUNK_MAX), config)
     ws = multihost_window_sums(shard_rows(device, *arrays), config, geom, device)

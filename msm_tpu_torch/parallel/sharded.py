@@ -105,6 +105,7 @@ def compute_msm_sharded(
         return IDENTITY
     config = config or pick_config(len(points))
     devices = default_mesh(devices)
+    common.check_config(config, *devices)
     d = shard_count(devices)
     arrays = common.pad_inputs(points, scalars, config, multiple=16 * d)
     geom = geometry or pick_geometry(min(arrays[0].shape[0] // d, cuzk.CHUNK_MAX), config)

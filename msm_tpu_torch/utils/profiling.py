@@ -5,10 +5,11 @@
   package's is ``jax.profiler``'s);
 - ``stage_timings(n, cfg)``: the cuZK pipeline's stages at n points, each
   the median of synchronized runs after a warm run, with the JAX report's
-  keys, and the nominal field multiplications per second.
-
-The JAX package's ``mont_variant_bench`` times TPU field-multiplier
-variants that the port does not have; it is not ported.
+  keys, and the nominal field multiplications per second;
+- ``mont_variant_bench(cfg)``: the field multipliers side by side (the
+  lazy Montgomery product, Barrett, the point-add kernel per product, the
+  eager and nSafe products at word sizes 13 to 16), each the median of
+  synchronized runs after a warm run.
 """
 
 from __future__ import annotations
@@ -100,3 +101,49 @@ def stage_timings(n: int, cfg, seed: int = 0, device="cuda", reps: int = 5) -> d
         "stages_ms": t,
         "field_muls_per_sec_nominal": round(nominal_subtasks * n * 13 / (t["full_pipeline"] / 1e3)),
     }
+
+
+def mont_variant_bench(cfg=None, batch: int = 1 << 16, reps: int = 5, device="cuda", seed: int = 0) -> dict:
+    """Times of the field multipliers on ``batch`` lanes of random limbs on
+    ``device`` (ms, median of ``reps``): ``mont_torch_ms``, the lazy
+    ``FieldCtx.mont_mul``; ``barrett_torch_ms``, ``barrett_mul`` on
+    canonical inputs; ``cuda_add_ms``, kernel 1 (``cuda_curve.point_add``,
+    its plain twin on the CPU) on six random coordinate tensors, and
+    ``mont_cuda_ms_per_mul_equiv``, that time over the complete addition's
+    12 Montgomery products; ``mont_eager_w{w}_ms`` and
+    ``mont_nsafe_w{w}_ms``, ``mont_mul_eager`` and ``mont_mul_nsafe`` at
+    word sizes 13 to 16. Everything but kernel 1 is plain PyTorch. Default
+    config: BN254 at 13 bits; ``seed`` draws the random limbs."""
+    import dataclasses
+
+    import numpy as np
+
+    from msm_tpu_torch.ops import cuda_curve
+    from msm_tpu_torch.ops.field import get_field_ctx, mont_mul_eager, mont_mul_nsafe
+    from msm_tpu_torch.params import DEFAULT_CONFIG
+
+    cfg = cfg or DEFAULT_CONFIG
+    dev = torch.device(device)
+    f = get_field_ctx(cfg)
+    rng = np.random.default_rng(seed)
+
+    def rand(w: int, nw: int) -> torch.Tensor:
+        return torch.from_numpy(rng.integers(0, (1 << w) - 1, size=(batch, nw)).astype(np.int32)).to(dev)
+
+    a, b = rand(cfg.word_size, cfg.num_words), rand(cfg.word_size, cfg.num_words)
+    out = {"batch": batch, "word_size": cfg.word_size, "num_words": cfg.num_words}
+    out["mont_torch_ms"] = _median_ms(lambda: f.mont_mul(a, b), dev, reps)
+    ca, cb = f.canonical(a), f.canonical(b)
+    out["barrett_torch_ms"] = _median_ms(lambda: f.barrett_mul(ca, cb), dev, reps)
+    coords = [rand(cfg.word_size, cfg.num_words) for _ in range(6)]
+    before = cuda_curve.point_add.launches
+    out["cuda_add_ms"] = add_ms = _median_ms(lambda: cuda_curve.point_add(cfg, *coords), dev, reps)
+    if dev.type == "cuda" and cuda_curve.point_add.launches <= before:
+        raise AssertionError("kernel 1 was not launched")
+    out["mont_cuda_ms_per_mul_equiv"] = add_ms / 12  # complete addition: 12 products
+    for w in (13, 14, 15, 16):
+        cw = dataclasses.replace(cfg, word_size=w)
+        aw, bw = rand(w, cw.num_words), rand(w, cw.num_words)
+        out[f"mont_eager_w{w}_ms"] = _median_ms(lambda: mont_mul_eager(cw, aw, bw), dev, reps)
+        out[f"mont_nsafe_w{w}_ms"] = _median_ms(lambda: mont_mul_nsafe(cw, aw, bw), dev, reps)
+    return out

@@ -1,8 +1,11 @@
 """msm_tpu_torch field and curve layers against msm_tpu's FieldCtx/CurveCtx
 on the same numpy inputs (BN254 and BLS12-381). The field layer runs the
 reference's algorithm step for step, so the comparisons are exact on the
-limbs after canonical() on both sides."""
+limbs after canonical() on both sides. Where one test takes many of the
+reference's outputs, they are computed in one jitted function: eagerly,
+each of its products' scans is traced and compiled anew."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,10 +30,11 @@ def _pair(curve):
     return cfg, JField(jcfg), FieldCtx(cfg)
 
 
-def _same_canonical(jf, tf, j_out, t_out):
-    jc = np.asarray(jf.canonical(jnp.asarray(np.asarray(j_out))))
-    tc = tf.canonical(t_out).numpy()
-    return np.array_equal(jc, tc)
+def _same_canonicals(tf, j_canonicals, t_outs) -> bool:
+    """The reference's outputs, canonicalized by the reference, against the
+    port's canonicalized by the port, one for one."""
+    assert len(j_canonicals) == len(t_outs)
+    return all(np.array_equal(np.asarray(j), tf.canonical(t).numpy()) for j, t in zip(j_canonicals, t_outs))
 
 
 @pytest.mark.parametrize("word_size", [13, 12])
@@ -62,16 +66,20 @@ def test_field_ops_match_reference(curve):
     rng = np.random.default_rng(3)
     a = rand_balanced(rng, (48,), cfg)
     b = rand_balanced(rng, (48,), cfg)
-    ja, jb = jnp.asarray(a), jnp.asarray(b)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+
+    @jax.jit
+    def reference(ja, jb):
+        outs = [jf.add(ja, jb), jf.sub(ja, jb)] + [getattr(jf, n)(ja) for n in ("neg", "double", "to_mont", "from_mont")]
+        return jf.mont_mul(ja, jb), [jf.canonical(o) for o in outs], jf.canonical(ja), jf.eq(ja, ja + 0)
+
+    j_mul, j_canon, j_a, j_eq = reference(jnp.asarray(a), jnp.asarray(b))
     # mont_mul follows the reference bit for bit, before canonical too
-    assert np.array_equal(np.asarray(jf.mont_mul(ja, jb)), tf.mont_mul(ta, tb).numpy())
-    for name in ("add", "sub"):
-        assert _same_canonical(jf, tf, getattr(jf, name)(ja, jb), getattr(tf, name)(ta, tb)), name
-    for name in ("neg", "double", "to_mont", "from_mont"):
-        assert _same_canonical(jf, tf, getattr(jf, name)(ja), getattr(tf, name)(ta)), name
-    assert np.array_equal(np.asarray(jf.canonical(ja)), tf.canonical(ta).numpy())
-    assert np.array_equal(np.asarray(jf.eq(ja, ja + 0)), tf.eq(ta, ta.clone()).numpy())
+    assert np.array_equal(np.asarray(j_mul), tf.mont_mul(ta, tb).numpy())
+    t_outs = [tf.add(ta, tb), tf.sub(ta, tb)] + [getattr(tf, n)(ta) for n in ("neg", "double", "to_mont", "from_mont")]
+    assert _same_canonicals(tf, j_canon, t_outs)
+    assert np.array_equal(np.asarray(j_a), tf.canonical(ta).numpy())
+    assert np.array_equal(np.asarray(j_eq), tf.eq(ta, ta.clone()).numpy())
 
 
 @pytest.mark.parametrize("curve", CURVE_PARAMS, ids=lambda c: c.name)
@@ -105,24 +113,22 @@ def test_curve_ops_match_reference(curve):
     jc, tc = JCurve(jcfg), CurveCtx(cfg)
     p = _points(cfg, 6, seed=11)
     q = [np.roll(a, 1, axis=0) for a in _points(cfg, 6, seed=11)]  # P + P, P + (-P) ...
-    jp, jq = JPB(*map(jnp.asarray, p)), JPB(*map(jnp.asarray, q))
-    tp, tq = PointBatch(*map(torch.from_numpy, p)), PointBatch(*map(torch.from_numpy, q))
-    for j_out, t_out in (
-        (jc.add(jp, jq), tc.add(tp, tq)),
-        (jc.double(jp), tc.double(tp)),
-        (jc.neg(jp), tc.neg(tp)),
-    ):
-        for jv, tv in zip(j_out, t_out):
-            assert _same_canonical(jc.f, tc.f, jv, tv)
-    assert np.array_equal(np.asarray(jc.eq(jp, jq)), tc.eq(tp, tq).numpy())
-    assert np.array_equal(np.asarray(jc.is_identity(jp)), tc.is_identity(tp).numpy())
-    fa_j = jc.from_affine_mont(jp.x, jp.y)
-    fa_t = tc.from_affine_mont(tp.x, tp.y)
-    assert _same_canonical(jc.f, tc.f, fa_j.z, fa_t.z)
     mask = np.arange(p[0].shape[0]) % 2 == 0
-    nw_j = jc.neg_where(jnp.asarray(mask), jp)
-    nw_t = tc.neg_where(torch.from_numpy(mask), tp)
-    assert _same_canonical(jc.f, tc.f, nw_j.y, nw_t.y)
+
+    @jax.jit
+    def reference(p, q, mask):
+        jp, jq = JPB(*p), JPB(*q)
+        outs = [*jc.add(jp, jq), *jc.double(jp), *jc.neg(jp), jc.from_affine_mont(jp.x, jp.y).z,
+                jc.neg_where(mask, jp).y]
+        return [jc.f.canonical(o) for o in outs], jc.eq(jp, jq), jc.is_identity(jp)
+
+    j_canon, j_eq, j_ident = reference(tuple(map(jnp.asarray, p)), tuple(map(jnp.asarray, q)), jnp.asarray(mask))
+    tp, tq = PointBatch(*map(torch.from_numpy, p)), PointBatch(*map(torch.from_numpy, q))
+    t_outs = [*tc.add(tp, tq), *tc.double(tp), *tc.neg(tp), tc.from_affine_mont(tp.x, tp.y).z,
+              tc.neg_where(torch.from_numpy(mask), tp).y]
+    assert _same_canonicals(tc.f, j_canon, t_outs)
+    assert np.array_equal(np.asarray(j_eq), tc.eq(tp, tq).numpy())
+    assert np.array_equal(np.asarray(j_ident), tc.is_identity(tp).numpy())
 
 
 @pytest.mark.parametrize(

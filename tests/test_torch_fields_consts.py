@@ -8,7 +8,7 @@ default library's compile-time constants); every row of csrc/widths.cuh,
 the narrow library's run-time width blocks (curve x width 8 to 13),
 against MsmConfig at that width, and the file against its generator
 (scripts/torch_gen_widths.py); and the build's curve translation units,
-two per curve besides BN254."""
+four per curve besides BN254."""
 
 import importlib.util
 import re
@@ -193,9 +193,11 @@ def test_width_blocks_are_generated():
 
 
 def test_each_other_curve_has_a_translation_unit():
-    """Two translation units per curve besides BN254: csrc/curve_<name>.cu
-    instantiating its plain kernels and the GLV modes of the convert and the
-    scan, csrc/curve_<name>_pairs.cu its pair kernels (9-13), BPR phase 1
+    """Four translation units per curve besides BN254: csrc/curve_<name>.cu
+    instantiating its point add, convert, scan and Horner ladder and the GLV
+    modes of the convert and the scan, csrc/curve_<name>_prefix.cu its row
+    offsets, csrc/curve_<name>_total.cu its point total,
+    csrc/curve_<name>_pairs.cu its pair kernels (9-13), BPR phase 1
     (8) and the scaled convert; the dispatch switch names every traits
     type."""
     dispatch = (CSRC / "dispatch.cuh").read_text()
@@ -207,6 +209,8 @@ def test_each_other_curve_has_a_translation_unit():
             unit = (CSRC / f"curve_{name}.cu").read_text()
             assert f"MSM_INSTANTIATE_PLAIN(msm::{struct})" in unit
             assert f"MSM_INSTANTIATE_GLV(msm::{struct})" in unit
+            assert f"MSM_INSTANTIATE_ROW_OFFSETS(msm::{struct})" in (CSRC / f"curve_{name}_prefix.cu").read_text()
+            assert f"MSM_INSTANTIATE_POINT_TOTAL(msm::{struct})" in (CSRC / f"curve_{name}_total.cu").read_text()
             pairs = (CSRC / f"curve_{name}_pairs.cu").read_text()
             assert f"MSM_INSTANTIATE_PAIRS(msm::{struct})" in pairs
             assert f"MSM_INSTANTIATE_OFFPATH(msm::{struct})" in pairs

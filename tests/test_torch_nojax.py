@@ -28,7 +28,8 @@ def _import_all(check: str) -> None:
     assert {"msm_tpu_torch.ops.scan", "msm_tpu_torch.models.naive", "msm_tpu_torch.ops.glv", "msm_tpu_torch.cli",
             "msm_tpu_torch.__main__", "msm_tpu_torch.bench", "msm_tpu_torch.utils.profiling",
             "msm_tpu_torch.utils.log", "msm_tpu_torch.parallel", "msm_tpu_torch.parallel.sharded",
-            "msm_tpu_torch.parallel.sharded_plan", "msm_tpu_torch.parallel.multihost"} <= set(mods)
+            "msm_tpu_torch.parallel.sharded_plan", "msm_tpu_torch.parallel.multihost",
+            "msm_tpu_torch.ops.twisted_ec", "msm_tpu_torch.oracle.stages"} <= set(mods)
     code = "import importlib, sys\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods
     ) + check

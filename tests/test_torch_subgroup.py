@@ -72,7 +72,7 @@ def test_subgroup_ladder_and_mask_match_jax_and_oracle(name, monkeypatch):
     cv, n = Curve(cfg.curve), len(pts)
     want = np.array([cv.in_subgroup(cv.from_affine(*p)) for p in pts] + [True] * (16 - n))
     assert want[:4].all() and not want[4:n].any()
-    mask = common.subgroup_mask_device(x_u16, y_u16, cfg)
+    mask = common.subgroup_mask_device(x_u16, y_u16, cfg, device="cpu")
     assert mask.dtype == torch.bool and np.array_equal(mask.numpy(), want)
 
     j_mask = np.asarray(j_subgroup_mask(jnp.asarray(x_u16.astype(np.int32) & 0xFFFF),

@@ -48,7 +48,7 @@ def test_batched_horner_twin_matches_pallas_per_ladder():
     ws[1][1, 0] = -ws[1][1, 0]  # a negated (balanced) row
     got = horner(CFG, *map(torch.from_numpy, ws), chunk)
     assert all(g.shape == (G, CFG.num_words) for g in got)
-    ladder = make_horner_ladder(JCFG, S, chunk, interpret=True)
+    ladder = jax.jit(make_horner_ladder(JCFG, S, chunk, interpret=True))  # one trace for the G ladders
     for i in range(G):
         want = ladder(*(jnp.asarray(np.ascontiguousarray(a[i].T)) for a in ws))
         assert same_points([np.asarray(w) for w in want], [g[i].numpy() for g in got], CFG)
